@@ -1,0 +1,52 @@
+"""Device dispatchers for the gossip-mix kernels.
+
+Dispatch is by the tensor's device and nothing else: a CUDA tensor goes to
+the hand-written kernel (``kernels/gossip_mix.py``), a CPU tensor to its
+plain version (``kernels/ref.py``), and any other device raises.  There is
+no mode switch (the JAX package's ``use_pallas``) and no fallback: a kernel
+that fails to build or launch raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_rows
+from repro_torch.tree import tree_map
+
+
+def _on_cuda(x) -> bool:
+    kind = x.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"no gossip-mix path for device {x.device}")
+    return kind == "cuda"
+
+
+def mix(x, u, pulled, w):
+    """out = (1-w)*(x+u) + w*pulled; w scalar (per worker)."""
+    if _on_cuda(x):
+        return gossip_mix(x, u, pulled, w)
+    return ref.reference_gossip_mix(x, u, pulled, w)
+
+
+def mix_rows(x, u, pulled, w):
+    """Stacked mix with per-row weights (leading worker/cohort axis)."""
+    if _on_cuda(x):
+        return gossip_mix_rows(x, u, pulled, w)
+    return ref.reference_gossip_mix_rows(x, u, pulled, w)
+
+
+def gossip_mix_tree(x_half, pulled, weights):
+    """Tree-level fused mix used by the batched simulator engine (x_half
+    already includes the optimizer update, so u = 0):
+    out = (1-w_i) x_half + w_i pulled, one ``mix_rows`` launch per leaf.
+
+    Faithful to the JAX package, ``u`` is a materialised zero tensor, so
+    the kernel reads a third operand it does not need (ROADMAP: later perf
+    work)."""
+
+    def one(h, p):
+        return mix_rows(h, torch.zeros_like(h), p, weights)
+
+    return tree_map(one, x_half, pulled)

@@ -1,0 +1,593 @@
+"""Batched engine for the event-driven simulator, in torch.
+
+The port of the JAX package's ``train/engine.py`` for the async gossip
+family (``Algorithm.batched_variant == "gossip"``: netmax, adpsgd,
+adpsgd+mon).  It keeps the *exact same host-side machinery* as the
+reference loop (heap order, rng draw order, LinkTimeModel draws, EMA
+updates, Monitor schedule) but stacks all M replicas/momenta into
+leading-M tensors and executes many events per device dispatch.
+
+Scheduling — verbatim from the JAX package, so ``SimResult.cohorts``,
+``SimResult.dispatches`` and the cohort log match it exactly:
+
+* **Windows** — events are *drawn* strictly in heap-pop order (peer
+  selection, batch indices, link-time jitter, EMA updates), so every host
+  rng consumes bits in exactly the reference order.  A window extends until
+  the next *boundary*: a Monitor wake, a ``record_every`` evaluation, a
+  scenario boundary, or the event cap.
+* **Cohorts** — each window is level-scheduled into causally-independent
+  event sets.  One fused dispatch gathers every pull from *pre-cohort*
+  replica rows, computes, then scatters all actor rows; an event's level
+  is one plus the maximum over its hazards on replica rows: (1) WAW/RAW on
+  the actor row, (2) RAW on the peer row, (3) WAR on the actor row (the
+  same level is fine: gathers happen before the scatter).
+* **Chains and bursts** — consecutive levels within a 2x row-bucket band
+  run as one dispatch (a Python loop over the levels); runs of singleton
+  levels of one worker run as one burst dispatch carrying just that
+  worker's row (skipped under ``use_mix_kernel``, as in the JAX package,
+  so every mix goes through one rule).
+
+Device side: the vmapped ``value_and_grad`` becomes a stacked batched
+matmul forward and one autograd pass over the sum of the per-row mean
+losses (row k's gradient is exactly the gradient of its own mean loss);
+donation becomes in-place ``index_copy_`` into the stacked tensors, after
+every gather of the cohort.  Cohorts are padded to ~1.5x-stepped row
+buckets with distinct idle workers (valid=0, written back unchanged), as in
+the JAX package; chain and burst levels that are pure padding are no-ops
+and are skipped.  Under ``SimConfig.use_mix_kernel`` the mix is
+``kernels/ops.gossip_mix_tree``: the CUDA gossip-mix kernel, one launch per
+parameter leaf, on a card.
+
+Not ported yet: the ``"ps-serial"`` variant (ps-async, ROADMAP A5), the
+synchronous round executor ``run_batched_sync`` (A5) and the device-sharded
+path ``shard_workers`` (A9); each raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.algos.base import Algorithm
+from repro_torch.core.monitor import IterationTimeEMA
+from repro_torch.kernels import ops as kops
+from repro_torch.scenarios.driver import (
+    apply_action,
+    attempt_fails,
+    monitor_boundary,
+    notify_monitor,
+    prepare_monitor,
+)
+from repro_torch.scenarios.timeline import ScenarioCursor
+from repro_torch.train import simulator as _sim
+from repro_torch.train.elastic import reseed_row
+from repro_torch.train.events import EventHeap
+from repro_torch.tree import tree_map
+
+
+def _bucket(n: int, cap: int) -> int:
+    """Smallest ~1.5x-stepped bucket >= n, capped at M (pad rows must be
+    distinct)."""
+    b = 1
+    while b < n:
+        b = b * 2 if b < 4 else (b * 3 + 1) // 2
+    return min(b, cap)
+
+
+#: Longest run of cohorts one fused dispatch may carry.
+_CHAIN_CAP = 64
+
+#: Shortest singleton-level run worth the dedicated burst dispatch.
+_BURST_MIN = 4
+
+#: Longest singleton run one burst dispatch may carry.
+_BURST_CAP = 128
+
+
+def _chain_bucket(n: int, cap: int = _CHAIN_CAP) -> int:
+    """~1.5x-stepped bucket for chain lengths, capped (the operand's level
+    count; levels past the chain's own are valid=0 no-ops)."""
+    b = 2
+    while b < n:
+        b = (b * 3 + 1) // 2
+    return min(b, cap)
+
+
+def _stacked_loss(params, x, y):
+    """Sum over rows of each row's mean cross entropy: its gradient w.r.t.
+    row k's parameters is row k's own mean-loss gradient."""
+    return _sim.ce_rows(_sim.mlp_apply(params, x), y).mean(-1).sum()
+
+
+def _keep_valid(valid, new, old):
+    def f(n, o):
+        return torch.where(valid.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
+
+    return tree_map(f, new, old)
+
+
+def _make_cohort_body(algo: Algorithm, lr: float, mu: float,
+                      use_mix_kernel: bool):
+    """The fused step for one cohort of the gossip variant.
+
+    Signature: (R, Mom, dx, dy, ints, w) -> (R, Mom), updating the stacked
+    R/Mom leaves (M, ...) in place.  ``ints`` is a (K, 3+B) int64 device
+    tensor packing [actor row, peer row, valid, batch indices...] and ``w``
+    (K,) f32 the mix weights (0 => no communication).  valid=0 marks
+    padding: the row is written back unchanged.
+    """
+    identity_delta = type(algo).delta_transform is Algorithm.delta_transform
+
+    def mix(x_half, pulled, w):
+        if use_mix_kernel and identity_delta:
+            return kops.gossip_mix_tree(x_half, pulled, w)
+        return algo.mix_stacked_tree(x_half, pulled, w)
+
+    def body(R, Mom, dx, dy, ints, w):
+        idx = ints[:, 0].contiguous()
+        peer = ints[:, 1].contiguous()
+        valid = ints[:, 2] > 0
+        bidx = ints[:, 3:]
+        h = tree_map(lambda l: l.index_select(0, idx), R)
+        mom = tree_map(lambda l: l.index_select(0, idx), Mom)
+        _, grads = _sim.value_and_grad(_stacked_loss, h, dx[bidx], dy[bidx])
+        with torch.no_grad():
+            new_m = tree_map(lambda m_, g: mu * m_ + g, mom, grads)
+            x_half = tree_map(lambda p, m_: p - lr * m_, h, new_m)
+            pulled = tree_map(lambda l: l.index_select(0, peer), R)  # pre-cohort
+            mixed = _keep_valid(valid, mix(x_half, pulled, w), h)
+            new_m = _keep_valid(valid, new_m, mom)
+            tree_map(lambda l, v: l.index_copy_(0, idx, v), R, mixed)
+            tree_map(lambda l, v: l.index_copy_(0, idx, v), Mom, new_m)
+        return R, Mom
+
+    return body
+
+
+def _make_burst_body(algo: Algorithm, lr: float, mu: float):
+    """Singleton-run step: consecutive singleton levels of ONE worker.
+
+    Carries that worker's (row, momentum) through the run and touches the
+    stacked tensors twice: peers are read from the pre-burst stack (sound:
+    the run's levels contain no other events, so no peer row changes
+    mid-burst) and the final row/momentum is written back once.  Signature
+    (R, Mom, dx, dy, i, ints, w) with ``i`` the actor and ``ints`` (L, 2+B)
+    numpy int32 [peer row, valid, batch indices...].
+    """
+
+    def body(R, Mom, dx, dy, i, ints, w):
+        dev = dx.device
+        bidx = torch.from_numpy(ints[:, 2:].astype(np.int64)).to(dev)
+        wd = torch.from_numpy(w).to(dev)
+        row = tree_map(lambda l: l[i], R)
+        mom = tree_map(lambda l: l[i], Mom)
+        for k in range(len(ints)):
+            if ints[k, 1] == 0:
+                continue  # pad step: a no-op
+            _, g = _sim.value_and_grad(_sim.ce_loss, row, dx[bidx[k]],
+                                       dy[bidx[k]])
+            with torch.no_grad():
+                mom = tree_map(lambda m_, gg: mu * m_ + gg, mom, g)
+                xh = tree_map(lambda p, m_: p - lr * m_, row, mom)
+                peer = int(ints[k, 0])
+                # THE leaf rule (Algorithm.mix_stacked_tree), applied to a
+                # single row via a length-1 leading axis.
+                row = tree_map(
+                    lambda l: l[0],
+                    algo.mix_stacked_tree(
+                        tree_map(lambda l: l[None], xh),
+                        tree_map(lambda l: l[peer:peer + 1], R),
+                        wd[k:k + 1],
+                    ),
+                )
+        with torch.no_grad():
+            tree_map(lambda l, v: l[i].copy_(v), R, row)
+            tree_map(lambda l, v: l[i].copy_(v), Mom, mom)
+        return R, Mom
+
+    return body
+
+
+def _operands(ints: np.ndarray, w: np.ndarray, dev):
+    return (torch.from_numpy(ints.astype(np.int64)).to(dev),
+            torch.from_numpy(w).to(dev))
+
+
+def _steps_for(algo: Algorithm, lr: float, mu: float, use_mix_kernel: bool):
+    """(step, chain_step, burst_step) over host (numpy) operands."""
+    if algo.batched_variant != "gossip":
+        raise NotImplementedError(
+            f"batched_variant {algo.batched_variant!r} of {algo.name!r} is "
+            "not ported yet (ROADMAP A5); use engine='reference'"
+        )
+    body = _make_cohort_body(algo, lr, mu, use_mix_kernel)
+
+    def step(R, Mom, dx, dy, ints, w):
+        return body(R, Mom, dx, dy, *_operands(ints, w, dx.device))
+
+    def chain_step(R, Mom, dx, dy, ints_seq, w_seq):
+        ints_d, w_d = _operands(ints_seq, w_seq, dx.device)
+        for l in range(len(ints_seq)):
+            if ints_seq[l, :, 2].any():  # all-pad levels are no-ops
+                R, Mom = body(R, Mom, dx, dy, ints_d[l], w_d[l])
+        return R, Mom
+
+    return step, chain_step, _make_burst_body(algo, lr, mu)
+
+
+def run_batched_sync(*args, **kwargs):
+    raise NotImplementedError(
+        "the synchronous round executor is not ported yet (ROADMAP A5)"
+    )
+
+
+def run_batched(
+    algo: Algorithm,
+    cfg,
+    state,
+    rng: np.random.Generator,
+    p0,
+    link_model,
+    data_x: np.ndarray,
+    data_y: np.ndarray,
+    part_idx,
+    eval_x: np.ndarray,
+    eval_y: np.ndarray,
+    record_every: int,
+    res,
+    cohort_log: list | None = None,
+):
+    """Run the async event loop on stacked state; mutates and returns ``res``.
+
+    ``p0`` is the initial parameter tree on the target device.
+    ``cohort_log``, when a list, receives one entry per cohort (event
+    number, actor, peer or None).  Chain fusion never changes the logical
+    cohort structure; it only packs consecutive levels into fewer device
+    dispatches (``res.dispatches``).
+    """
+    if getattr(cfg, "shard_workers", False):
+        raise NotImplementedError(
+            "cfg.shard_workers (replicas split across devices) is not ported "
+            "yet (ROADMAP A9)"
+        )
+    M = cfg.n_workers
+    total = cfg.total_events
+    step, chain_step, burst_step = _steps_for(algo, cfg.lr, cfg.momentum,
+                                              cfg.use_mix_kernel)
+    sr = None  # the serialized row of the "ps-serial" variant (ROADMAP A5)
+    fuse = getattr(cfg, "fuse_chains", True)
+    dev = p0[0]["w"].device
+
+    # Stacked replicas: all workers start from the same p0, like the
+    # reference engine's per-replica copies.
+    R = tree_map(lambda l: l.unsqueeze(0).repeat((M,) + (1,) * l.ndim), p0)
+    Mom = tree_map(lambda l: torch.zeros((M,) + tuple(l.shape), dtype=l.dtype,
+                                         device=dev), p0)
+
+    monitor = algo.make_monitor(cfg, M, d=state.d) if algo.wants_monitor(cfg) else None
+    # Worker-side EMA matrices only ever feed Monitor.collect, so
+    # monitor-less runs skip them (EMA updates consume no rng).
+    emas = ([IterationTimeEMA(M, beta=cfg.ema_beta) for _ in range(M)]
+            if monitor is not None else None)
+    next_monitor = monitor.schedule_period if monitor else float("inf")
+    prepare_monitor(monitor, link_model)
+
+    # Scenario machinery: the cursor's boundaries are window breaks — no
+    # fused cohort or chain ever spans a scenario boundary.
+    scn = link_model.compiled_scenario
+    cursor = ScenarioCursor(scn) if scn is not None else None
+    active = set(range(M))
+
+    def reseed(w, src):
+        nonlocal R, Mom
+        R, Mom = reseed_row(R, Mom, w, src)
+
+    ex, ey = _sim.to_device(eval_x, dev), _sim.to_device(eval_y, dev)
+    # Training set lives on the device; per-cohort batches are gathered
+    # there from (K, B) index arrays.
+    dx, dy = _sim.to_device(data_x, dev), _sim.to_device(data_y, dev)
+
+    def eval_now(t, ev):
+        with torch.no_grad():
+            mean_p = tree_map(lambda l: l.mean(dim=0), R)
+        loss, acc = _sim.evaluate(mean_p, ex, ey)
+        res.times.append(t)
+        res.losses.append(loss)
+        res.accs.append(acc)
+        res.events.append(ev)
+
+    bsz = [min(cfg.batch_size, len(part_idx[i])) for i in range(M)]
+
+    heap = EventHeap()
+    for i in range(M):
+        heap.push(rng.exponential(0.005), i)
+
+    ev = 0
+    t = 0.0
+    window_cap = max(4 * M, 64)  # backstop when record_every is huge
+
+    def draw_event():
+        """Pop + fully draw the next event, consuming every host rng in
+        reference order (peer, batch, link jitter, EMA, reschedule).  A
+        pull over a scenario-dead link is priced as the timeout, notifies
+        the Monitor, and executes as a plain local step (communicated
+        False => the fused step self-pulls with w=0)."""
+        nonlocal ev, t, next_monitor
+        t_ev, i = heap.pop()
+        ev += 1
+        m = algo.select_peer(state, i, rng)
+        bidx = rng.choice(part_idx[i], size=bsz[i])
+        failed = scn is not None and attempt_fails(
+            link_model, algo, state, i, m, t_ev
+        )
+        communicated = (not failed) and algo.would_communicate(state, i, m)
+        w = algo.mix_weight(state, cfg, i, m) if communicated else 0.0
+        timing = algo.event_timing(
+            state, cfg, link_model, i, m, communicated or failed, t_ev
+        )
+        if cfg.trace:
+            kind = "timeout" if failed else (
+                "pull" if communicated else "local"
+            )
+            res.trace_events.append(
+                (t_ev, timing.duration, i, m if m is not None else -1, kind,
+                 timing.comm, timing.compute, timing.net)
+            )
+        res.comm_time += timing.comm
+        res.compute_time += timing.compute
+        if failed:
+            res.failed_pulls.append((t_ev, i, m))
+            next_monitor = notify_monitor(
+                monitor, i, m, t_ev, next_monitor, link_model=link_model
+            )
+        if emas is not None and algo.reports_ema and m is not None:
+            emas[i].update(m, timing.duration)
+        heap.push(t_ev + timing.duration, i)
+        t = t_ev
+        return (t_ev, i, m, float(w), communicated, bidx, ev)
+
+    def schedule_window(window):
+        """Level-schedule a window into causally-independent cohorts.
+
+        One O(1)-per-event pass in pop order; see the module docstring for
+        the three hazard rules.  Returns cohorts ordered by level, each a
+        pop-ordered event list with all-distinct actors; executing them in
+        order with gather-before-scatter semantics reproduces the
+        reference's strictly-sequential result exactly.
+        """
+        last_write: dict[int, int] = {}  # row -> level of its latest write
+        max_read: dict[int, int] = {}  # row -> highest level that read it
+        last_sw = 0  # level of the serialized row's latest write (ps-serial)
+        groups: list[list] = []
+        level_blen: list = []  # batch length per level (one dispatch each)
+        for e in window:
+            _, i, m, _, communicated, bidx, _ = e
+            lvl = last_write.get(i, 0) + 1  # rules 1 (WAW/RAW on actor row)
+            if communicated:
+                if sr is not None and m == sr:
+                    # Serialized push: may share the last writer's level —
+                    # the fused step folds same-level pushes in pop order —
+                    # but must never land in an earlier one.
+                    lvl = max(lvl, last_sw)
+                else:
+                    lvl = max(lvl, last_write.get(m, 0) + 1)  # rule 2 (RAW peer)
+                    # rule 3 bookkeeping happens below via max_read
+            elif sr is not None and i == sr:
+                # The PS node's own grad step reads the PS row *outside* the
+                # chain (pre-level gather), so every prior push must have
+                # scattered already.
+                lvl = max(lvl, last_sw + 1)
+            lvl = max(lvl, max_read.get(i, 0))  # rule 3 (WAR on actor row)
+            # One fused call needs a uniform batch length, and rule 3's
+            # same-level exemption is only sound if the whole level IS one
+            # call (gather-before-scatter) — so batch length is part of a
+            # level's identity.  Raising a level past a mismatched one is
+            # always safe: every hazard above is a lower bound, and the
+            # bookkeeping below records the *final* level.
+            blen = len(bidx)
+            while lvl <= len(level_blen) and level_blen[lvl - 1] != blen:
+                lvl += 1
+            last_write[i] = lvl
+            if communicated:
+                if sr is not None and m == sr:
+                    last_sw = max(last_sw, lvl)
+                else:
+                    max_read[m] = max(max_read.get(m, 0), lvl)
+            if sr is not None and i == sr:
+                last_sw = max(last_sw, lvl)  # PS-local event rewrites the row
+            while len(groups) < lvl:  # lvl <= len(groups)+1: no gaps
+                groups.append([])
+                level_blen.append(blen)
+            groups[lvl - 1].append(e)
+        return groups
+
+    def pack(cohort, B):
+        """Pack one cohort into (ints, w) operands padded to bucket B."""
+        K = len(cohort)
+        actors = {e[1] for e in cohort}
+        blen = len(cohort[0][5])
+        ints = np.zeros((B, 3 + blen), np.int32)
+        w = np.zeros(B, np.float32)
+        for k, e in enumerate(cohort):
+            ints[k, 0] = e[1]
+            if sr is not None:
+                ints[k, 1] = 1 if e[4] else 0  # push flag
+            else:
+                # self-pull (w=0) for non-communicating events
+                ints[k, 1] = e[2] if e[4] else e[1]
+            ints[k, 2] = 1
+            ints[k, 3:] = e[5]
+            w[k] = e[3]
+        if B > K:  # pad rows: distinct idle workers, written back unchanged
+            # First B-K non-actor rows, ascending — an incremental walk, so
+            # a fleet-sized M doesn't pay an O(M) scan per tiny cohort.
+            free = np.empty(B - K, np.int32)
+            n, r = 0, 0
+            while n < B - K:
+                if r not in actors:
+                    free[n] = r
+                    n += 1
+                r += 1
+            ints[K:, 0] = free
+            if sr is None:
+                ints[K:, 1] = free
+        return ints, w
+
+    chain_acc: list = []  # consecutive fusable cohorts awaiting one dispatch
+    chain_lo = chain_hi = 0  # row-bucket band of the accumulating chain
+
+    def flush_chain():
+        nonlocal R, Mom
+        if not chain_acc:
+            return
+        if len(chain_acc) == 1:
+            ints, w = pack(chain_acc[0], _bucket(len(chain_acc[0]), M))
+            R, Mom = step(R, Mom, dx, dy, ints, w)
+        else:
+            blen = len(chain_acc[0][0][5])
+            B = chain_hi  # uniform bucket per chain (the band's max)
+            L = _chain_bucket(len(chain_acc))
+            ints_seq = np.zeros((L, B, 3 + blen), np.int32)  # pads: valid=0
+            w_seq = np.zeros((L, B), np.float32)
+            for l, c in enumerate(chain_acc):
+                ints_seq[l], w_seq[l] = pack(c, B)
+            R, Mom = chain_step(R, Mom, dx, dy, ints_seq, w_seq)
+        res.dispatches += 1
+        chain_acc.clear()
+
+    def dispatch_burst(run):
+        """One serial-chain dispatch over a pop-ordered single-worker run
+        (see ``_make_burst_body``)."""
+        nonlocal R, Mom
+        blen = len(run[0][5])
+        L = _chain_bucket(len(run), _BURST_CAP)
+        w = np.zeros(L, np.float32)
+        ints = np.zeros((L, 2 + blen), np.int32)  # pads: valid=0 no-ops
+        for l, e in enumerate(run):
+            ints[l, 0] = e[2] if e[4] else e[1]
+            ints[l, 1] = 1
+            ints[l, 2:] = e[5]
+            w[l] = e[3]
+        R, Mom = burst_step(R, Mom, dx, dy, run[0][1], ints, w)
+        res.dispatches += 1
+
+    def chain_in(cohort):
+        """Feed one level into the band chain, flushing when it won't fit.
+
+        A chain accepts a level while the row buckets stay within a 2x
+        band (every level pads to the band's max, so the band bounds the
+        wasted rows at ~1/2).
+        """
+        nonlocal chain_lo, chain_hi
+        B = _bucket(len(cohort), M)
+        blen = len(cohort[0][5])
+        if chain_acc and not (
+            len(chain_acc) < _CHAIN_CAP
+            and len(chain_acc[0][0][5]) == blen
+            and max(chain_hi, B) <= 2 * min(chain_lo, B)
+        ):
+            flush_chain()
+        if not chain_acc:
+            chain_lo = chain_hi = B
+        else:
+            chain_lo, chain_hi = min(chain_lo, B), max(chain_hi, B)
+        chain_acc.append(cohort)
+
+    def execute_window(levels):
+        """Dispatch one window.
+
+        Levels are always counted/logged (the logical cohort structure is
+        execution-independent).  With fusion, runs of >= _BURST_MIN
+        consecutive singleton levels of one worker go through the
+        single-row burst; everything else accumulates into band chains
+        (``chain_in``).  Fusion off: one dispatch per level.
+        """
+        nonlocal R, Mom
+        for cohort in levels:
+            res.cohorts += 1
+            if cohort_log is not None:
+                cohort_log.append(
+                    [(e[6], e[1], e[2] if e[4] else None) for e in cohort]
+                )
+        if not fuse:
+            for cohort in levels:
+                ints, w = pack(cohort, _bucket(len(cohort), M))
+                R, Mom = step(R, Mom, dx, dy, ints, w)
+                res.dispatches += 1
+            return
+        # Group levels into maximal single-actor singleton runs (the busiest
+        # worker's sequential tail) vs the rest.  With use_mix_kernel the
+        # cohort path mixes through kernels/ops while bursts use the leaf
+        # rule — keep every dispatch on one rule by skipping bursts there
+        # (band chains still fuse).
+        burst_ok = not cfg.use_mix_kernel
+        runs: list[list] = []
+        for cohort in levels:
+            if (
+                len(cohort) == 1
+                and runs
+                and runs[-1][0] == "burst"
+                and len(runs[-1][1]) < _BURST_CAP
+                and runs[-1][1][-1][1] == cohort[0][1]
+                and len(runs[-1][1][-1][5]) == len(cohort[0][5])
+            ):
+                runs[-1][1].append(cohort[0])
+            elif len(cohort) == 1:
+                runs.append(["burst", [cohort[0]]])
+            else:
+                runs.append(["normal", cohort])
+        for kind, item in runs:
+            if kind == "burst" and len(item) >= _BURST_MIN and burst_ok:
+                flush_chain()  # preserve level order across dispatch paths
+                dispatch_burst(item)
+            elif kind == "burst":
+                for e in item:  # short run: ride the band chain instead
+                    chain_in([e])
+            else:
+                chain_in(item)
+        flush_chain()
+
+    while ev < total:
+        # ---- scenario churn actions fire before the first event popping
+        # at or after their time, between device dispatches ----
+        if cursor is not None:
+            for act in cursor.pop_due(heap.peek_time()):
+                apply_action(act, active=active, reseed=reseed, rng=rng,
+                             heap=heap, emas=emas, ema_beta=cfg.ema_beta)
+        # ---- draw one window of events, stopping at the next boundary ----
+        window = []
+        while len(window) < window_cap and ev < total:
+            if cursor is not None and heap.peek_time() >= cursor.next_time:
+                break  # scenario boundary: flush before crossing it
+            e = draw_event()
+            window.append(e)
+            if (monitor is not None and e[0] >= next_monitor) or e[6] % record_every == 0:
+                break
+        if not window:
+            continue  # boundary was immediately due; actions now applied
+        t_last, ev_last = window[-1][0], window[-1][6]
+
+        # ---- execute the whole window, level by level (chains fused) ----
+        execute_window(schedule_window(window))
+
+        # ---- boundaries fire after the window, exactly as the reference
+        # loop fires them after the boundary event (Monitor first, then the
+        # periodic evaluation) ----
+        if monitor is not None and t_last >= next_monitor:
+            pol = monitor_boundary(
+                monitor, algo, state, link_model, emas, active, t_last,
+                chaos=cfg.chaos,
+            )
+            if pol is not None:
+                res.policy_updates += 1
+                res.policy_log.append((t_last, pol.rho, pol.P.copy()))
+            next_monitor += monitor.schedule_period
+        if ev_last % record_every == 0:
+            eval_now(t_last, ev_last)
+
+    eval_now(t, ev)
+    if monitor is not None and monitor.failover is not None:
+        res.leader_log = list(monitor.failover.leader_log)
+        res.skipped_refreshes = monitor.failover.n_skipped_refreshes
+    res.engine = "batched"
+    return res
