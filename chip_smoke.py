@@ -11,24 +11,38 @@ Phases, in order; any failure exits non-zero before the result line:
 3. kernels — every hand-written kernel against its plain torch version on
              the card, at the test shapes, the main path's shapes and a
              large shape: max error within tolerance, and per kernel the
-             median time (CUDA events), the HBM-bytes bound, the plain
-             version's time and the ``torch.lerp`` yardstick;
+             median time (profiler and CUDA events), the bound, the plain
+             version's time and a one-call yardstick (``torch.lerp`` for
+             the gossip mix, ``scaled_dot_product_attention`` for flash
+             attention), which the port never calls;
 4. main    — the paper's NetMax loop through ``simulate`` at the repo's
              model width (MLP [32, 128, 64, 10], 32 workers, 3000 events):
              the launch counters are zeroed just before and read just
              after, and every kernel of the path must have launched;
 5. parity  — the same configuration, 1000 events, on the card and on the
-             CPU: host-side outputs bit-equal, losses within 5e-4.
+             CPU: host-side outputs bit-equal, losses within 5e-4;
+6. lm      — LM serving at the full width of tinyllama-1.1b (22 layers,
+             bf16, random weights from seed 0): ``lm.prefill_logits`` on
+             4 prompts of 512 tokens, ``capture_prefill`` of the same batch
+             into a 1024-token cache, and ``ServeEngine.run`` of 4 requests
+             (prompt 64, 16 new tokens).  The launch counters are zeroed
+             just before and read just after: flash attention must launch
+             22 times per forward, logits be finite, tokens in the vocab;
+7. lm parity — the tinyllama widths cut to 2 layers, f32, S = 256: prefill
+             logits on the card and on the CPU within 1e-3 * max |logit|,
+             and on the card the decode logits at position P-1 after
+             ``capture_prefill`` within the same bound of the prefill's.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, last, the
 ``{"ok": true, "device": {...}}`` line.  With ``--out DIR`` the per-case
-kernel numbers and the main path's profile also go to
+kernel numbers and the paths' numbers also go to
 ``DIR/chip_smoke_kernels.json``.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -47,6 +61,13 @@ N_WORKERS = 32
 #: HBM bytes/s by card name (NVIDIA data sheets); the SXM H100 otherwise.
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 H100_SXM_BYTES_PER_S = 3.35e12
+#: Dense peak FLOP/s by card name and type (NVIDIA data sheets): bf16 on the
+#: tensor cores, f32 on the FMA units; the SXM H100 otherwise.
+FLOPS_PER_S = {"H100 PCIe": {"bfloat16": 756e12, "float32": 51e12}}
+H100_SXM_FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+#: The LM serving configuration: tinyllama-1.1b at full width.
+LM_ARCH = "tinyllama-1.1b"
 
 #: tests/test_kernels.py MIX_CASES / MIX_ROWS_CASES, with their tolerances.
 MIX_CASES = [((1024,), "float32", 0.25), ((127, 33), "float32", 0.8),
@@ -55,6 +76,19 @@ MIX_CASES = [((1024,), "float32", 0.25), ((127, 33), "float32", 0.8),
 MIX_ROWS_CASES = [((4, 1024), "float32"), ((3, 127, 33), "float32"),
                   ((8, 64, 32), "bfloat16"), ((1, 70000), "float32")]
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+#: tests/test_kernels.py ATTN_CASES (B, S, Sk, H, Hk, hd, causal, dtype), a
+#: ragged causal case, the LM phase's shape (one tinyllama layer of a 4 x 512
+#: prefill) and a large one; tolerances as tests/test_kernels.py:43.
+ATTN_CASES = [(1, 128, 128, 4, 4, 64, True, "float32"),
+              (2, 256, 256, 8, 2, 64, True, "float32"),
+              (1, 128, 128, 4, 1, 32, True, "float32"),
+              (2, 128, 256, 4, 4, 64, False, "float32"),
+              (1, 256, 256, 2, 2, 128, True, "bfloat16"),
+              (1, 512, 512, 4, 2, 64, True, "float32"),
+              (1, 200, 200, 32, 4, 64, True, "float32")]
+ATTN_MAIN = (4, 512, 512, 32, 4, 64, True, "bfloat16")
+ATTN_LARGE = (1, 8192, 8192, 32, 4, 64, True, "bfloat16")
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 class SmokeError(RuntimeError):
@@ -116,6 +150,13 @@ def hbm_rate(name: str) -> float:
         if key in name:
             return rate
     return H100_SXM_BYTES_PER_S
+
+
+def flop_rate(name: str, dtype: str) -> float:
+    for key, rates in FLOPS_PER_S.items():
+        if key in name:
+            return rates[dtype]
+    return H100_SXM_FLOPS_PER_S[dtype]
 
 
 def phase_card(torch):
@@ -247,6 +288,102 @@ def phase_kernels(torch, rate):
     return summaries, records
 
 
+def attn_work(B, S, Sk, H, Hk, hd, causal, itemsize):
+    """(flops, bytes) of one attention call: 4 * hd flops per visible
+    (query head, key) pair -- QK^T and PV, 2 each -- and q, k, v read once,
+    the output written once."""
+    if causal:  # query s sees keys 0..min(s, Sk-1)
+        pairs = sum(min(s + 1, Sk) for s in range(S))
+    else:
+        pairs = S * Sk
+    flops = 4 * B * H * hd * pairs
+    nbytes = (2 * B * S * H + 2 * B * Sk * Hk) * hd * itemsize
+    return flops, nbytes
+
+
+def phase_flash(torch, rate, name, records):
+    """Flash attention against ``ref.reference_attention`` on every case;
+    per case the profiler's device time, the time per call, the plain
+    version's, SDPA's (main and large shapes) and the bound.  Appends to
+    ``records``; returns the kernel's summary at the main shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for role, cases in (("test", ATTN_CASES), ("main", [ATTN_MAIN]),
+                        ("large", [ATTN_LARGE])):
+        for case in cases:
+            B, S, Sk, H, Hk, hd, causal, dtype = case
+            dt = getattr(torch, dtype)
+            q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt)
+            k = torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
+            v = torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            want = ref.reference_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check(got.shape == q.shape and got.dtype == q.dtype,
+                  f"flash_attention {case}: output {tuple(got.shape)} {got.dtype}")
+            diff = (got.float() - want.float()).abs()
+            tol = ATTN_TOL[dtype]
+            excess = (diff - tol * want.float().abs()).max().item()
+            err = diff.max().item()
+            check(excess <= tol, f"flash_attention {case}: max |err| {err} beyond "
+                                 f"atol = rtol = {tol}")
+            del want, diff
+            flops, nbytes = attn_work(B, S, Sk, H, Hk, hd, causal, q.element_size())
+            t_ops = flops / flop_rate(name, dtype) * 1e3
+            t_bytes = nbytes / rate * 1e3
+            rec = {"kernel": "flash_attention", "role": role, "case": list(case),
+                   "dtype": dtype, "max_abs_err": err, "flops": flops, "bytes": nbytes,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            fns = {"": lambda: fa.flash_attention(q, k, v, causal=causal),
+                   "plain_": lambda: ref.reference_attention(q, k, v, causal=causal)}
+            if role != "test":
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                fns["library_"] = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+            iters = {"test": 10, "main": 20, "large": 2}[role]
+            for key, fn in fns.items():
+                call = cuda_ms(torch, fn, iters)
+                dev_ms = device_ms(torch, fn, iters,
+                                   "flash_fwd_kernel" if key == "" else None)
+                rec[key + "ms"] = call if dev_ms is None else dev_ms
+                rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
+                rec[key + "call_ms"] = call
+            rec.setdefault("library_ms", None)
+            records.append(rec)
+            out.setdefault(role, []).append(rec)
+            print(f"  flash_attention {role} {case}: max|err| {err:.3g}, device "
+                  f"{rec['ms'] * 1e3:.1f} us ({rec['ms_from']}), per call "
+                  f"{rec['call_ms'] * 1e3:.1f} us, plain {rec['plain_ms'] * 1e3:.1f} us, "
+                  + (f"sdpa {rec['library_ms'] * 1e3:.1f} us, " if rec["library_ms"] else "")
+                  + f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); "
+                  f"{flops / (rec['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+            del q, k, v
+            torch.cuda.empty_cache()
+    main = out["main"][0]
+    summary = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:87",
+        "max_abs_err": max(r["max_abs_err"] for r in records
+                           if r["kernel"] == "flash_attention"),
+        # One launch at the LM phase's shape (one layer of the prefill).
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+    }
+    print(f"kernel flash_attention: max|err| {summary['max_abs_err']:.3g}, main-path "
+          f"launch {summary['ms'] * 1e3:.1f} us on the device (plain "
+          f"{summary['plain_ms'] * 1e3:.1f} us, sdpa {summary['library_ms'] * 1e3:.1f} "
+          f"us, bound {summary['bound_ms'] * 1e3:.2f} us, {summary['bound_by']})")
+    return summary
+
+
 def sim_setup(n_events, trace, seed=0):
     from repro_torch.core.nettime import LinkTimeModel, Topology
     from repro_torch.data.partition import uniform_partition
@@ -263,8 +400,22 @@ def sim_setup(n_events, trace, seed=0):
     return cfg, link, (x, y, parts, ex, ey)
 
 
-def phase_main(torch):
+def reset_all_launches():
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as tk
+
+    tk.reset_launches()
+    fa.reset_launches()
+
+
+def read_all_launches():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_mix as tk
+
+    return {**tk.LAUNCHES, **fa.LAUNCHES}
+
+
+def phase_main(torch):
     from repro_torch.train import engine
     from repro_torch.train.simulator import simulate
 
@@ -282,7 +433,7 @@ def phase_main(torch):
             monitor_s[0] += time.perf_counter() - t
 
     torch.cuda.synchronize()
-    tk.reset_launches()
+    reset_all_launches()
     engine.monitor_boundary = timed_boundary
     try:
         t0 = time.perf_counter()
@@ -292,7 +443,7 @@ def phase_main(torch):
         secs = time.perf_counter() - t0
     finally:
         engine.monitor_boundary = boundary
-    launches = dict(tk.LAUNCHES)
+    launches = read_all_launches()
     check(res.engine == "batched", f"engine {res.engine}")
     check(res.policy_updates >= 3, f"policy_updates {res.policy_updates} < 3")
     check(all(map(math.isfinite, res.losses)), f"non-finite losses {res.losses}")
@@ -363,6 +514,200 @@ def phase_parity(torch):
     print(f"parity: host-side outputs bit-equal, max |loss diff| {diff:.3g}")
 
 
+def lm_requests(vocab, n=4, prompt=64, max_new=16, seed=0):
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, size=prompt).astype(np.int32),
+                    max_new=max_new) for i in range(n)]
+
+
+def phase_lm(torch):
+    """LM serving at the full width of tinyllama-1.1b: prefill, capture
+    prefill, continuous-batching decode; flash attention launches 22 times
+    per forward."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, capture_prefill
+
+    cfg = get_arch(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.vocab_size, cfg.dtype) == (22, 2048, 32, 4, 64, 32000, "bfloat16"),
+          f"{LM_ARCH} is not the published width: {cfg}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_count(cfg)
+    B, P, max_seq = 4, 512, 1024
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev,
+                           dtype=torch.int32)
+    reqs = lm_requests(cfg.vocab_size)
+    decode_s = [0.0]
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    with torch.inference_mode():
+        prefill_s = []
+        for _ in range(2):  # the first call warms cuBLAS and the allocator
+            t0 = time.perf_counter()
+            logits = lm.prefill_logits(params, {"tokens": tokens}, cfg)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        cap_logits, cache = capture_prefill(cfg, params, tokens, max_seq)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        eng = ServeEngine(cfg, params, batch_capacity=4, max_seq=max_seq)
+        step = eng.step
+
+        def timed_step(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return step(*args, **kwargs)
+            finally:
+                decode_s[0] += time.perf_counter() - t
+
+        eng.step = timed_step
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = read_all_launches()
+    forwards = 3
+    check(launches["flash_attention"] == cfg.n_layers * forwards,
+          f"flash_attention launched {launches['flash_attention']} times for "
+          f"{forwards} forwards of {cfg.n_layers} layers")
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and logits.dtype == torch.float32,
+          f"prefill logits {tuple(logits.shape)} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    check(bool(torch.isfinite(cap_logits).all()), "non-finite capture_prefill logits")
+    check(torch.equal(cap_logits[:, 0], logits), "capture_prefill logits differ from "
+          "prefill_logits on the same tokens")
+    check(tuple(cache["k"].shape) == (cfg.n_layers, B, max_seq, cfg.n_kv_heads, cfg.hd),
+          f"cache {tuple(cache['k'].shape)}")
+    check(bool(cache["k"][:, :, P:].eq(0).all()) and bool(cache["k"][:, :, :P].ne(0).any()),
+          "capture_prefill filled the cache beyond the prompt or not at all")
+    check(len(done) == len(reqs) and all(len(r.out) == r.max_new for r in done),
+          f"ServeEngine.run finished {len(done)} of {len(reqs)} requests")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          "a generated token lies outside the vocab")
+    gen_tokens = sum(len(r.out) for r in done)
+    decode_steps = max(len(r.out) for r in done)
+    out = {
+        "arch": cfg.name, "params": n_params, "init_s": init_s,
+        "prefill_batch": [B, P], "prefill_s": prefill_s,
+        "prefill_tokens_per_s": B * P / prefill_s[-1],
+        "capture_prefill_s": capture_s, "max_seq": max_seq,
+        "serve_requests": len(reqs), "serve_prompt": len(reqs[0].prompt),
+        "serve_run_s": run_s, "serve_decode_s": decode_s[0],
+        "generated_tokens": gen_tokens, "decode_steps": decode_steps,
+        "decode_tokens_per_s": gen_tokens / decode_s[0],
+        "launches": launches,
+    }
+    print(f"lm: {cfg.name} ({n_params / 1e9:.3f} B params, bf16) init {init_s:.2f} s; "
+          f"prefill {B}x{P} in {prefill_s[-1] * 1e3:.1f} ms (first "
+          f"{prefill_s[0] * 1e3:.1f} ms) = {out['prefill_tokens_per_s']:.0f} tok/s; "
+          f"capture_prefill {capture_s:.2f} s; ServeEngine.run {len(reqs)} requests "
+          f"in {run_s:.2f} s, {gen_tokens} tokens in {decode_steps} decode steps "
+          f"({decode_s[0]:.3f} s) = {out['decode_tokens_per_s']:.1f} tok/s; "
+          f"launches {launches}")
+    with torch.inference_mode():
+        out["profile"] = lm_profile(torch, cfg, params, tokens, cache)
+    del params, cache, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_profile(torch, cfg, params, tokens, cache, steps=8):
+    """One prefill and ``steps`` decode steps (positions after the prompt)
+    under torch.profiler, after an unprofiled run of each: device busy
+    share of the wall, flash attention's share of the device time, and
+    the kernels that hold the device longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+
+    B, P = tokens.shape
+
+    def prefill():
+        lm.prefill_logits(params, {"tokens": tokens}, cfg)
+
+    def decode():
+        for t in range(steps):
+            lm.decode_step(params, cache, tokens[:, t], P + t, cfg)
+
+    res = {}
+    for name, fn in (("prefill", prefill), (f"decode_{steps}_steps", decode)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        avg = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+        device_s = sum(e.self_device_time_total for e in avg) * 1e-6
+        flash_s = sum(e.self_device_time_total for e in avg
+                      if "flash_fwd_kernel" in e.key) * 1e-6
+        top = [(e.key[:80], e.count, e.self_device_time_total * 1e-3) for e in avg[:6]]
+        res[name] = {"wall_s": wall, "device_s": device_s, "busy_share": device_s / wall,
+                     "flash_device_s": flash_s, "top_kernels": top}
+        print(f"lm profile {name}: wall {wall * 1e3:.2f} ms, device {device_s * 1e3:.2f} ms "
+              f"({device_s / wall:.3f} of the wall), flash_attention "
+              f"{flash_s * 1e3:.2f} ms; top kernels (name, count, ms):")
+        for row in top:
+            print(f"  {row}")
+    return res
+
+
+def phase_lm_parity(torch):
+    """The tinyllama widths at 2 layers, f32: prefill logits on the card
+    (flash kernel) and on the CPU (the scan), and the card's decode logits
+    at position P-1 after capture_prefill against its prefill logits."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import capture_prefill
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=2, dtype="float32")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, P = 2, 256
+    with torch.inference_mode():
+        params = lm.init_params(cfg, gen)
+        tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev,
+                               dtype=torch.int32)
+        on_card = lm.prefill_logits(params, {"tokens": tokens}, cfg)
+        cpu_params = _tree_to(params, "cpu")
+        t0 = time.perf_counter()
+        on_cpu = lm.prefill_logits(cpu_params, {"tokens": tokens.cpu()}, cfg)
+        cpu_s = time.perf_counter() - t0
+        logits, cache = capture_prefill(cfg, params, tokens, P)
+        dec, _ = lm.decode_step(params, cache, tokens[:, P - 1], P - 1, cfg)
+        torch.cuda.synchronize()
+    scale = on_cpu.abs().max().item()
+    d_cpu = (on_card.cpu() - on_cpu).abs().max().item()
+    d_dec = (dec - logits[:, 0]).abs().max().item()
+    check(d_cpu <= 1e-3 * scale, f"card vs CPU prefill logits differ by {d_cpu} "
+                                 f"(max |logit| {scale})")
+    check(d_dec <= 1e-3 * scale, f"decode at P-1 vs prefill logits differ by {d_dec} "
+                                 f"(max |logit| {scale})")
+    print(f"lm parity: 2 layers f32 S={P}: card vs CPU max |diff| {d_cpu:.3g}, decode "
+          f"vs prefill {d_dec:.3g}, max |logit| {scale:.3g} (CPU prefill {cpu_s:.2f} s)")
+    return {"card_vs_cpu": d_cpu, "decode_vs_prefill": d_dec, "max_logit": scale}
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -387,14 +732,20 @@ def main() -> int:
         name = torch.cuda.get_device_name(0)
         phase_build()
         summaries, records = phase_kernels(torch, hbm_rate(name))
+        summaries.append(phase_flash(torch, hbm_rate(name), name, records))
         main_path = phase_main(torch)
         main_path["profile"] = phase_profile(torch, main_path)
         phase_parity(torch)
+        lm_path = phase_lm(torch)
+        lm_path["parity"] = phase_lm_parity(torch)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    # Each kernel's launches on its own path.
+    path_of = {"gossip_mix_rows": main_path, "gossip_mix": main_path,
+               "flash_attention": lm_path}
     for s in summaries:
-        s["launches"] = main_path["launches"][s["name"]]
+        s["launches"] = path_of[s["name"]]["launches"][s["name"]]
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     kernels = [{k: s[k] for k in order} for s in summaries]
@@ -402,7 +753,7 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke_kernels.json").write_text(json.dumps(
             {"card": card, "device": name, "kernels": kernels, "cases": records,
-             "main_path": main_path},
+             "main_path": main_path, "lm_path": lm_path},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

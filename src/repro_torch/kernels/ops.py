@@ -1,8 +1,9 @@
-"""Device dispatchers for the gossip-mix kernels.
+"""Device dispatchers for the hand-written kernels.
 
 Dispatch is by the tensor's device and nothing else: a CUDA tensor goes to
-the hand-written kernel (``kernels/gossip_mix.py``), a CPU tensor to its
-plain version (``kernels/ref.py``), and any other device raises.  There is
+the hand-written kernel (``kernels/gossip_mix.py``,
+``kernels/flash_attention.py``), a CPU tensor to its plain version
+(``kernels/ref.py``), and any other device raises.  There is
 no mode switch (the JAX package's ``use_pallas``) and no fallback: a kernel
 that fails to build or launch raises.
 """
@@ -12,15 +13,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_rows
 from repro_torch.tree import tree_map
 
 
-def _on_cuda(x) -> bool:
+def _on_cuda(x, what="gossip-mix") -> bool:
     kind = x.device.type
     if kind not in ("cuda", "cpu"):
-        raise ValueError(f"no gossip-mix path for device {x.device}")
+        raise ValueError(f"no {what} path for device {x.device}")
     return kind == "cuda"
+
+
+def attention(q, k, v, *, causal=True):
+    """GQA attention. q: (B,S,H,hd); k/v: (B,Sk,Hk,hd) -> (B,S,H,hd)."""
+    if _on_cuda(q, "attention"):
+        return flash_attention(q, k, v, causal=causal)
+    return ref.reference_attention(q, k, v, causal=causal)
 
 
 def mix(x, u, pulled, w):

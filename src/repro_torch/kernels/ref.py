@@ -1,11 +1,15 @@
 """Plain torch versions of the kernels (the allclose references).
 
-Each one repeats its kernel's arithmetic step by step in f32 and casts the
-result back to the input dtype, so the CUDA kernel is held bit-for-bit
-against it on the card and the CPU path computes the same numbers.
+Each one computes in f32 and casts the result back to the input dtype.
+The gossip-mix references repeat their kernel's arithmetic step by step, so
+that kernel is held bit-for-bit against them on the card; the attention
+reference materialises the (S, Sk) scores and is held to the flash kernel
+with the float tolerances of ``tests/test_kernels.py``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,3 +32,24 @@ def reference_gossip_mix_rows(x, u, pulled, w):
     xf = x.float() + u.float()
     out = (1.0 - wf) * xf + wf * pulled.float()
     return out.to(x.dtype)
+
+
+def reference_attention(q, k, v, *, causal: bool = True):
+    """Naive O(S^2) GQA attention. q: (B,S,H,hd); k/v: (B,Sk,Hk,hd).
+
+    f32 math, cast back to q's dtype; the causal mask aligns query and key
+    positions from 0 (``q_pos >= k_pos``), masked scores are -1e30."""
+    B, S, H, hd = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    qg = q.reshape(B, S, Hk, G, hd).float()
+    kf = k.float()
+    vf = v.float()
+    s = torch.einsum("bshgd,bkhd->bhgsk", qg, kf) / math.sqrt(hd)
+    if causal:
+        mask = (torch.arange(S, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgsk,bkhd->bshgd", p, vf)
+    return o.reshape(B, S, H, hd).to(q.dtype)

@@ -1,0 +1,194 @@
+"""GQA attention: flash attention for prefill + KV-cache decode.
+
+A transcription of ``repro/models/attention.py``.  ``chunked_attention`` is
+the one place the two packages part: the JAX package runs the online-softmax
+scan in XLA (it is the reference of its Pallas flash kernel); the port sends
+a CUDA tensor to that kernel's hand-written counterpart through
+``kernels/ops.attention``, and runs the same scan in torch on the CPU so
+that the CPU tests compare like with like.  Decode (one query token against
+the cache) is a plain einsum in both, not a kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.modules import apply_rope, lecun_normal
+
+NEG_INF = -1e30
+
+
+def _pad_q(w, D, Hk, G, Hke, Gn, hd):
+    """Pad q-projection (D, Hk*G*hd) -> (D, Hke*Gn*hd) with zeros placed
+    PER GROUP so original q heads keep their kv-group assignment."""
+    w4 = w.reshape(D, Hk, G, hd)
+    w4 = F.pad(w4, (0, 0, 0, Gn - G, 0, Hke - Hk))
+    return w4.reshape(D, Hke * Gn * hd)
+
+
+def _pad_o(w, Hk, G, Hke, Gn, hd, D):
+    """Pad out-projection rows (H*hd, D) group-aligned with _pad_q."""
+    w4 = w.reshape(Hk, G, hd, D)
+    w4 = F.pad(w4, (0, 0, 0, 0, 0, Gn - G, 0, Hke - Hk))
+    return w4.reshape(Hke * Gn * hd, D)
+
+
+def attn_init(gen, cfg, dtype, device=None):
+    """Projections sized to the EFFECTIVE (TP-padded) head counts; padded
+    heads are zero in both wq and wo, so they are exactly inert."""
+    H, Hk, hd, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    He, Hke = cfg.n_heads_eff, cfg.n_kv_heads_eff
+    G, Gn = H // Hk, He // Hke
+    if He != Hke * Gn:
+        raise ValueError("pad_heads must keep H_eff = Hk_eff * G_eff")
+    device = gen.device if device is None else torch.device(device)
+    wq = lecun_normal(gen, (D, H * hd), dtype, device=device)
+    wk = lecun_normal(gen, (D, Hk * hd), dtype, device=device)
+    wv = lecun_normal(gen, (D, Hk * hd), dtype, device=device)
+    wo = lecun_normal(gen, (H * hd, D), dtype, fan_in=H * hd, device=device)
+    if He != H or Hke != Hk:
+        wq = _pad_q(wq, D, Hk, G, Hke, Gn, hd)
+        wo = _pad_o(wo, Hk, G, Hke, Gn, hd, D)
+        if Hke != Hk:
+            wk = F.pad(wk.reshape(D, Hk, hd), (0, 0, 0, Hke - Hk)).reshape(D, Hke * hd)
+            wv = F.pad(wv.reshape(D, Hk, hd), (0, 0, 0, Hke - Hk)).reshape(D, Hke * hd)
+    p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((He * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((Hke * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((Hke * hd,), dtype=dtype, device=device)
+    return p
+
+
+def qkv_project(p, x, cfg, positions=None, rope=True):
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,Hk,hd), with RoPE applied."""
+    B, S, _ = x.shape
+    H, Hk, hd = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Hk, hd)
+    v = v.reshape(B, S, Hk, hd)
+    if rope:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def chunked_attention(q, k, v, *, causal=True, q_chunk=512, kv_chunk=1024):
+    """Online-softmax attention. q: (B,S,H,hd); k,v: (B,Sk,Hk,hd) -> (B,S,H,hd).
+
+    On CUDA: the flash-attention kernel (``ops.attention``), which tiles
+    for itself, so the chunk sizes do not apply.  On the CPU: the JAX
+    package's scan over KV chunks, transcribed (``_scan_attention``)."""
+    if q.device.type == "cuda":
+        return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=causal)
+    if q.device.type != "cpu":
+        raise ValueError(f"no attention path for device {q.device}")
+    return _scan_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+
+def _scan_attention(q, k, v, *, causal, q_chunk, kv_chunk):
+    """``repro/models/attention.py::chunked_attention`` in torch: GQA by
+    head grouping, stats carried across KV chunks for all q chunks, masked
+    scores -1e30, whole-future chunks keep the previous carry, ``l``
+    floored at 1e-30."""
+    B, S, H, hd = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, Sk)
+    if S % q_chunk or Sk % kv_chunk:
+        raise ValueError(f"chunks must divide the sequence: S={S} q_chunk={q_chunk}, "
+                         f"Sk={Sk} kv_chunk={kv_chunk}")
+    nq, nk = S // q_chunk, Sk // kv_chunk
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
+
+    qg = q.reshape(B, nq, q_chunk, Hk, G, hd).float()
+    ks = k.reshape(B, nk, kv_chunk, Hk, hd)
+    vs = v.reshape(B, nk, kv_chunk, Hk, hd)
+    q_pos = torch.arange(S).reshape(nq, q_chunk)
+
+    acc = torch.zeros((B, nq, q_chunk, Hk, G, hd), dtype=torch.float32)
+    m = torch.full((B, nq, q_chunk, Hk, G), NEG_INF, dtype=torch.float32)
+    l = torch.zeros((B, nq, q_chunk, Hk, G), dtype=torch.float32)
+    for kidx in range(nk):
+        kb, vb = ks[:, kidx].float(), vs[:, kidx].float()
+        s = torch.einsum("bnqhgd,bkhd->bnqhgk", qg, kb) * scale
+        if causal:
+            k_pos = kidx * kv_chunk + torch.arange(kv_chunk)
+            mask = q_pos[None, :, :, None, None, None] >= k_pos
+            s = torch.where(mask, s, torch.tensor(NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(dim=-1)
+        acc_new = acc * corr[..., None] + torch.einsum("bnqhgk,bkhd->bnqhgd", p, vb)
+        if causal:
+            # A chunk wholly in the future of a q chunk keeps its carry.
+            fm = ((kidx * kv_chunk) > q_pos[:, -1])[None, :, None, None, None]
+            acc_new = torch.where(fm[..., None], acc, acc_new)
+            l_new = torch.where(fm, l, l_new)
+            m_new = torch.where(fm, m, m_new)
+        acc, m, l = acc_new, m_new, l_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, length=None):
+    """Single-token attention against the KV cache (a plain einsum, as in
+    the JAX package).  q: (B, 1, H, hd); caches: (B, S, Hk, hd)."""
+    B, _, H, hd = q.shape
+    S, Hk = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hk
+    qg = q.reshape(B, Hk, G, hd)
+    # Scalars stay Python numbers: a tensor made from one on the card is a
+    # host-to-device copy, which waits for the stream.
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) / math.sqrt(hd)
+    if length is not None:
+        mask = torch.arange(S, device=q.device)[None, None, None, :] < length
+        s = s.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", w, v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def attn_apply(p, x, cfg, *, causal=True, positions=None, rope=True,
+               q_chunk=512, kv_chunk=1024):
+    """Full attention sub-layer (projections + flash attention + out proj)."""
+    q, k, v = qkv_project(p, x, cfg, positions=positions, rope=rope)
+    o = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    B, S = x.shape[:2]
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def decode_qkv(p, x, cfg, position):
+    """One-token projections for the decode step. x: (B, 1, D); position a
+    scalar or a (B,) tensor."""
+    B = x.shape[0]
+    H, Hk, hd = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, 1, H, hd)
+    k = k.reshape(B, 1, Hk, hd)
+    v = v.reshape(B, 1, Hk, hd)
+    if isinstance(position, torch.Tensor) and position.ndim == 1:
+        pos = position[:, None]
+    else:  # a fill, not a host-to-device copy (which would wait for the stream)
+        pos = torch.full((B, 1), int(position), device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    return q, k, v

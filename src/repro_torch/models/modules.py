@@ -1,0 +1,154 @@
+"""Primitive NN modules as (init, apply) function pairs over dict trees.
+
+A transcription of ``repro/models/modules.py``.  Initialisers draw from an
+explicit ``torch.Generator`` (on the device the parameters are made on); on
+the ``meta`` device they allocate nothing, which ``lm.param_count`` uses.
+Two details follow the reference on purpose: RoPE rotates split halves,
+not interleaved pairs, and the gelu MLP uses the tanh approximation
+(``jax.nn.gelu``'s default).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+# -- initializers -----------------------------------------------------------
+
+
+def _normal(gen, shape, std, dtype, device):
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * std).to(dtype)
+
+
+def lecun_normal(gen, shape, dtype, fan_in=None, device=None):
+    fan_in = fan_in if fan_in is not None else shape[-2] if len(shape) >= 2 else shape[-1]
+    std = 1.0 / np.sqrt(fan_in)
+    return _normal(gen, shape, std, dtype, _device(gen, device))
+
+
+def embed_init(gen, shape, dtype, device=None):
+    return _normal(gen, shape, 0.02, dtype, _device(gen, device))
+
+
+def _device(gen, device):
+    if device is not None:
+        return torch.device(device)
+    return gen.device
+
+
+# -- norms --------------------------------------------------------------------
+
+
+def rmsnorm_init(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def make_norm(kind: str):
+    if kind == "rmsnorm":
+        return rmsnorm_init, rmsnorm
+    if kind == "layernorm":
+        return layernorm_init, layernorm
+    raise ValueError(kind)
+
+
+# -- rotary position embeddings ----------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
+    ang = positions[..., :, None, None].float() * freqs  # (..., S, 1, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- activations ---------------------------------------------------------------
+
+
+def swiglu(gate, up):
+    return F.silu(gate.float()).to(gate.dtype) * up
+
+
+def mlp_init(gen, d_model, d_ff, dtype, activation="swiglu", device=None):
+    device = _device(gen, device)
+    if activation == "swiglu":
+        return {
+            "w_gate": lecun_normal(gen, (d_model, d_ff), dtype, device=device),
+            "w_up": lecun_normal(gen, (d_model, d_ff), dtype, device=device),
+            "w_down": lecun_normal(gen, (d_ff, d_model), dtype, fan_in=d_ff, device=device),
+        }
+    return {
+        "w_up": lecun_normal(gen, (d_model, d_ff), dtype, device=device),
+        "b_up": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w_down": lecun_normal(gen, (d_ff, d_model), dtype, fan_in=d_ff, device=device),
+        "b_down": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def mlp(p, x, activation="swiglu"):
+    if activation == "swiglu":
+        h = swiglu(x @ p["w_gate"], x @ p["w_up"])
+        return h @ p["w_down"]
+    h = F.gelu((x @ p["w_up"] + p["b_up"]).float(), approximate="tanh").to(x.dtype)
+    return h @ p["w_down"] + p["b_down"]
+
+
+# -- embeddings -----------------------------------------------------------------
+
+
+def embedding_init(gen, vocab, d_model, dtype, device=None):
+    return {"table": embed_init(gen, (vocab, d_model), dtype, device=device)}
+
+
+def embedding_lookup(p, ids):
+    table = p["table"]
+    return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, table.shape[-1])
+
+
+def pick_chunk(S: int, target: int) -> int:
+    """Largest divisor of S that is <= target (chunked scans need S % c == 0)."""
+    c = min(target, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def count_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return int(tree.numel())

@@ -36,6 +36,7 @@ import torch
 from repro_torch.algos import Algorithm, get_algorithm, mean_params
 from repro_torch.core.monitor import IterationTimeEMA
 from repro_torch.core.nettime import LinkTimeModel
+from repro_torch.device import resolve_device
 from repro_torch.scenarios.driver import (
     apply_action,
     attempt_fails,
@@ -119,21 +120,6 @@ def evaluate(params, x, y) -> tuple[float, float]:
     loss = float(ce_rows(logits, y).mean())
     acc = float((logits.argmax(-1) == y).float().mean())
     return loss, acc
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means CUDA; CUDA raises when no card is present (pass
-    ``device="cpu"`` to run on the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on CUDA by default and no CUDA device is "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    if dev.type == "cuda":
-        # The MLP's matmuls run in full f32, as the JAX reference does.
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return dev
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:

@@ -181,6 +181,9 @@ def test_imports_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.train.simulator, repro_torch.train.engine\n"
         "import repro_torch.kernels.ops, repro_torch.convert, repro_torch.algos\n"
+        "import repro_torch.configs, repro_torch.models.lm, repro_torch.serve.engine\n"
+        "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
+        "from repro_torch.configs.base import all_archs; assert len(all_archs()) == 10\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
