@@ -10,11 +10,13 @@ Phases, in order; any failure exits non-zero before the result line:
              per source, all started together) and print the seconds;
 3. kernels — every hand-written kernel against its plain torch version on
              the card, at the test shapes, the main path's shapes and a
-             large shape: max error within tolerance, and per kernel the
-             median time (profiler and CUDA events), the bound, the plain
-             version's time and a one-call yardstick (``torch.lerp`` for
-             the gossip mix, ``scaled_dot_product_attention`` for flash
-             attention), which the port never calls;
+             large shape: max error within tolerance (the WKV scan's final
+             state too), and per kernel the median time (profiler and CUDA
+             events), the bound, the plain version's time and a one-call
+             yardstick (``torch.lerp`` for the gossip mix,
+             ``scaled_dot_product_attention`` for flash attention; none for
+             the WKV scan, which no single PyTorch call computes), which the
+             port never calls;
 4. main    — the paper's NetMax loop through ``simulate`` at the repo's
              model width (MLP [32, 128, 64, 10], 32 workers, 3000 events):
              the launch counters are zeroed just before and read just
@@ -31,7 +33,23 @@ Phases, in order; any failure exits non-zero before the result line:
 7. lm parity — the tinyllama widths cut to 2 layers, f32, S = 256: prefill
              logits on the card and on the CPU within 1e-3 * max |logit|,
              and on the card the decode logits at position P-1 after
-             ``capture_prefill`` within the same bound of the prefill's.
+             ``capture_prefill`` within the same bound of the prefill's;
+8. ssm     — LM serving at the full width of rwkv6-7b (32 layers, bf16,
+             random weights from seed 0): ``lm.prefill_logits`` on 4 prompts
+             of 512 tokens (twice), ``capture_prefill`` of 4 x 128 tokens,
+             and ``ServeEngine.run`` of 4 requests (prompt 32, 16 new
+             tokens).  The launch counters are zeroed just before and read
+             just after: the WKV kernel must launch 32 times per forward
+             and no other kernel at all; logits and the captured state
+             finite, the state non-zero, tokens in the vocab.  A profiled
+             prefill and 8 decode steps give the device's busy share;
+9. ssm parity — the rwkv6-7b widths cut to 2 layers, f32: prefill logits
+             (S = 128) on the card and on the CPU within 1e-3 * max |logit|,
+             and on the card the decode logits of token 63 after
+             ``capture_prefill`` of tokens 0..62 against the prefill logits
+             of tokens 0..63 (the WKV kernel against the plain recurrence).
+             The kernel and the dense and simulator paths never meet: the
+             WKV kernel must launch 0 times in phases 4 and 6.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, last, the
 ``{"ok": true, "device": {...}}`` line.  With ``--out DIR`` the per-case
@@ -66,8 +84,10 @@ H100_SXM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {"H100 PCIe": {"bfloat16": 756e12, "float32": 51e12}}
 H100_SXM_FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
-#: The LM serving configuration: tinyllama-1.1b at full width.
+#: The LM serving configurations: tinyllama-1.1b (dense) and rwkv6-7b (ssm)
+#: at full width.
 LM_ARCH = "tinyllama-1.1b"
+SSM_ARCH = "rwkv6-7b"
 
 #: tests/test_kernels.py MIX_CASES / MIX_ROWS_CASES, with their tolerances.
 MIX_CASES = [((1024,), "float32", 0.25), ((127, 33), "float32", 0.8),
@@ -89,6 +109,19 @@ ATTN_CASES = [(1, 128, 128, 4, 4, 64, True, "float32"),
 ATTN_MAIN = (4, 512, 512, 32, 4, 64, True, "bfloat16")
 ATTN_LARGE = (1, 8192, 8192, 32, 4, 64, True, "bfloat16")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: tests/test_kernels.py RWKV_CASES (B, S, H, N, chunk, dtype), a ragged one,
+#: the extreme-decay case (plain version on the clamped decays), a case from a
+#: random initial state, the ssm phase's shape (one rwkv6-7b layer of a 4 x 512
+#: prefill, from the zero state the model passes) and a large one; tolerances
+#: as tests/test_kernels.py:120 and :162.
+RWKV_CASES = [(1, 64, 2, 16, 16, "float32"), (2, 128, 4, 32, 32, "float32"),
+              (1, 128, 2, 64, 64, "float32"), (1, 256, 2, 16, 64, "float32"),
+              (1, 128, 2, 32, 32, "bfloat16"), (2, 100, 3, 64, 64, "float32")]
+RWKV_EXTREME = (1, 32, 1, 16, 16, "float32")
+RWKV_STATE = (2, 128, 4, 64, 64, "float32")
+RWKV_MAIN = (4, 512, 64, 64, 64, "float32")
+RWKV_LARGE = (1, 8192, 64, 64, 64, "float32")
+RWKV_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "extreme": 1e-3}
 
 
 class SmokeError(RuntimeError):
@@ -109,10 +142,10 @@ def leaf_shapes(rows=None):
     return out
 
 
-def cuda_ms(torch, fn, iters, reps=7):
+def cuda_ms(torch, fn, iters, reps=7, warmup=3):
     """Median per-call device time of ``fn`` (ms), from CUDA events around
     ``iters`` back-to-back calls, after a warm-up."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -129,9 +162,12 @@ def cuda_ms(torch, fn, iters, reps=7):
 
 
 def device_ms(torch, fn, iters, match=None):
-    """Mean device time per call (ms) of the kernels ``fn`` launches whose
-    name contains ``match`` (all when None), from a torch.profiler (CUPTI)
-    trace; None when the trace holds no device time."""
+    """Device time (ms) from a torch.profiler (CUPTI) trace of ``iters``
+    calls of ``fn``: with ``match``, the mean over the traced kernels whose
+    name contains it (``fn`` launches one a call; a trace may hold fewer
+    launches than calls were made, so the sum over calls would read low);
+    without, the device time of all kernels per call.  None when the trace
+    holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -140,9 +176,14 @@ def device_ms(torch, fn, iters, match=None):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if match is None or match in e.key)
-    return us / iters / 1e3 if us > 0 else None
+    found = [e for e in prof.key_averages() if match is None or match in e.key]
+    us = sum(e.self_device_time_total for e in found)
+    if us <= 0:
+        return None
+    n = iters if match is None else sum(e.count for e in found)
+    if n != iters:
+        print(f"  (profiler traced {n} {match} launches of {iters} calls)")
+    return us / n / 1e3
 
 
 def hbm_rate(name: str) -> float:
@@ -384,6 +425,122 @@ def phase_flash(torch, rate, name, records):
     return summary
 
 
+def rwkv_work(B, S, H, N, chunk, itemsize, state_in):
+    """(flops, bytes) of one WKV call in the kernel's chunk form.  Per
+    sub-chunk of c tokens and head: 8 c N elementwise ops (log decay, its
+    cumulative sum, two exp, four products) and N exp; c (c - 1) / 2 scores
+    and c diagonal terms of 2 N each; y = r_dec S and P v, 2 c N^2 and
+    c (c + 1) N; the state update, (2 c + 1) N^2.  Bytes: r, k, v, w read
+    once, y written once, u, the initial state (when given) read and the
+    final state written."""
+    chunk = min(chunk, S)
+    sub = min(16, chunk)
+    per_head = 0
+    for c0 in range(0, S, chunk):
+        c_end = min(c0 + chunk, S)
+        for t0 in range(c0, c_end, sub):
+            c = min(sub, c_end - t0)
+            per_head += (8 * c * N + N + c * (c - 1) * N + 2 * c * N
+                         + 2 * c * N * N + c * (c + 1) * N + (2 * c + 1) * N * N)
+    flops = B * H * per_head
+    nbytes = (5 * B * S * H * N * itemsize + 4 * H * N
+              + (2 if state_in else 1) * 4 * B * H * N * N)
+    return flops, nbytes
+
+
+def phase_rwkv(torch, rate, name, records):
+    """The WKV kernel against ``ref.reference_rwkv_state`` on every case, y
+    and the final state; per case the profiler's device time, the time per
+    call, the plain version's (fewer repetitions: it is a loop over tokens)
+    and the bound.  Appends to ``records``; returns the kernel's summary at
+    the main shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_scan as rs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = ([("test", c) for c in RWKV_CASES] + [("extreme", RWKV_EXTREME),
+             ("state", RWKV_STATE), ("main", RWKV_MAIN), ("large", RWKV_LARGE)])
+    out = {}
+    for role, case in cases:
+        B, S, H, N, chunk, dtype = case
+        dt = getattr(torch, dtype)
+        shape = (B, S, H, N)
+        r = (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dt)
+        k = (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dt)
+        v = torch.randn(shape, generator=gen, device=dev).to(dt)
+        w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev) + 2.0).to(dt)
+        u = torch.randn((H, N), generator=gen, device=dev) * 0.1
+        w_plain = w
+        if role == "extreme":
+            w = torch.full(shape, 1e-30, device=dev, dtype=dt)
+            w_plain = ref.clamp_decay(w, min(chunk, S))
+        s0 = {"state": torch.randn((B, H, N, N), generator=gen, device=dev),
+              "main": torch.zeros((B, H, N, N), device=dev)}.get(role)
+        got, got_s = rs.rwkv_scan(r, k, v, w, u, chunk=chunk, state=s0)
+        want, want_s = ref.reference_rwkv_state(r, k, v, w_plain, u, s0)
+        torch.cuda.synchronize()
+        check(got.shape == r.shape and got.dtype == r.dtype and got_s.shape == (B, H, N, N),
+              f"rwkv_scan {case}: output {tuple(got.shape)} {got.dtype}, state "
+              f"{tuple(got_s.shape)}")
+        tol = RWKV_TOL["extreme" if role == "extreme" else dtype]
+        err = 0.0
+        for what, a, b in (("y", got, want), ("state", got_s, want_s)):
+            diff = (a.float() - b.float()).abs()
+            excess = (diff - tol * b.float().abs()).max().item()
+            check(excess <= tol, f"rwkv_scan {case} ({role}): {what} max |err| "
+                                 f"{diff.max().item()} beyond atol = rtol = {tol}")
+            err = max(err, diff.max().item())
+        del want, want_s
+        flops, nbytes = rwkv_work(B, S, H, N, chunk, r.element_size(), s0 is not None)
+        t_ops = flops / flop_rate(name, dtype) * 1e3
+        t_bytes = nbytes / rate * 1e3
+        rec = {"kernel": "rwkv_scan", "role": role, "case": list(case), "dtype": dtype,
+               "max_abs_err": err, "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": None}
+        timings = {
+            "": (lambda: rs.rwkv_scan(r, k, v, w, u, chunk=chunk, state=s0),
+                 {"test": 10, "extreme": 10, "state": 10, "main": 20, "large": 3}[role],
+                 {}),
+            "plain_": (lambda: ref.reference_rwkv_state(r, k, v, w_plain, u, s0), 1,
+                       {"reps": 1 if role == "large" else 3, "warmup": 1}),
+        }
+        for key, (fn, iters, kw) in timings.items():
+            call = cuda_ms(torch, fn, iters, **kw)
+            dev_ms = device_ms(torch, fn, iters, "rwkv_scan_kernel" if key == "" else None)
+            rec[key + "ms"] = call if dev_ms is None else dev_ms
+            rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
+            rec[key + "call_ms"] = call
+        records.append(rec)
+        out.setdefault(role, []).append(rec)
+        print(f"  rwkv_scan {role} {case}: max|err| {err:.3g} (y and state), device "
+              f"{rec['ms'] * 1e3:.1f} us ({rec['ms_from']}), per call "
+              f"{rec['call_ms'] * 1e3:.1f} us, plain {rec['plain_ms'] * 1e3:.1f} us on the "
+              f"device, {rec['plain_call_ms'] * 1e3:.1f} us per call, bound "
+              f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); "
+              f"{nbytes / (rec['ms'] * 1e-3) / 1e12:.3f} TB/s, "
+              f"{flops / (rec['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+        del r, k, v, w, w_plain, u, s0, got, got_s
+        torch.cuda.empty_cache()
+    main = out["main"][0]
+    summary = {
+        "name": "rwkv_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
+        "replaces": "src/repro/kernels/rwkv_scan.py:94",
+        "max_abs_err": max(r["max_abs_err"] for r in records if r["kernel"] == "rwkv_scan"),
+        # One launch at the ssm phase's shape (one layer of the prefill).
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+    }
+    print(f"kernel rwkv_scan: max|err| {summary['max_abs_err']:.3g}, main-path launch "
+          f"{summary['ms'] * 1e3:.1f} us on the device (plain {summary['plain_ms'] * 1e3:.1f}"
+          f" us on the device, no one-call library equivalent, bound "
+          f"{summary['bound_ms'] * 1e3:.2f} us, {summary['bound_by']})")
+    return summary
+
+
 def sim_setup(n_events, trace, seed=0):
     from repro_torch.core.nettime import LinkTimeModel, Topology
     from repro_torch.data.partition import uniform_partition
@@ -403,16 +560,19 @@ def sim_setup(n_events, trace, seed=0):
 def reset_all_launches():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as tk
+    from repro_torch.kernels import rwkv_scan as rs
 
     tk.reset_launches()
     fa.reset_launches()
+    rs.reset_launches()
 
 
 def read_all_launches():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as tk
+    from repro_torch.kernels import rwkv_scan as rs
 
-    return {**tk.LAUNCHES, **fa.LAUNCHES}
+    return {**tk.LAUNCHES, **fa.LAUNCHES, **rs.LAUNCHES}
 
 
 def phase_main(torch):
@@ -451,6 +611,8 @@ def phase_main(torch):
     check(launches["gossip_mix_rows"] >= 6 * res.cohorts,
           f"gossip_mix_rows launched {launches['gossip_mix_rows']} times for "
           f"{res.cohorts} cohorts (need >= 6 per cohort)")
+    check(launches["rwkv_scan"] == 0,
+          f"rwkv_scan launched {launches['rwkv_scan']} times on the simulator's path")
     ev = res.events[-1]
     print(f"main path: {ev} events, {res.cohorts} cohorts, {res.dispatches} "
           f"dispatches, {res.policy_updates} policy updates in {secs:.3f} s: "
@@ -582,6 +744,8 @@ def phase_lm(torch):
     check(launches["flash_attention"] == cfg.n_layers * forwards,
           f"flash_attention launched {launches['flash_attention']} times for "
           f"{forwards} forwards of {cfg.n_layers} layers")
+    check(launches["rwkv_scan"] == 0,
+          f"rwkv_scan launched {launches['rwkv_scan']} times on the dense LM path")
     check(tuple(logits.shape) == (B, cfg.vocab_size) and logits.dtype == torch.float32,
           f"prefill logits {tuple(logits.shape)} {logits.dtype}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
@@ -617,17 +781,19 @@ def phase_lm(torch):
           f"({decode_s[0]:.3f} s) = {out['decode_tokens_per_s']:.1f} tok/s; "
           f"launches {launches}")
     with torch.inference_mode():
-        out["profile"] = lm_profile(torch, cfg, params, tokens, cache)
+        out["profile"] = lm_profile(torch, cfg, params, tokens, cache, "flash_attention",
+                                    "flash_fwd_kernel")
     del params, cache, eng
     torch.cuda.empty_cache()
     return out
 
 
-def lm_profile(torch, cfg, params, tokens, cache, steps=8):
+def lm_profile(torch, cfg, params, tokens, cache, kernel, match, steps=8):
     """One prefill and ``steps`` decode steps (positions after the prompt)
     under torch.profiler, after an unprofiled run of each: device busy
-    share of the wall, flash attention's share of the device time, and
-    the kernels that hold the device longest."""
+    share of the wall, ``kernel``'s share of the device time (device
+    kernels whose name holds ``match``), and the kernels that hold the
+    device longest."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import lm
@@ -653,14 +819,13 @@ def lm_profile(torch, cfg, params, tokens, cache, steps=8):
             torch.cuda.synchronize()
         avg = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
         device_s = sum(e.self_device_time_total for e in avg) * 1e-6
-        flash_s = sum(e.self_device_time_total for e in avg
-                      if "flash_fwd_kernel" in e.key) * 1e-6
+        kernel_s = sum(e.self_device_time_total for e in avg if match in e.key) * 1e-6
         top = [(e.key[:80], e.count, e.self_device_time_total * 1e-3) for e in avg[:6]]
         res[name] = {"wall_s": wall, "device_s": device_s, "busy_share": device_s / wall,
-                     "flash_device_s": flash_s, "top_kernels": top}
-        print(f"lm profile {name}: wall {wall * 1e3:.2f} ms, device {device_s * 1e3:.2f} ms "
-              f"({device_s / wall:.3f} of the wall), flash_attention "
-              f"{flash_s * 1e3:.2f} ms; top kernels (name, count, ms):")
+                     f"{kernel}_device_s": kernel_s, "top_kernels": top}
+        print(f"{cfg.name} profile {name}: wall {wall * 1e3:.2f} ms, device "
+              f"{device_s * 1e3:.2f} ms ({device_s / wall:.3f} of the wall), {kernel} "
+              f"{kernel_s * 1e3:.2f} ms; top kernels (name, count, ms):")
         for row in top:
             print(f"  {row}")
     return res
@@ -702,6 +867,154 @@ def phase_lm_parity(torch):
     return {"card_vs_cpu": d_cpu, "decode_vs_prefill": d_dec, "max_logit": scale}
 
 
+def phase_ssm(torch):
+    """LM serving at the full width of rwkv6-7b: prefill, capture prefill,
+    continuous-batching decode; the WKV kernel launches 32 times per
+    forward and no other kernel launches."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, capture_prefill
+
+    cfg = get_arch(SSM_ARCH)
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size,
+           cfg.rwkv.head_dim, cfg.rwkv.decay_lora, cfg.dtype)
+          == ("ssm", 32, 4096, 64, 14336, 65536, 64, 64, "bfloat16"),
+          f"{SSM_ARCH} is not the published width: {cfg}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_count(cfg)
+    B, P, P_cap, max_seq = 4, 512, 128, 64
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev,
+                           dtype=torch.int32)
+    reqs = lm_requests(cfg.vocab_size, prompt=32)
+    decode_s = [0.0]
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    with torch.inference_mode():
+        prefill_s = []
+        for _ in range(2):  # the first call warms cuBLAS and the allocator
+            t0 = time.perf_counter()
+            logits = lm.prefill_logits(params, {"tokens": tokens}, cfg)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        cap_logits, cache = capture_prefill(cfg, params, tokens[:, :P_cap], P_cap)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        eng = ServeEngine(cfg, params, batch_capacity=4, max_seq=max_seq)
+        step = eng.step
+
+        def timed_step(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return step(*args, **kwargs)
+            finally:
+                decode_s[0] += time.perf_counter() - t
+
+        eng.step = timed_step
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = read_all_launches()
+    forwards = 3
+    check(launches["rwkv_scan"] == cfg.n_layers * forwards,
+          f"rwkv_scan launched {launches['rwkv_scan']} times for {forwards} forwards of "
+          f"{cfg.n_layers} layers")
+    others = {k: n for k, n in launches.items() if k != "rwkv_scan"}
+    check(not any(others.values()), f"other kernels launched on the ssm path: {others}")
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and logits.dtype == torch.float32,
+          f"prefill logits {tuple(logits.shape)} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    check(bool(torch.isfinite(cap_logits).all()), "non-finite capture_prefill logits")
+    H, N = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    st = cache["tm_state"]
+    check(tuple(st.shape) == (cfg.n_layers, B, H, N, N) and st.dtype == torch.float32,
+          f"captured state {tuple(st.shape)} {st.dtype}")
+    check(bool(torch.isfinite(st).all()) and bool(st.ne(0).any()),
+          "the captured recurrent state is not finite or is all zero")
+    check(len(done) == len(reqs) and all(len(r.out) == r.max_new for r in done),
+          f"ServeEngine.run finished {len(done)} of {len(reqs)} requests")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          "a generated token lies outside the vocab")
+    gen_tokens = sum(len(r.out) for r in done)
+    decode_steps = max(len(r.out) for r in done)
+    out = {
+        "arch": cfg.name, "params": n_params, "init_s": init_s,
+        "prefill_batch": [B, P], "prefill_s": prefill_s,
+        "prefill_tokens_per_s": B * P / prefill_s[-1],
+        "capture_prefill_batch": [B, P_cap], "capture_prefill_s": capture_s,
+        "serve_requests": len(reqs), "serve_prompt": len(reqs[0].prompt),
+        "serve_run_s": run_s, "serve_decode_s": decode_s[0],
+        "generated_tokens": gen_tokens, "decode_steps": decode_steps,
+        "decode_tokens_per_s": gen_tokens / decode_s[0],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+    }
+    print(f"ssm: {cfg.name} ({n_params / 1e9:.3f} B params, bf16) init {init_s:.2f} s; "
+          f"prefill {B}x{P} in {prefill_s[-1] * 1e3:.1f} ms (first "
+          f"{prefill_s[0] * 1e3:.1f} ms) = {out['prefill_tokens_per_s']:.0f} tok/s; "
+          f"capture_prefill {B}x{P_cap} {capture_s:.2f} s; ServeEngine.run {len(reqs)} "
+          f"requests in {run_s:.2f} s, {gen_tokens} tokens in {decode_steps} decode steps "
+          f"({decode_s[0]:.3f} s) = {out['decode_tokens_per_s']:.1f} tok/s; peak "
+          f"{out['peak_memory_gb']:.1f} GB; launches {launches}")
+    with torch.inference_mode():
+        out["profile"] = lm_profile(torch, cfg, params, tokens, cache, "rwkv_scan",
+                                    "rwkv_scan_kernel")
+    del params, cache, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm_parity(torch):
+    """The rwkv6-7b widths at 2 layers, f32: prefill logits on the card
+    (WKV kernel) and on the CPU (the sequential scan), and on the card the
+    decode logits of token P-1 after capture_prefill of tokens 0..P-2
+    against the prefill logits of tokens 0..P-1.  P = 64: the reference's
+    scan takes S <= 64 or a multiple of 64, and both 63 and 64 are."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import capture_prefill
+
+    cfg = dataclasses.replace(get_arch(SSM_ARCH), n_layers=2, dtype="float32")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S, P = 2, 128, 64
+    with torch.inference_mode():
+        params = lm.init_params(cfg, gen)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev,
+                               dtype=torch.int32)
+        on_card = lm.prefill_logits(params, {"tokens": tokens}, cfg)
+        cpu_params = _tree_to(params, "cpu")
+        t0 = time.perf_counter()
+        on_cpu = lm.prefill_logits(cpu_params, {"tokens": tokens.cpu()}, cfg)
+        cpu_s = time.perf_counter() - t0
+        prefill = lm.prefill_logits(params, {"tokens": tokens[:, :P]}, cfg)
+        _, cache = capture_prefill(cfg, params, tokens[:, :P - 1], P)
+        dec, _ = lm.decode_step(params, cache, tokens[:, P - 1], P - 1, cfg)
+        torch.cuda.synchronize()
+    scale = on_cpu.abs().max().item()
+    scale_dec = prefill.abs().max().item()
+    d_cpu = (on_card.cpu() - on_cpu).abs().max().item()
+    d_dec = (dec - prefill).abs().max().item()
+    check(d_cpu <= 1e-3 * scale, f"card vs CPU prefill logits differ by {d_cpu} "
+                                 f"(max |logit| {scale})")
+    check(d_dec <= 1e-3 * scale_dec, f"decode of token {P - 1} vs prefill logits differ by "
+                                     f"{d_dec} (max |logit| {scale_dec})")
+    print(f"ssm parity: 2 layers f32: card vs CPU (S={S}) max |diff| {d_cpu:.3g} (max "
+          f"|logit| {scale:.3g}, CPU prefill {cpu_s:.2f} s); decode of token {P - 1} vs "
+          f"prefill (S={P}) {d_dec:.3g} (max |logit| {scale_dec:.3g})")
+    del params, cpu_params, cache
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu": d_cpu, "max_logit": scale, "decode_vs_prefill": d_dec,
+            "max_logit_decode": scale_dec}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -733,17 +1046,20 @@ def main() -> int:
         phase_build()
         summaries, records = phase_kernels(torch, hbm_rate(name))
         summaries.append(phase_flash(torch, hbm_rate(name), name, records))
+        summaries.append(phase_rwkv(torch, hbm_rate(name), name, records))
         main_path = phase_main(torch)
         main_path["profile"] = phase_profile(torch, main_path)
         phase_parity(torch)
         lm_path = phase_lm(torch)
         lm_path["parity"] = phase_lm_parity(torch)
+        ssm_path = phase_ssm(torch)
+        ssm_path["parity"] = phase_ssm_parity(torch)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     # Each kernel's launches on its own path.
     path_of = {"gossip_mix_rows": main_path, "gossip_mix": main_path,
-               "flash_attention": lm_path}
+               "flash_attention": lm_path, "rwkv_scan": ssm_path}
     for s in summaries:
         s["launches"] = path_of[s["name"]]["launches"][s["name"]]
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -753,7 +1069,7 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke_kernels.json").write_text(json.dumps(
             {"card": card, "device": name, "kernels": kernels, "cases": records,
-             "main_path": main_path, "lm_path": lm_path},
+             "main_path": main_path, "lm_path": lm_path, "ssm_path": ssm_path},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: Kernel library name -> CUDA source under ``csrc/``.
-SOURCES = {"gossip_mix": "gossip_mix.cu", "flash_attention": "flash_attention.cu"}
+SOURCES = {"gossip_mix": "gossip_mix.cu", "flash_attention": "flash_attention.cu",
+           "rwkv_scan": "rwkv_scan.cu"}
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -2,7 +2,8 @@
 
 Dispatch is by the tensor's device and nothing else: a CUDA tensor goes to
 the hand-written kernel (``kernels/gossip_mix.py``,
-``kernels/flash_attention.py``), a CPU tensor to its plain version
+``kernels/flash_attention.py``, ``kernels/rwkv_scan.py``), a CPU tensor to
+its plain version
 (``kernels/ref.py``), and any other device raises.  There is
 no mode switch (the JAX package's ``use_pallas``) and no fallback: a kernel
 that fails to build or launch raises.
@@ -15,6 +16,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_rows
+from repro_torch.kernels.rwkv_scan import rwkv_scan
 from repro_torch.tree import tree_map
 
 
@@ -30,6 +32,20 @@ def attention(q, k, v, *, causal=True):
     if _on_cuda(q, "attention"):
         return flash_attention(q, k, v, causal=causal)
     return ref.reference_attention(q, k, v, causal=causal)
+
+
+def rwkv(r, k, v, w, u, *, chunk=64, state=None):
+    """WKV recurrence. r/k/v/w: (B,S,H,N); u: (H,N) -> y (B,S,H,N), or
+    (y, final state (B,H,N,N) f32) when an initial ``state`` is given.
+
+    On CUDA the chunked kernel, which clamps the per-step log decay to
+    ``>= -75 / min(16, chunk)``; on the CPU the sequential recurrence, which
+    does not (as the JAX package's ``ops.rwkv`` with and without Pallas)."""
+    if _on_cuda(r, "rwkv"):
+        y, final = rwkv_scan(r, k, v, w, u, chunk=chunk, state=state)
+    else:
+        y, final = ref.reference_rwkv_state(r, k, v, w, u, state)
+    return y if state is None else (y, final)
 
 
 def mix(x, u, pulled, w):

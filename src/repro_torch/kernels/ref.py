@@ -4,7 +4,8 @@ Each one computes in f32 and casts the result back to the input dtype.
 The gossip-mix references repeat their kernel's arithmetic step by step, so
 that kernel is held bit-for-bit against them on the card; the attention
 reference materialises the (S, Sk) scores and is held to the flash kernel
-with the float tolerances of ``tests/test_kernels.py``.
+with the float tolerances of ``tests/test_kernels.py``; the RWKV reference
+is the sequential recurrence, held to the chunked kernel the same way.
 """
 
 from __future__ import annotations
@@ -53,3 +54,35 @@ def reference_attention(q, k, v, *, causal: bool = True):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgsk,bkhd->bshgd", p, vf)
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def reference_rwkv(r, k, v, w, u):
+    """Sequential WKV recurrence.  r/k/v/w: (B,S,H,N); u: (H,N).
+
+    y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    """
+    return reference_rwkv_state(r, k, v, w, u)[0]
+
+
+def reference_rwkv_state(r, k, v, w, u, state=None):
+    """``reference_rwkv`` from the initial state (B,H,N,N) f32 (zeros when
+    None) -> (y in r's dtype, the final state f32)."""
+    B, S, H, N = r.shape
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    st = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+          if state is None else state.float())
+    ys = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B,H,N,N)
+        ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, t], st + uf * kv))
+        st = wf[:, t, :, :, None] * st + kv
+    return torch.stack(ys, dim=1).to(r.dtype), st
+
+
+def clamp_decay(w, chunk: int = 64):
+    """The decays the RWKV kernel sees: per-step log decay clamped to
+    ``>= -75 / min(16, chunk)`` (``repro/kernels/rwkv_scan.py``'s wrapper),
+    in f32."""
+    bound = 75.0 / min(16, chunk)
+    return torch.exp(torch.clamp(torch.log(torch.clamp(w.float(), min=1e-30)), -bound, 0.0))

@@ -1,3 +1,4 @@
-"""The LM substrate of the port: dense decoder blocks, GQA attention and the
-family-dispatched LM entry points (``models/lm.py``).  Parameters are the
+"""The LM substrate of the port: dense decoder blocks, GQA attention, RWKV-6
+blocks (the ssm family) and the family-dispatched LM entry points
+(``models/lm.py``).  Parameters are the
 JAX package's dict trees, with tensors in place of arrays."""

@@ -1,8 +1,8 @@
 """LM entry points: init, prefill, decode -- family-dispatched.
 
 A transcription of ``repro/models/lm.py`` for the decoder families: the
-dense family runs, the others (and the audio family, whisper) raise
-``NotImplementedError`` in ``models/transformer.py`` (ROADMAP A8).  The
+dense and ssm families run, the others (and the audio family, whisper)
+raise ``NotImplementedError`` in ``models/transformer.py`` (ROADMAP A8).  The
 loss (``chunked_ce_loss``, ``loss_fn``) belongs to the training slice.
 """
 

@@ -1,0 +1,175 @@
+"""RWKV-6 "Finch" block: time-mix with data-dependent decay + channel-mix.
+
+A transcription of ``repro/models/rwkv.py``.  Per head (dim N):
+
+    state_t = diag(w_t) @ state_{t-1} + k_t v_t^T          (N x N state)
+    y_t     = r_t @ (state_{t-1} + diag(u) k_t v_t^T)
+
+with w_t = exp(-exp(w0 + lora_w(x_t))) the data-dependent decay.  The dtypes
+are the reference's: ``w0`` and ``u`` are f32 leaves in any config, r/k/v/w
+and the state are f32, the gate is computed in f32.  The recurrence runs
+where the JAX package's scan would, by device: on a CUDA tensor a prefill
+(S > 1) goes through the hand-written chunked kernel (``ops.rwkv``, which
+also returns the final state), a decode step (S == 1) takes one plain step
+of the scan; on the CPU the transcribed ``chunked_scan`` runs.  Decode
+carries (state, shift) per layer: O(1) per token.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.modules import _device, _normal, lecun_normal, rmsnorm, rmsnorm_init
+from repro_torch.models.scan_utils import check_chunk, chunked_scan
+
+#: Time chunk of the scan (``repro/models/rwkv.py``'s ``chunked_scan(..., chunk=64)``).
+CHUNK = 64
+
+
+def timemix_init(gen, cfg, dtype, device=None):
+    device = _device(gen, device)
+    D = cfg.d_model
+    N = cfg.rwkv.head_dim
+    H = D // N
+    L = cfg.rwkv.decay_lora
+
+    def lecun(shape):
+        return lecun_normal(gen, shape, dtype, device=device)
+
+    def full(value):
+        return torch.full((D,), value, dtype=dtype, device=device)
+
+    return {
+        "wr": lecun((D, D)),
+        "wk": lecun((D, D)),
+        "wv": lecun((D, D)),
+        "wg": lecun((D, D)),
+        "wo": lecun((D, D)),
+        # data-dependent decay LoRA: w_t = exp(-exp(w0 + (x A) B))
+        "w0": torch.full((D,), -6.0, dtype=torch.float32, device=device),
+        "wA": lecun((D, L)),
+        "wB": lecun((L, D)),
+        "u": _normal(gen, (H, N), 0.1, torch.float32, device),
+        # token-shift mixing coefficients
+        "mu_r": full(0.5),
+        "mu_k": full(0.5),
+        "mu_v": full(0.5),
+        "mu_g": full(0.5),
+        "mu_w": full(0.5),
+        "ln_x": {"scale": torch.ones((D,), dtype=dtype, device=device)},
+    }
+
+
+def _token_shift(x, x_prev):
+    """shift: x_{t-1} for t>0; x_prev feeds position 0. x: (B,S,D)."""
+    return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _wkv_step(u):
+    def step(st, inp):
+        rt, kt, vt, wt = inp  # (B,H,N) each
+        kv = kt[..., :, None] * vt[..., None, :]  # (B,H,N,N)
+        y = torch.einsum("bhn,bhnm->bhm", rt, st + u[None, :, :, None] * kv)
+        return wt[..., :, None] * st + kv, y
+
+    return step
+
+
+def timemix_apply(p, x, cfg, state=None, x_prev=None):
+    """x: (B,S,D) -> (y, (state, last_x)).  state: (B,H,N,N) f32."""
+    B, S, D = x.shape
+    N = cfg.rwkv.head_dim
+    H = D // N
+    if state is None:
+        state = torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device)
+    if x_prev is None:
+        x_prev = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+
+    xs = _token_shift(x, x_prev)
+    xr = x + (xs - x) * p["mu_r"]
+    xk = x + (xs - x) * p["mu_k"]
+    xv = x + (xs - x) * p["mu_v"]
+    xg = x + (xs - x) * p["mu_g"]
+    xw = x + (xs - x) * p["mu_w"]
+
+    r = (xr @ p["wr"]).reshape(B, S, H, N).float()
+    k = (xk @ p["wk"]).reshape(B, S, H, N).float()
+    v = (xv @ p["wv"]).reshape(B, S, H, N).float()
+    g = F.silu((xg @ p["wg"]).float())
+    # data-dependent decay in (0,1): w = exp(-exp(w0 + lora))
+    lora = (xw @ p["wA"]) @ p["wB"]
+    w = torch.exp(-torch.exp(p["w0"] + lora.float())).reshape(B, S, H, N)
+    u = p["u"]  # (H,N)
+
+    if x.device.type == "cuda" and S > 1:
+        check_chunk(S, CHUNK)
+        y, state = ops.rwkv(r, k, v, w, u, chunk=CHUNK, state=state)
+    else:
+        xs_t = tuple(t.movedim(1, 0) for t in (r, k, v, w))  # (S,B,H,N)
+        state, ys = chunked_scan(_wkv_step(u), state, xs_t, chunk=CHUNK)
+        y = ys.movedim(0, 1)
+    y = y.reshape(B, S, D)
+    y = rmsnorm(p["ln_x"], y.to(x.dtype))
+    y = (y.float() * g).to(x.dtype)
+    return y @ p["wo"], (state, x[:, -1, :])
+
+
+def channelmix_init(gen, cfg, dtype, device=None):
+    device = _device(gen, device)
+    D, Fd = cfg.d_model, cfg.d_ff
+    return {
+        "wk": lecun_normal(gen, (D, Fd), dtype, device=device),
+        "wv": lecun_normal(gen, (Fd, D), dtype, fan_in=Fd, device=device),
+        "wr": lecun_normal(gen, (D, D), dtype, device=device),
+        "mu_k": torch.full((D,), 0.5, dtype=dtype, device=device),
+        "mu_r": torch.full((D,), 0.5, dtype=dtype, device=device),
+    }
+
+
+def channelmix_apply(p, x, x_prev=None):
+    B, S, D = x.shape
+    if x_prev is None:
+        x_prev = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+    xs = _token_shift(x, x_prev)
+    xk = x + (xs - x) * p["mu_k"]
+    xr = x + (xs - x) * p["mu_r"]
+    k = torch.square(F.relu((xk @ p["wk"]).float())).to(x.dtype)
+    r = torch.sigmoid((xr @ p["wr"]).float()).to(x.dtype)
+    return r * (k @ p["wv"]), x[:, -1, :]
+
+
+def rwkv_block_init(gen, cfg, dtype, device=None):
+    device = _device(gen, device)
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, dtype, device),
+        "time_mix": timemix_init(gen, cfg, dtype, device=device),
+        "ln2": rmsnorm_init(cfg.d_model, dtype, device),
+        "channel_mix": channelmix_init(gen, cfg, dtype, device=device),
+    }
+
+
+def rwkv_block_apply(p, x, cfg, state=None):
+    """state: None (from zeros) or dict(tm_state, tm_x, cm_x); returns
+    (x, the new state dict)."""
+    tm_state = state["tm_state"] if state else None
+    tm_x = state["tm_x"] if state else None
+    cm_x = state["cm_x"] if state else None
+    h, (tm_state, tm_x) = timemix_apply(p["time_mix"], rmsnorm(p["ln1"], x), cfg, tm_state,
+                                        tm_x)
+    x = x + h
+    h, cm_x = channelmix_apply(p["channel_mix"], rmsnorm(p["ln2"], x), cm_x)
+    x = x + h
+    return x, {"tm_state": tm_state, "tm_x": tm_x, "cm_x": cm_x}
+
+
+def rwkv_init_state(cfg, B, dtype, device):
+    D = cfg.d_model
+    N = cfg.rwkv.head_dim
+    H = D // N
+    return {
+        "tm_state": torch.zeros((B, H, N, N), dtype=torch.float32, device=device),
+        "tm_x": torch.zeros((B, D), dtype=dtype, device=device),
+        "cm_x": torch.zeros((B, D), dtype=dtype, device=device),
+    }

@@ -1,7 +1,7 @@
-"""Decoder-LM assembly, dense family.
+"""Decoder-LM assembly: the dense and ssm families.
 
-A transcription of the dense path of ``repro/models/transformer.py``.  The
-layout is the JAX package's: block parameters and caches are stacked on a
+A transcription of the dense and ssm paths of ``repro/models/transformer.py``.
+The layout is the JAX package's: block parameters and caches are stacked on a
 leading layer axis, and ``lax.scan`` over blocks becomes a Python loop over
 the layer index.  Each block provides:
 
@@ -9,12 +9,14 @@ the layer index.  Each block provides:
     apply(params, x, cfg) -> (x, aux)            (prefill, stateless)
     decode(params, x, cache, cfg, pos) -> (x, cache)   (one token)
 
-Unlike the JAX package, decoding writes the new K/V into the preallocated
-cache in place (``_dus_seq``), and the cache returned is the one passed in.
-Prefill is forward only (the flash kernel has no backward), so ``cfg.remat``
-does not apply.  The moe, hybrid and ssm families, the ``every_2`` MoE
-interleave and vision tokens are not ported yet (ROADMAP A8): they raise
-``NotImplementedError``.
+The ssm family (rwkv6-7b) runs ``models/rwkv.py``'s blocks, whose prefill
+goes through the WKV kernel on the card.  Unlike the JAX package, decoding
+updates the cache in place (dense: the new K/V written at ``pos`` by
+``_dus_seq``; ssm: each layer's new recurrent state copied over the old), and
+the cache returned is the one passed in.  Prefill is forward only (the flash
+and WKV kernels have no backward), so ``cfg.remat`` does not apply.  The moe,
+hybrid and audio families, the ``every_2`` MoE interleave and vision tokens
+are not ported yet (ROADMAP A8): they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.modules import (
     DTYPES,
     embedding_init,
@@ -43,10 +46,10 @@ def _dt(cfg):
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in ("moe", "hybrid", "ssm", "audio") or cfg.moe is not None:
+    if cfg.family in ("moe", "hybrid", "audio") or cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP A8); "
-            "the port runs the dense family"
+            "the port runs the dense and ssm families"
         )
     if cfg.n_vis_tokens:
         raise NotImplementedError(
@@ -150,8 +153,8 @@ def init_params(cfg: ArchConfig, generator=None, device=None) -> dict:
     dtype = _dt(cfg)
     nb = n_blocks(cfg)
     dev = generator.device if device is None else torch.device(device)
-    blocks = _stack([dense_block_init(generator, cfg, dtype, device=dev)
-                     for _ in range(nb)])
+    binit = rwkv_mod.rwkv_block_init if cfg.family == "ssm" else dense_block_init
+    blocks = _stack([binit(generator, cfg, dtype, device=dev) for _ in range(nb)])
     norm_init, _ = make_norm(cfg.norm)
     p = {
         "embed": embedding_init(generator, cfg.vocab_size, cfg.d_model, dtype, device=dev),
@@ -179,8 +182,11 @@ def forward(params, tokens, cfg: ArchConfig, vis_embeds=None):
     q_chunk, kv_chunk = _chunks_for(cfg, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_blocks(cfg)):
-        x, a = dense_block_apply(_layer(params["blocks"], i), x, cfg, True,
-                                 q_chunk, kv_chunk)
+        blk = _layer(params["blocks"], i)
+        if cfg.family == "ssm":
+            x, _ = rwkv_mod.rwkv_block_apply(blk, x, cfg)
+            continue
+        x, a = dense_block_apply(blk, x, cfg, True, q_chunk, kv_chunk)
         aux = aux + a
     _, norm = make_norm(cfg.norm)
     x = norm(params["final_norm"], x)
@@ -200,6 +206,9 @@ def init_cache(cfg: ArchConfig, B: int, S: int, device=None):
     defaults to CUDA."""
     dev = resolve_device(device)
     dtype = _dt(cfg)
+    if cfg.family == "ssm":  # O(1) recurrent state: S is not used
+        return _stack([rwkv_mod.rwkv_init_state(cfg, B, dtype, dev)
+                       for _ in range(n_blocks(cfg))])
     return _stack([dense_cache_init(cfg, B, S, dtype, dev) for _ in range(n_blocks(cfg))])
 
 
@@ -208,8 +217,13 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig):
     cache), the cache updated in place."""
     x = embedding_lookup(params["embed"], token[:, None])  # (B,1,D)
     for i in range(n_blocks(cfg)):
-        x, _ = dense_block_decode(_layer(params["blocks"], i), x, _layer(cache, i),
-                                  cfg, pos)
+        blk, c = _layer(params["blocks"], i), _layer(cache, i)
+        if cfg.family == "ssm":
+            x, new = rwkv_mod.rwkv_block_apply(blk, x, cfg, state=c)
+            for key, t in new.items():
+                c[key].copy_(t)  # views of the stacked cache
+            continue
+        x, _ = dense_block_decode(blk, x, c, cfg, pos)
     _, norm = make_norm(cfg.norm)
     x = norm(params["final_norm"], x)
     logits = logits_head(params, x[:, 0, :], cfg)

@@ -1,17 +1,19 @@
-"""Serving engine: batched prefill + decode with preallocated KV caches.
+"""Serving engine: batched prefill + decode with preallocated caches.
 
 A transcription of ``repro/serve/engine.py``.  The engine keeps a
 fixed-capacity batch; requests are admitted into free slots and prefilled
-token by token through ``lm.decode_step`` (a plain einsum against the
-cache).  ``capture_prefill`` is the batched prefill: one ``forward`` through
-the flash-attention kernel in every layer, then the cache filled by
-replaying the projections.
+token by token through ``lm.decode_step`` (a plain einsum against the KV
+cache, or one plain step of the recurrence for the ssm family, whose cache
+is a fixed-size state).  ``capture_prefill`` is the batched prefill: one
+``forward`` through the flash-attention or WKV kernel in every layer, then
+the cache filled by replaying the decode steps.
 
 Two behaviours of the reference are kept on purpose, so that generated
 token ids match it (ROADMAP C lists them as reference-side caveats):
 
 * ``_prefill_slot`` runs the whole batch at slot ``i``'s position, so it
-  overwrites the other slots' cache rows at that position;
+  overwrites the other slots' cache rows at that position (ssm: it advances
+  the other slots' recurrent states with token 0);
 * ``step`` decodes every active slot at the first active slot's position.
 
 The cache is updated in place (``models/transformer.py``).
@@ -109,11 +111,11 @@ class ServeEngine:
 
 
 def capture_prefill(cfg: ArchConfig, params, tokens, max_seq: int):
-    """Batched prefill that also returns the filled KV cache.
+    """Batched prefill that also returns the filled cache.
 
     tokens: (B, P) int tensor on the parameters' device.  One forward
-    through the flash kernel gives the last-position logits (B, 1, V); the
-    cache is filled by replaying the projections position by position."""
+    through the flash or WKV kernel gives the last-position logits (B, 1, V);
+    the cache is filled by replaying the decode steps position by position."""
     B, P = tokens.shape
     cache = lm.init_cache(cfg, B, max_seq, device=tokens.device)
     logits = transformer.prefill(params, tokens, cfg)

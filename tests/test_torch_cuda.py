@@ -2,9 +2,10 @@
 
 The gossip-mix kernel repeats its plain version's f32 steps with every
 rounding in the same place (no FMA contraction), so it is held to it
-bit for bit.  The flash-attention kernel sums in another order than its
-plain version, so it is held to the tolerances of ``tests/test_kernels.py``
-(2e-5 in f32, 2e-2 in bf16).  This file imports no JAX, so it runs on a machine that has
+bit for bit.  The flash-attention and WKV kernels sum in another order than
+their plain versions, so they are held to the tolerances of
+``tests/test_kernels.py`` (attention 2e-5 in f32, 2e-2 in bf16; WKV 1e-4 in
+f32, 5e-2 in bf16, 1e-3 for the extreme-decay clamped case).  This file imports no JAX, so it runs on a machine that has
 only torch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -17,6 +18,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gossip_mix as tk
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rwkv_scan as rs
 
 # tests/test_kernels.py MIX_CASES / MIX_ROWS_CASES, plus main-path leaves.
 MIX_CASES = [
@@ -144,3 +146,108 @@ def test_cuda_flash_wrapper_checks_operands(cuda_device):
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_attention(q.double(), k.double(), v.double())
     assert fa.LAUNCHES["flash_attention"] == n0
+
+
+# tests/test_kernels.py RWKV_CASES, then ragged lengths (S not a multiple of
+# the chunk or of 16) and one rwkv6-7b layer of a 4 x 512 prefill.
+RWKV_CASES = [
+    # (B, S, H, N, chunk, dtype)
+    (1, 64, 2, 16, 16, "float32"),
+    (2, 128, 4, 32, 32, "float32"),
+    (1, 128, 2, 64, 64, "float32"),
+    (1, 256, 2, 16, 64, "float32"),
+    (1, 128, 2, 32, 32, "bfloat16"),
+    (2, 100, 3, 64, 64, "float32"),
+    (1, 7, 1, 16, 64, "bfloat16"),
+    (4, 512, 64, 64, 64, "float32"),
+]
+RWKV_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def _rwkv_inputs(seed, B, S, H, N, dtype, device):
+    """The distributions of tests/test_kernels.py: decays in (0.7, 1.0)."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    r = rng.standard_normal((B, S, H, N)).astype(np.float32) * 0.5
+    k = rng.standard_normal((B, S, H, N)).astype(np.float32) * 0.5
+    v = rng.standard_normal((B, S, H, N)).astype(np.float32)
+    w = 1.0 / (1.0 + np.exp(-(rng.standard_normal((B, S, H, N)) + 2.0)))
+    u = rng.standard_normal((H, N)).astype(np.float32) * 0.1
+    return ([torch.from_numpy(a).to(device=device, dtype=dt)
+             for a in (r, k, v, w.astype(np.float32))]
+            + [torch.from_numpy(u).to(device)])
+
+
+def _assert_rwkv_close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RWKV_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_rwkv_scan_matches_plain(cuda_device, case):
+    B, S, H, N, chunk, dtype = case
+    r, k, v, w, u = _rwkv_inputs(4, B, S, H, N, dtype, cuda_device)
+    n0 = rs.LAUNCHES["rwkv_scan"]
+    got = ops.rwkv(r, k, v, w, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["rwkv_scan"] == n0 + 1
+    assert got.shape == r.shape and got.dtype == r.dtype
+    _assert_rwkv_close(got, ref.reference_rwkv(r, k, v, w, u), RWKV_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 128, 4, 32, 32), (1, 100, 2, 64, 64)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_rwkv_scan_carries_the_state(cuda_device, case):
+    """From a random initial state, y and the final state match the plain
+    recurrence; two calls over the halves equal one call over the whole."""
+    B, S, H, N, chunk = case
+    r, k, v, w, u = _rwkv_inputs(5, B, S, H, N, "float32", cuda_device)
+    s0 = torch.randn((B, H, N, N), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(0))
+    y, s1 = ops.rwkv(r, k, v, w, u, chunk=chunk, state=s0)
+    want_y, want_s = ref.reference_rwkv_state(r, k, v, w, u, s0)
+    _assert_rwkv_close(y, want_y, 1e-4)
+    _assert_rwkv_close(s1, want_s, 1e-4)
+    half = S // 2
+    ya, sa = rs.rwkv_scan(*(t[:, :half].contiguous() for t in (r, k, v, w)), u,
+                          chunk=chunk, state=s0)
+    yb, sb = rs.rwkv_scan(*(t[:, half:].contiguous() for t in (r, k, v, w)), u,
+                          chunk=chunk, state=sa)
+    _assert_rwkv_close(torch.cat([ya, yb], dim=1), want_y, 1e-4)
+    _assert_rwkv_close(sb, want_s, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_scan_extreme_decay_clamped(cuda_device):
+    """tests/test_kernels.py's extreme decays: the kernel equals the plain
+    recurrence run on the clamped decays, and stays finite."""
+    r, k, v, _, u = _rwkv_inputs(6, 1, 32, 1, 16, "float32", cuda_device)
+    w0 = torch.full_like(r, 1e-30)
+    got, state = rs.rwkv_scan(r, k, v, w0, u, chunk=16)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(state).all())
+    want, want_s = ref.reference_rwkv_state(r, k, v, ref.clamp_decay(w0, 16), u)
+    _assert_rwkv_close(got, want, 1e-3)
+    _assert_rwkv_close(state, want_s, 1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_wrapper_checks_operands(cuda_device):
+    r, k, v, w, u = _rwkv_inputs(7, 1, 32, 2, 16, "float32", cuda_device)
+    n0 = rs.LAUNCHES["rwkv_scan"]
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.rwkv_scan(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rs.rwkv_scan(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu())
+    with pytest.raises(ValueError, match="head size"):
+        rs.rwkv_scan(*_rwkv_inputs(7, 1, 32, 2, 8, "float32", cuda_device))
+    with pytest.raises(TypeError, match="differ"):
+        rs.rwkv_scan(r, k, v, w.bfloat16(), u)
+    with pytest.raises(ValueError, match="u must be"):
+        rs.rwkv_scan(r, k, v, w, u.bfloat16())
+    with pytest.raises(ValueError, match="state must be"):
+        rs.rwkv_scan(r, k, v, w, u, state=torch.zeros((1, 2, 16, 8), device=cuda_device))
+    with pytest.raises(RuntimeError, match="forward only"):
+        rs.rwkv_scan(r.requires_grad_(), k, v, w, u)
+    assert rs.LAUNCHES["rwkv_scan"] == n0

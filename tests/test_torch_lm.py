@@ -38,7 +38,7 @@ from repro_torch.serve import engine as teng
 
 DENSE = ["tinyllama-1.1b", "qwen1.5-0.5b", "starcoder2-3b"]
 NOT_DENSE = ["internvl2-1b", "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b",
-             "rwkv6-7b", "jamba-v0.1-52b", "whisper-small"]
+             "jamba-v0.1-52b", "whisper-small"]
 
 # tests/test_kernels.py ATTN_CASES, then ragged lengths (no 128-multiple).
 ATTN_CASES = [
@@ -343,6 +343,20 @@ def test_other_families_raise_not_implemented(name):
         tlm.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         tlm.init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_ssm_family_builds_and_runs():
+    """rwkv6-7b is ported (tests/test_torch_rwkv.py holds it against the
+    JAX package): it builds, prefills and decodes instead of raising."""
+    cfg = torch_archs()["rwkv6-7b"].reduced()
+    params = tlm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(cfg, 2, 8))
+    logits = tlm.prefill_logits(params, {"tokens": toks}, cfg)
+    cache = tlm.init_cache(cfg, 2, 8, device="cpu")
+    step, cache = tlm.decode_step(params, cache, toks[:, 0], 0, cfg)
+    assert tuple(logits.shape) == tuple(step.shape) == (2, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all())
+    assert sorted(cache) == ["cm_x", "tm_state", "tm_x"]
 
 
 def test_entry_points_default_to_cuda():

@@ -1,0 +1,388 @@
+"""The port's ssm family (RWKV-6) against the JAX package, on the CPU.
+
+Inputs are drawn with numpy from a seed and handed to both packages; the
+JAX parameters are carried across with ``convert.lm_params_from_jax``.
+Tolerances: the WKV recurrence as ``tests/test_kernels.py`` (1e-4 in f32,
+5e-2 in bf16, 1e-3 for the extreme-decay clamped case); the time-mix and
+channel-mix modules 1e-6, the whole block 1e-5 (it chains both through two
+norms and seven matmuls, and its output adds the residual of magnitude ~4);
+whole-model hidden states, logits and recurrent states 1e-4 (f32, reduced
+configs: the two packages sum matmuls in different orders); generated token
+ids and parameter counts exactly.  The CUDA kernel itself runs only on a
+card: ``tests/test_torch_cuda.py`` holds it against the plain version there.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import all_archs as jax_archs
+from repro.kernels import ref as jref
+from repro.kernels.rwkv_scan import rwkv_scan as jax_rwkv_scan
+from repro.models import lm as jlm
+from repro.models import rwkv as jrwkv
+from repro.models import scan_utils as jscan
+from repro.models import transformer as jtr
+from repro.serve import engine as jeng
+from repro_torch.configs.base import all_archs as torch_archs
+from repro_torch.convert import lm_params_from_jax
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rwkv_scan as trs
+from repro_torch.models import lm as tlm
+from repro_torch.models import rwkv as trwkv
+from repro_torch.models import scan_utils as tscan
+from repro_torch.models import transformer as ttr
+from repro_torch.serve import engine as teng
+
+ARCH = "rwkv6-7b"
+
+# tests/test_kernels.py RWKV_CASES.
+RWKV_CASES = [
+    # (B, S, H, N, chunk, dtype)
+    (1, 64, 2, 16, 16, "float32"),
+    (2, 128, 4, 32, 32, "float32"),
+    (1, 128, 2, 64, 64, "float32"),
+    (1, 256, 2, 16, 64, "float32"),  # multiple chunks
+    (1, 128, 2, 32, 32, "bfloat16"),
+]
+TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def _ids(case):
+    return "-".join(map(str, case))
+
+
+def _rwkv_inputs(seed, B, S, H, N, dtype):
+    """The distributions of tests/test_kernels.py (decays in (0.7, 1.0)), as
+    (JAX arrays, torch tensors)."""
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((B, S, H, N)).astype(np.float32) * 0.5
+    k = rng.standard_normal((B, S, H, N)).astype(np.float32) * 0.5
+    v = rng.standard_normal((B, S, H, N)).astype(np.float32)
+    w = (1.0 / (1.0 + np.exp(-(rng.standard_normal((B, S, H, N)) + 2.0)))).astype(np.float32)
+    u = rng.standard_normal((H, N)).astype(np.float32) * 0.1
+    jx = [jnp.asarray(a).astype(JDT[dtype]) for a in (r, k, v, w)] + [jnp.asarray(u)]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (r, k, v, w)]
+    return jx, tx + [torch.from_numpy(u)]
+
+
+# ------------------------------------------------------------------- the scan
+
+
+@pytest.mark.parametrize("case", RWKV_CASES, ids=_ids)
+def test_reference_rwkv_matches_jax_scan(case):
+    B, S, H, N, chunk, dtype = case
+    jx, tx = _rwkv_inputs(0, B, S, H, N, dtype)
+    want = jax_rwkv_scan(*jx, chunk=chunk, interpret=True)
+    got = tref.reference_rwkv(*tx)
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    _close(got, want, TOL[dtype])
+    _close(ops.rwkv(*tx, chunk=chunk), want, TOL[dtype])
+    _close(got, jref.reference_rwkv(*jx), TOL[dtype])
+
+
+def test_reference_rwkv_extreme_decay_clamped():
+    """tests/test_kernels.py's extreme decays: the Pallas kernel clamps them;
+    the plain recurrence on ``clamp_decay``'s decays gives the same."""
+    jx, tx = _rwkv_inputs(4, 1, 32, 1, 16, "float32")
+    r, k, v, _, u = tx
+    w0 = np.full((1, 32, 1, 16), 1e-30, np.float32)
+    want = jax_rwkv_scan(jx[0], jx[1], jx[2], jnp.asarray(w0), jx[4], chunk=16,
+                         interpret=True)
+    got = tref.reference_rwkv(r, k, v, tref.clamp_decay(torch.from_numpy(w0), 16), u)
+    assert np.all(np.isfinite(_np(want)))
+    _close(got, want, 1e-3)
+    # The clamp is the Pallas wrapper's: -75 / min(16, chunk) per step.
+    for chunk in (4, 16, 64):
+        lw = torch.log(tref.clamp_decay(torch.from_numpy(w0), chunk))
+        np.testing.assert_allclose(lw.numpy(), -75.0 / min(trs.SUB, chunk), rtol=1e-6)
+
+
+def test_scan_state_variant_matches_jax_timemix_carry():
+    """``reference_rwkv_state`` (and ``ops.rwkv`` with a state) from a random
+    initial state against the final carry of the JAX ``timemix_apply``, on
+    r/k/v/w projected by the port."""
+    jc, jb, tc, tb = _block()
+    p_j, p_t = jb["time_mix"], tb["time_mix"]
+    rng = np.random.default_rng(5)
+    B, S, D = 2, 24, jc.d_model
+    N = jc.rwkv.head_dim
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    s0 = rng.standard_normal((B, D // N, N, N)).astype(np.float32) * 0.3
+    xp = rng.standard_normal((B, D)).astype(np.float32)
+    _, (jstate, _) = jrwkv.timemix_apply(p_j, jnp.asarray(x), jc, jnp.asarray(s0),
+                                         jnp.asarray(xp))
+    r, k, v, w = _projections(p_t, torch.from_numpy(x), torch.from_numpy(xp), tc)
+    y, state = tref.reference_rwkv_state(r, k, v, w, p_t["u"], torch.from_numpy(s0))
+    _close(state, jstate, 1e-4)
+    y2, state2 = ops.rwkv(r, k, v, w, p_t["u"], state=torch.from_numpy(s0))
+    assert torch.equal(y2, y) and torch.equal(state2, state)
+
+
+def _projections(p, x, x_prev, cfg):
+    """r, k, v, w of ``timemix_apply`` (the port's arithmetic, unrolled)."""
+    B, S, D = x.shape
+    N = cfg.rwkv.head_dim
+    xs = torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
+
+    def mixed(mu):
+        return x + (xs - x) * p[mu]
+
+    shape = (B, S, D // N, N)
+    r = (mixed("mu_r") @ p["wr"]).reshape(shape)
+    k = (mixed("mu_k") @ p["wk"]).reshape(shape)
+    v = (mixed("mu_v") @ p["wv"]).reshape(shape)
+    lora = (mixed("mu_w") @ p["wA"]) @ p["wB"]
+    w = torch.exp(-torch.exp(p["w0"] + lora)).reshape(shape)
+    return r, k, v, w
+
+
+def test_chunked_scan_matches_jax():
+    rng = np.random.default_rng(6)
+
+    def jstep(c, x):
+        return c * 0.9 + x[0] * x[1], c + x[1]
+
+    def tstep(c, x):
+        return c * 0.9 + x[0] * x[1], c + x[1]
+
+    for S in (1, 40, 64, 192):
+        a, b = (rng.standard_normal((S, 3)).astype(np.float32) for _ in range(2))
+        c0 = rng.standard_normal(3).astype(np.float32)
+        jc, jys = jscan.chunked_scan(jstep, jnp.asarray(c0), (jnp.asarray(a), jnp.asarray(b)))
+        tc, tys = tscan.chunked_scan(tstep, torch.from_numpy(c0),
+                                     (torch.from_numpy(a), torch.from_numpy(b)))
+        _close(tc, jc, 1e-6)
+        _close(tys, jys, 1e-6)
+    # The reference's check: longer than a chunk means whole chunks.
+    with pytest.raises(ValueError, match="not divisible"):
+        tscan.chunked_scan(tstep, torch.zeros(3), (torch.zeros(100, 3),) * 2)
+
+
+def test_wkv_wrapper_refuses_cpu_tensors():
+    _, tx = _rwkv_inputs(7, 1, 16, 2, 16, "float32")
+    before = dict(trs.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        trs.rwkv_scan(*tx)
+    assert trs.LAUNCHES == before
+
+
+# -------------------------------------------------------------------- modules
+
+
+@functools.lru_cache(maxsize=None)
+def _model(name):
+    """(JAX cfg, JAX params, port cfg, port params) of the reduced arch."""
+    jc, tc = jax_archs()[name].reduced(), torch_archs()[name].reduced()
+    jp = jlm.init_params(jc, jax.random.PRNGKey(0))
+    tp = lm_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    return jc, jp, tc, tp
+
+
+def _block(i=0):
+    """Layer ``i`` of the reduced rwkv6-7b, in both packages."""
+    jc, jp, tc, tp = _model(ARCH)
+    return (jc, jax.tree_util.tree_map(lambda a: a[i], jp["blocks"]), tc,
+            ttr._layer(tp["blocks"], i))
+
+
+def _block_inputs(seed, cfg, B=2, S=12):
+    rng = np.random.default_rng(seed)
+    D, N = cfg.d_model, cfg.rwkv.head_dim
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    state = {"tm_state": rng.standard_normal((B, D // N, N, N)).astype(np.float32) * 0.3,
+             "tm_x": rng.standard_normal((B, D)).astype(np.float32),
+             "cm_x": rng.standard_normal((B, D)).astype(np.float32)}
+    return x, state
+
+
+def _j(tree):
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def _t(tree):
+    return jax.tree_util.tree_map(torch.from_numpy, tree)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_timemix_matches_jax(with_state):
+    jc, jb, tc, tb = _block()
+    x, st = _block_inputs(8, jc)
+    args = (st["tm_state"], st["tm_x"]) if with_state else (None, None)
+    jy, (js, jx) = jrwkv.timemix_apply(jb["time_mix"], jnp.asarray(x), jc,
+                                       *(None if a is None else jnp.asarray(a) for a in args))
+    ty, (ts, tx) = trwkv.timemix_apply(tb["time_mix"], torch.from_numpy(x), tc,
+                                       *(None if a is None else torch.from_numpy(a)
+                                         for a in args))
+    _close(ty, jy, 1e-6)
+    _close(ts, js, 1e-6)
+    _close(tx, jx, 0.0)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_channelmix_matches_jax(with_state):
+    jc, jb, tc, tb = _block(1)
+    x, st = _block_inputs(9, jc)
+    prev = st["cm_x"] if with_state else None
+    jy, jx = jrwkv.channelmix_apply(jb["channel_mix"], jnp.asarray(x),
+                                    None if prev is None else jnp.asarray(prev))
+    ty, tx = trwkv.channelmix_apply(tb["channel_mix"], torch.from_numpy(x),
+                                    None if prev is None else torch.from_numpy(prev))
+    _close(ty, jy, 1e-6)
+    _close(tx, jx, 0.0)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_block_matches_jax(with_state):
+    jc, jb, tc, tb = _block()
+    x, st = _block_inputs(10, jc)
+    jy, jst = jrwkv.rwkv_block_apply(jb, jnp.asarray(x), jc, _j(st) if with_state else None)
+    ty, tst = trwkv.rwkv_block_apply(tb, torch.from_numpy(x), tc,
+                                     _t(st) if with_state else None)
+    _close(ty, jy, 1e-5)
+    assert sorted(tst) == sorted(jst) == ["cm_x", "tm_state", "tm_x"]
+    for key in tst:
+        _close(tst[key], jst[key], 1e-5)
+    init = trwkv.rwkv_init_state(tc, 2, torch.float32, "cpu")
+    want = jrwkv.rwkv_init_state(jc, 2, jnp.float32)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in init.items()} == {
+        k: (v.shape, torch.float32) for k, v in want.items()}
+
+
+# ------------------------------------------------------------ whole model
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+
+
+def test_forward_and_prefill_logits_match_jax():
+    jc, jp, tc, tp = _model(ARCH)
+    toks = _tokens(jc, 2, 48)
+    jx, jaux = jtr.forward(jp, jnp.asarray(toks), jc)
+    tx, taux = ttr.forward(tp, torch.from_numpy(toks), tc)
+    _close(tx, jx, 1e-4)
+    assert float(taux) == float(jaux) == 0.0
+    want = jlm.prefill_logits(jp, {"tokens": jnp.asarray(toks)}, jc)
+    got = tlm.prefill_logits(tp, {"tokens": torch.from_numpy(toks)}, tc)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, jc.vocab_size)
+    _close(got, want, 1e-4)
+
+
+def test_decode_steps_match_jax_and_keep_the_cache_object():
+    jc, jp, tc, tp = _model(ARCH)
+    toks = _tokens(jc, 2, 6, seed=1)
+    jstep = jax.jit(lambda p, c, t, pos: jlm.decode_step(p, c, t, pos, jc))
+    jcache = jlm.init_cache(jc, 2, 16)
+    tcache = tlm.init_cache(tc, 2, 16, device="cpu")
+    first = {k: v for k, v in tcache.items()}
+    for pos in range(toks.shape[1]):
+        jlog, jcache = jstep(jp, jcache, jnp.asarray(toks[:, pos]), pos)
+        tlog, tcache = tlm.decode_step(tp, tcache, torch.from_numpy(toks[:, pos]), pos, tc)
+        _close(tlog, jlog, 1e-4)
+    assert all(tcache[k] is first[k] for k in first)  # updated in place
+    for k in ("tm_state", "tm_x", "cm_x"):
+        assert tuple(tcache[k].shape) == jcache[k].shape
+        _close(tcache[k], jcache[k], 1e-4)
+
+
+def test_decode_matches_forward():
+    """Teacher-forced decode step by step == the forward's logits (the JAX
+    package's tests/test_models_smoke.py check, at 1e-4 in f32)."""
+    _, _, tc, tp = _model(ARCH)
+    toks = torch.from_numpy(_tokens(tc, 2, 10, seed=3))
+    x, _ = ttr.forward(tp, toks, tc)
+    full = ttr.logits_head(tp, x, tc).float()
+    cache = tlm.init_cache(tc, 2, 10, device="cpu")
+    for t in range(toks.shape[1]):
+        logits, cache = tlm.decode_step(tp, cache, toks[:, t], t, tc)
+        _close(logits, full[:, t], 1e-4)
+
+
+def test_capture_prefill_matches_jax():
+    jc, jp, tc, tp = _model(ARCH)
+    toks = _tokens(jc, 2, 6, seed=2)  # the JAX side replays each step eagerly
+    jlog, jcache = jeng.capture_prefill(jc, jp, jnp.asarray(toks), 16)
+    tlog, tcache = teng.capture_prefill(tc, tp, torch.from_numpy(toks), 16)
+    _close(tlog, jlog, 1e-4)
+    for k in ("tm_state", "tm_x", "cm_x"):
+        _close(tcache[k], jcache[k], 1e-4)
+    assert bool(tcache["tm_state"].ne(0).any())
+
+
+def test_serve_engine_token_ids_equal_jax():
+    """The requests of tests/test_substrates.py::test_serve_engine_batched_decode.
+    Admission advances the other slots' states with token 0, as in the
+    reference (ROADMAP C)."""
+    jc, jp, tc, tp = _model(ARCH)
+
+    def requests(Request):
+        return [Request(rid=0, prompt=np.array([1, 2, 3], np.int32), max_new=4),
+                Request(rid=1, prompt=np.array([4, 5], np.int32), max_new=4)]
+
+    want = jeng.ServeEngine(jc, jp, batch_capacity=2, max_seq=32).run(requests(jeng.Request))
+    got = teng.ServeEngine(tc, tp, batch_capacity=2, max_seq=32).run(requests(teng.Request))
+    assert [(r.rid, r.out) for r in got] == [(r.rid, r.out) for r in want]
+    assert all(len(r.out) == 4 and all(0 <= t < tc.vocab_size for t in r.out) for r in got)
+
+
+def test_params_convert_with_f32_leaves_in_a_bf16_tree():
+    jc = dataclasses.replace(jax_archs()[ARCH].reduced(), dtype="bfloat16")
+    jp = jlm.init_params(jc, jax.random.PRNGKey(1))
+    tp = lm_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    jl = jax.tree_util.tree_flatten_with_path(jp)[0]
+    tl = jax.tree_util.tree_leaves(tp)
+    assert len(jl) == len(tl)
+    f32 = set()
+    for (path, a), b in zip(jl, tl):
+        assert str(b.dtype).split(".")[-1] == str(a.dtype) and tuple(b.shape) == a.shape
+        np.testing.assert_array_equal(b.float().numpy(), np.asarray(a, np.float32))
+        if b.dtype == torch.float32:
+            f32.add(jax.tree_util.keystr(path))
+    assert f32 == {"['blocks']['time_mix']['u']", "['blocks']['time_mix']['w0']"}
+    assert tp["blocks"]["time_mix"]["wr"].shape[0] == jc.n_layers  # stacked blocks
+
+
+def test_random_init_has_the_jax_layout():
+    tc, jc = torch_archs()[ARCH].reduced(), jax_archs()[ARCH].reduced()
+    tc, jc = (dataclasses.replace(c, dtype="bfloat16") for c in (tc, jc))
+    tp = tlm.init_params(tc, torch.Generator().manual_seed(0))
+    jp = jlm.init_params(jc, jax.random.PRNGKey(0))
+    tflat = jax.tree_util.tree_flatten_with_path(tp)[0]
+    jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert [(jax.tree_util.keystr(p), tuple(v.shape), str(v.dtype).split(".")[-1])
+            for p, v in tflat] == [(jax.tree_util.keystr(p), v.shape, str(v.dtype))
+                                   for p, v in jflat]
+    tm = ttr._layer(tp["blocks"], 0)["time_mix"]
+    assert bool((tm["w0"] == -6.0).all()) and bool((tm["mu_r"] == 0.5).all())
+    assert abs(float(tm["u"].std()) - 0.1) < 0.03
+
+
+def test_param_count_matches_jax():
+    cfg = torch_archs()[ARCH]
+    assert (cfg.n_layers, cfg.d_model, cfg.rwkv.head_dim, cfg.rwkv.decay_lora) == (
+        32, 4096, 64, 64)
+    assert tlm.param_count(cfg) == jlm.param_count(jax_archs()[ARCH])
+
+
+def test_launch_serve_rwkv_on_cpu(capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "3", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert f"arch={ARCH} on cpu: served 3 requests, 9 tokens" in out
