@@ -7,13 +7,18 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. card    — require CUDA; print nvidia-smi's name and power limit line;
 2. build   — compile every CUDA source of the port with nvcc (one process
-             per source, all started together) and print the seconds;
+             per source, all started together), print the seconds and, per
+             kernel, the tensor-core instructions (HMMA / HGMMA) that
+             ``cuobjdump -sass`` lists: every bf16 flash-attention and every
+             WKV instantiation must have some;
 3. kernels — every hand-written kernel against its plain torch version on
              the card, at the test shapes, the main path's shapes and a
              large shape: max error within tolerance (the WKV scan's final
-             state too), and per kernel the median time (profiler and CUDA
-             events), the bound, the plain version's time and a one-call
-             yardstick (``torch.lerp`` for the gossip mix,
+             state too; with bf16 r/k/v and f32 w, y to the bf16 tolerance
+             and the f32 state to the f32 one), and per kernel the median
+             time (profiler and CUDA events), the bound, the plain
+             version's time and a one-call yardstick (``torch.lerp``, which
+             computes only the u = 0 case of the gossip mix,
              ``scaled_dot_product_attention`` for flash attention; none for
              the WKV scan, which no single PyTorch call computes), which the
              port never calls;
@@ -29,19 +34,23 @@ Phases, in order; any failure exits non-zero before the result line:
              into a 1024-token cache, and ``ServeEngine.run`` of 4 requests
              (prompt 64, 16 new tokens).  The launch counters are zeroed
              just before and read just after: flash attention must launch
-             22 times per forward, logits be finite, tokens in the vocab;
+             22 times per forward, all through the tensor-core body, logits
+             be finite, tokens in the vocab;
 7. lm parity — the tinyllama widths cut to 2 layers, f32, S = 256: prefill
              logits on the card and on the CPU within 1e-3 * max |logit|,
              and on the card the decode logits at position P-1 after
              ``capture_prefill`` within the same bound of the prefill's;
+             then the same cut in bf16 (the tensor-core body), card against
+             CPU within 2e-2 * max |logit|;
 8. ssm     — LM serving at the full width of rwkv6-7b (32 layers, bf16,
              random weights from seed 0): ``lm.prefill_logits`` on 4 prompts
              of 512 tokens (twice), ``capture_prefill`` of 4 x 128 tokens,
              and ``ServeEngine.run`` of 4 requests (prompt 32, 16 new
              tokens).  The launch counters are zeroed just before and read
-             just after: the WKV kernel must launch 32 times per forward
-             and no other kernel at all; logits and the captured state
-             finite, the state non-zero, tokens in the vocab.  A profiled
+             just after: the WKV kernel must launch 32 times per forward,
+             all with bf16 r/k/v and f32 decays, and no other kernel at
+             all; logits and the captured state finite, the state
+             non-zero, tokens in the vocab.  A profiled
              prefill and 8 decode steps give the device's busy share;
 9. ssm parity — the rwkv6-7b widths cut to 2 layers, f32: prefill logits
              (S = 128) on the card and on the CPU within 1e-3 * max |logit|,
@@ -63,6 +72,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -80,9 +90,11 @@ N_WORKERS = 32
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 H100_SXM_BYTES_PER_S = 3.35e12
 #: Dense peak FLOP/s by card name and type (NVIDIA data sheets): bf16 on the
-#: tensor cores, f32 on the FMA units; the SXM H100 otherwise.
-FLOPS_PER_S = {"H100 PCIe": {"bfloat16": 756e12, "float32": 51e12}}
-H100_SXM_FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+#: tensor cores, f32 on the FMA units, and f32-accurate products as 3xTF32 on
+#: the tensor cores (a third of the TF32 peak); the SXM H100 otherwise.
+FLOPS_PER_S = {"H100 PCIe": {"bfloat16": 756e12, "float32": 51e12,
+                             "3xtf32": 378e12 / 3}}
+H100_SXM_FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3}
 
 #: The LM serving configurations: tinyllama-1.1b (dense) and rwkv6-7b (ssm)
 #: at full width.
@@ -97,31 +109,53 @@ MIX_ROWS_CASES = [((4, 1024), "float32"), ((3, 127, 33), "float32"),
                   ((8, 64, 32), "bfloat16"), ((1, 70000), "float32")]
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 #: tests/test_kernels.py ATTN_CASES (B, S, Sk, H, Hk, hd, causal, dtype), a
-#: ragged causal case, the LM phase's shape (one tinyllama layer of a 4 x 512
-#: prefill) and a large one; tolerances as tests/test_kernels.py:43.
+#: ragged causal case, the tensor-core body (bf16) at every head dim, ragged,
+#: non-causal with S != Sk and MQA, the LM phase's shape (one tinyllama layer
+#: of a 4 x 512 prefill) and a large one; tolerances as tests/test_kernels.py:43.
 ATTN_CASES = [(1, 128, 128, 4, 4, 64, True, "float32"),
               (2, 256, 256, 8, 2, 64, True, "float32"),
               (1, 128, 128, 4, 1, 32, True, "float32"),
               (2, 128, 256, 4, 4, 64, False, "float32"),
               (1, 256, 256, 2, 2, 128, True, "bfloat16"),
               (1, 512, 512, 4, 2, 64, True, "float32"),
-              (1, 200, 200, 32, 4, 64, True, "float32")]
+              (1, 200, 200, 32, 4, 64, True, "float32"),
+              (1, 256, 256, 4, 2, 32, True, "bfloat16"),
+              (1, 256, 256, 4, 2, 64, True, "bfloat16"),
+              (2, 100, 37, 8, 2, 160, True, "bfloat16"),
+              (1, 200, 200, 32, 4, 64, True, "bfloat16"),
+              (2, 128, 256, 4, 4, 64, False, "bfloat16"),
+              (1, 128, 128, 4, 1, 32, True, "bfloat16")]
 ATTN_MAIN = (4, 512, 512, 32, 4, 64, True, "bfloat16")
 ATTN_LARGE = (1, 8192, 8192, 32, 4, 64, True, "bfloat16")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: tests/test_kernels.py RWKV_CASES (B, S, H, N, chunk, dtype), a ragged one,
-#: the extreme-decay case (plain version on the clamped decays), a case from a
+#: the model's dtypes ("mixed": r/k/v bf16, w f32) at N 16/32/64 and ragged,
+#: the extreme-decay case (plain version on the clamped decays), cases from a
 #: random initial state, the ssm phase's shape (one rwkv6-7b layer of a 4 x 512
-#: prefill, from the zero state the model passes) and a large one; tolerances
-#: as tests/test_kernels.py:120 and :162.
+#: prefill, from the zero state the model passes) in the model's dtypes and,
+#: in f32 (every operand f32), and a large one; tolerances as
+#: tests/test_kernels.py:120 and :162.
 RWKV_CASES = [(1, 64, 2, 16, 16, "float32"), (2, 128, 4, 32, 32, "float32"),
               (1, 128, 2, 64, 64, "float32"), (1, 256, 2, 16, 64, "float32"),
-              (1, 128, 2, 32, 32, "bfloat16"), (2, 100, 3, 64, 64, "float32")]
+              (1, 128, 2, 32, 32, "bfloat16"), (2, 100, 3, 64, 64, "float32"),
+              (1, 64, 2, 16, 16, "mixed"), (2, 128, 4, 32, 32, "mixed"),
+              (1, 128, 2, 64, 64, "mixed"), (2, 100, 3, 64, 64, "mixed")]
 RWKV_EXTREME = (1, 32, 1, 16, 16, "float32")
-RWKV_STATE = (2, 128, 4, 64, 64, "float32")
-RWKV_MAIN = (4, 512, 64, 64, 64, "float32")
+RWKV_STATE = [(2, 128, 4, 64, 64, "float32"), (2, 100, 4, 64, 64, "mixed")]
+RWKV_MAIN = (4, 512, 64, 64, 64, "mixed")
+RWKV_MAIN_F32 = (4, 512, 64, 64, 64, "float32")
 RWKV_LARGE = (1, 8192, 64, 64, 64, "float32")
-RWKV_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "extreme": 1e-3}
+#: y's tolerance by dtype (the final state is f32 and held to y's f32
+#: tolerance in the mixed case: bf16 inputs widen to f32 exactly).
+RWKV_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "mixed": 5e-2, "extreme": 1e-3}
+RWKV_STATE_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "mixed": 1e-4, "extreme": 1e-3}
+#: Operand dtypes (r/k/v, w) of a WKV case's dtype name.
+RWKV_DTYPES = {"float32": ("float32", "float32"), "bfloat16": ("bfloat16", "bfloat16"),
+               "mixed": ("bfloat16", "float32")}
+#: Kernels that must hold tensor-core instructions (a substring of their
+#: symbol in ``cuobjdump -sass``), by library.
+TENSOR_CORE_KERNELS = {"flash_attention": "flash_fwd_bf16_mma_kernel",
+                       "rwkv_scan": "rwkv_scan_kernel"}
 
 
 class SmokeError(RuntimeError):
@@ -219,7 +253,42 @@ def phase_build():
     libs = build.build()
     secs = time.perf_counter() - t0
     print(f"build: {sorted(libs)} in {secs:.2f} s (build dir {build.build_dir()})")
-    return secs
+    sass = {name: tensor_core_counts(build, path) for name, path in libs.items()}
+    for name, counts in sass.items():
+        print(f"  sass {name}: {sum(counts.values())} HMMA/HGMMA in {len(counts)} kernels")
+        for fn, n in sorted(counts.items()):
+            print(f"    {n:6d}  {fn[:100]}")
+        want = TENSOR_CORE_KERNELS.get(name)
+        if want is not None:
+            mine = {fn: n for fn, n in counts.items() if want in fn}
+            check(mine and all(mine.values()),
+                  f"{name}: kernels {want}* without tensor-core instructions: {mine}")
+    return {"seconds": secs, "sass_tensor_core": sass}
+
+
+def tensor_core_counts(build, path):
+    """Kernel symbol -> count of HMMA / HGMMA instructions in the library's
+    SASS (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+    exe = Path(build.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(exe), "-sass", str(path)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {path} failed: {out.stderr[-2000:]}")
+    counts = sass_tensor_core_counts(out.stdout)
+    check(counts, f"cuobjdump -sass {path} lists no kernel")
+    return counts
+
+
+def sass_tensor_core_counts(sass: str) -> dict:
+    """Kernel symbol -> HMMA / HGMMA instructions, from ``cuobjdump -sass``
+    text (a ``Function : <symbol>`` line opens each kernel)."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bH(G)?MMA\.", line):
+            counts[fn] += 1
+    return counts
 
 
 def phase_kernels(torch, rate):
@@ -392,7 +461,7 @@ def phase_flash(torch, rate, name, records):
             for key, fn in fns.items():
                 call = cuda_ms(torch, fn, iters)
                 dev_ms = device_ms(torch, fn, iters,
-                                   "flash_fwd_kernel" if key == "" else None)
+                                   "flash_fwd" if key == "" else None)
                 rec[key + "ms"] = call if dev_ms is None else dev_ms
                 rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
                 rec[key + "call_ms"] = call
@@ -425,14 +494,15 @@ def phase_flash(torch, rate, name, records):
     return summary
 
 
-def rwkv_work(B, S, H, N, chunk, itemsize, state_in):
+def rwkv_work(B, S, H, N, chunk, itemsize, w_itemsize, state_in):
     """(flops, bytes) of one WKV call in the kernel's chunk form.  Per
     sub-chunk of c tokens and head: 8 c N elementwise ops (log decay, its
     cumulative sum, two exp, four products) and N exp; c (c - 1) / 2 scores
     and c diagonal terms of 2 N each; y = r_dec S and P v, 2 c N^2 and
-    c (c + 1) N; the state update, (2 c + 1) N^2.  Bytes: r, k, v, w read
-    once, y written once, u, the initial state (when given) read and the
-    final state written."""
+    c (c + 1) N; the state update, (2 c + 1) N^2.  Bytes: r, k, v (at
+    ``itemsize``) and w (at ``w_itemsize``) read once, y (at ``itemsize``)
+    written once, u, the initial state (when given) read and the final state
+    written."""
     chunk = min(chunk, S)
     sub = min(16, chunk)
     per_head = 0
@@ -443,7 +513,7 @@ def rwkv_work(B, S, H, N, chunk, itemsize, state_in):
             per_head += (8 * c * N + N + c * (c - 1) * N + 2 * c * N
                          + 2 * c * N * N + c * (c + 1) * N + (2 * c + 1) * N * N)
     flops = B * H * per_head
-    nbytes = (5 * B * S * H * N * itemsize + 4 * H * N
+    nbytes = (B * S * H * N * (4 * itemsize + w_itemsize) + 4 * H * N
               + (2 if state_in else 1) * 4 * B * H * N * N)
     return flops, nbytes
 
@@ -459,63 +529,73 @@ def phase_rwkv(torch, rate, name, records):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = ([("test", c) for c in RWKV_CASES] + [("extreme", RWKV_EXTREME),
-             ("state", RWKV_STATE), ("main", RWKV_MAIN), ("large", RWKV_LARGE)])
+    cases = ([("test", c) for c in RWKV_CASES] + [("extreme", RWKV_EXTREME)]
+             + [("state", c) for c in RWKV_STATE]
+             + [("main", RWKV_MAIN), ("main_f32", RWKV_MAIN_F32), ("large", RWKV_LARGE)])
     out = {}
     for role, case in cases:
         B, S, H, N, chunk, dtype = case
-        dt = getattr(torch, dtype)
+        dt, wdt = (getattr(torch, d) for d in RWKV_DTYPES[dtype])
         shape = (B, S, H, N)
         r = (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dt)
         k = (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dt)
         v = torch.randn(shape, generator=gen, device=dev).to(dt)
-        w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev) + 2.0).to(dt)
+        w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev) + 2.0).to(wdt)
         u = torch.randn((H, N), generator=gen, device=dev) * 0.1
         w_plain = w
         if role == "extreme":
-            w = torch.full(shape, 1e-30, device=dev, dtype=dt)
+            w = torch.full(shape, 1e-30, device=dev, dtype=wdt)
             w_plain = ref.clamp_decay(w, min(chunk, S))
         s0 = {"state": torch.randn((B, H, N, N), generator=gen, device=dev),
-              "main": torch.zeros((B, H, N, N), device=dev)}.get(role)
+              "main": torch.zeros((B, H, N, N), device=dev),
+              "main_f32": torch.zeros((B, H, N, N), device=dev)}.get(role)
         got, got_s = rs.rwkv_scan(r, k, v, w, u, chunk=chunk, state=s0)
         want, want_s = ref.reference_rwkv_state(r, k, v, w_plain, u, s0)
         torch.cuda.synchronize()
         check(got.shape == r.shape and got.dtype == r.dtype and got_s.shape == (B, H, N, N),
               f"rwkv_scan {case}: output {tuple(got.shape)} {got.dtype}, state "
               f"{tuple(got_s.shape)}")
-        tol = RWKV_TOL["extreme" if role == "extreme" else dtype]
-        err = 0.0
-        for what, a, b in (("y", got, want), ("state", got_s, want_s)):
+        kind = "extreme" if role == "extreme" else dtype
+        err, errs = 0.0, {}
+        for what, a, b, tol in (("y", got, want, RWKV_TOL[kind]),
+                                ("state", got_s, want_s, RWKV_STATE_TOL[kind])):
             diff = (a.float() - b.float()).abs()
             excess = (diff - tol * b.float().abs()).max().item()
             check(excess <= tol, f"rwkv_scan {case} ({role}): {what} max |err| "
                                  f"{diff.max().item()} beyond atol = rtol = {tol}")
-            err = max(err, diff.max().item())
+            errs[what] = diff.max().item()
+            err = max(err, errs[what])
         del want, want_s
-        flops, nbytes = rwkv_work(B, S, H, N, chunk, r.element_size(), s0 is not None)
-        t_ops = flops / flop_rate(name, dtype) * 1e3
+        flops, nbytes = rwkv_work(B, S, H, N, chunk, r.element_size(), w.element_size(),
+                                  s0 is not None)
+        # The WKV arithmetic is f32 whatever the operands' dtype; its products
+        # can run f32-accurate on the tensor cores (3xTF32), as the kernel's do.
+        t_ops = flops / flop_rate(name, "3xtf32") * 1e3
         t_bytes = nbytes / rate * 1e3
         rec = {"kernel": "rwkv_scan", "role": role, "case": list(case), "dtype": dtype,
-               "max_abs_err": err, "flops": flops, "bytes": nbytes,
+               "max_abs_err": err, "max_abs_err_y": errs["y"],
+               "max_abs_err_state": errs["state"], "flops": flops, "bytes": nbytes,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "library_ms": None}
         timings = {
             "": (lambda: rs.rwkv_scan(r, k, v, w, u, chunk=chunk, state=s0),
-                 {"test": 10, "extreme": 10, "state": 10, "main": 20, "large": 3}[role],
+                 {"test": 10, "extreme": 10, "state": 10, "main": 20, "main_f32": 20,
+                  "large": 3}[role],
                  {}),
             "plain_": (lambda: ref.reference_rwkv_state(r, k, v, w_plain, u, s0), 1,
                        {"reps": 1 if role == "large" else 3, "warmup": 1}),
         }
         for key, (fn, iters, kw) in timings.items():
             call = cuda_ms(torch, fn, iters, **kw)
-            dev_ms = device_ms(torch, fn, iters, "rwkv_scan_kernel" if key == "" else None)
+            dev_ms = device_ms(torch, fn, iters, "rwkv_scan" if key == "" else None)
             rec[key + "ms"] = call if dev_ms is None else dev_ms
             rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
             rec[key + "call_ms"] = call
         records.append(rec)
         out.setdefault(role, []).append(rec)
-        print(f"  rwkv_scan {role} {case}: max|err| {err:.3g} (y and state), device "
+        print(f"  rwkv_scan {role} {case}: max|err| y {errs['y']:.3g}, state "
+              f"{errs['state']:.3g}, device "
               f"{rec['ms'] * 1e3:.1f} us ({rec['ms_from']}), per call "
               f"{rec['call_ms'] * 1e3:.1f} us, plain {rec['plain_ms'] * 1e3:.1f} us on the "
               f"device, {rec['plain_call_ms'] * 1e3:.1f} us per call, bound "
@@ -525,19 +605,22 @@ def phase_rwkv(torch, rate, name, records):
         del r, k, v, w, w_plain, u, s0, got, got_s
         torch.cuda.empty_cache()
     main = out["main"][0]
+    f32 = out["main_f32"][0]
     summary = {
         "name": "rwkv_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
         "replaces": "src/repro/kernels/rwkv_scan.py:94",
         "max_abs_err": max(r["max_abs_err"] for r in records if r["kernel"] == "rwkv_scan"),
-        # One launch at the ssm phase's shape (one layer of the prefill).
+        # One launch at the ssm phase's shape and dtypes (one layer of the
+        # prefill: bf16 r/k/v, f32 decays).
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
     }
     print(f"kernel rwkv_scan: max|err| {summary['max_abs_err']:.3g}, main-path launch "
-          f"{summary['ms'] * 1e3:.1f} us on the device (plain {summary['plain_ms'] * 1e3:.1f}"
-          f" us on the device, no one-call library equivalent, bound "
-          f"{summary['bound_ms'] * 1e3:.2f} us, {summary['bound_by']})")
+          f"(bf16 r/k/v, f32 w) {summary['ms'] * 1e3:.1f} us on the device (plain "
+          f"{summary['plain_ms'] * 1e3:.1f} us on the device, no one-call library "
+          f"equivalent, bound {summary['bound_ms'] * 1e3:.2f} us, {summary['bound_by']}); "
+          f"all f32 {f32['ms'] * 1e3:.1f} us (bound {f32['bound_ms'] * 1e3:.2f} us)")
     return summary
 
 
@@ -691,6 +774,7 @@ def phase_lm(torch):
     prefill, continuous-batching decode; flash attention launches 22 times
     per forward."""
     from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine, capture_prefill
 
@@ -740,10 +824,14 @@ def phase_lm(torch):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
     launches = read_all_launches()
+    bodies = dict(fa.BODY_LAUNCHES)
     forwards = 3
     check(launches["flash_attention"] == cfg.n_layers * forwards,
           f"flash_attention launched {launches['flash_attention']} times for "
           f"{forwards} forwards of {cfg.n_layers} layers")
+    check(bodies == {"tensor_core": cfg.n_layers * forwards, "fma": 0},
+          f"flash_attention launches by body {bodies}: every prefill layer must run "
+          "the tensor-core body")
     check(launches["rwkv_scan"] == 0,
           f"rwkv_scan launched {launches['rwkv_scan']} times on the dense LM path")
     check(tuple(logits.shape) == (B, cfg.vocab_size) and logits.dtype == torch.float32,
@@ -771,7 +859,7 @@ def phase_lm(torch):
         "serve_run_s": run_s, "serve_decode_s": decode_s[0],
         "generated_tokens": gen_tokens, "decode_steps": decode_steps,
         "decode_tokens_per_s": gen_tokens / decode_s[0],
-        "launches": launches,
+        "launches": launches, "flash_attention_bodies": bodies,
     }
     print(f"lm: {cfg.name} ({n_params / 1e9:.3f} B params, bf16) init {init_s:.2f} s; "
           f"prefill {B}x{P} in {prefill_s[-1] * 1e3:.1f} ms (first "
@@ -779,10 +867,10 @@ def phase_lm(torch):
           f"capture_prefill {capture_s:.2f} s; ServeEngine.run {len(reqs)} requests "
           f"in {run_s:.2f} s, {gen_tokens} tokens in {decode_steps} decode steps "
           f"({decode_s[0]:.3f} s) = {out['decode_tokens_per_s']:.1f} tok/s; "
-          f"launches {launches}")
+          f"launches {launches}, flash_attention by body {bodies}")
     with torch.inference_mode():
         out["profile"] = lm_profile(torch, cfg, params, tokens, cache, "flash_attention",
-                                    "flash_fwd_kernel")
+                                    "flash_fwd")
     del params, cache, eng
     torch.cuda.empty_cache()
     return out
@@ -831,11 +919,22 @@ def lm_profile(torch, cfg, params, tokens, cache, kernel, match, steps=8):
     return res
 
 
+#: Card vs CPU bound on bf16 prefill logits, in units of max |logit|: the two
+#: devices round the same bf16 intermediates after sums taken in different
+#: orders (cuBLAS vs the CPU's GEMMs; the flash kernel's bf16 P against the
+#: reference's f32 softmax), a bf16 step being 2^-8 of a value; the bf16
+#: kernel tolerance of tests/test_kernels.py:43, 2e-2, read against the
+#: largest logit.
+LM_BF16_TOL = 2e-2
+
+
 def phase_lm_parity(torch):
     """The tinyllama widths at 2 layers, f32: prefill logits on the card
     (flash kernel) and on the CPU (the scan), and the card's decode logits
-    at position P-1 after capture_prefill against its prefill logits."""
+    at position P-1 after capture_prefill against its prefill logits.  Then
+    the same cut in bf16, card (tensor-core body) against CPU."""
     from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
     from repro_torch.serve.engine import capture_prefill
 
@@ -864,7 +963,32 @@ def phase_lm_parity(torch):
                                  f"(max |logit| {scale})")
     print(f"lm parity: 2 layers f32 S={P}: card vs CPU max |diff| {d_cpu:.3g}, decode "
           f"vs prefill {d_dec:.3g}, max |logit| {scale:.3g} (CPU prefill {cpu_s:.2f} s)")
-    return {"card_vs_cpu": d_cpu, "decode_vs_prefill": d_dec, "max_logit": scale}
+    del params, cpu_params, cache
+
+    cfg16 = dataclasses.replace(get_arch(LM_ARCH), n_layers=2)
+    check(cfg16.dtype == "bfloat16", f"{LM_ARCH} serves in {cfg16.dtype}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        params = lm.init_params(cfg16, gen)
+        n0 = fa.BODY_LAUNCHES["tensor_core"]
+        on_card16 = lm.prefill_logits(params, {"tokens": tokens}, cfg16)
+        torch.cuda.synchronize()
+        tc_launches = fa.BODY_LAUNCHES["tensor_core"] - n0
+        on_cpu16 = lm.prefill_logits(_tree_to(params, "cpu"), {"tokens": tokens.cpu()},
+                                     cfg16)
+    scale16 = on_cpu16.abs().max().item()
+    d16 = (on_card16.cpu() - on_cpu16).abs().max().item()
+    check(tc_launches == cfg16.n_layers,
+          f"bf16 parity prefill ran the tensor-core body {tc_launches} times")
+    check(bool(torch.isfinite(on_card16).all()), "non-finite bf16 prefill logits")
+    check(d16 <= LM_BF16_TOL * scale16, f"bf16 card vs CPU prefill logits differ by {d16} "
+                                        f"(max |logit| {scale16})")
+    print(f"lm parity: 2 layers bf16 S={P}: card vs CPU max |diff| {d16:.3g}, max |logit| "
+          f"{scale16:.3g} ({d16 / scale16:.3g} of it; bound {LM_BF16_TOL})")
+    del params
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu": d_cpu, "decode_vs_prefill": d_dec, "max_logit": scale,
+            "bf16_card_vs_cpu": d16, "bf16_max_logit": scale16}
 
 
 def phase_ssm(torch):
@@ -872,6 +996,7 @@ def phase_ssm(torch):
     continuous-batching decode; the WKV kernel launches 32 times per
     forward and no other kernel launches."""
     from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import rwkv_scan as rs
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine, capture_prefill
 
@@ -922,10 +1047,14 @@ def phase_ssm(torch):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
     launches = read_all_launches()
+    dtypes = dict(rs.DTYPE_LAUNCHES)
     forwards = 3
     check(launches["rwkv_scan"] == cfg.n_layers * forwards,
           f"rwkv_scan launched {launches['rwkv_scan']} times for {forwards} forwards of "
           f"{cfg.n_layers} layers")
+    check(dtypes == {"float32": 0, "bfloat16": 0, "mixed": cfg.n_layers * forwards},
+          f"rwkv_scan launches by dtypes {dtypes}: every prefill layer must pass its bf16 "
+          "r/k/v (and f32 decays) uncast")
     others = {k: n for k, n in launches.items() if k != "rwkv_scan"}
     check(not any(others.values()), f"other kernels launched on the ssm path: {others}")
     check(tuple(logits.shape) == (B, cfg.vocab_size) and logits.dtype == torch.float32,
@@ -954,7 +1083,7 @@ def phase_ssm(torch):
         "generated_tokens": gen_tokens, "decode_steps": decode_steps,
         "decode_tokens_per_s": gen_tokens / decode_s[0],
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches,
+        "launches": launches, "rwkv_scan_dtypes": dtypes,
     }
     print(f"ssm: {cfg.name} ({n_params / 1e9:.3f} B params, bf16) init {init_s:.2f} s; "
           f"prefill {B}x{P} in {prefill_s[-1] * 1e3:.1f} ms (first "
@@ -962,7 +1091,8 @@ def phase_ssm(torch):
           f"capture_prefill {B}x{P_cap} {capture_s:.2f} s; ServeEngine.run {len(reqs)} "
           f"requests in {run_s:.2f} s, {gen_tokens} tokens in {decode_steps} decode steps "
           f"({decode_s[0]:.3f} s) = {out['decode_tokens_per_s']:.1f} tok/s; peak "
-          f"{out['peak_memory_gb']:.1f} GB; launches {launches}")
+          f"{out['peak_memory_gb']:.1f} GB; launches {launches}, rwkv_scan by dtypes "
+          f"{dtypes}")
     with torch.inference_mode():
         out["profile"] = lm_profile(torch, cfg, params, tokens, cache, "rwkv_scan",
                                     "rwkv_scan_kernel")
@@ -1043,7 +1173,7 @@ def main() -> int:
     try:
         card = phase_card(torch)
         name = torch.cuda.get_device_name(0)
-        phase_build()
+        build_info = phase_build()
         summaries, records = phase_kernels(torch, hbm_rate(name))
         summaries.append(phase_flash(torch, hbm_rate(name), name, records))
         summaries.append(phase_rwkv(torch, hbm_rate(name), name, records))
@@ -1068,7 +1198,8 @@ def main() -> int:
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke_kernels.json").write_text(json.dumps(
-            {"card": card, "device": name, "kernels": kernels, "cases": records,
+            {"card": card, "device": name, "build": build_info, "kernels": kernels,
+             "cases": records,
              "main_path": main_path, "lm_path": lm_path, "ssm_path": ssm_path},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -6,8 +6,9 @@
 //
 //     y_t = r_t (S + diag(u) k_t v_t^T),   S <- diag(w_t) S + k_t v_t^T
 //
-// r, k, v, w are (B, S, H, N), read in place (no fold to (B*H, S, N)), f32 or
-// bf16; u is (H, N) f32; y is written in the input dtype.  The initial state
+// r, k, v, w are (B, S, H, N), read in place (no fold to (B*H, S, N)): all
+// f32, all bf16, or r/k/v bf16 with w f32; u is (H, N) f32; y is written in
+// r's dtype.  The initial state
 // (B, H, N, N) f32 is read when given (zeros otherwise, as the Pallas kernel's
 // _init) and the final state is always written: it is the decode cache of the
 // ssm family, which the Pallas kernel drops.
@@ -28,22 +29,47 @@
 // the chunk, or of 16) is padded with r = k = v = 0 and lw = 0, which leaves
 // every valid row and the state unchanged; padded rows are never stored.
 //
-// What bounds it on the card: bytes.  A call reads r, k, v, w once and writes
-// y once, about 20 k flops per token and head at N = 64 against 20 bytes in
-// f32, below the H100's f32 ops-per-byte balance.  This first version does its
-// products on the f32 FMA units from shared memory (no tensor cores) and is
-// bound by them and by shared-memory reads, not by HBM.  What the design does:
-//   * the state's columns evolve independently, so a block owns one
-//     (batch, head) and 16 of its N state columns: N / 16 blocks per head keep
-//     the card busy at small B * H; they are launched side by side and read
-//     the same r, k, w rows, so L2 can serve those after the first;
-//   * a loop inside the block walks the sub-chunks in order (the Pallas grid's
-//     sequential axis), the 16 x N state tile in shared memory, transposed so
-//     a thread reads its column as float4;
-//   * per sub-chunk, 256 threads take one entry each of the 16 x 16 score
-//     tile, then one entry each of the 16 x 16 output tile, then N / 16
-//     state entries each; token-major tiles have a row stride of N + 4 floats,
-//     so the float4 reads of 8 different rows fall in different banks.
+// What bounds it on the card.  By the work alone, bytes: a call reads r, k,
+// v, w once and writes y once, about 20 k flops per token and head at N = 64
+// against 20 bytes in f32 (12 with bf16 r/k/v/y and f32 w), below the H100's
+// ops-per-byte balance even on the FMA units.  In practice the sequential
+// walk bounds it: a block does ~3 us of dependent work per sub-chunk (H100),
+// so a call takes about S / 16 of those whatever its bytes, 4x the byte
+// bound at the LM shape.  No one part dominates that work: dropping the
+// exp/log terms, the score products, r_dec S or the state update one at a
+// time saves 18-23%, 13%, 6-7% and 11% of the call (scripts/wkv_variants.py
+// on an H100).  What the design does:
+//   * one block per (batch, head): the decays, their cumulative sum, the exp
+//     terms and the 16 x 16 score tile are computed once per sub-chunk (a
+//     column split would repeat them for every block of a head).  256 blocks
+//     at the LM shape: one wave at two blocks an SM;
+//   * the two N x N-sized products, y += r_dec S and the state update
+//     S <- diag(exp(La_c)) S + k_s^T v, and the small ones (the scores
+//     r_dec k_inv^T and P v) run on the tensor cores, mma.sync m16n8k8 TF32
+//     in 3xTF32 form: each f32 operand is split into a TF32 big part and a
+//     TF32 remainder, and big*big + big*small + small*big keeps about 21 bits
+//     (single-pass TF32 keeps 11, against a tolerance of 1e-4);
+//   * warp w holds columns [w N/W, (w+1) N/W) of the f32 state in accumulator
+//     registers for the whole call; one shared-memory copy a sub-chunk, which
+//     only the warp itself reads, gives r_dec S its B operand;
+//   * one block barrier a sub-chunk: after it, the threads run the decay pass
+//     of the next sub-chunk (into the other of two buffers of derived tiles)
+//     and then the products of this one, so the exp/log work and the mma
+//     chains interleave; each 3xTF32 product keeps its cross terms in a
+//     second accumulator, which halves the length of the mma chains;
+//   * the r/k/v/w tiles come through a ring of three cp.async stages (16-byte
+//     copies, zero-filled past the sequence), one iteration ahead of the
+//     decay pass that first reads them;
+//   * the decay pass gives each column of the head kTPC threads, which scan
+//     their partial sums with shuffles, so it needs no barrier of its own;
+//   * token-major f32 tiles have a row stride of N + 4 and the state copy of
+//     N + 8, and the token operands of P v and of the state update are taken
+//     in the order (2t, 2t + 1) on both sides of the product, so the
+//     fragment reads of a warp fall in distinct banks;
+//   * r, k, v (and y) are read and written in their own dtype: f32, or bf16
+//     with f32 decays (the model's projections are bf16; the decays are
+//     exp(-exp(.)) in f32 and not bf16-representable), converted to f32
+//     exactly on the way in.
 // `expf` and `logf` (not the fast intrinsics) and f32 accumulation keep the
 // 1e-4 tolerance of the reference tests.
 //
@@ -59,241 +85,485 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kT = 16;   // tokens per tile: the Pallas kernel's _SUB
-constexpr int kMB = 16;  // state columns per block
-static_assert(kThreads == kT * kT && kThreads == kT * kMB, "one thread per tile entry");
+using bf16 = __nv_bfloat16;
 
-// Shared-memory layout, in floats.  Token-major tiles are [t][n] with row
-// stride kRow; the state tile is St[m][n], also with row stride kRow.
+constexpr int kT = 16;       // tokens per tile: the Pallas kernel's _SUB
+constexpr int kStages = 3;   // r/k/v/w tiles in the cp.async ring
+
+// Thread and tile geometry for head size N.
 template <int N>
+struct Geo {
+  static constexpr int kWarps = N / 8 < 4 ? N / 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kMW = N / kWarps;      // state columns per warp
+  static constexpr int kNT = kMW / 8;         // their n-tiles of 8
+  static constexpr int kMT = N / 16;          // m-tiles of 16 state rows
+  static constexpr int kTPC = kThreads / N;   // threads per column, decay pass
+  static constexpr int kTPT = kT / kTPC;      // tokens per thread there
+  static_assert(N % 16 == 0 && kMW % 8 == 0 && kThreads % N == 0, "N is 16, 32 or 64");
+};
+
+// Shared memory, in bytes.  A ring of kStages raw tiles (r, k, v in TR, w in
+// TW, rows padded by 16 bytes); two buffers of derived f32 tiles [t][n] of
+// row stride N + 4 (r_dec, k_inv, k_s, r u k) with exp(La_c); the state
+// copy [n][m] of row stride N + 8.
+template <typename TR, typename TW, int N>
 struct Smem {
-  static constexpr int kRow = N + 4;
-  static constexpr int kTok = kT * kRow;
-  static constexpr int kR = 0;              // r, then r * u (the diagonal's left side)
-  static constexpr int kK = kR + kTok;      // k
-  static constexpr int kLa = kK + kTok;     // clamped log decay, then its inclusive cumsum
-  static constexpr int kRd = kLa + kTok;    // r_dec
-  static constexpr int kKi = kRd + kTok;    // k_inv
-  static constexpr int kKs = kKi + kTok;    // k_inv * exp(La_c)
-  static constexpr int kV = kKs + kTok;     // v[t][m], stride kMB
-  static constexpr int kP = kV + kT * kMB;  // P[i][j], stride kT
-  static constexpr int kS = kP + kT * kT;   // St[m][n]
-  static constexpr int kU = kS + kMB * kRow;
-  static constexpr int kA = kU + N;         // exp(La_c)[n]
-  static constexpr int kFloats = kA + N;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  static constexpr int kRS = N + 16 / static_cast<int>(sizeof(TR));  // raw row stride
+  static constexpr int kWS = N + 16 / static_cast<int>(sizeof(TW));
+  static constexpr int kDS = N + 4;                                   // f32 tiles
+  static constexpr int kSS = N + 8;                                   // state copy
+  static constexpr int kRawR = kT * kRS * static_cast<int>(sizeof(TR));
+  static constexpr int kRawW = kT * kWS * static_cast<int>(sizeof(TW));
+  static constexpr int kStage = 3 * kRawR + kRawW;
+  static constexpr int kTile = kT * kDS * 4;
+  static constexpr int kDer0 = kStages * kStage;  // derived buffer 0, then 1
+  static constexpr int kDer = 4 * kTile + N * 4;  // r_dec, k_inv, k_s, r u k, exp(La_c)
+  static constexpr int kSt = kDer0 + 2 * kDer;
+  static constexpr size_t kBytes = kSt + N * kSS * 4;
+  static_assert(kRawR % 16 == 0 && kRawW % 16 == 0 && kDer % 16 == 0, "16-byte tiles");
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-rwkv_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ w,
+// 16-byte global -> shared copy; zero-fills the destination when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// An f32 operand as a TF32 big part (x rounded to 10 mantissa bits, ties away
+// from zero) and the exact remainder, which the tensor core reads as TF32 by
+// ignoring its low 13 bits: |x - big - small| < 2^-21 |x|, in three integer
+// and float instructions (two cvt.rna.tf32 make the call a quarter slower at
+// the LM shape).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+struct FragA {  // m16n8k8 A: rows g, g + 8; columns t, t + 4
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ explicit FragA(const float (&x)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(x[i], big[i], small[i]);
+  }
+};
+
+struct FragB {  // m16n8k8 B: column g; rows t, t + 4
+  uint32_t big[2], small[2];
+  __device__ __forceinline__ FragB() {}
+  __device__ __forceinline__ FragB(float x0, float x1) {
+    split_tf32(x0, big[0], small[0]);
+    split_tf32(x1, big[1], small[1]);
+  }
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// hi + lo += a b in 3xTF32: big * big into hi, the cross terms into lo (two
+// short dependency chains instead of one long one), small * small dropped.
+__device__ __forceinline__ void mma3(float (&hi)[4], float (&lo)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(lo, a.small, b.big);
+  mma_tf32(hi, a.big, b.big);
+  mma_tf32(lo, a.big, b.small);
+}
+
+struct SubChunk {
+  int t0, len;
+};
+
+// Sub-chunk `idx` of the walk: chunks of `chunk` tokens, each cut into
+// sub-chunks of `sub` (the last of a chunk, and the last chunk, may be short).
+__device__ __forceinline__ SubChunk sub_chunk(int idx, int S, int chunk, int sub,
+                                              int per_chunk) {
+  const int c0 = (idx / per_chunk) * chunk;
+  const int t0 = c0 + (idx % per_chunk) * sub;
+  const int c_end = S - c0 < chunk ? S : c0 + chunk;
+  return {t0, c_end - t0 < sub ? c_end - t0 : sub};
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k8 TF32): lane = 4 * g + t.  A holds
+// rows g and g + 8, columns t and t + 4; B holds column g, rows t and t + 4;
+// the accumulator holds rows g and g + 8, columns 2t and 2t + 1.
+template <typename TR, typename TW, int N>
+__global__ void __launch_bounds__(Geo<N>::kThreads)
+rwkv_scan_kernel(const TR* __restrict__ r, const TR* __restrict__ k,
+                 const TR* __restrict__ v, const TW* __restrict__ w,
                  const float* __restrict__ u, const float* __restrict__ state_in,
-                 T* __restrict__ y, float* __restrict__ state_out, int S, int H,
+                 TR* __restrict__ y, float* __restrict__ state_out, int S, int H,
                  int chunk, int sub, float lw_bound) {
-  static_assert(N % kMB == 0 && N <= kThreads, "N must be 16, 32 or 64");
-  using L = Smem<N>;
-  constexpr int kRow = L::kRow;
-  constexpr int kTiles = N / kMB;
-  constexpr int kMPer = kMB * N / kThreads;  // state entries per thread
+  using Gm = Geo<N>;
+  using L = Smem<TR, TW, N>;
+  constexpr int kThreads = Gm::kThreads;
+  constexpr int kNT = Gm::kNT;
+  constexpr int kMT = Gm::kMT;
+  constexpr int kTPC = Gm::kTPC;
+  constexpr int kTPT = Gm::kTPT;
+  constexpr int kRS = L::kRS;
+  constexpr int kWS = L::kWS;
+  constexpr int kDS = L::kDS;
+  constexpr int kSS = L::kSS;
+  constexpr int kCR = N * static_cast<int>(sizeof(TR)) / 16;  // 16-byte chunks a row
+  constexpr int kCW = N * static_cast<int>(sizeof(TW)) / 16;
+  constexpr int kTF = kT * kDS;  // floats of a derived tile
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* R = smem + L::kR;
-  float* K = smem + L::kK;
-  float* La = smem + L::kLa;
-  float* Rd = smem + L::kRd;
-  float* Ki = smem + L::kKi;
-  float* Ks = smem + L::kKs;
-  float* V = smem + L::kV;
-  float* P = smem + L::kP;
-  float* St = smem + L::kS;
-  float* U = smem + L::kU;
-  float* A = smem + L::kA;
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* St = reinterpret_cast<float*>(smem + L::kSt);
+  auto derived = [&](int idx) {  // r_dec of sub-chunk idx; k_inv, k_s, r u k, exp(La_c) follow
+    return reinterpret_cast<float*>(smem + L::kDer0 + (idx & 1) * L::kDer);
+  };
 
-  const int bh = blockIdx.x / kTiles;
-  const int m0 = (blockIdx.x % kTiles) * kMB;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int tid = threadIdx.x;
-  const int64_t tok_stride = static_cast<int64_t>(H) * N;  // between tokens
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int m0 = warp * Gm::kMW;  // the warp's first state column
+  const int64_t tok_stride = static_cast<int64_t>(H) * N;          // between tokens
   const int64_t base = (static_cast<int64_t>(b) * S * H + h) * N;  // (b, 0, h, 0)
   const int64_t sbase = static_cast<int64_t>(bh) * N * N;
+  const int per_chunk = (chunk + sub - 1) / sub;
+  const int n_sub = (S / chunk) * per_chunk + (S % chunk + sub - 1) / sub;
 
-  for (int n = tid; n < N; n += kThreads) U[n] = u[h * N + n];
-  for (int e = tid; e < N * kMB; e += kThreads) {
-    const int n = e / kMB;
-    const int m = e % kMB;
-    St[m * kRow + n] = state_in != nullptr ? state_in[sbase + n * N + m0 + m] : 0.f;
-  }
-
-  for (int c0 = 0; c0 < S; c0 += chunk) {
-    const int c_end = S - c0 < chunk ? S : c0 + chunk;
-    for (int t0 = c0; t0 < c_end; t0 += sub) {
-      const int len = c_end - t0 < sub ? c_end - t0 : sub;
-      __syncthreads();  // the last sub-chunk's V, Ks and St are read
-
-      // Loads, in f32, with the clamp fused; rows past `len` are zero.
-      for (int e = tid; e < kT * N; e += kThreads) {
-        const int t = e / N;
-        const int n = e % N;
-        float rv = 0.f, kv = 0.f, lw = 0.f;
-        if (t < len) {
-          const int64_t idx = base + (t0 + t) * tok_stride + n;
-          rv = to_f32(r[idx]);
-          kv = to_f32(k[idx]);
-          lw = fminf(fmaxf(logf(fmaxf(to_f32(w[idx]), 1e-30f)), -lw_bound), 0.f);
+  // Raw tiles of sub-chunk `idx` into its stage of the ring (one commit group
+  // per call, empty past the end).
+  auto issue = [&](int idx) {
+    if (idx < n_sub) {
+      const SubChunk sc = sub_chunk(idx, S, chunk, sub, per_chunk);
+      char* st = smem + (idx % kStages) * L::kStage;
+      const TR* srcs[3] = {r, k, v};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const char* src0 = reinterpret_cast<const char*>(srcs[a]);
+        for (int i = tid; i < kT * kCR; i += kThreads) {
+          const int t = i / kCR;
+          const int c = i % kCR;
+          const bool ok = t < sc.len;
+          const int64_t off = ok ? (base + (sc.t0 + t) * tok_stride) * sizeof(TR) + c * 16 : 0;
+          cp_async16(smem_u32(st + a * L::kRawR + t * kRS * sizeof(TR) + c * 16), src0 + off,
+                     ok);
         }
-        R[t * kRow + n] = rv;
-        K[t * kRow + n] = kv;
-        La[t * kRow + n] = lw;
       }
-      for (int e = tid; e < kT * kMB; e += kThreads) {
-        const int t = e / kMB;
-        V[e] = t < len ? to_f32(v[base + (t0 + t) * tok_stride + m0 + e % kMB]) : 0.f;
-      }
-      __syncthreads();
-
-      // Inclusive cumulative log decay, one column per thread.
-      if (tid < N) {
-        float la = 0.f;
-        for (int t = 0; t < kT; ++t) {
-          la += La[t * kRow + tid];
-          La[t * kRow + tid] = la;
-        }
-        A[tid] = expf(la);
-      }
-      __syncthreads();
-
-      // Decay-weighted r and k; r * u for the diagonal.
-      for (int e = tid; e < kT * N; e += kThreads) {
-        const int t = e / N;
-        const int n = e % N;
-        const int o = t * kRow + n;
-        const float la = La[o];
-        const float rv = R[o];
-        const float ki = K[o] * expf(-la);
-        Rd[o] = rv * expf(t > 0 ? La[o - kRow] : 0.f);  // La - lw: the exclusive sum
-        Ki[o] = ki;
-        Ks[o] = ki * A[n];
-        R[o] = rv * U[n];
-      }
-      __syncthreads();
-
-      // P[i][j]: scores below the diagonal, the u bonus on it, 0 above.
-      {
-        const int i = tid / kT;
-        const int j = tid % kT;
-        const float* a = (j == i ? R : Rd) + i * kRow;
-        const float* c = (j == i ? K : Ki) + j * kRow;
-        float acc = 0.f;
-#pragma unroll
-        for (int n = 0; n < N; n += 4) {
-          acc = dot4(*reinterpret_cast<const float4*>(a + n),
-                     *reinterpret_cast<const float4*>(c + n), acc);
-        }
-        P[tid] = j <= i ? acc : 0.f;
-      }
-      __syncthreads();
-
-      // y[i][m] = r_dec[i] . S[:, m] + sum_{j <= i} P[i][j] v[j][m].
-      {
-        const int i = tid / kMB;
-        const int m = tid % kMB;
-        const float* a = Rd + i * kRow;
-        const float* s = St + m * kRow;
-        float acc = 0.f;
-#pragma unroll
-        for (int n = 0; n < N; n += 4) {
-          acc = dot4(*reinterpret_cast<const float4*>(a + n),
-                     *reinterpret_cast<const float4*>(s + n), acc);
-        }
-#pragma unroll
-        for (int j = 0; j < kT; ++j) acc = fmaf(P[i * kT + j], V[j * kMB + m], acc);
-        if (i < len) y[base + (t0 + i) * tok_stride + m0 + m] = from_f32<T>(acc);
-      }
-      __syncthreads();
-
-      // S <- diag(exp(La_c)) S + Ks^T V; each thread owns kMPer entries of row n.
-      {
-        const int n = tid % N;
-        const int mb = (tid / N) * kMPer;
-        const float a = A[n];
-        float acc[kMPer];
-#pragma unroll
-        for (int q = 0; q < kMPer; ++q) acc[q] = a * St[(mb + q) * kRow + n];
-#pragma unroll
-        for (int j = 0; j < kT; ++j) {
-          const float ks = Ks[j * kRow + n];
-#pragma unroll
-          for (int q = 0; q < kMPer; ++q) acc[q] = fmaf(ks, V[j * kMB + mb + q], acc[q]);
-        }
-#pragma unroll
-        for (int q = 0; q < kMPer; ++q) St[(mb + q) * kRow + n] = acc[q];
+      const char* wsrc = reinterpret_cast<const char*>(w);
+      for (int i = tid; i < kT * kCW; i += kThreads) {
+        const int t = i / kCW;
+        const int c = i % kCW;
+        const bool ok = t < sc.len;
+        const int64_t off = ok ? (base + (sc.t0 + t) * tok_stride) * sizeof(TW) + c * 16 : 0;
+        cp_async16(smem_u32(st + 3 * L::kRawR + t * kWS * sizeof(TW) + c * 16), wsrc + off,
+                   ok);
       }
     }
+    cp_async_commit();
+  };
+
+  // The warp's state columns, in accumulator layout, for the whole call.
+  float sacc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int n = 16 * mt + g;
+      const int m = m0 + 8 * nt + 2 * t4;
+      float2 lo = make_float2(0.f, 0.f), hi = make_float2(0.f, 0.f);
+      if (state_in != nullptr) {
+        lo = *reinterpret_cast<const float2*>(state_in + sbase + n * N + m);
+        hi = *reinterpret_cast<const float2*>(state_in + sbase + (n + 8) * N + m);
+      }
+      sacc[mt][nt][0] = lo.x;
+      sacc[mt][nt][1] = lo.y;
+      sacc[mt][nt][2] = hi.x;
+      sacc[mt][nt][3] = hi.y;
+    }
+  }
+  float slo[kMT][kNT][4];  // the cross terms of the last state update
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) slo[mt][nt][e] = 0.f;
+  const int col = tid / kTPC;   // decay pass: column n and
+  const int part = tid % kTPC;  // tokens part * kTPT .. + kTPT - 1
+  const float u_col = u[h * N + col];
+
+  // Decay pass of sub-chunk idx: clamped log decays, their inclusive
+  // cumulative sum La (a scan over the kTPC threads of a column), then the
+  // decay-weighted r and k into derived buffer idx & 1.  Padded tokens have
+  // r = k = v = 0 and log decay 0.
+  auto decay = [&](int idx) {
+    const SubChunk sc = sub_chunk(idx, S, chunk, sub, per_chunk);
+    const char* st = smem + (idx % kStages) * L::kStage;
+    const TR* Rr = reinterpret_cast<const TR*>(st);
+    const TR* Kr = reinterpret_cast<const TR*>(st + L::kRawR);
+    const TW* Wr = reinterpret_cast<const TW*>(st + 3 * L::kRawR);
+    float* Rd = derived(idx);
+    float* Ki = Rd + kTF;
+    float* Ks = Ki + kTF;
+    float* Ru = Ks + kTF;
+    float* Adec = Ru + kTF;
+    float cum[kTPT];
+    float la = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTPT; ++j) {
+      const int t = part * kTPT + j;
+      float lw = 0.f;
+      if (t < sc.len) {
+        lw = fminf(fmaxf(logf(fmaxf(to_f32(Wr[t * kWS + col]), 1e-30f)), -lw_bound), 0.f);
+      }
+      la += lw;
+      cum[j] = la;
+    }
+    float incl = la;
+#pragma unroll
+    for (int off = 1; off < kTPC; off <<= 1) {
+      const float x = __shfl_up_sync(0xffffffffu, incl, off, kTPC);
+      if (part >= off) incl += x;
+    }
+    const float excl = incl - la;  // the column's sum before this part
+    const float a = expf(__shfl_sync(0xffffffffu, incl, kTPC - 1, kTPC));
+    if (part == kTPC - 1) Adec[col] = a;
+#pragma unroll
+    for (int j = 0; j < kTPT; ++j) {
+      const int t = part * kTPT + j;
+      const float la_prev = j > 0 ? excl + cum[j - 1] : excl;  // La - lw
+      const float rv = to_f32(Rr[t * kRS + col]);
+      const float kv = to_f32(Kr[t * kRS + col]);
+      const float ki = kv * expf(-(excl + cum[j]));
+      Rd[t * kDS + col] = rv * expf(la_prev);
+      Ki[t * kDS + col] = ki;
+      Ks[t * kDS + col] = ki * a;
+      Ru[t * kDS + col] = rv * u_col * kv;
+    }
+  };
+
+  // The ring: sub-chunk idx's tiles land two iterations ahead of its
+  // products and one ahead of its decay pass.
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  decay(0);
+
+  for (int idx = 0; idx < n_sub; ++idx) {
+    cp_async_wait<kStages - 3>();
+    // Tile idx + 1 landed, derived buffer idx is complete, and every warp is
+    // done with sub-chunk idx - 1 (its ring stage and derived buffer).
+    __syncthreads();
+    issue(idx + kStages - 1);
+    if (idx + 1 < n_sub) decay(idx + 1);
+
+    const SubChunk sc = sub_chunk(idx, S, chunk, sub, per_chunk);
+    const TR* Vr = reinterpret_cast<const TR*>(smem + (idx % kStages) * L::kStage +
+                                               2 * L::kRawR);
+    const float* Rd = derived(idx);
+    const float* Ki = Rd + kTF;
+    const float* Ks = Ki + kTF;
+    const float* Ru = Ks + kTF;
+    const float* Adec = Ru + kTF;
+
+    // The state before this sub-chunk, the B operand of r_dec S: the warp's
+    // own columns, so the copy is warp-local.
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sacc[mt][nt][e] += slo[mt][nt][e];
+          slo[mt][nt][e] = 0.f;
+        }
+        float* p = St + (16 * mt + g) * kSS + m0 + 8 * nt + 2 * t4;
+        store2(p, sacc[mt][nt][0], sacc[mt][nt][1]);
+        store2(p + 8 * kSS, sacc[mt][nt][2], sacc[mt][nt][3]);
+      }
+    }
+    __syncwarp();
+
+    // Scores P = r_dec k_inv^T (every warp, all 16 x 16) and y = r_dec S
+    // (the warp's columns), one pass over the N columns of r_dec.
+    float pacc[2][4], plo[2][4], yacc[kNT][4], ylo[kNT][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      pacc[0][e] = pacc[1][e] = plo[0][e] = plo[1][e] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) yacc[nt][e] = ylo[nt][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < N / 8; ++kk) {
+      const int n0 = 8 * kk;
+      const float ax[4] = {Rd[g * kDS + n0 + t4], Rd[(g + 8) * kDS + n0 + t4],
+                           Rd[g * kDS + n0 + t4 + 4], Rd[(g + 8) * kDS + n0 + t4 + 4]};
+      const FragA a(ax);
+#pragma unroll
+      for (int jt = 0; jt < 2; ++jt) {
+        const float* kr = Ki + (8 * jt + g) * kDS + n0 + t4;
+        mma3(pacc[jt], plo[jt], a, FragB(kr[0], kr[4]));
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const float* sr = St + (n0 + t4) * kSS + m0 + 8 * nt + g;
+        mma3(yacc[nt], ylo[nt], a, FragB(sr[0], sr[4 * kSS]));
+      }
+    }
+    // The diagonal P[i][i] = sum_n r u k: lanes 2i and 2i + 1 take half a row.
+    float dg = 0.f;
+    {
+      const float* ru = Ru + (lane >> 1) * kDS + (lane & 1) * (N / 2);
+#pragma unroll
+      for (int n = 0; n < N / 2; ++n) dg += ru[n];
+      dg += __shfl_xor_sync(0xffffffffu, dg, 1);
+    }
+    const float dg_lo = __shfl_sync(0xffffffffu, dg, 2 * g);
+    const float dg_hi = __shfl_sync(0xffffffffu, dg, 2 * (g + 8));
+#pragma unroll
+    for (int jt = 0; jt < 2; ++jt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = g + (e >= 2 ? 8 : 0);
+        const int j = 8 * jt + 2 * t4 + (e & 1);
+        const float pv = pacc[jt][e] + plo[jt][e];
+        pacc[jt][e] = j < i ? pv : (j == i ? (e >= 2 ? dg_hi : dg_lo) : 0.f);
+      }
+    }
+
+    // y += P v.  The token (k) index runs in the order (2t, 2t + 1) on both
+    // sides, so P's accumulator is its A fragment as it stands.
+    FragB vb[2][kNT];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const float px[4] = {pacc[kk][0], pacc[kk][2], pacc[kk][1], pacc[kk][3]};
+      const FragA a(px);
+      const int t = 8 * kk + 2 * t4;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int m = m0 + 8 * nt + g;
+        vb[kk][nt] = FragB(to_f32(Vr[t * kRS + m]), to_f32(Vr[(t + 1) * kRS + m]));
+        mma3(yacc[nt], ylo[nt], a, vb[kk][nt]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int m = m0 + 8 * nt + 2 * t4;
+      if (g < sc.len) {
+        store2(y + base + (sc.t0 + g) * tok_stride + m, yacc[nt][0] + ylo[nt][0],
+               yacc[nt][1] + ylo[nt][1]);
+      }
+      if (g + 8 < sc.len) {
+        store2(y + base + (sc.t0 + g + 8) * tok_stride + m, yacc[nt][2] + ylo[nt][2],
+               yacc[nt][3] + ylo[nt][3]);
+      }
+    }
+
+    // S <- diag(exp(La_c)) S + k_s^T v, same token order.
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int n = 16 * mt + g;
+      const float a_lo = Adec[n];
+      const float a_hi = Adec[n + 8];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        sacc[mt][nt][0] *= a_lo;
+        sacc[mt][nt][1] *= a_lo;
+        sacc[mt][nt][2] *= a_hi;
+        sacc[mt][nt][3] *= a_hi;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const float* k0 = Ks + (8 * kk + 2 * t4) * kDS + n;
+        const float ax[4] = {k0[0], k0[8], k0[kDS], k0[kDS + 8]};
+        const FragA a(ax);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma3(sacc[mt][nt], slo[mt][nt], a, vb[kk][nt]);
+      }
+    }
+    __syncwarp();  // the state copy is read; the next iteration rewrites it
   }
 
-  __syncthreads();
-  for (int e = tid; e < N * kMB; e += kThreads) {
-    const int n = e / kMB;
-    const int m = e % kMB;
-    state_out[sbase + n * N + m0 + m] = St[m * kRow + n];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[mt][nt][e] += slo[mt][nt][e];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int n = 16 * mt + g;
+      const int m = m0 + 8 * nt + 2 * t4;
+      store2(state_out + sbase + n * N + m, sacc[mt][nt][0], sacc[mt][nt][1]);
+      store2(state_out + sbase + (n + 8) * N + m, sacc[mt][nt][2], sacc[mt][nt][3]);
+    }
   }
 }
 
-template <typename T, int N>
+template <typename TR, typename TW, int N>
 cudaError_t launch_n(const void* r, const void* k, const void* v, const void* w,
                      const float* u, const float* state_in, void* y, float* state_out,
                      int B, int S, int H, int chunk, int sub, float lw_bound,
                      cudaStream_t stream) {
-  auto kernel = rwkv_scan_kernel<T, N>;
-  const size_t smem = Smem<N>::kBytes;
+  auto kernel = rwkv_scan_kernel<TR, TW, N>;
+  const size_t smem = Smem<TR, TW, N>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int64_t blocks = static_cast<int64_t>(B) * H * (N / kMB);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(w), u, state_in, static_cast<T*>(y), state_out, S, H, chunk,
-      sub, lw_bound);
+  kernel<<<static_cast<unsigned>(static_cast<int64_t>(B) * H), Geo<N>::kThreads, smem,
+           stream>>>(static_cast<const TR*>(r), static_cast<const TR*>(k),
+                     static_cast<const TR*>(v), static_cast<const TW*>(w), u, state_in,
+                     static_cast<TR*>(y), state_out, S, H, chunk, sub, lw_bound);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TR, typename TW>
 cudaError_t launch_dtype(const void* r, const void* k, const void* v, const void* w,
                          const float* u, const float* state_in, void* y,
                          float* state_out, int B, int S, int H, int N, int chunk, int sub,
                          float lw_bound, cudaStream_t stream) {
   switch (N) {
     case 16:
-      return launch_n<T, 16>(r, k, v, w, u, state_in, y, state_out, B, S, H, chunk, sub,
-                             lw_bound, stream);
+      return launch_n<TR, TW, 16>(r, k, v, w, u, state_in, y, state_out, B, S, H, chunk,
+                                  sub, lw_bound, stream);
     case 32:
-      return launch_n<T, 32>(r, k, v, w, u, state_in, y, state_out, B, S, H, chunk, sub,
-                             lw_bound, stream);
+      return launch_n<TR, TW, 32>(r, k, v, w, u, state_in, y, state_out, B, S, H, chunk,
+                                  sub, lw_bound, stream);
     case 64:
-      return launch_n<T, 64>(r, k, v, w, u, state_in, y, state_out, B, S, H, chunk, sub,
-                             lw_bound, stream);
+      return launch_n<TR, TW, 64>(r, k, v, w, u, state_in, y, state_out, B, S, H, chunk,
+                                  sub, lw_bound, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -303,9 +573,10 @@ cudaError_t launch_dtype(const void* r, const void* k, const void* v, const void
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (r, k, v, w and y).  N: 16, 32 or 64.
-// u (H, N), state_in (B, H, N, N) or null, state_out (B, H, N, N): float32.
-// All contiguous; 1 <= sub <= 16, sub <= chunk; B * H * N / 16 < 2^31.  The
+// dtype: 0 = float32 (r, k, v, w, y), 1 = bfloat16 (r, k, v, w, y), 2 = r, k,
+// v and y bfloat16 with w float32.  N: 16, 32 or 64.  u (H, N), state_in
+// (B, H, N, N) or null, state_out (B, H, N, N): float32.  All contiguous and
+// 16-byte aligned; 1 <= sub <= 16, sub <= chunk <= S; B * H < 2^31.  The
 // wrapper checks all of it.
 int rwkv_scan_launch(const void* r, const void* k, const void* v, const void* w,
                      const void* u, const void* state_in, void* y, void* state_out,
@@ -322,12 +593,16 @@ int rwkv_scan_launch(const void* r, const void* k, const void* v, const void* w,
   float* s_out = static_cast<float*>(state_out);
   switch (dtype) {
     case 0:
-      err = launch_dtype<float>(r, k, v, w, uf, s_in, y, s_out, B, S, H, N, chunk, sub,
-                                lw_bound, s);
+      err = launch_dtype<float, float>(r, k, v, w, uf, s_in, y, s_out, B, S, H, N, chunk,
+                                       sub, lw_bound, s);
       break;
     case 1:
-      err = launch_dtype<__nv_bfloat16>(r, k, v, w, uf, s_in, y, s_out, B, S, H, N, chunk,
-                                        sub, lw_bound, s);
+      err = launch_dtype<bf16, bf16>(r, k, v, w, uf, s_in, y, s_out, B, S, H, N, chunk, sub,
+                                     lw_bound, s);
+      break;
+    case 2:
+      err = launch_dtype<bf16, float>(r, k, v, w, uf, s_in, y, s_out, B, S, H, N, chunk,
+                                      sub, lw_bound, s);
       break;
     default:
       err = cudaErrorInvalidValue;

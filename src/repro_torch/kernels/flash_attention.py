@@ -4,16 +4,23 @@
 
 The kernel (``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``) replaces
 the JAX package's Pallas kernel ``repro/kernels/flash_attention.py``.  One
-block serves all G = H / Hk query heads of one KV head for a tile of query
-positions, so every K/V tile is read once; a causal block stops at the last
-key its positions can see.  It is forward only, as the Pallas kernel is:
-the wrapper raises when autograd would need a gradient through it.
+block serves all G = H / Hk query heads of one KV head for a tile of 64
+folded (position, group member) rows, so every K/V tile is read once; a
+causal block stops at the last key its positions can see.  It has two
+bodies, picked by dtype (``BODIES``): bf16, the serving path, runs
+FlashAttention-2 on the tensor cores (``mma.sync`` bf16 with f32
+accumulation, ``ldmatrix`` fragments, K/V tiles double-buffered with
+``cp.async``); f32 runs on the FMA units, because neither bf16 nor TF32
+tensor cores hold the f32 tolerance.  Both keep f32 softmax statistics,
+masked scores at -1e30 and the row-sum floor of the reference.  It is
+forward only, as the Pallas kernel is: the wrapper raises when autograd
+would need a gradient through it.
 
 Takes CUDA tensors only and raises on anything else: ``kernels/ops.py``
 sends CPU tensors to ``ref.reference_attention``.  The wrapper counts its
-launches in ``LAUNCHES`` (raised only where the kernel is launched).  The
-library is built by nvcc on first use (``kernels/build.py``), never at
-import.
+launches in ``LAUNCHES`` (raised only where the kernel is launched), and in
+``BODY_LAUNCHES`` by body.  The library is built by nvcc on first use
+(``kernels/build.py``), never at import.
 """
 
 from __future__ import annotations
@@ -27,6 +34,13 @@ from repro_torch.kernels import build
 #: Launch count; ``reset_launches()`` zeroes it.
 LAUNCHES = {"flash_attention": 0}
 
+#: The kernel body each dtype runs (``flash_fwd_bf16_mma_kernel`` on the
+#: tensor cores, ``flash_fwd_kernel`` on the FMA units).
+BODIES = {torch.bfloat16: "tensor_core", torch.float32: "fma"}
+
+#: The same launches by body.
+BODY_LAUNCHES = {"tensor_core": 0, "fma": 0}
+
 #: Head dims the kernel is instantiated for (the test cases' 32, 64 and 128;
 #: tinyllama, qwen1.5 and starcoder2 use 64 or 128, stablelm-12b 160).
 HEAD_DIMS = (32, 64, 128, 160)
@@ -38,8 +52,9 @@ _LIB = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BODY_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _lib():
@@ -77,6 +92,9 @@ def _check_operands(q, k, v) -> None:
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a 16-byte boundary "
+                             "(the bf16 body copies 16-byte rows)")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -105,8 +123,9 @@ def _check_operands(q, k, v) -> None:
 def flash_attention(q, k, v, *, causal: bool = True):
     """GQA attention on CUDA. q: (B,S,H,hd); k/v: (B,Sk,Hk,hd) -> (B,S,H,hd).
 
-    f32 or bf16, contiguous, H % Hk == 0, hd in ``HEAD_DIMS``; f32 math, the
-    output in q's dtype.  Causal positions align from 0 for any S and Sk."""
+    f32 or bf16, contiguous, H % Hk == 0, hd in ``HEAD_DIMS``; f32 softmax
+    and accumulation (bf16 products on the tensor cores for bf16), the output
+    in q's dtype.  Causal positions align from 0 for any S and Sk."""
     _check_operands(q, k, v)
     B, S, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
@@ -123,4 +142,5 @@ def flash_attention(q, k, v, *, causal: bool = True):
         raise RuntimeError(f"flash_attention: kernel launch failed: CUDA error {err} "
                            f"({msg})")
     LAUNCHES["flash_attention"] += 1
+    BODY_LAUNCHES[BODIES[q.dtype]] += 1
     return out

@@ -66,7 +66,11 @@ def reference_rwkv(r, k, v, w, u):
 
 def reference_rwkv_state(r, k, v, w, u, state=None):
     """``reference_rwkv`` from the initial state (B,H,N,N) f32 (zeros when
-    None) -> (y in r's dtype, the final state f32)."""
+    None) -> (y in r's dtype, the final state f32).
+
+    Mixed inputs (bf16 r/k/v with f32 w, as the model passes on the card)
+    are widened to f32 exactly, as the kernel does, and y is rounded to r's
+    dtype once at the end."""
     B, S, H, N = r.shape
     rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
     uf = u.float()[None, :, :, None]

@@ -7,16 +7,22 @@ per (batch, head), with the (N, N) f32 state S.  The kernel
 Pallas kernel ``repro/kernels/rwkv_scan.py``: the same chunk form over
 sub-chunks of ``min(16, chunk)`` tokens, with the same clamp of the per-step
 log decay to ``>= -75 / min(16, chunk)`` (``ref.clamp_decay`` gives the decays
-the kernel sees).  Unlike the Pallas kernel it takes an initial state and
-returns the final one, the ssm family's decode cache.  Any S works; the
-last chunk and sub-chunk may be short.  It is forward only, as the Pallas
-kernel is: the wrapper raises when autograd would need a gradient through it.
+the kernel sees).  One block walks one (batch, head); its products run on the
+tensor cores in 3xTF32, which keeps f32 accuracy.  Unlike the Pallas kernel
+it takes an initial state and returns the final one, the ssm family's decode
+cache.  Any S works; the last chunk and sub-chunk may be short.  It is
+forward only, as the Pallas kernel is: the wrapper raises when autograd
+would need a gradient through it.
+
+Operand dtypes (``DTYPES``): r, k, v, w all f32; all bf16; or r, k, v bf16
+with w f32 (the model's bf16 projections with its f32 decays).  y comes back
+in r's dtype, the state in f32; bf16 inputs are widened to f32 exactly.
 
 Takes CUDA tensors only and raises on anything else: ``kernels/ops.py``
 sends CPU tensors to ``ref.reference_rwkv_state``.  The wrapper counts its
-launches in ``LAUNCHES`` (raised only where the kernel is launched).  The
-library is built by nvcc on first use (``kernels/build.py``), never at
-import.
+launches in ``LAUNCHES`` (raised only where the kernel is launched), and in
+``DTYPE_LAUNCHES`` by operand dtypes.  The library is built by nvcc on first
+use (``kernels/build.py``), never at import.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ from repro_torch.kernels import build
 #: Launch count; ``reset_launches()`` zeroes it.
 LAUNCHES = {"rwkv_scan": 0}
 
+#: The same launches by operand dtypes (keys of ``DTYPES``' values).
+DTYPE_LAUNCHES = {"float32": 0, "bfloat16": 0, "mixed": 0}
+
 #: Head sizes the kernel is instantiated for (the test cases' 16 and 32;
 #: rwkv6-7b's 64).
 HEAD_SIZES = (16, 32, 64)
@@ -37,15 +46,33 @@ HEAD_SIZES = (16, 32, 64)
 #: Sub-chunk length of the Pallas kernel (``_SUB``): bounds the f32 exponent range.
 SUB = 16
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: (dtype of r, k and v, dtype of w) -> (the kernel's dtype code, its name).
+DTYPES = {
+    (torch.float32, torch.float32): (0, "float32"),
+    (torch.bfloat16, torch.bfloat16): (1, "bfloat16"),
+    (torch.bfloat16, torch.float32): (2, "mixed"),
+}
 _MAX_BLOCKS = 2 ** 31 - 1
 
 _LIB = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, DTYPE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def dtype_code(r, k, v, w) -> tuple[int, str]:
+    """The kernel's (dtype code, name) for these operands; raises TypeError
+    for any combination outside ``DTYPES``."""
+    dts = tuple(getattr(t, "dtype", None) for t in (r, k, v, w))
+    found = DTYPES.get((dts[0], dts[3])) if dts[0] == dts[1] == dts[2] else None
+    if found is None:
+        raise TypeError(f"rwkv_scan: dtypes of r, k, v, w {dts} differ from what the "
+                        "kernel takes: all float32, all bfloat16, or r, k, v bfloat16 "
+                        "with w float32")
+    return found
 
 
 def _lib():
@@ -68,7 +95,9 @@ def _lib():
     return _LIB
 
 
-def _check_operands(r, k, v, w, u, state, chunk) -> None:
+def _check_operands(r, k, v, w, u, state, chunk) -> tuple[int, str]:
+    """Raises on anything the kernel does not take; returns ``dtype_code``."""
+    code = dtype_code(r, k, v, w)
     named = (("r", r), ("k", k), ("v", v), ("w", w), ("u", u))
     if state is not None:
         named += (("state", state),)
@@ -81,14 +110,11 @@ def _check_operands(r, k, v, w, u, state, chunk) -> None:
             )
         if not t.is_contiguous():
             raise ValueError(f"rwkv_scan: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"rwkv_scan: {name} must start on a 16-byte boundary "
+                             "(the kernel copies 16-byte rows)")
         if t.device != r.device:
             raise ValueError("rwkv_scan: operands lie on different devices")
-    if r.dtype not in _DTYPE_CODE:
-        raise TypeError(f"rwkv_scan: r has dtype {r.dtype}; the kernel takes float32 "
-                        "or bfloat16")
-    if not (r.dtype == k.dtype == v.dtype == w.dtype):
-        raise TypeError(f"rwkv_scan: dtypes of r, k, v, w differ: {r.dtype}, {k.dtype}, "
-                        f"{v.dtype}, {w.dtype}")
     if r.ndim != 4 or not (r.shape == k.shape == v.shape == w.shape):
         raise ValueError(f"rwkv_scan: r, k, v, w must share one (B, S, H, N) shape, got "
                          f"{[tuple(t.shape) for t in (r, k, v, w)]}")
@@ -106,11 +132,12 @@ def _check_operands(r, k, v, w, u, state, chunk) -> None:
                          f"got {state.dtype} {tuple(state.shape)}")
     if int(chunk) < 1:
         raise ValueError(f"rwkv_scan: chunk {chunk} < 1")
-    if B * H * (N // 16) > _MAX_BLOCKS:
+    if B * H > _MAX_BLOCKS:
         raise ValueError(f"rwkv_scan: B * H = {B * H} is too many heads for one launch")
     if torch.is_grad_enabled() and any(t.requires_grad for _, t in named):
         raise RuntimeError("rwkv_scan: the kernel is forward only (no backward kernel "
                            "yet); call it under torch.no_grad()")
+    return code
 
 
 def rwkv_scan(r, k, v, w, u, *, chunk: int = 64, state=None):
@@ -118,10 +145,10 @@ def rwkv_scan(r, k, v, w, u, *, chunk: int = 64, state=None):
     (B,H,N,N) f32 or None (zeros) -> (y (B,S,H,N) in r's dtype, final state
     (B,H,N,N) f32).
 
-    r, k, v, w share one dtype (f32 or bf16) and are contiguous; N in
+    r, k, v, w: a combination of ``DTYPES``, contiguous; N in
     ``HEAD_SIZES``.  As the Pallas wrapper, ``chunk`` is cut to S and the
     per-step log decay is clamped to ``>= -75 / min(16, chunk)``."""
-    _check_operands(r, k, v, w, u, state, chunk)
+    code, dtype_name = _check_operands(r, k, v, w, u, state, chunk)
     B, S, H, N = r.shape
     chunk = min(int(chunk), S)
     sub = min(SUB, chunk)
@@ -132,10 +159,11 @@ def rwkv_scan(r, k, v, w, u, *, chunk: int = 64, state=None):
     err = lib.rwkv_scan_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), y.data_ptr(), state_out.data_ptr(),
-        B, S, H, N, chunk, sub, 75.0 / sub, _DTYPE_CODE[r.dtype], r.device.index, stream,
+        B, S, H, N, chunk, sub, 75.0 / sub, code, r.device.index, stream,
     )
     if err != 0:
         msg = lib.rwkv_scan_error_string(err).decode()
         raise RuntimeError(f"rwkv_scan: kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES["rwkv_scan"] += 1
+    DTYPE_LAUNCHES[dtype_name] += 1
     return y, state_out

@@ -6,8 +6,9 @@ A transcription of ``repro/models/rwkv.py``.  Per head (dim N):
     y_t     = r_t @ (state_{t-1} + diag(u) k_t v_t^T)
 
 with w_t = exp(-exp(w0 + lora_w(x_t))) the data-dependent decay.  The dtypes
-are the reference's: ``w0`` and ``u`` are f32 leaves in any config, r/k/v/w
-and the state are f32, the gate is computed in f32.  The recurrence runs
+are the reference's: ``w0`` and ``u`` are f32 leaves in any config, w and
+the state are f32, r/k/v enter the recurrence in f32 (on the card the
+kernel widens bf16 projections itself), the gate is computed in f32.  The recurrence runs
 where the JAX package's scan would, by device: on a CUDA tensor a prefill
 (S > 1) goes through the hand-written chunked kernel (``ops.rwkv``, which
 also returns the final state), a decode step (S == 1) takes one plain step
@@ -94,9 +95,9 @@ def timemix_apply(p, x, cfg, state=None, x_prev=None):
     xg = x + (xs - x) * p["mu_g"]
     xw = x + (xs - x) * p["mu_w"]
 
-    r = (xr @ p["wr"]).reshape(B, S, H, N).float()
-    k = (xk @ p["wk"]).reshape(B, S, H, N).float()
-    v = (xv @ p["wv"]).reshape(B, S, H, N).float()
+    r = (xr @ p["wr"]).reshape(B, S, H, N)
+    k = (xk @ p["wk"]).reshape(B, S, H, N)
+    v = (xv @ p["wv"]).reshape(B, S, H, N)
     g = F.silu((xg @ p["wg"]).float())
     # data-dependent decay in (0,1): w = exp(-exp(w0 + lora))
     lora = (xw @ p["wA"]) @ p["wB"]
@@ -104,10 +105,13 @@ def timemix_apply(p, x, cfg, state=None, x_prev=None):
     u = p["u"]  # (H,N)
 
     if x.device.type == "cuda" and S > 1:
+        # r/k/v in x's dtype: the kernel widens bf16 to f32 exactly and rounds
+        # y to bf16 as ``y.to(x.dtype)`` below would, so this is the same
+        # function as on the f32 projections, without three casts.
         check_chunk(S, CHUNK)
         y, state = ops.rwkv(r, k, v, w, u, chunk=CHUNK, state=state)
     else:
-        xs_t = tuple(t.movedim(1, 0) for t in (r, k, v, w))  # (S,B,H,N)
+        xs_t = tuple(t.float().movedim(1, 0) for t in (r, k, v, w))  # (S,B,H,N)
         state, ys = chunked_scan(_wkv_step(u), state, xs_t, chunk=CHUNK)
         y = ys.movedim(0, 1)
     y = y.reshape(B, S, D)

@@ -5,7 +5,10 @@ rounding in the same place (no FMA contraction), so it is held to it
 bit for bit.  The flash-attention and WKV kernels sum in another order than
 their plain versions, so they are held to the tolerances of
 ``tests/test_kernels.py`` (attention 2e-5 in f32, 2e-2 in bf16; WKV 1e-4 in
-f32, 5e-2 in bf16, 1e-3 for the extreme-decay clamped case).  This file imports no JAX, so it runs on a machine that has
+f32, 5e-2 in bf16, 1e-3 for the extreme-decay clamped case).  With bf16
+r/k/v and f32 decays (the model's dtypes) the WKV output y is bf16 and held
+to 5e-2, one bf16 step being 2^-8 of |y|, while the final state is f32,
+computed from exactly widened inputs, and held to 1e-4.  This file imports no JAX, so it runs on a machine that has
 only torch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -130,6 +133,41 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
                                .float(), atol=tol, rtol=tol)
 
 
+# The tensor-core body (bf16): every head dim, ragged causal with 8 query
+# heads a KV head, non-causal with S != Sk, and MQA.
+ATTN_BF16_CASES = [
+    (1, 256, 256, 4, 2, 32, True, "bfloat16"),
+    (1, 256, 256, 4, 2, 64, True, "bfloat16"),
+    (1, 256, 256, 2, 2, 128, True, "bfloat16"),
+    (2, 100, 37, 8, 2, 160, True, "bfloat16"),
+    (1, 200, 200, 32, 4, 64, True, "bfloat16"),
+    (2, 128, 256, 4, 4, 64, False, "bfloat16"),
+    (1, 128, 128, 4, 1, 32, True, "bfloat16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_BF16_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_attention_tensor_core_body(cuda_device, case):
+    B, S, Sk, H, Hk, hd, causal, dtype = case
+    q, k, v = _qkv(8, B, S, Sk, H, Hk, hd, dtype, cuda_device)
+    n0 = dict(fa.BODY_LAUNCHES)
+    got = ops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.BODY_LAUNCHES == {"tensor_core": n0["tensor_core"] + 1, "fma": n0["fma"]}
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.reference_attention(q, k, v, causal=causal)
+                               .float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_f32_runs_the_fma_body(cuda_device):
+    q, k, v = _qkv(9, 1, 64, 64, 4, 2, 64, "float32", cuda_device)
+    n0 = dict(fa.BODY_LAUNCHES)
+    fa.flash_attention(q, k, v)
+    assert fa.BODY_LAUNCHES == {"tensor_core": n0["tensor_core"], "fma": n0["fma"] + 1}
+
+
 @pytest.mark.cuda
 def test_cuda_flash_wrapper_checks_operands(cuda_device):
     q, k, v = _qkv(3, 1, 64, 64, 4, 2, 64, "float32", cuda_device)
@@ -145,6 +183,9 @@ def test_cuda_flash_wrapper_checks_operands(cuda_device):
                            *_qkv(3, 1, 64, 64, 3, 3, 64, "float32", cuda_device)[1:])
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_attention(q.double(), k.double(), v.double())
+    qb = torch.zeros(q.numel() + 1, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(qb[1:].view(q.shape), k.bfloat16(), v.bfloat16())
     assert fa.LAUNCHES["flash_attention"] == n0
 
 
@@ -232,6 +273,54 @@ def test_cuda_rwkv_scan_extreme_decay_clamped(cuda_device):
     _assert_rwkv_close(state, want_s, 1e-3)
 
 
+# The model's dtypes: bf16 r/k/v, f32 w; N 16/32/64, ragged S, and one
+# rwkv6-7b layer of a 4 x 512 prefill.
+RWKV_MIXED_CASES = [
+    # (B, S, H, N, chunk)
+    (1, 64, 2, 16, 16),
+    (2, 128, 4, 32, 32),
+    (1, 128, 2, 64, 64),
+    (2, 100, 3, 64, 64),
+    (1, 37, 2, 32, 20),
+    (4, 512, 64, 64, 64),
+]
+
+
+def _mixed(r, k, v, w, u):
+    return r.bfloat16(), k.bfloat16(), v.bfloat16(), w, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RWKV_MIXED_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("with_state", [False, True])
+def test_cuda_rwkv_scan_mixed_dtypes(cuda_device, case, with_state):
+    B, S, H, N, chunk = case
+    r, k, v, w, u = _mixed(*_rwkv_inputs(12, B, S, H, N, "float32", cuda_device))
+    s0 = (torch.randn((B, H, N, N), device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(1))
+          if with_state else None)
+    n0 = dict(rs.DTYPE_LAUNCHES)
+    y, s1 = rs.rwkv_scan(r, k, v, w, u, chunk=chunk, state=s0)
+    torch.cuda.synchronize()
+    assert rs.DTYPE_LAUNCHES["mixed"] == n0["mixed"] + 1
+    assert y.dtype == torch.bfloat16 and s1.dtype == torch.float32
+    want_y, want_s = ref.reference_rwkv_state(r, k, v, w, u, s0)
+    _assert_rwkv_close(y, want_y, 5e-2)
+    _assert_rwkv_close(s1, want_s, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_mixed_equals_f32_on_widened_inputs(cuda_device):
+    """The mixed instantiation computes the all-f32 function of the widened
+    inputs: its f32 state matches the f32 kernel's to 1e-4 and its y is that
+    y within one bf16 rounding."""
+    r, k, v, w, u = _mixed(*_rwkv_inputs(13, 2, 100, 3, 64, "float32", cuda_device))
+    y, s1 = rs.rwkv_scan(r, k, v, w, u)
+    y32, s32 = rs.rwkv_scan(r.float(), k.float(), v.float(), w, u)
+    _assert_rwkv_close(s1, s32, 1e-4)
+    _assert_rwkv_close(y, y32, 5e-2)
+
+
 @pytest.mark.cuda
 def test_cuda_rwkv_wrapper_checks_operands(cuda_device):
     r, k, v, w, u = _rwkv_inputs(7, 1, 32, 2, 16, "float32", cuda_device)
@@ -248,6 +337,13 @@ def test_cuda_rwkv_wrapper_checks_operands(cuda_device):
         rs.rwkv_scan(r, k, v, w, u.bfloat16())
     with pytest.raises(ValueError, match="state must be"):
         rs.rwkv_scan(r, k, v, w, u, state=torch.zeros((1, 2, 16, 8), device=cuda_device))
+    with pytest.raises(TypeError, match="differ"):
+        rs.rwkv_scan(r.bfloat16(), k.bfloat16(), v.bfloat16(), w.half(), u)
+    with pytest.raises(TypeError, match="differ"):
+        rs.rwkv_scan(r.bfloat16(), k, v.bfloat16(), w, u)
+    rb = torch.zeros(r.numel() + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        rs.rwkv_scan(rb[1:].view(r.shape), k, v, w, u)
     with pytest.raises(RuntimeError, match="forward only"):
         rs.rwkv_scan(r.requires_grad_(), k, v, w, u)
     assert rs.LAUNCHES["rwkv_scan"] == n0

@@ -130,6 +130,42 @@ def test_flash_wrapper_refuses_cpu_tensors():
     assert tfa.LAUNCHES == before
 
 
+# The bf16 shapes that chip_smoke.py and tests/test_torch_cuda.py run through
+# the tensor-core body: every head dim, ragged causal with 8 query heads a KV
+# head, MQA and non-causal with S != Sk.  Here the plain version (the card's
+# reference) against the JAX package.
+ATTN_BF16_CASES = [
+    (1, 256, 256, 4, 2, 32, True, "bfloat16"),
+    (1, 256, 256, 4, 2, 64, True, "bfloat16"),
+    (2, 100, 37, 8, 2, 160, True, "bfloat16"),
+    (1, 200, 200, 32, 4, 64, True, "bfloat16"),
+    (2, 128, 256, 4, 4, 64, False, "bfloat16"),
+    (1, 128, 128, 4, 1, 32, True, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_BF16_CASES, ids=_ids)
+def test_reference_attention_matches_jax_flash_bf16(case):
+    B, S, Sk, H, Hk, hd, causal, dtype = case
+    (jq, jk, jv), (tq, tk, tv) = _qkv(4, *case[:6], dtype)
+    bq, bk = (128, 128) if S % 128 == 0 and Sk % 128 == 0 else (S, Sk)
+    want = jax_flash(jq, jk, jv, causal=causal, block_q=bq, block_k=bk, interpret=True)
+    got = ops.attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    _close(_np(got), want, TOL[dtype])
+
+
+def test_flash_bodies_by_dtype_and_reset():
+    """bf16 runs the tensor-core body, f32 the FMA body; reset_launches
+    zeroes both counts."""
+    assert tfa.BODIES == {torch.bfloat16: "tensor_core", torch.float32: "fma"}
+    tfa.LAUNCHES["flash_attention"] += 2
+    tfa.BODY_LAUNCHES["tensor_core"] += 2
+    tfa.reset_launches()
+    assert tfa.LAUNCHES == {"flash_attention": 0}
+    assert tfa.BODY_LAUNCHES == {"tensor_core": 0, "fma": 0}
+
+
 # -------------------------------------------------------------------- modules
 
 

@@ -14,6 +14,8 @@ card: ``tests/test_torch_cuda.py`` holds it against the plain version there.
 
 import dataclasses
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -180,6 +182,113 @@ def test_wkv_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         trs.rwkv_scan(*tx)
     assert trs.LAUNCHES == before
+
+
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ops_rwkv_mixed_dtypes_equal_f32_on_upcast(N, with_state):
+    """bf16 r/k/v with f32 w (the model's dtypes on the card) give, on the
+    CPU, bit for bit the all-f32 call on the widened values, with y rounded
+    to bf16 once: the function the kernel computes from the same operands."""
+    _, tx = _rwkv_inputs(8, 2, 40, 2, N, "float32")
+    r, k, v, w, u = tx
+    rb, kb, vb = (t.bfloat16() for t in (r, k, v))
+    s0 = (torch.from_numpy(np.random.default_rng(9).standard_normal((2, 2, N, N))
+                           .astype(np.float32)) if with_state else None)
+    got = ops.rwkv(rb, kb, vb, w, u, state=s0)
+    want = ops.rwkv(rb.float(), kb.float(), vb.float(), w, u, state=s0)
+    if with_state:
+        (got, got_s), (want, want_s) = got, want
+        assert got_s.dtype == torch.float32 and torch.equal(got_s, want_s)
+    assert got.dtype == torch.bfloat16 and got.shape == rb.shape
+    assert torch.equal(got, want.bfloat16())
+
+
+_WKV_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("rkv", _WKV_DTYPES, ids=str)
+@pytest.mark.parametrize("w_dtype", _WKV_DTYPES, ids=str)
+def test_wkv_wrapper_takes_exactly_three_dtype_combinations(rkv, w_dtype, monkeypatch):
+    """r/k/v and w all f32, all bf16, or bf16 with f32 w; any other
+    combination raises TypeError before the library is built or loaded."""
+    _, tx = _rwkv_inputs(10, 1, 16, 2, 16, "float32")
+    r, k, v, w, u = tx
+
+    def no_build(*_a, **_k):
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(trs, "_lib", no_build)
+    args = (r.to(rkv), k.to(rkv), v.to(rkv), w.to(w_dtype), u)
+    accepted = {(torch.float32, torch.float32): "float32",
+                (torch.bfloat16, torch.bfloat16): "bfloat16",
+                (torch.bfloat16, torch.float32): "mixed"}
+    before = dict(trs.DTYPE_LAUNCHES)
+    if (rkv, w_dtype) in accepted:
+        assert trs.dtype_code(*args[:4])[1] == accepted[(rkv, w_dtype)]
+        with pytest.raises(ValueError, match="CUDA tensor"):  # CPU tensors, past the dtypes
+            trs.rwkv_scan(*args)
+    else:
+        with pytest.raises(TypeError, match="differ"):
+            trs.dtype_code(*args[:4])
+        with pytest.raises(TypeError, match="differ"):
+            trs.rwkv_scan(*args)
+    assert trs.DTYPE_LAUNCHES == before
+
+
+def test_wkv_wrapper_refuses_r_k_v_of_different_dtypes():
+    _, tx = _rwkv_inputs(11, 1, 16, 2, 16, "float32")
+    r, k, v, w, u = tx
+    for args in ((r.bfloat16(), k, v.bfloat16(), w), (r, k.bfloat16(), v, w),
+                 (r.bfloat16(), k.bfloat16(), v, w)):
+        with pytest.raises(TypeError, match="differ"):
+            trs.rwkv_scan(*args, u)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_reckons_wkv_bytes_per_operand_dtype():
+    """The WKV bound counts r/k/v/y at their own width and w at its own."""
+    cs = _chip_smoke()
+    B, S, H, N = 4, 512, 64, 64
+    state = 4 * H * N + 2 * 4 * B * H * N * N  # u, initial and final state
+    f32 = cs.rwkv_work(B, S, H, N, 64, 4, 4, True)
+    mixed = cs.rwkv_work(B, S, H, N, 64, 2, 4, True)
+    assert f32[1] == 5 * 4 * B * S * H * N + state
+    assert mixed[1] == (4 * 2 + 4) * B * S * H * N + state
+    assert mixed[0] == f32[0]  # the same operations
+
+
+def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
+    cs = _chip_smoke()
+    sass = """
+        Function : _ZN12_GLOBAL__N_125flash_fwd_bf16_mma_kernelILi64ELb1EEEvPK
+        /*0100*/   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;
+        /*0110*/   FFMA R1, R2, R3, R1 ;
+        /*0120*/   HMMA.16816.F32.BF16 R8, R12, R22, R8 ;
+        Function : _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64ELb1EEEvPKT_
+        /*0100*/   FFMA R1, R2, R3, R1 ;
+        Function : _ZN12_GLOBAL__N_116rwkv_scan_kernelIffLi64EEEvPKT_
+        /*0200*/   HMMA.1688.F32.TF32 R4, R12, R20, R4 ;
+    """
+    counts = cs.sass_tensor_core_counts(sass)
+    assert list(counts.values()) == [2, 0, 1]
+    assert cs.TENSOR_CORE_KERNELS["flash_attention"] in list(counts)[0]
+    assert cs.TENSOR_CORE_KERNELS["rwkv_scan"] in list(counts)[2]
+
+
+def test_wkv_reset_launches_zeroes_every_count():
+    trs.LAUNCHES["rwkv_scan"] += 3
+    trs.DTYPE_LAUNCHES["mixed"] += 2
+    trs.reset_launches()
+    assert trs.LAUNCHES == {"rwkv_scan": 0}
+    assert trs.DTYPE_LAUNCHES == {"float32": 0, "bfloat16": 0, "mixed": 0}
 
 
 # -------------------------------------------------------------------- modules
