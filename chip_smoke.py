@@ -13,7 +13,15 @@ Phases, in order; any failure exits non-zero before the result line:
              WKV instantiation must have some;
 3. kernels — every hand-written kernel against its plain torch version on
              the card, at the test shapes, the main path's shapes and a
-             large shape: max error within tolerance (the WKV scan's final
+             large shape.  The gossip mix also as a tree launch (one launch
+             per dtype group of up to 48 leaves) on ``tree_cases()`` --
+             the MLP tree in f32, bf16 and f16, leaves off 16-byte
+             boundaries, n = 10 and n = 1, rows of 70,000, R = 1, mixed
+             dtypes, more leaves than one table -- bit-equal leaf by leaf
+             with u given and absent; and the cohort's MLP tree timed as
+             one launch (u absent and given), as six one-leaf launches with
+             ``zeros_like`` u (the engine before the tree launch), and as six
+             ``torch.lerp`` calls.  Max error within tolerance (the WKV scan's final
              state too; with bf16 r/k/v and f32 w, y to the bf16 tolerance
              and the f32 state to the f32 one), and per kernel the median
              time (profiler and CUDA events), the bound, the plain
@@ -25,7 +33,8 @@ Phases, in order; any failure exits non-zero before the result line:
 4. main    — the paper's NetMax loop through ``simulate`` at the repo's
              model width (MLP [32, 128, 64, 10], 32 workers, 3000 events):
              the launch counters are zeroed just before and read just
-             after, and every kernel of the path must have launched;
+             after: the gossip mix must launch exactly once per cohort,
+             and the kernels' modules make no ``zeros_like`` tensor;
 5. parity  — the same configuration, 1000 events, on the card and on the
              CPU: host-side outputs bit-equal, losses within 5e-4;
 6. lm      — LM serving at the full width of tinyllama-1.1b (22 layers,
@@ -195,29 +204,70 @@ def cuda_ms(torch, fn, iters, reps=7, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, iters, match=None):
-    """Device time (ms) from a torch.profiler (CUPTI) trace of ``iters``
-    calls of ``fn``: with ``match``, the mean over the traced kernels whose
-    name contains it (``fn`` launches one a call; a trace may hold fewer
-    launches than calls were made, so the sum over calls would read low);
-    without, the device time of all kernels per call.  None when the trace
-    holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
+#: Traces device_ms takes of one case before it gives up: CUPTI on the
+#: card's machine may deliver only some of a trace's kernel records, or none
+#: (an H100 run traced 65 of 200 launches in one trace, and another traced
+#: none of a WKV case's), so a trace that misses launches is taken again.
+PROFILE_ATTEMPTS = 4
 
+
+def traced_device_us(events, match=None):
+    """(launches, device µs) of the profiler's ``key_averages()`` rows whose
+    kernel name contains ``match`` (all rows without it)."""
+    found = [e for e in events if match is None or match in e.key]
+    return (sum(e.count for e in found),
+            sum(e.self_device_time_total for e in found))
+
+
+def device_ms(torch, fn, iters, match=None, per_call=1):
+    """Device time (ms) from a torch.profiler (CUPTI) trace of ``iters``
+    calls of ``fn``: with ``match``, the time of the traced kernels whose
+    name contains it over the calls they account for (``fn`` launches
+    ``per_call`` of them a call; a trace may hold fewer launches than calls
+    were made, so the sum over calls would read low), and when no trace of
+    ``PROFILE_ATTEMPTS`` holds one the phase fails; without, the device time
+    of all kernels per call, or None when no trace holds device time.  A
+    trace short of the launches made is taken again; the fullest is used."""
+    profiler = torch.profiler
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if match is None or match in e.key]
-    us = sum(e.self_device_time_total for e in found)
-    if us <= 0:
-        return None
-    n = iters if match is None else sum(e.count for e in found)
-    if n != iters:
-        print(f"  (profiler traced {n} {match} launches of {iters} calls)")
-    return us / n / 1e3
+    want = iters * per_call
+    best = (0, 0.0)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n, us = traced_device_us(prof.key_averages(), match)
+        if us > 0 and n > best[0]:
+            best = (n, us)
+        if us > 0 and (match is None or n >= want):
+            break
+    n, us = best
+    if attempt > 1:
+        print(f"  (profiler: {attempt} traces of {match or 'all kernels'}, "
+              f"the fullest held {n} launches)")
+    if match is None:
+        return us / iters / 1e3 if us > 0 else None
+    check(us > 0, f"the profiler traced no device time for kernels named *{match}* "
+                  f"in {PROFILE_ATTEMPTS} traces")
+    if n != want:
+        print(f"  (profiler traced {n} {match} launches of {want})")
+    return us / (n / per_call) / 1e3
+
+
+def host_ms(torch, fn, iters, warmup=3):
+    """Host time (ms) a call spends enqueueing ``fn``: the wall clock around
+    ``iters`` calls, read before the device is waited for."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / iters * 1e3
 
 
 def hbm_rate(name: str) -> float:
@@ -291,6 +341,61 @@ def sass_tensor_core_counts(sass: str) -> dict:
     return counts
 
 
+def tree_cases():
+    """Trees held bit-equal between one tree launch and the plain version
+    leaf by leaf, with u given and absent: name -> (R, the leaves' trailing
+    shapes, their dtype (one name for all, or one per leaf), the leaves whose
+    bases are moved off 16-byte boundaries)."""
+    mlp = leaf_shapes()
+    return {
+        "mlp_f32": (N_WORKERS, mlp, "float32", ()),
+        "mlp_bf16": (N_WORKERS, mlp, "bfloat16", ()),
+        "mlp_f16": (N_WORKERS, mlp, "float16", ()),
+        "mixed_alignment": (4, [(127, 33), (10,), (1,), (64,), (70000,)], "float32",
+                            (0, 2, 4)),
+        "mixed_alignment_bf16": (4, [(127, 33), (10,), (1,), (64,)], "bfloat16", (1, 3)),
+        "rows_across_vectors": (32, [(10,), (1,), (3,), (5, 7), (64, 10)], "float16", ()),
+        "rows_of_70000": (2, [(70000,), (127,)], "float32", ()),
+        "one_row": (1, [(127, 33), (10,), (1,), (70000,)], "bfloat16", ()),
+        "mixed_dtypes": (8, [(64,), (10,), (33,), (1,), (128, 64)],
+                         ("float32", "bfloat16", "float32", "float16", "bfloat16"), ()),
+        "more_leaves_than_a_table": (4, [(k,) for k in range(1, 51)], "float32", (7, 30)),
+        "100_leaves_bf16": (3, [((k % 17) + 1, 3) for k in range(100)], "bfloat16", ()),
+    }
+
+
+def make_tree(torch, case, device, gen):
+    """(xs, us, pulleds, w) for a ``tree_cases()`` entry: normal draws (u
+    scaled 0.01), w = linspace(0, 1, R).  Row 0 (w = 0) starts with x = -0.0
+    and p < 0, where only x + 0.0 gives the plain version's +0.0."""
+    R, shapes, dtypes, unaligned = case
+    if isinstance(dtypes, str):
+        dtypes = [dtypes] * len(shapes)
+    xs, us, ps = [], [], []
+    for i, (trail, dt) in enumerate(zip(shapes, dtypes)):
+        shape = (R,) + tuple(trail)
+        numel = math.prod(shape)
+        ops = []
+        for scale in (1.0, 0.01, 1.0):
+            flat = torch.randn(numel + 1, generator=gen, device=device).mul_(scale)
+            flat = flat.to(getattr(torch, dt))
+            ops.append((flat[1:] if i in unaligned else flat[:numel]).view(shape))
+        x, u, p = ops
+        x.view(R, -1)[0, :2] = -0.0
+        p.view(R, -1)[0, :2] = -1.0
+        xs.append(x)
+        us.append(u)
+        ps.append(p)
+    return xs, us, ps, torch.linspace(0.0, 1.0, R, device=device)
+
+
+def bits_equal(torch, a, b):
+    """a and b hold the same bits (so +0.0 and -0.0 differ)."""
+    as_int = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(as_int), b.contiguous().view(as_int)))
+
+
 def phase_kernels(torch, rate):
     """Every kernel against its plain version; returns per-kernel summaries
     (without launches) and the per-case records."""
@@ -299,6 +404,7 @@ def phase_kernels(torch, rate):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def draw(shape, dtype):
         x, u, p = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
@@ -315,8 +421,7 @@ def phase_kernels(torch, rate):
                   else torch.full((R,), w, device=dev))
             k_fn = lambda: tk.gossip_mix_rows(x, u, p, wt)  # noqa: E731
             p_fn = lambda: ref.reference_gossip_mix_rows(x, u, p, wt)  # noqa: E731
-            wl = wt.reshape((-1,) + (1,) * (len(shape) - 1))
-            lib_fn = lambda: torch.lerp(x, p, wl)  # noqa: E731
+            lib_fn = None  # the cohort's tree has its yardstick in main_tree
             n_w = R
         else:
             k_fn = lambda: tk.gossip_mix(x, u, p, w)  # noqa: E731
@@ -334,7 +439,7 @@ def phase_kernels(torch, rate):
                "max_abs_err": err, "bound_ms": nbytes / rate * 1e3, "bytes": nbytes}
         # torch.lerp(x, p, w) computes the u = 0 case; a yardstick only.
         fns = {"": k_fn, "plain_": p_fn}
-        if role == "main":
+        if role == "main" and lib_fn is not None:
             fns["library_"] = lib_fn
         for key, fn in fns.items():
             # Device time of the kernels alone (profiler) and the time per
@@ -342,7 +447,7 @@ def phase_kernels(torch, rate):
             # launch cost whenever the kernel is shorter than that.
             call = cuda_ms(torch, fn, iters)
             dev_ms = device_ms(torch, fn, iters,
-                               "mix_rows_kernel" if key == "" else None)
+                               "mix_tree_kernel" if key == "" else None)
             rec[key + "ms"] = call if dev_ms is None else dev_ms
             rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
             rec[key + "call_ms"] = call
@@ -350,52 +455,160 @@ def phase_kernels(torch, rate):
         records.append(rec)
         return rec
 
+    def run_tree(name, case):
+        """One tree launch (per dtype group) against the plain version leaf
+        by leaf, bit for bit, with u given and absent."""
+        xs, us, ps, w = make_tree(torch, case, dev, gen)
+        groups = tk.plan(tuple(x.dtype for x in xs), tuple(x.numel() for x in xs),
+                         sm_count)
+        for with_u in (True, False):
+            n0 = tk.LAUNCHES["gossip_mix_rows"]
+            got = tk.gossip_mix_rows_tree(xs, us if with_u else None, ps, w)
+            torch.cuda.synchronize()
+            launches = tk.LAUNCHES["gossip_mix_rows"] - n0
+            check(launches == len(groups), f"tree {name}: {launches} launches, "
+                                           f"expected {len(groups)}")
+            err = 0.0
+            for i, (x, u, p, g) in enumerate(zip(xs, us, ps, got)):
+                want = ref.reference_gossip_mix_rows(x, u if with_u else None, p, w)
+                err = max(err, (g.float() - want.float()).abs().max().item())
+                check(bits_equal(torch, g, want),
+                      f"tree {name} (u {'given' if with_u else 'absent'}) leaf {i} "
+                      f"{tuple(x.shape)} {x.dtype}: not bit-equal (max |err| {err})")
+            records.append({"kernel": "gossip_mix_rows", "role": "tree", "case": name,
+                            "with_u": with_u, "leaves": len(xs), "launches": launches,
+                            "unrolls": [g.unroll for g in groups],
+                            "blocks": [g.blocks for g in groups], "max_abs_err": err})
+            print(f"  tree {name}: {len(xs)} leaves, u {'given' if with_u else 'absent'}"
+                  f", {launches} launch(es) of {[g.blocks for g in groups]} blocks "
+                  f"(unroll {[g.unroll for g in groups]}), bit-equal")
+
     for shape, dtype, w in MIX_CASES:
         run_case("gossip_mix", shape, dtype, w, "test", 50)
     for shape, dtype in MIX_ROWS_CASES:
         run_case("gossip_mix_rows", shape, dtype, None, "test", 50)
+    for name, case in tree_cases().items():
+        run_tree(name, case)
     for dtype in ("float32", "bfloat16"):
         run_case("gossip_mix_rows", (8, 2 ** 24), dtype, None, "large", 5)
     run_case("gossip_mix", (2 ** 27,), "float32", 0.3, "large", 5)
-    # The main path: the batched engine mixes a full cohort of 32 rows per
-    # parameter leaf (u = 0 there; random u here, same work); a single
-    # replica's leaves for the scalar entry point.
-    for shape in leaf_shapes(N_WORKERS):
-        run_case("gossip_mix_rows", shape, "float32", None, "main", 200)
+    # A single replica's leaves for the scalar entry point; the cohort's tree
+    # in ``main_tree``.
     for shape in leaf_shapes():
         run_case("gossip_mix", shape, "float32", 0.3, "main", 200)
-
-    def summary(kernel, source, replaces):
-        main = [r for r in records if r["kernel"] == kernel and r["role"] == "main"]
-        mine = [r for r in records if r["kernel"] == kernel]
-        return {
-            "name": kernel, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            # One mix of the whole MLP tree: the six leaves' launches.
-            "ms": sum(r["ms"] for r in main),
-            "plain_ms": sum(r["plain_ms"] for r in main),
-            "bound_ms": sum(r["bound_ms"] for r in main),
-            "bound_by": "bytes",
-            "library_ms": sum(r["library_ms"] for r in main),
-        }
+    tree = main_tree(torch, tk, ref, rate, draw, dev, records)
 
     src = "src/repro_torch/kernels/csrc/gossip_mix.cu"
+    b1 = [r for r in records if r["kernel"] == "gossip_mix_rows"]
+    b2_main = [r for r in records if r["kernel"] == "gossip_mix" and r["role"] == "main"]
     summaries = [
-        summary("gossip_mix_rows", src, "src/repro/kernels/gossip_mix.py:82"),
-        summary("gossip_mix", src, "src/repro/kernels/gossip_mix.py:42"),
+        {"name": "gossip_mix_rows", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/gossip_mix.py:82",
+         "max_abs_err": max(r["max_abs_err"] for r in b1 if "max_abs_err" in r),
+         # One mix of the cohort's MLP tree as the engine runs it: one launch,
+         # u absent; beside it u given, and the six launches with zeros_like u
+         # of the engine before the tree launch.
+         "ms": tree["tree"]["ms"], "plain_ms": tree["plain"]["ms"],
+         "bound_ms": tree["tree"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": tree["lerp"]["ms"],
+         "ms_with_u": tree["tree_u"]["ms"], "bound_ms_with_u": tree["tree_u"]["bound_ms"],
+         "call_ms": tree["tree"]["call_ms"], "host_ms": tree["tree"]["host_ms"],
+         "per_leaf_ms": tree["per_leaf"]["ms"],
+         "per_leaf_call_ms": tree["per_leaf"]["call_ms"],
+         "per_leaf_host_ms": tree["per_leaf"]["host_ms"]},
+        {"name": "gossip_mix", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/gossip_mix.py:42",
+         "max_abs_err": max(r["max_abs_err"] for r in records
+                            if r["kernel"] == "gossip_mix"),
+         # One replica's six leaves, one launch each.
+         "ms": sum(r["ms"] for r in b2_main),
+         "plain_ms": sum(r["plain_ms"] for r in b2_main),
+         "bound_ms": sum(r["bound_ms"] for r in b2_main), "bound_by": "bytes",
+         "library_ms": sum(r["library_ms"] for r in b2_main)},
     ]
-    for s in summaries:
-        print(f"kernel {s['name']}: max|err| {s['max_abs_err']:.3g}, main-path tree "
-              f"{s['ms'] * 1e3:.2f} us on the device (plain {s['plain_ms'] * 1e3:.2f}"
-              f" us, lerp {s['library_ms'] * 1e3:.2f} us, bound "
-              f"{s['bound_ms'] * 1e3:.3f} us)")
+    s1, s2 = summaries
+    print(f"kernel gossip_mix_rows: max|err| {s1['max_abs_err']:.3g}; the cohort's tree "
+          f"in one launch {s1['ms'] * 1e3:.2f} us on the device, u absent (bound "
+          f"{s1['bound_ms'] * 1e3:.3f} us), {s1['ms_with_u'] * 1e3:.2f} us with u (bound "
+          f"{s1['bound_ms_with_u'] * 1e3:.3f} us); six launches with zeros_like u "
+          f"{s1['per_leaf_ms'] * 1e3:.2f} us; six lerp {s1['library_ms'] * 1e3:.2f} us; "
+          f"per call {s1['call_ms'] * 1e3:.2f} us (host {s1['host_ms'] * 1e3:.2f} us) "
+          f"against {s1['per_leaf_call_ms'] * 1e3:.2f} us (host "
+          f"{s1['per_leaf_host_ms'] * 1e3:.2f} us)")
+    print(f"kernel gossip_mix: max|err| {s2['max_abs_err']:.3g}, one replica's six "
+          f"leaves {s2['ms'] * 1e3:.2f} us on the device (plain {s2['plain_ms'] * 1e3:.2f}"
+          f" us, lerp {s2['library_ms'] * 1e3:.2f} us, bound {s2['bound_ms'] * 1e3:.3f} us)")
     for r in records:
+        if r["role"] in ("tree", "main_tree"):
+            continue
         print(f"  {r['kernel']} {r['role']} {r['shape']} {r['dtype']}: device "
               f"{r['ms'] * 1e3:.2f} us ({r['ms_from']}), per call {r['call_ms'] * 1e3:.2f}"
               f" us, plain {r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} us"
-              f" ({r['bytes'] / (r['ms'] * 1e-3) / 1e12:.3f} TB/s)")
+              f" ({r['bytes'] / (r['ms'] * 1e-3) / 1e12:.3f} TB/s)"
+              + (f", lerp {r['library_ms'] * 1e3:.2f} us" if r["library_ms"] else ""))
     return summaries, records
+
+
+def main_tree(torch, tk, ref, rate, draw, dev, records, iters=200):
+    """The cohort's MLP tree (six leaves x 32 rows, f32) mixed every way:
+    one tree launch with u absent (the engine's form) and with u given; the
+    engine's way before the tree launch (six one-leaf launches, each with a
+    ``zeros_like`` u); the plain version; six ``torch.lerp`` calls (u = 0
+    only, a yardstick); and the tree launch after a 128 MB write that
+    evicts the operands from L2 (on the main path they were just written, so
+    L2-resident is the engine's case).  Per way: device time (profiler), time
+    per call back to back (CUDA events) and host enqueue time per call."""
+    shapes = leaf_shapes(N_WORKERS)
+    ops = [draw(s, "float32") for s in shapes]
+    xs, us, ps = ([o[j] for o in ops] for j in range(3))
+    w = torch.linspace(0.0, 1.0, N_WORKERS, device=dev)
+    wls = [w.reshape((-1,) + (1,) * (len(s) - 1)) for s in shapes]
+    flush = torch.empty(32 * 2 ** 20, device=dev)
+    ways = {
+        "tree": (lambda: tk.gossip_mix_rows_tree(xs, None, ps, w), "mix_tree_kernel", 1),
+        "tree_u": (lambda: tk.gossip_mix_rows_tree(xs, us, ps, w), "mix_tree_kernel", 1),
+        "per_leaf": (lambda: [tk.gossip_mix_rows(x, torch.zeros_like(x), p, w)
+                              for x, p in zip(xs, ps)], None, 1),
+        "per_leaf_kernels": (lambda: [tk.gossip_mix_rows(x, torch.zeros_like(x), p, w)
+                                      for x, p in zip(xs, ps)], "mix_tree_kernel", 6),
+        "plain": (lambda: [ref.reference_gossip_mix_rows(x, None, p, w)
+                           for x, p in zip(xs, ps)], None, 1),
+        "plain_u": (lambda: [ref.reference_gossip_mix_rows(x, u, p, w)
+                             for x, u, p in zip(xs, us, ps)], None, 1),
+        "lerp": (lambda: [torch.lerp(x, p, wl) for x, p, wl in zip(xs, ps, wls)], None, 1),
+        "tree_cold": (lambda: (flush.zero_(), tk.gossip_mix_rows_tree(xs, None, ps, w)),
+                      "mix_tree_kernel", 1),
+    }
+    n_el = sum(x.numel() for x in xs)
+    nbytes = {"tree": 3 * n_el * 4 + 4 * N_WORKERS, "tree_u": 4 * n_el * 4 + 4 * N_WORKERS}
+    out = {}
+    for key, (fn, match, per_call) in ways.items():
+        rec = {"kernel": "gossip_mix_rows", "role": "main_tree", "way": key,
+               "ms": device_ms(torch, fn, iters, match, per_call)}
+        check(rec["ms"] is not None, f"main tree {key}: the profiler traced no device time")
+        if key != "tree_cold":
+            rec["call_ms"] = cuda_ms(torch, fn, iters)
+            rec["host_ms"] = host_ms(torch, fn, iters)
+        if key in nbytes:
+            rec["bytes"] = nbytes[key]
+            rec["bound_ms"] = nbytes[key] / rate * 1e3
+        out[key] = rec
+    for key, plain_key in (("tree", "plain"), ("tree_u", "plain_u")):
+        got, want = ways[key][0](), ways[plain_key][0]()
+        torch.cuda.synchronize()
+        out[key]["max_abs_err"] = max((g - v).abs().max().item() for g, v in zip(got, want))
+        check(all(bits_equal(torch, g, v) for g, v in zip(got, want)),
+              f"main tree {key}: not bit-equal to the plain version "
+              f"(max |err| {out[key]['max_abs_err']})")
+    for key, rec in out.items():
+        print(f"  main tree {key}: device {rec['ms'] * 1e3:.2f} us"
+              + (f", per call {rec['call_ms'] * 1e3:.2f} us, host {rec['host_ms'] * 1e3:.2f}"
+                 " us" if "call_ms" in rec else "")
+              + (f", bound {rec['bound_ms'] * 1e3:.3f} us "
+                 f"({rec['bytes'] / (rec['ms'] * 1e-3) / 1e12:.3f} TB/s)"
+                 if "bound_ms" in rec else ""))
+        records.append(rec)
+    return out
 
 
 def attn_work(B, S, Sk, H, Hk, hd, causal, itemsize):
@@ -675,9 +888,23 @@ def phase_main(torch):
         finally:
             monitor_s[0] += time.perf_counter() - t
 
+    # zeros_like calls made from the kernels' modules (the mix made one a
+    # leaf before it took u as absent); the run must make none.
+    from repro_torch.kernels import ops as kops
+
+    zeros_like = torch.zeros_like
+    kernels_dir = str(Path(kops.__file__).parent)
+    mix_zeros = [0]
+
+    def watched_zeros_like(*args, **kwargs):
+        if sys._getframe(1).f_code.co_filename.startswith(kernels_dir):
+            mix_zeros[0] += 1
+        return zeros_like(*args, **kwargs)
+
     torch.cuda.synchronize()
     reset_all_launches()
     engine.monitor_boundary = timed_boundary
+    torch.zeros_like = watched_zeros_like
     try:
         t0 = time.perf_counter()
         res = simulate(cfg, link, x, y, parts, ex, ey, record_every=500,
@@ -686,14 +913,19 @@ def phase_main(torch):
         secs = time.perf_counter() - t0
     finally:
         engine.monitor_boundary = boundary
+        torch.zeros_like = zeros_like
     launches = read_all_launches()
     check(res.engine == "batched", f"engine {res.engine}")
     check(res.policy_updates >= 3, f"policy_updates {res.policy_updates} < 3")
     check(all(map(math.isfinite, res.losses)), f"non-finite losses {res.losses}")
     check(res.losses[-1] < res.losses[0], f"loss did not fall: {res.losses}")
-    check(launches["gossip_mix_rows"] >= 6 * res.cohorts,
+    # Every counted cohort runs the cohort body once, and the body mixes the
+    # whole MLP tree (one dtype, six leaves) in one launch.
+    check(launches["gossip_mix_rows"] == res.cohorts,
           f"gossip_mix_rows launched {launches['gossip_mix_rows']} times for "
-          f"{res.cohorts} cohorts (need >= 6 per cohort)")
+          f"{res.cohorts} cohorts (need exactly one per cohort)")
+    check(mix_zeros[0] == 0, f"the kernels' modules made {mix_zeros[0]} zeros_like "
+                             "tensors on the main path")
     check(launches["rwkv_scan"] == 0,
           f"rwkv_scan launched {launches['rwkv_scan']} times on the simulator's path")
     ev = res.events[-1]
@@ -706,7 +938,7 @@ def phase_main(torch):
             "us_per_event": secs / ev * 1e6, "cohorts": res.cohorts,
             "dispatches": res.dispatches, "policy_updates": res.policy_updates,
             "monitor_s": monitor_s[0], "losses": res.losses,
-            "launches": launches}
+            "launches": launches, "mix_zeros_like": mix_zeros[0]}
 
 
 def phase_profile(torch, main):
@@ -724,7 +956,7 @@ def phase_profile(torch, main):
     avg = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     device_s = sum(e.self_device_time_total for e in avg) * 1e-6
     mix_s = sum(e.self_device_time_total for e in avg
-                if "mix_rows_kernel" in e.key) * 1e-6
+                if "mix_tree_kernel" in e.key) * 1e-6
     top = [(e.key[:80], e.count, e.self_device_time_total * 1e-3) for e in avg[:8]]
     print(f"main path device time {device_s:.4f} s = {device_s / main['seconds']:.4f} "
           f"of the wall; gossip_mix_rows {mix_s:.4f} s; top kernels (name, count, ms):")
@@ -1194,7 +1426,10 @@ def main() -> int:
         s["launches"] = path_of[s["name"]]["launches"][s["name"]]
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    kernels = [{k: s[k] for k in order} for s in summaries]
+    # The contract's keys in order, then a kernel's own (B1: u given, and the
+    # six-launch way beside the tree launch).
+    kernels = [{**{k: s[k] for k in order}, **{k: v for k, v in s.items() if k not in order}}
+               for s in summaries]
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke_kernels.json").write_text(json.dumps(

@@ -11,11 +11,9 @@ that fails to build or launch raises.
 
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_rows
+from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_rows, gossip_mix_rows_tree
 from repro_torch.kernels.rwkv_scan import rwkv_scan
 from repro_torch.tree import tree_map
 
@@ -65,13 +63,17 @@ def mix_rows(x, u, pulled, w):
 def gossip_mix_tree(x_half, pulled, weights):
     """Tree-level fused mix used by the batched simulator engine (x_half
     already includes the optimizer update, so u = 0):
-    out = (1-w_i) x_half + w_i pulled, one ``mix_rows`` launch per leaf.
+    out = (1-w_i) x_half + w_i pulled, leaf by leaf.
 
-    Faithful to the JAX package, ``u`` is a materialised zero tensor, so
-    the kernel reads a third operand it does not need (ROADMAP: later perf
-    work)."""
-
-    def one(h, p):
-        return mix_rows(h, torch.zeros_like(h), p, weights)
-
-    return tree_map(one, x_half, pulled)
+    The JAX package's ``gossip_mix_tree``, which mixes each leaf with a
+    materialised ``u = zeros_like(h)``.  Here u is absent: on CUDA the whole
+    tree is one kernel launch (per dtype group of up to
+    ``gossip_mix.MAX_LEAVES`` leaves) that reads no u; on the CPU the plain
+    version per leaf, with x + 0.0 for x + u."""
+    keys = [(i, k) for i, layer in enumerate(x_half) for k in layer]
+    xs = [x_half[i][k] for i, k in keys]
+    if not _on_cuda(xs[0]):
+        return tree_map(lambda h, p: ref.reference_gossip_mix_rows(h, None, p, weights),
+                        x_half, pulled)
+    outs = iter(gossip_mix_rows_tree(xs, None, [pulled[i][k] for i, k in keys], weights))
+    return [{k: next(outs) for k in layer} for layer in x_half]

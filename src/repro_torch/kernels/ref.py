@@ -26,11 +26,13 @@ def reference_gossip_mix(x, u, pulled, w):
 def reference_gossip_mix_rows(x, u, pulled, w):
     """Per-row mix: out[r] = (1-w[r])*(x[r]+u[r]) + w[r]*pulled[r].
 
-    x/u/pulled: (R, ...); w: (R,) broadcast over the trailing dims.
+    x/u/pulled: (R, ...); w: (R,) broadcast over the trailing dims.  u None
+    means u = 0, computed as x + 0.0 (so -0.0 becomes +0.0, as x + zeros and
+    the u-less kernel give).
     """
     wf = torch.as_tensor(w, dtype=torch.float32, device=x.device)
     wf = wf.reshape((-1,) + (1,) * (x.ndim - 1))
-    xf = x.float() + u.float()
+    xf = x.float() + (0.0 if u is None else u.float())
     out = (1.0 - wf) * xf + wf * pulled.float()
     return out.to(x.dtype)
 

@@ -35,8 +35,8 @@ every gather of the cohort.  Cohorts are padded to ~1.5x-stepped row
 buckets with distinct idle workers (valid=0, written back unchanged), as in
 the JAX package; chain and burst levels that are pure padding are no-ops
 and are skipped.  Under ``SimConfig.use_mix_kernel`` the mix is
-``kernels/ops.gossip_mix_tree``: the CUDA gossip-mix kernel, one launch per
-parameter leaf, on a card.
+``kernels/ops.gossip_mix_tree``: on a card, the CUDA gossip-mix kernel, one
+launch for the cohort's whole parameter tree, with no u operand.
 
 Not ported yet: the ``"ps-serial"`` variant (ps-async, ROADMAP A5), the
 synchronous round executor ``run_batched_sync`` (A5) and the device-sharded

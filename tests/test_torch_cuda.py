@@ -2,7 +2,7 @@
 
 The gossip-mix kernel repeats its plain version's f32 steps with every
 rounding in the same place (no FMA contraction), so it is held to it
-bit for bit.  The flash-attention and WKV kernels sum in another order than
+bit for bit, as one launch per parameter tree too (u given and absent).  The flash-attention and WKV kernels sum in another order than
 their plain versions, so they are held to the tolerances of
 ``tests/test_kernels.py`` (attention 2e-5 in f32, 2e-2 in bf16; WKV 1e-4 in
 f32, 5e-2 in bf16, 1e-3 for the extreme-decay clamped case).  With bf16
@@ -91,6 +91,106 @@ def test_cuda_wrapper_checks_operands(cuda_device):
                                                 dtype=torch.float64))
     with pytest.raises(TypeError, match="dtype"):
         tk.gossip_mix(x.double(), x.double(), x.double(), 0.5)
+
+
+# Trees mixed in one launch per dtype group (chip_smoke.py's tree_cases):
+# name -> (R, trailing leaf shapes, dtype(s), leaves moved off 16 bytes).
+_MLP = [(32, 128), (128,), (128, 64), (64,), (64, 10), (10,)]
+TREE_CASES = {
+    "mlp_f32": (32, _MLP, "float32", ()),
+    "mlp_bf16": (32, _MLP, "bfloat16", ()),
+    "mlp_f16": (32, _MLP, "float16", ()),
+    "mixed_alignment": (4, [(127, 33), (10,), (1,), (64,), (70000,)], "float32", (0, 2, 4)),
+    "mixed_alignment_bf16": (4, [(127, 33), (10,), (1,), (64,)], "bfloat16", (1, 3)),
+    "rows_across_vectors": (32, [(10,), (1,), (3,), (5, 7), (64, 10)], "float16", ()),
+    "rows_of_70000": (2, [(70000,), (127,)], "float32", ()),
+    "one_row": (1, [(127, 33), (10,), (1,), (70000,)], "bfloat16", ()),
+    "mixed_dtypes": (8, [(64,), (10,), (33,), (1,), (128, 64)],
+                     ("float32", "bfloat16", "float32", "float16", "bfloat16"), ()),
+    "more_leaves_than_a_table": (4, [(k,) for k in range(1, 51)], "float32", (7, 30)),
+    "100_leaves_bf16": (3, [((k % 17) + 1, 3) for k in range(100)], "bfloat16", ()),
+}
+
+
+def _tree(seed, case, device):
+    """Leaves from numpy draws (u scaled 0.01); row 0 (w = 0) starts with
+    x = -0.0 and p < 0, where only x + 0.0 gives the plain version's +0.0."""
+    R, shapes, dtypes, unaligned = case
+    if isinstance(dtypes, str):
+        dtypes = [dtypes] * len(shapes)
+    rng = np.random.default_rng(seed)
+    xs, us, ps = [], [], []
+    for i, (trail, dt) in enumerate(zip(shapes, dtypes)):
+        shape = (R,) + tuple(trail)
+        numel = int(np.prod(shape))
+        ops_ = []
+        for scale in (1.0, 0.01, 1.0):
+            a = rng.standard_normal(numel + 1).astype(np.float32) * np.float32(scale)
+            flat = torch.from_numpy(a).to(device=device, dtype=getattr(torch, dt))
+            ops_.append((flat[1:] if i in unaligned else flat[:numel]).view(shape))
+        x, u, p = ops_
+        x.view(R, -1)[0, :2] = -0.0
+        p.view(R, -1)[0, :2] = -1.0
+        xs.append(x)
+        us.append(u)
+        ps.append(p)
+    return xs, us, ps, torch.linspace(0.0, 1.0, R, device=device)
+
+
+def _assert_bits_equal(got, want):
+    as_int = {4: torch.int32, 2: torch.int16}[want.element_size()]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.contiguous().view(as_int), want.contiguous().view(as_int))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TREE_CASES))
+@pytest.mark.parametrize("with_u", [True, False], ids=["u", "no_u"])
+def test_cuda_gossip_mix_tree_equals_plain(cuda_device, name, with_u):
+    xs, us, ps, w = _tree(5, TREE_CASES[name], cuda_device)
+    if TREE_CASES[name][3]:
+        assert any(x.data_ptr() % 16 for x in xs)
+    n0 = tk.LAUNCHES["gossip_mix_rows"]
+    got = tk.gossip_mix_rows_tree(xs, us if with_u else None, ps, w)
+    torch.cuda.synchronize()
+    # One launch per dtype group of up to MAX_LEAVES leaves.
+    per_dtype = [sum(x.dtype == d for x in xs) for d in {x.dtype for x in xs}]
+    assert tk.LAUNCHES["gossip_mix_rows"] - n0 == sum(-(-k // tk.MAX_LEAVES)
+                                                      for k in per_dtype)
+    for x, u, p, g in zip(xs, us, ps, got):
+        _assert_bits_equal(g, ref.reference_gossip_mix_rows(x, u if with_u else None, p, w))
+
+
+@pytest.mark.cuda
+def test_cuda_engine_tree_mix_is_one_launch(cuda_device):
+    """``ops.gossip_mix_tree`` (the batched engine's mix) on the MLP tree at
+    32 rows: one launch, no zeros_like, bit-equal to the plain u-less form."""
+    xs, _, ps, w = _tree(6, TREE_CASES["mlp_f32"], cuda_device)
+    tree = lambda t: [{"w": t[i], "b": t[i + 1]} for i in range(0, len(t), 2)]  # noqa: E731
+    n0 = tk.LAUNCHES["gossip_mix_rows"]
+    got = ops.gossip_mix_tree(tree(xs), tree(ps), w)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["gossip_mix_rows"] == n0 + 1
+    for gl, hl, pl in zip(got, tree(xs), tree(ps)):
+        for k in gl:
+            _assert_bits_equal(gl[k], ref.reference_gossip_mix_rows(hl[k], None, pl[k], w))
+
+
+@pytest.mark.cuda
+def test_cuda_tree_wrapper_checks_leaves(cuda_device):
+    xs = [torch.zeros(4, 8, device=cuda_device), torch.zeros(4, 3, device=cuda_device)]
+    w = torch.zeros(4, device=cuda_device)
+    n0 = dict(tk.LAUNCHES)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.gossip_mix_rows_tree([xs[0].t().contiguous().t(), xs[1]], None, xs, w)
+    with pytest.raises(ValueError, match="different row counts"):
+        tk.gossip_mix_rows_tree([xs[0], xs[1][:3].contiguous()], None,
+                                [xs[0], xs[1][:3].contiguous()], w)
+    with pytest.raises(ValueError, match=r"\(4,\) tensor"):
+        tk.gossip_mix_rows_tree(xs, None, xs, torch.zeros(3, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk.gossip_mix_rows_tree(xs, None, [xs[0], xs[1].cpu()], w)
+    assert tk.LAUNCHES == n0
 
 
 # tests/test_kernels.py ATTN_CASES, a ragged causal case, a ragged S != Sk

@@ -283,6 +283,67 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
     assert cs.TENSOR_CORE_KERNELS["rwkv_scan"] in list(counts)[2]
 
 
+def _fake_profiled_torch(traces):
+    """A stand-in for torch whose profiler hands out ``traces`` in turn, each
+    a list of (kernel name, launches, device µs) rows; returns it and the
+    number of traces taken so far."""
+    from types import SimpleNamespace
+
+    taken = [0]
+
+    class Profile:
+        def __init__(self, activities):
+            assert activities == ["cuda"]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            taken[0] += 1
+
+        def key_averages(self):
+            return [SimpleNamespace(key=k, count=n, self_device_time_total=us)
+                    for k, n, us in traces[taken[0] - 1]]
+
+    fake = SimpleNamespace(
+        cuda=SimpleNamespace(synchronize=lambda: None),
+        profiler=SimpleNamespace(ProfilerActivity=SimpleNamespace(CUDA="cuda"),
+                                 profile=Profile))
+    return fake, taken
+
+
+@pytest.mark.parametrize("traces, want_ms, want_taken", [
+    # a full trace at once is read and no other is taken
+    ([[("rwkv_scan_kernel", 10, 200.0), ("fill", 10, 50.0)]], 0.02, 1),
+    # a trace that lost every launch is taken again
+    ([[("fill", 10, 50.0)], [("rwkv_scan_kernel", 10, 300.0)]], 0.03, 2),
+    # traces that keep losing launches: the fullest one, over what it holds
+    ([[("rwkv_scan_kernel", 2, 40.0)], [("rwkv_scan_kernel", 5, 150.0)],
+      [], [("rwkv_scan_kernel", 4, 40.0)]], 0.03, 4),
+])
+def test_chip_smoke_device_ms_takes_a_lossy_trace_again(traces, want_ms, want_taken):
+    """CUPTI may drop kernel records; device_ms traces again rather than
+    reading a short trace or falling back to another clock."""
+    cs = _chip_smoke()
+    fake, taken = _fake_profiled_torch(traces)
+    got = cs.device_ms(fake, lambda: None, 10, "rwkv_scan")
+    assert got == pytest.approx(want_ms) and taken[0] == want_taken
+
+
+def test_chip_smoke_device_ms_fails_when_no_trace_holds_the_kernel():
+    cs = _chip_smoke()
+    fake, taken = _fake_profiled_torch([[("fill", 10, 50.0)]] * cs.PROFILE_ATTEMPTS)
+    with pytest.raises(cs.SmokeError, match=r"\*rwkv_scan\*"):
+        cs.device_ms(fake, lambda: None, 10, "rwkv_scan")
+    assert taken[0] == cs.PROFILE_ATTEMPTS
+    # Without a name filter an empty trace is no failure: the caller reads
+    # CUDA events for the plain version instead.
+    fake, taken = _fake_profiled_torch([[]] * cs.PROFILE_ATTEMPTS)
+    assert cs.device_ms(fake, lambda: None, 10) is None
+    fake, _ = _fake_profiled_torch([[("a", 3, 30.0), ("b", 1, 10.0)]])
+    assert cs.device_ms(fake, lambda: None, 10) == pytest.approx(0.004)
+
+
 def test_wkv_reset_launches_zeroes_every_count():
     trs.LAUNCHES["rwkv_scan"] += 3
     trs.DTYPE_LAUNCHES["mixed"] += 2
