@@ -23,7 +23,10 @@ Phases, in order; any failure exits non-zero before the result line:
              ``zeros_like`` u (the engine before the tree launch), and as six
              ``torch.lerp`` calls.  Max error within tolerance (the WKV scan's final
              state too; with bf16 r/k/v and f32 w, y to the bf16 tolerance
-             and the f32 state to the f32 one), and per kernel the median
+             and the f32 state to the f32 one; decays below the Pallas
+             wrapper's clamp -- w = 1e-30, log w = -5 and -8, sub-chunks
+             straddling the factorised range -- against the unclamped
+             plain recurrence at the same tolerances), and per kernel the median
              time (profiler and CUDA events), the bound, the plain
              version's time and a one-call yardstick (``torch.lerp``, which
              computes only the u = 0 case of the gossip mix,
@@ -37,7 +40,20 @@ Phases, in order; any failure exits non-zero before the result line:
              and the kernels' modules make no ``zeros_like`` tensor;
 5. parity  — the same configuration, 1000 events, on the card and on the
              CPU: host-side outputs bit-equal, losses within 5e-4;
-6. lm      — LM serving at the full width of tinyllama-1.1b (22 layers,
+6. algos   — every registered strategy (the JAX package's eight) through
+             ``simulate`` at the main path's width (3000 events; 93 rounds
+             for the synchronous ones), engine "auto": each runs batched
+             with finite, falling losses; the gossip mix launches once a
+             cohort for netmax, adpsgd and adpsgd+mon and never for the
+             other five, no LM kernel at all.  Prints each strategy's wall
+             time, events/s, cohorts, dispatches, virtual time, comm time
+             and final loss, then the README quickstart's comparison on the
+             simulator's virtual clock: time to 1.3x the worst final loss
+             and NetMax's speedup over allreduce, prague and adpsgd;
+7. algo parity — allreduce, prague, ps-sync, ps-async and netmax-topk at
+             32 workers, 640 events, traced, on the card and on the CPU:
+             host-side outputs bit-equal, losses within 5e-4;
+8. lm      — LM serving at the full width of tinyllama-1.1b (22 layers,
              bf16, random weights from seed 0): ``lm.prefill_logits`` on
              4 prompts of 512 tokens, ``capture_prefill`` of the same batch
              into a 1024-token cache, and ``ServeEngine.run`` of 4 requests
@@ -45,13 +61,13 @@ Phases, in order; any failure exits non-zero before the result line:
              just before and read just after: flash attention must launch
              22 times per forward, all through the tensor-core body, logits
              be finite, tokens in the vocab;
-7. lm parity — the tinyllama widths cut to 2 layers, f32, S = 256: prefill
+9. lm parity — the tinyllama widths cut to 2 layers, f32, S = 256: prefill
              logits on the card and on the CPU within 1e-3 * max |logit|,
              and on the card the decode logits at position P-1 after
              ``capture_prefill`` within the same bound of the prefill's;
              then the same cut in bf16 (the tensor-core body), card against
              CPU within 2e-2 * max |logit|;
-8. ssm     — LM serving at the full width of rwkv6-7b (32 layers, bf16,
+10. ssm    — LM serving at the full width of rwkv6-7b (32 layers, bf16,
              random weights from seed 0): ``lm.prefill_logits`` on 4 prompts
              of 512 tokens (twice), ``capture_prefill`` of 4 x 128 tokens,
              and ``ServeEngine.run`` of 4 requests (prompt 32, 16 new
@@ -61,13 +77,16 @@ Phases, in order; any failure exits non-zero before the result line:
              all; logits and the captured state finite, the state
              non-zero, tokens in the vocab.  A profiled
              prefill and 8 decode steps give the device's busy share;
-9. ssm parity — the rwkv6-7b widths cut to 2 layers, f32: prefill logits
+11. ssm parity — the rwkv6-7b widths cut to 2 layers, f32: prefill logits
              (S = 128) on the card and on the CPU within 1e-3 * max |logit|,
              and on the card the decode logits of token 63 after
              ``capture_prefill`` of tokens 0..62 against the prefill logits
-             of tokens 0..63 (the WKV kernel against the plain recurrence).
-             The kernel and the dense and simulator paths never meet: the
-             WKV kernel must launch 0 times in phases 4 and 6.
+             of tokens 0..63 (the WKV kernel against the plain recurrence);
+             at random init, then with ``w0`` shifted so the median log
+             decay is -7, below the Pallas wrapper's clamp, where the
+             kernel's pairwise branch runs.  The kernel and the dense and
+             simulator paths never meet: the WKV kernel must launch 0 times
+             in phases 4, 6 and 8.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, last, the
 ``{"ok": true, "device": {...}}`` line.  With ``--out DIR`` the per-case
@@ -139,25 +158,36 @@ ATTN_LARGE = (1, 8192, 8192, 32, 4, 64, True, "bfloat16")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: tests/test_kernels.py RWKV_CASES (B, S, H, N, chunk, dtype), a ragged one,
 #: the model's dtypes ("mixed": r/k/v bf16, w f32) at N 16/32/64 and ragged,
-#: the extreme-decay case (plain version on the clamped decays), cases from a
-#: random initial state, the ssm phase's shape (one rwkv6-7b layer of a 4 x 512
-#: prefill, from the zero state the model passes) in the model's dtypes and,
-#: in f32 (every operand f32), and a large one; tolerances as
-#: tests/test_kernels.py:120 and :162.
+#: the extreme-decay cases (below the Pallas wrapper's clamp, held to the
+#: unclamped plain recurrence), cases from a random initial state, the ssm
+#: phase's shape (one rwkv6-7b layer of a 4 x 512 prefill, from the zero state
+#: the model passes) in the model's dtypes, in f32 (every operand f32) and at
+#: log w = -8 (every sub-chunk on the pairwise branch), and a large one;
+#: tolerances as tests/test_kernels.py:120.
 RWKV_CASES = [(1, 64, 2, 16, 16, "float32"), (2, 128, 4, 32, 32, "float32"),
               (1, 128, 2, 64, 64, "float32"), (1, 256, 2, 16, 64, "float32"),
               (1, 128, 2, 32, 32, "bfloat16"), (2, 100, 3, 64, 64, "float32"),
               (1, 64, 2, 16, 16, "mixed"), (2, 128, 4, 32, 32, "mixed"),
               (1, 128, 2, 64, 64, "mixed"), (2, 100, 3, 64, 64, "mixed")]
-RWKV_EXTREME = (1, 32, 1, 16, 16, "float32")
+#: Extreme decays (case, decays): tests/test_kernels.py's w = 1e-30; a
+#: constant log w of -5 and of -8 (times U(0.9, 1.1)); and "straddle", the
+#: decays of the other cases with the first half of the columns of every other
+#: 16-token sub-chunk at log w = -8, so those sub-chunks straddle the
+#: factorised range (half their columns total -128, half stay above -75).
+RWKV_EXTREME = [((1, 32, 1, 16, 16, "float32"), "1e-30"),
+                ((1, 128, 2, 64, 64, "float32"), "-5"),
+                ((1, 128, 2, 64, 64, "float32"), "-8"),
+                ((1, 128, 2, 64, 64, "float32"), "straddle"),
+                ((2, 100, 3, 64, 64, "mixed"), "straddle")]
 RWKV_STATE = [(2, 128, 4, 64, 64, "float32"), (2, 100, 4, 64, 64, "mixed")]
 RWKV_MAIN = (4, 512, 64, 64, 64, "mixed")
 RWKV_MAIN_F32 = (4, 512, 64, 64, 64, "float32")
+RWKV_MAIN_W8 = (4, 512, 64, 64, 64, "mixed")
 RWKV_LARGE = (1, 8192, 64, 64, 64, "float32")
 #: y's tolerance by dtype (the final state is f32 and held to y's f32
 #: tolerance in the mixed case: bf16 inputs widen to f32 exactly).
-RWKV_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "mixed": 5e-2, "extreme": 1e-3}
-RWKV_STATE_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "mixed": 1e-4, "extreme": 1e-3}
+RWKV_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "mixed": 5e-2}
+RWKV_STATE_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "mixed": 1e-4}
 #: Operand dtypes (r/k/v, w) of a WKV case's dtype name.
 RWKV_DTYPES = {"float32": ("float32", "float32"), "bfloat16": ("bfloat16", "bfloat16"),
                "mixed": ("bfloat16", "float32")}
@@ -731,6 +761,24 @@ def rwkv_work(B, S, H, N, chunk, itemsize, w_itemsize, state_in):
     return flops, nbytes
 
 
+def strong_decays(torch, w, how, gen):
+    """Decays below the Pallas wrapper's clamp (log w < -75/16 a step), in
+    w's shape (B, S, H, N) and dtype: ``"1e-30"`` everywhere; ``"-5"`` or
+    ``"-8"`` a constant log decay times U(0.9, 1.1); ``"straddle"`` keeps
+    ``w`` with the first half of the columns of every other 16-token
+    sub-chunk at log w = -8."""
+    if how == "1e-30":
+        return torch.full_like(w, 1e-30)
+    if how in ("-5", "-8"):
+        jitter = 0.9 + 0.2 * torch.rand(w.shape, generator=gen, device=w.device)
+        return torch.exp(float(how) * jitter).to(w.dtype)
+    out = w.clone()
+    S, N = w.shape[1], w.shape[3]
+    for t0 in range(0, S, 32):
+        out[:, t0:t0 + 16, :, :N // 2] = math.exp(-8.0)
+    return out
+
+
 def phase_rwkv(torch, rate, name, records):
     """The WKV kernel against ``ref.reference_rwkv_state`` on every case, y
     and the final state; per case the profiler's device time, the time per
@@ -742,11 +790,13 @@ def phase_rwkv(torch, rate, name, records):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = ([("test", c) for c in RWKV_CASES] + [("extreme", RWKV_EXTREME)]
-             + [("state", c) for c in RWKV_STATE]
-             + [("main", RWKV_MAIN), ("main_f32", RWKV_MAIN_F32), ("large", RWKV_LARGE)])
+    cases = ([("test", c, None) for c in RWKV_CASES]
+             + [("extreme", c, how) for c, how in RWKV_EXTREME]
+             + [("state", c, None) for c in RWKV_STATE]
+             + [("main", RWKV_MAIN, None), ("main_f32", RWKV_MAIN_F32, None),
+                ("main_w8", RWKV_MAIN_W8, "-8"), ("large", RWKV_LARGE, None)])
     out = {}
-    for role, case in cases:
+    for role, case, how in cases:
         B, S, H, N, chunk, dtype = case
         dt, wdt = (getattr(torch, d) for d in RWKV_DTYPES[dtype])
         shape = (B, S, H, N)
@@ -755,27 +805,27 @@ def phase_rwkv(torch, rate, name, records):
         v = torch.randn(shape, generator=gen, device=dev).to(dt)
         w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev) + 2.0).to(wdt)
         u = torch.randn((H, N), generator=gen, device=dev) * 0.1
-        w_plain = w
-        if role == "extreme":
-            w = torch.full(shape, 1e-30, device=dev, dtype=wdt)
-            w_plain = ref.clamp_decay(w, min(chunk, S))
+        if how is not None:
+            w = strong_decays(torch, w, how, gen)
         s0 = {"state": torch.randn((B, H, N, N), generator=gen, device=dev),
+              "extreme": torch.randn((B, H, N, N), generator=gen, device=dev),
               "main": torch.zeros((B, H, N, N), device=dev),
-              "main_f32": torch.zeros((B, H, N, N), device=dev)}.get(role)
+              "main_f32": torch.zeros((B, H, N, N), device=dev),
+              "main_w8": torch.zeros((B, H, N, N), device=dev)}.get(role)
         got, got_s = rs.rwkv_scan(r, k, v, w, u, chunk=chunk, state=s0)
-        want, want_s = ref.reference_rwkv_state(r, k, v, w_plain, u, s0)
+        want, want_s = ref.reference_rwkv_state(r, k, v, w, u, s0)
         torch.cuda.synchronize()
         check(got.shape == r.shape and got.dtype == r.dtype and got_s.shape == (B, H, N, N),
               f"rwkv_scan {case}: output {tuple(got.shape)} {got.dtype}, state "
               f"{tuple(got_s.shape)}")
-        kind = "extreme" if role == "extreme" else dtype
         err, errs = 0.0, {}
-        for what, a, b, tol in (("y", got, want, RWKV_TOL[kind]),
-                                ("state", got_s, want_s, RWKV_STATE_TOL[kind])):
+        for what, a, b, tol in (("y", got, want, RWKV_TOL[dtype]),
+                                ("state", got_s, want_s, RWKV_STATE_TOL[dtype])):
             diff = (a.float() - b.float()).abs()
             excess = (diff - tol * b.float().abs()).max().item()
-            check(excess <= tol, f"rwkv_scan {case} ({role}): {what} max |err| "
-                                 f"{diff.max().item()} beyond atol = rtol = {tol}")
+            check(excess <= tol, f"rwkv_scan {case} ({role}, decays {how or 'sigmoid'}): "
+                                 f"{what} max |err| {diff.max().item()} beyond atol = "
+                                 f"rtol = {tol}")
             errs[what] = diff.max().item()
             err = max(err, errs[what])
         del want, want_s
@@ -786,6 +836,7 @@ def phase_rwkv(torch, rate, name, records):
         t_ops = flops / flop_rate(name, "3xtf32") * 1e3
         t_bytes = nbytes / rate * 1e3
         rec = {"kernel": "rwkv_scan", "role": role, "case": list(case), "dtype": dtype,
+               "decays": how or "sigmoid",
                "max_abs_err": err, "max_abs_err_y": errs["y"],
                "max_abs_err_state": errs["state"], "flops": flops, "bytes": nbytes,
                "bound_ms": max(t_ops, t_bytes),
@@ -794,9 +845,9 @@ def phase_rwkv(torch, rate, name, records):
         timings = {
             "": (lambda: rs.rwkv_scan(r, k, v, w, u, chunk=chunk, state=s0),
                  {"test": 10, "extreme": 10, "state": 10, "main": 20, "main_f32": 20,
-                  "large": 3}[role],
+                  "main_w8": 20, "large": 3}[role],
                  {}),
-            "plain_": (lambda: ref.reference_rwkv_state(r, k, v, w_plain, u, s0), 1,
+            "plain_": (lambda: ref.reference_rwkv_state(r, k, v, w, u, s0), 1,
                        {"reps": 1 if role == "large" else 3, "warmup": 1}),
         }
         for key, (fn, iters, kw) in timings.items():
@@ -807,7 +858,8 @@ def phase_rwkv(torch, rate, name, records):
             rec[key + "call_ms"] = call
         records.append(rec)
         out.setdefault(role, []).append(rec)
-        print(f"  rwkv_scan {role} {case}: max|err| y {errs['y']:.3g}, state "
+        print(f"  rwkv_scan {role} {case} decays {rec['decays']}: max|err| y "
+              f"{errs['y']:.3g}, state "
               f"{errs['state']:.3g}, device "
               f"{rec['ms'] * 1e3:.1f} us ({rec['ms_from']}), per call "
               f"{rec['call_ms'] * 1e3:.1f} us, plain {rec['plain_ms'] * 1e3:.1f} us on the "
@@ -815,10 +867,11 @@ def phase_rwkv(torch, rate, name, records):
               f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); "
               f"{nbytes / (rec['ms'] * 1e-3) / 1e12:.3f} TB/s, "
               f"{flops / (rec['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
-        del r, k, v, w, w_plain, u, s0, got, got_s
+        del r, k, v, w, u, s0, got, got_s
         torch.cuda.empty_cache()
     main = out["main"][0]
     f32 = out["main_f32"][0]
+    w8 = out["main_w8"][0]
     summary = {
         "name": "rwkv_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
@@ -833,11 +886,13 @@ def phase_rwkv(torch, rate, name, records):
           f"(bf16 r/k/v, f32 w) {summary['ms'] * 1e3:.1f} us on the device (plain "
           f"{summary['plain_ms'] * 1e3:.1f} us on the device, no one-call library "
           f"equivalent, bound {summary['bound_ms'] * 1e3:.2f} us, {summary['bound_by']}); "
-          f"all f32 {f32['ms'] * 1e3:.1f} us (bound {f32['bound_ms'] * 1e3:.2f} us)")
+          f"all f32 {f32['ms'] * 1e3:.1f} us (bound {f32['bound_ms'] * 1e3:.2f} us); "
+          f"at log w = -8 (pairwise scores) {w8['ms'] * 1e3:.1f} us")
+    summary["ms_log_w_minus_8"] = w8["ms"]
     return summary
 
 
-def sim_setup(n_events, trace, seed=0):
+def sim_setup(n_events, trace, seed=0, algorithm="netmax", engine="batched"):
     from repro_torch.core.nettime import LinkTimeModel, Topology
     from repro_torch.data.partition import uniform_partition
     from repro_torch.data.synthetic import train_eval_split
@@ -847,7 +902,7 @@ def sim_setup(n_events, trace, seed=0):
     parts = uniform_partition(len(y), N_WORKERS, seed=seed)
     topo = Topology(n_workers=N_WORKERS, workers_per_host=4, hosts_per_pod=1)
     link = LinkTimeModel(topo, jitter=0.02, seed=5)
-    cfg = SimConfig(algorithm="netmax", n_workers=N_WORKERS, engine="batched",
+    cfg = SimConfig(algorithm=algorithm, n_workers=N_WORKERS, engine=engine,
                     use_mix_kernel=True, total_events=n_events,
                     monitor_period=0.5, seed=seed, trace=trace)
     return cfg, link, (x, y, parts, ex, ey)
@@ -966,6 +1021,32 @@ def phase_profile(torch, main):
             "mix_rows_device_s": mix_s, "top_kernels": top}
 
 
+def host_outputs_equal(a, b, what):
+    """Fail unless two SimResults' host-side outputs are bit-equal."""
+    check(a.engine == b.engine, f"{what}: engines {a.engine} vs {b.engine}")
+    check(a.times == b.times and a.events == b.events, f"{what}: times/events differ")
+    check(a.comm_time == b.comm_time and a.compute_time == b.compute_time,
+          f"{what}: comm/compute time differs")
+    check(a.trace_events == b.trace_events, f"{what}: trace_events differ")
+    check(a.failed_pulls == b.failed_pulls, f"{what}: failed_pulls differ")
+    check((a.cohorts, a.dispatches) == (b.cohorts, b.dispatches),
+          f"{what}: cohorts/dispatches {a.cohorts}/{a.dispatches} vs "
+          f"{b.cohorts}/{b.dispatches}")
+    check(len(a.policy_log) == len(b.policy_log), f"{what}: policy_log lengths differ")
+    for (ta, ra, Pa), (tb, rb, Pb) in zip(a.policy_log, b.policy_log):
+        check(ta == tb and ra == rb and (Pa == Pb).all(), f"{what}: policy_log differs")
+
+
+def losses_close(a, b, what):
+    """Losses within rtol = atol = 5e-4 (two devices sum f32 matmuls in
+    different orders; the engine-parity tests' tolerance); the max diff."""
+    diff = max(abs(u - v) for u, v in zip(a.losses, b.losses))
+    check(len(a.losses) == len(b.losses)
+          and all(abs(u - v) <= 5e-4 + 5e-4 * abs(v) for u, v in zip(a.losses, b.losses)),
+          f"{what}: cuda vs cpu losses differ by {diff}: {a.losses} vs {b.losses}")
+    return diff
+
+
 def phase_parity(torch):
     from repro_torch.train.simulator import simulate
 
@@ -976,19 +1057,103 @@ def phase_parity(torch):
         out[dev] = simulate(cfg, link, x, y, parts, ex, ey, record_every=500,
                             device=dev)
         print(f"parity run on {dev}: {time.perf_counter() - t0:.2f} s")
-    a, b = out["cuda"], out["cpu"]
-    check(a.times == b.times and a.events == b.events, "times/events differ")
-    check(a.comm_time == b.comm_time, "comm_time differs")
-    check(a.trace_events == b.trace_events, "trace_events differ")
-    check(len(a.policy_log) == len(b.policy_log), "policy_log lengths differ")
-    for (ta, ra, Pa), (tb, rb, Pb) in zip(a.policy_log, b.policy_log):
-        check(ta == tb and ra == rb and (Pa == Pb).all(), "policy_log differs")
-    # Two devices sum f32 matmuls in different orders: 5e-4, as the
-    # engine-parity tests allow (rtol = atol = 5e-4).
-    diff = max(abs(u - v) for u, v in zip(a.losses, b.losses))
-    check(all(abs(u - v) <= 5e-4 + 5e-4 * abs(v) for u, v in zip(a.losses, b.losses)),
-          f"cuda vs cpu losses differ by {diff}: {a.losses} vs {b.losses}")
+    host_outputs_equal(out["cuda"], out["cpu"], "netmax parity")
+    diff = losses_close(out["cuda"], out["cpu"], "netmax parity")
     print(f"parity: host-side outputs bit-equal, max |loss diff| {diff:.3g}")
+
+
+#: The strategies whose batched cohort step mixes through the gossip-mix
+#: kernel (identity delta, gossip variant); the others take the leaf rule.
+MIX_KERNEL_ALGOS = ("adpsgd", "adpsgd+mon", "netmax")
+
+
+def phase_algos(torch):
+    """Every registered strategy through ``simulate`` on the card at the
+    main path's width (32 workers, MLP [32, 128, 64, 10], 3000 events; 93
+    rounds of 32 for the synchronous ones), engine "auto", the mix kernel
+    on.  Each must run batched, with finite losses that fall; the gossip
+    mix launches once a cohort for the three identity-delta gossip
+    strategies and never for the other five; no LM kernel launches.  Then
+    the README quickstart's comparison on the simulator's virtual clock
+    (not the card's speed): time to 1.3x the worst final loss, and NetMax's
+    speedup over allreduce, prague and adpsgd."""
+    from repro_torch.algos import get_algorithm, list_algorithms
+    from repro_torch.algos.base import Algorithm
+    from repro_torch.train.simulator import simulate
+
+    names = list_algorithms()
+    check(len(names) == 8, f"registry holds {names}")
+    mixers = {n for n in names
+              if not get_algorithm(n).synchronous
+              and get_algorithm(n).batched_variant == "gossip"
+              and type(get_algorithm(n)).delta_transform is Algorithm.delta_transform}
+    check(mixers == set(MIX_KERNEL_ALGOS), f"identity-delta gossip strategies {mixers}")
+    runs, out = {}, {}
+    for name in names:
+        cfg, link, (x, y, parts, ex, ey) = sim_setup(3000, trace=False, algorithm=name,
+                                                     engine="auto")
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = simulate(cfg, link, x, y, parts, ex, ey, record_every=500, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_all_launches()
+        check(res.engine == "batched", f"{name}: engine {res.engine}")
+        check(all(map(math.isfinite, res.losses)), f"{name}: non-finite losses {res.losses}")
+        check(res.losses[-1] < res.losses[0], f"{name}: loss did not fall: {res.losses}")
+        want_mix = res.cohorts if name in MIX_KERNEL_ALGOS else 0
+        check(launches["gossip_mix_rows"] == want_mix and launches["gossip_mix"] == 0,
+              f"{name}: gossip mix launched {launches} for {res.cohorts} cohorts (want "
+              f"{want_mix} tree launches)")
+        check(launches["rwkv_scan"] == 0 and launches["flash_attention"] == 0,
+              f"{name}: an LM kernel launched on the simulator's path: {launches}")
+        ev = res.events[-1]
+        runs[name] = res
+        out[name] = {"events": ev, "seconds": secs, "events_per_s": ev / secs,
+                     "cohorts": res.cohorts, "dispatches": res.dispatches,
+                     "virtual_s": res.times[-1], "comm_s": res.comm_time,
+                     "final_loss": res.losses[-1], "launches": launches}
+        print(f"algos {name:11s}: {secs:7.3f} s wall, {ev / secs:8.1f} events/s, "
+              f"{res.cohorts:4d} cohorts, {res.dispatches:4d} dispatches, virtual "
+              f"{res.times[-1]:9.3f} s, comm {res.comm_time:9.3f} s, final loss "
+              f"{res.losses[-1]:.4f}, B1 launches {launches['gossip_mix_rows']}")
+    target = max(r.losses[-1] for r in runs.values()) * 1.3
+    t_nm = runs["netmax"].time_to_loss(target)
+    ttl = {n: r.time_to_loss(target) for n, r in runs.items()}
+    speedup = {n: ttl[n] / t_nm for n in ("allreduce", "prague", "adpsgd")}
+    print(f"algos: simulator virtual clock (not the card's speed), time to loss "
+          f"< {target:.4f}: " + ", ".join(f"{n} {t:.3f} s" for n, t in ttl.items()))
+    print("algos: NetMax speedup on the virtual clock: "
+          + ", ".join(f"over {n} {v:.2f}x" for n, v in speedup.items()))
+    return {"runs": out, "target_loss": target, "time_to_loss_virtual_s": ttl,
+            "netmax_speedup_virtual": speedup}
+
+
+#: The strategies this port's round engine, ps-serial fold and top-k delta
+#: brought to the card, held card against CPU.
+NEW_ALGOS = ("allreduce", "prague", "ps-sync", "ps-async", "netmax-topk")
+
+
+def phase_algo_parity(torch):
+    """The new strategies at 32 workers, 640 events (20 rounds), traced,
+    on the card and on the CPU: host-side outputs bit-equal, losses within
+    5e-4."""
+    from repro_torch.train.simulator import simulate
+
+    diffs = {}
+    for name in NEW_ALGOS:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            cfg, link, (x, y, parts, ex, ey) = sim_setup(640, trace=True, algorithm=name,
+                                                         engine="auto")
+            out[dev] = simulate(cfg, link, x, y, parts, ex, ey, record_every=160,
+                                device=dev)
+        host_outputs_equal(out["cuda"], out["cpu"], f"{name} parity")
+        diffs[name] = losses_close(out["cuda"], out["cpu"], f"{name} parity")
+    print("algo parity: host-side outputs bit-equal; max |loss diff| "
+          + ", ".join(f"{n} {d:.3g}" for n, d in diffs.items()))
+    return diffs
 
 
 def lm_requests(vocab, n=4, prompt=64, max_new=16, seed=0):
@@ -1338,7 +1503,17 @@ def phase_ssm_parity(torch):
     (WKV kernel) and on the CPU (the sequential scan), and on the card the
     decode logits of token P-1 after capture_prefill of tokens 0..P-2
     against the prefill logits of tokens 0..P-1.  P = 64: the reference's
-    scan takes S <= 64 or a multiple of 64, and both 63 and 64 are."""
+    scan takes S <= 64 or a multiple of 64, and both 63 and 64 are.  Twice:
+    at random init (w0 = -6, log w near -0.0025 a step), then with w0
+    shifted to log 7, so the median log decay is -7, below the Pallas
+    wrapper's clamp of -75/16: there most sub-chunks take the kernel's
+    pairwise branch, and prefill (kernel) and decode (plain step) must still
+    agree."""
+    return {"random_init": _ssm_parity_cut(torch, None),
+            "log_w_near_minus_7": _ssm_parity_cut(torch, math.log(7.0))}
+
+
+def _ssm_parity_cut(torch, w0):
     from repro_torch.configs.base import get_arch
     from repro_torch.models import lm
     from repro_torch.serve.engine import capture_prefill
@@ -1349,6 +1524,8 @@ def phase_ssm_parity(torch):
     B, S, P = 2, 128, 64
     with torch.inference_mode():
         params = lm.init_params(cfg, gen)
+        if w0 is not None:
+            params["blocks"]["time_mix"]["w0"].fill_(w0)
         tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev,
                                dtype=torch.int32)
         on_card = lm.prefill_logits(params, {"tokens": tokens}, cfg)
@@ -1364,13 +1541,17 @@ def phase_ssm_parity(torch):
     scale_dec = prefill.abs().max().item()
     d_cpu = (on_card.cpu() - on_cpu).abs().max().item()
     d_dec = (dec - prefill).abs().max().item()
-    check(d_cpu <= 1e-3 * scale, f"card vs CPU prefill logits differ by {d_cpu} "
-                                 f"(max |logit| {scale})")
-    check(d_dec <= 1e-3 * scale_dec, f"decode of token {P - 1} vs prefill logits differ by "
-                                     f"{d_dec} (max |logit| {scale_dec})")
-    print(f"ssm parity: 2 layers f32: card vs CPU (S={S}) max |diff| {d_cpu:.3g} (max "
-          f"|logit| {scale:.3g}, CPU prefill {cpu_s:.2f} s); decode of token {P - 1} vs "
-          f"prefill (S={P}) {d_dec:.3g} (max |logit| {scale_dec:.3g})")
+    what = "random init" if w0 is None else f"w0 = {w0:.4f}"
+    check(all(map(math.isfinite, (scale, scale_dec, d_cpu, d_dec))),
+          f"ssm parity ({what}): non-finite logits")
+    check(d_cpu <= 1e-3 * scale, f"ssm parity ({what}): card vs CPU prefill logits "
+                                 f"differ by {d_cpu} (max |logit| {scale})")
+    check(d_dec <= 1e-3 * scale_dec, f"ssm parity ({what}): decode of token {P - 1} vs "
+                                     f"prefill logits differ by {d_dec} (max |logit| "
+                                     f"{scale_dec})")
+    print(f"ssm parity ({what}): 2 layers f32: card vs CPU (S={S}) max |diff| "
+          f"{d_cpu:.3g} (max |logit| {scale:.3g}, CPU prefill {cpu_s:.2f} s); decode of "
+          f"token {P - 1} vs prefill (S={P}) {d_dec:.3g} (max |logit| {scale_dec:.3g})")
     del params, cpu_params, cache
     torch.cuda.empty_cache()
     return {"card_vs_cpu": d_cpu, "max_logit": scale, "decode_vs_prefill": d_dec,
@@ -1412,6 +1593,8 @@ def main() -> int:
         main_path = phase_main(torch)
         main_path["profile"] = phase_profile(torch, main_path)
         phase_parity(torch)
+        algos = phase_algos(torch)
+        algos["parity"] = phase_algo_parity(torch)
         lm_path = phase_lm(torch)
         lm_path["parity"] = phase_lm_parity(torch)
         ssm_path = phase_ssm(torch)
@@ -1435,7 +1618,8 @@ def main() -> int:
         (args.out / "chip_smoke_kernels.json").write_text(json.dumps(
             {"card": card, "device": name, "build": build_info, "kernels": kernels,
              "cases": records,
-             "main_path": main_path, "lm_path": lm_path, "ssm_path": ssm_path},
+             "main_path": main_path, "algos": algos, "lm_path": lm_path,
+             "ssm_path": ssm_path},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -10,10 +10,9 @@ concerns:
   (``mix_stacked_tree``, the batched engine's leaf rule);
 * **timing semantics** — the per-event duration model (verbatim).
 
-Parameter trees are lists of ``{"w", "b"}`` dicts of tensors (``tree.py``).
-Only the async gossip family is ported so far: the synchronous-round,
-SPMD-trainer and segment-mean hooks raise ``NotImplementedError`` naming
-their ROADMAP item.
+Parameter trees follow JAX's pytree rules (``tree.py``); the simulator's
+MLP is a list of ``{"w", "b"}`` dicts of tensors.  ``stacked_round`` (the
+SPMD trainer's lockstep round) is not ported yet and raises.
 
     @register("my-algo")
     class MyAlgo(Algorithm):
@@ -192,8 +191,16 @@ class Algorithm(abc.ABC):
     def batched_variant(self) -> str:
         """Which fused cohort step the batched engine builds for async
         strategies: ``"gossip"`` (gather pre-cohort peer rows, pull + mix)
-        or ``"ps-serial"`` (the serialized PS row; not ported yet)."""
+        or ``"ps-serial"`` (every communicating event pushes into one
+        serialized row — the PS — folded in pop order inside the dispatch;
+        see ``serial_row``)."""
         return "gossip"
+
+    def serial_row(self, state: AlgoState) -> int | None:
+        """The replica row the ``"ps-serial"`` batched variant serializes
+        inside a fused cohort dispatch (all communicating events read-modify-
+        write it in pop order).  ``None`` for variants without one."""
+        return None
 
     # -- lifecycle ----------------------------------------------------------
     def init_state(self, cfg, M: int) -> AlgoState:
@@ -288,14 +295,24 @@ class Algorithm(abc.ABC):
     def stacked_round(self, params, grads, neighbors, weights, alpha):
         raise NotImplementedError(
             "stacked_round belongs to the SPMD trainer, not ported yet "
-            "(ROADMAP A9)"
+            "(ROADMAP A5)"
         )
 
     def transform_grads(self, grads, M: int):
-        raise NotImplementedError(
-            "transform_grads belongs to the SPMD trainer, not ported yet "
-            "(ROADMAP A9)"
-        )
+        """SPMD trainer hook: grad reduction before the optimizer step
+        (identity for gossip; global/group mean for collective families)."""
+        return grads
+
+    @property
+    def communicates_in_trainer(self) -> bool:
+        """Whether the SPMD train step performs a gossip pull + mix."""
+        return self.family == "gossip"
+
+    @property
+    def supports_trainer(self) -> bool:
+        """Whether the lockstep SPMD trainer can express this strategy
+        (False for inherently asynchronous semantics such as ps-async)."""
+        return True
 
     # -- event application (async families) ---------------------------------
     def would_communicate(self, state: AlgoState, i: int, m: int | None) -> bool:
@@ -345,15 +362,31 @@ class Algorithm(abc.ABC):
 
     # -- round application (sync families) ----------------------------------
     def reduce_groups(self, replicas, groups):
-        raise NotImplementedError(
-            "synchronous group averaging is not ported yet (ROADMAP A5)"
-        )
+        """Average replicas within each reduction group of >= 2 workers.
+
+        Reference-engine form: per-replica trees, one mean per group, the
+        same tree shared by the group's members (nothing updates a replica
+        in place).  The batched engine executes the same semantics through
+        ``reduce_groups_stacked`` — overriding this method without also
+        overriding the stacked form drops the strategy back to the
+        reference engine (``supports_batched``)."""
+        for grp in groups:
+            if len(grp) < 2:
+                continue
+            mean_p = mean_params([replicas[i] for i in grp])
+            for i in grp:
+                replicas[i] = mean_p
 
     def reduce_groups_stacked(self, x, gid):
-        raise NotImplementedError(
-            "stacked group averaging (segment mean) is not ported yet "
-            "(ROADMAP A5)"
-        )
+        """Stacked-tree group averaging: one segment mean per leaf.
+
+        ``x`` leaves are (M, ...) stacked replicas; ``gid`` an (M,) int64
+        segment id per worker (workers sharing an id form one reduction
+        group; singletons map to themselves and pass through exactly)."""
+        from repro_torch.kernels import ops as kops
+
+        M = gid.shape[0]
+        return tree_map(lambda l: kops.segment_mean_rows(l, gid, M), x)
 
     def __repr__(self):
         return f"<Algorithm {self.name} family={self.family}>"
@@ -363,3 +396,8 @@ def mean_params(replicas):
     """Leafwise mean of per-replica trees, summed in replica order like the
     JAX package's ``sum(xs) / len(xs)``."""
     return tree_map(lambda *xs: sum(xs) / len(xs), *replicas)
+
+
+def global_mean_grads(grads):
+    """Mean over the stacked worker dim, broadcast back to every row."""
+    return tree_map(lambda g: g.mean(dim=0, keepdim=True).expand_as(g).contiguous(), grads)

@@ -11,11 +11,13 @@ that fails to build or launch raises.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_rows, gossip_mix_rows_tree
 from repro_torch.kernels.rwkv_scan import rwkv_scan
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 
 def _on_cuda(x, what="gossip-mix") -> bool:
@@ -36,9 +38,9 @@ def rwkv(r, k, v, w, u, *, chunk=64, state=None):
     """WKV recurrence. r/k/v/w: (B,S,H,N); u: (H,N) -> y (B,S,H,N), or
     (y, final state (B,H,N,N) f32) when an initial ``state`` is given.
 
-    On CUDA the chunked kernel, which clamps the per-step log decay to
-    ``>= -75 / min(16, chunk)``; on the CPU the sequential recurrence, which
-    does not (as the JAX package's ``ops.rwkv`` with and without Pallas)."""
+    On CUDA the chunked kernel, on the CPU the sequential recurrence; both
+    exact for any decay, as the JAX model's scan is (its Pallas kernel
+    clamps the per-step log decay to ``>= -75 / min(16, chunk)``)."""
     if _on_cuda(r, "rwkv"):
         y, final = rwkv_scan(r, k, v, w, u, chunk=chunk, state=state)
     else:
@@ -60,20 +62,42 @@ def mix_rows(x, u, pulled, w):
     return ref.reference_gossip_mix_rows(x, u, pulled, w)
 
 
+def segment_mean_rows(x, seg, num_segments):
+    """Replace each row of ``x`` by the mean of the rows sharing its segment.
+
+    ``x`` is (M, ...) stacked replicas, ``seg`` an (M,) int64 segment id per
+    row.  Rows alone in their segment pass through exactly (the sum of one
+    row, 0 + x, divided by 1.0), as in the JAX package, whose jnp
+    ``segment_sum`` this is; it is not a Pallas kernel there, so here it is
+    plain torch on any device (``index_add_`` into zeros, then a gather)."""
+    shape = (num_segments,) + tuple(x.shape[1:])
+    sums = torch.zeros(shape, dtype=x.dtype, device=x.device).index_add_(0, seg, x)
+    counts = torch.zeros(num_segments, dtype=x.dtype, device=x.device).index_add_(
+        0, seg, torch.ones(x.shape[0], dtype=x.dtype, device=x.device))
+    cnt = counts[seg].reshape((-1,) + (1,) * (x.ndim - 1))
+    return sums[seg] / cnt
+
+
 def gossip_mix_tree(x_half, pulled, weights):
     """Tree-level fused mix used by the batched simulator engine (x_half
     already includes the optimizer update, so u = 0):
-    out = (1-w_i) x_half + w_i pulled, leaf by leaf.
+    out = (1-w_i) x_half + w_i pulled, leaf by leaf, over any tree
+    (``tree.py``), returned in the same structure; ``[]`` gives ``[]``.
 
     The JAX package's ``gossip_mix_tree``, which mixes each leaf with a
     materialised ``u = zeros_like(h)``.  Here u is absent: on CUDA the whole
     tree is one kernel launch (per dtype group of up to
     ``gossip_mix.MAX_LEAVES`` leaves) that reads no u; on the CPU the plain
     version per leaf, with x + 0.0 for x + u."""
-    keys = [(i, k) for i, layer in enumerate(x_half) for k in layer]
-    xs = [x_half[i][k] for i, k in keys]
-    if not _on_cuda(xs[0]):
-        return tree_map(lambda h, p: ref.reference_gossip_mix_rows(h, None, p, weights),
-                        x_half, pulled)
-    outs = iter(gossip_mix_rows_tree(xs, None, [pulled[i][k] for i, k in keys], weights))
-    return [{k: next(outs) for k in layer} for layer in x_half]
+    xs, treedef = tree_flatten(x_half)
+    ps = tree_leaves(pulled)
+    if len(ps) != len(xs):
+        raise ValueError(f"gossip_mix_tree: {len(xs)} leaves of x_half against "
+                         f"{len(ps)} of pulled")
+    if not xs:
+        return tree_unflatten(treedef, [])
+    if _on_cuda(xs[0]):
+        outs = gossip_mix_rows_tree(xs, None, ps, weights)
+    else:
+        outs = [ref.reference_gossip_mix_rows(h, None, p, weights) for h, p in zip(xs, ps)]
+    return tree_unflatten(treedef, outs)

@@ -87,8 +87,9 @@ def reference_rwkv_state(r, k, v, w, u, state=None):
 
 
 def clamp_decay(w, chunk: int = 64):
-    """The decays the RWKV kernel sees: per-step log decay clamped to
-    ``>= -75 / min(16, chunk)`` (``repro/kernels/rwkv_scan.py``'s wrapper),
-    in f32."""
+    """The decays the JAX package's Pallas RWKV kernel sees: per-step log
+    decay clamped to ``>= -75 / min(16, chunk)`` (``repro/kernels/rwkv_scan.py``'s
+    wrapper), in f32.  Neither the JAX model nor the port's CUDA kernel
+    clamps; this only lets the plain version be held against that kernel."""
     bound = 75.0 / min(16, chunk)
     return torch.exp(torch.clamp(torch.log(torch.clamp(w.float(), min=1e-30)), -bound, 0.0))

@@ -5,10 +5,13 @@
 per (batch, head), with the (N, N) f32 state S.  The kernel
 (``csrc/rwkv_scan.cu``, CUDA C++ for ``sm_90a``) replaces the JAX package's
 Pallas kernel ``repro/kernels/rwkv_scan.py``: the same chunk form over
-sub-chunks of ``min(16, chunk)`` tokens, with the same clamp of the per-step
-log decay to ``>= -75 / min(16, chunk)`` (``ref.clamp_decay`` gives the decays
-the kernel sees).  One block walks one (batch, head); its products run on the
-tensor cores in 3xTF32, which keeps f32 accuracy.  Unlike the Pallas kernel
+sub-chunks of ``min(16, chunk)`` tokens, but exact for any decay in (0, 1],
+as the JAX model's recurrence is (the Pallas wrapper clamps the per-step log
+decay to ``>= -75 / min(16, chunk)``; ``ref.clamp_decay`` gives its decays).
+A sub-chunk whose total log decay is >= -75 in every column forms its
+scores from two factors on the tensor cores; one with a column below forms
+them pairwise, one exp a term.  One block walks one (batch, head); its
+products run on the tensor cores in 3xTF32, which keeps f32 accuracy.  Unlike the Pallas kernel
 it takes an initial state and returns the final one, the ssm family's decode
 cache.  Any S works; the last chunk and sub-chunk may be short.  It is
 forward only, as the Pallas kernel is: the wrapper raises when autograd
@@ -43,7 +46,7 @@ DTYPE_LAUNCHES = {"float32": 0, "bfloat16": 0, "mixed": 0}
 #: rwkv6-7b's 64).
 HEAD_SIZES = (16, 32, 64)
 
-#: Sub-chunk length of the Pallas kernel (``_SUB``): bounds the f32 exponent range.
+#: Sub-chunk length of the Pallas kernel (``_SUB``): the kernel's tile of tokens.
 SUB = 16
 
 #: (dtype of r, k and v, dtype of w) -> (the kernel's dtype code, its name).
@@ -84,7 +87,7 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p,  # u, state_in (or None)
             ctypes.c_void_p, ctypes.c_void_p,  # y, state_out
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, N
-            ctypes.c_int, ctypes.c_int, ctypes.c_float,  # chunk, sub, lw_bound
+            ctypes.c_int, ctypes.c_int,  # chunk, sub
             ctypes.c_int, ctypes.c_int,  # dtype, device
             ctypes.c_void_p,  # stream
         ]
@@ -146,8 +149,8 @@ def rwkv_scan(r, k, v, w, u, *, chunk: int = 64, state=None):
     (B,H,N,N) f32).
 
     r, k, v, w: a combination of ``DTYPES``, contiguous; N in
-    ``HEAD_SIZES``.  As the Pallas wrapper, ``chunk`` is cut to S and the
-    per-step log decay is clamped to ``>= -75 / min(16, chunk)``."""
+    ``HEAD_SIZES``.  As the Pallas wrapper, ``chunk`` is cut to S; unlike
+    it, the decays are not clamped."""
     code, dtype_name = _check_operands(r, k, v, w, u, state, chunk)
     B, S, H, N = r.shape
     chunk = min(int(chunk), S)
@@ -159,7 +162,7 @@ def rwkv_scan(r, k, v, w, u, *, chunk: int = 64, state=None):
     err = lib.rwkv_scan_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), y.data_ptr(), state_out.data_ptr(),
-        B, S, H, N, chunk, sub, 75.0 / sub, code, r.device.index, stream,
+        B, S, H, N, chunk, sub, code, r.device.index, stream,
     )
     if err != 0:
         msg = lib.rwkv_scan_error_string(err).decode()

@@ -5,7 +5,7 @@ Monitor for the new worker set — and (b) replica state — a joiner seeds its
 replica by pulling from a live neighbor (gossip IS the state-transfer
 mechanism).  The simulator engines use the two reseed forms below; the
 trainer-side ``remove_workers`` / ``add_workers`` come with the SPMD trainer
-(ROADMAP A9).
+(ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import generate_policy_matrix
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def reseed_row(params, opt_state, worker: int, seed_from: int):
@@ -23,13 +23,11 @@ def reseed_row(params, opt_state, worker: int, seed_from: int):
     momentum zeroed (a fresh worker has no history).  Used by the batched
     simulator engine; returns the (mutated) trees."""
     with torch.no_grad():
-        for layer in params:
-            for leaf in layer.values():
-                leaf[worker].copy_(leaf[seed_from])
-        for layer in opt_state:
-            for leaf in layer.values():
-                if leaf.ndim > 0:
-                    leaf[worker].zero_()
+        for leaf in tree_leaves(params):
+            leaf[worker].copy_(leaf[seed_from])
+        for leaf in tree_leaves(opt_state):
+            if leaf.ndim > 0:
+                leaf[worker].zero_()
     return params, opt_state
 
 

@@ -1,11 +1,22 @@
 """Batched engine for the event-driven simulator, in torch.
 
-The port of the JAX package's ``train/engine.py`` for the async gossip
-family (``Algorithm.batched_variant == "gossip"``: netmax, adpsgd,
-adpsgd+mon).  It keeps the *exact same host-side machinery* as the
-reference loop (heap order, rng draw order, LinkTimeModel draws, EMA
-updates, Monitor schedule) but stacks all M replicas/momenta into
-leading-M tensors and executes many events per device dispatch.
+The port of the JAX package's ``train/engine.py``.  It keeps the *exact
+same host-side machinery* as the reference loops (heap order, rng draw
+order, LinkTimeModel draws, EMA updates, Monitor schedule, round barriers)
+but stacks all M replicas/momenta into leading-M tensors and executes many
+events per device dispatch.  It covers every registered strategy:
+
+* **async gossip** (netmax, adpsgd, adpsgd+mon, netmax-topk) — cohorts of
+  causally-independent events (``Algorithm.batched_variant == "gossip"``);
+* **ps-async** — the ``"ps-serial"`` variant: a cohort's grad steps run
+  stacked, and the PS running average is folded as a serialized chain over
+  the cohort's ``x_half`` rows in pop order inside the same dispatch
+  (``s <- s + w delta_transform(x_k - s)``, the reference's
+  event-at-a-time recurrence);
+* **synchronous rounds** (allreduce, prague, ps-sync) — ``run_batched_sync``
+  runs each round as stacked masked grad steps plus one segment mean per
+  leaf (``reduce_groups_stacked``); the rounds between record boundaries
+  form one block, one dispatch.
 
 Scheduling — verbatim from the JAX package, so ``SimResult.cohorts``,
 ``SimResult.dispatches`` and the cohort log match it exactly:
@@ -20,12 +31,17 @@ Scheduling — verbatim from the JAX package, so ``SimResult.cohorts``,
   replica rows, computes, then scatters all actor rows; an event's level
   is one plus the maximum over its hazards on replica rows: (1) WAW/RAW on
   the actor row, (2) RAW on the peer row, (3) WAR on the actor row (the
-  same level is fine: gathers happen before the scatter).
+  same level is fine: gathers happen before the scatter).  The ps-serial
+  variant relaxes rule 2 on the serialized row: pushes into the PS may
+  share a level (the step folds them in pop order); the PS node's own grad
+  step lands strictly after every prior push.
 * **Chains and bursts** — consecutive levels within a 2x row-bucket band
   run as one dispatch (a Python loop over the levels); runs of singleton
   levels of one worker run as one burst dispatch carrying just that
   worker's row (skipped under ``use_mix_kernel``, as in the JAX package,
-  so every mix goes through one rule).
+  so every mix goes through one rule).  Under ps-serial a window runs as
+  pop-ordered bursts carrying the PS row, broken where a non-PS actor
+  repeats.
 
 Device side: the vmapped ``value_and_grad`` becomes a stacked batched
 matmul forward and one autograd pass over the sum of the per-row mean
@@ -36,11 +52,13 @@ buckets with distinct idle workers (valid=0, written back unchanged), as in
 the JAX package; chain and burst levels that are pure padding are no-ops
 and are skipped.  Under ``SimConfig.use_mix_kernel`` the mix is
 ``kernels/ops.gossip_mix_tree``: on a card, the CUDA gossip-mix kernel, one
-launch for the cohort's whole parameter tree, with no u operand.
+launch for the cohort's whole parameter tree, with no u operand, for
+identity-delta gossip strategies only; the ps-serial fold, netmax-topk's
+sparsified delta and the sync rounds take the leaf rule, as in the JAX
+package.
 
-Not ported yet: the ``"ps-serial"`` variant (ps-async, ROADMAP A5), the
-synchronous round executor ``run_batched_sync`` (A5) and the device-sharded
-path ``shard_workers`` (A9); each raises ``NotImplementedError``.
+Not ported yet: the device-sharded path ``shard_workers`` (ROADMAP A5),
+which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,7 +80,7 @@ from repro_torch.scenarios.timeline import ScenarioCursor
 from repro_torch.train import simulator as _sim
 from repro_torch.train.elastic import reseed_row
 from repro_torch.train.events import EventHeap
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -106,27 +124,30 @@ def _keep_valid(valid, new, old):
     return tree_map(f, new, old)
 
 
-def _make_cohort_body(algo: Algorithm, lr: float, mu: float,
-                      use_mix_kernel: bool):
-    """The fused step for one cohort of the gossip variant.
+@torch.no_grad()
+def _ps_fold(algo: Algorithm, s, x, wk):
+    """One push into the serialized PS row: ``s + w delta_transform(x - s)``,
+    ``Algorithm.mix(s, x, w)`` with ``w`` a device scalar."""
+    return tree_map(
+        lambda s_l, x_l: s_l + wk.to(s_l.dtype) * algo.delta_transform(x_l - s_l), s, x)
 
-    Signature: (R, Mom, dx, dy, ints, w) -> (R, Mom), updating the stacked
-    R/Mom leaves (M, ...) in place.  ``ints`` is a (K, 3+B) int64 device
-    tensor packing [actor row, peer row, valid, batch indices...] and ``w``
-    (K,) f32 the mix weights (0 => no communication).  valid=0 marks
-    padding: the row is written back unchanged.
+
+def _make_cohort_body(algo: Algorithm, lr: float, mu: float,
+                      use_mix_kernel: bool, sr: int | None):
+    """The fused step for one cohort.
+
+    Signature: (R, Mom, dx, dy, ints_h, ints, w) -> (R, Mom), updating the
+    stacked R/Mom leaves (M, ...) in place.  ``ints`` is a (K, 3+B) int64
+    device tensor packing [actor row, peer row (gossip) or push flag
+    (ps-serial), valid, batch indices...], ``ints_h`` the same on the host,
+    and ``w`` (K,) f32 the mix weights (0 => no communication).  valid=0
+    marks padding: the row is written back unchanged.
     """
     identity_delta = type(algo).delta_transform is Algorithm.delta_transform
 
-    def mix(x_half, pulled, w):
-        if use_mix_kernel and identity_delta:
-            return kops.gossip_mix_tree(x_half, pulled, w)
-        return algo.mix_stacked_tree(x_half, pulled, w)
-
-    def body(R, Mom, dx, dy, ints, w):
+    def grad_half(R, Mom, dx, dy, ints):
+        """Shared front half: stacked grads + momentum + local step."""
         idx = ints[:, 0].contiguous()
-        peer = ints[:, 1].contiguous()
-        valid = ints[:, 2] > 0
         bidx = ints[:, 3:]
         h = tree_map(lambda l: l.index_select(0, idx), R)
         mom = tree_map(lambda l: l.index_select(0, idx), Mom)
@@ -134,56 +155,140 @@ def _make_cohort_body(algo: Algorithm, lr: float, mu: float,
         with torch.no_grad():
             new_m = tree_map(lambda m_, g: mu * m_ + g, mom, grads)
             x_half = tree_map(lambda p, m_: p - lr * m_, h, new_m)
-            pulled = tree_map(lambda l: l.index_select(0, peer), R)  # pre-cohort
-            mixed = _keep_valid(valid, mix(x_half, pulled, w), h)
-            new_m = _keep_valid(valid, new_m, mom)
-            tree_map(lambda l, v: l.index_copy_(0, idx, v), R, mixed)
-            tree_map(lambda l, v: l.index_copy_(0, idx, v), Mom, new_m)
-        return R, Mom
+        return idx, ints[:, 2] > 0, h, mom, new_m, x_half
+
+    def commit(R, Mom, idx, valid, h, mom, new, new_m):
+        new = _keep_valid(valid, new, h)
+        new_m = _keep_valid(valid, new_m, mom)
+        tree_map(lambda l, v: l.index_copy_(0, idx, v), R, new)
+        tree_map(lambda l, v: l.index_copy_(0, idx, v), Mom, new_m)
+
+    if algo.batched_variant == "ps-serial":
+
+        def body(R, Mom, dx, dy, ints_h, ints, w):
+            idx, valid, h, mom, new_m, x_half = grad_half(R, Mom, dx, dy, ints)
+            s, wrote = None, False
+            with torch.no_grad():
+                # The serialized row, in pop order; a push's row takes the
+                # PS value after it (written into x_half, whose later rows
+                # are read before they are written).
+                for k in range(len(ints_h)):
+                    if not ints_h[k, 2]:
+                        continue
+                    xk = tree_map(lambda l: l[k], x_half)
+                    if ints_h[k, 1]:  # a push into the PS row
+                        if s is None:
+                            s = tree_map(lambda l: l[sr], R)
+                        s = _ps_fold(algo, s, xk, w[k])
+                        tree_map(lambda l, v: l.copy_(v), xk, s)
+                        wrote = True
+                    elif ints_h[k, 0] == sr:  # the PS node's local step
+                        s, wrote = xk, True
+                commit(R, Mom, idx, valid, h, mom, x_half, new_m)
+                if wrote:
+                    tree_map(lambda l, v: l[sr].copy_(v), R, s)
+            return R, Mom
+
+    else:
+
+        def mix(x_half, pulled, w):
+            if use_mix_kernel and identity_delta:
+                return kops.gossip_mix_tree(x_half, pulled, w)
+            return algo.mix_stacked_tree(x_half, pulled, w)
+
+        def body(R, Mom, dx, dy, ints_h, ints, w):
+            idx, valid, h, mom, new_m, x_half = grad_half(R, Mom, dx, dy, ints)
+            with torch.no_grad():
+                peer = ints[:, 1].contiguous()
+                pulled = tree_map(lambda l: l.index_select(0, peer), R)  # pre-cohort
+                commit(R, Mom, idx, valid, h, mom, mix(x_half, pulled, w), new_m)
+            return R, Mom
 
     return body
 
 
-def _make_burst_body(algo: Algorithm, lr: float, mu: float):
-    """Singleton-run step: consecutive singleton levels of ONE worker.
+def _make_burst_body(algo: Algorithm, lr: float, mu: float, sr: int | None):
+    """Singleton-run step: a stretch of consecutive singleton levels, which
+    touches the stacked tensors once at each end instead of once a level.
 
-    Carries that worker's (row, momentum) through the run and touches the
-    stacked tensors twice: peers are read from the pre-burst stack (sound:
-    the run's levels contain no other events, so no peer row changes
-    mid-burst) and the final row/momentum is written back once.  Signature
-    (R, Mom, dx, dy, i, ints, w) with ``i`` the actor and ``ints`` (L, 2+B)
-    numpy int32 [peer row, valid, batch indices...].
+    * gossip — the run belongs to ONE worker: carry its (row, momentum);
+      peers are read from the pre-burst stack (sound: the run's levels
+      contain no other events, so no peer row changes mid-burst).
+      Signature (R, Mom, dx, dy, i, ints, w), ``i`` the actor, ``ints``
+      (L, 2+B) numpy int32 [peer row, valid, batch indices...].
+    * ps-serial — the run may mix actors (PS local steps and pushes from
+      distinct workers): carry the serialized (PS row, PS momentum); each
+      pusher's row/momentum is read from the pre-burst stack (sound: the
+      host breaks the run before any non-PS actor repeats) and written
+      once after the run.  Signature (R, Mom, dx, dy, ints, w), ``ints``
+      (L, 3+B) numpy int32 [actor row, push flag, valid, batch indices...].
     """
 
-    def body(R, Mom, dx, dy, i, ints, w):
-        dev = dx.device
-        bidx = torch.from_numpy(ints[:, 2:].astype(np.int64)).to(dev)
-        wd = torch.from_numpy(w).to(dev)
-        row = tree_map(lambda l: l[i], R)
-        mom = tree_map(lambda l: l[i], Mom)
-        for k in range(len(ints)):
-            if ints[k, 1] == 0:
-                continue  # pad step: a no-op
-            _, g = _sim.value_and_grad(_sim.ce_loss, row, dx[bidx[k]],
-                                       dy[bidx[k]])
-            with torch.no_grad():
-                mom = tree_map(lambda m_, gg: mu * m_ + gg, mom, g)
-                xh = tree_map(lambda p, m_: p - lr * m_, row, mom)
-                peer = int(ints[k, 0])
-                # THE leaf rule (Algorithm.mix_stacked_tree), applied to a
-                # single row via a length-1 leading axis.
-                row = tree_map(
-                    lambda l: l[0],
-                    algo.mix_stacked_tree(
-                        tree_map(lambda l: l[None], xh),
-                        tree_map(lambda l: l[peer:peer + 1], R),
-                        wd[k:k + 1],
-                    ),
-                )
+    def grad_half(row, mom, xb, yb):
+        _, g = _sim.value_and_grad(_sim.ce_loss, row, xb, yb)
         with torch.no_grad():
-            tree_map(lambda l, v: l[i].copy_(v), R, row)
-            tree_map(lambda l, v: l[i].copy_(v), Mom, mom)
-        return R, Mom
+            mom2 = tree_map(lambda m_, gg: mu * m_ + gg, mom, g)
+            x_half = tree_map(lambda p, m_: p - lr * m_, row, mom2)
+        return mom2, x_half
+
+    def one_row(tree, i):
+        return tree_map(lambda l: l[i], tree)
+
+    if algo.batched_variant == "ps-serial":
+
+        def body(R, Mom, dx, dy, ints, w):
+            dev = dx.device
+            bidx = torch.from_numpy(ints[:, 3:].astype(np.int64)).to(dev)
+            wd = torch.from_numpy(w).to(dev)
+            s, mom_s = one_row(R, sr), one_row(Mom, sr)
+            out = {}  # non-PS actor -> (row, momentum) to write back
+            for k in range(len(ints)):
+                if ints[k, 2] == 0:
+                    continue  # pad step: a no-op
+                actor, push = int(ints[k, 0]), bool(ints[k, 1])
+                is_ps = not push and actor == sr
+                row, mom = (s, mom_s) if is_ps else (one_row(R, actor), one_row(Mom, actor))
+                mom2, xh = grad_half(row, mom, dx[bidx[k]], dy[bidx[k]])
+                if push:
+                    s = _ps_fold(algo, s, xh, wd[k])
+                    out[actor] = (s, mom2)
+                elif is_ps:
+                    s, mom_s = xh, mom2
+                else:
+                    out[actor] = (xh, mom2)
+            with torch.no_grad():
+                for actor, (row, mom) in out.items():
+                    tree_map(lambda l, v: l[actor].copy_(v), R, row)
+                    tree_map(lambda l, v: l[actor].copy_(v), Mom, mom)
+                tree_map(lambda l, v: l[sr].copy_(v), R, s)
+                tree_map(lambda l, v: l[sr].copy_(v), Mom, mom_s)
+            return R, Mom
+
+    else:
+
+        def body(R, Mom, dx, dy, i, ints, w):
+            dev = dx.device
+            bidx = torch.from_numpy(ints[:, 2:].astype(np.int64)).to(dev)
+            wd = torch.from_numpy(w).to(dev)
+            row, mom = one_row(R, i), one_row(Mom, i)
+            for k in range(len(ints)):
+                if ints[k, 1] == 0:
+                    continue  # pad step: a no-op
+                mom, xh = grad_half(row, mom, dx[bidx[k]], dy[bidx[k]])
+                peer = int(ints[k, 0])
+                with torch.no_grad():
+                    # THE leaf rule (Algorithm.mix_stacked_tree), applied to
+                    # a single row via a length-1 leading axis.
+                    row = one_row(
+                        algo.mix_stacked_tree(
+                            tree_map(lambda l: l[None], xh),
+                            tree_map(lambda l: l[peer:peer + 1], R),
+                            wd[k:k + 1],
+                        ), 0)
+            with torch.no_grad():
+                tree_map(lambda l, v: l[i].copy_(v), R, row)
+                tree_map(lambda l, v: l[i].copy_(v), Mom, mom)
+            return R, Mom
 
     return body
 
@@ -193,32 +298,29 @@ def _operands(ints: np.ndarray, w: np.ndarray, dev):
             torch.from_numpy(w).to(dev))
 
 
-def _steps_for(algo: Algorithm, lr: float, mu: float, use_mix_kernel: bool):
+def _steps_for(algo: Algorithm, lr: float, mu: float, use_mix_kernel: bool,
+               sr: int | None):
     """(step, chain_step, burst_step) over host (numpy) operands."""
-    if algo.batched_variant != "gossip":
+    if algo.batched_variant not in ("gossip", "ps-serial"):
+        # A variant this engine doesn't implement must fail loudly — falling
+        # through to the gossip body would silently compute wrong updates.
         raise NotImplementedError(
             f"batched_variant {algo.batched_variant!r} of {algo.name!r} is "
-            "not ported yet (ROADMAP A5); use engine='reference'"
+            "not implemented by the batched engine; use engine='reference'"
         )
-    body = _make_cohort_body(algo, lr, mu, use_mix_kernel)
+    body = _make_cohort_body(algo, lr, mu, use_mix_kernel, sr)
 
     def step(R, Mom, dx, dy, ints, w):
-        return body(R, Mom, dx, dy, *_operands(ints, w, dx.device))
+        return body(R, Mom, dx, dy, ints, *_operands(ints, w, dx.device))
 
     def chain_step(R, Mom, dx, dy, ints_seq, w_seq):
         ints_d, w_d = _operands(ints_seq, w_seq, dx.device)
         for l in range(len(ints_seq)):
             if ints_seq[l, :, 2].any():  # all-pad levels are no-ops
-                R, Mom = body(R, Mom, dx, dy, ints_d[l], w_d[l])
+                R, Mom = body(R, Mom, dx, dy, ints_seq[l], ints_d[l], w_d[l])
         return R, Mom
 
-    return step, chain_step, _make_burst_body(algo, lr, mu)
-
-
-def run_batched_sync(*args, **kwargs):
-    raise NotImplementedError(
-        "the synchronous round executor is not ported yet (ROADMAP A5)"
-    )
+    return step, chain_step, _make_burst_body(algo, lr, mu, sr)
 
 
 def run_batched(
@@ -248,15 +350,15 @@ def run_batched(
     if getattr(cfg, "shard_workers", False):
         raise NotImplementedError(
             "cfg.shard_workers (replicas split across devices) is not ported "
-            "yet (ROADMAP A9)"
+            "yet (ROADMAP A5)"
         )
     M = cfg.n_workers
     total = cfg.total_events
+    sr = algo.serial_row(state) if algo.batched_variant == "ps-serial" else None
     step, chain_step, burst_step = _steps_for(algo, cfg.lr, cfg.momentum,
-                                              cfg.use_mix_kernel)
-    sr = None  # the serialized row of the "ps-serial" variant (ROADMAP A5)
+                                              cfg.use_mix_kernel, sr)
     fuse = getattr(cfg, "fuse_chains", True)
-    dev = p0[0]["w"].device
+    dev = tree_leaves(p0)[0].device
 
     # Stacked replicas: all workers start from the same p0, like the
     # reference engine's per-replica copies.
@@ -456,19 +558,29 @@ def run_batched(
         chain_acc.clear()
 
     def dispatch_burst(run):
-        """One serial-chain dispatch over a pop-ordered single-worker run
-        (see ``_make_burst_body``)."""
+        """One serial-chain dispatch over a pop-ordered event run (see
+        ``_make_burst_body``)."""
         nonlocal R, Mom
         blen = len(run[0][5])
         L = _chain_bucket(len(run), _BURST_CAP)
         w = np.zeros(L, np.float32)
-        ints = np.zeros((L, 2 + blen), np.int32)  # pads: valid=0 no-ops
-        for l, e in enumerate(run):
-            ints[l, 0] = e[2] if e[4] else e[1]
-            ints[l, 1] = 1
-            ints[l, 2:] = e[5]
-            w[l] = e[3]
-        R, Mom = burst_step(R, Mom, dx, dy, run[0][1], ints, w)
+        if sr is not None:  # ps-serial: [actor, push, valid, batch...]
+            ints = np.zeros((L, 3 + blen), np.int32)  # pads: valid=0 no-ops
+            for l, e in enumerate(run):
+                ints[l, 0] = e[1]
+                ints[l, 1] = 1 if e[4] else 0
+                ints[l, 2] = 1
+                ints[l, 3:] = e[5]
+                w[l] = e[3]
+            R, Mom = burst_step(R, Mom, dx, dy, ints, w)
+        else:  # gossip: one actor; [peer, valid, batch...]
+            ints = np.zeros((L, 2 + blen), np.int32)
+            for l, e in enumerate(run):
+                ints[l, 0] = e[2] if e[4] else e[1]
+                ints[l, 1] = 1
+                ints[l, 2:] = e[5]
+                w[l] = e[3]
+            R, Mom = burst_step(R, Mom, dx, dy, run[0][1], ints, w)
         res.dispatches += 1
 
     def chain_in(cohort):
@@ -493,14 +605,21 @@ def run_batched(
             chain_lo, chain_hi = min(chain_lo, B), max(chain_hi, B)
         chain_acc.append(cohort)
 
-    def execute_window(levels):
+    def execute_window(levels, window):
         """Dispatch one window.
 
         Levels are always counted/logged (the logical cohort structure is
-        execution-independent).  With fusion, runs of >= _BURST_MIN
-        consecutive singleton levels of one worker go through the
-        single-row burst; everything else accumulates into band chains
-        (``chain_in``).  Fusion off: one dispatch per level.
+        execution-independent).  Execution is fused three ways:
+
+        * ps-serial + fusion — the serialized row makes the whole stream
+          sequential, so the window executes as pop-ordered bursts carrying
+          the PS row and momentum, broken only where a non-PS actor repeats
+          (its second grad must re-read its own written row), the batch
+          length changes, or ``_BURST_CAP``;
+        * gossip + fusion — runs of >= _BURST_MIN consecutive singleton
+          levels of one worker go through the single-row burst; everything
+          else accumulates into band chains (``chain_in``);
+        * fusion off — one dispatch per level.
         """
         nonlocal R, Mom
         for cohort in levels:
@@ -514,6 +633,23 @@ def run_batched(
                 ints, w = pack(cohort, _bucket(len(cohort), M))
                 R, Mom = step(R, Mom, dx, dy, ints, w)
                 res.dispatches += 1
+            return
+        if sr is not None:
+            run: list = []
+            actors: set[int] = set()
+            for e in window:
+                if run and (
+                    len(run) >= _BURST_CAP
+                    or len(e[5]) != len(run[0][5])
+                    or (e[1] != sr and e[1] in actors)
+                ):
+                    dispatch_burst(run)
+                    run, actors = [], set()
+                run.append(e)
+                if e[1] != sr:
+                    actors.add(e[1])
+            if run:
+                dispatch_burst(run)
             return
         # Group levels into maximal single-actor singleton runs (the busiest
         # worker's sequential tail) vs the rest.  With use_mix_kernel the
@@ -568,7 +704,7 @@ def run_batched(
         t_last, ev_last = window[-1][0], window[-1][6]
 
         # ---- execute the whole window, level by level (chains fused) ----
-        execute_window(schedule_window(window))
+        execute_window(schedule_window(window), window)
 
         # ---- boundaries fire after the window, exactly as the reference
         # loop fires them after the boundary event (Monitor first, then the
@@ -589,5 +725,178 @@ def run_batched(
     if monitor is not None and monitor.failover is not None:
         res.leader_log = list(monitor.failover.leader_log)
         res.skipped_refreshes = monitor.failover.n_skipped_refreshes
+    res.engine = "batched"
+    return res
+
+
+# --------------------------------------------------------------------------
+# Synchronous families: stacked round executor
+# --------------------------------------------------------------------------
+
+
+def _make_sync_round_body(algo: Algorithm, lr: float, mu: float):
+    """One synchronous round on stacked trees: masked grad steps for every
+    worker, then the one-segment-mean group averaging
+    (``reduce_groups_stacked``).
+
+    Signature: (R, Mom, dx, dy, mask, gid, idx) -> (R, Mom) with R/Mom
+    leaves (M, ...), ``idx`` (M, B) int64 per-worker batch indices, ``mask``
+    (M, B) f32 marking real samples (per-worker batch sizes may differ when
+    shards are smaller than cfg.batch_size), and ``gid`` (M,) int64
+    reduction group ids.
+    """
+
+    def masked_loss(params, x, y, mask):
+        # Sum over workers of each worker's masked mean cross entropy: its
+        # gradient w.r.t. row k is row k's own loss gradient.
+        per = _sim.ce_rows(_sim.mlp_apply(params, x), y)
+        return ((per * mask).sum(-1) / mask.sum(-1)).sum()
+
+    def body(R, Mom, dx, dy, mask, gid, idx):
+        _, grads = _sim.value_and_grad(masked_loss, R, dx[idx], dy[idx], mask)
+        with torch.no_grad():
+            Mom = tree_map(lambda m_, g: mu * m_ + g, Mom, grads)
+            x_half = tree_map(lambda p, m_: p - lr * m_, R, Mom)
+            R = algo.reduce_groups_stacked(x_half, gid)
+        return R, Mom
+
+    return body
+
+
+def run_batched_sync(
+    algo: Algorithm,
+    cfg,
+    state,
+    rng: np.random.Generator,
+    p0,
+    link_model,
+    data_x: np.ndarray,
+    data_y: np.ndarray,
+    part_idx,
+    eval_x: np.ndarray,
+    eval_y: np.ndarray,
+    record_every: int,
+    res,
+):
+    """Round-based strategies on stacked trees; mutates and returns ``res``.
+
+    Host-side machinery is drawn in exactly the reference sync loop's order
+    (``select_groups`` -> ``round_timing`` -> per-worker batch draws), so
+    ``times``/``comm_time``/``compute_time`` are bit-identical; only the
+    device math is reassociated (stacked grads, segment means).  The rounds
+    between record boundaries form one block, counted as one dispatch (a
+    loop over its rounds here, one ``lax.scan`` in the JAX package) when
+    ``cfg.fuse_chains`` is on, one dispatch a round otherwise.
+    """
+    M = cfg.n_workers
+    rounds = cfg.total_events // M
+    fuse = getattr(cfg, "fuse_chains", True)
+    dev = tree_leaves(p0)[0].device
+
+    R = tree_map(lambda l: l.unsqueeze(0).repeat((M,) + (1,) * l.ndim), p0)
+    Mom = tree_map(lambda l: torch.zeros((M,) + tuple(l.shape), dtype=l.dtype,
+                                         device=dev), p0)
+    step = _make_sync_round_body(algo, cfg.lr, cfg.momentum)
+
+    # Scenario machinery: boundaries break the round blocks so a rejoin
+    # reseed lands between dispatches, at the same round as the reference
+    # loop; link-state changes need no action (round_timing draws from the
+    # link model at each round's start time on both engines).
+    scn = link_model.compiled_scenario
+    cursor = ScenarioCursor(scn) if scn is not None else None
+    active = set(range(M))
+
+    def reseed(w, src):
+        nonlocal R, Mom
+        R, Mom = reseed_row(R, Mom, w, src)
+
+    bsz = [min(cfg.batch_size, len(part_idx[i])) for i in range(M)]
+    Bmax = max(bsz)
+    mask = np.zeros((M, Bmax), np.float32)
+    for i in range(M):
+        mask[i, : bsz[i]] = 1.0
+    maskd = torch.from_numpy(mask).to(dev)
+
+    # Block batch draw: ``rng.choice(part, size=k)`` is ``part[rng.integers(0,
+    # len(part), k)]`` bit-for-bit, and one ``integers`` call fills its output
+    # in C order drawing per element exactly as consecutive same-bound calls
+    # do — so consecutive workers with equal (population, batch) sizes
+    # collapse into one host rng call per round instead of M.
+    pops = [len(part_idx[i]) for i in range(M)]
+    runs = []
+    i0 = 0
+    for i in range(1, M + 1):
+        if i == M or pops[i] != pops[i0] or bsz[i] != bsz[i0]:
+            runs.append((i0, i, pops[i0], bsz[i0]))
+            i0 = i
+    run_parts = [
+        np.stack([np.asarray(part_idx[i]) for i in range(a, b)])
+        for a, b, _, _ in runs
+    ]
+
+    ex, ey = _sim.to_device(eval_x, dev), _sim.to_device(eval_y, dev)
+    dx, dy = _sim.to_device(data_x, dev), _sim.to_device(data_y, dev)
+
+    def eval_now(t, ev):
+        with torch.no_grad():
+            mean_p = tree_map(lambda l: l.mean(dim=0), R)
+        loss, acc = _sim.evaluate(mean_p, ex, ey)
+        res.times.append(t)
+        res.losses.append(loss)
+        res.accs.append(acc)
+        res.events.append(ev)
+
+    every = max(1, record_every // M)
+    t = 0.0
+    r = 0
+    while r < rounds:
+        if cursor is not None:
+            for act in cursor.pop_due(t):
+                apply_action(act, active=active, reseed=reseed)
+        # ---- draw a block of rounds, ending at the next record boundary,
+        # consuming every host rng in reference order ----
+        gids, idxs = [], []
+        fire = False
+        while r < rounds:
+            if cursor is not None and cursor.next_time <= t:
+                break  # scenario boundary: flush the block before crossing
+            groups = algo.select_groups(state, rng)
+            timing = _sim.traced_round_timing(
+                algo, state, cfg, link_model, groups, t, res
+            )
+            t += timing.duration
+            res.comm_time += timing.comm
+            res.compute_time += timing.compute
+            gid = np.arange(M, dtype=np.int64)
+            for grp in groups:
+                if len(grp) >= 2:
+                    gid[grp] = min(grp)
+            idx = np.zeros((M, Bmax), np.int64)
+            for (a, b_, pop, B), parts in zip(runs, run_parts):
+                draws = rng.integers(0, pop, size=(b_ - a, B))
+                idx[a:b_, :B] = parts[
+                    np.arange(b_ - a)[:, None], draws
+                ]
+            gids.append(gid)
+            idxs.append(idx)
+            fire = r % every == 0
+            r += 1
+            if fire:
+                break
+
+        if not gids:
+            continue  # boundary was immediately due; actions now applied
+        # ---- execute the block: one dispatch per block, or per round with
+        # fusion off ----
+        gid_d = torch.from_numpy(np.stack(gids)).to(dev)
+        idx_d = torch.from_numpy(np.stack(idxs)).to(dev)
+        for k in range(len(gids)):
+            R, Mom = step(R, Mom, dx, dy, maskd, gid_d[k], idx_d[k])
+        res.dispatches += 1 if fuse else len(gids)
+        res.cohorts += len(gids)
+
+        if fire:
+            eval_now(t, r * M)
+    eval_now(t, rounds * M)
     res.engine = "batched"
     return res

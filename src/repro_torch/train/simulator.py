@@ -18,11 +18,12 @@ math runs in torch, on ``device``:
 
 Engines (``SimConfig.engine``): ``"reference"`` (one Python iteration per
 event, per-replica parameter trees) and ``"batched"`` (train/engine.py:
-stacked replicas, causally-independent cohorts per dispatch, the mix
-through the CUDA gossip-mix kernel under ``SimConfig.use_mix_kernel``);
-``"auto"`` picks batched when the strategy supports it.  Only the async
-gossip family (netmax, adpsgd, adpsgd+mon) is ported; synchronous
-strategies raise.
+stacked replicas; async strategies in causally-independent cohorts per
+dispatch, the gossip mix through the CUDA gossip-mix kernel under
+``SimConfig.use_mix_kernel``, ps-async through its serialized PS row;
+synchronous strategies one round, or one block of rounds, per dispatch);
+``"auto"`` picks batched when the strategy supports it.  Every registered
+strategy runs on both engines.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from repro_torch.scenarios.driver import (
 from repro_torch.scenarios.timeline import ScenarioCursor
 from repro_torch.train.elastic import reseed_replica
 from repro_torch.train.events import EventHeap
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 # --------------------------------------------------------------------------
 # Small real model: MLP classifier
@@ -86,22 +87,14 @@ def ce_loss(params, x, y):
     return ce_rows(mlp_apply(params, x), y).mean()
 
 
-def _flat(tree) -> list:
-    return [layer[k] for layer in tree for k in layer]
-
-
-def _unflat(tree, flat) -> list:
-    it = iter(flat)
-    return [{k: next(it) for k in layer} for layer in tree]
-
-
 def value_and_grad(loss_fn, params, *args):
     """(loss, grads) of ``loss_fn(params, *args)`` w.r.t. every leaf."""
-    req = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves, treedef = tree_flatten(params)
+    req = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss = loss_fn(req, *args)
-        grads = torch.autograd.grad(loss, _flat(req))
-    return loss.detach(), _unflat(req, grads)
+        loss = loss_fn(tree_unflatten(treedef, req), *args)
+        grads = torch.autograd.grad(loss, req)
+    return loss.detach(), tree_unflatten(treedef, grads)
 
 
 def _grad_step(params, x, y, lr, momentum_state, mu):
@@ -178,7 +171,7 @@ class SimConfig:
     # card, its plain torch version on the CPU) instead of the leaf rule.
     use_mix_kernel: bool = False
     # Batched engine: split replicas across devices (not ported yet,
-    # ROADMAP A9; raises when set).
+    # ROADMAP A5; raises when set).
     shard_workers: bool = False
     # Batched engine only: fuse consecutive cohorts into one dispatch (a
     # Python loop over levels) plus single-worker burst dispatches.  The
@@ -200,7 +193,7 @@ class SimResult:
     compute_time: float = 0.0
     policy_updates: int = 0
     engine: str = "reference"  # which engine produced this result
-    cohorts: int = 0  # batched engine: logical cohorts (levels)
+    cohorts: int = 0  # batched engine: logical cohorts (levels / rounds)
     dispatches: int = 0  # batched engine: device dispatches (<= cohorts)
     # Scenario telemetry: every timed-out pull as (t, i, m), and every
     # published policy as (t, rho, P).
@@ -211,7 +204,10 @@ class SimResult:
     skipped_refreshes: int = 0
     # Per-event trace stream (SimConfig.trace): one tuple
     # ``(t_start, duration, src, dst, kind, comm, compute, net)`` per event
-    # in pop order, kind in {"pull", "local", "timeout"}.
+    # in pop order, kind in {"pull", "local", "timeout"} for async events and
+    # "round" for synchronous rounds (src = dst = -1), each round preceded by
+    # one "pull" (or "timeout") record per link it queried, carrying the raw
+    # network time in ``duration``.
     trace_events: list = field(default_factory=list)
 
     def time_to_loss(self, target: float) -> float:
@@ -275,11 +271,6 @@ def simulate(
     """
     dev = resolve_device(device)
     algo = get_algorithm(cfg.algorithm)
-    if algo.synchronous:
-        raise NotImplementedError(
-            f"synchronous strategy {algo.name!r}: the round loops are not "
-            "ported yet (ROADMAP A5)"
-        )
     M = cfg.n_workers
     rng = np.random.default_rng(cfg.seed)
     dims = [data_x.shape[1], 128, 64, int(data_y.max()) + 1]
@@ -303,8 +294,14 @@ def simulate(
                 f"engine='batched' cannot execute {algo.name!r} "
                 "(Algorithm.supports_batched is False); use engine='reference'"
             )
-        from repro_torch.train.engine import run_batched
+        from repro_torch.train.engine import run_batched, run_batched_sync
 
+        if algo.synchronous:
+            return run_batched_sync(
+                algo, cfg, state, rng, p0, link_model,
+                data_x, data_y, part_idx, eval_x, eval_y,
+                record_every, res,
+            )
         return run_batched(
             algo, cfg, state, rng, p0, link_model,
             data_x, data_y, part_idx, eval_x, eval_y,
@@ -337,6 +334,33 @@ def simulate(
 
     def reseed(w, src):
         reseed_replica(replicas, momenta, w, src)
+
+    # ---------------- synchronous strategies: round-based loop ----------------
+    if algo.synchronous:
+        t = 0.0
+        rounds = cfg.total_events // M
+        for r in range(rounds):
+            # Churn actions fire before the first round starting at or after
+            # their time.  For round strategies only the rejoin reseed acts
+            # here: the barrier still spans all M workers, so a departed
+            # member stalls the round at the link timeout.
+            if cursor is not None:
+                for act in cursor.pop_due(t):
+                    apply_action(act, active=active, reseed=reseed)
+            groups = algo.select_groups(state, rng)
+            timing = traced_round_timing(
+                algo, state, cfg, link_model, groups, t, res
+            )
+            t += timing.duration
+            res.comm_time += timing.comm
+            res.compute_time += timing.compute
+            for i in range(M):
+                replicas[i] = grad_step(i)
+            algo.reduce_groups(replicas, groups)
+            if r % max(1, record_every // M) == 0:
+                eval_now(t, (r + 1) * M)
+        eval_now(t, rounds * M)
+        return res
 
     # ---------------- asynchronous strategies: event-driven loop --------------
     monitor = algo.make_monitor(cfg, M, d=state.d) if algo.wants_monitor(cfg) else None

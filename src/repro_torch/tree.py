@@ -1,12 +1,73 @@
-"""Parameter trees of the port: a list of ``{"w", "b"}`` dicts of tensors,
-the same structure the JAX MLP uses (one dict per layer)."""
+"""Parameter trees of the port, by JAX's pytree rules.
+
+A tree is a dict, list or tuple of subtrees, ``None`` (a node with no
+leaves), or a leaf (anything else: a tensor, a number).  Leaves come in
+``jax.tree_util``'s order: list and tuple items in order, dict items by
+sorted key.  The simulator's MLP is a list of ``{"w", "b"}`` dicts, so its
+leaves run ``b`` then ``w`` in each layer; an LM's parameters are nested
+dicts.  Rebuilt dicts hold their keys in sorted order, as JAX's do.
+"""
 
 from __future__ import annotations
 
 
+def _check_children(kind, n, rest):
+    for r in rest:
+        if not isinstance(r, kind) or len(r) != n:
+            raise ValueError(f"tree structures differ: a {kind.__name__} of {n} "
+                             f"against {type(r).__name__} {r!r:.60}")
+
+
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leaf by leaf across trees of the same structure."""
-    return [
-        {k: fn(layer[k], *(r[i][k] for r in rest)) for k in layer}
-        for i, layer in enumerate(tree)
-    ]
+    if isinstance(tree, dict):
+        _check_children(dict, len(tree), rest)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        _check_children(type(tree), len(tree), rest)
+        out = [tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def tree_flatten(tree):
+    """(leaves in JAX's order, treedef for ``tree_unflatten``)."""
+    leaves: list = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            keys = sorted(t)
+            return (dict, keys, [walk(t[k]) for k in keys])
+        if isinstance(t, (list, tuple)):
+            return (type(t), len(t), [walk(x) for x in t])
+        if t is None:
+            return None
+        leaves.append(t)
+        return ...
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef, leaves):
+    """Rebuild the tree ``tree_flatten`` described, from its leaves in order."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is ...:
+            return next(it)
+        if d is None:
+            return None
+        kind, keys, kids = d
+        if kind is dict:
+            return {k: build(c) for k, c in zip(keys, kids)}
+        out = [build(c) for c in kids]
+        return out if kind is list else tuple(out)
+
+    return build(treedef)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in JAX's order."""
+    return tree_flatten(tree)[0]

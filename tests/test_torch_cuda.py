@@ -5,7 +5,7 @@ rounding in the same place (no FMA contraction), so it is held to it
 bit for bit, as one launch per parameter tree too (u given and absent).  The flash-attention and WKV kernels sum in another order than
 their plain versions, so they are held to the tolerances of
 ``tests/test_kernels.py`` (attention 2e-5 in f32, 2e-2 in bf16; WKV 1e-4 in
-f32, 5e-2 in bf16, 1e-3 for the extreme-decay clamped case).  With bf16
+f32 and 5e-2 in bf16, for any decay: the kernel does not clamp).  With bf16
 r/k/v and f32 decays (the model's dtypes) the WKV output y is bf16 and held
 to 5e-2, one bf16 step being 2^-8 of |y|, while the final state is f32,
 computed from exactly widened inputs, and held to 1e-4.  This file imports no JAX, so it runs on a machine that has
@@ -361,16 +361,62 @@ def test_cuda_rwkv_scan_carries_the_state(cuda_device, case):
 
 @pytest.mark.cuda
 def test_cuda_rwkv_scan_extreme_decay_clamped(cuda_device):
-    """tests/test_kernels.py's extreme decays: the kernel equals the plain
-    recurrence run on the clamped decays, and stays finite."""
+    """tests/test_kernels.py's extreme decays (w = 1e-30, which the Pallas
+    wrapper clamps): the kernel does not clamp, stays finite and equals the
+    plain recurrence on the decays as given, to the f32 tolerance."""
     r, k, v, _, u = _rwkv_inputs(6, 1, 32, 1, 16, "float32", cuda_device)
     w0 = torch.full_like(r, 1e-30)
     got, state = rs.rwkv_scan(r, k, v, w0, u, chunk=16)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(state).all())
-    want, want_s = ref.reference_rwkv_state(r, k, v, ref.clamp_decay(w0, 16), u)
-    _assert_rwkv_close(got, want, 1e-3)
-    _assert_rwkv_close(state, want_s, 1e-3)
+    want, want_s = ref.reference_rwkv_state(r, k, v, w0, u)
+    _assert_rwkv_close(got, want, 1e-4)
+    _assert_rwkv_close(state, want_s, 1e-4)
+
+
+def strong_decays(w, how):
+    """Decays below the Pallas kernel's clamp (log w < -75/16 a step), in
+    w's shape (B, S, H, N): ``"-5"`` and ``"-8"`` a constant log decay
+    (times U(0.9, 1.1)); ``"mixed"`` keeps ``w`` but sets the first half of
+    the columns of every other 16-token sub-chunk to log w = -8, so those
+    sub-chunks straddle the factorised range (half their columns total
+    -128, half stay above -75) and the rest lie inside it."""
+    gen = torch.Generator(w.device).manual_seed(7)
+    if how in ("-5", "-8"):
+        jitter = 0.9 + 0.2 * torch.rand(w.shape, generator=gen, device=w.device)
+        return torch.exp(float(how) * jitter).to(w.dtype)
+    out = w.clone()
+    S, N = w.shape[1], w.shape[3]
+    for t0 in range(0, S, 32):
+        out[:, t0:t0 + 16, :, :N // 2] = float(np.exp(-8.0))
+    return out
+
+
+# (B, S, H, N, chunk, dtype): f32 at N 16 and 64, and the model's dtypes
+# (bf16 r/k/v, f32 w), ragged.
+RWKV_STRONG_CASES = [(1, 64, 2, 16, 16, "float32"), (1, 128, 2, 64, 64, "float32"),
+                     (2, 100, 3, 64, 64, "mixed")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["-5", "-8", "mixed"])
+@pytest.mark.parametrize("case", RWKV_STRONG_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_rwkv_scan_exact_below_the_pallas_clamp(cuda_device, case, how):
+    """Decays below the Pallas wrapper's clamp: the kernel against the
+    unclamped plain recurrence, from a random state, y and the final state
+    to the f32 tolerance (y to bf16's when it is bf16)."""
+    B, S, H, N, chunk, dtype = case
+    r, k, v, w, u = _rwkv_inputs(14, B, S, H, N, "float32", cuda_device)
+    if dtype == "mixed":
+        r, k, v, w, u = _mixed(r, k, v, w, u)
+    w = strong_decays(w, how)
+    s0 = torch.randn((B, H, N, N), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(3))
+    y, s1 = rs.rwkv_scan(r, k, v, w, u, chunk=chunk, state=s0)
+    want_y, want_s = ref.reference_rwkv_state(r, k, v, w, u, s0)
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(s1).all())
+    _assert_rwkv_close(y, want_y, 5e-2 if dtype == "mixed" else 1e-4)
+    _assert_rwkv_close(s1, want_s, 1e-4)
 
 
 # The model's dtypes: bf16 r/k/v, f32 w; N 16/32/64, ragged S, and one

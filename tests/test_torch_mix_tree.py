@@ -20,6 +20,7 @@ import importlib.util
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,6 +112,69 @@ def test_plain_u_less_equals_zeros_u_bitwise(dtype):
     assert got.dtype == dtype
     np.testing.assert_array_equal(_bits(got), _bits(want))
     assert not torch.signbit(got[0, :3]).any()  # w = 0: x + 0.0 is +0.0
+
+
+def _nested(seed, M=2):
+    """ROADMAP C1's tree: nested dicts with a list, as (JAX, torch) pairs
+    of (x_half, pulled) and the weights."""
+    rng = np.random.default_rng(seed)
+
+    def tree():
+        return {"embed": rng.standard_normal((M, 5, 4)).astype(np.float32),
+                "blocks": {"wq": rng.standard_normal((M, 3, 4, 4)).astype(np.float32),
+                           "norms": [rng.standard_normal((M, 4)).astype(np.float32)]}}
+
+    h, p = tree(), tree()
+    w = np.array([0.3, 0.7][:M], np.float32)
+    conv = lambda t, f: {"embed": f(t["embed"]),  # noqa: E731
+                         "blocks": {"wq": f(t["blocks"]["wq"]),
+                                    "norms": [f(t["blocks"]["norms"][0])]}}
+    return ((conv(h, jnp.asarray), conv(p, jnp.asarray), jnp.asarray(w)),
+            (conv(h, torch.from_numpy), conv(p, torch.from_numpy), torch.from_numpy(w)))
+
+
+def test_gossip_mix_tree_nested_tree_equals_jax():
+    """ROADMAP C1: a nested tree (dicts, a list) comes back in the same
+    structure, bit-equal to the JAX package's reference path."""
+    from repro_torch.tree import tree_leaves
+
+    (jh, jp, jw), (th, tp, tw) = _nested(4)
+    want = jops.gossip_mix_tree(jh, jp, jw, use_pallas=False)
+    got = ops.gossip_mix_tree(th, tp, tw)
+    assert sorted(got) == ["blocks", "embed"] and sorted(got["blocks"]) == ["norms", "wq"]
+    assert isinstance(got["blocks"]["norms"], list)
+    leaves = tree_leaves(got)
+    assert len(leaves) == 3
+    for a, b in zip(leaves, jax.tree_util.tree_leaves(want)):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+def test_gossip_mix_tree_of_nothing_is_nothing(monkeypatch):
+    """ROADMAP C1: ``[]`` (and trees with no leaves) give the same empty
+    structure back, as in the JAX package, with no launch."""
+    monkeypatch.setattr(tk, "gossip_mix_rows_tree",
+                        lambda *a, **k: pytest.fail("an empty tree launched"))
+    w = torch.tensor([0.5, 0.5])
+    assert ops.gossip_mix_tree([], [], w) == []
+    assert jops.gossip_mix_tree([], [], jnp.asarray([0.5, 0.5])) == []
+    assert ops.gossip_mix_tree({"a": [], "b": None}, {"a": [], "b": None}, w) == {
+        "a": [], "b": None}
+
+
+def test_tree_leaves_in_jax_order():
+    """Leaves come out in jax.tree_util's order (dict keys sorted: b before
+    w in each MLP layer) and unflatten back to the same tree."""
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+    tree = [{"w": 1, "b": 2}, {"w": 3, "b": 4, "a": (5, None, [6])}]
+    leaves, treedef = tree_flatten(tree)
+    assert leaves == jax.tree_util.tree_leaves(tree) == [2, 1, 5, 6, 4, 3]
+    assert tree_unflatten(treedef, leaves) == tree
+    assert tree_map(lambda a, b: a + b, tree, tree) == jax.tree_util.tree_map(
+        lambda a, b: a + b, tree, tree)
+    with pytest.raises(ValueError, match="structures differ"):
+        tree_map(lambda a, b: a, tree, tree[:1])
 
 
 def test_cpu_tree_mix_makes_no_zeros(monkeypatch):

@@ -405,6 +405,32 @@ def test_timemix_matches_jax(with_state):
 
 
 @pytest.mark.parametrize("with_state", [False, True])
+def test_timemix_matches_jax_below_the_pallas_clamp(with_state):
+    """ROADMAP C2's regime: ``w0`` shifted to log 7, so the per-step log
+    decays sit near -7, below the Pallas wrapper's clamp (-75/16); the JAX
+    model's scan and the port's do not clamp, and agree as at random init."""
+    jc, jb, tc, tb = _block()
+    jt = dict(jb["time_mix"], w0=jb["time_mix"]["w0"] + np.float32(np.log(7.0) + 6.0))
+    tt = dict(tb["time_mix"], w0=tb["time_mix"]["w0"] + float(np.log(7.0) + 6.0))
+    x, st = _block_inputs(10, jc)
+    args = (st["tm_state"], st["tm_x"]) if with_state else (None, None)
+    xp = st["tm_x"] if with_state else np.zeros_like(st["tm_x"])
+    _, _, _, w = _projections(tt, torch.from_numpy(x), torch.from_numpy(xp), tc)
+    lw = torch.log(w)
+    # The decay LoRA of a random reduced model spreads them: -7 is the
+    # median, and most sit below the clamp.
+    assert float(lw.median()) == pytest.approx(-7, abs=0.5)
+    assert float((lw < -75.0 / 16).float().mean()) > 0.5
+    jy, (js, _) = jrwkv.timemix_apply(jt, jnp.asarray(x), jc,
+                                      *(None if a is None else jnp.asarray(a) for a in args))
+    ty, (ts, _) = trwkv.timemix_apply(tt, torch.from_numpy(x), tc,
+                                      *(None if a is None else torch.from_numpy(a)
+                                        for a in args))
+    _close(ty, jy, 1e-6)
+    _close(ts, js, 1e-6)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
 def test_channelmix_matches_jax(with_state):
     jc, jb, tc, tb = _block(1)
     x, st = _block_inputs(9, jc)

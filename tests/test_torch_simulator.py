@@ -163,6 +163,10 @@ def test_seeded_init_is_device_independent_and_deterministic():
 
 
 def test_sync_and_unported_paths_raise():
+    """A synchronous strategy runs on the default engine (it raised before
+    the round engine was ported; tests/test_torch_engines.py holds it to the
+    JAX package); an unknown strategy and the unported device-sharded path
+    raise."""
     M, topo_kw, split, link_kw, _, cfg_kw, rec = SHAPES["quickstart"]
     x, y, ex, ey = _data(split)
     parts = uniform_partition(len(y), M, seed=0)
@@ -173,9 +177,11 @@ def test_sync_and_unported_paths_raise():
         return tsim.simulate(cfg, link, x, y, parts, ex, ey, record_every=rec,
                              device="cpu")
 
+    res = run(algorithm="allreduce")
+    assert res.engine == "batched" and res.cohorts == cfg_kw["total_events"] // M
     with pytest.raises(KeyError, match="unknown algorithm"):
-        run(algorithm="allreduce")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        run(algorithm="no-such-strategy")
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         run(engine="batched", shard_workers=True)
 
 
