@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build   — compile every CUDA source of the port with nvcc (one process
              per source, all started together), print the seconds and, per
              kernel, the tensor-core instructions (HMMA / HGMMA) that
-             ``cuobjdump -sass`` lists: every bf16 flash-attention and every
+             ``cuobjdump -sass`` lists: every bf16 flash-attention forward,
+             every tensor-core backward kernel (``*mma_kernel``) and every
              WKV instantiation must have some;
 3. kernels — every hand-written kernel against its plain torch version on
              the card, at the test shapes, the main path's shapes and a
@@ -86,7 +87,30 @@ Phases, in order; any failure exits non-zero before the result line:
              decay is -7, below the Pallas wrapper's clamp, where the
              kernel's pairwise branch runs.  The kernel and the dense and
              simulator paths never meet: the WKV kernel must launch 0 times
-             in phases 4, 6 and 8.
+             in phases 4, 6 and 8;
+12. flash bwd — the flash-attention backward kernels against the plain
+             version's autograd gradient (``ref.reference_attention_backward``)
+             in f32 and bf16: causal and not, GQA with G = 8 and MQA,
+             S != Sk both ways, hd 32/64/128/160, ragged lengths, and the
+             training shape (2 x 512 tokens, 32/4 heads, hd 64); max |err|
+             of dq, dk and dv within 1e-4 (f32) / 2e-2 (bf16) of max
+             |grad|; per case the device time a call against the bound,
+             and at the training shape against SDPA's backward;
+13. train  — NetMax training at the widths of tinyllama-1.1b, cut to 8 of
+             its 22 layers, M = 4 workers, 4 x 512 tokens a worker in 2
+             micro-batches, remat, sgd(0.9, 1e-4), lr 0.02, gather pulls
+             and the fused mix, through the launcher's loop
+             (``launch.train.TrainLoop``: the Monitor every 4 rounds), 12
+             rounds.  The launch counters are zeroed just before and read
+             just after: flash attention forward 128 and backward 64 a
+             round, the gossip mix once a round, losses finite, and the
+             first round's mix bit-equal to its plain version on the whole
+             LM tree.  Prints losses, ms a round, tokens/s, peak memory
+             and the device time by kind of two profiled rounds;
+14. train parity — three rounds of the trainer on the card and on the CPU
+             from the same params and draws (2 layers, d_model 256, 4/2
+             heads of 64), f32 and bf16: losses and params within 1e-4 /
+             2e-2 (relative).
 
 Prints one ``{"kernels": [...]}`` JSON line, then, last, the
 ``{"ok": true, "device": {...}}`` line.  With ``--out DIR`` the per-case
@@ -98,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -194,6 +219,7 @@ RWKV_DTYPES = {"float32": ("float32", "float32"), "bfloat16": ("bfloat16", "bflo
 #: Kernels that must hold tensor-core instructions (a substring of their
 #: symbol in ``cuobjdump -sass``), by library.
 TENSOR_CORE_KERNELS = {"flash_attention": "flash_fwd_bf16_mma_kernel",
+                       "flash_attention_bwd": "mma_kernel",
                        "rwkv_scan": "rwkv_scan_kernel"}
 
 
@@ -1558,6 +1584,368 @@ def _ssm_parity_cut(torch, w0):
             "max_logit_decode": scale_dec}
 
 
+#: The backward kernels against ``ref.reference_attention_backward`` (B, S,
+#: Sk, H, Hk, hd, causal): GQA with G = 8, MQA, causal and not, S != Sk both
+#: ways, hd 64 and 128 (and 32, 160), ragged lengths; then the training shape,
+#: one tinyllama-1.1b layer of a 2 x 512 micro-batch.  Each in f32 and bf16.
+ATTN_BWD_CASES = [(1, 128, 128, 4, 4, 64, True), (1, 200, 200, 32, 4, 64, True),
+                  (2, 128, 128, 8, 1, 64, True), (2, 100, 37, 8, 2, 128, True),
+                  (1, 64, 150, 4, 2, 128, True), (2, 128, 256, 4, 4, 64, False),
+                  (1, 96, 96, 4, 2, 32, True), (1, 100, 100, 4, 2, 160, False)]
+ATTN_BWD_MAIN = (2, 512, 512, 32, 4, 64, True)
+#: max |err| of dq, dk and dv against the plain version's max |grad|.
+ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def attn_bwd_work(B, S, Sk, H, Hk, hd, causal, itemsize):
+    """(flops, bytes) of one attention backward: five products of 2 * hd
+    flops per visible (query head, key) pair (q k^T again, dO v^T, dv, dk,
+    dq); q, k, v, o, dO and the f32 lse read once, dq, dk, dv written once."""
+    flops, _ = attn_work(B, S, Sk, H, Hk, hd, causal, itemsize)  # 4 hd per pair
+    flops = flops // 4 * 10
+    nbytes = ((4 * B * S * H + 4 * B * Sk * Hk) * hd * itemsize + 4 * B * H * S)
+    return flops, nbytes
+
+
+def phase_flash_bwd(torch, rate, name, records):
+    """The backward kernels against the plain version's autograd gradient on
+    every case, in f32 and bf16; per case the device time per call (its
+    ``BWD_KERNELS_PER_CALL`` kernels), the plain version's, SDPA's backward (training shape) and the
+    bound.  Returns the summary at the training shape (bf16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    main = None
+    for role, cases in (("test", ATTN_BWD_CASES), ("main", [ATTN_BWD_MAIN])):
+        for case in cases:
+            for dtype in ("float32", "bfloat16"):
+                B, S, Sk, H, Hk, hd, causal = case
+                dt = getattr(torch, dtype)
+                q, do = (torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt)
+                         for _ in range(2))
+                k, v = (torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
+                        for _ in range(2))
+                out, lse = fa._forward(q, k, v, causal, with_lse=True)
+                got = fa.flash_attention_backward(q, k, v, out, do, lse, causal=causal)
+                want = ref.reference_attention_backward(q, k, v, do, causal=causal)
+                torch.cuda.synchronize()
+                errs = {}
+                for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                    check(g.shape == w.shape and g.dtype == w.dtype,
+                          f"flash_attention_bwd {case} {dtype}: {gname} {tuple(g.shape)} "
+                          f"{g.dtype}")
+                    scale = w.float().abs().max().item()
+                    err = (g.float() - w.float()).abs().max().item()
+                    check(err <= ATTN_BWD_TOL[dtype] * scale,
+                          f"flash_attention_bwd {case} {dtype}: {gname} max |err| {err} "
+                          f"beyond {ATTN_BWD_TOL[dtype]} x max |grad| {scale}")
+                    errs[gname] = err
+                del got, want
+                flops, nbytes = attn_bwd_work(B, S, Sk, H, Hk, hd, causal, q.element_size())
+                t_ops = flops / flop_rate(name, dtype) * 1e3
+                t_bytes = nbytes / rate * 1e3
+                rec = {"kernel": "flash_attention_bwd", "role": role, "case": list(case),
+                       "dtype": dtype, "max_abs_err": max(errs.values()), "errs": errs,
+                       "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "kernels_per_call": fa.BWD_KERNELS_PER_CALL}
+                fns = {"": lambda: fa.flash_attention_backward(q, k, v, out, do, lse,
+                                                               causal=causal),
+                       "plain_": lambda: ref.reference_attention_backward(q, k, v, do,
+                                                                          causal=causal)}
+                if role == "main":
+                    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                                  for t in (q, k, v))
+                    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                              enable_gqa=True)
+                    dot = do.transpose(1, 2).contiguous()
+                    fns["library_"] = lambda: torch.autograd.grad(
+                        sdpa_out, (qt, kt, vt), dot, retain_graph=True)
+                iters = {"test": 5, "main": 20}[role]
+                for key, fn in fns.items():
+                    call = cuda_ms(torch, fn, iters)
+                    dev_ms = device_ms(torch, fn, iters, "flash_bwd" if key == "" else None,
+                                       per_call=fa.BWD_KERNELS_PER_CALL if key == "" else 1)
+                    rec[key + "ms"] = call if dev_ms is None else dev_ms
+                    rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
+                    rec[key + "call_ms"] = call
+                rec.setdefault("library_ms", None)
+                records.append(rec)
+                print(f"  flash_attention_bwd {role} {case} {dtype}: max|err| "
+                      f"{rec['max_abs_err']:.3g}, device {rec['ms'] * 1e3:.1f} us "
+                      f"({rec['ms_from']}), per call {rec['call_ms'] * 1e3:.1f} us, plain "
+                      f"{rec['plain_ms'] * 1e3:.1f} us, "
+                      + (f"sdpa bwd {rec['library_ms'] * 1e3:.1f} us, "
+                         if rec["library_ms"] else "")
+                      + f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); "
+                      f"{flops / (rec['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+                if role == "main" and dtype == "bfloat16":
+                    main = rec
+                del q, k, v, do, out, lse
+                fns.clear()
+                torch.cuda.empty_cache()
+    summary = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        # The gradient of B3 (src/repro/kernels/flash_attention.py:87), which the
+        # JAX package takes through XLA's autodiff of its attention scan.
+        "replaces": "src/repro/kernels/flash_attention.py:87",
+        "max_abs_err": max(r["max_abs_err"] for r in records
+                           if r["kernel"] == "flash_attention_bwd"),
+        # One backward call at the training shape (all its kernels).
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "kernels_per_call": fa.BWD_KERNELS_PER_CALL,
+    }
+    print(f"kernel flash_attention_bwd: max|err| {summary['max_abs_err']:.3g}, training "
+          f"shape {summary['ms'] * 1e3:.1f} us a call on the device (plain "
+          f"{summary['plain_ms'] * 1e3:.1f} us, sdpa bwd {summary['library_ms'] * 1e3:.1f} "
+          f"us, bound {summary['bound_ms'] * 1e3:.2f} us, {summary['bound_by']})")
+    return summary
+
+
+#: The training phase: tinyllama-1.1b at its published widths, cut to 8 of
+#: its 22 layers (all 22 need ~88 GB at M = 4 with f32 momenta), M = 4
+#: workers, 4 sequences of 512 tokens a worker in 2 micro-batches.
+TRAIN_LAYERS = 8
+TRAIN_WORKERS = 4
+TRAIN_SEQ = 512
+TRAIN_BATCH = 4
+TRAIN_ROUNDS = 12
+TRAIN_MONITOR_EVERY = 4
+TRAIN_LR = 0.02
+#: Profiled rounds at the end (for the device's busy share).
+TRAIN_PROFILED = 2
+
+
+def phase_train(torch):
+    """NetMax training at the widths of tinyllama-1.1b through the
+    launcher's loop (``launch.train.TrainLoop``): the launch counters are
+    zeroed just before the rounds and read just after; losses finite, the
+    flash forward and backward and the gossip-mix kernels launched, the
+    first round's mix bit-equal to its plain version on the same tree."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.tree import tree_flatten, tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TRAIN_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size,
+           cfg.dtype, cfg.remat, cfg.microbatches)
+          == (2048, 32, 4, 64, 5632, 32000, "bfloat16", True, 2),
+          f"{LM_ARCH} is not the published width: {cfg}")
+    # The serving phases wrap ServeEngine.step in a closure over the engine's
+    # own method, a reference cycle: collect it, or their weights (rwkv6-7b's
+    # 15 GB) count in this phase's peak.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = TrainLoop(cfg, workers=TRAIN_WORKERS, seq=TRAIN_SEQ,
+                     batch_per_worker=TRAIN_BATCH, lr=TRAIN_LR, algo="netmax",
+                     gossip="gather", monitor_every=TRAIN_MONITOR_EVERY, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(loop.step_cfg.use_gossip_mix_kernel and loop.step_cfg.gossip_mode == "gather",
+          f"the launcher's step config {loop.step_cfg}")
+    n_params = sum(leaf.numel() for leaf in tree_leaves(loop.params))
+
+    # The first round's tree mix, held bit for bit against its plain version
+    # on the same tree (the plain version launches nothing).
+    mix_tree = ops.gossip_mix_tree
+    mix_check = {}
+
+    def checked_mix(x_half, pulled, weights):
+        out = mix_tree(x_half, pulled, weights)
+        if not mix_check:
+            xs, _ = tree_flatten(x_half)
+            bad = [i for i, (x, p, o) in enumerate(zip(xs, tree_leaves(pulled),
+                                                      tree_leaves(out)))
+                   if not bits_equal(torch, o, ref.reference_gossip_mix_rows(x, None, p,
+                                                                             weights))]
+            mix_check.update(leaves=len(xs), bad=bad,
+                             elements=sum(x.numel() for x in xs))
+        return out
+
+    losses, round_s, round_peak = [], [], []
+    torch.cuda.synchronize()
+    reset_all_launches()
+    ops.gossip_mix_tree = checked_mix
+    try:
+        for r in range(TRAIN_ROUNDS - TRAIN_PROFILED):
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            m = loop.round(r)
+            losses.append(m["loss_per_worker"].tolist())
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t)
+            round_peak.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for r in range(TRAIN_ROUNDS - TRAIN_PROFILED, TRAIN_ROUNDS):
+                m = loop.round(r)
+                losses.append(m["loss_per_worker"].tolist())
+            torch.cuda.synchronize()
+            profiled_s = time.perf_counter() - t
+    finally:
+        ops.gossip_mix_tree = mix_tree
+    launches = read_all_launches()
+    round_peak.append(torch.cuda.max_memory_allocated())  # the profiled rounds
+    # The first round's peak holds the mix check's plain version too.
+    peak = max(round_peak[1:])
+    check(all(math.isfinite(x) for row in losses for x in row), f"non-finite losses {losses}")
+    check(mix_check.get("leaves") and not mix_check["bad"],
+          f"the first round's gossip mix differs from its plain version at leaves "
+          f"{mix_check.get('bad')} of {mix_check.get('leaves')}")
+    per_round = TRAIN_WORKERS * cfg.microbatches * cfg.n_layers
+    check(launches["gossip_mix_rows"] == TRAIN_ROUNDS,
+          f"gossip_mix_rows launched {launches['gossip_mix_rows']} times in "
+          f"{TRAIN_ROUNDS} rounds (one tree launch a round)")
+    check(launches["flash_attention_bwd"] == per_round * TRAIN_ROUNDS,
+          f"flash_attention_bwd launched {launches['flash_attention_bwd']} times, "
+          f"{per_round} a round expected")
+    check(launches["flash_attention"] == 2 * per_round * TRAIN_ROUNDS,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"{2 * per_round} a round expected (remat runs each block's forward twice)")
+    check(launches["rwkv_scan"] == 0 and launches["gossip_mix"] == 0,
+          f"unexpected launches on the training path: {launches}")
+    avg = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    device_s = sum(e.self_device_time_total for e in avg) * 1e-6
+    by = {}
+    for e in avg:
+        kind = device_kind(e.key)
+        by[kind] = by.get(kind, 0.0) + e.self_device_time_total * 1e-6
+    top = [(e.key[:80], e.count, e.self_device_time_total * 1e-3) for e in avg[:10]]
+    steady = round_s[1:]
+    tokens = TRAIN_WORKERS * TRAIN_BATCH * TRAIN_SEQ
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "workers": TRAIN_WORKERS,
+        "seq": TRAIN_SEQ, "batch_per_worker": TRAIN_BATCH,
+        "microbatches": cfg.microbatches, "params_stacked": n_params, "init_s": init_s,
+        "round_s": round_s, "round_ms_median": statistics.median(steady) * 1e3,
+        "round_ms_mean": statistics.mean(steady) * 1e3,
+        "tokens_per_round": tokens,
+        "tokens_per_s": tokens / statistics.median(steady),
+        "first_round_s": round_s[0], "peak_memory_bytes": peak,
+        "round_peak_memory_bytes": round_peak,
+        "losses": losses, "launches": launches,
+        "launches_per_round": {k: v / TRAIN_ROUNDS for k, v in launches.items()},
+        "mix_check": mix_check,
+        "profile": {"rounds": TRAIN_PROFILED, "wall_s": profiled_s, "device_s": device_s,
+                    "busy_share": device_s / profiled_s, "device_s_by": by,
+                    "top_kernels": top},
+    }
+    print(f"train: {cfg.name} widths at {cfg.n_layers} layers, M={TRAIN_WORKERS} "
+          f"({n_params / 1e9:.3f} B params stacked, bf16), {TRAIN_BATCH}x{TRAIN_SEQ} tokens "
+          f"a worker in {cfg.microbatches} micro-batches; init {init_s:.2f} s; first round "
+          f"{round_s[0] * 1e3:.1f} ms, then median {out['round_ms_median']:.1f} ms "
+          f"(mean {out['round_ms_mean']:.1f}) = {out['tokens_per_s']:.0f} tokens/s; peak "
+          f"memory {peak / 1e9:.2f} GB (the first round, with the mix check, "
+          f"{round_peak[0] / 1e9:.2f} GB); launches a round "
+          f"{out['launches_per_round']}; mix bit-equal on {mix_check['leaves']} leaves "
+          f"({mix_check['elements']} elements)")
+    print("  losses (mean over workers) by round: "
+          + ", ".join(f"{statistics.mean(row):.4f}" for row in losses))
+    print(f"  profile of {TRAIN_PROFILED} rounds: wall {profiled_s * 1e3:.1f} ms, device "
+          f"{device_s * 1e3:.1f} ms ({out['profile']['busy_share']:.3f} busy); device ms "
+          f"by kind {({k: round(v * 1e3, 2) for k, v in by.items()})}; top (name, count, ms):")
+    for row in top:
+        print(f"    {row}")
+    del loop, prof
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_kind(kernel: str) -> str:
+    """The group a traced kernel's time is reported under in the training
+    phase's breakdown (cuBLAS's Hopper GEMMs are named ``nvjet_*``)."""
+    for kind, keys in (("flash_bwd", ("flash_bwd",)), ("flash_fwd", ("flash_fwd",)),
+                       ("gossip_mix", ("mix_tree_kernel",)),
+                       ("gemm", ("nvjet", "gemm", "Gemm", "cutlass", "xmma")),
+                       ("copy", ("Memcpy", "Memset", "copy_kernel")),
+                       ("elementwise", ("elementwise", "reduce_kernel"))):
+        if any(k in kernel for k in keys):
+            return kind
+    return "other"
+
+
+#: Card vs CPU bound on the training cut, relative: f32 sums in other orders
+#: (1e-4, the trainer's CPU parity bound against JAX); bf16 as LM_BF16_TOL.
+TRAIN_PARITY_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def phase_train_parity(torch):
+    """Three rounds of the trainer on the card and on the CPU from the same
+    params and draws, at a cut of tinyllama-1.1b (2 layers, d_model 256,
+    4/2 heads of 64, d_ff 512, vocab 512, remat), in f32 and bf16: losses
+    and params within TRAIN_PARITY_TOL."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.consensus import sample_round
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import TrainStepConfig, init_stacked, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    M, lr, rounds, seq = 4, TRAIN_LR, 3, 128
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=2, d_model=256, n_heads=4,
+                                  n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=512,
+                                  dtype=dtype)
+        opt = sgd(momentum=0.9, weight_decay=1e-4)
+        step = make_train_step(cfg, opt, M, "netmax",
+                               TrainStepConfig(use_gossip_mix_kernel=True))
+        params, state = init_stacked(cfg, opt, M, torch.Generator().manual_seed(0))
+        runs = {d: (tree_map(lambda t: t.to(d), params), tree_map(lambda t: t.to(d), state))
+                for d in ("cpu", "cuda")}
+        stream = TokenStream(cfg.vocab_size, seq, TRAIN_BATCH, seed=0)
+        dmask = np.ones((M, M)) - np.eye(M)
+        P = np.where(dmask > 0, 1.0 / (M - 1), 0.0)
+        rng = np.random.default_rng(0)
+        loss_err, secs = 0.0, {"cpu": 0.0, "cuda": 0.0}
+        for r in range(rounds):
+            batch = {k: np.stack([stream.batch(w, r)[k] for w in range(M)]).astype(np.int64)
+                     for k in ("tokens", "labels")}
+            nb, wts = sample_round(rng, P, lr, 0.5 / (2 * lr * (M - 1)), dmask)
+            got = {}
+            for d, (p, o) in runs.items():
+                t = time.perf_counter()
+                b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+                p, o, m = step(p, o, b, {"neighbors": nb, "weights": wts, "lr": lr})
+                got[d] = m["loss_per_worker"].cpu()
+                secs[d] += time.perf_counter() - t
+                runs[d] = (p, o)
+            check(bool(torch.isfinite(got["cuda"]).all()), f"non-finite card losses {got}")
+            rel = ((got["cuda"] - got["cpu"]).abs() / got["cpu"].abs()).max().item()
+            loss_err = max(loss_err, rel)
+        param_err = 0.0
+        for a, b in zip(tree_leaves(runs["cpu"][0]), tree_leaves(runs["cuda"][0])):
+            scale = a.float().abs().max().item()
+            param_err = max(param_err,
+                            (b.cpu().float() - a.float()).abs().max().item() / max(scale, 1e-30))
+        tol = TRAIN_PARITY_TOL[dtype]
+        check(loss_err <= tol, f"train parity {dtype}: losses differ by {loss_err} (relative)")
+        check(param_err <= tol, f"train parity {dtype}: params differ by {param_err} "
+                                "(of each leaf's max)")
+        print(f"train parity: {dtype}, 2 layers hd 64, {rounds} rounds: losses within "
+              f"{loss_err:.3g}, params within {param_err:.3g} (relative; bound {tol}); CPU "
+              f"{secs['cpu']:.2f} s, card {secs['cuda']:.2f} s")
+        res[dtype] = {"loss_rel_err": loss_err, "param_rel_err": param_err,
+                      "cpu_s": secs["cpu"], "card_s": secs["cuda"]}
+        del runs
+        torch.cuda.empty_cache()
+    return res
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -1599,12 +1987,16 @@ def main() -> int:
         lm_path["parity"] = phase_lm_parity(torch)
         ssm_path = phase_ssm(torch)
         ssm_path["parity"] = phase_ssm_parity(torch)
+        summaries.append(phase_flash_bwd(torch, hbm_rate(name), name, records))
+        train_path = phase_train(torch)
+        train_path["parity"] = phase_train_parity(torch)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     # Each kernel's launches on its own path.
     path_of = {"gossip_mix_rows": main_path, "gossip_mix": main_path,
-               "flash_attention": lm_path, "rwkv_scan": ssm_path}
+               "flash_attention": lm_path, "rwkv_scan": ssm_path,
+               "flash_attention_bwd": train_path}
     for s in summaries:
         s["launches"] = path_of[s["name"]]["launches"][s["name"]]
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -1619,7 +2011,7 @@ def main() -> int:
             {"card": card, "device": name, "build": build_info, "kernels": kernels,
              "cases": records,
              "main_path": main_path, "algos": algos, "lm_path": lm_path,
-             "ssm_path": ssm_path},
+             "ssm_path": ssm_path, "train_path": train_path},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

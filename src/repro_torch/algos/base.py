@@ -11,8 +11,9 @@ concerns:
 * **timing semantics** — the per-event duration model (verbatim).
 
 Parameter trees follow JAX's pytree rules (``tree.py``); the simulator's
-MLP is a list of ``{"w", "b"}`` dicts of tensors.  ``stacked_round`` (the
-SPMD trainer's lockstep round) is not ported yet and raises.
+MLP is a list of ``{"w", "b"}`` dicts of tensors, an LM's a nested dict.
+The trainer mixes through ``mix_stacked`` and ``stacked_round`` is its
+lockstep reference round.
 
     @register("my-algo")
     class MyAlgo(Algorithm):
@@ -292,11 +293,27 @@ class Algorithm(abc.ABC):
 
         return tree_map(leaf, x_half, pulled)
 
+    def mix_stacked(self, x_half, pulled, weights):
+        """The trainer's stacked mix: ``mix_stacked_tree`` (the JAX package
+        jits it; eager torch calls it as it is)."""
+        return self.mix_stacked_tree(x_half, pulled, weights)
+
     def stacked_round(self, params, grads, neighbors, weights, alpha):
-        raise NotImplementedError(
-            "stacked_round belongs to the SPMD trainer, not ported yet "
-            "(ROADMAP A5)"
-        )
+        """One lockstep gossip round on stacked replicas (the trainer's
+        reference): pull the *pre-round* neighbour rows (Eq. 16), take the
+        step ``x - alpha * g`` with alpha in the leaf dtype, then the same
+        leaf rule as the event-driven path (``mix_stacked_tree``).
+
+        params/grads leaves: (M, ...); neighbors (M,) ints; weights (M,) f32.
+        """
+        def pull(x):
+            return torch.index_select(x, 0, torch.as_tensor(neighbors, device=x.device).long())
+
+        pulled = tree_map(pull, params)
+        x_half = tree_map(
+            lambda x, g: x - torch.tensor(alpha, dtype=x.dtype, device=x.device) * g,
+            params, grads)
+        return self.mix_stacked_tree(x_half, pulled, weights)
 
     def transform_grads(self, grads, M: int):
         """SPMD trainer hook: grad reduction before the optimizer step

@@ -3,8 +3,9 @@
 The JAX initialisers draw from ``jax.random``, which torch cannot
 reproduce, so runs that must match the JAX package take its parameters as
 numpy: the simulator's MLP through ``params_from_jax`` (for
-``simulate(init_params=...)``), an LM's tree through ``lm_params_from_jax``.  This
-module does not import ``jax``: anything ``np.asarray`` accepts will do.
+``simulate(init_params=...)``), an LM's tree through ``lm_params_from_jax``,
+an optimizer's state through ``opt_state_from_jax``.  This module does not
+import ``jax``: anything ``np.asarray`` accepts will do.
 """
 
 from __future__ import annotations
@@ -35,3 +36,11 @@ def lm_params_from_jax(tree):
     if isinstance(tree, dict):
         return {k: lm_params_from_jax(v) for k, v in tree.items()}
     return _tensor(tree)
+
+
+def opt_state_from_jax(state):
+    """A JAX optimizer state (``repro.optim``: SGD's ``{"m"}``, ``{}`` without
+    momentum, AdamW's ``{"m", "v", "t"}``; moments stacked like the params)
+    -> the same tree of CPU tensors, dtypes kept (f32 moments, an int32
+    step count)."""
+    return lm_params_from_jax(state)

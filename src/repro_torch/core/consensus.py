@@ -1,16 +1,18 @@
 """Consensus SGD math (paper §III-B, §IV).
 
-The numpy half of the JAX package's ``core/consensus.py``: the one-step
-random operator ``D^k`` (Eq. 19), its second moment
-``Y_P = E[(D^k)^T D^k]`` (Eq. 22), the helpers the policy generator uses,
-and the host-side lockstep round draw.  The tensor-side two-step update and
-stacked gossip round (``two_step_update`` / ``stacked_round``) belong to
-the SPMD trainer and are not ported yet (ROADMAP A1).
+The JAX package's ``core/consensus.py``.  In numpy: the one-step random
+operator ``D^k`` (Eq. 19), its second moment ``Y_P = E[(D^k)^T D^k]``
+(Eq. 22), the helpers the policy generator uses, and the host-side lockstep
+round draw.  In torch, on parameter trees (``tree.py``): the two-step update
+and the stacked gossip round (``two_step_update`` / ``stacked_round``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
 
 # --------------------------------------------------------------------------
 # Analysis view (numpy)
@@ -108,6 +110,61 @@ def D_matrix(i: int, m: int, alpha: float, rho: float, P, d) -> np.ndarray:
 def mixing_weight(alpha: float, rho: float, p_im: float, d_sym: float = 2.0):
     """w = alpha * rho * gamma = alpha*rho*(d_im+d_mi)/(2*p_im)."""
     return alpha * rho * d_sym / (2.0 * p_im)
+
+
+# --------------------------------------------------------------------------
+# Runtime view (torch, tree-level)
+# --------------------------------------------------------------------------
+
+
+def _weak(v, like):
+    """A Python number as a 0-d tensor of ``like``'s dtype (JAX's weak
+    typing: ``0.05 * bf16_array`` rounds 0.05 to bf16 first); a tensor as it
+    is."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+def two_step_update(params, grads, pulled, alpha, w):
+    """Algorithm 2 lines 11+13-15 on a parameter tree.
+
+    x_half = x - alpha * g          (first step: local SGD)
+    x_next = (1-w) * x_half + w * x_pull   (second step: consensus mix)
+
+    ``w`` may be a scalar or a tensor broadcastable leaf-wise (per worker
+    when leaves carry a leading worker axis).  Python numbers take the leaf
+    dtype, as in JAX.
+    """
+
+    def leaf(x, g, xp):
+        x_half = x - _weak(alpha, x) * g
+        keep = _weak(1.0 - w, x_half) if not isinstance(w, torch.Tensor) else 1.0 - w
+        return keep * x_half + _weak(w, xp) * xp
+
+    return tree_map(leaf, params, grads, pulled)
+
+
+def stacked_round(params, grads, neighbors, weights, alpha):
+    """Lockstep gossip round on *stacked* replicas (leading axis = worker).
+
+    params/grads: trees whose leaves are (M, ...).
+    neighbors:    (M,) ints — the neighbour drawn per worker (may equal i).
+    weights:      (M,) f32 tensor — alpha*rho*gamma_{i, m_i}; 0 where m_i == i.
+
+    Pulled values are the *pre-round* neighbour params (Eq. 16 pulls x_m^k,
+    not x_m^k - alpha g_m^k).  The weights stay f32, so bf16 leaves come
+    out f32, as in the JAX package.
+    """
+
+    def leaf(x, g):
+        nb = torch.as_tensor(neighbors, device=x.device).long()
+        pulled = torch.index_select(x, 0, nb)
+        x_half = x - _weak(alpha, x) * g
+        w = weights.reshape((-1,) + (1,) * (x.ndim - 1))
+        return (1.0 - w) * x_half + w * pulled
+
+    return tree_map(leaf, params, grads)
 
 
 def sample_round(rng: np.random.Generator, P: np.ndarray, alpha: float, rho: float, d: np.ndarray):

@@ -56,6 +56,11 @@
 // S and Sk work (the Pallas wrapper needs exact blocks).  `expf` (not __expf)
 // keeps the f32 body's tolerance.
 //
+// With an `lse` buffer (f32, (B, H, S)) both bodies also store each row's
+// log-sum-exp, m + log l in natural-log units, for the backward kernels
+// (csrc/flash_attention_bwd.cu); with a null one they store nothing more, so
+// serving does exactly the work it did without it.
+//
 // Plain C interface: built with nvcc into a shared library and called through
 // ctypes from repro_torch/kernels/flash_attention.py.  The launch enqueues on
 // the caller's stream, does not synchronise and allocates nothing; the return
@@ -75,6 +80,7 @@ constexpr int kRowsPer = 8;     // rows ty*8 .. ty*8+7 of each thread
 constexpr int kKeysPer = 4;     // keys tx + 16*c of each thread's score tile
 constexpr int kStride = kRows + 4;  // row stride of Qt and Pt (floats), 16-byte aligned
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared-memory layout, in floats.
 template <int HD>
@@ -90,8 +96,8 @@ struct Smem {
 template <int HD, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int S, int Sk,
-                 int H, int Hk, float scale) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int S, int Sk, int H, int Hk, float scale) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int kCols = HD / 16;  // output columns tx + 16*j of each thread
   extern __shared__ float4 smem4[];
@@ -255,6 +261,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* o = out + ((static_cast<int64_t>(b) * S + s) * H + kvh * G + g) * HD;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) o[tx + 16 * j] = acc[i][j] / denom;
+    // m and l are the same in all 16 lanes of the row's half-warp.
+    if (lse != nullptr && tx == 0) {
+      lse[(static_cast<int64_t>(b) * H + kvh * G + g) * S + s] = m[i] + logf(denom);
+    }
   }
 }
 
@@ -331,8 +341,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int HD, bool kCausal>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-                          int Sk, int H, int Hk, float scale_log2) {
+                          const bf16* __restrict__ v, bf16* __restrict__ out,
+                          float* __restrict__ lse, int S, int Sk, int H, int Hk,
+                          float scale_log2) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   using L = MmaSmem<HD>;
   constexpr int kStride = L::kStride;
@@ -512,6 +523,19 @@ flash_fwd_bf16_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   // Normalise, stage in the warp's own Q rows, store 16 bytes a lane.
   const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
   const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
+  if (lse != nullptr && t4 == 0) {  // m and l are the same in the row's quad
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t row = row0 + wrow + g + 8 * i;
+      if (row < rows_total) {
+        const int64_t s = row / G;
+        const int gg = static_cast<int>(row % G);
+        // m is in the log2 domain of the scaled scores.
+        lse[(static_cast<int64_t>(b) * H + kvh * G + gg) * S + s] =
+            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * kLn2;
+      }
+    }
+  }
   bf16* ow = Qs + wrow * kStride;
   __syncwarp();
 #pragma unroll
@@ -534,8 +558,8 @@ flash_fwd_bf16_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 }
 
 template <int HD, bool kCausal>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int S,
-                       int Sk, int H, int Hk, cudaStream_t stream) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int B, int S, int Sk, int H, int Hk, cudaStream_t stream) {
   auto kernel = flash_fwd_bf16_mma_kernel<HD, kCausal>;
   const size_t smem = MmaSmem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -547,15 +571,15 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), S, Sk, H, Hk, scale_log2);
+      static_cast<bf16*>(out), lse, S, Sk, H, Hk, scale_log2);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- launchers
 
 template <int HD, bool kCausal>
-cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out, int B,
-                       int S, int Sk, int H, int Hk, cudaStream_t stream) {
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int B, int S, int Sk, int H, int Hk, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<HD, kCausal>;
   const size_t smem = Smem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -567,31 +591,33 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out, i
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, Sk, H, Hk, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, Sk, H, Hk, scale);
   return cudaGetLastError();
 }
 
 // bf16: the tensor-core body; f32: the FMA body.
 template <int HD>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, int B,
-                      int S, int Sk, int H, int Hk, bool bf16, bool causal,
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, float* lse,
+                      int B, int S, int Sk, int H, int Hk, bool bf16, bool causal,
                       cudaStream_t stream) {
   if (bf16) {
-    return causal ? launch_mma<HD, true>(q, k, v, out, B, S, Sk, H, Hk, stream)
-                  : launch_mma<HD, false>(q, k, v, out, B, S, Sk, H, Hk, stream);
+    return causal ? launch_mma<HD, true>(q, k, v, out, lse, B, S, Sk, H, Hk, stream)
+                  : launch_mma<HD, false>(q, k, v, out, lse, B, S, Sk, H, Hk, stream);
   }
-  return causal ? launch_fma<HD, true>(q, k, v, out, B, S, Sk, H, Hk, stream)
-                : launch_fma<HD, false>(q, k, v, out, B, S, Sk, H, Hk, stream);
+  return causal ? launch_fma<HD, true>(q, k, v, out, lse, B, S, Sk, H, Hk, stream)
+                : launch_fma<HD, false>(q, k, v, out, lse, B, S, Sk, H, Hk, stream);
 }
 
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-                   int Sk, int H, int Hk, int hd, bool bf16, bool causal,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int B, int S, int Sk, int H, int Hk, int hd, bool bf16, bool causal,
                    cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_hd<32>(q, k, v, out, B, S, Sk, H, Hk, bf16, causal, stream);
-    case 64: return launch_hd<64>(q, k, v, out, B, S, Sk, H, Hk, bf16, causal, stream);
-    case 128: return launch_hd<128>(q, k, v, out, B, S, Sk, H, Hk, bf16, causal, stream);
-    case 160: return launch_hd<160>(q, k, v, out, B, S, Sk, H, Hk, bf16, causal, stream);
+    case 32: return launch_hd<32>(q, k, v, out, lse, B, S, Sk, H, Hk, bf16, causal, stream);
+    case 64: return launch_hd<64>(q, k, v, out, lse, B, S, Sk, H, Hk, bf16, causal, stream);
+    case 128:
+      return launch_hd<128>(q, k, v, out, lse, B, S, Sk, H, Hk, bf16, causal, stream);
+    case 160:
+      return launch_hd<160>(q, k, v, out, lse, B, S, Sk, H, Hk, bf16, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -602,17 +628,18 @@ extern "C" {
 
 // dtype: 0 = float32 (FMA body), 1 = bfloat16 (tensor-core body).  hd: 32, 64,
 // 128 or 160.  q, k, v and out are contiguous, and 16-byte aligned for bf16;
-// H % Hk == 0, B * Hk <= 65535; the wrapper checks all of it.
+// H % Hk == 0, B * Hk <= 65535; the wrapper checks all of it.  lse is null or
+// an f32 (B, H, S) buffer for the rows' log-sum-exp.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                           int B, int S, int Sk, int H, int Hk, int hd, int dtype,
-                           int causal, int device, void* stream) {
+                           float* lse, int B, int S, int Sk, int H, int Hk, int hd,
+                           int dtype, int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0 || Sk <= 0 || Hk <= 0 || H % Hk != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  err = launch(q, k, v, out, B, S, Sk, H, Hk, hd, dtype == 1, causal != 0,
+  err = launch(q, k, v, out, lse, B, S, Sk, H, Hk, hd, dtype == 1, causal != 0,
                static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }

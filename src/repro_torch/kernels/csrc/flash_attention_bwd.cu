@@ -1,0 +1,959 @@
+// Backward of the GQA flash attention (csrc/flash_attention.cu) for Hopper,
+// sm_90a.
+//
+// The JAX package has no backward kernel: its trainer differentiates the
+// chunked attention scan (src/repro/models/attention.py::chunked_attention)
+// with XLA's autodiff, and its Pallas kernel
+// (src/repro/kernels/flash_attention.py::flash_attention) is forward only.
+// The port sends every attention call on the card to the forward kernel, so
+// training on the card needs this gradient.  Given q (B, S, H, hd), k and v
+// (B, Sk, Hk, hd), the forward's output o, the output's gradient dO and the
+// rows' log-sum-exp lse (f32, (B, H, S), from the forward), it computes
+//
+//     P  = exp(q k^T * scale - lse)        (the forward's softmax, recomputed)
+//     D  = rowsum(dO o)                    (f32)
+//     dS = P (dO v^T - D)
+//     dq = dS k * scale,  dk = dS^T q * scale,  dv = P^T dO
+//
+// with the forward's conventions: G = H / Hk query heads share a KV head and
+// are folded into the rows, (position, group member) side by side; with
+// `causal` a query at position s sees the keys at positions <= s, both
+// counted from 0, also when S != Sk; keys past Sk and rows past S * G get no
+// weight.  f32 or bf16 in, f32 math throughout, the gradients in the input
+// dtype: dk and dv sum over the G heads of their KV head in f32 and are cast
+// once, as autograd through the plain version's f32 casts does.
+//
+// The FlashAttention-2 split, four launches, no atomics, deterministic:
+//   1. flash_bwd_dot_kernel: D, one warp a row;
+//   2. flash_bwd_dkdv_kernel: one block per (32-key tile, batch, query head)
+//      walks the 64-position tiles of that head's queries that can see its
+//      keys (causal: from the tile holding position k0 on), recomputes P and
+//      dS for each and accumulates the head's share of dk and dv in
+//      registers, stored in f32 (one block a query head rather than a KV
+//      head: G times the blocks, each walking 1/G of the rows, so a
+//      training-shape call fills the SMs);
+//   3. flash_bwd_reduce_kernel: dk and dv, each the sum of its KV head's G
+//      shares in head order, in f32, scaled and cast once;
+//   4. flash_bwd_dq_kernel: one block per (64-row tile of folded rows,
+//      batch, KV head) walks the key tiles up to its causal limit and
+//      accumulates dq.
+// Each recomputes q k^T and dO v^T for its tiles, so the kernels together
+// do seven tile products where a fused kernel with atomics would do five.
+//
+// What bounds it: operations.  At the training shape (2 x 512 tokens, 32/4
+// heads, hd 64, causal) the five products the gradient needs are ~5.4
+// GFLOP on ~19 MB.  Two bodies for the dK/dV and dQ kernels, picked at
+// compile time by dtype and head dim:
+//   * bf16 at hd 32 and 64 (the training path's): mma.sync bf16 tensor-core
+//     products, described above flash_bwd_dkdv_mma_kernel below;
+//   * f32, and bf16 at hd 128 and 160: FMA products in f32, bf16 operands
+//     widened in shared memory; right first, its ceiling the 67 TFLOP/s f32
+//     rate.  Per block, tiles of q, dO, k and v live in shared memory in f32
+//     with rows hd + 1 floats apart (the rows a warp reads at once fall in
+//     distinct banks); P and dS of the current tile pair go through shared
+//     memory between the two product phases; each thread keeps its dk and
+//     dv (or dq) slice, hd / 2 floats, in registers for the whole walk.
+//
+// Plain C interface, built by nvcc into a shared library and called through
+// ctypes from repro_torch/kernels/flash_attention.py.  The launch enqueues on
+// the caller's stream, does not synchronise and allocates nothing (D's and
+// the f32 shares' buffers come from the wrapper); it returns
+// cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kRows = 64;            // folded query rows per tile
+constexpr int kKeys = 32;            // keys per tile
+constexpr int kPLd = kKeys + 4;      // row stride of P and dS (floats), 16-byte rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
+
+// Shared memory, in floats: q and dO tiles (kRows x hd), k and v tiles
+// (kKeys x hd), rows hd + 1 apart; P and dS (kRows x kKeys, rows kPLd
+// apart); the tile rows' lse and D.
+template <int HD>
+struct Smem {
+  static constexpr int kLd = HD + 1;
+  static constexpr int kQ = 0;
+  static constexpr int kdO = kQ + kRows * kLd;
+  static constexpr int kK = kdO + kRows * kLd;
+  static constexpr int kV = kK + kKeys * kLd;
+  static constexpr int kP = kV + kKeys * kLd;  // a multiple of 4: 192 * kLd
+  static constexpr int kdS = kP + kRows * kPLd;
+  static constexpr int kLse = kdS + kRows * kPLd;
+  static constexpr int kD = kLse + kRows;
+  static constexpr int kFloats = kD + kRows;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  static_assert(kP % 4 == 0 && kdS % 4 == 0, "P and dS rows must be 16-byte aligned");
+};
+
+// The rows of one block: F query heads h0 .. h0 + F - 1 folded side by side,
+// row = position * F + (head - h0).  The dq kernel folds a KV head's G heads
+// (F = G); the dk/dv kernel takes one head (F = 1).
+struct Rows {
+  int S, H, F, h0, b;
+  int64_t total;  // S * F
+  __device__ __forceinline__ int64_t pos(int64_t row) const { return row / F; }
+  // Element offset of row `row`'s head vector in a (B, S, H, hd) tensor.
+  __device__ __forceinline__ int64_t offset(int64_t row, int hd) const {
+    return ((static_cast<int64_t>(b) * S + row / F) * H + h0 + row % F) * hd;
+  }
+  // Index of row `row` in a (B, H, S) per-row buffer (lse, D).
+  __device__ __forceinline__ int64_t stat(int64_t row) const {
+    return (static_cast<int64_t>(b) * H + h0 + row % F) * S + row / F;
+  }
+};
+
+// Rows row0 .. row0 + kRows - 1 of q and dO into shared memory (zeros past
+// the end), with their lse and D.
+template <int HD, typename T>
+__device__ __forceinline__ void load_rows(float* sm, const T* __restrict__ q,
+                                          const T* __restrict__ dout,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ D, const Rows& R,
+                                          int64_t row0) {
+  using L = Smem<HD>;
+  for (int i = threadIdx.x; i < kRows * HD; i += kThreads) {
+    const int r = i / HD;
+    const int d = i % HD;
+    const int64_t row = row0 + r;
+    float qv = 0.f, dv = 0.f;
+    if (row < R.total) {
+      const int64_t off = R.offset(row, HD) + d;
+      qv = to_f32(q[off]);
+      dv = to_f32(dout[off]);
+    }
+    sm[L::kQ + r * L::kLd + d] = qv;
+    sm[L::kdO + r * L::kLd + d] = dv;
+  }
+  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+    const int64_t row = row0 + r;
+    const bool ok = row < R.total;
+    sm[L::kLse + r] = ok ? lse[R.stat(row)] : 0.f;
+    sm[L::kD + r] = ok ? D[R.stat(row)] : 0.f;
+  }
+}
+
+// Keys k0 .. k0 + kKeys - 1 of k and v into shared memory (zeros past Sk).
+template <int HD, typename T>
+__device__ __forceinline__ void load_keys(float* sm, const T* __restrict__ k,
+                                          const T* __restrict__ v, int b, int kvh, int Hk,
+                                          int Sk, int k0) {
+  using L = Smem<HD>;
+  for (int i = threadIdx.x; i < kKeys * HD; i += kThreads) {
+    const int j = i / HD;
+    const int d = i % HD;
+    const int key = k0 + j;
+    float kv = 0.f, vv = 0.f;
+    if (key < Sk) {
+      const int64_t off = ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + d;
+      kv = to_f32(k[off]);
+      vv = to_f32(v[off]);
+    }
+    sm[L::kK + j * L::kLd + d] = kv;
+    sm[L::kV + j * L::kLd + d] = vv;
+  }
+}
+
+// P and dS of the (rows row0.., keys k0..) tile pair into shared memory.
+// Thread (ty, tx) = (tid / 8, tid % 8) computes rows 4ty .. 4ty + 3 against
+// keys tx + 8c, c < 4: q k^T and dO v^T together, from the same loop.
+template <int HD, bool kCausal>
+__device__ __forceinline__ void tile_p_ds(float* sm, const Rows& R, int64_t row0, int k0,
+                                          int Sk, float scale_log2) {
+  using L = Smem<HD>;
+  constexpr int kLd = L::kLd;
+  const float* Qs = sm + L::kQ;
+  const float* dOs = sm + L::kdO;
+  const float* Ks = sm + L::kK;
+  const float* Vs = sm + L::kV;
+  const int ty = threadIdx.x / 8;
+  const int tx = threadIdx.x % 8;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float qr[4], dr[4], kr[4], vr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qr[i] = Qs[(4 * ty + i) * kLd + d];
+      dr[i] = dOs[(4 * ty + i) * kLd + d];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      kr[c] = Ks[(tx + 8 * c) * kLd + d];
+      vr[c] = Vs[(tx + 8 * c) * kLd + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = fmaf(qr[i], kr[c], s[i][c]);
+        dp[i][c] = fmaf(dr[i], vr[c], dp[i][c]);
+      }
+  }
+  float* Ps = sm + L::kP;
+  float* dSs = sm + L::kdS;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    const int64_t row = row0 + r;
+    const bool row_ok = row < R.total;
+    const int64_t pos = R.pos(row);
+    const float lse2 = sm[L::kLse + r] * kLog2e;
+    const float Di = sm[L::kD + r];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key = k0 + tx + 8 * c;
+      const bool ok = row_ok && key < Sk && (!kCausal || key <= pos);
+      const float p = ok ? exp2f(s[i][c] * scale_log2 - lse2) : 0.f;
+      Ps[r * kPLd + tx + 8 * c] = p;
+      dSs[r * kPLd + tx + 8 * c] = p * (dp[i][c] - Di);
+    }
+  }
+}
+
+// D[b, h, s] = sum_d dO[b, s, h, d] * o[b, s, h, d], one warp a (b, s, h) row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                     float* __restrict__ D, int64_t n_rows, int S, int H, int hd) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= n_rows) return;
+  const T* orow = o + r * hd;
+  const T* drow = dout + r * hd;
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = static_cast<int>(r % H);
+    const int64_t bs = r / H;  // b * S + s
+    const int64_t b = bs / S;
+    const int64_t s = bs % S;
+    D[(b * H + h) * S + s] = acc;
+  }
+}
+
+// Query head h's share of dk and dv for one (32-key tile, batch, h), in f32
+// into part[2][G][B][Sk][Hk][hd] (dk's shares first).  Phase 2 thread
+// mapping: (ky, dx) = (tid / 16, tid % 16) owns keys 4ky .. 4ky + 3 and
+// columns dx + 16j.
+template <int HD, bool kCausal, typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ D,
+                      float* __restrict__ part, int B, int S, int Sk, int H, int Hk,
+                      float scale_log2) {
+  using L = Smem<HD>;
+  constexpr int kLd = L::kLd;
+  constexpr int kCols = HD / 16;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const int g = static_cast<int>(blockIdx.z);
+  const Rows R{S, H, 1, kvh * G + g, static_cast<int>(blockIdx.y / Hk), S};
+  const int k0 = blockIdx.x * kKeys;
+  const int ky = threadIdx.x / 16;
+  const int dx = threadIdx.x % 16;
+
+  load_keys<HD>(sm, k, v, R.b, kvh, Hk, Sk, k0);
+
+  float adk[4][kCols], adv[4][kCols];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) adk[kk][j] = adv[kk][j] = 0.f;
+
+  // Causal: the first position that sees key k0 is k0.
+  const int64_t first = kCausal ? static_cast<int64_t>(k0) / kRows * kRows : 0;
+  for (int64_t row0 = first; row0 < R.total; row0 += kRows) {
+    __syncthreads();  // the last tile's q, dO, P and dS are read
+    load_rows<HD>(sm, q, dout, lse, D, R, row0);
+    __syncthreads();
+    tile_p_ds<HD, kCausal>(sm, R, row0, k0, Sk, scale_log2);
+    __syncthreads();
+    const float* Ps = sm + L::kP;
+    const float* dSs = sm + L::kdS;
+    const float* Qs = sm + L::kQ;
+    const float* dOs = sm + L::kdO;
+#pragma unroll 2
+    for (int r = 0; r < kRows; ++r) {
+      const float4 p4 = *reinterpret_cast<const float4*>(Ps + r * kPLd + 4 * ky);
+      const float4 s4 = *reinterpret_cast<const float4*>(dSs + r * kPLd + 4 * ky);
+      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+      const float ds[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const float dov = dOs[r * kLd + dx + 16 * j];
+        const float qv = Qs[r * kLd + dx + 16 * j];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          adv[kk][j] = fmaf(p[kk], dov, adv[kk][j]);
+          adk[kk][j] = fmaf(ds[kk], qv, adk[kk][j]);
+        }
+      }
+    }
+  }
+
+  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;  // one share
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int key = k0 + 4 * ky + kk;
+    if (key >= Sk) continue;
+    const int64_t off = g * n + ((static_cast<int64_t>(R.b) * Sk + key) * Hk + kvh) * HD;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      part[off + dx + 16 * j] = adk[kk][j];
+      part[static_cast<int64_t>(G) * n + off + dx + 16 * j] = adv[kk][j];
+    }
+  }
+}
+
+// dk = scale * sum_g dk_share[g], dv = sum_g dv_share[g], in head order, f32,
+// cast once.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ dk,
+                        T* __restrict__ dv, int64_t n, int G, float scale) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float sk = 0.f, sv = 0.f;
+    for (int g = 0; g < G; ++g) {
+      sk += part[g * n + i];
+      sv += part[(G + g) * n + i];
+    }
+    dk[i] = from_f32<T>(sk * scale);
+    dv[i] = from_f32<T>(sv);
+  }
+}
+
+// dq of one (64-row tile, batch, KV head).  Phase 2 thread mapping:
+// (ry, dx) = (tid / 16, tid % 16) owns rows 8ry .. 8ry + 7 and columns
+// dx + 16j of dq.
+template <int HD, bool kCausal, typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ D,
+                    T* __restrict__ dq, int S, int Sk, int H, int Hk, float scale,
+                    float scale_log2) {
+  using L = Smem<HD>;
+  constexpr int kLd = L::kLd;
+  constexpr int kCols = HD / 16;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const Rows R{S, H, G, kvh * G, static_cast<int>(blockIdx.y / Hk),
+               static_cast<int64_t>(S) * G};
+  // Causal tiles heaviest first.
+  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int64_t row0 = static_cast<int64_t>(tile) * kRows;
+  const int ry = threadIdx.x / 16;
+  const int dx = threadIdx.x % 16;
+
+  load_rows<HD>(sm, q, dout, lse, D, R, row0);
+
+  int n_tiles = (Sk + kKeys - 1) / kKeys;
+  if (kCausal) {
+    const int64_t last_row = (row0 + kRows < R.total ? row0 + kRows : R.total) - 1;
+    const int limit = static_cast<int>(R.pos(last_row)) / kKeys + 1;
+    n_tiles = n_tiles < limit ? n_tiles : limit;
+  }
+
+  float acc[8][kCols];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kKeys;
+    __syncthreads();  // the last tile's k, v and dS are read
+    load_keys<HD>(sm, k, v, R.b, kvh, Hk, Sk, k0);
+    __syncthreads();
+    tile_p_ds<HD, kCausal>(sm, R, row0, k0, Sk, scale_log2);
+    __syncthreads();
+    const float* dSs = sm + L::kdS;
+    const float* Ks = sm + L::kK;
+#pragma unroll 2
+    for (int kk = 0; kk < kKeys; ++kk) {
+      float kr[kCols];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) kr[j] = Ks[kk * kLd + dx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float ds = dSs[(8 * ry + i) * kPLd + kk];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(ds, kr[j], acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t row = row0 + 8 * ry + i;
+    if (row >= R.total) continue;
+    const int64_t off = R.offset(row, HD);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) dq[off + dx + 16 * j] = from_f32<T>(acc[i][j] * scale);
+  }
+}
+
+
+// ------------------------------------------------- bf16 bodies, tensor cores
+//
+// For bf16 at hd 32 and 64 the dK/dV and dQ kernels run their products on
+// mma.sync.m16n8k16 bf16 with f32 accumulation, in the forward's fragment
+// layouts (csrc/flash_attention.cu); P and dS are rounded to bf16 as
+// operands of the second products, as FlashAttention-2 does.  Blocks of 4
+// warps; tiles of 64 rows of hd + 8 bf16 in shared memory (the 8 rows an
+// ldmatrix reads fall in distinct banks), copied with 16-byte cp.async
+// (zero-filled past the end).  At hd 128 and 160 a warp's accumulators
+// (dK and dV of 16 keys, plus the 16 x 64 score and dP tiles) would not fit
+// in its registers, so those keep the FMA kernels above.
+//
+// dK/dV: one block per (64-key tile, batch, query head), warp w owns keys
+// 16w .. 16w + 15 and keeps their k and v rows as A fragments; for each
+// 64-position q tile it forms S^T = k q^T and dP^T = v dO^T (16 keys x 64
+// rows a warp), P^T and dS^T in registers, then dV += P^T dO and
+// dK += dS^T q with the accumulators repacked as A fragments and dO, q read
+// with ldmatrix.trans as B.  The shares go to the same f32 buffer as the
+// FMA kernel's.  dQ: one block per (64 folded rows, batch, KV head), warp w
+// owns rows 16w .. 16w + 15 and keeps their q and dO rows as A fragments;
+// for each 64-key tile S = q k^T and dP = dO v^T, then dQ += dS k.
+
+constexpr int kMmaThreads = 128;  // 4 warps
+constexpr int kMmaTile = 64;      // keys (dK/dV) or rows (dQ) a block; the streamed tile
+
+template <int HD>
+struct MmaSmem {
+  static constexpr int kStride = HD + 8;  // bf16 elements a row
+  static constexpr int kTile = kMmaTile * kStride;
+  // Four bf16 tiles, then the f32 lse and D of the q tile's rows.
+  static constexpr size_t kBytes = sizeof(bf16) * 4 * kTile + sizeof(float) * 2 * kMmaTile;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; zero-fills the destination when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 64 rows of hd bf16 into a tile; off(r) is row r's element offset, or -1
+// for a row past the end (zero-filled).
+template <int HD, typename Off>
+__device__ __forceinline__ void mma_load_tile(bf16* dst, const bf16* __restrict__ src, Off off) {
+  constexpr int kChunks = HD / 8;
+  for (int i = threadIdx.x; i < kMmaTile * kChunks; i += kMmaThreads) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const int64_t o = off(r);
+    cp_async16(smem_u32(dst + r * MmaSmem<HD>::kStride + c * 8), src + (o >= 0 ? o + c * 8 : 0),
+               o >= 0);
+  }
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t.  A holds rows
+// g and g + 8, columns 2t, 2t + 1 (+ 8); B holds column g, rows 2t, 2t + 1
+// (+ 8); the f32 accumulator holds rows g and g + 8, columns 2t and 2t + 1.
+// A tile's rows as A fragments (16 rows from `row`, k-step kk):
+template <int HD>
+__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const bf16* tile, int row, int kk) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(f, smem_u32(tile + (row + (lane & 15)) * MmaSmem<HD>::kStride + kk * 16 +
+                      (lane >> 4) * 8));
+}
+
+// B fragments of n-tiles 2np, 2np + 1 of X^T, X a tile stored [n][k] (k-step kk).
+template <int HD>
+__device__ __forceinline__ void frag_bt(uint32_t (&f)[4], const bf16* tile, int np, int kk) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(f, smem_u32(tile + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * MmaSmem<HD>::kStride +
+                      kk * 16 + ((lane >> 3) & 1) * 8));
+}
+
+// B fragments of n-tiles 2dp, 2dp + 1 of X, X a tile stored [k][n] (k-step kk).
+template <int HD>
+__device__ __forceinline__ void frag_b(uint32_t (&f)[4], const bf16* tile, int kk, int dp) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4_trans(f, smem_u32(tile + (kk * 16 + (lane & 15)) * MmaSmem<HD>::kStride + dp * 16 +
+                            (lane >> 4) * 8));
+}
+
+// The accumulators of n-tiles 2kk, 2kk + 1 as the A fragment of k-step kk.
+__device__ __forceinline__ void acc_as_a(uint32_t (&a)[4], float (*x)[4], int kk) {
+  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ D,
+                          float* __restrict__ part, int B, int S, int Sk, int H, int Hk,
+                          float scale_log2) {
+  using L = MmaSmem<HD>;
+  constexpr int kDK = HD / 16;        // k-steps over hd
+  constexpr int kDN = HD / 8;         // n-tiles over hd
+  constexpr int kRN = kMmaTile / 8;   // n-tiles over the q tile's rows
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + L::kTile;
+  bf16* Qs = Vs + L::kTile;
+  bf16* dOs = Qs + L::kTile;
+  float* lse_s = reinterpret_cast<float*>(dOs + L::kTile);
+  float* D_s = lse_s + kMmaTile;
+
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const int b = static_cast<int>(blockIdx.y / Hk);
+  const int h = kvh * G + static_cast<int>(blockIdx.z);
+  const int k0 = blockIdx.x * kMmaTile;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wk = (threadIdx.x / 32) * 16;  // the warp's first key in the tile
+
+  const auto kv_off = [&](int j) -> int64_t {
+    return k0 + j < Sk ? ((static_cast<int64_t>(b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
+  };
+  mma_load_tile<HD>(Ks, k, kv_off);
+  mma_load_tile<HD>(Vs, v, kv_off);
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t kf[kDK][4], vf[kDK][4];
+#pragma unroll
+  for (int kk = 0; kk < kDK; ++kk) {
+    frag_a<HD>(kf[kk], Ks, wk, kk);
+    frag_a<HD>(vf[kk], Vs, wk, kk);
+  }
+
+  float dk[kDN][4], dv[kDN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  // Causal: positions below k0 see none of the keys (k0 is a tile multiple).
+  for (int row0 = kCausal ? k0 : 0; row0 < S; row0 += kMmaTile) {
+    __syncthreads();  // the last tile's q, dO, lse and D are read
+    const auto q_off = [&](int r) -> int64_t {
+      return row0 + r < S ? ((static_cast<int64_t>(b) * S + row0 + r) * H + h) * HD : -1;
+    };
+    mma_load_tile<HD>(Qs, q, q_off);
+    mma_load_tile<HD>(dOs, dout, q_off);
+    for (int r = threadIdx.x; r < kMmaTile; r += kMmaThreads) {
+      const bool ok = row0 + r < S;
+      const int64_t i = (static_cast<int64_t>(b) * H + h) * S + row0 + r;
+      lse_s[r] = ok ? lse[i] * kLog2e : 0.f;
+      D_s[r] = ok ? D[i] : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // S^T = k q^T and dP^T = v dO^T: the warp's 16 keys x 64 rows.
+    float st[kRN][4], dpt[kRN][4];
+#pragma unroll
+    for (int j = 0; j < kRN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kRN / 2; ++np) {
+        uint32_t bq[4], bo[4];
+        frag_bt<HD>(bq, Qs, np, kk);
+        frag_bt<HD>(bo, dOs, np, kk);
+        mma_bf16(st[2 * np], kf[kk], bq[0], bq[1]);
+        mma_bf16(st[2 * np + 1], kf[kk], bq[2], bq[3]);
+        mma_bf16(dpt[2 * np], vf[kk], bo[0], bo[1]);
+        mma_bf16(dpt[2 * np + 1], vf[kk], bo[2], bo[3]);
+      }
+    }
+    // P^T and dS^T in place.
+#pragma unroll
+    for (int j = 0; j < kRN; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * t4 + (e & 1);
+        const int key = k0 + wk + g + 8 * (e >> 1);
+        const int pos = row0 + r;
+        const bool ok = pos < S && key < Sk && (!kCausal || key <= pos);
+        const float p = ok ? exp2f(st[j][e] * scale_log2 - lse_s[r]) : 0.f;
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - D_s[r]);
+      }
+    }
+    // dV += P^T dO and dK += dS^T q, k = the tile's rows.
+#pragma unroll
+    for (int kk = 0; kk < kMmaTile / 16; ++kk) {
+      uint32_t ap[4], as[4];
+      acc_as_a(ap, st, kk);
+      acc_as_a(as, dpt, kk);
+#pragma unroll
+      for (int dp = 0; dp < kDN / 2; ++dp) {
+        uint32_t bo[4], bq[4];
+        frag_b<HD>(bo, dOs, kk, dp);
+        frag_b<HD>(bq, Qs, kk, dp);
+        mma_bf16(dv[2 * dp], ap, bo[0], bo[1]);
+        mma_bf16(dv[2 * dp + 1], ap, bo[2], bo[3]);
+        mma_bf16(dk[2 * dp], as, bq[0], bq[1]);
+        mma_bf16(dk[2 * dp + 1], as, bq[2], bq[3]);
+      }
+    }
+  }
+
+  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;  // one share
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int key = k0 + wk + g + 8 * (e >> 1);
+    if (key >= Sk) continue;
+    const int64_t off = static_cast<int64_t>(blockIdx.z) * n +
+                        ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + 2 * t4 + (e & 1);
+#pragma unroll
+    for (int nn = 0; nn < kDN; ++nn) {
+      part[off + 8 * nn] = dk[nn][e];
+      part[static_cast<int64_t>(G) * n + off + 8 * nn] = dv[nn][e];
+    }
+  }
+}
+
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ D,
+                        bf16* __restrict__ dq, int S, int Sk, int H, int Hk, float scale,
+                        float scale_log2) {
+  using L = MmaSmem<HD>;
+  constexpr int kDK = HD / 16;
+  constexpr int kDN = HD / 8;
+  constexpr int kKN = kMmaTile / 8;  // n-tiles over the key tile
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* dOs = Qs + L::kTile;
+  bf16* Ks = dOs + L::kTile;
+  bf16* Vs = Ks + L::kTile;
+
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const Rows R{S, H, G, kvh * G, static_cast<int>(blockIdx.y / Hk),
+               static_cast<int64_t>(S) * G};
+  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int64_t row0 = static_cast<int64_t>(tile) * kMmaTile;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wrow = (threadIdx.x / 32) * 16;
+
+  const auto row_off = [&](int r) -> int64_t {
+    return row0 + r < R.total ? R.offset(row0 + r, HD) : -1;
+  };
+  mma_load_tile<HD>(Qs, q, row_off);
+  mma_load_tile<HD>(dOs, dout, row_off);
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[kDK][4], of[kDK][4];
+#pragma unroll
+  for (int kk = 0; kk < kDK; ++kk) {
+    frag_a<HD>(qf[kk], Qs, wrow, kk);
+    frag_a<HD>(of[kk], dOs, wrow, kk);
+  }
+  // This thread's rows g and g + 8 of the warp.
+  bool row_ok[2];
+  int64_t pos[2];
+  float lse2[2], Dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + wrow + g + 8 * i;
+    row_ok[i] = row < R.total;
+    pos[i] = R.pos(row);
+    lse2[i] = row_ok[i] ? lse[R.stat(row)] * kLog2e : 0.f;
+    Dr[i] = row_ok[i] ? D[R.stat(row)] : 0.f;
+  }
+
+  int n_tiles = (Sk + kMmaTile - 1) / kMmaTile;
+  if (kCausal) {
+    const int64_t last_row = (row0 + kMmaTile < R.total ? row0 + kMmaTile : R.total) - 1;
+    const int limit = static_cast<int>(R.pos(last_row)) / kMmaTile + 1;
+    n_tiles = n_tiles < limit ? n_tiles : limit;
+  }
+
+  float acc[kDN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kMmaTile;
+    __syncthreads();  // the last tile's k and v are read
+    const auto kv_off = [&](int j) -> int64_t {
+      return k0 + j < Sk ? ((static_cast<int64_t>(R.b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
+    };
+    mma_load_tile<HD>(Ks, k, kv_off);
+    mma_load_tile<HD>(Vs, v, kv_off);
+    cp_async_wait_all();
+    __syncthreads();
+
+    float s[kKN][4], dp[kKN][4];
+#pragma unroll
+    for (int j = 0; j < kKN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kKN / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        frag_bt<HD>(bk, Ks, np, kk);
+        frag_bt<HD>(bv, Vs, np, kk);
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(dp[2 * np], of[kk], bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], of[kk], bv[2], bv[3]);
+      }
+    }
+    // dS in place of S.
+#pragma unroll
+    for (int j = 0; j < kKN; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+        const bool ok = row_ok[i] && key < Sk && (!kCausal || key <= pos[i]);
+        const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[i]) : 0.f;
+        s[j][e] = p * (dp[j][e] - Dr[i]);
+      }
+    }
+    // dQ += dS k, k = the tile's keys.
+#pragma unroll
+    for (int kk = 0; kk < kMmaTile / 16; ++kk) {
+      uint32_t a[4];
+      acc_as_a(a, s, kk);
+#pragma unroll
+      for (int d2 = 0; d2 < kDN / 2; ++d2) {
+        uint32_t bk[4];
+        frag_b<HD>(bk, Ks, kk, d2);
+        mma_bf16(acc[2 * d2], a, bk[0], bk[1]);
+        mma_bf16(acc[2 * d2 + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!row_ok[i]) continue;
+    bf16* out = dq + R.offset(row0 + wrow + g + 8 * i, HD) + 2 * t4;
+#pragma unroll
+    for (int nn = 0; nn < kDN; ++nn) {
+      *reinterpret_cast<uint32_t*>(out + 8 * nn) =
+          pack_bf16(acc[nn][2 * i] * scale, acc[nn][2 * i + 1] * scale);
+    }
+  }
+}
+
+// bf16 at hd 32 and 64 runs the tensor-core bodies (see above).
+template <int HD, typename T>
+constexpr bool kUseMma = std::is_same<T, bf16>::value && (HD == 32 || HD == 64);
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int HD, bool kCausal, typename T>
+cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const float* lse, float* D, float* part,
+                         void* dq, void* dk, void* dv, int B, int S, int Sk, int H, int Hk,
+                         cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const int64_t n_rows = static_cast<int64_t>(B) * S * H;
+  flash_bwd_dot_kernel<T><<<static_cast<unsigned>((n_rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), dot, D, n_rows, S, H, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const float scale_log2 = scale * kLog2e;
+  const unsigned bh = static_cast<unsigned>(B * Hk);
+  const int G = H / Hk;
+  const int64_t rows = static_cast<int64_t>(S) * G;
+  if constexpr (kUseMma<HD, T>) {
+    const size_t smem = MmaSmem<HD>::kBytes;
+    auto dkdv = flash_bwd_dkdv_mma_kernel<HD, kCausal>;
+    auto dqk = flash_bwd_dq_mma_kernel<HD, kCausal>;
+    if ((err = allow_smem(dkdv, smem)) != cudaSuccess) return err;
+    if ((err = allow_smem(dqk, smem)) != cudaSuccess) return err;
+    const dim3 grid_kv(static_cast<unsigned>((Sk + kMmaTile - 1) / kMmaTile), bh,
+                       static_cast<unsigned>(G));
+    dkdv<<<grid_kv, kMmaThreads, smem, stream>>>(qt, kt, vt, dot, lse, D, part, B, S, Sk, H,
+                                                 Hk, scale_log2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const dim3 grid_q(static_cast<unsigned>((rows + kMmaTile - 1) / kMmaTile), bh);
+    dqk<<<grid_q, kMmaThreads, smem, stream>>>(qt, kt, vt, dot, lse, D, static_cast<bf16*>(dq),
+                                               S, Sk, H, Hk, scale, scale_log2);
+  } else {
+    const size_t smem = Smem<HD>::kBytes;
+    auto dkdv = flash_bwd_dkdv_kernel<HD, kCausal, T>;
+    auto dqk = flash_bwd_dq_kernel<HD, kCausal, T>;
+    if ((err = allow_smem(dkdv, smem)) != cudaSuccess) return err;
+    if ((err = allow_smem(dqk, smem)) != cudaSuccess) return err;
+    const dim3 grid_kv(static_cast<unsigned>((Sk + kKeys - 1) / kKeys), bh,
+                       static_cast<unsigned>(G));
+    dkdv<<<grid_kv, kThreads, smem, stream>>>(qt, kt, vt, dot, lse, D, part, B, S, Sk, H, Hk,
+                                              scale_log2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const dim3 grid_q(static_cast<unsigned>((rows + kRows - 1) / kRows), bh);
+    dqk<<<grid_q, kThreads, smem, stream>>>(qt, kt, vt, dot, lse, D, static_cast<T*>(dq), S,
+                                            Sk, H, Hk, scale, scale_log2);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // dk and dv: the G shares of each KV head summed in head order, cast once.
+  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;
+  const int64_t red_blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+  flash_bwd_reduce_kernel<T><<<static_cast<unsigned>(red_blocks), 256, 0, stream>>>(
+      part, static_cast<T*>(dk), static_cast<T*>(dv), n, G, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, float* D, float* part, void* dq,
+                      void* dk, void* dv, int B, int S, int Sk, int H, int Hk, bool is_bf16,
+                      bool causal, cudaStream_t stream) {
+  if (is_bf16) {
+    return causal ? launch_typed<HD, true, bf16>(q, k, v, o, dout, lse, D, part, dq, dk, dv,
+                                                 B, S, Sk, H, Hk, stream)
+                  : launch_typed<HD, false, bf16>(q, k, v, o, dout, lse, D, part, dq, dk,
+                                                  dv, B, S, Sk, H, Hk, stream);
+  }
+  return causal ? launch_typed<HD, true, float>(q, k, v, o, dout, lse, D, part, dq, dk, dv,
+                                                B, S, Sk, H, Hk, stream)
+                : launch_typed<HD, false, float>(q, k, v, o, dout, lse, D, part, dq, dk, dv,
+                                                 B, S, Sk, H, Hk, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16.  hd: 32, 64, 128 or 160.  q, o, dout and
+// dq are (B, S, H, hd), k, v, dk and dv (B, Sk, Hk, hd), all contiguous; lse
+// and D are f32 (B, H, S), lse from the forward, D scratch; part is f32
+// scratch of 2 * H * B * Sk * hd elements (the heads' dk and dv shares).
+// H % Hk == 0, B * Hk <= 65535, H / Hk <= 65535; the wrapper checks all of it.
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const float* lse, float* D, float* part,
+                               void* dq, void* dk, void* dv, int B, int S, int Sk, int H,
+                               int Hk, int hd, int dtype, int causal, int device,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || S <= 0 || Sk <= 0 || Hk <= 0 || H % Hk != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool is_bf16 = dtype == 1;
+  const bool c = causal != 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32:
+      err = launch_hd<32>(q, k, v, o, dout, lse, D, part, dq, dk, dv, B, S, Sk, H, Hk,
+                       is_bf16, c, st);
+      break;
+    case 64:
+      err = launch_hd<64>(q, k, v, o, dout, lse, D, part, dq, dk, dv, B, S, Sk, H, Hk,
+                       is_bf16, c, st);
+      break;
+    case 128:
+      err = launch_hd<128>(q, k, v, o, dout, lse, D, part, dq, dk, dv, B, S, Sk, H, Hk,
+                        is_bf16, c, st);
+      break;
+    case 160:
+      err = launch_hd<160>(q, k, v, o, dout, lse, D, part, dq, dk, dv, B, S, Sk, H, Hk,
+                        is_bf16, c, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+const char* flash_attention_bwd_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,4 +1,4 @@
-"""Forward GQA flash attention: the CUDA kernel's wrapper.
+"""GQA flash attention and its gradient: the CUDA kernels' wrappers.
 
     out = softmax(q k^T / sqrt(hd), causal mask) v        (per query head)
 
@@ -12,14 +12,24 @@ FlashAttention-2 on the tensor cores (``mma.sync`` bf16 with f32
 accumulation, ``ldmatrix`` fragments, K/V tiles double-buffered with
 ``cp.async``); f32 runs on the FMA units, because neither bf16 nor TF32
 tensor cores hold the f32 tolerance.  Both keep f32 softmax statistics,
-masked scores at -1e30 and the row-sum floor of the reference.  It is
-forward only, as the Pallas kernel is: the wrapper raises when autograd
-would need a gradient through it.
+masked scores at -1e30 and the row-sum floor of the reference.
+
+The Pallas kernel is forward only; here the gradient is a kernel too
+(``csrc/flash_attention_bwd.cu``, the FlashAttention-2 split: a row-dot
+pass, per-query-head dK/dV shares summed per KV head in f32, and a dQ
+kernel; bf16 at hd 32 and 64 on the tensor cores (``mma.sync``), f32 and
+the larger head dims on the FMA units).  Under
+autograd (grad enabled and an operand that requires grad) ``flash_attention``
+goes through ``FlashAttentionFn``: its forward launches the forward kernel
+with a log-sum-exp output and saves q, k, v, the output and the LSE, its
+backward launches the backward kernels.  Otherwise (``no_grad``, serving) it
+launches the forward kernel alone, without the LSE, as before.
 
 Takes CUDA tensors only and raises on anything else: ``kernels/ops.py``
-sends CPU tensors to ``ref.reference_attention``.  The wrapper counts its
-launches in ``LAUNCHES`` (raised only where the kernel is launched), and in
-``BODY_LAUNCHES`` by body.  The library is built by nvcc on first use
+sends CPU tensors to ``ref.reference_attention``.  The wrappers count their
+launches in ``LAUNCHES`` (raised only where a kernel is launched; one
+backward call launches ``BWD_KERNELS_PER_CALL`` kernels and counts once), and the forward's in
+``BODY_LAUNCHES`` by body.  The libraries are built by nvcc on first use
 (``kernels/build.py``), never at import.
 """
 
@@ -31,8 +41,8 @@ import torch
 
 from repro_torch.kernels import build
 
-#: Launch count; ``reset_launches()`` zeroes it.
-LAUNCHES = {"flash_attention": 0}
+#: Launch counts of the forward and the backward; ``reset_launches()`` zeroes them.
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 #: The kernel body each dtype runs (``flash_fwd_bf16_mma_kernel`` on the
 #: tensor cores, ``flash_fwd_kernel`` on the FMA units).
@@ -48,7 +58,12 @@ HEAD_DIMS = (32, 64, 128, 160)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 
+#: Kernels one backward call launches (row dot, per-head dK/dV shares, their
+#: sum over each KV head's query heads, dQ).
+BWD_KERNELS_PER_CALL = 4
+
 _LIB = None
+_BWD_LIB = None
 
 
 def reset_launches() -> None:
@@ -63,7 +78,7 @@ def _lib():
         lib = build.load("flash_attention")
         lib.flash_attention_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
-            ctypes.c_void_p,  # out
+            ctypes.c_void_p, ctypes.c_void_p,  # out, lse (or NULL)
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, Sk
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H, Hk, hd
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, causal, device
@@ -74,6 +89,26 @@ def _lib():
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _bwd_lib():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = build.load("flash_attention_bwd")
+        lib.flash_attention_bwd_launch.argtypes = [
+            *[ctypes.c_void_p] * 5,  # q, k, v, o, dout
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lse, D, shares (scratch)
+            *[ctypes.c_void_p] * 3,  # dq, dk, dv
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, Sk
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H, Hk, hd
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, causal, device
+            ctypes.c_void_p,  # stream
+        ]
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
 
 
 def _check_operands(q, k, v) -> None:
@@ -114,26 +149,20 @@ def _check_operands(q, k, v) -> None:
         raise ValueError(f"flash_attention: head_dim {hd} is not one of {HEAD_DIMS}")
     if B * Hk > _MAX_GRID_Y:
         raise ValueError(f"flash_attention: B * Hk = {B * Hk} exceeds {_MAX_GRID_Y}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError("flash_attention: the kernel is forward only (no backward "
-                           "kernel yet); call it under torch.no_grad()")
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """GQA attention on CUDA. q: (B,S,H,hd); k/v: (B,Sk,Hk,hd) -> (B,S,H,hd).
-
-    f32 or bf16, contiguous, H % Hk == 0, hd in ``HEAD_DIMS``; f32 softmax
-    and accumulation (bf16 products on the tensor cores for bf16), the output
-    in q's dtype.  Causal positions align from 0 for any S and Sk."""
-    _check_operands(q, k, v)
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """Launch the forward kernel -> (out, lse (B, H, S) f32 or None)."""
     B, S, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, S, Sk, H, Hk, hd, _DTYPE_CODE[q.dtype], int(bool(causal)),
         q.device.index, stream,
     )
@@ -143,4 +172,81 @@ def flash_attention(q, k, v, *, causal: bool = True):
                            f"({msg})")
     LAUNCHES["flash_attention"] += 1
     BODY_LAUNCHES[BODIES[q.dtype]] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True):
+    """The backward kernels -> (dq, dk, dv) in q's dtype.
+
+    q/out/dout: (B,S,H,hd); k/v: (B,Sk,Hk,hd); lse: the forward's (B,H,S)
+    f32 log-sum-exp.  f32 math; dk and dv sum over their KV head's G query
+    heads in f32 before the one cast."""
+    _check_operands(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if (t.device != q.device or t.dtype != q.dtype or t.shape != q.shape
+                or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_backward: {name} must be a contiguous "
+                             f"{q.dtype} tensor of q's shape {tuple(q.shape)} on "
+                             f"{q.device}")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_backward: {name} must start on a 16-byte "
+                             "boundary (the bf16 bodies copy 16-byte rows)")
+    B, S, H, hd = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (B, H, S) or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_backward: lse must be a contiguous float32 "
+                         f"({B}, {H}, {S}) tensor on {q.device}")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    shares = torch.empty((2, H, B * Sk * hd), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), shares.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
+        B, S, Sk, H, Hk, hd, _DTYPE_CODE[q.dtype], int(bool(causal)),
+        q.device.index, stream,
+    )
+    if err != 0:
+        msg = lib.flash_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_backward: kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its gradient: the forward kernel (with LSE) on
+    the way forward, the backward kernels on the way back."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout.contiguous(), lse,
+                                              causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """GQA attention on CUDA. q: (B,S,H,hd); k/v: (B,Sk,Hk,hd) -> (B,S,H,hd).
+
+    f32 or bf16, contiguous, H % Hk == 0, hd in ``HEAD_DIMS``; f32 softmax
+    and accumulation (bf16 products on the tensor cores for bf16), the output
+    in q's dtype.  Causal positions align from 0 for any S and Sk.  Under
+    autograd it is differentiable through the backward kernels."""
+    _check_operands(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, bool(causal))
+    return _forward(q, k, v, causal, with_lse=False)[0]

@@ -4,7 +4,8 @@ Each one computes in f32 and casts the result back to the input dtype.
 The gossip-mix references repeat their kernel's arithmetic step by step, so
 that kernel is held bit-for-bit against them on the card; the attention
 reference materialises the (S, Sk) scores and is held to the flash kernel
-with the float tolerances of ``tests/test_kernels.py``; the RWKV reference
+with the float tolerances of ``tests/test_kernels.py``, and its autograd
+gradient to the backward kernels; the RWKV reference
 is the sequential recurrence, held to the chunked kernel the same way.
 """
 
@@ -56,6 +57,17 @@ def reference_attention(q, k, v, *, causal: bool = True):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgsk,bkhd->bshgd", p, vf)
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def reference_attention_backward(q, k, v, dout, *, causal: bool = True):
+    """(dq, dk, dv) of ``reference_attention`` for the output gradient
+    ``dout``: ``torch.autograd.grad`` through it, so in f32 from the inputs'
+    casts, with dk and dv summed over the G query heads of their KV head in
+    f32 and cast to the input dtype once."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = reference_attention(qq, kk, vv, causal=causal)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
 
 
 def reference_rwkv(r, k, v, w, u):

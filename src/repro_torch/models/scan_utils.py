@@ -1,16 +1,19 @@
-"""Sequence scans for the recurrent layers, forward only.
+"""Sequence scans for the recurrent layers, and gradient accumulation.
 
-A transcription of ``chunked_scan`` from ``repro/models/scan_utils.py``.
-The JAX version splits time into chunks so that ``jax.checkpoint`` bounds
-the carries its backward pass keeps; the port serves and keeps no
-activations, so the scan is one loop over time.  The reference's input
-check stays (there an ``assert``, here a ``ValueError``), so both packages
-accept the same sequence lengths.
+A transcription of ``repro/models/scan_utils.py``.  ``chunked_scan``: the
+JAX version splits time into chunks so that ``jax.checkpoint`` bounds the
+carries its backward pass keeps; here the scan is one loop over time (the
+trainer rematerialises whole blocks instead, ``transformer.forward``).  The
+reference's input check stays (there an ``assert``, here a ``ValueError``),
+so both packages accept the same sequence lengths.  ``microbatch_scan`` is
+the trainer's gradient accumulation over micro-batches.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def check_chunk(S: int, chunk: int) -> None:
@@ -29,3 +32,31 @@ def chunked_scan(step_fn, init, xs, chunk: int = 64):
         carry, y = step_fn(carry, tuple(x[t] for x in xs))
         ys.append(y)
     return carry, torch.stack(ys)
+
+
+def microbatch_scan(grad_fn, params, batch, n_micro: int):
+    """Gradient accumulation: split the batch leaves (M, b, ...) into
+    ``n_micro`` slices along b and sum (losses, grads) over them.
+
+    grad_fn(params, micro_batch) -> (losses (M,), grads).  Returns the mean
+    losses (M,) and mean grads: with ``min(n_micro, b) <= 1`` grad_fn's own
+    output (grads in the param dtype); otherwise the grads summed in f32
+    and scaled by 1 / n_micro, as the JAX package's scan does."""
+    M, b = tree_leaves(batch)[0].shape[:2]
+    n_micro = min(n_micro, b)  # dpworkers: per-worker batch may be tiny
+    if n_micro <= 1:
+        return grad_fn(params, batch)
+    if b % n_micro:
+        raise ValueError(f"per-worker batch {b} not divisible by {n_micro}")
+    bm = b // n_micro
+    losses = torch.zeros((M,), dtype=torch.float32, device=tree_leaves(batch)[0].device)
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                   params)
+    for i in range(n_micro):
+        mb = tree_map(lambda a: a[:, i * bm:(i + 1) * bm], batch)
+        loss, grads = grad_fn(params, mb)
+        losses = losses + loss
+        tree_map(lambda a, g: a.add_(g.float()), acc, grads)  # in place: acc is ours
+        del grads
+    inv = 1.0 / n_micro
+    return losses * inv, tree_map(lambda g: g.mul_(inv), acc)

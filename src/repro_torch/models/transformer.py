@@ -13,15 +13,20 @@ The ssm family (rwkv6-7b) runs ``models/rwkv.py``'s blocks, whose prefill
 goes through the WKV kernel on the card.  Unlike the JAX package, decoding
 updates the cache in place (dense: the new K/V written at ``pos`` by
 ``_dus_seq``; ssm: each layer's new recurrent state copied over the old), and
-the cache returned is the one passed in.  Prefill is forward only (the flash
-and WKV kernels have no backward), so ``cfg.remat`` does not apply.  The moe,
-hybrid and audio families, the ``every_2`` MoE interleave and vision tokens
-are not ported yet (ROADMAP A8): they raise ``NotImplementedError``.
+the cache returned is the one passed in.  ``forward`` is also the training
+forward: under autograd with ``cfg.remat`` each block runs under
+``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` over the
+scan body), so only the blocks' inputs are kept and each block's forward
+runs again in the backward pass; with grad disabled (serving) nothing
+changes.  The moe, hybrid and audio families, the ``every_2`` MoE interleave
+and vision tokens are not ported yet (ROADMAP A8): they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -66,7 +71,10 @@ def _stack(trees):
 
 
 def _layer(tree, i):
-    """Layer ``i`` of a tree stacked on a leading layer axis (views)."""
+    """Layer ``i`` of a tree stacked on a leading layer axis (views), or of a
+    list of per-layer trees (the trainer's per-worker leaves)."""
+    if isinstance(tree, list):
+        return tree[i]
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -175,18 +183,27 @@ def _chunks_for(cfg: ArchConfig, S: int) -> tuple[int, int]:
 
 
 def forward(params, tokens, cfg: ArchConfig, vis_embeds=None):
-    """Prefill forward -> final hidden states (B, S, D) and aux loss (0)."""
+    """Train/prefill forward -> final hidden states (B, S, D) and aux loss
+    (0 for these families); blocks rematerialised under autograd when
+    ``cfg.remat``."""
     _check_family(cfg)
     x = embedding_lookup(params["embed"], tokens)
     B, S, _ = x.shape
     q_chunk, kv_chunk = _chunks_for(cfg, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        def body(blk, x):
+            return rwkv_mod.rwkv_block_apply(blk, x, cfg)[0], aux
+    else:
+        def body(blk, x):
+            return dense_block_apply(blk, x, cfg, True, q_chunk, kv_chunk)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(n_blocks(cfg)):
         blk = _layer(params["blocks"], i)
-        if cfg.family == "ssm":
-            x, _ = rwkv_mod.rwkv_block_apply(blk, x, cfg)
-            continue
-        x, a = dense_block_apply(blk, x, cfg, True, q_chunk, kv_chunk)
+        if remat:
+            x, a = checkpoint(body, blk, x, use_reentrant=False)
+        else:
+            x, a = body(blk, x)
         aux = aux + a
     _, norm = make_norm(cfg.norm)
     x = norm(params["final_norm"], x)

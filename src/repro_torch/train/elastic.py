@@ -3,9 +3,11 @@
 Membership changes only touch (a) the policy matrix — regenerated by the
 Monitor for the new worker set — and (b) replica state — a joiner seeds its
 replica by pulling from a live neighbor (gossip IS the state-transfer
-mechanism).  The simulator engines use the two reseed forms below; the
-trainer-side ``remove_workers`` / ``add_workers`` come with the SPMD trainer
-(ROADMAP A5).
+mechanism).  The trainer's stacked state changes membership through
+``remove_workers`` / ``add_workers``; the simulator engines use the two
+reseed forms.  Every row a helper returns is a copy: no leaf aliases
+another or its input (the JAX package may alias, its arrays being
+immutable; ROADMAP C5).
 """
 
 from __future__ import annotations
@@ -15,6 +17,36 @@ import torch
 
 from repro_torch.core.policy import generate_policy_matrix
 from repro_torch.tree import tree_leaves, tree_map
+
+
+def remove_workers(params, opt_state, keep: np.ndarray):
+    """Drop rows of every stacked leaf. keep: sorted indices of survivors.
+    Scalar leaves (AdamW's step count) and leaves with fewer rows than
+    ``keep`` are copied as they are."""
+    def take(leaf):
+        idx = torch.as_tensor(np.asarray(keep), device=leaf.device).long()
+        if leaf.ndim > 0 and leaf.shape[0] >= idx.shape[0]:
+            return torch.index_select(leaf, 0, idx)
+        return leaf.clone()
+
+    return tree_map(take, params), tree_map(take, opt_state)
+
+
+def add_workers(params, opt_state, n_new: int, seed_from: int = 0):
+    """Append n_new replicas copied from worker ``seed_from`` (momentum
+    zeroed: a fresh worker has no history)."""
+    def grow_p(leaf):
+        src = leaf[seed_from:seed_from + 1]
+        return torch.cat([leaf] + [src] * n_new, dim=0)
+
+    def grow_o(leaf):
+        if leaf.ndim == 0:
+            return leaf.clone()
+        z = torch.zeros((n_new,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
+                        device=leaf.device)
+        return torch.cat([leaf, z], dim=0)
+
+    return tree_map(grow_p, params), tree_map(grow_o, opt_state)
 
 
 def reseed_row(params, opt_state, worker: int, seed_from: int):

@@ -1,0 +1,245 @@
+"""NetMax training step on stacked LM replicas, driven by an ``Algorithm``.
+
+A transcription of ``repro/train/trainer.py`` for one process and one
+device.  Parameters are *stacked* over the M NetMax workers (leading axis
+of every leaf); one round = every worker performs one Alg.-2 iteration:
+
+  1. per-worker loss and grads      (a loop over the workers; each worker's
+                                     loss reads only its own row, and its
+                                     grads land in that row; f32 sums over
+                                     micro-batches, ``microbatch_scan``)
+  2. optional clip                  (``clip_by_global_norm``)
+  3. algorithm grad reduction       (identity | all-mean | group-mean)
+  4. local optimizer step           (x_half; momenta stay worker-local)
+  5. gossip pull of pre-round x     (gather | masked_psum)
+  6. algorithm consensus mix        (``Algorithm.mix_stacked``, or the fused
+                                     tree mix ``ops.gossip_mix_tree`` -- the
+                                     gossip-mix kernel on the card, one launch
+                                     per tree -- under
+                                     ``use_gossip_mix_kernel`` when the
+                                     strategy's delta transform is the
+                                     identity)
+
+The JAX package vmaps ``value_and_grad`` over the workers; here the workers
+run one after another, so the attention kernel and its backward see one
+worker's batch at a time.  On the card every attention call goes through
+the flash-attention kernels (forward with LSE, and backward); the ssm
+family's WKV kernel has no backward yet, so training it on the card raises
+(ROADMAP B4(c)); on the CPU every family the port's models run trains.
+``pull_ppermute`` needs one process per card and raises (ROADMAP A5).
+The legacy ``TrainStepConfig`` flags (``allreduce``, ``prague_groups``)
+still select a strategy, with the JAX package's ``DeprecationWarning``s.
+"""
+
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.algos import Algorithm, get_algorithm
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.dist import gossip
+from repro_torch.kernels import ops as kops
+from repro_torch.models import lm
+from repro_torch.models.scan_utils import microbatch_scan
+from repro_torch.optim import Optimizer
+from repro_torch.optim.optimizers import clip_by_global_norm
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclass(frozen=True)
+class TrainStepConfig:
+    gossip_mode: str = "gather"  # gather | ppermute | masked_psum | none
+    allreduce: bool = False  # DEPRECATED: use algo="allreduce"
+    prague_groups: int = 0  # DEPRECATED: use algo="prague"
+    use_gossip_mix_kernel: bool = False  # the fused tree mix (the CUDA kernel)
+    grad_clip: float = 0.0
+
+
+def resolve_algorithm(algo, step_cfg: TrainStepConfig) -> Algorithm:
+    """Map the caller's strategy spec (Algorithm | name | legacy flags) to an
+    Algorithm instance."""
+    if algo is not None and (step_cfg.allreduce or step_cfg.prague_groups > 1):
+        raise ValueError(
+            "conflicting strategy specs: an explicit algo was given alongside "
+            "legacy TrainStepConfig flags (allreduce/prague_groups); drop the "
+            "flags"
+        )
+    if isinstance(algo, Algorithm):
+        return algo
+    if isinstance(algo, str):
+        return get_algorithm(algo)
+    # Legacy: derive the strategy from TrainStepConfig booleans.
+    if step_cfg.allreduce:
+        warnings.warn(
+            "TrainStepConfig(allreduce=True) is deprecated; pass "
+            "algo='allreduce' to make_train_step instead",
+            DeprecationWarning, stacklevel=3,
+        )
+        return get_algorithm("allreduce")
+    if step_cfg.prague_groups > 1:
+        warnings.warn(
+            "TrainStepConfig(prague_groups=...) is deprecated; pass "
+            "algo='prague' to make_train_step instead",
+            DeprecationWarning, stacklevel=3,
+        )
+        return get_algorithm("prague", trainer_groups=step_cfg.prague_groups)
+    # Default gossip strategy: the mixing weights arrive per round via
+    # gossip_in, so netmax covers the whole adaptive/uniform gossip family.
+    return get_algorithm("netmax")
+
+
+def _as_tensor(x, dtype, device):
+    return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+
+def make_train_step(
+    cfg: ArchConfig,
+    optimizer: Optimizer,
+    M: int,
+    algo: Algorithm | str | TrainStepConfig | None = None,
+    step_cfg: TrainStepConfig | None = None,
+):
+    """Returns train_step(params, opt_state, batch, gossip_in) ->
+    (params, opt_state, metrics).
+
+    params/opt_state leaves: (M, ...), on one device.  batch leaves:
+    (M, B/M, ...) int tensors.  gossip_in: {'neighbors': (M,) ints,
+    'weights': (M,) f32, 'lr': a number}, as numpy arrays or tensors.
+    metrics: {'loss': the mean over workers, 'loss_per_worker': (M,)}.
+
+    ``algo``: an Algorithm instance or registry name.  Passing a
+    TrainStepConfig here (the pre-registry calling convention) still works:
+    its flags select the strategy through the deprecation shim.
+    """
+    if isinstance(algo, TrainStepConfig):
+        if step_cfg is not None:
+            raise ValueError("pass TrainStepConfig once, not twice")
+        step_cfg = algo
+        algo = None
+    if step_cfg is None:
+        step_cfg = TrainStepConfig()
+    algorithm = resolve_algorithm(algo, step_cfg)
+    if not algorithm.supports_trainer:
+        raise NotImplementedError(
+            f"algorithm {algorithm.name!r} has no lockstep SPMD form; "
+            "use the event-driven simulator (train/simulator.py) instead"
+        )
+
+    def per_worker(params, batch):
+        """(losses (M,) f32, grads (M, ...) in the param dtype): worker i's
+        loss on its own row of the params, differentiated into that row."""
+        losses = torch.empty((M,), dtype=torch.float32, device=tree_leaves(batch)[0].device)
+        grads = tree_map(torch.empty_like, params)
+        for i in range(M):
+            p_i = worker_leaves(params, i, lambda leaf: leaf.detach().requires_grad_())
+            b_i = tree_map(lambda a: a[i], batch)
+            with torch.enable_grad():
+                loss = lm.loss_fn(p_i, b_i, cfg)
+                gs = torch.autograd.grad(loss, tree_leaves(p_i), allow_unused=True,
+                                         materialize_grads=True)
+            for dst, g in zip(tree_leaves(worker_leaves(grads, i)), gs):
+                dst.copy_(g)
+            losses[i] = loss.detach()
+            del loss, gs, p_i
+        return losses, grads
+
+    def gossip_pull(params, neighbors):
+        if step_cfg.gossip_mode == "gather":
+            return gossip.pull_gather(params, neighbors)
+        if step_cfg.gossip_mode == "masked_psum":
+            return gossip.pull_masked_psum(params, neighbors, M)
+        if step_cfg.gossip_mode == "ppermute":
+            return gossip.pull_ppermute(params, None, None, ())
+        raise ValueError(step_cfg.gossip_mode)
+
+    communicates = (
+        algorithm.communicates_in_trainer
+        and step_cfg.gossip_mode != "none"
+        and M > 1
+    )
+    # The fused mix hard-codes the linear mix: only for the identity delta.
+    fused_mix = (step_cfg.use_gossip_mix_kernel
+                 and type(algorithm).delta_transform is Algorithm.delta_transform)
+
+    def train_step(params, opt_state, batch, gossip_in):
+        leaves = tree_leaves(params)
+        dev = leaves[0].device
+        if cfg.family == "ssm" and dev.type == "cuda":
+            raise NotImplementedError(
+                f"{cfg.name}: training the ssm family on the card needs a backward "
+                "kernel for the WKV scan (ROADMAP B4(c)); train it on the CPU"
+            )
+        lr = gossip_in["lr"]
+        lr = float(lr) if not isinstance(lr, torch.Tensor) else lr.to(dev)
+        with torch.no_grad():
+            losses, grads = microbatch_scan(per_worker, params, batch, cfg.microbatches)
+            if step_cfg.grad_clip:
+                grads, _ = clip_by_global_norm(grads, step_cfg.grad_clip)
+            # Strategy-owned grad reduction: identity for gossip, global mean
+            # for allreduce/ps-sync, group mean for prague.
+            grads = algorithm.transform_grads(grads, M)
+            updates, opt_state = optimizer.update(grads, opt_state, params, lr)
+            del grads
+            x_half = optimizer.apply(params, updates)
+            del updates
+            if communicates:
+                # One host-to-device copy each, not one a leaf (each waits
+                # for the device).
+                neighbors = _as_tensor(gossip_in["neighbors"], torch.int64, dev)
+                weights = _as_tensor(gossip_in["weights"], torch.float32, dev)
+                pulled = gossip_pull(params, neighbors)
+                if fused_mix:
+                    new_params = kops.gossip_mix_tree(x_half, pulled, weights)
+                else:
+                    new_params = algorithm.mix_stacked(x_half, pulled, weights)
+                del pulled, x_half
+            else:
+                new_params = x_half
+        metrics = {"loss": losses.mean(), "loss_per_worker": losses}
+        return new_params, opt_state, metrics
+
+    return train_step
+
+
+def worker_leaves(params, i: int, fn=lambda leaf: leaf):
+    """Worker i's row of stacked LM params, with each layer of the stacked
+    blocks a leaf of its own (``blocks`` becomes a list of per-layer trees,
+    which ``transformer.forward`` takes as it takes the stacked form): the
+    gradient of a view of one layer of a stacked leaf would be a zero-filled
+    tensor of all layers, one per layer.  ``fn`` maps each view."""
+    out = {}
+    for k, v in params.items():
+        if k == "blocks":
+            n_layers = tree_leaves(v)[0].shape[1]
+            out[k] = [tree_map(lambda leaf: fn(leaf[i, layer]), v) for layer in range(n_layers)]
+        else:
+            out[k] = tree_map(lambda leaf: fn(leaf[i]), v)
+    return out
+
+
+def init_stacked(cfg: ArchConfig, optimizer: Optimizer, M: int, generator=None,
+                 device=None):
+    """M identical worker replicas (paper Alg. 2 line 1 allows independent
+    x_i^0; identical init is the common practical choice, as in the JAX
+    package) and the optimizer state.  The parameters are drawn from
+    ``generator`` on its device; without one, from a generator seeded 0 on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    if generator is None:
+        generator = torch.Generator(device=resolve_device(device)).manual_seed(0)
+    params1 = lm.init_params(cfg, generator)
+    params = tree_map(lambda leaf: leaf.unsqueeze(0).expand((M,) + tuple(leaf.shape))
+                      .contiguous(), params1)
+    del params1
+    return params, optimizer.init(params)
+
+
+def abstract_stacked(cfg: ArchConfig, optimizer: Optimizer, M: int):
+    """The stacked training state's shapes and dtypes, as tensors on the
+    ``meta`` device (nothing is allocated)."""
+    p1 = lm.init_params(cfg, device="meta")
+    params = tree_map(lambda leaf: leaf.unsqueeze(0).expand((M,) + tuple(leaf.shape)), p1)
+    return params, optimizer.init(params)

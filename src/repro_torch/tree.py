@@ -32,40 +32,43 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def _flatten(t, leaves: list):
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return (dict, keys, [_flatten(t[k], leaves) for k in keys])
+    if isinstance(t, (list, tuple)):
+        return (type(t), len(t), [_flatten(x, leaves) for x in t])
+    if t is None:
+        return None
+    leaves.append(t)
+    return ...
+
+
 def tree_flatten(tree):
-    """(leaves in JAX's order, treedef for ``tree_unflatten``)."""
+    """(leaves in JAX's order, treedef for ``tree_unflatten``).
+
+    The recursion is a module-level function, not a closure over itself: a
+    self-referencing closure is a reference cycle, which would keep every
+    leaf it saw alive until Python's cycle collector runs."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return (dict, keys, [walk(t[k]) for k in keys])
-        if isinstance(t, (list, tuple)):
-            return (type(t), len(t), [walk(x) for x in t])
-        if t is None:
-            return None
-        leaves.append(t)
-        return ...
 
-    return leaves, walk(tree)
+def _unflatten(d, it):
+    if d is ...:
+        return next(it)
+    if d is None:
+        return None
+    kind, keys, kids = d
+    if kind is dict:
+        return {k: _unflatten(c, it) for k, c in zip(keys, kids)}
+    out = [_unflatten(c, it) for c in kids]
+    return out if kind is list else tuple(out)
 
 
 def tree_unflatten(treedef, leaves):
     """Rebuild the tree ``tree_flatten`` described, from its leaves in order."""
-    it = iter(leaves)
-
-    def build(d):
-        if d is ...:
-            return next(it)
-        if d is None:
-            return None
-        kind, keys, kids = d
-        if kind is dict:
-            return {k: build(c) for k, c in zip(keys, kids)}
-        out = [build(c) for c in kids]
-        return out if kind is list else tuple(out)
-
-    return build(treedef)
+    return _unflatten(treedef, iter(leaves))
 
 
 def tree_leaves(tree) -> list:

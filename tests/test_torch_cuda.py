@@ -289,6 +289,147 @@ def test_cuda_flash_wrapper_checks_operands(cuda_device):
     assert fa.LAUNCHES["flash_attention"] == n0
 
 
+# The backward kernels: GQA with G = 8, MQA, causal and not, S != Sk both
+# ways, every head dim, ragged lengths, and the training shape (a
+# micro-batch of 2 x 512 tokens of tinyllama-1.1b).  Tolerance: max |err| of
+# dq, dk and dv within 1e-4 (f32) or 2e-2 (bf16) of the plain version's
+# max |grad| (f32 sums in another order; bf16 inputs, f32 math, one
+# rounding of each gradient, and the forward's bf16 output in D).
+ATTN_BWD_CASES = [
+    (1, 128, 128, 4, 4, 64, True),
+    (1, 200, 200, 32, 4, 64, True),
+    (2, 128, 128, 8, 1, 64, True),
+    (2, 100, 37, 8, 2, 128, True),
+    (1, 64, 150, 4, 2, 128, True),
+    (2, 128, 256, 4, 4, 64, False),
+    (1, 96, 96, 4, 2, 32, True),
+    (1, 100, 100, 4, 2, 160, False),
+    (2, 512, 512, 32, 4, 64, True),
+]
+ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_attention_backward_matches_plain(cuda_device, case, dtype):
+    B, S, Sk, H, Hk, hd, causal = case
+    q, k, v = (t.requires_grad_() for t in _qkv(11, B, S, Sk, H, Hk, hd, dtype, cuda_device))
+    dout = _qkv(12, B, S, S, H, H, hd, dtype, cuda_device)[0]
+    n0 = dict(fa.LAUNCHES)
+    out = ops.attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": n0["flash_attention"] + 1,
+                           "flash_attention_bwd": n0["flash_attention_bwd"] + 1}
+    want = ref.reference_attention_backward(q, k, v, dout, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= ATTN_BWD_TOL[dtype] * scale, f"d{name}: {err} against max {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_lse(cuda_device, dtype):
+    """The forward's log-sum-exp output, against the plain scores'."""
+    B, S, Sk, H, Hk, hd = 2, 100, 37, 8, 2, 64
+    q, k, v = _qkv(13, B, S, Sk, H, Hk, hd, dtype, cuda_device)
+    out, lse = fa._forward(q, k, v, True, with_lse=True)
+    G = H // Hk
+    s = torch.einsum("bshgd,bkhd->bhgsk", q.float().reshape(B, S, Hk, G, hd),
+                     k.float()) / hd ** 0.5
+    mask = torch.arange(S, device=cuda_device)[:, None] >= torch.arange(Sk, device=cuda_device)
+    want = torch.logsumexp(s.masked_fill(~mask, -1e30), dim=-1).reshape(B, H, S)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(out, fa._forward(q, k, v, True, with_lse=False)[0],
+                               atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_no_grad_runs_forward_only(cuda_device):
+    q, k, v = (t.requires_grad_() for t in _qkv(14, 1, 64, 64, 4, 2, 64, "bfloat16",
+                                                 cuda_device))
+    n0 = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        out = ops.attention(q, k, v)
+    assert not out.requires_grad and out.grad_fn is None
+    assert fa.LAUNCHES == n0 | {"flash_attention": n0["flash_attention"] + 1}
+
+
+def _tiny_hd64(dtype):
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_arch
+
+    return replace(get_arch("tinyllama-1.1b").reduced(), vocab_size=512, n_layers=2,
+                   d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=256,
+                   dtype=dtype, remat=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_train_step_matches_cpu(cuda_device, dtype):
+    """Three rounds of the trainer (flash forward and backward kernels under
+    remat, the gossip-mix tree kernel) on the card against the same rounds
+    on the CPU (the plain attention, the plain mix)."""
+    from repro_torch.core.consensus import sample_round
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import TrainStepConfig, init_stacked, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, M, lr = _tiny_hd64(dtype), 4, 0.02
+    opt = sgd(momentum=0.9, weight_decay=1e-4)
+    step = make_train_step(cfg, opt, M, "netmax",
+                           TrainStepConfig(use_gossip_mix_kernel=True))
+    params, state = init_stacked(cfg, opt, M, torch.Generator().manual_seed(0))
+    runs = {dev: (tree_map(lambda t: t.to(dev), params), tree_map(lambda t: t.to(dev), state))
+            for dev in ("cpu", "cuda")}
+    stream = TokenStream(cfg.vocab_size, 64, 4, seed=0)
+    d = np.ones((M, M)) - np.eye(M)
+    P = np.where(d > 0, 1.0 / (M - 1), 0.0)
+    rng = np.random.default_rng(0)
+    n0 = dict(fa.LAUNCHES)
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    for r in range(3):
+        batch = {k: np.stack([stream.batch(w, r)[k] for w in range(M)]).astype(np.int64)
+                 for k in ("tokens", "labels")}
+        nb, wts = sample_round(rng, P, lr, 0.5 / (2 * lr * (M - 1)), d)
+        losses = {}
+        for dev, (p, o) in runs.items():
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            p, o, m = step(p, o, b, {"neighbors": nb, "weights": wts, "lr": lr})
+            runs[dev] = (p, o)
+            losses[dev] = m["loss_per_worker"].cpu()
+        torch.testing.assert_close(losses["cuda"], losses["cpu"], rtol=tol, atol=0)
+    # Per round: M workers x 2 micro-batches x 2 layers backward calls, and
+    # twice as many forwards (remat runs each block's forward again).
+    calls = 3 * M * cfg.microbatches * cfg.n_layers
+    assert fa.LAUNCHES["flash_attention_bwd"] - n0["flash_attention_bwd"] == calls
+    assert fa.LAUNCHES["flash_attention"] - n0["flash_attention"] == 2 * calls
+    for a, b in zip(tree_leaves(runs["cpu"][0]), tree_leaves(runs["cuda"][0])):
+        scale = a.float().abs().max().item()
+        assert (b.cpu().float() - a.float()).abs().max().item() <= tol * max(scale, 1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_training_raises(cuda_device):
+    from repro_torch.configs.base import get_arch
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import init_stacked, make_train_step
+
+    cfg = get_arch("rwkv6-7b").reduced()
+    opt = sgd()
+    params, state = init_stacked(cfg, opt, 2, torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.zeros((2, 1, 16), dtype=torch.int64, device="cuda")
+             for k in ("tokens", "labels")}
+    with pytest.raises(NotImplementedError, match=r"B4\(c\)"):
+        make_train_step(cfg, opt, 2)(params, state, batch,
+                                     {"neighbors": [1, 0], "weights": [0.5, 0.5], "lr": 0.1})
+
+
 # tests/test_kernels.py RWKV_CASES, then ragged lengths (S not a multiple of
 # the chunk or of 16) and one rwkv6-7b layer of a 4 x 512 prefill.
 RWKV_CASES = [

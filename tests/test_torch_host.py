@@ -183,6 +183,8 @@ def test_imports_without_jax():
         "import repro_torch.kernels.ops, repro_torch.convert, repro_torch.algos\n"
         "import repro_torch.configs, repro_torch.models.lm, repro_torch.serve.engine\n"
         "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.train.trainer, repro_torch.train.checkpoint, repro_torch.optim\n"
+        "import repro_torch.launch.train, repro_torch.dist.gossip, repro_torch.data.loader\n"
         "from repro_torch.configs.base import all_archs; assert len(all_archs()) == 10\n"
         "print('ok')\n"
     )

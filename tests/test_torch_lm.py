@@ -160,9 +160,10 @@ def test_flash_bodies_by_dtype_and_reset():
     zeroes both counts."""
     assert tfa.BODIES == {torch.bfloat16: "tensor_core", torch.float32: "fma"}
     tfa.LAUNCHES["flash_attention"] += 2
+    tfa.LAUNCHES["flash_attention_bwd"] += 1
     tfa.BODY_LAUNCHES["tensor_core"] += 2
     tfa.reset_launches()
-    assert tfa.LAUNCHES == {"flash_attention": 0}
+    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
     assert tfa.BODY_LAUNCHES == {"tensor_core": 0, "fma": 0}
 
 
