@@ -110,7 +110,50 @@ Phases, in order; any failure exits non-zero before the result line:
 14. train parity — three rounds of the trainer on the card and on the CPU
              from the same params and draws (2 layers, d_model 256, 4/2
              heads of 64), f32 and bf16: losses and params within 1e-4 /
-             2e-2 (relative).
+             2e-2 (relative);
+15. scenarios — the JAX package's ``bench_scenarios`` on the card:
+             ``Topology.multi_cluster(32)``, ``presets.cluster_outage`` of
+             the last cluster over [5, 20) s, dead-link timeout 2 s,
+             Monitor period 3 s, netmax on the batched engine with the mix
+             kernel, 22,000 events (past 35 s of virtual time): B1 once a
+             cohort, the dead cluster's selection mass at 0 within one
+             Monitor period of the outage; events/s; then 1,500 traced
+             events on the card and on the CPU: host-side outputs
+             bit-equal, losses within 5e-4;
+16. storms — ``bench_storms``: M = 12 as 3 clusters of 4, ``storm(seed 7,
+             horizon 40, intensity 2, trigger cluster 0 at 0.8)``, netmax
+             (Monitor home cluster 0, failover) and adpsgd, 2,000 events
+             each, and a permanent outage of the home cluster (failover
+             elects a standby; no far-side pull from the dead cluster
+             after the handoff), each on the card and on the CPU: host
+             outputs bit-equal (failover log too), losses within 5e-4; B1
+             once a cohort; events per virtual second;
+17. serve chaos — ``bench_storms``' serving section on the port's
+             ``PolicyServer`` (host): 35% solver faults with deadline, retry
+             and stale answers, all served; a blackout where the breaker
+             trips and every request gets the uniform fallback; a probe
+             that closes the breaker once the faults clear;
+18. trace  — the fixture's configuration (``scripts/make_trace_fixture.py``)
+             traced on the card and on the CPU, JSONL bytes equal;
+             ``bench_trace``'s netmax run (M = 8, 3,000 events) traced on
+             the card, written to ``build/trace_smoke/`` and read back,
+             calibrated, replayed on the card (event stream and virtual
+             times exact), and one ``UpgradeLink`` what-if query;
+19. policy service — the port's ``PolicyService`` over a loopback socket:
+             a 4-shard ``ShardRouter`` behind an ``AdmissionController``,
+             graphs of M = 32, 600 requests from 4 clients, every one
+             answered; requests/s and round-trip p50/p99;
+20. device LP — ``generate_policy_matrix_batched(backend="torch")`` (the
+             float64 lockstep simplex on the card, an iteration replayed
+             as one CUDA graph) against ``backend="numpy"`` at M = 16, 32,
+             64, 128, K = R = 8, both timed: the same chosen (rho, t_bar);
+             on the sweep's own LP stack both simplexes, called directly,
+             give the same status per grid point (pivot mismatches, the
+             iterations and the read-backs printed); on
+             tests/test_revised.py:675's fixture (rng 23) statuses, pivot
+             counts and objectives equal.
+             Every time phases 15-20 print carries the card's name and
+             power limit.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, last, the
 ``{"ok": true, "device": {...}}`` line.  With ``--out DIR`` the per-case
@@ -1946,6 +1989,520 @@ def phase_train_parity(torch):
     return res
 
 
+# -- the network-dynamics and control-plane layer (phases 15-20) ------------
+
+#: phase 15: bench_scenarios at M = 32 with its small timings (outage of the
+#: last cluster over [5, 20) s, dead-link timeout 2 s, Monitor period 3 s);
+#: 22,000 events pass t1 + (t1 - t0) = 35 s on the virtual clock (the clock
+#: is host numpy, the same on every device).
+SCEN_EVENTS = 22000
+SCEN_PARITY_EVENTS = 1500
+
+
+def hetero_times(M, seed=0, slow_factor=10.0):
+    """Symmetric U(0.01, 0.05) link times, one link ``slow_factor`` x slower
+    (none when ``slow_factor`` is None): the JAX package's serve and storms
+    benches' instances (``benchmarks/run.py`` ``hetero_T``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    T = rng.uniform(0.01, 0.05, size=(M, M))
+    T = (T + T.T) / 2
+    if slow_factor is not None:
+        i, m = rng.choice(M, size=2, replace=False)
+        T[i, m] = T[m, i] = T[i, m] * slow_factor
+    np.fill_diagonal(T, 0.0)
+    return T
+
+
+def _sim_data(n_train, n_eval, M, seed=0):
+    from repro_torch.data.partition import uniform_partition
+    from repro_torch.data.synthetic import train_eval_split
+
+    x, y, ex, ey = train_eval_split(n_train, n_eval, 32, 10, seed=seed)
+    return x, y, uniform_partition(len(y), M, seed=seed), ex, ey
+
+
+def _cross_mask(topo, dead_cluster):
+    """Links touching ``dead_cluster`` across the WAN (bench_scenarios)."""
+    import numpy as np
+
+    cluster = np.array([topo.cluster_of(i) for i in range(topo.n_workers)])
+    touch = cluster == dead_cluster
+    return (touch[:, None] | touch[None, :]) & (cluster[:, None] != cluster[None, :])
+
+
+def _first_reroute(res, t0, cross):
+    """(time, refreshes) of the first publish at/after ``t0`` with no mass
+    on ``cross`` (bench_scenarios' rule); (None, n) when none."""
+    n = 0
+    for tq, _rho, P in res.policy_log:
+        if tq >= t0:
+            n += 1
+            if float(P[cross].sum()) <= 1e-12:
+                return tq, n
+    return None, n
+
+
+def _run_counted(torch, fn):
+    """``fn()`` on the card with the launch counters zeroed just before and
+    read just after; (result, wall seconds, launches)."""
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_all_launches()
+
+
+def _check_mix_launches(res, launches, what):
+    check(launches["gossip_mix_rows"] == res.cohorts,
+          f"{what}: gossip_mix_rows launched {launches['gossip_mix_rows']} times for "
+          f"{res.cohorts} cohorts (need exactly one per cohort)")
+    check(launches["rwkv_scan"] == 0 and launches["flash_attention"] == 0,
+          f"{what}: an LM kernel launched on the simulator's path: {launches}")
+
+
+def phase_scenarios(torch, card):
+    """bench_scenarios on the card: netmax, batched engine, the mix kernel,
+    through a cluster outage; B1 once a cohort, the dead cluster's
+    selection mass at 0 within one Monitor period, events/s; then a cut of
+    the run card against CPU."""
+    import numpy as np
+
+    from repro_torch.core.nettime import LinkTimeModel, Topology
+    from repro_torch.scenarios import presets
+    from repro_torch.train.simulator import SimConfig, simulate
+
+    M = N_WORKERS
+    topo = Topology.multi_cluster(M)
+    dead = topo.n_clusters - 1
+    cross = _cross_mask(topo, dead)
+    t0, t1, timeout, period = 5.0, 20.0, 2.0, 3.0
+    horizon = t1 + (t1 - t0)
+    data = _sim_data(4000, 800, M)
+
+    def run(events, dev, trace=False):
+        link = LinkTimeModel(topo, jitter=0.02, seed=5,
+                             scenario=presets.cluster_outage(dead, t0, t1),
+                             dead_link_timeout=timeout)
+        cfg = SimConfig(algorithm="netmax", n_workers=M, total_events=events, lr=0.05,
+                        batch_size=16, monitor_period=period, seed=0, engine="batched",
+                        use_mix_kernel=True, trace=trace)
+        return simulate(cfg, link, *data, record_every=max(50, events // 100), device=dev)
+
+    res, secs, launches = _run_counted(torch, lambda: run(SCEN_EVENTS, "cuda"))
+    _check_mix_launches(res, launches, "scenarios")
+    check(res.times[-1] >= horizon,
+          f"scenarios: the virtual clock reached {res.times[-1]:.2f} s < {horizon} s")
+    check(res.failed_pulls, "scenarios: the outage failed no pull")
+    check(all(map(math.isfinite, res.losses)) and res.losses[-1] < res.losses[0],
+          f"scenarios: losses {res.losses}")
+    reroute_t, refreshes = _first_reroute(res, t0, cross)
+    check(reroute_t is not None and reroute_t - t0 <= period,
+          f"scenarios: the dead cluster's selection mass reached 0 at {reroute_t} "
+          f"(outage at {t0} s, Monitor period {period} s)")
+    ts, ev = np.asarray(res.times), np.asarray(res.events)
+
+    def rate(a, b):
+        ea, eb = np.interp([a, b], ts, ev)
+        return float((eb - ea) / (b - a))
+
+    vrates = {"pre": rate(0.0, t0), "outage": rate(t0, t1), "post": rate(t1, horizon)}
+    n = res.events[-1]
+    print(f"[{card}] scenarios: netmax M = {M}, {n} events, {res.cohorts} cohorts, "
+          f"virtual {res.times[-1]:.2f} s, {len(res.failed_pulls)} failed pulls, reroute "
+          f"{reroute_t - t0:.3f} s after the outage ({refreshes} refresh), events per "
+          f"virtual s pre/outage/post {vrates['pre']:.1f}/{vrates['outage']:.1f}/"
+          f"{vrates['post']:.1f}; {secs:.3f} s wall on the card = {n / secs:.1f} events/s; "
+          f"B1 launches {launches['gossip_mix_rows']}")
+    cut = {dev: run(SCEN_PARITY_EVENTS, dev, trace=True) for dev in ("cuda", "cpu")}
+    host_outputs_equal(cut["cuda"], cut["cpu"], "scenarios parity")
+    diff = losses_close(cut["cuda"], cut["cpu"], "scenarios parity")
+    print(f"scenarios parity ({SCEN_PARITY_EVENTS} events, traced): host-side outputs "
+          f"bit-equal, max |loss diff| {diff:.3g}")
+    return {"events": n, "seconds": secs, "events_per_s": n / secs,
+            "cohorts": res.cohorts, "virtual_s": res.times[-1],
+            "failed_pulls": len(res.failed_pulls), "reroute_s": reroute_t - t0,
+            "events_per_virtual_s": vrates, "launches": launches,
+            "parity_loss_diff": diff}
+
+
+def phase_storms(torch, card):
+    """bench_storms' throughput and failover sections on the card, each
+    run also on the CPU: host outputs bit-equal, losses within 5e-4."""
+    import numpy as np
+
+    from repro_torch.core.nettime import LinkTimeModel, Topology
+    from repro_torch.scenarios import presets, storm
+    from repro_torch.train.simulator import SimConfig, simulate
+
+    M = 12
+    topo = Topology(n_workers=M, workers_per_host=2, hosts_per_pod=2,
+                    pods_per_cluster=1)  # 3 clusters of 4
+    cluster = np.array([topo.cluster_of(i) for i in range(M)])
+    data = _sim_data(3000, 600, M)
+
+    def run(algo, timeline, events, dev, *, timeout, period=1.0, failover=False):
+        link = LinkTimeModel(topo, jitter=0.02, seed=5, scenario=timeline(),
+                             dead_link_timeout=timeout)
+        kw = {}
+        if algo == "netmax":
+            kw = dict(monitor_period=period, monitor_home_cluster=0,
+                      monitor_failover=failover)
+        cfg = SimConfig(algorithm=algo, n_workers=M, total_events=events, lr=0.05,
+                        seed=3, engine="batched", use_mix_kernel=True, trace=True, **kw)
+        return simulate(cfg, link, *data, record_every=max(50, events // 20), device=dev)
+
+    def storm_tl():
+        return storm(topo, seed=7, horizon=40.0, intensity=2.0, trigger_cluster=0,
+                     trigger_time=0.8)
+
+    out, evps = {}, {}
+    t_out = 1.0
+
+    def outage_tl():
+        return presets.cluster_outage(0, t_out, 1e9)
+
+    cases = {"netmax": ("netmax", storm_tl, 2000, dict(timeout=0.5, failover=True)),
+             "adpsgd": ("adpsgd", storm_tl, 2000, dict(timeout=0.5)),
+             "failover": ("netmax", outage_tl, 1200,
+                          dict(timeout=0.4, period=0.5, failover=True))}
+    runs = {}
+    for name, (algo, tl, events, kw) in cases.items():
+        res, secs, launches = _run_counted(
+            torch, lambda: run(algo, tl, events, "cuda", **kw))
+        _check_mix_launches(res, launches, f"storms {name}")
+        cpu = run(algo, tl, events, "cpu", **kw)
+        host_outputs_equal(res, cpu, f"storms {name} parity")
+        check(res.leader_log == cpu.leader_log
+              and res.skipped_refreshes == cpu.skipped_refreshes,
+              f"storms {name} parity: Monitor failover differs")
+        diff = losses_close(res, cpu, f"storms {name} parity")
+        check(all(map(math.isfinite, res.losses)), f"storms {name}: losses {res.losses}")
+        runs[name] = res
+        evps[name] = events / res.times[-1]
+        out[name] = {"events": events, "seconds": secs, "events_per_s": events / secs,
+                     "virtual_s": res.times[-1], "events_per_virtual_s": evps[name],
+                     "failed_pulls": len(res.failed_pulls),
+                     "failovers": len(res.leader_log), "cohorts": res.cohorts,
+                     "launches": launches, "parity_loss_diff": diff}
+        print(f"[{card}] storms {name}: {events} events, virtual {res.times[-1]:.3f} s = "
+              f"{evps[name]:.2f} events per virtual s, {len(res.failed_pulls)} failed "
+              f"pulls, {len(res.leader_log)} failovers; {secs:.3f} s wall on the card = "
+              f"{events / secs:.1f} events/s; B1 launches {launches['gossip_mix_rows']}; "
+              f"card vs CPU host outputs bit-equal, max |loss diff| {diff:.3g}")
+    check(runs["netmax"].leader_log, "storms: the storm's home-cluster strike elected "
+                                     "no standby Monitor")
+    # The failover case: a standby is elected, and after the handoff no far-
+    # side worker pulls from the dead home cluster (bench_storms' rule).
+    fo = runs["failover"]
+    check(fo.leader_log, "storms failover: no standby Monitor was elected")
+    t_elect = fo.leader_log[0][0]
+    late = [t for t, i, m in fo.failed_pulls
+            if cluster[i] != 0 and cluster[m] == 0 and t > t_elect + 2 * 0.5 + 0.4]
+    reroute_t, refreshes = _first_reroute(fo, t_out, _cross_mask(topo, 0))
+    check(reroute_t is not None and not late,
+          f"storms failover: reroute at {reroute_t}, {len(late)} dead-cluster pulls "
+          "after the handoff")
+    ratio = evps["netmax"] / evps["adpsgd"]
+    print(f"storms: netmax/adpsgd events per virtual s {ratio:.4f}; failover elected "
+          f"cluster {fo.leader_log[0][1]} at {t_elect:.3f} s, rerouted after {refreshes} "
+          "refreshes, no dead-cluster pull after the handoff")
+    out["netmax_vs_adpsgd_evps"] = ratio
+    out["failover"].update(elected_t=t_elect, refreshes_to_reroute=refreshes)
+    return out
+
+
+def phase_serve_chaos(card):
+    """bench_storms' serving section on the port's PolicyServer (host
+    numpy): a 35%-fault stream all served; a blackout where the breaker
+    trips and every request gets the uniform fallback; a probe that closes
+    it once the faults clear."""
+    import numpy as np
+
+    from repro_torch.scenarios import ChaosInjector
+    from repro_torch.serve import PolicyServer
+
+    serve_M = 16
+    bases = [hetero_times(serve_M, seed=s, slow_factor=None) for s in range(3)]
+    rng = np.random.default_rng(11)
+    chaos = ChaosInjector(seed=3, solver_fail_rate=0.35)
+    srv = PolicyServer(alpha=0.1, K=6, R=6, quant=0.05, deadline_ms=2000.0,
+                       max_retries=2, backoff_ms=1.0, breaker_threshold=3,
+                       breaker_probe_every=4, chaos=chaos)
+    served = n = 0
+    t0 = time.perf_counter()
+    for _ in range(6):
+        B = bases[int(rng.integers(len(bases)))]
+        snapshot = B + rng.uniform(-1e-4, 1e-4, B.shape)
+        for _ in range(30):
+            n += 1
+            if srv.request(snapshot + rng.uniform(-1e-9, 1e-9, B.shape),
+                           tenant="stream") is not None:
+                served += 1
+    wall = time.perf_counter() - t0
+    st = srv.stats.snapshot()
+    check(served == n and chaos.n_solver_faults > 0,
+          f"serve chaos: {served}/{n} served, {chaos.n_solver_faults} faults injected")
+    blackout = ChaosInjector(seed=4, solver_fail_rate=1.0)
+    srv2 = PolicyServer(alpha=0.1, K=6, R=6, quant=0.05, deadline_ms=2000.0,
+                        max_retries=1, backoff_ms=1.0, breaker_threshold=2,
+                        breaker_probe_every=3, chaos=blackout)
+    dark = 0
+    for _ in range(12):
+        res = srv2.request(bases[0] + rng.uniform(-1e-4, 1e-4, bases[0].shape),
+                           tenant="dark")
+        dark += res is not None and not res.ok
+    tripped = srv2.stats.n_breaker_trips
+    blackout.solver_fail_rate = 0.0
+    recovered = None
+    for k in range(2 * srv2.breaker_probe_every):
+        res = srv2.request(bases[0] + rng.uniform(-1e-4, 1e-4, bases[0].shape),
+                           tenant="dark")
+        if res is not None and res.ok:
+            recovered = k + 1
+            break
+    check(dark == 12 and tripped >= 1,
+          f"serve chaos: blackout {dark}/12 served uniform, {tripped} breaker trips")
+    check(recovered is not None and srv2.stats.n_breaker_recoveries >= 1,
+          "serve chaos: no probe closed the breaker once the faults cleared")
+    print(f"[{card}] serve chaos (host): {served}/{n} served under 35% solver faults "
+          f"({chaos.n_solver_faults} injected, {st['n_retries']} retries, "
+          f"{st['n_stale_served']} stale, {st['n_uniform_fallbacks']} uniform) in "
+          f"{wall:.3f} s, p50 {srv.stats.latency_ms(0.5):.4f} ms, p99 "
+          f"{srv.stats.latency_ms(0.99):.4f} ms; blackout 12/12 uniform, breaker "
+          f"tripped {tripped}x, closed by a probe after {recovered} requests")
+    return {"requests": n, "served": served, "faults": chaos.n_solver_faults,
+            "stats": {k: v for k, v in st.items()}, "wall_s": wall,
+            "blackout_trips": tripped, "requests_to_recover": recovered}
+
+
+def phase_trace(torch, card):
+    """The trace layer on the card: the fixture's configuration traced on
+    the card and the CPU (JSONL bytes equal); bench_trace's netmax run (M =
+    8, 3000 events) exported, read back, calibrated and replayed on the
+    card (the replay exact); one what-if query."""
+    from repro_torch.core.nettime import LinkTimeModel, Topology
+    from repro_torch.scenarios import ClusterOutage, Timeline
+    from repro_torch.trace import (
+        UpgradeLink,
+        WhatIf,
+        calibrate,
+        from_sim_result,
+        read_jsonl,
+        replay_model,
+        write_jsonl,
+    )
+    from repro_torch.train.simulator import SimConfig, simulate
+
+    M = 8
+    out_dir = HERE / "build" / "trace_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # scripts/make_trace_fixture.py's configuration.
+    fix_data = _sim_data(1600, 400, M)
+    blobs = {}
+    for dev in ("cuda", "cpu"):
+        topo = Topology.multi_cluster(M, workers_per_host=2, hosts_per_pod=1,
+                                      pods_per_cluster=2)
+        link = LinkTimeModel(topo, jitter=0.05, seed=5,
+                             scenario=Timeline([ClusterOutage(1, 2.0, 4.0)]),
+                             dead_link_timeout=2.0)
+        cfg = SimConfig(algorithm="netmax", n_workers=M, total_events=600, lr=0.05,
+                        monitor_period=1.5, seed=0, trace=True, use_mix_kernel=True)
+        res = simulate(cfg, link, *fix_data, record_every=200, device=dev)
+        path = out_dir / f"fixture_{dev}.jsonl"
+        write_jsonl(from_sim_result(res, cfg=cfg, link_model=link), path)
+        blobs[dev] = path.read_bytes()
+    check(blobs["cuda"] == blobs["cpu"],
+          "trace: the card's trace at the fixture's configuration differs from the CPU's")
+    # bench_trace's configuration.
+    topo = Topology(n_workers=M, workers_per_host=4, hosts_per_pod=1)
+    data = _sim_data(4000, 800, M)
+    events = 3000
+
+    def run(link):
+        cfg = SimConfig(algorithm="netmax", n_workers=M, total_events=events, lr=0.01,
+                        monitor_period=10.0, seed=0, trace=True, use_mix_kernel=True)
+        return simulate(cfg, link, *data, record_every=events // 20, device="cuda"), cfg
+
+    link = LinkTimeModel(topo, jitter=0.02, seed=5, slowdown_range=(2.0, 100.0),
+                         slow_interval=120.0)
+    (res, cfg), secs, launches = _run_counted(torch, lambda: run(link))
+    _check_mix_launches(res, launches, "trace")
+    path = out_dir / "netmax_M8.jsonl"
+    trace = from_sim_result(res, cfg=cfg, link_model=link)
+    write_jsonl(trace, path)
+    back = read_jsonl(path)
+    check(back.records == trace.records and back.meta == trace.meta,
+          "trace: the JSONL round trip changed records")
+    cal = calibrate(back)
+    (rep, _), rsecs, rlaunches = _run_counted(torch, lambda: run(replay_model(back, cal)))
+    _check_mix_launches(rep, rlaunches, "trace replay")
+    check(rep.trace_events == res.trace_events and rep.times == res.times,
+          "trace: the replay is not exact")
+    session = WhatIf(back, cal, cfg, data, record_every=events // 20, device="cuda")
+    t0 = time.perf_counter()
+    up = session.query(UpgradeLink(0, M // 2, speedup=4.0))
+    wsecs = time.perf_counter() - t0
+    check(up.baseline_wall_clock == rep.times[-1],
+          "trace: the what-if baseline is not the replay")
+    print(f"[{card}] trace: fixture configuration card == CPU ({len(blobs['cuda'])} "
+          f"bytes of JSONL); netmax M = {M}, {events} events traced in {secs:.3f} s on "
+          f"the card ({events / secs:.1f} events/s), {len(back.records)} records read "
+          f"back from {path.relative_to(HERE)}; calibration accuracy "
+          f"{1.0 - cal.residual:.6f} ({cal.n_pulls} pulls); replay exact "
+          f"({rsecs:.3f} s); what-if '{up.mutation}': wall clock "
+          f"{up.baseline_wall_clock:.3f} -> {up.mutated_wall_clock:.3f} virtual s "
+          f"({up.wall_clock_speedup:.4f}x) in {wsecs:.3f} s; B1 launches "
+          f"{launches['gossip_mix_rows']} + {rlaunches['gossip_mix_rows']} (replay)")
+    return {"fixture_bytes": len(blobs["cuda"]), "events": events, "seconds": secs,
+            "events_per_s": events / secs, "calibration_accuracy": 1.0 - cal.residual,
+            "replay_exact": True, "replay_s": rsecs,
+            "whatif": {"mutation": up.mutation, "speedup": up.wall_clock_speedup,
+                       "seconds": wsecs},
+            "launches": launches, "replay_launches": rlaunches}
+
+
+def phase_policy_service(card):
+    """The port's PolicyService over a loopback socket: a 4-shard router
+    behind admission control, served graphs of M = 32, 600 requests from 4
+    client threads; every request answered."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.serve import (
+        AdmissionController,
+        PolicyClient,
+        PolicyService,
+        ShardRouter,
+    )
+
+    M, n_requests, n_clients = 32, 600, 4
+
+    def ring_d(chord):
+        d = np.zeros((M, M))
+        for i in range(M):
+            d[i, (i + 1) % M] = d[(i + 1) % M, i] = 1.0
+        d[chord[0], chord[1]] = d[chord[1], chord[0]] = 1.0
+        return d
+
+    edge_sets = [None] + [ring_d((0, 2 + k)) for k in range(7)]
+    insts = [hetero_times(M, seed=j) for j in range(len(edge_sets))]
+    router = ShardRouter.build(4, 0.1, K=8, R=8, quant=0.05)
+    adm = AdmissionController(router, max_queue=64, workers=4)
+    svc = PolicyService(adm).start()
+    per_client = n_requests // n_clients
+    lat = [[] for _ in range(n_clients)]
+    answered = [0] * n_clients
+
+    def drive(k):
+        with PolicyClient(svc.address) as cli:
+            for i in range(per_client):
+                j = (k * per_client + i) % len(edge_sets)
+                t = time.perf_counter()
+                res = cli.request(insts[j], d=edge_sets[j], tenant=f"c{k}-e{j}",
+                                  deadline_ms=30_000.0)
+                lat[k].append((time.perf_counter() - t) * 1e3)
+                answered[k] += res is not None
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=drive, args=(k,)) for k in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    svc.stop()
+    adm.close()
+    ms = np.concatenate([np.asarray(v) for v in lat])
+    st = router.stats()
+    check(sum(answered) == n_requests,
+          f"policy service: {sum(answered)}/{n_requests} requests answered")
+    p50, p99 = float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+    print(f"[{card}] policy service (host, loopback): 4 shards + admission, M = {M}, "
+          f"{n_requests}/{n_requests} answered by {n_clients} clients in {wall:.3f} s = "
+          f"{n_requests / wall:.1f} requests/s; round trip p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; {st['n_solves']} solves, hit rate {st['hit_rate']:.4f}, "
+          f"{adm.stats.n_shed} shed")
+    return {"requests": n_requests, "answered": sum(answered), "wall_s": wall,
+            "requests_per_s": n_requests / wall, "p50_ms": p50, "p99_ms": p99,
+            "solves": st["n_solves"], "hit_rate": st["hit_rate"],
+            "shed": adm.stats.n_shed}
+
+
+#: phase 20: the batched Eq.-14 sweep's sizes; K = R = 8, alpha 0.1.
+LP_SIZES = (16, 32, 64, 128)
+
+
+def phase_device_lp(torch, card):
+    """``generate_policy_matrix_batched(backend="torch")`` on the card
+    against ``backend="numpy"``, both timed: the same chosen (rho, t_bar)
+    at M = 16..128.  On the sweep's own LP stack (``policy._eq14_grid_stack``)
+    the device simplex and the numpy simplex give the same status per grid
+    point; pivot counts equal on tests/test_revised.py:675's fixture."""
+    import numpy as np
+
+    from repro_torch.core import policy
+    from repro_torch.solver import batch, batch_torch
+
+    # Warm-up: the sweep's kernels and the inverse's solver libraries
+    # (first loaded at the first scheduled refactor otherwise).
+    policy.generate_policy_matrix_batched(0.1, 8, 8, hetero_times(8), backend="torch")
+    torch.linalg.inv_ex(torch.eye(4, dtype=torch.float64, device="cuda")[None])
+    torch.cuda.synchronize()
+    rows = {}
+    for M in LP_SIZES:
+        T = hetero_times(M)
+        res, secs = {}, {}
+        for key in ("numpy", "torch"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[key] = policy.generate_policy_matrix_batched(0.1, 8, 8, T, backend=key)
+            secs[key] = time.perf_counter() - t0
+        check((res["torch"].rho, res["torch"].t_bar) == (res["numpy"].rho, res["numpy"].t_bar),
+              f"device LP M = {M}: chosen grid points differ")
+        inst, _, _, b, lb, _ = policy._eq14_grid_stack(0.1, 8, 8, T, np.ones((M, M)) - np.eye(M))
+        a = batch.solve_lp_batch(inst.c, inst.A, b, lb_stack=lb, ub_stack=inst.ub)
+        sol = batch_torch.make_solver(inst.c, inst.A, b, lb, inst.ub)
+        _, status, pivots = sol.solve()
+        got = [(batch._STATUS[int(st)], int(pv)) for st, pv in zip(status.cpu(), pivots.cpu())]
+        check([r.status for r in a] == [g[0] for g in got],
+              f"device LP M = {M}: statuses differ per grid point")
+        mism = [s for s, (r, g) in enumerate(zip(a, got)) if r.pivots != g[1]]
+        rows[M] = {"instances": len(a), "numpy_s": secs["numpy"], "torch_s": secs["torch"],
+                   "pivots": res["numpy"].n_pivots, "pivot_mismatches": mism,
+                   "max_pivots": max(r.pivots for r in a), "iterations": sol.iterations,
+                   "readbacks": sol.readbacks, "rollbacks": sol.rollbacks}
+        print(f"[{card}] device LP M = {M}: {len(a)} grid LPs, {res['numpy'].n_pivots} "
+              f"pivots (most {rows[M]['max_pivots']} in one), numpy "
+              f"{secs['numpy']:.3f} s, torch on the card {secs['torch']:.3f} s "
+              f"({secs['numpy'] / secs['torch']:.2f}x); {sol.iterations} iterations, "
+              f"{sol.readbacks} read-backs, {sol.rollbacks} windows rolled back; statuses "
+              f"and grid point equal; pivot-count mismatches: {mism or 'none'}")
+    rng = np.random.default_rng(23)
+    n, m, S = 10, 4, 12
+    A = rng.normal(size=(m, n))
+    c = rng.normal(size=n)
+    b = np.stack([A @ rng.uniform(0.1, 0.9, size=n) for _ in range(S - 2)]
+                 + [rng.normal(size=m), rng.normal(size=m)])
+    lb = np.zeros((S, n))
+    lb[3] = 0.05
+    ub = np.ones((S, n))
+    ref = batch.solve_lp_batch(c, A, b, lb_stack=lb, ub_stack=ub)
+    got = batch_torch.solve_lp_batch_torch(c, A, b, lb_stack=lb, ub_stack=ub)
+    check([r.status for r in got] == [r.status for r in ref]
+          and [r.pivots for r in got] == [r.pivots for r in ref]
+          and all(abs(g.fun - r.fun) <= 1e-9 * max(1.0, abs(r.fun))
+                  for g, r in zip(got, ref) if r.ok),
+          "device LP: the rng-23 fixture differs from numpy in status, pivots or "
+          "objective")
+    print(f"device LP: rng-23 fixture (n 10, m 4, S 12) statuses, pivot counts "
+          f"{[r.pivots for r in got]} and objectives equal to numpy")
+    return {"sizes": rows, "rng23_pivots": [r.pivots for r in got]}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -1990,6 +2547,12 @@ def main() -> int:
         summaries.append(phase_flash_bwd(torch, hbm_rate(name), name, records))
         train_path = phase_train(torch)
         train_path["parity"] = phase_train_parity(torch)
+        dynamics = {"scenarios": phase_scenarios(torch, card),
+                    "storms": phase_storms(torch, card),
+                    "serve_chaos": phase_serve_chaos(card),
+                    "trace": phase_trace(torch, card),
+                    "policy_service": phase_policy_service(card),
+                    "device_lp": phase_device_lp(torch, card)}
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1999,6 +2562,17 @@ def main() -> int:
                "flash_attention_bwd": train_path}
     for s in summaries:
         s["launches"] = path_of[s["name"]]["launches"][s["name"]]
+    # B1 on the network-dynamics paths (phases 15, 16 and 18), each run's
+    # counts zeroed just before it and read just after.
+    storms, tr = dynamics["storms"], dynamics["trace"]
+    b1_paths = {"scenarios": dynamics["scenarios"]["launches"],
+                **{f"storms_{k}": storms[k]["launches"]
+                   for k in ("netmax", "adpsgd", "failover")},
+                "trace": tr["launches"], "trace_replay": tr["replay_launches"]}
+    for s in summaries:
+        if s["name"] == "gossip_mix_rows":
+            s["launches_network_dynamics"] = {
+                k: v["gossip_mix_rows"] for k, v in b1_paths.items()}
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # The contract's keys in order, then a kernel's own (B1: u given, and the
@@ -2011,7 +2585,8 @@ def main() -> int:
             {"card": card, "device": name, "build": build_info, "kernels": kernels,
              "cases": records,
              "main_path": main_path, "algos": algos, "lm_path": lm_path,
-             "ssm_path": ssm_path, "train_path": train_path},
+             "ssm_path": ssm_path, "train_path": train_path,
+             "network_dynamics": dynamics},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -440,67 +440,16 @@ def generate_policy_matrix(
     return best
 
 
-def generate_policy_matrix_batched(
-    alpha: float,
-    K: int,
-    R: int,
-    T: np.ndarray,
-    d: np.ndarray | None = None,
-    eps: float = 1e-2,
-    backend: str = "numpy",
-) -> PolicyResult:
-    """Algorithm 3 with the whole (rho, t_bar) grid solved in one dispatch.
+def _eq14_grid_stack(alpha: float, K: int, R: int, Tm: np.ndarray, d: np.ndarray):
+    """The batched sweep's LP stack: one Eq.-14 skeleton and, per (rho,
+    t_bar) grid point that survives the feasibility pre-filter, a
+    right-hand side and rho floors.
 
-    Semantically ``generate_policy_matrix`` (same grid, same feasibility
-    pre-filter, same scoring), but every surviving grid point becomes one
-    instance of a lockstep batched simplex (``repro.solver.batch``) — all
-    points price and ratio-test together in stacked GEMMs — and all
-    feasible policies are scored with a single stacked ``eigvalsh``.
-
-    ``backend`` selects the lockstep engine: ``"numpy"`` (the only one in
-    this package so far) is the host path.  The JAX package's ``"jax"``
-    device program has no counterpart here yet: the CUDA lockstep simplex
-    (``backend="torch"``, ROADMAP A7) comes later, and any other backend
-    raises ``ValueError``.
-
-    Numerics follow a different summation order than the serial sweep, so
-    the selected grid point matches the serial path up to solver tolerance
-    (exactly, away from near-ties), not bit-for-bit — engine-parity
-    callers keep the serial path.  Best suited to small/medium M where the
-    grid, not one LP, dominates; at large M the serial warm-start sweep's
-    dual restarts are cheaper than lockstep cold starts.
+    Returns ``(inst, rho_s, tb_s, b, lb, grid)``: ``b`` is (S, 2M), ``lb``
+    (S, n), and ``grid`` holds the pre-filtered points as
+    ``(rho, t_bar, None, inf)``.  ``d`` must leave every worker live.
     """
-    if backend != "numpy":
-        raise ValueError(
-            f"batched-sweep backend {backend!r} is not available in "
-            "repro_torch: only 'numpy' is ported; the torch device backend "
-            "(ROADMAP A7) comes later"
-        )
-    T = np.asarray(T, dtype=np.float64)
-    M = T.shape[0]
-    if d is None:
-        d = np.ones((M, M)) - np.eye(M)
-    d = np.asarray(d, dtype=np.float64).copy()
-    dead = ~np.isfinite(T)
-    d[dead] = 0.0
-    d[dead.T] = 0.0
-    Tm = np.where(np.isfinite(T), T, 0.0)
-    np.fill_diagonal(d, 0.0)
-    live = np.where(d.sum(axis=1) > 0)[0]
-    if 0 < live.size < M:
-        sub = generate_policy_matrix_batched(
-            alpha, K, R, Tm[np.ix_(live, live)], d[np.ix_(live, live)], eps,
-            backend=backend,
-        )
-        P = np.zeros((M, M))
-        P[np.ix_(live, live)] = sub.P
-        return PolicyResult(
-            P, sub.rho, sub.t_bar, sub.lambda2, sub.T_convergence,
-            sub.n_lp_solved, sub.n_lp_feasible, sub.grid,
-            basis=sub.basis, n_pivots=sub.n_pivots,
-            n_warm_used=sub.n_warm_used, n_solves=sub.n_solves,
-        )
-
+    M = Tm.shape[0]
     U_rho = _rho_grid_upper(alpha, Tm, d)
     delta = U_rho / K
     inst = _build_eq14(Tm, d)
@@ -520,23 +469,99 @@ def generate_policy_matrix_batched(
                 grid.append((rho, t_bar, None, np.inf))
             else:
                 cand.append((rho, t_bar))
+    S = len(cand)
+    rho_s = np.array([c0 for c0, _ in cand])
+    tb_s = np.array([c1 for _, c1 in cand])
+    b = np.zeros((S, 2 * M))
+    b[:, :M] = (M * tb_s)[:, None]
+    b[:, M:] = 1.0
+    lb = np.zeros((S, inst.n))
+    if S:
+        lb[:, inst.pos] = alpha * rho_s[:, None] * inst.dsym[None, :] + _FLOOR_MARGIN
+    return inst, rho_s, tb_s, b, lb, grid
 
+
+def generate_policy_matrix_batched(
+    alpha: float,
+    K: int,
+    R: int,
+    T: np.ndarray,
+    d: np.ndarray | None = None,
+    eps: float = 1e-2,
+    backend: str = "numpy",
+    device=None,
+) -> PolicyResult:
+    """Algorithm 3 with the whole (rho, t_bar) grid solved in one dispatch.
+
+    Semantically ``generate_policy_matrix`` (same grid, same feasibility
+    pre-filter, same scoring), but every surviving grid point becomes one
+    instance of a lockstep batched simplex (``repro.solver.batch``) — all
+    points price and ratio-test together in stacked GEMMs — and all
+    feasible policies are scored with a single stacked ``eigvalsh``.
+
+    ``backend`` selects the lockstep engine: ``"numpy"`` (default) is the
+    host path; ``"torch"`` runs the same stack as the float64 device
+    simplex of ``repro_torch.solver.batch_torch`` on ``device`` (CUDA by
+    default, raising without a card; ``device="cpu"`` for the CPU), the
+    counterpart of the JAX package's ``"jax"`` program -- same pivot
+    rules, so both backends pick the same grid point away from near-ties.
+    Any other backend raises ``ValueError``.
+
+    Numerics follow a different summation order than the serial sweep, so
+    the selected grid point matches the serial path up to solver tolerance
+    (exactly, away from near-ties), not bit-for-bit — engine-parity
+    callers keep the serial path.  Best suited to small/medium M where the
+    grid, not one LP, dominates; at large M the serial warm-start sweep's
+    dual restarts are cheaper than lockstep cold starts.
+    """
+    if backend not in ("numpy", "torch"):
+        raise ValueError(
+            f"unknown batched-sweep backend {backend!r}: this package has "
+            "'numpy' and the torch device backend 'torch'"
+        )
+    if backend == "torch":
+        from repro_torch.device import resolve_device
+
+        device = resolve_device(device)  # raises here without a card
+    T = np.asarray(T, dtype=np.float64)
+    M = T.shape[0]
+    if d is None:
+        d = np.ones((M, M)) - np.eye(M)
+    d = np.asarray(d, dtype=np.float64).copy()
+    dead = ~np.isfinite(T)
+    d[dead] = 0.0
+    d[dead.T] = 0.0
+    Tm = np.where(np.isfinite(T), T, 0.0)
+    np.fill_diagonal(d, 0.0)
+    live = np.where(d.sum(axis=1) > 0)[0]
+    if 0 < live.size < M:
+        sub = generate_policy_matrix_batched(
+            alpha, K, R, Tm[np.ix_(live, live)], d[np.ix_(live, live)], eps,
+            backend=backend, device=device,
+        )
+        P = np.zeros((M, M))
+        P[np.ix_(live, live)] = sub.P
+        return PolicyResult(
+            P, sub.rho, sub.t_bar, sub.lambda2, sub.T_convergence,
+            sub.n_lp_solved, sub.n_lp_feasible, sub.grid,
+            basis=sub.basis, n_pivots=sub.n_pivots,
+            n_warm_used=sub.n_warm_used, n_solves=sub.n_solves,
+        )
+
+    inst, rho_s, tb_s, b, lb, grid = _eq14_grid_stack(alpha, K, R, Tm, d)
     best: PolicyResult | None = None
     n_pivots = 0
     n_feasible = 0
-    if cand:
-        from repro_torch.solver.batch import solve_lp_batch as _batch
+    if len(rho_s):
+        if backend == "torch":
+            from functools import partial
 
-        S = len(cand)
-        rho_s = np.array([c0 for c0, _ in cand])
-        tb_s = np.array([c1 for _, c1 in cand])
-        b = np.zeros((S, 2 * M))
-        b[:, :M] = (M * tb_s)[:, None]
-        b[:, M:] = 1.0
-        lb = np.zeros((S, inst.n))
-        lb[:, inst.pos] = (
-            alpha * rho_s[:, None] * inst.dsym[None, :] + _FLOOR_MARGIN
-        )
+            from repro_torch.solver.batch_torch import solve_lp_batch_torch
+
+            _batch = partial(solve_lp_batch_torch, device=device)
+        else:
+            from repro_torch.solver.batch import solve_lp_batch as _batch
+
         results = _batch(inst.c, inst.A, b, lb_stack=lb, ub_stack=inst.ub)
         n_pivots = int(sum(r.pivots for r in results))
         Ps, feas = [], []
@@ -574,11 +599,11 @@ def generate_policy_matrix_batched(
         best = PolicyResult(
             P, rho, tbar, lam2, theory.convergence_time(tbar, lam2, eps)
         )
-    best.n_lp_solved = len(cand)
+    best.n_lp_solved = len(rho_s)
     best.n_lp_feasible = n_feasible
     best.grid = grid
     best.n_pivots = n_pivots
-    best.n_solves = len(cand)
+    best.n_solves = len(rho_s)
     return best
 
 

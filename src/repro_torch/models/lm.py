@@ -2,7 +2,7 @@
 
 A transcription of ``repro/models/lm.py`` for the decoder families: the
 dense and ssm families run, the others (and the audio family, whisper)
-raise ``NotImplementedError`` in ``models/transformer.py`` (ROADMAP A8).  The
+raise ``NotImplementedError`` in ``models/transformer.py`` (ROADMAP A6).  The
 loss is taken in sequence chunks so the (B, S, V) logits are never held at
 once, in plain torch as the JAX package's ``lax.scan`` over chunks (no
 kernel there either).

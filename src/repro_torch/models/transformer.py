@@ -19,7 +19,7 @@ forward: under autograd with ``cfg.remat`` each block runs under
 scan body), so only the blocks' inputs are kept and each block's forward
 runs again in the backward pass; with grad disabled (serving) nothing
 changes.  The moe, hybrid and audio families, the ``every_2`` MoE interleave
-and vision tokens are not ported yet (ROADMAP A8): they raise
+and vision tokens are not ported yet (ROADMAP A6): they raise
 ``NotImplementedError``.
 """
 
@@ -53,13 +53,13 @@ def _dt(cfg):
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family in ("moe", "hybrid", "audio") or cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP A8); "
+            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP A6); "
             "the port runs the dense and ssm families"
         )
     if cfg.n_vis_tokens:
         raise NotImplementedError(
             f"{cfg.name}: vision tokens (n_vis_tokens={cfg.n_vis_tokens}) are not "
-            "ported yet (ROADMAP A8)"
+            "ported yet (ROADMAP A6)"
         )
 
 
@@ -87,7 +87,7 @@ def _layer(tree, i):
 
 def dense_block_init(gen, cfg: ArchConfig, dtype, use_moe: bool = False, device=None):
     if use_moe:
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP A8)")
+        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP A6)")
     device = gen.device if device is None else torch.device(device)
     norm_init, _ = make_norm(cfg.norm)
     return {

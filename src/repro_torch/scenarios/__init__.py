@@ -1,11 +1,12 @@
 """Network-dynamics scenarios: declarative timelines of outages, link
 degradation, and worker churn, compiled into the piecewise link-state
-machine that ``core.nettime.LinkTimeModel`` executes.
+machine that ``core.nettime.LinkTimeModel`` executes; the seeded
+generators (``presets``, ``hazard``) and control-plane fault injection
+(``chaos``), copied from the JAX package's numpy modules."""
 
-Ported so far: ``timeline`` and the engines' shared ``driver``.  The
-seeded generators (``presets``, ``hazard``) and ``chaos`` are ROADMAP A1
-work still open."""
-
+from repro_torch.scenarios import presets
+from repro_torch.scenarios.chaos import ChaosError, ChaosInjector
+from repro_torch.scenarios.hazard import HazardConfig, hazard_timeline, storm
 from repro_torch.scenarios.timeline import (
     ACTION_EVENTS,
     ClusterOutage,
@@ -19,11 +20,17 @@ from repro_torch.scenarios.timeline import (
 
 __all__ = [
     "ACTION_EVENTS",
+    "ChaosError",
+    "ChaosInjector",
     "ClusterOutage",
     "CompiledTimeline",
+    "HazardConfig",
     "LinkDegrade",
     "ScenarioCursor",
     "Timeline",
     "WorkerLeave",
     "WorkerRejoin",
+    "hazard_timeline",
+    "presets",
+    "storm",
 ]

@@ -634,3 +634,42 @@ def test_cuda_rwkv_wrapper_checks_operands(cuda_device):
     with pytest.raises(RuntimeError, match="forward only"):
         rs.rwkv_scan(r.requires_grad_(), k, v, w, u)
     assert rs.LAUNCHES["rwkv_scan"] == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("piv_min", [None, 0.3], ids=["default", "tiny-pivots"])
+def test_cuda_lp_device_walks_the_numpy_path(cuda_device, piv_min, monkeypatch):
+    """The float64 device simplex on the card against the numpy lockstep
+    simplex on tests/test_revised.py:675's fixture (rng 23, n 10, m 4,
+    S 12): the same statuses and pivot counts, objectives within 1e-9;
+    and by default (no ``device``) it runs on the card.  The witness is
+    the port's numpy simplex (this file imports nothing of the JAX
+    package), which tests/test_torch_lp_device.py holds bit-equal to the
+    JAX package's.  With the tiny-pivot threshold raised to 0.3 in both,
+    windows of the CUDA graph are rolled back and run again."""
+    from repro_torch.solver import batch, batch_torch
+    from repro_torch.solver.batch_torch import solve_lp_batch_torch
+
+    if piv_min is not None:
+        monkeypatch.setattr(batch, "_PIV_MIN", piv_min)
+        monkeypatch.setattr(batch_torch, "_PIV_MIN", piv_min)
+    rng = np.random.default_rng(23)
+    n, m, S = 10, 4, 12
+    A = rng.normal(size=(m, n))
+    c = rng.normal(size=n)
+    b = np.stack([A @ rng.uniform(0.1, 0.9, size=n) for _ in range(S - 2)]
+                 + [rng.normal(size=m), rng.normal(size=m)])
+    lb = np.zeros((S, n))
+    lb[3] = 0.05
+    ub = np.ones((S, n))
+    ref = batch.solve_lp_batch(c, A, b, lb_stack=lb, ub_stack=ub)
+    for dev in (cuda_device, None):
+        got = solve_lp_batch_torch(c, A, b, lb_stack=lb, ub_stack=ub, device=dev)
+        assert [g.status for g in got] == [r.status for r in ref]
+        assert [g.pivots for g in got] == [r.pivots for r in ref]
+        for g, r in zip(got, ref):
+            if r.ok:
+                assert g.fun == pytest.approx(r.fun, rel=1e-9, abs=1e-9)
+    sol = batch_torch.make_solver(c, A, b, lb, ub, device=cuda_device)
+    sol.solve()
+    assert sol.graph is None and (sol.rollbacks > 0) == (piv_min is not None)

@@ -185,6 +185,10 @@ def test_imports_without_jax():
         "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
         "import repro_torch.train.trainer, repro_torch.train.checkpoint, repro_torch.optim\n"
         "import repro_torch.launch.train, repro_torch.dist.gossip, repro_torch.data.loader\n"
+        "import repro_torch.scenarios, repro_torch.core.matching, repro_torch.trace\n"
+        "import repro_torch.serve.policy, repro_torch.serve.shard\n"
+        "import repro_torch.serve.admission, repro_torch.serve.rpc\n"
+        "import repro_torch.solver.batch_torch\n"
         "from repro_torch.configs.base import all_archs; assert len(all_archs()) == 10\n"
         "print('ok')\n"
     )

@@ -376,9 +376,9 @@ def test_random_init_has_the_jax_layout():
 @pytest.mark.parametrize("name", NOT_DENSE)
 def test_other_families_raise_not_implemented(name):
     cfg = torch_archs()[name].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tlm.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tlm.init_cache(cfg, 1, 8, device="cpu")
 
 
