@@ -14,7 +14,10 @@ Phases, in order; any failure exits non-zero before the result line:
              WKV instantiation must have some;
 3. kernels — every hand-written kernel against its plain torch version on
              the card, at the test shapes, the main path's shapes and a
-             large shape.  The gossip mix also as a tree launch (one launch
+             large shape (flash attention also at the shapes phases 21-25
+             launch: whisper's encoder, non-causal S = 1500, and its
+             cross-attention, 64 x 1500, in f32; G = 5 at hd 128, G = 7 at
+             hd 64 and G = 4 at hd 128 in bf16).  The gossip mix also as a tree launch (one launch
              per dtype group of up to 48 leaves) on ``tree_cases()`` --
              the MLP tree in f32, bf16 and f16, leaves off 16-byte
              boundaries, n = 10 and n = 1, rows of 70,000, R = 1, mixed
@@ -154,6 +157,37 @@ Phases, in order; any failure exits non-zero before the result line:
              counts and objectives equal.
              Every time phases 15-20 print carries the card's name and
              power limit.
+21-25. families — LM serving of the remaining families at their
+             published widths, bf16, random weights from seed 0, each
+             phase's parameters freed before the next: phi3.5-moe (21; 8
+             of 32 layers), llama4-maverick's every_2 interleave (22; one
+             period, 2 of 48 layers), jamba-v0.1 (23; one period, 8 of 32
+             layers: 7 mamba, 1 attention, 4 MoE), whisper-small (24; full
+             depth, 4 x 1500 f32 stub frames and 4 x 64 tokens) and
+             internvl2-1b (25; full depth, 256 f32 stub vision tokens
+             before 512 text tokens).  ``lm.prefill_logits`` on 4 x 512
+             text tokens twice, ``capture_prefill`` of 4 x 64 into a
+             128-token cache (not for whisper and internvl2, where it
+             raises, ROADMAP C8) and ``ServeEngine.run`` of 4 requests
+             (prompt 32, 16 new).  The launch counters are zeroed just
+             before and read just after: flash attention launches 8 / 2 /
+             1 / 36 / 24 times a forward (whisper: its encoder and cross-
+             attention on the f32 FMA body, the f32 frames promoted as JAX
+             does, its self-attention on the tensor cores; the rest all on
+             the tensor cores) and no other kernel launches; logits finite,
+             tokens in the vocab, the captured K/V (and Jamba's mamba
+             states) finite and non-zero.  Prints the slots the MoE
+             capacity dropped, the expert bytes a decode step reads, peak
+             memory and a profiled prefill and 8 decode steps;
+26. family parity — each of the five at its reduced() config with
+             d_model 256 and head_dim 64, f32 then bf16: prefill logits on
+             the card and on the CPU within 1e-3 / 2e-2 of max |logit|,
+             flash attention's launches a prefill (and their bodies) as in
+             phases 21-25 at the cut's depth; for phi3.5, llama4 and Jamba
+             the card's decode of token 63 after ``capture_prefill`` of
+             tokens 0..62 against the prefill logits of 0..63 at a capacity
+             that drops no slot, within 1e-3 of max |logit| in f32 (the
+             bf16 gap printed).
 
 Prints one ``{"kernels": [...]}`` JSON line, then, last, the
 ``{"ok": true, "device": {...}}`` line.  With ``--out DIR`` the per-case
@@ -221,6 +255,15 @@ ATTN_CASES = [(1, 128, 128, 4, 4, 64, True, "float32"),
               (1, 200, 200, 32, 4, 64, True, "bfloat16"),
               (2, 128, 256, 4, 4, 64, False, "bfloat16"),
               (1, 128, 128, 4, 1, 32, True, "bfloat16")]
+#: The shapes the families of phases 21-25 launch (B = 4): whisper's
+#: encoder (non-causal, ragged S = 1500, f32) and cross-attention (64
+#: queries against 1500 keys, f32), llama4 (G = 5, hd 128), internvl2 (G = 7,
+#: hd 64, 256 vision + 512 text tokens), phi3.5 and Jamba (G = 4, hd 128).
+ATTN_FAMILY_CASES = [(4, 1500, 1500, 12, 12, 64, False, "float32"),
+                     (4, 64, 1500, 12, 12, 64, False, "float32"),
+                     (4, 512, 512, 40, 8, 128, True, "bfloat16"),
+                     (4, 768, 768, 14, 2, 64, True, "bfloat16"),
+                     (4, 512, 512, 32, 8, 128, True, "bfloat16")]
 ATTN_MAIN = (4, 512, 512, 32, 4, 64, True, "bfloat16")
 ATTN_LARGE = (1, 8192, 8192, 32, 4, 64, True, "bfloat16")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -736,8 +779,8 @@ def phase_flash(torch, rate, name, records):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
-    for role, cases in (("test", ATTN_CASES), ("main", [ATTN_MAIN]),
-                        ("large", [ATTN_LARGE])):
+    for role, cases in (("test", ATTN_CASES), ("family", ATTN_FAMILY_CASES),
+                        ("main", [ATTN_MAIN]), ("large", [ATTN_LARGE])):
         for case in cases:
             B, S, Sk, H, Hk, hd, causal, dtype = case
             dt = getattr(torch, dtype)
@@ -760,7 +803,8 @@ def phase_flash(torch, rate, name, records):
             t_ops = flops / flop_rate(name, dtype) * 1e3
             t_bytes = nbytes / rate * 1e3
             rec = {"kernel": "flash_attention", "role": role, "case": list(case),
-                   "dtype": dtype, "max_abs_err": err, "flops": flops, "bytes": nbytes,
+                   "dtype": dtype, "body": fa.BODIES[dt], "max_abs_err": err,
+                   "flops": flops, "bytes": nbytes,
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
             fns = {"": lambda: fa.flash_attention(q, k, v, causal=causal),
@@ -769,7 +813,7 @@ def phase_flash(torch, rate, name, records):
                 qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
                 fns["library_"] = lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, enable_gqa=True)
-            iters = {"test": 10, "main": 20, "large": 2}[role]
+            iters = {"test": 10, "family": 10, "main": 20, "large": 2}[role]
             for key, fn in fns.items():
                 call = cuda_ms(torch, fn, iters)
                 dev_ms = device_ms(torch, fn, iters,
@@ -780,7 +824,7 @@ def phase_flash(torch, rate, name, records):
             rec.setdefault("library_ms", None)
             records.append(rec)
             out.setdefault(role, []).append(rec)
-            print(f"  flash_attention {role} {case}: max|err| {err:.3g}, device "
+            print(f"  flash_attention {role} {case} ({rec['body']}): max|err| {err:.3g}, device "
                   f"{rec['ms'] * 1e3:.1f} us ({rec['ms_from']}), per call "
                   f"{rec['call_ms'] * 1e3:.1f} us, plain {rec['plain_ms'] * 1e3:.1f} us, "
                   + (f"sdpa {rec['library_ms'] * 1e3:.1f} us, " if rec["library_ms"] else "")
@@ -1342,20 +1386,23 @@ def phase_lm(torch):
     return out
 
 
-def lm_profile(torch, cfg, params, tokens, cache, kernel, match, steps=8):
-    """One prefill and ``steps`` decode steps (positions after the prompt)
-    under torch.profiler, after an unprofiled run of each: device busy
-    share of the wall, ``kernel``'s share of the device time (device
-    kernels whose name holds ``match``), and the kernels that hold the
-    device longest."""
+def lm_profile(torch, cfg, params, tokens, cache, kernel, match, steps=8, batch=None,
+               card=None):
+    """One prefill (of ``batch``, else of ``tokens``) and ``steps`` decode
+    steps (positions after ``tokens``) under torch.profiler, after an
+    unprofiled run of each: device busy share of the wall, ``kernel``'s
+    share of the device time (device kernels whose name holds ``match``),
+    the kernels launched, the device time by kind, and the kernels that hold
+    the device longest."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import lm
 
     B, P = tokens.shape
+    batch = {"tokens": tokens} if batch is None else batch
 
     def prefill():
-        lm.prefill_logits(params, {"tokens": tokens}, cfg)
+        lm.prefill_logits(params, batch, cfg)
 
     def decode():
         for t in range(steps):
@@ -1374,12 +1421,21 @@ def lm_profile(torch, cfg, params, tokens, cache, kernel, match, steps=8):
         avg = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
         device_s = sum(e.self_device_time_total for e in avg) * 1e-6
         kernel_s = sum(e.self_device_time_total for e in avg if match in e.key) * 1e-6
+        by = {}
+        for e in avg:
+            kind = device_kind(e.key)
+            by[kind] = by.get(kind, 0.0) + e.self_device_time_total * 1e-6
+        n_kernels = sum(e.count for e in avg if e.self_device_time_total > 0)
         top = [(e.key[:80], e.count, e.self_device_time_total * 1e-3) for e in avg[:6]]
         res[name] = {"wall_s": wall, "device_s": device_s, "busy_share": device_s / wall,
-                     f"{kernel}_device_s": kernel_s, "top_kernels": top}
-        print(f"{cfg.name} profile {name}: wall {wall * 1e3:.2f} ms, device "
-              f"{device_s * 1e3:.2f} ms ({device_s / wall:.3f} of the wall), {kernel} "
-              f"{kernel_s * 1e3:.2f} ms; top kernels (name, count, ms):")
+                     f"{kernel}_device_s": kernel_s, "device_kernels": n_kernels,
+                     "device_s_by": by, "top_kernels": top}
+        print(("" if card is None else f"[{card}] ")
+              + f"{cfg.name} profile {name}: wall {wall * 1e3:.2f} ms, device "
+              f"{device_s * 1e3:.2f} ms ({device_s / wall:.3f} of the wall) in {n_kernels} "
+              f"kernels, {kernel} {kernel_s * 1e3:.2f} ms; device ms by kind "
+              f"{({k: round(v * 1e3, 3) for k, v in by.items()})}; top kernels (name, "
+              "count, ms):")
         for row in top:
             print(f"  {row}")
     return res
@@ -2503,6 +2559,431 @@ def phase_device_lp(torch, card):
     return {"sizes": rows, "rng23_pivots": [r.pivots for r in got]}
 
 
+# -- the remaining LM families (phases 21-26) --------------------------------
+
+#: Phases 21-25: (phase, arch, layers kept of the published depth (None:
+#: all), the published widths checked before the run).  Depth is cut where
+#: one card cannot hold the full model: phi3.5 to 8 of 32 layers (10.67 B
+#: parameters), llama4 to one every_2 period (2 of 48; 18.43 B), Jamba to
+#: one period (8 of 32: 7 mamba, 1 attention, 4 MoE; 13.30 B).
+FAMILY_PHASES = [
+    ("moe", "phi3.5-moe-42b-a6.6b", 8,
+     dict(n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, hd=128, d_ff=6400,
+          vocab_size=32064, experts=(16, 2, 1.25, "all"))),
+    ("moe every_2", "llama4-maverick-400b-a17b", 2,
+     dict(n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, hd=128, d_ff=8192,
+          vocab_size=202048, experts=(128, 1, 1.25, "every_2"))),
+    ("hybrid", "jamba-v0.1-52b", 8,
+     dict(n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, hd=128, d_ff=14336,
+          vocab_size=65536, experts=(16, 2, 1.25, "every_2"))),
+    ("audio", "whisper-small", None,
+     dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=12, hd=64, d_ff=3072,
+          vocab_size=51865, experts=None)),
+    ("vlm", "internvl2-1b", None,
+     dict(n_layers=24, d_model=896, n_heads=14, n_kv_heads=2, hd=64, d_ff=4864,
+          vocab_size=151655, experts=None)),
+]
+#: Serving shapes of phases 21-25: a prefill of 4 x 512 text tokens (whisper:
+#: 4 x 64 tokens against 4 x 1500 frames; internvl2: 256 vision tokens before
+#: the text), capture_prefill of 4 x 64 tokens into a 128-token cache, and 4
+#: requests of 32 prompt tokens, 16 new, in a 64-token cache.
+FAMILY_BATCH, FAMILY_TEXT, AUDIO_TEXT = 4, 512, 64
+FAMILY_CAPTURE, FAMILY_CAPTURE_SEQ = 64, 128
+FAMILY_PROMPT, FAMILY_NEW, FAMILY_SERVE_SEQ = 32, 16, 64
+
+
+def attention_layers(cfg) -> int:
+    """Flash-attention launches a prefill makes: one per attention mixer;
+    whisper's encoder and its decoder's self- and cross-attention."""
+    if cfg.family == "audio":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_period
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers
+
+
+def attention_bodies(cfg) -> dict:
+    """Launches a prefill makes by body: an f32 model runs the FMA body
+    throughout; a bf16 whisper runs its encoder and cross-attention on f32
+    operands (the f32 frames, promoted as JAX does) on the FMA body and its
+    self-attention on the tensor cores; any other bf16 model the tensor
+    cores throughout."""
+    n = attention_layers(cfg)
+    if cfg.dtype == "float32":
+        return {"tensor_core": 0, "fma": n}
+    if cfg.family == "audio":
+        return {"tensor_core": cfg.n_layers, "fma": cfg.n_enc_layers + cfg.n_layers}
+    return {"tensor_core": n, "fma": 0}
+
+
+def family_batch(torch, cfg, gen, B, S):
+    """tokens (B, S) and the family's f32 frames or vision tokens, drawn
+    from ``gen`` (the frontend stubs of ``models/frontends.py``)."""
+    from repro_torch.models import frontends
+
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device=gen.device, dtype=torch.int32)}
+    stub = frontends.frontend_for(cfg)
+    if stub is not None:
+        batch["frames" if cfg.family == "audio" else "vis_embeds"] = stub(gen, cfg, B)
+    return batch
+
+
+def expert_bytes(cfg) -> int:
+    """Bytes of expert weights one MoE decode step reads: its (E, D, F)
+    einsums take every expert at any batch (C = top_k slots each)."""
+    if cfg.moe is None:
+        return 0
+    from repro_torch.models import transformer
+
+    if cfg.family == "hybrid":
+        moe_layers = transformer.n_blocks(cfg) * ((cfg.attn_period + 1) // 2)
+    elif transformer._moe_interleaved(cfg):
+        moe_layers = transformer.n_blocks(cfg)
+    else:
+        moe_layers = cfg.n_layers
+    return moe_layers * 3 * cfg.moe.n_experts * cfg.d_model * cfg.d_ff * 2
+
+
+def free_card(torch):
+    """Drop what earlier phases left on the card; returns the GB still
+    allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def hook_route(run, hook):
+    """``run()`` with every ``moe.route`` call going through ``hook(inner,
+    p, x, cfg)``, for this run only; returns run's result."""
+    from repro_torch.models import moe
+
+    inner = moe.route
+    moe.route = lambda p, x, cfg: hook(inner, p, x, cfg)
+    try:
+        return run()
+    finally:
+        moe.route = inner
+
+
+def count_drops(run):
+    """(dropped, total) (token, pick) slots at capacity over the MoE layers
+    ``run()`` goes through."""
+    seen = [0, 0]
+
+    def hook(inner, p, x, cfg):
+        out = inner(p, x, cfg)
+        pos, C = out[3], out[4]
+        seen[0] += int((pos == C).sum())
+        seen[1] += pos.numel()
+        return out
+
+    hook_route(run, hook)
+    return tuple(seen)
+
+
+def phase_family(torch, card, phase, arch, layers, widths):
+    """Serving one family at its published widths on random weights from
+    seed 0 (bf16), depth cut to ``layers``: ``lm.prefill_logits`` twice,
+    ``capture_prefill`` (the families that capture; audio and vlm raise,
+    ROADMAP C8) and ``ServeEngine.run``.  The launch counters are zeroed just
+    before and read just after: flash attention launches
+    ``attention_layers`` times a forward in the bodies of
+    ``attention_bodies``, nothing else launches."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, capture_prefill
+
+    full = get_arch(arch)
+    got = dict(n_layers=full.n_layers, d_model=full.d_model, n_heads=full.n_heads,
+               n_kv_heads=full.n_kv_heads, hd=full.hd, d_ff=full.d_ff,
+               vocab_size=full.vocab_size,
+               experts=None if full.moe is None else (
+                   full.moe.n_experts, full.moe.top_k, full.moe.capacity_factor,
+                   full.moe.layout))
+    check(got == widths and full.dtype == "bfloat16",
+          f"{arch} is not the published width: {got}")
+    cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+    left = free_card(torch)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_params = lm.param_count(cfg)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    B = FAMILY_BATCH
+    text = AUDIO_TEXT if cfg.family == "audio" else FAMILY_TEXT
+    batch = family_batch(torch, cfg, gen, B, text)
+    captures = cfg.family not in ("audio", "vlm")
+    reqs = lm_requests(cfg.vocab_size, prompt=FAMILY_PROMPT, max_new=FAMILY_NEW)
+    decode_s = [0.0]
+    cache = None
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    with torch.inference_mode():
+        prefill_s = []
+        for _ in range(2):  # the first call warms cuBLAS and the allocator
+            t0 = time.perf_counter()
+            logits = lm.prefill_logits(params, batch, cfg)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        capture_s = None
+        if captures:
+            t0 = time.perf_counter()
+            cap_logits, cache = capture_prefill(cfg, params,
+                                                batch["tokens"][:, :FAMILY_CAPTURE],
+                                                FAMILY_CAPTURE_SEQ)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+        eng = ServeEngine(cfg, params, batch_capacity=B, max_seq=FAMILY_SERVE_SEQ)
+        step = eng.step
+
+        def timed_step(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return step(*args, **kwargs)
+            finally:
+                decode_s[0] += time.perf_counter() - t
+
+        eng.step = timed_step
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = read_all_launches()
+    bodies = dict(fa.BODY_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    forwards = 3 if captures else 2
+    per_forward = attention_layers(cfg)
+    want_bodies = {k: v * forwards for k, v in attention_bodies(cfg).items()}
+    check(launches["flash_attention"] == per_forward * forwards,
+          f"{phase}: flash_attention launched {launches['flash_attention']} times for "
+          f"{forwards} forwards of {per_forward} attention layers")
+    check(bodies == want_bodies, f"{phase}: flash_attention by body {bodies}, "
+                                 f"{want_bodies} expected")
+    others = {k: n for k, n in launches.items() if k != "flash_attention"}
+    check(not any(others.values()), f"{phase}: other kernels launched: {others}")
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and logits.dtype == torch.float32,
+          f"{phase}: prefill logits {tuple(logits.shape)} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), f"{phase}: non-finite prefill logits")
+    if captures:
+        check(bool(torch.isfinite(cap_logits).all()),
+              f"{phase}: non-finite capture_prefill logits")
+        if cfg.family == "hybrid":  # pos0 is a mamba layer, the last attention
+            last = f"pos{cfg.attn_period - 1}"
+            leaves = {"k": cache[last]["k"], "ssm": cache["pos0"]["ssm"],
+                      "conv": cache["pos0"]["conv"]}
+        else:  # every_2 stacks (pos0, pos1) caches
+            leaves = {"k": cache["pos0"]["k"] if "pos0" in cache else cache["k"]}
+        for key, t in leaves.items():
+            check(bool(torch.isfinite(t).all()) and bool(t.ne(0).any()),
+                  f"{phase}: the captured {key} is not finite or is all zero")
+    check(len(done) == len(reqs) and all(len(r.out) == r.max_new for r in done),
+          f"{phase}: ServeEngine.run finished {len(done)} of {len(reqs)} requests")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          f"{phase}: a generated token lies outside the vocab")
+    drops = None
+    if cfg.moe is not None:
+        with torch.inference_mode():
+            drops = count_drops(lambda: lm.prefill_logits(params, batch, cfg))
+    gen_tokens = sum(len(r.out) for r in done)
+    decode_steps = max(len(r.out) for r in done)
+    seq = text + (cfg.n_vis_tokens or 0)
+    out = {
+        "phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+        "published_layers": full.n_layers, "params": n_params,
+        "param_gb": n_params * 2 / 1e9, "gb_left_before": left, "init_s": init_s,
+        "init_peak_gb": init_peak, "prefill_batch": [B, seq], "prefill_s": prefill_s,
+        "prefill_tokens_per_s": B * seq / prefill_s[-1],
+        "capture_prefill_batch": [B, FAMILY_CAPTURE] if captures else None,
+        "capture_prefill_s": capture_s,
+        "serve_requests": len(reqs), "serve_prompt": FAMILY_PROMPT,
+        "serve_run_s": run_s, "serve_decode_s": decode_s[0],
+        "generated_tokens": gen_tokens, "decode_steps": decode_steps,
+        "decode_tokens_per_s": gen_tokens / decode_s[0], "peak_gb": peak,
+        "launches": launches, "flash_attention_bodies": bodies,
+        "flash_attention_per_forward": per_forward,
+        "dropped_slots": drops, "decode_expert_gb": expert_bytes(cfg) / 1e9,
+    }
+    print(f"[{card}] {phase}: {cfg.name} at {cfg.n_layers} of {full.n_layers} layers "
+          f"({n_params / 1e9:.3f} B params, {out['param_gb']:.1f} GB bf16; "
+          f"{left:.2f} GB left allocated before) init {init_s:.2f} s (peak "
+          f"{init_peak:.1f} GB: lecun_normal draws each tensor in f32, then casts); "
+          f"prefill {B}x{seq} in {prefill_s[-1] * 1e3:.1f} ms (first "
+          f"{prefill_s[0] * 1e3:.1f} ms) = {out['prefill_tokens_per_s']:.0f} tok/s; "
+          + (f"capture_prefill {B}x{FAMILY_CAPTURE} {capture_s:.2f} s; " if captures
+             else "capture_prefill raises (C8); ")
+          + f"ServeEngine.run {len(reqs)} requests in {run_s:.2f} s, {gen_tokens} "
+          f"tokens in {decode_steps} decode steps ({decode_s[0]:.3f} s) = "
+          f"{out['decode_tokens_per_s']:.1f} tok/s; peak {peak:.1f} GB; launches "
+          f"{launches}, flash_attention by body {bodies}")
+    if drops is not None:
+        print(f"[{card}] {phase}: a {B}x{seq} prefill dropped {drops[0]} of {drops[1]} "
+              f"(token, pick) slots at capacity factor {cfg.moe.capacity_factor}; a "
+              f"decode step reads {out['decode_expert_gb']:.2f} GB of expert weights")
+    with torch.inference_mode():
+        if cache is None:
+            cache = lm.init_cache(cfg, B, FAMILY_CAPTURE_SEQ, device=dev)
+        out["profile"] = lm_profile(torch, cfg, params, batch["tokens"][:, :FAMILY_CAPTURE],
+                                    cache, "flash_attention", "flash_fwd", batch=batch,
+                                    card=card)
+    del params, cache, eng, batch, logits
+    free_card(torch)
+    return out
+
+
+#: Phase 26's parity bound on logits, in units of max |logit|, by dtype.
+FAMILY_PARITY_TOL = {"float32": 1e-3, "bfloat16": LM_BF16_TOL}
+FAMILY_PARITY_SEQ = 64
+
+
+def family_cut(cfg, dtype):
+    """Phase 26's cut: the arch's reduced() config (its layers, period,
+    encoder, experts and capacity factor 2.0) at d_model 256 and head_dim
+    64, a head dim the flash kernel has (reduced()'s 16 is not one)."""
+    return dataclasses.replace(cfg.reduced(), d_model=256, head_dim=64, dtype=dtype)
+
+
+def no_drop(cfg):
+    """``cfg`` with the capacity factor at n_experts / top_k, where C = S and
+    no (token, pick) slot can drop.  A prefill drops slots at capacity and a
+    one-token decode never does, so decode matches prefill only without
+    drops: reduced()'s 2.0 is that factor at top_k 2 of 4 experts, but at
+    llama4's top_k 1 it gives C = S / 2 (its cut drops 6 of 128 slots at
+    S = 64)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def pinned_prefill(params, batch, cfg, choices):
+    """``lm.prefill_logits`` with each MoE layer taking the expert choices
+    ``choices`` recorded elsewhere (its gates the router's own probabilities
+    at those experts, renormalised)."""
+    from repro_torch.models import lm, moe
+
+    it = iter(choices)
+
+    def pin(inner, p, x, c):
+        probs = inner(p, x, c)[0]
+        idx = next(it).to(x.device)
+        return (probs, idx) + moe.place(probs.gather(-1, idx), idx, c)
+
+    return hook_route(lambda: lm.prefill_logits(params, batch, cfg), pin)
+
+
+def phase_family_parity(torch, card):
+    """Each of the five archs at ``family_cut``, in f32 then bf16: prefill
+    logits on the card and on the CPU within ``FAMILY_PARITY_TOL`` of max
+    |logit|, and flash attention's launches a prefill on the card equal to
+    ``attention_layers`` of the cut in the bodies of ``attention_bodies``.
+    In bf16 an MoE's router input differs between the devices by rounding,
+    and where two experts' probabilities are that close the choice flips
+    and the token's output moves by a large share of the logits: there the
+    bound holds the CPU prefill with every MoE layer pinned to the card's
+    expert choices (``pinned_prefill``), and the flips and the unpinned gap
+    are printed.  For the archs that capture, on the card, the decode of
+    token P-1 after ``capture_prefill`` of tokens 0..P-2 against the
+    prefill logits of tokens 0..P-1 at the ``no_drop`` capacity: within
+    the f32 bound in f32; in bf16 the gap is printed, not bounded (the two
+    paths round the router's input differently too)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import capture_prefill
+
+    dev = torch.device("cuda")
+    out = {}
+    for _, arch, _, _ in FAMILY_PHASES:
+        for dtype in ("float32", "bfloat16"):
+            cfg = family_cut(get_arch(arch), dtype)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            P = FAMILY_PARITY_SEQ
+            drops = d_dec = None
+            card_choices, cpu_choices = [], []
+
+            def recorder(into):
+                def hook(inner, p, x, c):
+                    res = inner(p, x, c)
+                    into.append(res[1].cpu())
+                    return res
+                return hook
+
+            with torch.inference_mode():
+                params = lm.init_params(cfg, gen)
+                batch = family_batch(torch, cfg, gen, 2, P)
+                fa.reset_launches()
+                on_card = hook_route(lambda: lm.prefill_logits(params, batch, cfg),
+                                     recorder(card_choices))
+                torch.cuda.synchronize()
+                bodies = dict(fa.BODY_LAUNCHES)
+                cpu_params, cpu_batch = _tree_to(params, "cpu"), _tree_to(batch, "cpu")
+                on_cpu = hook_route(lambda: lm.prefill_logits(cpu_params, cpu_batch, cfg),
+                                    recorder(cpu_choices))
+                held = on_cpu
+                if cfg.moe is not None and dtype == "bfloat16":
+                    held = pinned_prefill(cpu_params, cpu_batch, cfg, card_choices)
+                if cfg.moe is not None:
+                    drops = count_drops(lambda: lm.prefill_logits(params, batch, cfg))
+                if cfg.family not in ("audio", "vlm"):
+                    nd = no_drop(cfg)
+                    full = lm.prefill_logits(params, batch, nd)
+                    _, cache = capture_prefill(nd, params, batch["tokens"][:, :P - 1], P)
+                    dec, _ = lm.decode_step(params, cache, batch["tokens"][:, P - 1],
+                                            P - 1, nd)
+                    d_dec = (dec - full).abs().max().item()
+            tol = FAMILY_PARITY_TOL[dtype]
+            scale = on_cpu.abs().max().item()
+            d_cpu = (on_card.cpu() - on_cpu).abs().max().item()
+            d_held = (on_card.cpu() - held).abs().max().item()
+            flips = sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+                        for a, b in zip(card_choices, cpu_choices))
+            pinned = held is not on_cpu
+            check(bodies == attention_bodies(cfg),
+                  f"family parity {arch} {dtype}: flash_attention by body {bodies}, "
+                  f"{attention_bodies(cfg)} expected")
+            check(bool(torch.isfinite(on_card).all()),
+                  f"family parity {arch} {dtype}: non-finite logits")
+            check(d_held <= tol * scale,
+                  f"family parity {arch} {dtype}: card vs CPU prefill logits"
+                  + (" (routing pinned to the card's)" if pinned else "")
+                  + f" differ by {d_held} (max |logit| {scale})")
+            if d_dec is not None and dtype == "float32":
+                check(d_dec <= tol * scale, f"family parity {arch} {dtype}: decode at P-1 "
+                                            f"vs prefill logits differ by {d_dec} (max "
+                                            f"|logit| {scale})")
+            out[f"{arch}/{dtype}"] = {"card_vs_cpu": d_cpu, "card_vs_cpu_held": d_held,
+                                      "routing_pinned": pinned, "routing_flips": flips,
+                                      "decode_vs_prefill": d_dec, "max_logit": scale,
+                                      "bodies": bodies, "dropped_slots": drops}
+            print(f"[{card}] family parity {arch} {dtype} (d_model 256, hd 64, "
+                  f"{cfg.n_layers} layers, S = {P}"
+                  + (f" + {cfg.n_vis_tokens} vision" if cfg.n_vis_tokens else "")
+                  + (f", {cfg.enc_seq_len} frames" if cfg.family == "audio" else "")
+                  + f"): card vs CPU {d_cpu:.3g}"
+                  + (f", with the CPU's routing pinned to the card's {d_held:.3g}"
+                     if pinned else "")
+                  + f"; max |logit| {scale:.3g} (bound {tol} of it)"
+                  + (f"; {flips} expert choices differ card vs CPU" if cfg.moe else "")
+                  + (f"; prefill dropped {drops[0]} of {drops[1]} slots" if drops else "")
+                  + (f"; decode vs prefill without drops {d_dec:.3g}"
+                     + (" (not bounded in bf16)" if dtype == "bfloat16" else "")
+                     if d_dec is not None else "")
+                  + f"; flash by body {bodies}")
+            del params, batch, cpu_params, cpu_batch
+    free_card(torch)
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -2553,6 +3034,9 @@ def main() -> int:
                     "trace": phase_trace(torch, card),
                     "policy_service": phase_policy_service(card),
                     "device_lp": phase_device_lp(torch, card)}
+        families = {phase: phase_family(torch, card, phase, arch, layers, widths)
+                    for phase, arch, layers, widths in FAMILY_PHASES}
+        families["parity"] = phase_family_parity(torch, card)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2569,6 +3053,13 @@ def main() -> int:
                 **{f"storms_{k}": storms[k]["launches"]
                    for k in ("netmax", "adpsgd", "failover")},
                 "trace": tr["launches"], "trace_replay": tr["replay_launches"]}
+    # B3 on the families' serving paths (phases 21-25), each zeroed just
+    # before its run and read just after.
+    for s in summaries:
+        if s["name"] == "flash_attention":
+            s["launches_families"] = {
+                phase: families[phase]["launches"]["flash_attention"]
+                for phase, *_ in FAMILY_PHASES}
     for s in summaries:
         if s["name"] == "gossip_mix_rows":
             s["launches_network_dynamics"] = {
@@ -2586,7 +3077,7 @@ def main() -> int:
              "cases": records,
              "main_path": main_path, "algos": algos, "lm_path": lm_path,
              "ssm_path": ssm_path, "train_path": train_path,
-             "network_dynamics": dynamics},
+             "network_dynamics": dynamics, "families": families},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,20 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
 Runs the batched KV-cache engine of the port with random weights drawn
-from seed 0.  The same flags as ``repro.launch.serve``, plus ``--device``
-(default ``cuda``, which raises without a card).  On the card it runs the
-full config; with ``--reduced`` or ``--device cpu`` the tiny same-family
-config, as the JAX launcher does on its CPU backend.
+from seed 0, for every registered arch.  The same flags as
+``repro.launch.serve``, plus ``--device`` (default ``cuda``, which raises
+without a card) and ``--layers``.  On the card it runs the full config;
+with ``--reduced`` or ``--device cpu`` the tiny same-family config, as the
+JAX launcher does on its CPU backend.  ``--layers N`` keeps N layers of
+that config (whisper: decoder layers; every_2 and hybrid models: whole
+periods): one 80 GB card holds phi3.5-moe at 8 of its 32 layers, llama4 at
+2 of 48 and jamba at 8 of 32, the depths ``chip_smoke.py`` serves.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -25,6 +30,9 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep this many layers (the full config does not fit one "
+                         "card for phi3.5-moe, llama4 and jamba)")
     args = ap.parse_args(argv)
 
     import torch
@@ -38,6 +46,8 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced or dev.type == "cpu":
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     eng = ServeEngine(cfg, params, batch_capacity=args.batch, max_seq=args.max_seq)
 

@@ -7,6 +7,12 @@ a CUDA tensor to that kernel's hand-written counterpart through
 ``kernels/ops.attention``, and runs the same scan in torch on the CPU so
 that the CPU tests compare like with like.  Decode (one query token against
 the cache) is a plain einsum in both, not a kernel.
+
+Mixed dtypes follow JAX (``modules.promote``): whisper's encoder runs on f32
+frames against bf16 weights, so its projections are f32, and its decoder's
+cross-attention takes a bf16 query against f32 keys and values.
+``chunked_attention`` casts such operands to their common dtype before the
+kernel and returns q's dtype, as the reference's f32 scan does.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.modules import apply_rope, lecun_normal
+from repro_torch.models.modules import apply_rope, lecun_normal, matmul, promote
 
 NEG_INF = -1e30
 
@@ -68,9 +74,9 @@ def qkv_project(p, x, cfg, positions=None, rope=True):
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,Hk,hd), with RoPE applied."""
     B, S, _ = x.shape
     H, Hk, hd = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.hd
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = matmul(x, p["wq"])
+    k = matmul(x, p["wk"])
+    v = matmul(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
@@ -88,11 +94,12 @@ def chunked_attention(q, k, v, *, causal=True, q_chunk=512, kv_chunk=1024):
     """Online-softmax attention. q: (B,S,H,hd); k,v: (B,Sk,Hk,hd) -> (B,S,H,hd).
 
     On CUDA: the flash-attention kernel (``ops.attention``), which tiles
-    for itself, so the chunk sizes do not apply.  On the CPU: the JAX
-    package's scan over KV chunks, transcribed (``_scan_attention``)."""
+    for itself, so the chunk sizes do not apply; operands of mixed dtypes
+    enter it in their common dtype and the output is q's.  On the CPU: the
+    JAX package's scan over KV chunks, transcribed (``_scan_attention``)."""
     if q.device.type == "cuda":
-        return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                             causal=causal)
+        qc, kc, vc = (t.contiguous() for t in promote(q, k, v))
+        return ops.attention(qc, kc, vc, causal=causal).to(q.dtype)
     if q.device.type != "cpu":
         raise ValueError(f"no attention path for device {q.device}")
     return _scan_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
@@ -169,7 +176,21 @@ def attn_apply(p, x, cfg, *, causal=True, positions=None, rope=True,
     q, k, v = qkv_project(p, x, cfg, positions=positions, rope=rope)
     o = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
     B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ p["wo"]
+    return matmul(o.reshape(B, S, -1), p["wo"])
+
+
+def cross_attn_apply(p, x, kv_src, cfg, q_chunk=512, kv_chunk=1024):
+    """Encoder-decoder cross attention (whisper): queries from x (B,S,D),
+    keys and values from the encoder output kv_src (B,Se,D); not causal, no
+    RoPE."""
+    B, S, _ = x.shape
+    H, Hk, hd = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.hd
+    Se = kv_src.shape[1]
+    q = matmul(x, p["wq"]).reshape(B, S, H, hd)
+    k = matmul(kv_src, p["wk"]).reshape(B, Se, Hk, hd)
+    v = matmul(kv_src, p["wv"]).reshape(B, Se, Hk, hd)
+    o = chunked_attention(q, k, v, causal=False, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return matmul(o.reshape(B, S, -1), p["wo"])
 
 
 def decode_qkv(p, x, cfg, position):

@@ -24,7 +24,9 @@ def _normal(gen, shape, std, dtype, device):
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+    # In place: a full-width expert tensor (llama4's 128 x 5120 x 8192) is a
+    # 21.5 GB f32 draw, and ``x * std`` would hold a second one.
+    return x.mul_(std).to(dtype)
 
 
 def lecun_normal(gen, shape, dtype, fan_in=None, device=None):
@@ -97,6 +99,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+# -- mixed dtypes ----------------------------------------------------------------
+
+
+def promote(*xs):
+    """JAX's rule for operands of mixed floating dtypes: all go to the widest
+    (f32 frames or vision tokens against bf16 weights give an f32 product),
+    where torch's matmul would raise.  Same-dtype operands pass through."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return tuple(x.to(dt) for x in xs)
+
+
+def matmul(a, b):
+    """``a @ b`` with ``promote``'s rule, as ``jnp`` computes it."""
+    a, b = promote(a, b)
+    return a @ b
+
+
 # -- activations ---------------------------------------------------------------
 
 
@@ -122,10 +143,10 @@ def mlp_init(gen, d_model, d_ff, dtype, activation="swiglu", device=None):
 
 def mlp(p, x, activation="swiglu"):
     if activation == "swiglu":
-        h = swiglu(x @ p["w_gate"], x @ p["w_up"])
-        return h @ p["w_down"]
-    h = F.gelu((x @ p["w_up"] + p["b_up"]).float(), approximate="tanh").to(x.dtype)
-    return h @ p["w_down"] + p["b_down"]
+        h = swiglu(matmul(x, p["w_gate"]), matmul(x, p["w_up"]))
+        return matmul(h, p["w_down"])
+    h = F.gelu((matmul(x, p["w_up"]) + p["b_up"]).float(), approximate="tanh").to(x.dtype)
+    return matmul(h, p["w_down"]) + p["b_down"]
 
 
 # -- embeddings -----------------------------------------------------------------
@@ -138,6 +159,18 @@ def embedding_init(gen, vocab, d_model, dtype, device=None):
 def embedding_lookup(p, ids):
     table = p["table"]
     return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, table.shape[-1])
+
+
+def sinusoidal_positions(S: int, d: int, device=None) -> torch.Tensor:
+    """(S, d) f32: sin at even columns, cos at odd, of pos / 10000^(2i/d)
+    (computed in numpy float64 and rounded once, as the JAX package does)."""
+    pos = np.arange(S)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / np.power(10000.0, dim / d)
+    out = np.zeros((S, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out).to(device)
 
 
 def pick_chunk(S: int, target: int) -> int:

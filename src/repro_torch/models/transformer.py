@@ -1,26 +1,28 @@
-"""Decoder-LM assembly: the dense and ssm families.
+"""Decoder-LM assembly for every decoder family: dense, MoE, ssm, hybrid, VLM.
 
-A transcription of the dense and ssm paths of ``repro/models/transformer.py``.
-The layout is the JAX package's: block parameters and caches are stacked on a
-leading layer axis, and ``lax.scan`` over blocks becomes a Python loop over
-the layer index.  Each block provides:
+A transcription of ``repro/models/transformer.py``.  The layout is the JAX
+package's: block parameters and caches are stacked on a leading block axis,
+and ``lax.scan`` over blocks becomes a Python loop over the block index.
+The llama4 ``every_2`` layout stacks periods of two layers (MoE MLP, then
+dense MLP); the hybrid (Jamba) stacks periods of ``attn_period`` layers
+(mamba mixers, then one attention mixer; MoE MLPs at even positions).  Each
+block provides:
 
-    init(gen, cfg, dtype) -> params              (single layer)
+    init(gen, cfg, dtype) -> params              (one block)
     apply(params, x, cfg) -> (x, aux)            (prefill, stateless)
     decode(params, x, cache, cfg, pos) -> (x, cache)   (one token)
 
 The ssm family (rwkv6-7b) runs ``models/rwkv.py``'s blocks, whose prefill
-goes through the WKV kernel on the card.  Unlike the JAX package, decoding
-updates the cache in place (dense: the new K/V written at ``pos`` by
-``_dus_seq``; ssm: each layer's new recurrent state copied over the old), and
-the cache returned is the one passed in.  ``forward`` is also the training
+goes through the WKV kernel on the card; every attention mixer's prefill
+goes through the flash-attention kernel.  The VLM prepends its vision
+tokens (``vis_embeds @ vis_proj``, an f32 product cast to the model dtype,
+as in JAX) to the text under one causal mask.  Unlike the JAX package,
+decoding updates the cache in place (attention: the new K/V written at
+``pos`` by ``_dus_seq``; recurrent states copied over the old), and the
+cache returned is the one passed in.  ``forward`` is also the training
 forward: under autograd with ``cfg.remat`` each block runs under
 ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` over the
-scan body), so only the blocks' inputs are kept and each block's forward
-runs again in the backward pass; with grad disabled (serving) nothing
-changes.  The moe, hybrid and audio families, the ``every_2`` MoE interleave
-and vision tokens are not ported yet (ROADMAP A6): they raise
-``NotImplementedError``.
+scan body); with grad disabled (serving) nothing changes.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.modules import (
     DTYPES,
@@ -38,6 +42,7 @@ from repro_torch.models.modules import (
     embedding_lookup,
     lecun_normal,
     make_norm,
+    matmul,
     mlp,
     mlp_init,
     pick_chunk,
@@ -50,23 +55,17 @@ def _dt(cfg):
     return DTYPES[cfg.dtype]
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in ("moe", "hybrid", "audio") or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP A6); "
-            "the port runs the dense and ssm families"
-        )
-    if cfg.n_vis_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: vision tokens (n_vis_tokens={cfg.n_vis_tokens}) are not "
-            "ported yet (ROADMAP A6)"
-        )
-
-
 def _stack(trees):
+    """Per-block trees -> one tree stacked on a leading block axis, leaf by
+    leaf.  Each leaf's per-block tensors leave ``trees`` as it is stacked,
+    and one block is a view, not a copy: init then holds the blocks and at
+    most one stacked leaf at once, not a second copy of every block (llama4's
+    expert leaves are 10.7 GB each)."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(first)}
+    if len(trees) == 1:
+        return first.unsqueeze(0)
     return torch.stack(trees)
 
 
@@ -81,32 +80,44 @@ def _layer(tree, i):
 
 
 # ---------------------------------------------------------------------------
-# Dense transformer block
+# Dense / MoE transformer block
 # ---------------------------------------------------------------------------
 
 
-def dense_block_init(gen, cfg: ArchConfig, dtype, use_moe: bool = False, device=None):
+def _mlp_init(gen, cfg, dtype, device, use_moe):
     if use_moe:
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP A6)")
+        return {"moe": moe_mod.moe_init(gen, cfg, dtype, device=device)}
+    return {"mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, cfg.activation, device=device)}
+
+
+def _mlp_apply(p, h, cfg):
+    """The block's MLP on normed h -> (out, aux loss () f32): the MoE's, or
+    a dense MLP's with aux 0."""
+    if "moe" in p:
+        return moe_mod.moe_apply(p["moe"], h, cfg)
+    return (mlp(p["mlp"], h, cfg.activation),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def dense_block_init(gen, cfg: ArchConfig, dtype, use_moe: bool = False, device=None):
     device = gen.device if device is None else torch.device(device)
     norm_init, _ = make_norm(cfg.norm)
     return {
         "ln1": norm_init(cfg.d_model, dtype, device),
         "attn": attn.attn_init(gen, cfg, dtype, device=device),
         "ln2": norm_init(cfg.d_model, dtype, device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, cfg.activation, device=device),
+        **_mlp_init(gen, cfg, dtype, device, use_moe),
     }
 
 
 def dense_block_apply(p, x, cfg: ArchConfig, causal=True, q_chunk=512, kv_chunk=1024):
     _, norm = make_norm(cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = attn.attn_apply(
         p["attn"], norm(p["ln1"], x), cfg, causal=causal,
         q_chunk=q_chunk, kv_chunk=kv_chunk,
     )
     x = x + h
-    h = mlp(p["mlp"], norm(p["ln2"], x), cfg.activation)
+    h, aux = _mlp_apply(p, norm(p["ln2"], x), cfg)
     return x + h, aux
 
 
@@ -123,8 +134,7 @@ def dense_block_decode(p, x, cache, cfg: ArchConfig, pos):
     o = attn.decode_attention(q, cache["k"], cache["v"], length=pos + 1)
     B = x.shape[0]
     x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
-    h = norm(p["ln2"], x)
-    h = mlp(p["mlp"], h, cfg.activation)
+    h, _ = _mlp_apply(p, norm(p["ln2"], x), cfg)
     return x + h, cache
 
 
@@ -146,23 +156,150 @@ def dense_cache_init(cfg: ArchConfig, B: int, S: int, dtype, device):
 
 
 # ---------------------------------------------------------------------------
+# MoE-interleaved period (llama4's "every_2"): pos0 = MoE MLP, pos1 = dense
+# MLP, both attention mixers; stacked as periods of 2 so the blocks stay
+# homogeneous.
+# ---------------------------------------------------------------------------
+
+
+def moe_period_init(gen, cfg: ArchConfig, dtype, device=None):
+    return {
+        "pos0": dense_block_init(gen, cfg, dtype, use_moe=True, device=device),
+        "pos1": dense_block_init(gen, cfg, dtype, use_moe=False, device=device),
+    }
+
+
+def moe_period_apply(p, x, cfg: ArchConfig, causal=True, q_chunk=512, kv_chunk=1024):
+    x, aux0 = dense_block_apply(p["pos0"], x, cfg, causal, q_chunk, kv_chunk)
+    x, aux1 = dense_block_apply(p["pos1"], x, cfg, causal, q_chunk, kv_chunk)
+    return x, aux0 + aux1
+
+
+def moe_period_decode(p, x, cache, cfg: ArchConfig, pos):
+    x, _ = dense_block_decode(p["pos0"], x, cache["pos0"], cfg, pos)
+    x, _ = dense_block_decode(p["pos1"], x, cache["pos1"], cfg, pos)
+    return x, cache
+
+
+def _moe_interleaved(cfg: ArchConfig) -> bool:
+    return cfg.moe is not None and cfg.moe.layout == "every_2" and cfg.family != "hybrid"
+
+
+# ---------------------------------------------------------------------------
+# Hybrid (Jamba) period: (attn_period - 1) mamba mixers, then 1 attention
+# mixer; MLPs alternate MoE (even position) / dense (odd position).
+# ---------------------------------------------------------------------------
+
+
+def hybrid_period_init(gen, cfg: ArchConfig, dtype, device=None):
+    device = gen.device if device is None else torch.device(device)
+    norm_init, _ = make_norm(cfg.norm)
+    P = cfg.attn_period
+    p = {}
+    for j in range(P):
+        sub = {"ln1": norm_init(cfg.d_model, dtype, device),
+               "ln2": norm_init(cfg.d_model, dtype, device)}
+        if j == P - 1:
+            sub["attn"] = attn.attn_init(gen, cfg, dtype, device=device)
+        else:
+            sub["mamba"] = mam.mamba_init(gen, cfg, dtype, device=device)
+        sub.update(_mlp_init(gen, cfg, dtype, device, cfg.moe is not None and j % 2 == 0))
+        p[f"pos{j}"] = sub
+    return p
+
+
+def hybrid_period_apply(p, x, cfg: ArchConfig, q_chunk=512, kv_chunk=1024):
+    _, norm = make_norm(cfg.norm)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(cfg.attn_period):
+        sub = p[f"pos{j}"]
+        h = norm(sub["ln1"], x)
+        if "attn" in sub:
+            h = attn.attn_apply(sub["attn"], h, cfg, causal=True,
+                                q_chunk=q_chunk, kv_chunk=kv_chunk)
+        else:
+            h, _ = mam.mamba_apply(sub["mamba"], h, cfg)
+        x = x + h
+        h, aux = _mlp_apply(sub, norm(sub["ln2"], x), cfg)
+        aux_total = aux_total + aux
+        x = x + h
+    return x, aux_total
+
+
+def hybrid_period_decode(p, x, cache, cfg: ArchConfig, pos):
+    """One token through a period; the attention K/V and the mamba states
+    of ``cache`` (views of the stacked cache) are updated in place."""
+    _, norm = make_norm(cfg.norm)
+    for j in range(cfg.attn_period):
+        sub, c = p[f"pos{j}"], cache[f"pos{j}"]
+        h = norm(sub["ln1"], x)
+        if "attn" in sub:
+            q, k, v = attn.decode_qkv(sub["attn"], h, cfg, pos)
+            _dus_seq(c["k"], k, pos)
+            _dus_seq(c["v"], v, pos)
+            o = attn.decode_attention(q, c["k"], c["v"], length=pos + 1)
+            h = o.reshape(x.shape[0], 1, -1) @ sub["attn"]["wo"]
+        else:
+            h, new = mam.mamba_apply(sub["mamba"], h, cfg, state=c)
+            _copy_state(c, new)
+        x = x + h
+        h, _ = _mlp_apply(sub, norm(sub["ln2"], x), cfg)
+        x = x + h
+    return x, cache
+
+
+def hybrid_cache_init(cfg: ArchConfig, B: int, S: int, dtype, device):
+    P = cfg.attn_period
+    return {f"pos{j}": (dense_cache_init(cfg, B, S, dtype, device) if j == P - 1
+                        else mam.mamba_init_state(cfg, B, dtype, device))
+            for j in range(P)}
+
+
+def _copy_state(cache, new):
+    """Copy a recurrent layer's new state over its cache entries (views of
+    the stacked cache)."""
+    for key, t in new.items():
+        cache[key].copy_(t)
+
+
+# ---------------------------------------------------------------------------
 # Whole-model init / apply
 # ---------------------------------------------------------------------------
 
 
 def n_blocks(cfg: ArchConfig) -> int:
-    _check_family(cfg)
+    if cfg.family == "hybrid":
+        if cfg.n_layers % cfg.attn_period:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole periods "
+                             f"of {cfg.attn_period}")
+        return cfg.n_layers // cfg.attn_period
+    if _moe_interleaved(cfg):
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: the every_2 layout needs an even layer count, "
+                             f"not {cfg.n_layers}")
+        return cfg.n_layers // 2
     return cfg.n_layers
+
+
+def _block_init_fn(cfg: ArchConfig):
+    if cfg.family == "hybrid":
+        return hybrid_period_init
+    if cfg.family == "ssm":
+        return rwkv_mod.rwkv_block_init
+    if _moe_interleaved(cfg):
+        return moe_period_init
+    use_moe = cfg.moe is not None
+    return lambda gen, cfg, dtype, device=None: dense_block_init(gen, cfg, dtype, use_moe,
+                                                                  device=device)
 
 
 def init_params(cfg: ArchConfig, generator=None, device=None) -> dict:
     """Random parameters drawn from ``generator`` on its device; with
     ``device="meta"`` (and no generator) shapes only."""
     dtype = _dt(cfg)
-    nb = n_blocks(cfg)
     dev = generator.device if device is None else torch.device(device)
-    binit = rwkv_mod.rwkv_block_init if cfg.family == "ssm" else dense_block_init
-    blocks = _stack([binit(generator, cfg, dtype, device=dev) for _ in range(nb)])
+    binit = _block_init_fn(cfg)
+    blocks = _stack([binit(generator, cfg, dtype, device=dev) for _ in range(n_blocks(cfg))])
     norm_init, _ = make_norm(cfg.norm)
     p = {
         "embed": embedding_init(generator, cfg.vocab_size, cfg.d_model, dtype, device=dev),
@@ -172,6 +309,10 @@ def init_params(cfg: ArchConfig, generator=None, device=None) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": lecun_normal(generator, (cfg.d_model, cfg.vocab_size), dtype,
                                           device=dev)}
+    if cfg.n_vis_tokens:
+        # VLM stub projection applied to precomputed patch embeddings.
+        p["vis_proj"] = {"w": lecun_normal(generator, (cfg.d_model, cfg.d_model), dtype,
+                                           device=dev)}
     return p
 
 
@@ -183,17 +324,28 @@ def _chunks_for(cfg: ArchConfig, S: int) -> tuple[int, int]:
 
 
 def forward(params, tokens, cfg: ArchConfig, vis_embeds=None):
-    """Train/prefill forward -> final hidden states (B, S, D) and aux loss
-    (0 for these families); blocks rematerialised under autograd when
-    ``cfg.remat``."""
-    _check_family(cfg)
+    """Train/prefill forward -> final hidden states (B, S, D) and the aux
+    loss summed over blocks (0 without MoE); with vision tokens S counts
+    them too.  Blocks rematerialised under autograd when ``cfg.remat``."""
     x = embedding_lookup(params["embed"], tokens)
+    if cfg.n_vis_tokens:
+        if vis_embeds is None:
+            raise ValueError(f"{cfg.name}: the vlm family's forward needs vis_embeds "
+                             f"(B, {cfg.n_vis_tokens}, {cfg.d_model})")
+        v = matmul(vis_embeds, params["vis_proj"]["w"])
+        x = torch.cat([v.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     q_chunk, kv_chunk = _chunks_for(cfg, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         def body(blk, x):
             return rwkv_mod.rwkv_block_apply(blk, x, cfg)[0], aux
+    elif cfg.family == "hybrid":
+        def body(blk, x):
+            return hybrid_period_apply(blk, x, cfg, q_chunk, kv_chunk)
+    elif _moe_interleaved(cfg):
+        def body(blk, x):
+            return moe_period_apply(blk, x, cfg, True, q_chunk, kv_chunk)
     else:
         def body(blk, x):
             return dense_block_apply(blk, x, cfg, True, q_chunk, kv_chunk)
@@ -219,14 +371,24 @@ def logits_head(params, x, cfg: ArchConfig):
 
 
 def init_cache(cfg: ArchConfig, B: int, S: int, device=None):
-    """Stacked per-layer decode cache (leading axis = blocks); ``device``
+    """Stacked per-block decode cache (leading axis = blocks); ``device``
     defaults to CUDA."""
     dev = resolve_device(device)
     dtype = _dt(cfg)
     if cfg.family == "ssm":  # O(1) recurrent state: S is not used
-        return _stack([rwkv_mod.rwkv_init_state(cfg, B, dtype, dev)
-                       for _ in range(n_blocks(cfg))])
-    return _stack([dense_cache_init(cfg, B, S, dtype, dev) for _ in range(n_blocks(cfg))])
+        def one():
+            return rwkv_mod.rwkv_init_state(cfg, B, dtype, dev)
+    elif cfg.family == "hybrid":
+        def one():
+            return hybrid_cache_init(cfg, B, S, dtype, dev)
+    elif _moe_interleaved(cfg):
+        def one():
+            return {"pos0": dense_cache_init(cfg, B, S, dtype, dev),
+                    "pos1": dense_cache_init(cfg, B, S, dtype, dev)}
+    else:
+        def one():
+            return dense_cache_init(cfg, B, S, dtype, dev)
+    return _stack([one() for _ in range(n_blocks(cfg))])
 
 
 def decode_step(params, cache, token, pos, cfg: ArchConfig):
@@ -237,10 +399,13 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig):
         blk, c = _layer(params["blocks"], i), _layer(cache, i)
         if cfg.family == "ssm":
             x, new = rwkv_mod.rwkv_block_apply(blk, x, cfg, state=c)
-            for key, t in new.items():
-                c[key].copy_(t)  # views of the stacked cache
-            continue
-        x, _ = dense_block_decode(blk, x, c, cfg, pos)
+            _copy_state(c, new)
+        elif cfg.family == "hybrid":
+            x, _ = hybrid_period_decode(blk, x, c, cfg, pos)
+        elif _moe_interleaved(cfg):
+            x, _ = moe_period_decode(blk, x, c, cfg, pos)
+        else:
+            x, _ = dense_block_decode(blk, x, c, cfg, pos)
     _, norm = make_norm(cfg.norm)
     x = norm(params["final_norm"], x)
     logits = logits_head(params, x[:, 0, :], cfg)

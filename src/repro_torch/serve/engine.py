@@ -1,20 +1,24 @@
 """Serving engine: batched prefill + decode with preallocated caches.
 
-A transcription of ``repro/serve/engine.py``.  The engine keeps a
-fixed-capacity batch; requests are admitted into free slots and prefilled
-token by token through ``lm.decode_step`` (a plain einsum against the KV
-cache, or one plain step of the recurrence for the ssm family, whose cache
-is a fixed-size state).  ``capture_prefill`` is the batched prefill: one
-``forward`` through the flash-attention or WKV kernel in every layer, then
-the cache filled by replaying the decode steps.
+A transcription of ``repro/serve/engine.py``, for every registered
+family.  The engine keeps a fixed-capacity batch; requests are admitted
+into free slots and prefilled token by token through ``lm.decode_step`` (a
+plain einsum against the KV cache, or one plain step of a recurrence, whose
+cache is a fixed-size state).  ``capture_prefill`` is the batched prefill:
+one ``forward`` through the flash-attention or WKV kernel in every
+attention or WKV layer, then the cache filled by replaying the decode steps.
 
-Two behaviours of the reference are kept on purpose, so that generated
-token ids match it (ROADMAP C lists them as reference-side caveats):
+Behaviours of the reference are kept on purpose, so that generated token
+ids match it (ROADMAP C lists them as reference-side caveats):
 
 * ``_prefill_slot`` runs the whole batch at slot ``i``'s position, so it
   overwrites the other slots' cache rows at that position (ssm: it advances
   the other slots' recurrent states with token 0);
-* ``step`` decodes every active slot at the first active slot's position.
+* ``step`` decodes every active slot at the first active slot's position;
+* ``capture_prefill`` does not serve the audio and vlm families (C8): it
+  prefills without their frames or vision tokens, where the JAX package
+  fails (``KeyError`` / ``AssertionError``), so here it raises;
+* whisper's decode cross-attends to cache K/V that nothing writes (C8).
 
 The cache is updated in place (``models/transformer.py``).
 """
@@ -115,7 +119,13 @@ def capture_prefill(cfg: ArchConfig, params, tokens, max_seq: int):
 
     tokens: (B, P) int tensor on the parameters' device.  One forward
     through the flash or WKV kernel gives the last-position logits (B, 1, V);
-    the cache is filled by replaying the decode steps position by position."""
+    the cache is filled by replaying the decode steps position by position.
+    Raises ``ValueError`` for the audio and vlm families (ROADMAP C8)."""
+    if cfg.family in ("audio", "vlm"):
+        raise ValueError(
+            f"{cfg.name}: capture_prefill does not serve the {cfg.family} family: it "
+            "prefills tokens alone, without the frames or vision tokens this family "
+            "needs, and the JAX package's fails there too (ROADMAP caveat C8)")
     B, P = tokens.shape
     cache = lm.init_cache(cfg, B, max_seq, device=tokens.device)
     logits = transformer.prefill(params, tokens, cfg)

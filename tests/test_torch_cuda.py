@@ -207,6 +207,13 @@ ATTN_CASES = [
     (1, 200, 200, 8, 2, 64, True, "float32"),
     (2, 100, 37, 8, 2, 160, True, "float32"),
     (4, 512, 512, 32, 4, 64, True, "bfloat16"),
+    # The families' shapes (chip_smoke.py's ATTN_FAMILY_CASES at B = 1):
+    # whisper's encoder and cross-attention, llama4, internvl2, phi3.5/Jamba.
+    (1, 1500, 1500, 12, 12, 64, False, "float32"),
+    (1, 64, 1500, 12, 12, 64, False, "float32"),
+    (1, 512, 512, 40, 8, 128, True, "bfloat16"),
+    (1, 768, 768, 14, 2, 64, True, "bfloat16"),
+    (1, 512, 512, 32, 8, 128, True, "bfloat16"),
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -258,6 +265,23 @@ def test_cuda_flash_attention_tensor_core_body(cuda_device, case):
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), ref.reference_attention(q, k, v, causal=causal)
                                .float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_dtypes_promote_before_the_kernel(cuda_device):
+    """whisper's cross-attention: a bf16 query against f32 keys and values
+    runs the f32 (FMA) body on the promoted operands, output in q's dtype."""
+    from repro_torch.models import attention as attn
+
+    q, _, _ = _qkv(10, 2, 64, 300, 4, 4, 64, "bfloat16", cuda_device)
+    _, k, v = _qkv(11, 2, 64, 300, 4, 4, 64, "float32", cuda_device)
+    n0 = dict(fa.BODY_LAUNCHES)
+    got = attn.chunked_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.BODY_LAUNCHES == {"tensor_core": n0["tensor_core"], "fma": n0["fma"] + 1}
+    assert got.dtype == torch.bfloat16
+    want = ref.reference_attention(q.float(), k, v, causal=False).to(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda
