@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero before the result line:
              kernel, the tensor-core instructions (HMMA / HGMMA) that
              ``cuobjdump -sass`` lists: every bf16 flash-attention forward,
              every tensor-core backward kernel (``*mma_kernel``) and every
-             WKV instantiation must have some;
+             WKV forward instantiation must have some (the WKV backward
+             runs on the FMA units and is not asked for any);
 3. kernels — every hand-written kernel against its plain torch version on
              the card, at the test shapes, the main path's shapes and a
              large shape (flash attention also at the shapes phases 21-25
@@ -187,7 +188,35 @@ Phases, in order; any failure exits non-zero before the result line:
              the card's decode of token 63 after ``capture_prefill`` of
              tokens 0..62 against the prefill logits of 0..63 at a capacity
              that drops no slot, within 1e-3 of max |logit| in f32 (the
-             bf16 gap printed).
+             bf16 gap printed);
+27. wkv bwd — the WKV backward kernel (``csrc/rwkv_scan_bwd.cu``) against
+             its plain version, ``ref.reference_rwkv_backward``, and against
+             torch autograd through ``ref.reference_rwkv_state``: the WKV
+             test cases in the three dtype combinations with and without an
+             initial state and a final-state gradient, ragged lengths, the
+             extreme decays (w = 1e-30, log w = -5 and -8, straddling
+             sub-chunks) and the training shape (1 x 512 tokens, 64 heads of
+             64, bf16 r/k/v/dy with f32 w): every gradient within 1e-4 (f32)
+             / 2e-2 (bf16) of its max |.|, two calls bit-equal; per case the
+             device time against the bound, at the training shape against the
+             plain version (no one-call library equivalent);
+28. ssm train — NetMax training at the widths of rwkv6-7b, cut to 1 of
+             its 32 layers, through ``launch.train.TrainLoop`` as phase 13
+             (M = 4, 4 x 512 tokens a worker in the config's 4 micro-batches,
+             remat, sgd, 12 rounds), after the serving phases' weights are
+             freed.  The launch counters are zeroed just before and read just
+             after: the WKV forward 32 and backward 16 a round (bf16 r/k/v
+             with f32 decays), the gossip mix twice (one launch per dtype
+             group of the tree: its bf16 leaves, and u and w0 in f32),
+             nothing else; the plain recurrence, its backward and the
+             chunked scan never called; losses finite, the first round's
+             mix bit-equal to its plain version.  Prints ms a round, tokens/s, peak memory and the device
+             time by kind of two profiled rounds;
+29. ssm train parity — two rounds of the trainer at a 2-layer cut of
+             rwkv6-7b (d_model 256, 4 heads of 64) on the card and on the CPU,
+             f32 and bf16 with f32 decays: losses and params within 1e-4 /
+             2e-2 (relative), the WKV backward once per worker, micro-batch
+             and layer.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, last, the
 ``{"ok": true, "device": {...}}`` line.  With ``--out DIR`` the per-case
@@ -198,6 +227,7 @@ kernel numbers and the paths' numbers also go to
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import gc
 import json
@@ -302,6 +332,24 @@ RWKV_STATE_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "mixed": 1e-4}
 #: Operand dtypes (r/k/v, w) of a WKV case's dtype name.
 RWKV_DTYPES = {"float32": ("float32", "float32"), "bfloat16": ("bfloat16", "bfloat16"),
                "mixed": ("bfloat16", "float32")}
+#: Phase 27, the WKV backward kernel's cases (B, S, H, N, dtype, decays,
+#: initial state, final-state gradient): RWKV_CASES with and without an
+#: initial state and a final-state gradient in turn; ragged lengths (S not
+#: a multiple of the kernel's checkpoint interval of 8, or below it) in the
+#: three dtype combinations; RWKV_EXTREME's decays from a state and with a
+#: final-state gradient; then the training shape, one rwkv6-7b layer of a 1 x
+#: 512 micro-batch from the zero state the model passes (RWKV_BWD_MAIN).
+RWKV_BWD_CASES = (
+    [(B, S, H, N, dtype, None, i % 2 == 1, (i // 2) % 2 == 1)
+     for i, (B, S, H, N, _, dtype) in enumerate(RWKV_CASES)]
+    + [(1, 7, 2, 16, "float32", None, True, True), (1, 1, 2, 64, "mixed", None, True, True),
+       (2, 37, 2, 32, "bfloat16", None, False, True), (2, 100, 3, 64, "bfloat16", None, True,
+                                                      False)]
+    + [(B, S, H, N, dtype, how, True, True) for (B, S, H, N, _, dtype), how in RWKV_EXTREME])
+RWKV_BWD_MAIN = (1, 512, 64, 64, "mixed", None, False, False)
+#: Each gradient's max |err| against the plain version's max |.|, as the
+#: flash-attention backward (ATTN_BWD_TOL).
+RWKV_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "mixed": 2e-2}
 #: Kernels that must hold tensor-core instructions (a substring of their
 #: symbol in ``cuobjdump -sass``), by library.
 TENSOR_CORE_KERNELS = {"flash_attention": "flash_fwd_bf16_mma_kernel",
@@ -348,8 +396,10 @@ def cuda_ms(torch, fn, iters, reps=7, warmup=3):
 
 #: Traces device_ms takes of one case before it gives up: CUPTI on the
 #: card's machine may deliver only some of a trace's kernel records, or none
-#: (an H100 run traced 65 of 200 launches in one trace, and another traced
-#: none of a WKV case's), so a trace that misses launches is taken again.
+#: (an H100 run traced 65 of 200 launches in one trace, and others traced
+#: none of a WKV case's, forward or backward, in four traces), so a trace
+#: that misses launches is taken again, and when none holds one the caller
+#: times the call with CUDA events instead.
 PROFILE_ATTEMPTS = 4
 
 
@@ -366,10 +416,11 @@ def device_ms(torch, fn, iters, match=None, per_call=1):
     calls of ``fn``: with ``match``, the time of the traced kernels whose
     name contains it over the calls they account for (``fn`` launches
     ``per_call`` of them a call; a trace may hold fewer launches than calls
-    were made, so the sum over calls would read low), and when no trace of
-    ``PROFILE_ATTEMPTS`` holds one the phase fails; without, the device time
-    of all kernels per call, or None when no trace holds device time.  A
-    trace short of the launches made is taken again; the fullest is used."""
+    were made, so the sum over calls would read low); without, the device
+    time of all kernels per call.  None when no trace of ``PROFILE_ATTEMPTS``
+    holds device time (of the named kernels): the caller then reads CUDA
+    events around the calls and says so.  A trace short of the launches made
+    is taken again; the fullest is used."""
     profiler = torch.profiler
     fn()
     torch.cuda.synchronize()
@@ -391,8 +442,10 @@ def device_ms(torch, fn, iters, match=None, per_call=1):
               f"the fullest held {n} launches)")
     if match is None:
         return us / iters / 1e3 if us > 0 else None
-    check(us > 0, f"the profiler traced no device time for kernels named *{match}* "
-                  f"in {PROFILE_ATTEMPTS} traces")
+    if us <= 0:
+        print(f"  (profiler: no device time for kernels named *{match}* in "
+              f"{PROFILE_ATTEMPTS} traces; CUDA events time this case)")
+        return None
     if n != want:
         print(f"  (profiler traced {n} {match} launches of {want})")
     return us / (n / per_call) / 1e3
@@ -725,9 +778,10 @@ def main_tree(torch, tk, ref, rate, draw, dev, records, iters=200):
     nbytes = {"tree": 3 * n_el * 4 + 4 * N_WORKERS, "tree_u": 4 * n_el * 4 + 4 * N_WORKERS}
     out = {}
     for key, (fn, match, per_call) in ways.items():
+        dev_ms = device_ms(torch, fn, iters, match, per_call)
         rec = {"kernel": "gossip_mix_rows", "role": "main_tree", "way": key,
-               "ms": device_ms(torch, fn, iters, match, per_call)}
-        check(rec["ms"] is not None, f"main tree {key}: the profiler traced no device time")
+               "ms": cuda_ms(torch, fn, iters) if dev_ms is None else dev_ms,
+               "ms_from": "events" if dev_ms is None else "profiler"}
         if key != "tree_cold":
             rec["call_ms"] = cuda_ms(torch, fn, iters)
             rec["host_ms"] = host_ms(torch, fn, iters)
@@ -743,7 +797,7 @@ def main_tree(torch, tk, ref, rate, draw, dev, records, iters=200):
               f"main tree {key}: not bit-equal to the plain version "
               f"(max |err| {out[key]['max_abs_err']})")
     for key, rec in out.items():
-        print(f"  main tree {key}: device {rec['ms'] * 1e3:.2f} us"
+        print(f"  main tree {key}: device {rec['ms'] * 1e3:.2f} us ({rec['ms_from']})"
               + (f", per call {rec['call_ms'] * 1e3:.2f} us, host {rec['host_ms'] * 1e3:.2f}"
                  " us" if "call_ms" in rec else "")
               + (f", bound {rec['bound_ms'] * 1e3:.3f} us "
@@ -1807,6 +1861,148 @@ def phase_flash_bwd(torch, rate, name, records):
     return summary
 
 
+def rwkv_bwd_work(B, S, H, N, itemsize, w_itemsize, state_in, dstate_in, dstate0):
+    """(flops, bytes) of one WKV backward as a reverse recurrence.  Per token
+    and head 14 N^2 f32 flops -- the state recomputed (w S + k v^T, 3),
+    dr's, dk's and dv's products with the state or its adjoint (2 each),
+    dw's (2) and the adjoint's update (w G + r dy^T, 3) -- and 14 N for v .
+    dy, r . (u k) and the u terms.  Bytes: r, k, v, dy (at ``itemsize``)
+    and w (at ``w_itemsize``) read once, dr, dk, dv and dw written once at
+    the same widths; u read and du written (f32); the initial state and the
+    final-state gradient read when given, the initial-state gradient
+    written when asked for."""
+    tokens = B * S * H
+    flops = tokens * (14 * N * N + 14 * N)
+    nbytes = (tokens * N * (7 * itemsize + 2 * w_itemsize) + 2 * 4 * H * N
+              + (int(state_in) + int(dstate_in) + int(dstate0)) * 4 * B * H * N * N)
+    return flops, nbytes
+
+
+def phase_rwkv_bwd(torch, rate, name, records):
+    """Phase 27: the WKV backward kernel against ``ref.reference_rwkv_backward``
+    and against torch autograd through ``ref.reference_rwkv_state`` on every
+    case of RWKV_BWD_CASES and at RWKV_BWD_MAIN: each gradient in its operand's
+    dtype within RWKV_BWD_TOL of its max |.|; repeated calls bit-equal; per
+    case the profiler's device time and the bound, at the training shape
+    also the plain version's time.  Appends to ``records``; returns the
+    kernel's summary at the training shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_scan as rs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    main = None
+    for role, case in ([("test", c) for c in RWKV_BWD_CASES] + [("main", RWKV_BWD_MAIN)]):
+        B, S, H, N, dtype, how, with_state, with_dstate = case
+        dt, wdt = (getattr(torch, d) for d in RWKV_DTYPES[dtype])
+        shape = (B, S, H, N)
+        r = (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dt)
+        k = (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dt)
+        v = torch.randn(shape, generator=gen, device=dev).to(dt)
+        w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev) + 2.0).to(wdt)
+        u = torch.randn((H, N), generator=gen, device=dev) * 0.1
+        if how is not None:
+            w = strong_decays(torch, w, how, gen)
+        dy = torch.randn(shape, generator=gen, device=dev).to(dt)
+        s0 = (torch.randn((B, H, N, N), generator=gen, device=dev) * 0.3
+              if with_state else None)
+        ds = torch.randn((B, H, N, N), generator=gen, device=dev) if with_dstate else None
+
+        def kernel():
+            return rs.rwkv_scan_backward(r, k, v, w, u, s0, dy, ds,
+                                         with_dstate0=s0 is not None)
+
+        got = kernel()
+        want = ref.reference_rwkv_backward(r, k, v, w, u, s0, dy, ds)
+        leaves = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+        s0l = None if s0 is None else s0.clone().requires_grad_()
+        with torch.enable_grad():
+            y, final = ref.reference_rwkv_state(*leaves, s0l)
+            outs, cots = ([y], [dy]) if ds is None else ([y, final], [dy, ds])
+            auto = torch.autograd.grad(outs, leaves + ([] if s0l is None else [s0l]), cots)
+        del y, final, leaves, s0l
+        again = kernel()
+        torch.cuda.synchronize()
+        what = f"rwkv_scan_bwd {case}"
+        check([t.dtype for t in got[:4]] == [dt] * 3 + [wdt] and got[4].dtype == torch.float32
+              and (got[5] is None) == (s0 is None),
+              f"{what}: gradient dtypes {[None if t is None else t.dtype for t in got]}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again) if a is not None),
+              f"{what}: two calls on the same inputs differ")
+        errs, abs_errs = {}, {}
+        tol = RWKV_BWD_TOL[dtype]
+        for oracle, plain in (("reverse recurrence", want), ("autograd", auto)):
+            for gname, g, pl in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got, plain):
+                if g is None:
+                    continue
+                scale = pl.float().abs().max().item()
+                err = (g.float() - pl.float()).abs().max().item()
+                check(math.isfinite(err) and err <= tol * scale,
+                      f"{what} (decays {how or 'sigmoid'}): {gname} max |err| {err} against "
+                      f"the {oracle} beyond {tol} x max |grad| {scale}")
+                errs[gname] = max(errs.get(gname, 0.0), err / max(scale, 1e-30))
+                abs_errs[gname] = max(abs_errs.get(gname, 0.0), err)
+        del got, again, want, auto
+        flops, nbytes = rwkv_bwd_work(B, S, H, N, r.element_size(), w.element_size(),
+                                      with_state, with_dstate, with_state)
+        t_ops = flops / flop_rate(name, "float32") * 1e3
+        t_bytes = nbytes / rate * 1e3
+        rec = {"kernel": "rwkv_scan_bwd", "role": role, "case": list(case), "dtype": dtype,
+               "decays": how or "sigmoid", "max_abs_err": max(abs_errs.values()),
+               "max_rel_err": max(errs.values()), "max_rel_err_by_grad": errs,
+               "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": None}
+        iters = {"test": 5, "main": 20}[role]
+        call = cuda_ms(torch, kernel, iters)
+        dev_ms = device_ms(torch, kernel, iters, "rwkv_scan_bwd")
+        rec.update(ms=call if dev_ms is None else dev_ms,
+                   ms_from="events" if dev_ms is None else "profiler", call_ms=call)
+        if role == "main":
+            def plain():
+                return ref.reference_rwkv_backward(r, k, v, w, u, s0, dy, ds)
+
+            pcall = cuda_ms(torch, plain, 1, reps=3, warmup=1)
+            pdev = device_ms(torch, plain, 1)
+            rec.update(plain_ms=pcall if pdev is None else pdev,
+                       plain_ms_from="events" if pdev is None else "profiler",
+                       plain_call_ms=pcall)
+            main = rec
+        records.append(rec)
+        print(f"  rwkv_scan_bwd {role} {case}: max rel err "
+              f"{({g: float(f'{e:.3g}') for g, e in errs.items()})}, device "
+              f"{rec['ms'] * 1e3:.1f} us ({rec['ms_from']}), per call "
+              f"{rec['call_ms'] * 1e3:.1f} us"
+              + (f", plain {rec['plain_ms'] * 1e3:.1f} us ({rec['plain_ms_from']})"
+                 if role == "main" else "")
+              + f", bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); "
+              f"{flops / (rec['ms'] * 1e-3) / 1e12:.2f} TFLOP/s, "
+              f"{nbytes / (rec['ms'] * 1e-3) / 1e12:.3f} TB/s")
+        del r, k, v, w, u, dy, s0, ds
+        torch.cuda.empty_cache()
+    summary = {
+        "name": "rwkv_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv_scan_bwd.cu",
+        # The gradient of B4 (src/repro/kernels/rwkv_scan.py:94), which the JAX
+        # package takes through XLA's autodiff of its model's scan.
+        "replaces": "src/repro/kernels/rwkv_scan.py:94",
+        "max_abs_err": max(r["max_abs_err"] for r in records
+                           if r["kernel"] == "rwkv_scan_bwd"),
+        "max_rel_err": max(r["max_rel_err"] for r in records
+                           if r["kernel"] == "rwkv_scan_bwd"),
+        # One call at the training shape (bf16 r/k/v/dy, f32 decays).
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+    }
+    print(f"kernel rwkv_scan_bwd: max |err| {summary['max_abs_err']:.3g} ("
+          f"{summary['max_rel_err']:.3g} of max |grad|), "
+          f"training shape {summary['ms'] * 1e3:.1f} us a call on the device (plain "
+          f"{summary['plain_ms'] * 1e3:.1f} us, no one-call library equivalent, bound "
+          f"{summary['bound_ms'] * 1e3:.2f} us, {summary['bound_by']})")
+    return summary
+
+
 #: The training phase: tinyllama-1.1b at its published widths, cut to 8 of
 #: its 22 layers (all 22 need ~88 GB at M = 4 with f32 momenta), M = 4
 #: workers, 4 sequences of 512 tokens a worker in 2 micro-batches.
@@ -1821,30 +2017,25 @@ TRAIN_LR = 0.02
 TRAIN_PROFILED = 2
 
 
-def phase_train(torch):
-    """NetMax training at the widths of tinyllama-1.1b through the
-    launcher's loop (``launch.train.TrainLoop``): the launch counters are
-    zeroed just before the rounds and read just after; losses finite, the
-    flash forward and backward and the gossip-mix kernels launched, the
-    first round's mix bit-equal to its plain version on the same tree."""
-    from repro_torch.configs.base import get_arch
+def run_train_loop(torch, cfg, label):
+    """The rounds of phases 13 and 28: ``launch.train.TrainLoop`` at ``cfg``
+    (TRAIN_WORKERS workers, TRAIN_BATCH sequences of TRAIN_SEQ tokens a
+    worker), TRAIN_ROUNDS rounds, the last TRAIN_PROFILED of them profiled.
+    The launch counters are zeroed just before the rounds and read just
+    after; the first round's tree mix is held bit for bit against its plain
+    version on the same tree.  Returns the measurements; the phases check
+    their own launches."""
+    from repro_torch.kernels import gossip_mix as tk
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.train import TrainLoop
     from repro_torch.tree import tree_flatten, tree_leaves
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TRAIN_LAYERS)
-    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size,
-           cfg.dtype, cfg.remat, cfg.microbatches)
-          == (2048, 32, 4, 64, 5632, 32000, "bfloat16", True, 2),
-          f"{LM_ARCH} is not the published width: {cfg}")
     # The serving phases wrap ServeEngine.step in a closure over the engine's
     # own method, a reference cycle: collect it, or their weights (rwkv6-7b's
     # 15 GB) count in this phase's peak.
-    gc.collect()
-    torch.cuda.empty_cache()
+    held_gb = free_card(torch)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loop = TrainLoop(cfg, workers=TRAIN_WORKERS, seq=TRAIN_SEQ,
                      batch_per_worker=TRAIN_BATCH, lr=TRAIN_LR, algo="netmax",
@@ -1852,7 +2043,7 @@ def phase_train(torch):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     check(loop.step_cfg.use_gossip_mix_kernel and loop.step_cfg.gossip_mode == "gather",
-          f"the launcher's step config {loop.step_cfg}")
+          f"{label}: the launcher's step config {loop.step_cfg}")
     n_params = sum(leaf.numel() for leaf in tree_leaves(loop.params))
 
     # The first round's tree mix, held bit for bit against its plain version
@@ -1899,22 +2090,18 @@ def phase_train(torch):
     round_peak.append(torch.cuda.max_memory_allocated())  # the profiled rounds
     # The first round's peak holds the mix check's plain version too.
     peak = max(round_peak[1:])
-    check(all(math.isfinite(x) for row in losses for x in row), f"non-finite losses {losses}")
+    check(all(math.isfinite(x) for row in losses for x in row),
+          f"{label}: non-finite losses {losses}")
     check(mix_check.get("leaves") and not mix_check["bad"],
-          f"the first round's gossip mix differs from its plain version at leaves "
+          f"{label}: the first round's gossip mix differs from its plain version at leaves "
           f"{mix_check.get('bad')} of {mix_check.get('leaves')}")
-    per_round = TRAIN_WORKERS * cfg.microbatches * cfg.n_layers
-    check(launches["gossip_mix_rows"] == TRAIN_ROUNDS,
-          f"gossip_mix_rows launched {launches['gossip_mix_rows']} times in "
-          f"{TRAIN_ROUNDS} rounds (one tree launch a round)")
-    check(launches["flash_attention_bwd"] == per_round * TRAIN_ROUNDS,
-          f"flash_attention_bwd launched {launches['flash_attention_bwd']} times, "
-          f"{per_round} a round expected")
-    check(launches["flash_attention"] == 2 * per_round * TRAIN_ROUNDS,
-          f"flash_attention launched {launches['flash_attention']} times, "
-          f"{2 * per_round} a round expected (remat runs each block's forward twice)")
-    check(launches["rwkv_scan"] == 0 and launches["gossip_mix"] == 0,
-          f"unexpected launches on the training path: {launches}")
+    # One tree launch a round per dtype group of up to MAX_LEAVES leaves
+    # (tinyllama's tree is all bf16; rwkv6-7b's keeps u and w0 in f32).
+    groups = sum(-(-n // tk.MAX_LEAVES) for n in collections.Counter(
+        leaf.dtype for leaf in tree_leaves(loop.params) if leaf.numel()).values())
+    check(launches["gossip_mix_rows"] == groups * TRAIN_ROUNDS,
+          f"{label}: gossip_mix_rows launched {launches['gossip_mix_rows']} times in "
+          f"{TRAIN_ROUNDS} rounds ({groups} tree launches a round, one a dtype group)")
     avg = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     device_s = sum(e.self_device_time_total for e in avg) * 1e-6
     by = {}
@@ -1928,6 +2115,7 @@ def phase_train(torch):
         "arch": cfg.name, "layers": cfg.n_layers, "workers": TRAIN_WORKERS,
         "seq": TRAIN_SEQ, "batch_per_worker": TRAIN_BATCH,
         "microbatches": cfg.microbatches, "params_stacked": n_params, "init_s": init_s,
+        "held_before_gb": held_gb,
         "round_s": round_s, "round_ms_median": statistics.median(steady) * 1e3,
         "round_ms_mean": statistics.mean(steady) * 1e3,
         "tokens_per_round": tokens,
@@ -1936,20 +2124,20 @@ def phase_train(torch):
         "round_peak_memory_bytes": round_peak,
         "losses": losses, "launches": launches,
         "launches_per_round": {k: v / TRAIN_ROUNDS for k, v in launches.items()},
-        "mix_check": mix_check,
+        "mix_check": mix_check, "mix_launches_per_round": groups,
         "profile": {"rounds": TRAIN_PROFILED, "wall_s": profiled_s, "device_s": device_s,
                     "busy_share": device_s / profiled_s, "device_s_by": by,
                     "top_kernels": top},
     }
-    print(f"train: {cfg.name} widths at {cfg.n_layers} layers, M={TRAIN_WORKERS} "
+    print(f"{label}: {cfg.name} widths at {cfg.n_layers} layers, M={TRAIN_WORKERS} "
           f"({n_params / 1e9:.3f} B params stacked, bf16), {TRAIN_BATCH}x{TRAIN_SEQ} tokens "
           f"a worker in {cfg.microbatches} micro-batches; init {init_s:.2f} s; first round "
           f"{round_s[0] * 1e3:.1f} ms, then median {out['round_ms_median']:.1f} ms "
           f"(mean {out['round_ms_mean']:.1f}) = {out['tokens_per_s']:.0f} tokens/s; peak "
           f"memory {peak / 1e9:.2f} GB (the first round, with the mix check, "
-          f"{round_peak[0] / 1e9:.2f} GB); launches a round "
-          f"{out['launches_per_round']}; mix bit-equal on {mix_check['leaves']} leaves "
-          f"({mix_check['elements']} elements)")
+          f"{round_peak[0] / 1e9:.2f} GB; {held_gb:.2f} GB held before the loop); launches "
+          f"a round {out['launches_per_round']}; mix bit-equal on {mix_check['leaves']} "
+          f"leaves ({mix_check['elements']} elements)")
     print("  losses (mean over workers) by round: "
           + ", ".join(f"{statistics.mean(row):.4f}" for row in losses))
     print(f"  profile of {TRAIN_PROFILED} rounds: wall {profiled_s * 1e3:.1f} ms, device "
@@ -1962,10 +2150,103 @@ def phase_train(torch):
     return out
 
 
+def phase_train(torch):
+    """NetMax training at the widths of tinyllama-1.1b through the
+    launcher's loop (``launch.train.TrainLoop``): the launch counters are
+    zeroed just before the rounds and read just after; losses finite, the
+    flash forward and backward and the gossip-mix kernels launched, the
+    first round's mix bit-equal to its plain version on the same tree."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TRAIN_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size,
+           cfg.dtype, cfg.remat, cfg.microbatches)
+          == (2048, 32, 4, 64, 5632, 32000, "bfloat16", True, 2),
+          f"{LM_ARCH} is not the published width: {cfg}")
+    out = run_train_loop(torch, cfg, "train")
+    launches = out["launches"]
+    per_round = TRAIN_WORKERS * cfg.microbatches * cfg.n_layers
+    check(launches["flash_attention_bwd"] == per_round * TRAIN_ROUNDS,
+          f"flash_attention_bwd launched {launches['flash_attention_bwd']} times, "
+          f"{per_round} a round expected")
+    check(launches["flash_attention"] == 2 * per_round * TRAIN_ROUNDS,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"{2 * per_round} a round expected (remat runs each block's forward twice)")
+    check(launches["rwkv_scan"] == 0 and launches["rwkv_scan_bwd"] == 0
+          and launches["gossip_mix"] == 0,
+          f"unexpected launches on the training path: {launches}")
+    return out
+
+
+#: Phase 28: rwkv6-7b at its published widths, cut to 1 of its 32 layers
+#: (at M = 4 one layer is 3.02 B stacked parameters, two 3.90 B: at phase
+#: 13's ~18.6 bytes a parameter ~56 and ~72 GB), the rounds of phase 13.
+SSM_TRAIN_LAYERS = 1
+
+
+def phase_ssm_train(torch):
+    """Phase 28: NetMax training at the widths of rwkv6-7b through the
+    launcher's loop, as phase 13: a round launches the WKV forward twice
+    and its backward once per worker, micro-batch and layer (remat), the
+    gossip mix once per dtype group of the tree, nothing else, and runs no
+    plain WKV step (the plain recurrence, its backward and the CPU's chunked
+    scan are watched for the run and must not be called)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_scan as rs
+    from repro_torch.models import rwkv as rwkv_mod
+
+    full = get_arch(SSM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SSM_TRAIN_LAYERS)
+    check((cfg.family, full.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size,
+           cfg.rwkv.head_dim, cfg.rwkv.decay_lora, cfg.dtype, cfg.remat, cfg.microbatches)
+          == ("ssm", 32, 4096, 64, 14336, 65536, 64, 64, "bfloat16", True, 4),
+          f"{SSM_ARCH} is not the published width: {cfg}")
+    plain_calls = {}
+    watched = [(rwkv_mod, "chunked_scan"), (ref, "reference_rwkv_state"),
+               (ref, "reference_rwkv_backward")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in watched]
+
+    def counted(attr, fn):
+        def wrapper(*args, **kwargs):
+            plain_calls[attr] = plain_calls.get(attr, 0) + 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for mod, attr, fn in saved:
+        setattr(mod, attr, counted(attr, fn))
+    try:
+        out = run_train_loop(torch, cfg, "ssm train")
+        dtypes = dict(rs.DTYPE_LAUNCHES)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    launches = out["launches"]
+    per_round = TRAIN_WORKERS * cfg.microbatches * cfg.n_layers
+    check(not plain_calls, f"plain WKV steps on the ssm training path: {plain_calls}")
+    check(launches["rwkv_scan_bwd"] == per_round * TRAIN_ROUNDS,
+          f"rwkv_scan_bwd launched {launches['rwkv_scan_bwd']} times, {per_round} a round "
+          "expected")
+    check(launches["rwkv_scan"] == 2 * per_round * TRAIN_ROUNDS,
+          f"rwkv_scan launched {launches['rwkv_scan']} times, {2 * per_round} a round "
+          "expected (remat runs each block's forward twice)")
+    check(dtypes["mixed"] == launches["rwkv_scan"],
+          f"rwkv_scan launches by dtypes {dtypes}: every layer must pass its bf16 r/k/v "
+          "and f32 decays uncast")
+    others = {k: n for k, n in launches.items()
+              if k not in ("rwkv_scan", "rwkv_scan_bwd", "gossip_mix_rows")}
+    check(not any(others.values()), f"other kernels launched on the ssm training path: "
+                                    f"{others}")
+    out["rwkv_scan_dtypes"] = dtypes
+    out["plain_wkv_calls"] = plain_calls
+    return out
+
+
 def device_kind(kernel: str) -> str:
     """The group a traced kernel's time is reported under in the training
     phase's breakdown (cuBLAS's Hopper GEMMs are named ``nvjet_*``)."""
     for kind, keys in (("flash_bwd", ("flash_bwd",)), ("flash_fwd", ("flash_fwd",)),
+                       ("wkv_bwd", ("rwkv_scan_bwd",)), ("wkv_fwd", ("rwkv_scan_kernel",)),
                        ("gossip_mix", ("mix_tree_kernel",)),
                        ("gemm", ("nvjet", "gemm", "Gemm", "cutlass", "xmma")),
                        ("copy", ("Memcpy", "Memset", "copy_kernel")),
@@ -1980,26 +2261,22 @@ def device_kind(kernel: str) -> str:
 TRAIN_PARITY_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
-def phase_train_parity(torch):
-    """Three rounds of the trainer on the card and on the CPU from the same
-    params and draws, at a cut of tinyllama-1.1b (2 layers, d_model 256,
-    4/2 heads of 64, d_ff 512, vocab 512, remat), in f32 and bf16: losses
-    and params within TRAIN_PARITY_TOL."""
+def train_parity(torch, cfgs, rounds, label, seq=128):
+    """``rounds`` rounds of the trainer on the card and on the CPU from the
+    same params and draws, for each dtype -> cut config of ``cfgs``: losses
+    and params within TRAIN_PARITY_TOL.  Returns, per dtype, the errors,
+    the seconds on each device and the card's kernel launches."""
     import numpy as np
 
-    from repro_torch.configs.base import get_arch
     from repro_torch.core.consensus import sample_round
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.optim import sgd
     from repro_torch.train.trainer import TrainStepConfig, init_stacked, make_train_step
     from repro_torch.tree import tree_leaves, tree_map
 
-    M, lr, rounds, seq = 4, TRAIN_LR, 3, 128
+    M, lr = 4, TRAIN_LR
     res = {}
-    for dtype in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=2, d_model=256, n_heads=4,
-                                  n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=512,
-                                  dtype=dtype)
+    for dtype, cfg in cfgs.items():
         opt = sgd(momentum=0.9, weight_decay=1e-4)
         step = make_train_step(cfg, opt, M, "netmax",
                                TrainStepConfig(use_gossip_mix_kernel=True))
@@ -2011,6 +2288,8 @@ def phase_train_parity(torch):
         P = np.where(dmask > 0, 1.0 / (M - 1), 0.0)
         rng = np.random.default_rng(0)
         loss_err, secs = 0.0, {"cpu": 0.0, "cuda": 0.0}
+        torch.cuda.synchronize()
+        reset_all_launches()
         for r in range(rounds):
             batch = {k: np.stack([stream.batch(w, r)[k] for w in range(M)]).astype(np.int64)
                      for k in ("tokens", "labels")}
@@ -2026,22 +2305,64 @@ def phase_train_parity(torch):
             check(bool(torch.isfinite(got["cuda"]).all()), f"non-finite card losses {got}")
             rel = ((got["cuda"] - got["cpu"]).abs() / got["cpu"].abs()).max().item()
             loss_err = max(loss_err, rel)
+        launches = read_all_launches()
         param_err = 0.0
         for a, b in zip(tree_leaves(runs["cpu"][0]), tree_leaves(runs["cuda"][0])):
             scale = a.float().abs().max().item()
             param_err = max(param_err,
                             (b.cpu().float() - a.float()).abs().max().item() / max(scale, 1e-30))
         tol = TRAIN_PARITY_TOL[dtype]
-        check(loss_err <= tol, f"train parity {dtype}: losses differ by {loss_err} (relative)")
-        check(param_err <= tol, f"train parity {dtype}: params differ by {param_err} "
+        check(loss_err <= tol, f"{label} {dtype}: losses differ by {loss_err} (relative)")
+        check(param_err <= tol, f"{label} {dtype}: params differ by {param_err} "
                                 "(of each leaf's max)")
-        print(f"train parity: {dtype}, 2 layers hd 64, {rounds} rounds: losses within "
-              f"{loss_err:.3g}, params within {param_err:.3g} (relative; bound {tol}); CPU "
-              f"{secs['cpu']:.2f} s, card {secs['cuda']:.2f} s")
+        print(f"{label}: {dtype}, {cfg.n_layers} layers hd {cfg.hd}, {rounds} rounds: losses "
+              f"within {loss_err:.3g}, params within {param_err:.3g} (relative; bound {tol}); "
+              f"CPU {secs['cpu']:.2f} s, card {secs['cuda']:.2f} s; card launches "
+              f"{({k: n for k, n in launches.items() if n})}")
         res[dtype] = {"loss_rel_err": loss_err, "param_rel_err": param_err,
-                      "cpu_s": secs["cpu"], "card_s": secs["cuda"]}
+                      "cpu_s": secs["cpu"], "card_s": secs["cuda"], "launches": launches}
         del runs
         torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_parity(torch):
+    """Three rounds of the trainer on the card and on the CPU from the same
+    params and draws, at a cut of tinyllama-1.1b (2 layers, d_model 256,
+    4/2 heads of 64, d_ff 512, vocab 512, remat), in f32 and bf16: losses
+    and params within TRAIN_PARITY_TOL."""
+    from repro_torch.configs.base import get_arch
+
+    cfgs = {dtype: dataclasses.replace(get_arch(LM_ARCH), n_layers=2, d_model=256,
+                                       n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+                                       vocab_size=512, dtype=dtype)
+            for dtype in ("float32", "bfloat16")}
+    return train_parity(torch, cfgs, 3, "train parity")
+
+
+def phase_ssm_train_parity(torch):
+    """Phase 29: two rounds of the trainer on the card (the WKV forward and
+    backward kernels) and on the CPU (the plain recurrence under autograd)
+    from the same params and draws, at a cut of rwkv6-7b (2 layers, d_model
+    256, 4 heads of B4's N = 64, d_ff 512, vocab 512, remat, 4
+    micro-batches), in f32 and in bf16 with the f32 decays: losses and
+    params within TRAIN_PARITY_TOL; the card's backward launched once per
+    worker, micro-batch and layer."""
+    from repro_torch.configs.base import get_arch
+
+    rounds = 2
+    cfgs = {dtype: dataclasses.replace(get_arch(SSM_ARCH), n_layers=2, d_model=256,
+                                       n_heads=4, n_kv_heads=4, head_dim=64, d_ff=512,
+                                       vocab_size=512, dtype=dtype)
+            for dtype in ("float32", "bfloat16")}
+    res = train_parity(torch, cfgs, rounds, "ssm train parity")
+    for dtype, cfg in cfgs.items():
+        calls = rounds * 4 * cfg.microbatches * cfg.n_layers
+        got = res[dtype]["launches"]
+        check(cfg.rwkv.head_dim == 64 and got["rwkv_scan_bwd"] == calls
+              and got["rwkv_scan"] == 2 * calls,
+              f"ssm train parity {dtype}: WKV launches {got}, {calls} backward and "
+              f"{2 * calls} forward expected")
     return res
 
 
@@ -3037,13 +3358,16 @@ def main() -> int:
         families = {phase: phase_family(torch, card, phase, arch, layers, widths)
                     for phase, arch, layers, widths in FAMILY_PHASES}
         families["parity"] = phase_family_parity(torch, card)
+        summaries.append(phase_rwkv_bwd(torch, hbm_rate(name), name, records))
+        ssm_train_path = phase_ssm_train(torch)
+        ssm_train_path["parity"] = phase_ssm_train_parity(torch)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     # Each kernel's launches on its own path.
     path_of = {"gossip_mix_rows": main_path, "gossip_mix": main_path,
                "flash_attention": lm_path, "rwkv_scan": ssm_path,
-               "flash_attention_bwd": train_path}
+               "flash_attention_bwd": train_path, "rwkv_scan_bwd": ssm_train_path}
     for s in summaries:
         s["launches"] = path_of[s["name"]]["launches"][s["name"]]
     # B1 on the network-dynamics paths (phases 15, 16 and 18), each run's
@@ -3077,6 +3401,7 @@ def main() -> int:
              "cases": records,
              "main_path": main_path, "algos": algos, "lm_path": lm_path,
              "ssm_path": ssm_path, "train_path": train_path,
+             "ssm_train_path": ssm_train_path,
              "network_dynamics": dynamics, "families": families},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: Kernel library name -> CUDA source under ``csrc/``.
 SOURCES = {"gossip_mix": "gossip_mix.cu", "flash_attention": "flash_attention.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu", "rwkv_scan": "rwkv_scan.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu", "rwkv_scan": "rwkv_scan.cu",
+           "rwkv_scan_bwd": "rwkv_scan_bwd.cu"}
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -40,7 +40,10 @@ def rwkv(r, k, v, w, u, *, chunk=64, state=None):
 
     On CUDA the chunked kernel, on the CPU the sequential recurrence; both
     exact for any decay, as the JAX model's scan is (its Pallas kernel
-    clamps the per-step log decay to ``>= -75 / min(16, chunk)``)."""
+    clamps the per-step log decay to ``>= -75 / min(16, chunk)``).  Both are
+    differentiable: on CUDA through the WKV backward kernel
+    (``rwkv_scan.RwkvScanFn``), on the CPU through torch's autograd of the
+    recurrence."""
     if _on_cuda(r, "rwkv"):
         y, final = rwkv_scan(r, k, v, w, u, chunk=chunk, state=state)
     else:

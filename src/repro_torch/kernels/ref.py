@@ -6,7 +6,8 @@ that kernel is held bit-for-bit against them on the card; the attention
 reference materialises the (S, Sk) scores and is held to the flash kernel
 with the float tolerances of ``tests/test_kernels.py``, and its autograd
 gradient to the backward kernels; the RWKV reference
-is the sequential recurrence, held to the chunked kernel the same way.
+is the sequential recurrence, held to the chunked kernel the same way, and
+its explicit reverse recurrence to the WKV backward kernel.
 """
 
 from __future__ import annotations
@@ -96,6 +97,52 @@ def reference_rwkv_state(r, k, v, w, u, state=None):
         ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, t], st + uf * kv))
         st = wf[:, t, :, :, None] * st + kv
     return torch.stack(ys, dim=1).to(r.dtype), st
+
+
+def reference_rwkv_backward(r, k, v, w, u, state, dy, dstate):
+    """The gradient of ``reference_rwkv_state``: (dr, dk, dv, dw, du, dstate0)
+    for the output gradient ``dy`` (B,S,H,N) and the final-state gradient
+    ``dstate`` (B,H,N,N) f32 (zeros when None), from the initial ``state``
+    (zeros when None).
+
+    An explicit reverse recurrence in f32, one step a token, with S_{t-1}
+    the state before token t and G_t the adjoint of the state after it
+    (G_T = dstate):
+
+        dr_t = (S_{t-1} + diag(u) k_t v_t^T) dy_t
+        dk_t = u r_t (v_t . dy_t) + G_t v_t
+        dv_t = (r_t . (u k_t)) dy_t + G_t^T k_t
+        dw_t = rowsum(G_t * S_{t-1})
+        du  += r_t k_t (v_t . dy_t)                  (summed over b and t)
+        G_{t-1} = diag(w_t) G_t + r_t dy_t^T,        dstate0 = G_0
+
+    dr, dk and dv come back in r's dtype, dw in w's, du and dstate0 in f32."""
+    B, S, H, N = r.shape
+    rf, kf, vf, wf, dyf = (x.float() for x in (r, k, v, w, dy))
+    uf = u.float()[None]  # (1,H,N)
+    st = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+          if state is None else state.float())
+    before = []
+    for t in range(S):
+        before.append(st)
+        st = wf[:, t, :, :, None] * st + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    G = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if dstate is None else dstate.float())
+    dr, dk, dv, dw = (torch.empty((B, S, H, N), dtype=torch.float32, device=r.device)
+                      for _ in range(4))
+    du = torch.zeros((H, N), dtype=torch.float32, device=r.device)
+    for t in reversed(range(S)):
+        rt, kt, vt, wt, dyt = (x[:, t] for x in (rf, kf, vf, wf, dyf))  # (B,H,N)
+        prev = before[t]
+        vdy = (vt * dyt).sum(-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhnm,bhm->bhn", prev, dyt) + uf * kt * vdy
+        dk[:, t] = uf * rt * vdy + torch.einsum("bhnm,bhm->bhn", G, vt)
+        dv[:, t] = ((rt * uf * kt).sum(-1, keepdim=True) * dyt
+                    + torch.einsum("bhnm,bhn->bhm", G, kt))
+        dw[:, t] = (G * prev).sum(-1)
+        du += (rt * kt * vdy).sum(0)
+        G = wt[..., None] * G + rt[..., None] * dyt[..., None, :]
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw.to(w.dtype), du, G)
 
 
 def clamp_decay(w, chunk: int = 64):

@@ -1,4 +1,4 @@
-"""Chunked RWKV-6 WKV recurrence (forward): the CUDA kernel's wrapper.
+"""Chunked RWKV-6 WKV recurrence and its gradient: the CUDA kernels' wrappers.
 
     y_t = r_t (S + diag(u) k_t v_t^T),   S <- diag(w_t) S + k_t v_t^T
 
@@ -13,19 +13,30 @@ scores from two factors on the tensor cores; one with a column below forms
 them pairwise, one exp a term.  One block walks one (batch, head); its
 products run on the tensor cores in 3xTF32, which keeps f32 accuracy.  Unlike the Pallas kernel
 it takes an initial state and returns the final one, the ssm family's decode
-cache.  Any S works; the last chunk and sub-chunk may be short.  It is
-forward only, as the Pallas kernel is: the wrapper raises when autograd
-would need a gradient through it.
+cache.  Any S works; the last chunk and sub-chunk may be short.
+
+The Pallas kernel is forward only (the JAX package differentiates its
+model's scan with XLA); here the gradient is a kernel too
+(``csrc/rwkv_scan_bwd.cu``: the explicit reverse recurrence of
+``ref.reference_rwkv_backward``, token by token on the FMA units, from
+states checkpointed every ``BWD_SUB`` tokens).  Under autograd (grad enabled
+and an operand that requires grad) ``rwkv_scan`` goes through
+``RwkvScanFn``: its forward launches the forward kernel and saves the
+operands, its backward launches the backward kernel, with the final-state
+gradient when the final state was used and without it (no zeros) when not,
+and returns an initial-state gradient only when the state requires one.
 
 Operand dtypes (``DTYPES``): r, k, v, w all f32; all bf16; or r, k, v bf16
 with w f32 (the model's bf16 projections with its f32 decays).  y comes back
-in r's dtype, the state in f32; bf16 inputs are widened to f32 exactly.
+in r's dtype, the state in f32; bf16 inputs are widened to f32 exactly.  The
+gradients come back in the operands' dtypes (dr, dk, dv in r's, dw in w's),
+du and the initial-state gradient in f32.
 
 Takes CUDA tensors only and raises on anything else: ``kernels/ops.py``
-sends CPU tensors to ``ref.reference_rwkv_state``.  The wrapper counts its
-launches in ``LAUNCHES`` (raised only where the kernel is launched), and in
-``DTYPE_LAUNCHES`` by operand dtypes.  The library is built by nvcc on first
-use (``kernels/build.py``), never at import.
+sends CPU tensors to ``ref.reference_rwkv_state``.  The wrappers count their
+launches in ``LAUNCHES`` (raised only where a kernel is launched), and the
+forward's in ``DTYPE_LAUNCHES`` by operand dtypes.  The libraries are built
+by nvcc on first use (``kernels/build.py``), never at import.
 """
 
 from __future__ import annotations
@@ -36,8 +47,8 @@ import torch
 
 from repro_torch.kernels import build
 
-#: Launch count; ``reset_launches()`` zeroes it.
-LAUNCHES = {"rwkv_scan": 0}
+#: Launch counts of the forward and the backward; ``reset_launches()`` zeroes them.
+LAUNCHES = {"rwkv_scan": 0, "rwkv_scan_bwd": 0}
 
 #: The same launches by operand dtypes (keys of ``DTYPES``' values).
 DTYPE_LAUNCHES = {"float32": 0, "bfloat16": 0, "mixed": 0}
@@ -57,7 +68,12 @@ DTYPES = {
 }
 _MAX_BLOCKS = 2 ** 31 - 1
 
+#: Tokens between the backward kernel's state checkpoints: its ``kC``, which
+#: sizes the scratch; the kernel refuses any other value.
+BWD_SUB = 8
+
 _LIB = None
+_BWD_LIB = None
 
 
 def reset_launches() -> None:
@@ -96,6 +112,28 @@ def _lib():
         lib.rwkv_scan_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _bwd_lib():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = build.load("rwkv_scan_bwd")
+        lib.rwkv_scan_bwd_launch.argtypes = [
+            *[ctypes.c_void_p] * 4,  # r k v w
+            ctypes.c_void_p, ctypes.c_void_p,  # u, state_in (or None)
+            ctypes.c_void_p, ctypes.c_void_p,  # dy, dstate (or None)
+            *[ctypes.c_void_p] * 4,  # dr dk dv dw
+            ctypes.c_void_p, ctypes.c_void_p,  # du partials, dstate0 (or None)
+            ctypes.c_void_p,  # checkpoints (scratch)
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, N
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # sub, dtype, device
+            ctypes.c_void_p,  # stream
+        ]
+        lib.rwkv_scan_bwd_launch.restype = ctypes.c_int
+        lib.rwkv_scan_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.rwkv_scan_bwd_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
 
 
 def _check_operands(r, k, v, w, u, state, chunk) -> tuple[int, str]:
@@ -137,21 +175,11 @@ def _check_operands(r, k, v, w, u, state, chunk) -> tuple[int, str]:
         raise ValueError(f"rwkv_scan: chunk {chunk} < 1")
     if B * H > _MAX_BLOCKS:
         raise ValueError(f"rwkv_scan: B * H = {B * H} is too many heads for one launch")
-    if torch.is_grad_enabled() and any(t.requires_grad for _, t in named):
-        raise RuntimeError("rwkv_scan: the kernel is forward only (no backward kernel "
-                           "yet); call it under torch.no_grad()")
     return code
 
 
-def rwkv_scan(r, k, v, w, u, *, chunk: int = 64, state=None):
-    """WKV recurrence on CUDA. r/k/v/w: (B,S,H,N); u: (H,N) f32; state:
-    (B,H,N,N) f32 or None (zeros) -> (y (B,S,H,N) in r's dtype, final state
-    (B,H,N,N) f32).
-
-    r, k, v, w: a combination of ``DTYPES``, contiguous; N in
-    ``HEAD_SIZES``.  As the Pallas wrapper, ``chunk`` is cut to S; unlike
-    it, the decays are not clamped."""
-    code, dtype_name = _check_operands(r, k, v, w, u, state, chunk)
+def _run_forward(r, k, v, w, u, state, chunk, code):
+    """Launch the forward kernel on checked operands -> (y, final state)."""
     B, S, H, N = r.shape
     chunk = min(int(chunk), S)
     sub = min(SUB, chunk)
@@ -167,6 +195,116 @@ def rwkv_scan(r, k, v, w, u, *, chunk: int = 64, state=None):
     if err != 0:
         msg = lib.rwkv_scan_error_string(err).decode()
         raise RuntimeError(f"rwkv_scan: kernel launch failed: CUDA error {err} ({msg})")
+    return y, state_out
+
+
+def _forward(r, k, v, w, u, state, chunk):
+    code, dtype_name = dtype_code(r, k, v, w)
+    y, state_out = _run_forward(r, k, v, w, u, state, chunk, code)
     LAUNCHES["rwkv_scan"] += 1
     DTYPE_LAUNCHES[dtype_name] += 1
     return y, state_out
+
+
+def _run_backward(r, k, v, w, u, state, dy, dstate, with_dstate0):
+    """Launch the backward kernel on checked operands -> (dr, dk, dv, dw,
+    du partials (B, H, N) f32, dstate0 or None)."""
+    B, S, H, N = r.shape
+    code, _ = dtype_code(r, k, v, w)
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    dstate0 = (torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+               if with_dstate0 else None)
+    n_sub = -(-S // BWD_SUB)
+    ckpt = torch.empty((B * H, n_sub, N * N), dtype=torch.float32, device=r.device)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = lib.rwkv_scan_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        None if state is None else state.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
+        None if dstate0 is None else dstate0.data_ptr(), ckpt.data_ptr(),
+        B, S, H, N, BWD_SUB, code, r.device.index, stream,
+    )
+    if err != 0:
+        msg = lib.rwkv_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"rwkv_scan_backward: kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+    return dr, dk, dv, dw, du_part, dstate0
+
+
+def _backward(r, k, v, w, u, state, dy, dstate, with_dstate0):
+    dr, dk, dv, dw, du_part, dstate0 = _run_backward(r, k, v, w, u, state, dy, dstate,
+                                                     with_dstate0)
+    LAUNCHES["rwkv_scan_bwd"] += 1
+    # du over the batch: one partial a (batch, head), summed in a fixed order.
+    return dr, dk, dv, dw, du_part.sum(0), dstate0
+
+
+def _check_grads(r, dy, dstate) -> None:
+    B, S, H, N = r.shape
+    if (not isinstance(dy, torch.Tensor) or dy.device != r.device or dy.dtype != r.dtype
+            or dy.shape != r.shape or not dy.is_contiguous()):
+        raise ValueError(f"rwkv_scan_backward: dy must be a contiguous {r.dtype} tensor of "
+                         f"r's shape {tuple(r.shape)} on {r.device}")
+    if dstate is not None and (
+            not isinstance(dstate, torch.Tensor) or dstate.device != r.device
+            or dstate.dtype != torch.float32 or tuple(dstate.shape) != (B, H, N, N)
+            or not dstate.is_contiguous()):
+        raise ValueError(f"rwkv_scan_backward: dstate must be a contiguous float32 "
+                         f"{(B, H, N, N)} tensor on {r.device}")
+
+
+def rwkv_scan_backward(r, k, v, w, u, state, dy, dstate, *, with_dstate0: bool = True):
+    """The backward kernel -> (dr, dk, dv, dw, du, dstate0) of
+    ``rwkv_scan(r, k, v, w, u, state=state)`` for the output gradient ``dy``
+    (in r's dtype and shape) and the final-state gradient ``dstate``
+    ((B,H,N,N) f32, or None: zeros).
+
+    dr, dk, dv in r's dtype, dw in w's; du (H,N) f32, summed over the
+    batch; dstate0 (B,H,N,N) f32, or None without ``with_dstate0``.  The
+    operands as ``rwkv_scan`` takes them."""
+    _check_operands(r, k, v, w, u, state, 1)
+    _check_grads(r, dy, dstate)
+    return _backward(r, k, v, w, u, state, dy, dstate, with_dstate0)
+
+
+class RwkvScanFn(torch.autograd.Function):
+    """The WKV scan with its gradient: the forward kernel on the way
+    forward, the backward kernel on the way back.  Outputs (y, final
+    state); inputs (r, k, v, w, u, state or None, chunk)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, chunk):
+        y, state_out = _forward(r, k, v, w, u, state, chunk)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.set_materialize_grads(False)  # an unused final state's gradient stays None
+        return y, state_out
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.contiguous()
+        dstate = None if dstate is None else dstate.contiguous()
+        with_dstate0 = state is not None and ctx.needs_input_grad[5]
+        dr, dk, dv, dw, du, dstate0 = _backward(r, k, v, w, u, state, dy, dstate,
+                                                with_dstate0)
+        return dr, dk, dv, dw, du, dstate0, None
+
+
+def rwkv_scan(r, k, v, w, u, *, chunk: int = 64, state=None):
+    """WKV recurrence on CUDA. r/k/v/w: (B,S,H,N); u: (H,N) f32; state:
+    (B,H,N,N) f32 or None (zeros) -> (y (B,S,H,N) in r's dtype, final state
+    (B,H,N,N) f32).
+
+    r, k, v, w: a combination of ``DTYPES``, contiguous; N in
+    ``HEAD_SIZES``.  As the Pallas wrapper, ``chunk`` is cut to S; unlike
+    it, the decays are not clamped.  Under autograd it is differentiable
+    through the backward kernel (``RwkvScanFn``)."""
+    _check_operands(r, k, v, w, u, state, chunk)
+    operands = (r, k, v, w, u) + (() if state is None else (state,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return RwkvScanFn.apply(r, k, v, w, u, state, int(chunk))
+    return _forward(r, k, v, w, u, state, chunk)

@@ -5,9 +5,11 @@ baseline strategy) -> Network Monitor -> checkpoint/restart, with the same
 flags and the same loop, plus ``--device`` (default ``cuda``, which raises
 without a card).  On the card it trains the full config; with ``--reduced``
 or ``--device cpu`` the tiny same-family config, as the JAX launcher does on
-its CPU backend.  Gossip strategies mix through the fused tree mix
-(``use_gossip_mix_kernel``): on the card one gossip-mix kernel launch per
-round.
+its CPU backend.  Every family the port's models run trains on the card:
+attention through the flash-attention kernels, the ssm family's WKV
+recurrence through the WKV kernels, forward and backward.  Gossip
+strategies mix through the fused tree mix (``use_gossip_mix_kernel``): on
+the card one gossip-mix kernel launch per round.
 
 ``TrainLoop`` holds the loop's state and runs one round per ``round(r)``
 call, so a caller (``chip_smoke.py``) can time and profile rounds of the

@@ -12,7 +12,11 @@ kernel widens bf16 projections itself), the gate is computed in f32.  The recurr
 where the JAX package's scan would, by device: on a CUDA tensor a prefill
 (S > 1) goes through the hand-written chunked kernel (``ops.rwkv``, which
 also returns the final state), a decode step (S == 1) takes one plain step
-of the scan; on the CPU the transcribed ``chunked_scan`` runs.  Decode
+of the scan; on the CPU the transcribed ``chunked_scan`` runs.  Under
+autograd (training) the CUDA call is the same: ``ops.rwkv`` then goes
+through the kernel's autograd Function, whose backward is the WKV backward
+kernel; with remat (``transformer.forward``'s non-reentrant checkpoint) the
+forward kernel runs twice per layer and micro-batch, the backward once.  Decode
 carries (state, shift) per layer: O(1) per token.
 """
 

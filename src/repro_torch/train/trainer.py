@@ -23,9 +23,9 @@ of every leaf); one round = every worker performs one Alg.-2 iteration:
 The JAX package vmaps ``value_and_grad`` over the workers; here the workers
 run one after another, so the attention kernel and its backward see one
 worker's batch at a time.  On the card every attention call goes through
-the flash-attention kernels (forward with LSE, and backward); the ssm
-family's WKV kernel has no backward yet, so training it on the card raises
-(ROADMAP B4(c)); on the CPU every family the port's models run trains.
+the flash-attention kernels (forward with LSE, and backward), and every
+ssm time-mix's WKV recurrence through the WKV kernels (forward, and
+backward); on the CPU every family the port's models run trains.
 ``pull_ppermute`` needs one process per card and raises (ROADMAP A5).
 The legacy ``TrainStepConfig`` flags (``allreduce``, ``prague_groups``)
 still select a strategy, with the JAX package's ``DeprecationWarning``s.
@@ -168,11 +168,6 @@ def make_train_step(
     def train_step(params, opt_state, batch, gossip_in):
         leaves = tree_leaves(params)
         dev = leaves[0].device
-        if cfg.family == "ssm" and dev.type == "cuda":
-            raise NotImplementedError(
-                f"{cfg.name}: training the ssm family on the card needs a backward "
-                "kernel for the WKV scan (ROADMAP B4(c)); train it on the CPU"
-            )
         lr = gossip_in["lr"]
         lr = float(lr) if not isinstance(lr, torch.Tensor) else lr.to(dev)
         with torch.no_grad():

@@ -8,8 +8,11 @@ their plain versions, so they are held to the tolerances of
 f32 and 5e-2 in bf16, for any decay: the kernel does not clamp).  With bf16
 r/k/v and f32 decays (the model's dtypes) the WKV output y is bf16 and held
 to 5e-2, one bf16 step being 2^-8 of |y|, while the final state is f32,
-computed from exactly widened inputs, and held to 1e-4.  This file imports no JAX, so it runs on a machine that has
-only torch:
+computed from exactly widened inputs, and held to 1e-4.  The WKV backward
+kernel is held to its plain reverse recurrence and to autograd through the
+plain forward within 1e-4 (f32) / 2e-2 (bf16) of each gradient's max |.|,
+as the flash-attention backward.  This file imports no JAX, so it runs on a
+machine that has only torch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -438,20 +441,88 @@ def test_cuda_train_step_matches_cpu(cuda_device, dtype):
         assert (b.cpu().float() - a.float()).abs().max().item() <= tol * max(scale, 1e-6)
 
 
-@pytest.mark.cuda
-def test_cuda_ssm_training_raises(cuda_device):
-    from repro_torch.configs.base import get_arch
-    from repro_torch.optim import sgd
-    from repro_torch.train.trainer import init_stacked, make_train_step
+def _ssm_cut(dtype, layers=2):
+    """The ssm training cut: rwkv6-7b's family at d_model 256 with B4's head
+    size N = 64 (4 heads), d_ff 512, vocab 512, remat, its 4 micro-batches."""
+    from dataclasses import replace
 
-    cfg = get_arch("rwkv6-7b").reduced()
-    opt = sgd()
-    params, state = init_stacked(cfg, opt, 2, torch.Generator(device="cuda").manual_seed(0))
-    batch = {k: torch.zeros((2, 1, 16), dtype=torch.int64, device="cuda")
+    from repro_torch.configs.base import get_arch
+
+    return replace(get_arch("rwkv6-7b"), n_layers=layers, d_model=256, n_heads=4,
+                   n_kv_heads=4, head_dim=64, d_ff=512, vocab_size=512, dtype=dtype)
+
+
+def _ssm_rounds(cfg, devices, rounds, M=4, seq=64, batch=4):
+    """``rounds`` rounds of the trainer from the same params and draws on
+    each device -> ({device: per-round losses}, {device: params})."""
+    from repro_torch.core.consensus import sample_round
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import TrainStepConfig, init_stacked, make_train_step
+    from repro_torch.tree import tree_map
+
+    opt = sgd(momentum=0.9, weight_decay=1e-4)
+    step = make_train_step(cfg, opt, M, "netmax", TrainStepConfig(use_gossip_mix_kernel=True))
+    params, state = init_stacked(cfg, opt, M, torch.Generator().manual_seed(0))
+    runs = {dev: (tree_map(lambda t: t.to(dev), params), tree_map(lambda t: t.to(dev), state))
+            for dev in devices}
+    stream = TokenStream(cfg.vocab_size, seq, batch, seed=0)
+    d = np.ones((M, M)) - np.eye(M)
+    P = np.where(d > 0, 1.0 / (M - 1), 0.0)
+    rng = np.random.default_rng(0)
+    losses = {dev: [] for dev in devices}
+    for r in range(rounds):
+        b = {k: np.stack([stream.batch(w, r)[k] for w in range(M)]).astype(np.int64)
              for k in ("tokens", "labels")}
-    with pytest.raises(NotImplementedError, match=r"B4\(c\)"):
-        make_train_step(cfg, opt, 2)(params, state, batch,
-                                     {"neighbors": [1, 0], "weights": [0.5, 0.5], "lr": 0.1})
+        nb, wts = sample_round(rng, P, 0.02, 0.5 / (2 * 0.02 * (M - 1)), d)
+        for dev, (p, o) in runs.items():
+            bt = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            p, o, m = step(p, o, bt, {"neighbors": nb, "weights": wts, "lr": 0.02})
+            runs[dev] = (p, o)
+            losses[dev].append(m["loss_per_worker"].cpu())
+    return losses, {dev: p for dev, (p, _) in runs.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssm_training_matches_cpu(cuda_device, dtype):
+    """Two rounds of the ssm family's trainer (the WKV forward and backward
+    kernels under remat, the gossip-mix tree kernel) on the card against
+    the same rounds on the CPU (the plain recurrence under autograd): losses
+    and params within 1e-4 (f32) / 2e-2 (bf16 weights, f32 decays)."""
+    from repro_torch.tree import tree_leaves
+
+    cfg = _ssm_cut(dtype)
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    losses, params = _ssm_rounds(cfg, ("cpu", "cuda"), 2)
+    for a, b in zip(losses["cpu"], losses["cuda"]):
+        assert bool(torch.isfinite(b).all())
+        torch.testing.assert_close(b, a, rtol=tol, atol=0)
+    for a, b in zip(tree_leaves(params["cpu"]), tree_leaves(params["cuda"])):
+        scale = a.float().abs().max().item()
+        assert (b.cpu().float() - a.float()).abs().max().item() <= tol * max(scale, 1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_round_launches_the_wkv_backward_once_a_layer_and_micro_batch(cuda_device):
+    """In one round: the WKV backward kernel once per worker, micro-batch and
+    layer, its forward twice (remat runs each block's forward again), the
+    tree mix once per dtype group of the tree (its bf16 leaves, and the f32
+    ``u`` and ``w0``), and no attention kernel."""
+    from repro_torch.tree import tree_leaves
+
+    cfg = _ssm_cut("bfloat16", layers=3)
+    rs.reset_launches()
+    n0 = dict(fa.LAUNCHES), dict(tk.LAUNCHES)
+    _, params = _ssm_rounds(cfg, ("cuda",), 1)
+    torch.cuda.synchronize()
+    calls = 4 * cfg.microbatches * cfg.n_layers
+    assert rs.LAUNCHES == {"rwkv_scan": 2 * calls, "rwkv_scan_bwd": calls}
+    assert rs.DTYPE_LAUNCHES["mixed"] == 2 * calls
+    assert fa.LAUNCHES == n0[0]
+    groups = {leaf.dtype for leaf in tree_leaves(params["cuda"])}
+    assert groups == {torch.bfloat16, torch.float32}
+    assert tk.LAUNCHES["gossip_mix_rows"] == n0[1]["gossip_mix_rows"] + len(groups)
 
 
 # tests/test_kernels.py RWKV_CASES, then ragged lengths (S not a multiple of
@@ -655,9 +726,117 @@ def test_cuda_rwkv_wrapper_checks_operands(cuda_device):
     rb = torch.zeros(r.numel() + 1, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         rs.rwkv_scan(rb[1:].view(r.shape), k, v, w, u)
-    with pytest.raises(RuntimeError, match="forward only"):
-        rs.rwkv_scan(r.requires_grad_(), k, v, w, u)
     assert rs.LAUNCHES["rwkv_scan"] == n0
+    # Differentiable under autograd: through the backward kernel.
+    y, _ = rs.rwkv_scan(r.requires_grad_(), k, v, w, u)
+    assert y.grad_fn is not None and rs.LAUNCHES["rwkv_scan"] == n0 + 1
+    nb = rs.LAUNCHES["rwkv_scan_bwd"]
+    (g,) = torch.autograd.grad(y, [r], torch.ones_like(y))
+    assert g.shape == r.shape and rs.LAUNCHES["rwkv_scan_bwd"] == nb + 1
+    with pytest.raises(ValueError, match="dy must be"):
+        rs.rwkv_scan_backward(r.detach(), k, v, w, u, None, y.detach().bfloat16(), None)
+    with pytest.raises(ValueError, match="dstate must be"):
+        rs.rwkv_scan_backward(r.detach(), k, v, w, u, None, y.detach(),
+                              torch.zeros((1, 2, 16, 8), device=cuda_device))
+
+
+# The WKV backward kernel's cases (B, S, H, N, dtype, decays, initial state,
+# final-state gradient): the forward's test cases in the three dtype
+# combinations, ragged lengths (S not a multiple of the kernel's checkpoint
+# interval of 8, or below it), the extreme decays (w = 1e-30, log w = -5 and
+# -8, sub-chunks straddling the factorised range), and the training shape
+# (one rwkv6-7b layer of a 1 x 512 micro-batch).
+RWKV_BWD_CASES = [
+    (1, 64, 2, 16, "float32", "sigmoid", False, False),
+    (2, 128, 4, 32, "float32", "sigmoid", True, True),
+    (1, 128, 2, 64, "float32", "sigmoid", False, True),
+    (2, 100, 3, 64, "float32", "sigmoid", True, False),
+    (1, 128, 2, 32, "bfloat16", "sigmoid", False, False),
+    (2, 100, 3, 64, "bfloat16", "sigmoid", True, True),
+    (1, 64, 2, 16, "mixed", "sigmoid", True, False),
+    (2, 128, 4, 32, "mixed", "sigmoid", False, True),
+    (2, 100, 3, 64, "mixed", "sigmoid", True, True),
+    (1, 7, 2, 16, "float32", "sigmoid", True, True),
+    (1, 1, 2, 64, "mixed", "sigmoid", True, True),
+    (2, 37, 2, 32, "mixed", "sigmoid", False, False),
+    (1, 32, 1, 16, "float32", "1e-30", True, True),
+    (1, 128, 2, 64, "float32", "-5", True, True),
+    (1, 128, 2, 64, "float32", "-8", True, True),
+    (1, 128, 2, 64, "float32", "mixed", True, True),
+    (2, 100, 3, 64, "mixed", "mixed", False, True),
+    (1, 512, 64, 64, "mixed", "sigmoid", False, False),
+]
+#: Each gradient's max |err| against the plain version's max |.|, as the
+#: flash-attention backward is held.
+RWKV_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "mixed": 2e-2}
+
+
+def _rwkv_bwd_operands(case, device):
+    B, S, H, N, dtype, decays, with_state, with_dstate = case
+    r, k, v, w, u = _rwkv_inputs(15, B, S, H, N, "float32", device)
+    if decays == "1e-30":
+        w = torch.full_like(w, 1e-30)
+    elif decays != "sigmoid":
+        w = strong_decays(w, decays)
+    dt, wdt = {"float32": (torch.float32,) * 2, "bfloat16": (torch.bfloat16,) * 2,
+               "mixed": (torch.bfloat16, torch.float32)}[dtype]
+    gen = torch.Generator(device).manual_seed(16)
+    dy = torch.randn(r.shape, generator=gen, device=device).to(dt)
+    s0 = (torch.randn((B, H, N, N), generator=gen, device=device) * 0.3
+          if with_state else None)
+    ds = torch.randn((B, H, N, N), generator=gen, device=device) if with_dstate else None
+    return (r.to(dt), k.to(dt), v.to(dt), w.to(wdt), u, s0), dy, ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RWKV_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_rwkv_scan_backward_matches_plain(cuda_device, case):
+    """The WKV backward kernel against ``ref.reference_rwkv_backward`` and
+    against torch autograd through ``ref.reference_rwkv_state``: every
+    gradient in its operand's dtype, within 1e-4 (f32) / 2e-2 (bf16) of its
+    max |.|, dw included at w = 1e-30; repeated calls bit-equal."""
+    (r, k, v, w, u, s0), dy, ds = _rwkv_bwd_operands(case, cuda_device)
+    n0 = rs.LAUNCHES["rwkv_scan_bwd"]
+    got = rs.rwkv_scan_backward(r, k, v, w, u, s0, dy, ds, with_dstate0=s0 is not None)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["rwkv_scan_bwd"] == n0 + 1
+    assert [t.dtype for t in got[:4]] == [r.dtype] * 3 + [w.dtype]
+    assert got[4].dtype == torch.float32 and (got[5] is None) == (s0 is None)
+    want = ref.reference_rwkv_backward(r, k, v, w, u, s0, dy, ds)
+    leaves = [t.detach().clone().requires_grad_() for t in (r, k, v, w, u)]
+    s0l = None if s0 is None else s0.clone().requires_grad_()
+    y, final = ref.reference_rwkv_state(*leaves, s0l)
+    outs, grads = ([y], [dy]) if ds is None else ([y, final], [dy, ds])
+    auto = torch.autograd.grad(outs, leaves + ([] if s0l is None else [s0l]), grads)
+    tol = RWKV_BWD_TOL[case[4]]
+    for plain in (want, auto):
+        for name, g, p in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got, plain):
+            if g is None:
+                continue
+            scale = p.float().abs().max().item()
+            err = (g.float() - p.float()).abs().max().item()
+            assert err <= tol * scale, (name, err, scale)
+    again = rs.rwkv_scan_backward(r, k, v, w, u, s0, dy, ds, with_dstate0=s0 is not None)
+    assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_autograd_through_the_kernels(cuda_device):
+    """``ops.rwkv`` under autograd: gradients of y and the final state with
+    respect to r, k, v, w, u and the initial state, through the forward and
+    backward kernels, match the plain recurrence's autograd."""
+    (r, k, v, w, u, s0), dy, ds = _rwkv_bwd_operands(
+        (2, 100, 3, 64, "mixed", "sigmoid", True, True), cuda_device)
+    ins = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    plain = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    y, final = ops.rwkv(*ins[:5], state=ins[5])
+    yp, fp = ref.reference_rwkv_state(*plain)
+    got = torch.autograd.grad([y, final], ins, [dy, ds])
+    want = torch.autograd.grad([yp, fp], plain, [dy, ds])
+    for g, p in zip(got, want):
+        assert g.dtype == p.dtype
+        scale = p.float().abs().max().item()
+        assert (g.float() - p.float()).abs().max().item() <= 2e-2 * scale
 
 
 @pytest.mark.cuda

@@ -521,6 +521,34 @@ def test_ssm_round_matches_jax():
     assert _max_err(jp, tp) <= 1e-4 * scale
 
 
+def test_ssm_rounds_with_remat_match_jax():
+    """Two rounds of the ssm family (rwkv6-7b reduced, remat on, its 4
+    micro-batches of one sequence, the fused mix) on the CPU against the JAX
+    trainer: the path the card trains through the WKV kernels."""
+    jcfg = replace(jget("rwkv6-7b").reduced(), remat=True)
+    tcfg = replace(tget("rwkv6-7b").reduced(), remat=True)
+    assert tcfg.microbatches == 4 and tcfg.remat
+    jopt_, topt_ = jopt.sgd(momentum=0.9), topt.sgd(momentum=0.9)
+    scfg = dict(use_gossip_mix_kernel=True)
+    jstep = jax.jit(jtr.make_train_step(jcfg, jopt_, M, "netmax", jtr.TrainStepConfig(**scfg)))
+    tstep = ttr.make_train_step(tcfg, topt_, M, "netmax", ttr.TrainStepConfig(**scfg))
+    jp, jo = jtr.init_stacked(jcfg, jopt_, M, jax.random.PRNGKey(1))
+    tp, to = lm_params_from_jax(jp), opt_state_from_jax(jo)
+    stream, rng = _stream(), np.random.default_rng(1)
+    for r in range(2):
+        batch, nb, wts = _round_inputs(stream, rng, r)
+        jp, jo, jm = jstep(jp, jo, {k: jnp.asarray(v) for k, v in batch.items()},
+                           {"neighbors": jnp.asarray(nb), "weights": jnp.asarray(wts),
+                            "lr": jnp.float32(LR)})
+        tp, to, tm = tstep(tp, to, {k: torch.from_numpy(v).long() for k, v in batch.items()},
+                           {"neighbors": nb, "weights": wts, "lr": LR})
+        np.testing.assert_allclose(tm["loss_per_worker"].numpy(),
+                                   np.asarray(jm["loss_per_worker"]), atol=1e-4, rtol=0,
+                                   err_msg=f"round {r}")
+    scale = max(float(np.abs(x).max()) for x in _tree_np(jp))
+    assert _max_err(jp, tp) <= 1e-4 * scale
+
+
 # ------------------------------------------------------------------ checkpoints
 
 
