@@ -99,7 +99,11 @@ Phases, in order; any failure exits non-zero before the result line:
              training shape (2 x 512 tokens, 32/4 heads, hd 64); max |err|
              of dq, dk and dv within 1e-4 (f32) / 2e-2 (bf16) of max
              |grad|; per case the device time a call against the bound,
-             and at the training shape against SDPA's backward;
+             and at the training shapes against SDPA's backward: the dense
+             phase's, and phases 30-32's in the dtype each trains in
+             (phi3.5's 1 x 512, 32/8 heads of 128, bf16 on the FMA units;
+             whisper's encoder, 4 x 1500 non-causal, and cross-attention,
+             4 x 64 x 1500, f32; internvl2's 4 x 768, 14/2 heads, bf16);
 13. train  — NetMax training at the widths of tinyllama-1.1b, cut to 8 of
              its 22 layers, M = 4 workers, 4 x 512 tokens a worker in 2
              micro-batches, remat, sgd(0.9, 1e-4), lr 0.02, gather pulls
@@ -216,7 +220,38 @@ Phases, in order; any failure exits non-zero before the result line:
              rwkv6-7b (d_model 256, 4 heads of 64) on the card and on the CPU,
              f32 and bf16 with f32 decays: losses and params within 1e-4 /
              2e-2 (relative), the WKV backward once per worker, micro-batch
-             and layer.
+             and layer;
+30-32. family train — NetMax training of the PR 19 families at their
+             published widths, bf16, random weights from seed 0, 8 rounds
+             each, the last 2 profiled, as phase 13: phi3.5-moe (30) at 1 of
+             its 32 layers (1.563 B parameters a replica; M = 2 stacks 3.13
+             B, ~58 GB at 18.6 bytes a stacked parameter, M = 4 would need
+             ~116 GB), 8 x 512 tokens a worker in its 8 micro-batches,
+             through ``launch.train.TrainLoop``; whisper-small (31; 4 x 64
+             tokens against 4 x 1500 f32 frames a worker) and internvl2-1b
+             (32; 4 x (256 f32 vision + 512 text) tokens a worker), whole,
+             M = 4, through ``make_train_step`` with a batch shaped by
+             ``launch.specs.train_batch_specs`` and filled from a seeded
+             generator and ``sample_round``'s gossip draws
+             (``SpecsLoop``: the launcher refuses audio and vlm, ROADMAP
+             C10).  The launch counters are zeroed just before the rounds
+             and read just after: B3's backward once per worker,
+             micro-batch and attention call and its forward twice (remat),
+             B1 once per dtype group of the tree, nothing else; losses
+             finite, the first round's mix bit-equal to its plain version,
+             the peak under 80 GB.  Prints ms a round, tokens/s, peak
+             memory, busy share and device time by kind;
+33. family train parity — each of the five at ``family_cut`` with remat
+             on (llama4 and jamba train only here: one period at published
+             widths is 18.43 B / 13.30 B parameters, ~343 / ~247 GB at M =
+             1, printed), one round of the trainer at M = 2, the config's
+             micro-batches of one 64-token sequence each (two sequences
+             where it has one), the fused mix, on the card and on the CPU,
+             in f32 and bf16: losses and params within 1e-4 / 2e-2
+             (relative), in bf16 with every MoE layer of the CPU's round --
+             the remat recomputation's too -- taking the card's expert
+             choices (the unpinned gap and the differing choices printed);
+             B3's launches as in phases 30-32 at the cut.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, last, the
 ``{"ok": true, "device": {...}}`` line.  With ``--out DIR`` the per-case
@@ -1746,6 +1781,15 @@ ATTN_BWD_CASES = [(1, 128, 128, 4, 4, 64, True), (1, 200, 200, 32, 4, 64, True),
                   (1, 64, 150, 4, 2, 128, True), (2, 128, 256, 4, 4, 64, False),
                   (1, 96, 96, 4, 2, 32, True), (1, 100, 100, 4, 2, 160, False)]
 ATTN_BWD_MAIN = (2, 512, 512, 32, 4, 64, True)
+#: The backward at the shapes phases 30-32 train, in the dtype each runs it:
+#: one phi3.5-moe layer of a 1 x 512 micro-batch (32/8 heads of 128, bf16, on
+#: the FMA units); whisper-small's encoder (4 x 1500 frames, non-causal) and
+#: cross-attention (64 x 1500), f32 as C9 promotes them; internvl2-1b's 256
+#: vision + 512 text tokens (14/2 heads of 64, bf16, on the tensor cores).
+ATTN_BWD_FAMILY = [((1, 512, 512, 32, 8, 128, True), "bfloat16"),
+                   ((4, 1500, 1500, 12, 12, 64, False), "float32"),
+                   ((4, 64, 1500, 12, 12, 64, False), "float32"),
+                   ((4, 768, 768, 14, 2, 64, True), "bfloat16")]
 #: max |err| of dq, dk and dv against the plain version's max |grad|.
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -1762,9 +1806,11 @@ def attn_bwd_work(B, S, Sk, H, Hk, hd, causal, itemsize):
 
 def phase_flash_bwd(torch, rate, name, records):
     """The backward kernels against the plain version's autograd gradient on
-    every case, in f32 and bf16; per case the device time per call (its
-    ``BWD_KERNELS_PER_CALL`` kernels), the plain version's, SDPA's backward (training shape) and the
-    bound.  Returns the summary at the training shape (bf16)."""
+    every case, in f32 and bf16 (the families' training shapes in the dtype
+    each trains in); per case the device time per call (its
+    ``BWD_KERNELS_PER_CALL`` kernels), the plain version's, SDPA's backward
+    (training shapes) and the bound.  Returns the summary at the training
+    shape (bf16)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1773,74 +1819,76 @@ def phase_flash_bwd(torch, rate, name, records):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     main = None
-    for role, cases in (("test", ATTN_BWD_CASES), ("main", [ATTN_BWD_MAIN])):
-        for case in cases:
-            for dtype in ("float32", "bfloat16"):
-                B, S, Sk, H, Hk, hd, causal = case
-                dt = getattr(torch, dtype)
-                q, do = (torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt)
-                         for _ in range(2))
-                k, v = (torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
-                        for _ in range(2))
-                out, lse = fa._forward(q, k, v, causal, with_lse=True)
-                got = fa.flash_attention_backward(q, k, v, out, do, lse, causal=causal)
-                want = ref.reference_attention_backward(q, k, v, do, causal=causal)
-                torch.cuda.synchronize()
-                errs = {}
-                for gname, g, w in zip(("dq", "dk", "dv"), got, want):
-                    check(g.shape == w.shape and g.dtype == w.dtype,
-                          f"flash_attention_bwd {case} {dtype}: {gname} {tuple(g.shape)} "
-                          f"{g.dtype}")
-                    scale = w.float().abs().max().item()
-                    err = (g.float() - w.float()).abs().max().item()
-                    check(err <= ATTN_BWD_TOL[dtype] * scale,
-                          f"flash_attention_bwd {case} {dtype}: {gname} max |err| {err} "
-                          f"beyond {ATTN_BWD_TOL[dtype]} x max |grad| {scale}")
-                    errs[gname] = err
-                del got, want
-                flops, nbytes = attn_bwd_work(B, S, Sk, H, Hk, hd, causal, q.element_size())
-                t_ops = flops / flop_rate(name, dtype) * 1e3
-                t_bytes = nbytes / rate * 1e3
-                rec = {"kernel": "flash_attention_bwd", "role": role, "case": list(case),
-                       "dtype": dtype, "max_abs_err": max(errs.values()), "errs": errs,
-                       "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
-                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                       "kernels_per_call": fa.BWD_KERNELS_PER_CALL}
-                fns = {"": lambda: fa.flash_attention_backward(q, k, v, out, do, lse,
-                                                               causal=causal),
-                       "plain_": lambda: ref.reference_attention_backward(q, k, v, do,
-                                                                          causal=causal)}
-                if role == "main":
-                    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                                  for t in (q, k, v))
-                    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                              enable_gqa=True)
-                    dot = do.transpose(1, 2).contiguous()
-                    fns["library_"] = lambda: torch.autograd.grad(
-                        sdpa_out, (qt, kt, vt), dot, retain_graph=True)
-                iters = {"test": 5, "main": 20}[role]
-                for key, fn in fns.items():
-                    call = cuda_ms(torch, fn, iters)
-                    dev_ms = device_ms(torch, fn, iters, "flash_bwd" if key == "" else None,
-                                       per_call=fa.BWD_KERNELS_PER_CALL if key == "" else 1)
-                    rec[key + "ms"] = call if dev_ms is None else dev_ms
-                    rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
-                    rec[key + "call_ms"] = call
-                rec.setdefault("library_ms", None)
-                records.append(rec)
-                print(f"  flash_attention_bwd {role} {case} {dtype}: max|err| "
-                      f"{rec['max_abs_err']:.3g}, device {rec['ms'] * 1e3:.1f} us "
-                      f"({rec['ms_from']}), per call {rec['call_ms'] * 1e3:.1f} us, plain "
-                      f"{rec['plain_ms'] * 1e3:.1f} us, "
-                      + (f"sdpa bwd {rec['library_ms'] * 1e3:.1f} us, "
-                         if rec["library_ms"] else "")
-                      + f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); "
-                      f"{flops / (rec['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
-                if role == "main" and dtype == "bfloat16":
-                    main = rec
-                del q, k, v, do, out, lse
-                fns.clear()
-                torch.cuda.empty_cache()
+    both = ("float32", "bfloat16")
+    runs = ([("test", case, both) for case in ATTN_BWD_CASES] + [("main", ATTN_BWD_MAIN, both)]
+            + [("family", case, (dtype,)) for case, dtype in ATTN_BWD_FAMILY])
+    for role, case, dtypes in runs:
+        for dtype in dtypes:
+            B, S, Sk, H, Hk, hd, causal = case
+            dt = getattr(torch, dtype)
+            q, do = (torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt)
+                     for _ in range(2))
+            k, v = (torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
+                    for _ in range(2))
+            out, lse = fa._forward(q, k, v, causal, with_lse=True)
+            got = fa.flash_attention_backward(q, k, v, out, do, lse, causal=causal)
+            want = ref.reference_attention_backward(q, k, v, do, causal=causal)
+            torch.cuda.synchronize()
+            errs = {}
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f"flash_attention_bwd {case} {dtype}: {gname} {tuple(g.shape)} "
+                      f"{g.dtype}")
+                scale = w.float().abs().max().item()
+                err = (g.float() - w.float()).abs().max().item()
+                check(err <= ATTN_BWD_TOL[dtype] * scale,
+                      f"flash_attention_bwd {case} {dtype}: {gname} max |err| {err} "
+                      f"beyond {ATTN_BWD_TOL[dtype]} x max |grad| {scale}")
+                errs[gname] = err
+            del got, want
+            flops, nbytes = attn_bwd_work(B, S, Sk, H, Hk, hd, causal, q.element_size())
+            t_ops = flops / flop_rate(name, dtype) * 1e3
+            t_bytes = nbytes / rate * 1e3
+            rec = {"kernel": "flash_attention_bwd", "role": role, "case": list(case),
+                   "dtype": dtype, "max_abs_err": max(errs.values()), "errs": errs,
+                   "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "kernels_per_call": fa.BWD_KERNELS_PER_CALL}
+            fns = {"": lambda: fa.flash_attention_backward(q, k, v, out, do, lse,
+                                                           causal=causal),
+                   "plain_": lambda: ref.reference_attention_backward(q, k, v, do,
+                                                                      causal=causal)}
+            if role != "test":
+                qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                              for t in (q, k, v))
+                sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                          enable_gqa=True)
+                dot = do.transpose(1, 2).contiguous()
+                fns["library_"] = lambda: torch.autograd.grad(
+                    sdpa_out, (qt, kt, vt), dot, retain_graph=True)
+            iters = {"test": 5, "main": 20, "family": 10}[role]
+            for key, fn in fns.items():
+                call = cuda_ms(torch, fn, iters)
+                dev_ms = device_ms(torch, fn, iters, "flash_bwd" if key == "" else None,
+                                   per_call=fa.BWD_KERNELS_PER_CALL if key == "" else 1)
+                rec[key + "ms"] = call if dev_ms is None else dev_ms
+                rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
+                rec[key + "call_ms"] = call
+            rec.setdefault("library_ms", None)
+            records.append(rec)
+            print(f"  flash_attention_bwd {role} {case} {dtype}: max|err| "
+                  f"{rec['max_abs_err']:.3g}, device {rec['ms'] * 1e3:.1f} us "
+                  f"({rec['ms_from']}), per call {rec['call_ms'] * 1e3:.1f} us, plain "
+                  f"{rec['plain_ms'] * 1e3:.1f} us, "
+                  + (f"sdpa bwd {rec['library_ms'] * 1e3:.1f} us, "
+                     if rec["library_ms"] else "")
+                  + f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); "
+                  f"{flops / (rec['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+            if role == "main" and dtype == "bfloat16":
+                main = rec
+            del q, k, v, do, out, lse
+            fns.clear()
+            torch.cuda.empty_cache()
     summary = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1853,6 +1901,11 @@ def phase_flash_bwd(torch, rate, name, records):
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "kernels_per_call": fa.BWD_KERNELS_PER_CALL,
+        # The shapes phases 30-32 train (one call each, as above).
+        "family_shapes": [{k: r[k] for k in ("case", "dtype", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "max_abs_err")}
+                          for r in records
+                          if r["kernel"] == "flash_attention_bwd" and r["role"] == "family"],
     }
     print(f"kernel flash_attention_bwd: max|err| {summary['max_abs_err']:.3g}, training "
           f"shape {summary['ms'] * 1e3:.1f} us a call on the device (plain "
@@ -2017,15 +2070,27 @@ TRAIN_LR = 0.02
 TRAIN_PROFILED = 2
 
 
-def run_train_loop(torch, cfg, label):
-    """The rounds of phases 13 and 28: ``launch.train.TrainLoop`` at ``cfg``
-    (TRAIN_WORKERS workers, TRAIN_BATCH sequences of TRAIN_SEQ tokens a
-    worker), TRAIN_ROUNDS rounds, the last TRAIN_PROFILED of them profiled.
-    The launch counters are zeroed just before the rounds and read just
-    after; the first round's tree mix is held bit for bit against its plain
-    version on the same tree.  Returns the measurements; the phases check
-    their own launches."""
+def mix_groups(params) -> int:
+    """Tree launches of the gossip mix a round: one per dtype group of up to
+    ``MAX_LEAVES`` leaves (tinyllama's tree is all bf16; rwkv6-7b's keeps u
+    and w0 in f32, an MoE its router)."""
     from repro_torch.kernels import gossip_mix as tk
+    from repro_torch.tree import tree_leaves
+
+    return sum(-(-n // tk.MAX_LEAVES) for n in collections.Counter(
+        leaf.dtype for leaf in tree_leaves(params) if leaf.numel()).values())
+
+
+def run_train_loop(torch, cfg, label, workers=TRAIN_WORKERS, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, rounds=TRAIN_ROUNDS, make_loop=None):
+    """The rounds of phases 13, 28 and 30-32: ``launch.train.TrainLoop`` at
+    ``cfg`` (``workers`` workers, ``batch`` sequences of ``seq`` text tokens a
+    worker), or the loop ``make_loop()`` builds with the same ``params``,
+    ``step_cfg`` and ``round(r)`` (``SpecsLoop``), ``rounds`` rounds, the last
+    TRAIN_PROFILED of them profiled.  The launch counters are zeroed just
+    before the rounds and read just after; the first round's tree mix is
+    held bit for bit against its plain version on the same tree.  Returns
+    the measurements; the phases check their own launches."""
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.train import TrainLoop
     from repro_torch.tree import tree_flatten, tree_leaves
@@ -2037,9 +2102,12 @@ def run_train_loop(torch, cfg, label):
     held_gb = free_card(torch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loop = TrainLoop(cfg, workers=TRAIN_WORKERS, seq=TRAIN_SEQ,
-                     batch_per_worker=TRAIN_BATCH, lr=TRAIN_LR, algo="netmax",
-                     gossip="gather", monitor_every=TRAIN_MONITOR_EVERY, device="cuda")
+    if make_loop is None:
+        loop = TrainLoop(cfg, workers=workers, seq=seq, batch_per_worker=batch,
+                         lr=TRAIN_LR, algo="netmax", gossip="gather",
+                         monitor_every=TRAIN_MONITOR_EVERY, device="cuda")
+    else:
+        loop = make_loop()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     check(loop.step_cfg.use_gossip_mix_kernel and loop.step_cfg.gossip_mode == "gather",
@@ -2068,7 +2136,7 @@ def run_train_loop(torch, cfg, label):
     reset_all_launches()
     ops.gossip_mix_tree = checked_mix
     try:
-        for r in range(TRAIN_ROUNDS - TRAIN_PROFILED):
+        for r in range(rounds - TRAIN_PROFILED):
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             m = loop.round(r)
@@ -2079,7 +2147,7 @@ def run_train_loop(torch, cfg, label):
         torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            for r in range(TRAIN_ROUNDS - TRAIN_PROFILED, TRAIN_ROUNDS):
+            for r in range(rounds - TRAIN_PROFILED, rounds):
                 m = loop.round(r)
                 losses.append(m["loss_per_worker"].tolist())
             torch.cuda.synchronize()
@@ -2095,13 +2163,10 @@ def run_train_loop(torch, cfg, label):
     check(mix_check.get("leaves") and not mix_check["bad"],
           f"{label}: the first round's gossip mix differs from its plain version at leaves "
           f"{mix_check.get('bad')} of {mix_check.get('leaves')}")
-    # One tree launch a round per dtype group of up to MAX_LEAVES leaves
-    # (tinyllama's tree is all bf16; rwkv6-7b's keeps u and w0 in f32).
-    groups = sum(-(-n // tk.MAX_LEAVES) for n in collections.Counter(
-        leaf.dtype for leaf in tree_leaves(loop.params) if leaf.numel()).values())
-    check(launches["gossip_mix_rows"] == groups * TRAIN_ROUNDS,
+    groups = mix_groups(loop.params)
+    check(launches["gossip_mix_rows"] == groups * rounds,
           f"{label}: gossip_mix_rows launched {launches['gossip_mix_rows']} times in "
-          f"{TRAIN_ROUNDS} rounds ({groups} tree launches a round, one a dtype group)")
+          f"{rounds} rounds ({groups} tree launches a round, one a dtype group)")
     avg = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     device_s = sum(e.self_device_time_total for e in avg) * 1e-6
     by = {}
@@ -2110,10 +2175,10 @@ def run_train_loop(torch, cfg, label):
         by[kind] = by.get(kind, 0.0) + e.self_device_time_total * 1e-6
     top = [(e.key[:80], e.count, e.self_device_time_total * 1e-3) for e in avg[:10]]
     steady = round_s[1:]
-    tokens = TRAIN_WORKERS * TRAIN_BATCH * TRAIN_SEQ
+    tokens = workers * batch * seq
     out = {
-        "arch": cfg.name, "layers": cfg.n_layers, "workers": TRAIN_WORKERS,
-        "seq": TRAIN_SEQ, "batch_per_worker": TRAIN_BATCH,
+        "arch": cfg.name, "layers": cfg.n_layers, "workers": workers,
+        "seq": seq, "batch_per_worker": batch,
         "microbatches": cfg.microbatches, "params_stacked": n_params, "init_s": init_s,
         "held_before_gb": held_gb,
         "round_s": round_s, "round_ms_median": statistics.median(steady) * 1e3,
@@ -2123,14 +2188,14 @@ def run_train_loop(torch, cfg, label):
         "first_round_s": round_s[0], "peak_memory_bytes": peak,
         "round_peak_memory_bytes": round_peak,
         "losses": losses, "launches": launches,
-        "launches_per_round": {k: v / TRAIN_ROUNDS for k, v in launches.items()},
+        "launches_per_round": {k: v / rounds for k, v in launches.items()},
         "mix_check": mix_check, "mix_launches_per_round": groups,
         "profile": {"rounds": TRAIN_PROFILED, "wall_s": profiled_s, "device_s": device_s,
                     "busy_share": device_s / profiled_s, "device_s_by": by,
                     "top_kernels": top},
     }
-    print(f"{label}: {cfg.name} widths at {cfg.n_layers} layers, M={TRAIN_WORKERS} "
-          f"({n_params / 1e9:.3f} B params stacked, bf16), {TRAIN_BATCH}x{TRAIN_SEQ} tokens "
+    print(f"{label}: {cfg.name} widths at {cfg.n_layers} layers, M={workers} "
+          f"({n_params / 1e9:.3f} B params stacked, bf16), {batch}x{seq} tokens "
           f"a worker in {cfg.microbatches} micro-batches; init {init_s:.2f} s; first round "
           f"{round_s[0] * 1e3:.1f} ms, then median {out['round_ms_median']:.1f} ms "
           f"(mean {out['round_ms_mean']:.1f}) = {out['tokens_per_s']:.0f} tokens/s; peak "
@@ -2164,17 +2229,7 @@ def phase_train(torch):
           == (2048, 32, 4, 64, 5632, 32000, "bfloat16", True, 2),
           f"{LM_ARCH} is not the published width: {cfg}")
     out = run_train_loop(torch, cfg, "train")
-    launches = out["launches"]
-    per_round = TRAIN_WORKERS * cfg.microbatches * cfg.n_layers
-    check(launches["flash_attention_bwd"] == per_round * TRAIN_ROUNDS,
-          f"flash_attention_bwd launched {launches['flash_attention_bwd']} times, "
-          f"{per_round} a round expected")
-    check(launches["flash_attention"] == 2 * per_round * TRAIN_ROUNDS,
-          f"flash_attention launched {launches['flash_attention']} times, "
-          f"{2 * per_round} a round expected (remat runs each block's forward twice)")
-    check(launches["rwkv_scan"] == 0 and launches["rwkv_scan_bwd"] == 0
-          and launches["gossip_mix"] == 0,
-          f"unexpected launches on the training path: {launches}")
+    check_train_launches("train", cfg, out, TRAIN_WORKERS, TRAIN_BATCH, TRAIN_ROUNDS)
     return out
 
 
@@ -3006,6 +3061,36 @@ def count_drops(run):
     return tuple(seen)
 
 
+def replay_routes(choices):
+    """A ``hook_route`` hook: each MoE layer takes the next of the expert
+    choices ``choices`` recorded elsewhere (its gates the router's own
+    probabilities at those experts, renormalised)."""
+    from repro_torch.models import moe
+
+    it = iter(choices)
+
+    def pin(inner, p, x, c):
+        probs = inner(p, x, c)[0]
+        idx = next(it, None)
+        check(idx is not None and tuple(idx.shape) == tuple(probs.shape[:-1]) + (c.moe.top_k,),
+              "pinned routing: the run routes other tokens than the recorded one")
+        idx = idx.to(x.device)
+        return (probs, idx) + moe.place(probs.gather(-1, idx), idx, c)
+
+    pin.left = lambda: sum(1 for _ in it)
+    return pin
+
+
+def record_routes(into):
+    """A ``hook_route`` hook that appends each MoE layer's expert choices to
+    ``into`` (on the CPU)."""
+    def hook(inner, p, x, c):
+        res = inner(p, x, c)
+        into.append(res[1].cpu())
+        return res
+    return hook
+
+
 def phase_family(torch, card, phase, arch, layers, widths):
     """Serving one family at its published widths on random weights from
     seed 0 (bf16), depth cut to ``layers``: ``lm.prefill_logits`` twice,
@@ -3188,18 +3273,10 @@ def no_drop(cfg):
 
 def pinned_prefill(params, batch, cfg, choices):
     """``lm.prefill_logits`` with each MoE layer taking the expert choices
-    ``choices`` recorded elsewhere (its gates the router's own probabilities
-    at those experts, renormalised)."""
-    from repro_torch.models import lm, moe
+    ``choices`` recorded elsewhere (``replay_routes``)."""
+    from repro_torch.models import lm
 
-    it = iter(choices)
-
-    def pin(inner, p, x, c):
-        probs = inner(p, x, c)[0]
-        idx = next(it).to(x.device)
-        return (probs, idx) + moe.place(probs.gather(-1, idx), idx, c)
-
-    return hook_route(lambda: lm.prefill_logits(params, batch, cfg), pin)
+    return hook_route(lambda: lm.prefill_logits(params, batch, cfg), replay_routes(choices))
 
 
 def phase_family_parity(torch, card):
@@ -3231,25 +3308,17 @@ def phase_family_parity(torch, card):
             P = FAMILY_PARITY_SEQ
             drops = d_dec = None
             card_choices, cpu_choices = [], []
-
-            def recorder(into):
-                def hook(inner, p, x, c):
-                    res = inner(p, x, c)
-                    into.append(res[1].cpu())
-                    return res
-                return hook
-
             with torch.inference_mode():
                 params = lm.init_params(cfg, gen)
                 batch = family_batch(torch, cfg, gen, 2, P)
                 fa.reset_launches()
                 on_card = hook_route(lambda: lm.prefill_logits(params, batch, cfg),
-                                     recorder(card_choices))
+                                     record_routes(card_choices))
                 torch.cuda.synchronize()
                 bodies = dict(fa.BODY_LAUNCHES)
                 cpu_params, cpu_batch = _tree_to(params, "cpu"), _tree_to(batch, "cpu")
                 on_cpu = hook_route(lambda: lm.prefill_logits(cpu_params, cpu_batch, cfg),
-                                    recorder(cpu_choices))
+                                    record_routes(cpu_choices))
                 held = on_cpu
                 if cfg.moe is not None and dtype == "bfloat16":
                     held = pinned_prefill(cpu_params, cpu_batch, cfg, card_choices)
@@ -3311,6 +3380,313 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+# -- training the PR 19 families (phases 30-33) --------------------------------
+
+#: Bytes a stacked parameter takes in a training round at its peak (bf16
+#: params, f32 momenta, the f32 micro-batch sums, the update, the pulled
+#: and mixed copies): phase 28's 59.13 GB over rwkv6-7b's 3.02 B stacked
+#: parameters is 19.6; PERF.md section 4 sizes the depth cuts with ~18.6.
+BYTES_PER_STACKED_PARAM = 18.6
+CARD_BYTES = 80e9
+#: Phases 30-32: (phase, arch, layers kept (None: all), workers, sequences a
+#: worker, text tokens a sequence).  phi3.5-moe at 1 of 32 layers, M = 2,
+#: through the launcher's loop; whisper-small and internvl2-1b whole, M = 4,
+#: through ``make_train_step`` with a ``train_batch_specs`` batch (C10).
+FAMILY_TRAIN = [("moe train", "phi3.5-moe-42b-a6.6b", 1, 2, 8, 512),
+                ("audio train", "whisper-small", None, 4, 4, 64),
+                ("vlm train", "internvl2-1b", None, 4, 4, 512)]
+FAMILY_TRAIN_ROUNDS = 8
+#: The archs phase 33 trains only at ``family_cut``: one period of each at its
+#: published widths holds more parameters than one card holds replicas of.
+CUT_ONLY = ("llama4-maverick-400b-a17b", "jamba-v0.1-52b")
+
+
+class SpecsLoop:
+    """``launch.train.TrainLoop``'s round for the families its batches cannot
+    feed (ROADMAP C10): the same optimizer, strategy, step config and gossip
+    draws (``sample_round`` on the uniform pull matrix, as its round before
+    the Monitor's first policy), and a batch shaped by
+    ``launch.specs.train_batch_specs``, filled from a generator seeded
+    ``seed``: token ids uniform over the vocab, frames and vision tokens
+    normal at the frontend stubs' RMS of 0.02."""
+
+    def __init__(self, torch, cfg, workers, seq, batch_per_worker, lr=TRAIN_LR,
+                 device="cuda", seed=0):
+        import numpy as np
+
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch.specs import train_batch_specs
+        from repro_torch.optim import sgd
+        from repro_torch.train.trainer import TrainStepConfig, init_stacked, make_train_step
+
+        M = workers
+        self.torch, self.cfg, self.M, self.lr = torch, cfg, M, lr
+        opt = sgd(momentum=0.9, weight_decay=1e-4)
+        self.step_cfg = TrainStepConfig(gossip_mode="gather", use_gossip_mix_kernel=True)
+        self.step_fn = make_train_step(cfg, opt, M, "netmax", self.step_cfg)
+        shape = ShapeSpec("train", seq + (cfg.n_vis_tokens or 0), M * batch_per_worker,
+                          "train")
+        self.specs = train_batch_specs(cfg, shape, M)
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.device = device
+        self.params, self.opt_state = init_stacked(cfg, opt, M, self.gen)
+        self.d = np.ones((M, M)) - np.eye(M)
+        self.P = np.where(self.d > 0, 1.0 / max(M - 1, 1), 0.0)
+        self.rho = 0.5 / (2 * lr * max(M - 1, 1))
+        self.rng = np.random.default_rng(seed)
+
+    def batch(self, r: int) -> dict:
+        torch = self.torch
+        out = {}
+        for k, spec in self.specs.items():
+            if spec.dtype.is_floating_point:
+                out[k] = 0.02 * torch.randn(spec.shape, generator=self.gen, dtype=spec.dtype,
+                                            device=self.device)
+            else:
+                out[k] = torch.randint(0, self.cfg.vocab_size, spec.shape, generator=self.gen,
+                                       dtype=spec.dtype, device=self.device)
+        return out
+
+    def round(self, r: int) -> dict:
+        import numpy as np
+
+        from repro_torch.core.consensus import sample_round
+
+        batch = self.batch(r)
+        nb, wts = sample_round(self.rng, self.P, self.lr, self.rho, self.d)
+        gi = {"neighbors": nb, "weights": wts, "lr": np.float32(self.lr)}
+        self.params, self.opt_state, m = self.step_fn(self.params, self.opt_state, batch, gi)
+        return {**m, "neighbors": nb, "weights": wts}
+
+
+def stacked_gb(cfg, M) -> tuple[int, float]:
+    """(parameters of one replica, GB of M stacked at BYTES_PER_STACKED_PARAM)."""
+    from repro_torch.models import lm
+
+    n = lm.param_count(cfg)
+    return n, n * M * BYTES_PER_STACKED_PARAM / 1e9
+
+
+def train_launches_expected(cfg, workers, batch) -> dict:
+    """B3's forward and backward launches a round: one backward per worker,
+    micro-batch and attention call, and two forwards (remat runs each
+    block's forward again)."""
+    per = workers * min(cfg.microbatches, batch) * attention_layers(cfg)
+    return {"flash_attention": 2 * per, "flash_attention_bwd": per}
+
+
+def check_train_launches(label, cfg, out, workers, batch, rounds):
+    """The round's B3 launches against ``train_launches_expected``; no WKV or
+    single-replica mix kernel; printed beside the count worked out."""
+    want = train_launches_expected(cfg, workers, batch)
+    got = {k: out["launches"][k] / rounds for k in want}
+    print(f"{label}: launches a round {got} (expected {want} from {workers} workers x "
+          f"{min(cfg.microbatches, batch)} micro-batches x {attention_layers(cfg)} attention "
+          f"calls, x 2 forwards under remat); gossip_mix_rows "
+          f"{out['launches']['gossip_mix_rows'] / rounds} (one a dtype group: "
+          f"{out['mix_launches_per_round']})")
+    check(got == want, f"{label}: B3 launches a round {got}, {want} expected")
+    others = {k: n for k, n in out["launches"].items()
+              if k not in ("flash_attention", "flash_attention_bwd", "gossip_mix_rows")}
+    check(not any(others.values()), f"{label}: other kernels launched: {others}")
+    out["launches_expected_per_round"] = want
+
+
+def phase_family_train(torch, card, phase, arch, layers, workers, batch, seq):
+    """Phases 30-32: one family at its published widths (bf16, random weights
+    from seed 0), depth cut to ``layers``: through ``launch.train.TrainLoop``
+    where the launcher feeds the family, else through ``SpecsLoop`` (audio
+    and vlm, C10); FAMILY_TRAIN_ROUNDS rounds of ``run_train_loop`` and its
+    checks, B3's launches a round as the config works out."""
+    from repro_torch.configs.base import get_arch
+
+    widths = {row[1]: row[3] for row in FAMILY_PHASES}[arch]
+    full = get_arch(arch)
+    got = dict(n_layers=full.n_layers, d_model=full.d_model, n_heads=full.n_heads,
+               n_kv_heads=full.n_kv_heads, hd=full.hd, d_ff=full.d_ff,
+               vocab_size=full.vocab_size,
+               experts=None if full.moe is None else (
+                   full.moe.n_experts, full.moe.top_k, full.moe.capacity_factor,
+                   full.moe.layout))
+    check(got == widths and full.dtype == "bfloat16" and full.remat,
+          f"{arch} is not the published width: {got}")
+    cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+    n, gb = stacked_gb(cfg, workers)
+    print(f"[{card}] {phase}: {cfg.name} at {cfg.n_layers} of {full.n_layers} layers: "
+          f"{n / 1e9:.3f} B params a replica, M = {workers} stacks {n * workers / 1e9:.3f} B, "
+          f"~{gb:.1f} GB at {BYTES_PER_STACKED_PARAM} bytes a stacked parameter"
+          + (f"; M = {2 * workers} would need ~{2 * gb:.1f} GB" if layers else ""))
+    make_loop = None
+    if cfg.family == "audio" or cfg.n_vis_tokens:
+        def make_loop():
+            return SpecsLoop(torch, cfg, workers, seq, batch)
+    out = run_train_loop(torch, cfg, f"[{card}] {phase}", workers=workers, batch=batch,
+                         seq=seq, rounds=FAMILY_TRAIN_ROUNDS, make_loop=make_loop)
+    check_train_launches(f"[{card}] {phase}", cfg, out, workers, batch, FAMILY_TRAIN_ROUNDS)
+    check(out["peak_memory_bytes"] < CARD_BYTES,
+          f"{phase}: peak {out['peak_memory_bytes'] / 1e9:.2f} GB")
+    out.update(phase=phase, published_layers=full.n_layers, params_a_replica=n,
+               stacked_gb_estimate=gb, through="TrainLoop" if make_loop is None
+               else "make_train_step (SpecsLoop)",
+               vision_tokens=cfg.n_vis_tokens or 0,
+               frames=cfg.enc_seq_len if cfg.family == "audio" else 0)
+    free_card(torch)
+    return out
+
+
+def cut_only_arithmetic(card):
+    """Why llama4 and jamba train only at their cut: one period at published
+    widths, M = 1, against one card, at BYTES_PER_STACKED_PARAM."""
+    from repro_torch.configs.base import get_arch
+
+    rows = {}
+    for arch in CUT_ONLY:
+        full = get_arch(arch)
+        period = 2 if full.family != "hybrid" else full.attn_period
+        n, gb = stacked_gb(dataclasses.replace(full, n_layers=period), 1)
+        rows[arch] = {"period_layers": period, "params": n, "gb_m1": gb, "gb_m2": 2 * gb}
+        print(f"[{card}] family train parity: {arch} at published widths, one period "
+              f"({period} of {full.n_layers} layers) is {n / 1e9:.2f} B params, ~{gb:.0f} GB "
+              f"to train at M = 1 ({2 * gb:.0f} GB at M = 2) against {CARD_BYTES / 1e9:.0f} "
+              "GB: trained here at its cut only (ROADMAP A5)")
+        check(gb * 1e9 > CARD_BYTES, f"{arch}: one period would fit one card")
+    return rows
+
+
+def family_train_parity(torch, cfg, dtype, M, batch, seq, devices=("cpu", "cuda"),
+                        seed=0):
+    """One round of the trainer (remat, the fused mix) on ``devices[1]`` and on
+    ``devices[0]`` from the same params, batch and gossip draws, at ``cfg``:
+    losses and params within TRAIN_PARITY_TOL.  In bf16 an MoE's CPU run takes
+    the card's recorded expert choices in every MoE layer, the remat
+    recomputation included (``replay_routes``); the unpinned CPU round runs
+    too, and its gap and the choices that differ are reported."""
+    import numpy as np
+
+    from repro_torch.core.consensus import sample_round
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import TrainStepConfig, init_stacked, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    ref_dev, dev = devices
+    opt = sgd(momentum=0.9, weight_decay=1e-4)
+    step = make_train_step(cfg, opt, M, "netmax", TrainStepConfig(use_gossip_mix_kernel=True))
+    params, state = init_stacked(cfg, opt, M, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    b = {k: rng.integers(0, cfg.vocab_size, size=(M, batch, seq)).astype(np.int64)
+         for k in ("tokens", "labels")}
+    if cfg.n_vis_tokens:
+        b["vis_embeds"] = 0.02 * rng.standard_normal(
+            (M, batch, cfg.n_vis_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        b["frames"] = 0.02 * rng.standard_normal(
+            (M, batch, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
+    dmask = np.ones((M, M)) - np.eye(M)
+    nb, wts = sample_round(rng, np.where(dmask > 0, 1.0 / (M - 1), 0.0), TRAIN_LR,
+                           0.5 / (2 * TRAIN_LR * (M - 1)), dmask)
+    gi = {"neighbors": nb, "weights": wts, "lr": TRAIN_LR}
+    pin = cfg.moe is not None and dtype == "bfloat16"
+
+    def one(device, hook=None):
+        p, o = tree_map(lambda t: t.to(device), params), tree_map(lambda t: t.to(device), state)
+        bt = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        t = time.perf_counter()
+        run = lambda: step(p, o, bt, gi)  # noqa: E731
+        p, _, m = run() if hook is None else hook_route(run, hook)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return m["loss_per_worker"].cpu(), tree_map(lambda t: t.cpu(), p), time.perf_counter() - t
+
+    card_choices, free_choices = [], []
+    reset_all_launches()
+    loss_card, p_card, card_s = one(dev, record_routes(card_choices) if cfg.moe else None)
+    launches = read_all_launches()
+    loss_free, p_free, cpu_s = one(ref_dev, record_routes(free_choices) if cfg.moe else None)
+    loss_held, p_held = loss_free, p_free
+    if pin:
+        hook = replay_routes(card_choices)
+        loss_held, p_held, _ = one(ref_dev, hook)
+        check(hook.left() == 0, "pinned routing: recorded choices left over")
+    check(bool(torch.isfinite(loss_card).all()), f"non-finite card losses {loss_card}")
+
+    def gaps(loss, p):
+        """(loss gap, param gap, the leaf of the param gap), relative."""
+        lerr = ((loss_card - loss).abs() / loss.abs()).max().item()
+        perr, where = max(((c.float() - a.float()).abs().max().item()
+                           / max(a.float().abs().max().item(), 1e-30), path)
+                          for (path, a), c in zip(leaf_paths(p), tree_leaves(p_card)))
+        return lerr, perr, where
+
+    loss_err, param_err, worst = gaps(loss_held, p_held)
+    flips = sum(int((a.sort(-1)[0] != c.sort(-1)[0]).any(-1).sum())
+                for a, c in zip(card_choices, free_choices) if a.shape == c.shape)
+    res = {"loss_rel_err": loss_err, "param_rel_err": param_err, "worst_leaf": worst,
+           "routing_pinned": pin,
+           "card_s": card_s, "cpu_s": cpu_s, "launches": launches,
+           "routing_flips": flips if cfg.moe else None,
+           "route_calls": len(card_choices), "mix_groups": mix_groups(params)}
+    if pin:
+        res["unpinned_loss_rel_err"], res["unpinned_param_rel_err"], _ = gaps(loss_free,
+                                                                               p_free)
+    return res
+
+
+def leaf_paths(tree, prefix=""):
+    """(path, leaf) of a tree of dicts, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree) for pl in leaf_paths(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def phase_family_train_parity(torch, card):
+    """Phase 33: each of the five families at ``family_cut`` with remat on,
+    one round of the trainer (M = 2, the config's micro-batches of one
+    sequence of FAMILY_PARITY_SEQ text tokens each, or two sequences where it
+    has one micro-batch) on the card and on the CPU, in f32 and in bf16:
+    losses and params within TRAIN_PARITY_TOL (bf16 MoE routing pinned to the
+    card's), and the card's B3 launches as ``train_launches_expected``."""
+    from repro_torch.configs.base import get_arch
+
+    out = {"cut_only": cut_only_arithmetic(card)}
+    M = 2
+    for _, arch, _, _ in FAMILY_PHASES:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(family_cut(get_arch(arch), dtype), remat=True)
+            batch = max(cfg.microbatches, 2)
+            res = family_train_parity(torch, cfg, dtype, M, batch, FAMILY_PARITY_SEQ)
+            tol = TRAIN_PARITY_TOL[dtype]
+            want = train_launches_expected(cfg, M, batch)
+            got = {k: res["launches"][k] for k in want}
+            label = f"[{card}] family train parity {arch} {dtype}"
+            print(f"{label} (d_model 256, hd 64, {cfg.n_layers} layers, M = {M}, {batch} x "
+                  f"{FAMILY_PARITY_SEQ} tokens a worker in {min(cfg.microbatches, batch)} "
+                  f"micro-batches): losses within {res['loss_rel_err']:.3g}, params within "
+                  f"{res['param_rel_err']:.3g} (relative, at {res['worst_leaf']}; bound {tol})"
+                  + (f" with the CPU's routing pinned to the card's ({res['route_calls']} "
+                     f"route calls); unpinned {res['unpinned_loss_rel_err']:.3g} / "
+                     f"{res['unpinned_param_rel_err']:.3g}" if res["routing_pinned"] else "")
+                  + (f"; {res['routing_flips']} expert choices differ card vs unpinned CPU"
+                     if cfg.moe else "")
+                  + f"; B3 launches {got} (expected {want}); card {res['card_s']:.2f} s, "
+                  f"CPU {res['cpu_s']:.2f} s")
+            check(res["loss_rel_err"] <= tol, f"{label}: losses differ by "
+                                              f"{res['loss_rel_err']} (relative)")
+            check(res["param_rel_err"] <= tol, f"{label}: params differ by "
+                                               f"{res['param_rel_err']} (of each leaf's max)")
+            check(got == want, f"{label}: B3 launches {got}, {want} expected")
+            check(res["launches"]["gossip_mix_rows"] == res["mix_groups"],
+                  f"{label}: gossip_mix_rows launched {res['launches']['gossip_mix_rows']} "
+                  f"times, {res['mix_groups']} (one a dtype group) expected")
+            others = {k: n for k, n in res["launches"].items()
+                      if k not in ("flash_attention", "flash_attention_bwd", "gossip_mix_rows")}
+            check(not any(others.values()), f"{label}: other kernels launched: {others}")
+            out[f"{arch}/{dtype}"] = res
+    free_card(torch)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3361,6 +3737,8 @@ def main() -> int:
         summaries.append(phase_rwkv_bwd(torch, hbm_rate(name), name, records))
         ssm_train_path = phase_ssm_train(torch)
         ssm_train_path["parity"] = phase_ssm_train_parity(torch)
+        family_train = {row[0]: phase_family_train(torch, card, *row) for row in FAMILY_TRAIN}
+        family_train["parity"] = phase_family_train_parity(torch, card)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3384,6 +3762,11 @@ def main() -> int:
             s["launches_families"] = {
                 phase: families[phase]["launches"]["flash_attention"]
                 for phase, *_ in FAMILY_PHASES}
+    # B3, its backward and B1 on the families' training paths (phases 30-32).
+    for s in summaries:
+        if s["name"] in ("flash_attention", "flash_attention_bwd", "gossip_mix_rows"):
+            s["launches_family_training"] = {
+                row[0]: family_train[row[0]]["launches"][s["name"]] for row in FAMILY_TRAIN}
     for s in summaries:
         if s["name"] == "gossip_mix_rows":
             s["launches_network_dynamics"] = {
@@ -3402,7 +3785,8 @@ def main() -> int:
              "main_path": main_path, "algos": algos, "lm_path": lm_path,
              "ssm_path": ssm_path, "train_path": train_path,
              "ssm_train_path": ssm_train_path,
-             "network_dynamics": dynamics, "families": families},
+             "network_dynamics": dynamics, "families": families,
+             "family_train": family_train},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -5,9 +5,14 @@ baseline strategy) -> Network Monitor -> checkpoint/restart, with the same
 flags and the same loop, plus ``--device`` (default ``cuda``, which raises
 without a card).  On the card it trains the full config; with ``--reduced``
 or ``--device cpu`` the tiny same-family config, as the JAX launcher does on
-its CPU backend.  Every family the port's models run trains on the card:
+its CPU backend.  Its batches hold token ids and labels only, as the JAX
+launcher's do, so it trains the text families (dense, moe, ssm, hybrid):
 attention through the flash-attention kernels, the ssm family's WKV
-recurrence through the WKV kernels, forward and backward.  Gossip
+recurrence through the WKV kernels, forward and backward.  The audio and
+vlm families need frames or vision tokens that neither launcher builds
+(ROADMAP C10): ``TrainLoop`` refuses them, and they train through
+``train.trainer.make_train_step`` with a batch shaped by
+``launch.specs.train_batch_specs``.  Gossip
 strategies mix through the fused tree mix (``use_gossip_mix_kernel``): on
 the card one gossip-mix kernel launch per round.
 
@@ -47,6 +52,13 @@ class TrainLoop:
     def __init__(self, cfg, *, workers=4, seq=128, batch_per_worker=4, lr=0.02,
                  algo="netmax", gossip="gather", ckpt=None, ckpt_every=50,
                  monitor_every=10, device=None, seed=0):
+        if cfg.family == "audio" or cfg.n_vis_tokens:
+            raise ValueError(
+                f"{cfg.name}: the launcher's batches hold tokens and labels only, and "
+                f"the {cfg.family} family also needs "
+                f"{'frames' if cfg.family == 'audio' else 'vis_embeds'} (ROADMAP C10, as "
+                "in the JAX launcher); train it through train.trainer.make_train_step "
+                "with a batch shaped by launch.specs.train_batch_specs")
         self.device = resolve_device(device)
         M = workers
         self.cfg, self.M, self.lr, self.algo_name = cfg, M, lr, algo

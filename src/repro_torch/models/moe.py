@@ -70,6 +70,12 @@ def moe_apply(p, x, cfg):
     pos_flat = pos.reshape(B, S * K)
     b_idx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
     xk = x[:, :, None, :].expand(B, S, K, D).reshape(B, S * K, D)
+    # Every kept slot (b, e, pos < C) is written by one (token, pick) only,
+    # so its sum has one term; only the overflow slot C collects several, in
+    # an order the device may choose, and it is cut off here. The gather
+    # below and its backward (a scatter into out_pad) meet likewise only at
+    # slot C, whose gradient the cut discards: equal calls give equal
+    # outputs and gradients.
     buf = torch.zeros((B, E, C + 1, D), dtype=x.dtype, device=x.device)
     buf.index_put_((b_idx, e_flat, pos_flat), xk, accumulate=True)
     buf = buf[:, :, :C]

@@ -8,7 +8,10 @@ causal decoder (learned positions, no RoPE) with cross-attention, LayerNorm
 and GELU.  JAX promotes the f32 frames against bf16 weights, so the encoder
 runs in f32 and the decoder's cross-attention takes f32 keys and values
 (``modules.promote``); every attention prefill goes through the
-flash-attention kernel on the card.
+flash-attention kernel on the card.  The encoder and the teacher-forced
+decoder are also the training forward: under autograd with ``cfg.remat``
+each block is rematerialised (``torch.utils.checkpoint``), as in
+``models/transformer.py``.
 
 Two behaviours of the reference are kept (ROADMAP C8): the decode cache's
 cross-attention K/V (``xk``/``xv``) start at zero and nothing writes them,
@@ -20,6 +23,7 @@ place, as ``models/transformer.py`` does.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -88,12 +92,14 @@ def encode(params, frames, cfg: ArchConfig):
     S = frames.shape[1]
     x = frames + sinusoidal_positions(S, cfg.d_model, frames.device).to(frames.dtype)
     qc, kc = pick_chunk(S, 512), pick_chunk(S, 1024)
-    for i in range(cfg.n_enc_layers):
-        blk = _layer(params["enc_blocks"], i)
+
+    def body(blk, x):
         h = attn.attn_apply(blk["attn"], layernorm(blk["ln1"], x), cfg, causal=False,
                             rope=False, q_chunk=qc, kv_chunk=kc)
         x = x + h
-        x = x + mlp(blk["mlp"], layernorm(blk["ln2"], x), "gelu")
+        return x + mlp(blk["mlp"], layernorm(blk["ln2"], x), "gelu")
+
+    x = _blocks(body, params["enc_blocks"], x, cfg.n_enc_layers, cfg)
     return layernorm(params["enc_norm"], x)
 
 
@@ -104,16 +110,30 @@ def decode_train(params, tokens, enc_out, cfg: ArchConfig):
     x = x + params["dec_pos"]["table"][:S]
     qc, kc = pick_chunk(S, 512), pick_chunk(S, 1024)
     xkc = pick_chunk(enc_out.shape[1], 1024)
-    for i in range(cfg.n_layers):
-        blk = _layer(params["dec_blocks"], i)
+
+    def body(blk, x):
         h = attn.attn_apply(blk["self_attn"], layernorm(blk["ln1"], x), cfg, causal=True,
                             rope=False, q_chunk=qc, kv_chunk=kc)
         x = x + h
         h = attn.cross_attn_apply(blk["cross_attn"], layernorm(blk["ln_x"], x), enc_out,
                                   cfg, q_chunk=qc, kv_chunk=xkc)
         x = x + h
-        x = x + mlp(blk["mlp"], layernorm(blk["ln2"], x), "gelu")
+        return x + mlp(blk["mlp"], layernorm(blk["ln2"], x), "gelu")
+
+    x = _blocks(body, params["dec_blocks"], x, cfg.n_layers, cfg)
     return layernorm(params["final_norm"], x)
+
+
+def _blocks(body, blocks, x, n, cfg: ArchConfig):
+    """x through ``body(block i, x)`` for each of the n stacked blocks; under
+    autograd with ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+    (the JAX package's ``jax.checkpoint`` over the scan body), as
+    ``transformer.forward``'s blocks do; with grad disabled (serving) plainly."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(n):
+        blk = _layer(blocks, i)
+        x = checkpoint(body, blk, x, use_reentrant=False) if remat else body(blk, x)
+    return x
 
 
 def init_cache(cfg: ArchConfig, B: int, S: int, device=None):

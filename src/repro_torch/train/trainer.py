@@ -22,10 +22,20 @@ of every leaf); one round = every worker performs one Alg.-2 iteration:
 
 The JAX package vmaps ``value_and_grad`` over the workers; here the workers
 run one after another, so the attention kernel and its backward see one
-worker's batch at a time.  On the card every attention call goes through
+worker's batch at a time.  A batch holds (M, b, ...) ``tokens`` and
+``labels``, and for the audio and vlm families f32 ``frames`` or
+``vis_embeds`` (``launch/specs.train_batch_specs``), split over workers
+and micro-batches alike.  On the card every attention call goes through
 the flash-attention kernels (forward with LSE, and backward), and every
 ssm time-mix's WKV recurrence through the WKV kernels (forward, and
-backward); on the CPU every family the port's models run trains.
+backward); MoE routing, scatter and gather and the mamba scan run in
+plain torch, as in the JAX package.  Every family is held to the JAX
+trainer on the CPU (one round, remat on, the fused mix: the dense and ssm
+families in ``tests/test_torch_trainer.py``, the moe, every_2 MoE,
+hybrid, audio and vlm families in ``tests/test_torch_family_training.py``)
+and trains on the card (``chip_smoke.py``: phi3.5-moe, whisper-small and
+internvl2-1b at their published widths, each family's reduced cut card
+against CPU).
 ``pull_ppermute`` needs one process per card and raises (ROADMAP A5).
 The legacy ``TrainStepConfig`` flags (``allreduce``, ``prague_groups``)
 still select a strategy, with the JAX package's ``DeprecationWarning``s.
@@ -107,7 +117,8 @@ def make_train_step(
     (params, opt_state, metrics).
 
     params/opt_state leaves: (M, ...), on one device.  batch leaves:
-    (M, B/M, ...) int tensors.  gossip_in: {'neighbors': (M,) ints,
+    (M, B/M, ...): int token ids and labels, and the family's f32 frames or
+    vision tokens.  gossip_in: {'neighbors': (M,) ints,
     'weights': (M,) f32, 'lr': a number}, as numpy arrays or tensors.
     metrics: {'loss': the mean over workers, 'loss_per_worker': (M,)}.
 
@@ -200,15 +211,21 @@ def make_train_step(
     return train_step
 
 
+#: The keys of an LM tree whose leaves are stacked on a layer axis after the
+#: worker axis (the models index them with ``transformer._layer``).
+STACKED_BLOCKS = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def worker_leaves(params, i: int, fn=lambda leaf: leaf):
     """Worker i's row of stacked LM params, with each layer of the stacked
-    blocks a leaf of its own (``blocks`` becomes a list of per-layer trees,
-    which ``transformer.forward`` takes as it takes the stacked form): the
-    gradient of a view of one layer of a stacked leaf would be a zero-filled
-    tensor of all layers, one per layer.  ``fn`` maps each view."""
+    blocks a leaf of its own (each of ``STACKED_BLOCKS`` becomes a list of
+    per-layer trees, which the models take as they take the stacked form):
+    the gradient of a view of one layer of a stacked leaf would be a
+    zero-filled tensor of all layers, one per layer.  ``fn`` maps each
+    view."""
     out = {}
     for k, v in params.items():
-        if k == "blocks":
+        if k in STACKED_BLOCKS:
             n_layers = tree_leaves(v)[0].shape[1]
             out[k] = [tree_map(lambda leaf: fn(leaf[i, layer]), v) for layer in range(n_layers)]
         else:

@@ -11,8 +11,11 @@ to 5e-2, one bf16 step being 2^-8 of |y|, while the final state is f32,
 computed from exactly widened inputs, and held to 1e-4.  The WKV backward
 kernel is held to its plain reverse recurrence and to autograd through the
 plain forward within 1e-4 (f32) / 2e-2 (bf16) of each gradient's max |.|,
-as the flash-attention backward.  This file imports no JAX, so it runs on a
-machine that has only torch:
+as the flash-attention backward.  The trainer's round at each family's
+reduced cut is held to the CPU's within 1e-4 (f32) / 2e-2 (bf16, the MoE
+layers of the CPU's round taking the card's expert choices), and the MoE
+layer's gradients repeat bit for bit and agree with the CPU's within 1e-5.
+This file imports no JAX, so it runs on a machine that has only torch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -523,6 +526,133 @@ def test_cuda_ssm_round_launches_the_wkv_backward_once_a_layer_and_micro_batch(c
     groups = {leaf.dtype for leaf in tree_leaves(params["cuda"])}
     assert groups == {torch.bfloat16, torch.float32}
     assert tk.LAUNCHES["gossip_mix_rows"] == n0[1]["gossip_mix_rows"] + len(groups)
+
+
+#: The families chip_smoke.py's phase 33 trains card against CPU.
+FAMILIES = ["phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b",
+            "whisper-small", "internvl2-1b"]
+
+
+def _family_cut(name, dtype):
+    """chip_smoke.py's ``family_cut`` with remat on: the arch's reduced()
+    config (its layers, period, encoder, experts, micro-batches) at d_model
+    256 and head_dim 64."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_arch
+
+    return replace(get_arch(name).reduced(), d_model=256, head_dim=64, dtype=dtype,
+                   remat=True)
+
+
+def _routes(inner, record=None, replay=None):
+    """A stand-in for ``moe.route`` (``inner``) that records each call's expert
+    choices into ``record``, or takes them, call by call, from ``replay``."""
+    from repro_torch.models import moe
+
+    it = iter(replay or ())
+
+    def route(p, x, cfg):
+        probs, idx = inner(p, x, cfg)[:2]
+        if replay is not None:
+            idx = next(it).to(x.device)
+        if record is not None:
+            record.append(idx.cpu())
+        return (probs, idx) + moe.place(probs.gather(-1, idx), idx, cfg)
+
+    return route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_cuda_family_round_matches_cpu(cuda_device, name, dtype, monkeypatch):
+    """One round of the trainer (M = 2, remat, the fused mix, the config's
+    micro-batches) at each family's cut on the card against the CPU: losses
+    and params within 1e-4 (f32) / 2e-2 (bf16); in bf16 the CPU's MoE layers
+    take the card's expert choices, the remat recomputation's too. B3's
+    backward once per worker, micro-batch and attention call, its forward
+    twice."""
+    from repro_torch.models import moe
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import TrainStepConfig, init_stacked, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, M = _family_cut(name, dtype), 2
+    b_per, seq = max(cfg.microbatches, 2), 64
+    opt = sgd(momentum=0.9, weight_decay=1e-4)
+    step = make_train_step(cfg, opt, M, "netmax", TrainStepConfig(use_gossip_mix_kernel=True))
+    params, state = init_stacked(cfg, opt, M, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab_size, (M, b_per, seq)) for k in ("tokens", "labels")}
+    if cfg.n_vis_tokens:
+        batch["vis_embeds"] = 0.02 * rng.standard_normal((M, b_per, cfg.n_vis_tokens, 256))
+    if cfg.family == "audio":
+        batch["frames"] = 0.02 * rng.standard_normal((M, b_per, cfg.enc_seq_len, 256))
+    gi = {"neighbors": np.array([1, 0]), "weights": np.array([0.3, 0.6], np.float32),
+          "lr": 0.02}
+    batch = {k: v.astype(np.float32 if v.dtype.kind == "f" else np.int64)
+             for k, v in batch.items()}
+    choices, real_route = [], moe.route
+    out = {}
+    n0 = dict(fa.LAUNCHES)
+    for dev in ("cuda", "cpu"):
+        if cfg.moe is not None and dtype == "bfloat16":
+            monkeypatch.setattr(moe, "route", _routes(real_route, record=choices)
+                                if dev == "cuda" else _routes(real_route, replay=choices))
+        p, o = (tree_map(lambda t: t.to(dev), t) for t in (params, state))
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        p, _, m = step(p, o, b, gi)
+        out[dev] = (m["loss_per_worker"].cpu(), [t.cpu() for t in tree_leaves(p)])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: fa.LAUNCHES[k] - n0[k] for k in n0}
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    assert bool(torch.isfinite(out["cuda"][0]).all())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=tol, atol=0)
+    for a, c in zip(out["cpu"][1], out["cuda"][1]):
+        scale = a.float().abs().max().item()
+        assert (c.float() - a.float()).abs().max().item() <= tol * max(scale, 1e-6)
+    attn = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family == "audio"
+            else cfg.n_layers // cfg.attn_period if cfg.family == "hybrid" else cfg.n_layers)
+    calls = M * min(cfg.microbatches, b_per) * attn
+    assert launches == {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+
+
+@pytest.mark.cuda
+def test_cuda_moe_scatter_backward_repeats_and_matches_cpu(cuda_device):
+    """The MoE layer's gradients (the scatter into expert buffers, the gather
+    back through the zero pad, the gates and the aux loss) at a capacity
+    that drops slots, so the overflow slot sums several tokens: two equal
+    calls on the card give equal gradients, and they agree with the CPU's
+    within 1e-5 of each gradient's max |.| in f32."""
+    from dataclasses import replace
+
+    from repro_torch.models import moe
+
+    cfg = _family_cut("phi3.5-moe-42b-a6.6b", "float32")
+    cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=1.0))
+    gen = torch.Generator().manual_seed(0)
+    p = moe.moe_init(gen, cfg, torch.float32)
+    x = torch.randn((2, 64, 256), generator=gen)
+    dy = torch.randn((2, 64, 256), generator=gen)
+
+    def grads(dev):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+        xd = x.to(dev).requires_grad_()
+        _, _, _, pos, C = moe.route(leaves, xd, cfg)
+        y, aux = moe.moe_apply(leaves, xd, cfg)
+        loss = (y * dy.to(dev)).sum() + aux
+        gs = torch.autograd.grad(loss, [xd, *leaves.values()])
+        return [g.cpu() for g in gs], int((pos == C).sum())
+
+    first, drops = grads("cuda")
+    again, _ = grads("cuda")
+    on_cpu, cpu_drops = grads("cpu")
+    assert drops > 0 and drops == cpu_drops
+    for a, b, c in zip(first, again, on_cpu):
+        assert torch.equal(a, b)
+        assert (a - c).abs().max().item() <= 1e-5 * c.abs().max().item()
 
 
 # tests/test_kernels.py RWKV_CASES, then ragged lengths (S not a multiple of
