@@ -95,15 +95,20 @@ Phases, in order; any failure exits non-zero before the result line:
 12. flash bwd — the flash-attention backward kernels against the plain
              version's autograd gradient (``ref.reference_attention_backward``)
              in f32 and bf16: causal and not, GQA with G = 8 and MQA,
-             S != Sk both ways, hd 32/64/128/160, ragged lengths, and the
-             training shape (2 x 512 tokens, 32/4 heads, hd 64); max |err|
-             of dq, dk and dv within 1e-4 (f32) / 2e-2 (bf16) of max
-             |grad|; per case the device time a call against the bound,
-             and at the training shapes against SDPA's backward: the dense
-             phase's, and phases 30-32's in the dtype each trains in
-             (phi3.5's 1 x 512, 32/8 heads of 128, bf16 on the FMA units;
-             whisper's encoder, 4 x 1500 non-causal, and cross-attention,
-             4 x 64 x 1500, f32; internvl2's 4 x 768, 14/2 heads, bf16);
+             S != Sk both ways, hd 32/64/128/160, ragged lengths, a short
+             query sequence whose dQ key walk is split (``dq_splits``),
+             and the training shape (2 x 512 tokens, 32/4 heads, hd 64);
+             max |err| of dq, dk and dv within 1e-4 (f32) / 2e-2 (bf16) of
+             max |grad|; per case the body (bf16 on the tensor cores at
+             every head dim, f32 on the FMA units), the key ranges, and the
+             device time a call against the bound, and at the training
+             shapes against SDPA's backward: the dense phase's, and phases
+             30-32's in the dtype each trains in (phi3.5's 1 x 512, 32/8
+             heads of 128, bf16; whisper's encoder, 4 x 1500 non-causal,
+             and cross-attention, 4 x 64 x 1500 with its dQ walk split,
+             f32; internvl2's 4 x 768, 14/2 heads, bf16), and llama4's
+             (40/8 heads of 128) and stablelm-12b's (32/8 heads of 160)
+             bf16 shapes;
 13. train  — NetMax training at the widths of tinyllama-1.1b, cut to 8 of
              its 22 layers, M = 4 workers, 4 x 512 tokens a worker in 2
              micro-batches, remat, sgd(0.9, 1e-4), lr 0.02, gather pulls
@@ -446,7 +451,7 @@ def traced_device_us(events, match=None):
             sum(e.self_device_time_total for e in found))
 
 
-def device_ms(torch, fn, iters, match=None, per_call=1):
+def device_ms(torch, fn, iters, match=None, per_call=1, names=None):
     """Device time (ms) from a torch.profiler (CUPTI) trace of ``iters``
     calls of ``fn``: with ``match``, the time of the traced kernels whose
     name contains it over the calls they account for (``fn`` launches
@@ -455,23 +460,27 @@ def device_ms(torch, fn, iters, match=None, per_call=1):
     time of all kernels per call.  None when no trace of ``PROFILE_ATTEMPTS``
     holds device time (of the named kernels): the caller then reads CUDA
     events around the calls and says so.  A trace short of the launches made
-    is taken again; the fullest is used."""
+    is taken again; the fullest is used.  ``names``, a list, receives the
+    names of the kernels matched in that trace."""
     profiler = torch.profiler
     fn()
     torch.cuda.synchronize()
     want = iters * per_call
-    best = (0, 0.0)
+    best = (0, 0.0, [])
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        n, us = traced_device_us(prof.key_averages(), match)
+        events = prof.key_averages()
+        n, us = traced_device_us(events, match)
         if us > 0 and n > best[0]:
-            best = (n, us)
+            best = (n, us, [e.key for e in events if match is None or match in e.key])
         if us > 0 and (match is None or n >= want):
             break
-    n, us = best
+    n, us, keys = best
+    if names is not None:
+        names.extend(keys)
     if attempt > 1:
         print(f"  (profiler: {attempt} traces of {match or 'all kernels'}, "
               f"the fullest held {n} launches)")
@@ -1774,24 +1783,52 @@ def _ssm_parity_cut(torch, w0):
 
 #: The backward kernels against ``ref.reference_attention_backward`` (B, S,
 #: Sk, H, Hk, hd, causal): GQA with G = 8, MQA, causal and not, S != Sk both
-#: ways, hd 64 and 128 (and 32, 160), ragged lengths; then the training shape,
-#: one tinyllama-1.1b layer of a 2 x 512 micro-batch.  Each in f32 and bf16.
+#: ways, hd 64 and 128 (and 32, 160), ragged lengths, a short query sequence
+#: whose dQ key walk is split into 8 ranges; then the training shape, one
+#: tinyllama-1.1b layer of a 2 x 512 micro-batch.  Each in f32 and bf16.
 ATTN_BWD_CASES = [(1, 128, 128, 4, 4, 64, True), (1, 200, 200, 32, 4, 64, True),
                   (2, 128, 128, 8, 1, 64, True), (2, 100, 37, 8, 2, 128, True),
                   (1, 64, 150, 4, 2, 128, True), (2, 128, 256, 4, 4, 64, False),
-                  (1, 96, 96, 4, 2, 32, True), (1, 100, 100, 4, 2, 160, False)]
+                  (1, 96, 96, 4, 2, 32, True), (1, 100, 100, 4, 2, 160, False),
+                  (2, 64, 1000, 8, 4, 128, False)]
 ATTN_BWD_MAIN = (2, 512, 512, 32, 4, 64, True)
 #: The backward at the shapes phases 30-32 train, in the dtype each runs it:
-#: one phi3.5-moe layer of a 1 x 512 micro-batch (32/8 heads of 128, bf16, on
-#: the FMA units); whisper-small's encoder (4 x 1500 frames, non-causal) and
-#: cross-attention (64 x 1500), f32 as C9 promotes them; internvl2-1b's 256
-#: vision + 512 text tokens (14/2 heads of 64, bf16, on the tensor cores).
+#: one phi3.5-moe layer of a 1 x 512 micro-batch (32/8 heads of 128, bf16);
+#: whisper-small's encoder (4 x 1500 frames, non-causal) and cross-attention
+#: (64 x 1500, its dQ key walk split), f32 as C9 promotes them;
+#: internvl2-1b's 256 vision + 512 text tokens (14/2 heads of 64, bf16); then
+#: llama4's (40/8 heads of 128) and stablelm-12b's (32/8 heads of 160) layers
+#: of a 1 x 512 micro-batch in bf16.  bf16 runs on the tensor cores at every
+#: head dim, f32 on the FMA units.
 ATTN_BWD_FAMILY = [((1, 512, 512, 32, 8, 128, True), "bfloat16"),
                    ((4, 1500, 1500, 12, 12, 64, False), "float32"),
                    ((4, 64, 1500, 12, 12, 64, False), "float32"),
-                   ((4, 768, 768, 14, 2, 64, True), "bfloat16")]
+                   ((4, 768, 768, 14, 2, 64, True), "bfloat16"),
+                   ((1, 512, 512, 40, 8, 128, True), "bfloat16"),
+                   ((1, 512, 512, 32, 8, 160, True), "bfloat16")]
 #: max |err| of dq, dk and dv against the plain version's max |grad|.
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: The part of the backward kernels' names that marks each tensor-core body
+#: (the FMA body's names carry neither).
+ATTN_BWD_BODY_MARKS = (("wide_mma", "_wide_mma_kernel"), ("mma", "_mma_kernel"))
+
+
+def bwd_body(dtype: str, hd: int) -> str:
+    """The backward body a dtype and head dim run: the FMA kernels for f32,
+    the 4-warp tensor-core body for bf16 at hd 32/64, the 8-warp one at hd
+    128/160."""
+    return "fma" if dtype == "float32" else "mma" if hd <= 64 else "wide_mma"
+
+
+def traced_bwd_body(names):
+    """The backward body named by the dK/dV and dQ kernels of a trace
+    (``None`` when the trace holds neither)."""
+    found = [n for n in names if "flash_bwd_dkdv" in n or "flash_bwd_dq" in n]
+    if not found:
+        return None
+    bodies = {next((body for body, mark in ATTN_BWD_BODY_MARKS if mark in n), "fma")
+              for n in found}
+    return bodies.pop() if len(bodies) == 1 else "+".join(sorted(bodies))
 
 
 def attn_bwd_work(B, S, Sk, H, Hk, hd, causal, itemsize):
@@ -1818,6 +1855,7 @@ def phase_flash_bwd(torch, rate, name, records):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     main = None
     both = ("float32", "bfloat16")
     runs = ([("test", case, both) for case in ATTN_BWD_CASES] + [("main", ATTN_BWD_MAIN, both)]
@@ -1831,7 +1869,13 @@ def phase_flash_bwd(torch, rate, name, records):
             k, v = (torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
                     for _ in range(2))
             out, lse = fa._forward(q, k, v, causal, with_lse=True)
+            fa.BWD_LAUNCHED.update(body=None, dq_splits=None)
             got = fa.flash_attention_backward(q, k, v, out, do, lse, causal=causal)
+            launched = dict(fa.BWD_LAUNCHED)
+            asked = {"body": bwd_body(dtype, hd),
+                     "dq_splits": fa.dq_splits(B, S, Sk, H, Hk, sms)}
+            check(launched == asked, f"flash_attention_bwd {case} {dtype}: the C entry "
+                  f"launched {launched}, not {asked}")
             want = ref.reference_attention_backward(q, k, v, do, causal=causal)
             torch.cuda.synchronize()
             errs = {}
@@ -1853,7 +1897,7 @@ def phase_flash_bwd(torch, rate, name, records):
                    "dtype": dtype, "max_abs_err": max(errs.values()), "errs": errs,
                    "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "kernels_per_call": fa.BWD_KERNELS_PER_CALL}
+                   "kernels_per_call": fa.BWD_KERNELS_PER_CALL, **launched}
             fns = {"": lambda: fa.flash_attention_backward(q, k, v, out, do, lse,
                                                            causal=causal),
                    "plain_": lambda: ref.reference_attention_backward(q, k, v, do,
@@ -1867,16 +1911,24 @@ def phase_flash_bwd(torch, rate, name, records):
                 fns["library_"] = lambda: torch.autograd.grad(
                     sdpa_out, (qt, kt, vt), dot, retain_graph=True)
             iters = {"test": 5, "main": 20, "family": 10}[role]
+            traced = []
             for key, fn in fns.items():
                 call = cuda_ms(torch, fn, iters)
                 dev_ms = device_ms(torch, fn, iters, "flash_bwd" if key == "" else None,
-                                   per_call=fa.BWD_KERNELS_PER_CALL if key == "" else 1)
+                                   per_call=fa.BWD_KERNELS_PER_CALL if key == "" else 1,
+                                   names=traced if key == "" else None)
                 rec[key + "ms"] = call if dev_ms is None else dev_ms
                 rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
                 rec[key + "call_ms"] = call
             rec.setdefault("library_ms", None)
+            # The body again, from the names of the kernels the profiler traced.
+            rec["traced_body"] = traced_bwd_body(traced)
+            check(rec["traced_body"] in (None, rec["body"]),
+                  f"flash_attention_bwd {case} {dtype}: the trace ran {sorted(set(traced))}, "
+                  f"not the {rec['body']} body the C entry reported")
             records.append(rec)
-            print(f"  flash_attention_bwd {role} {case} {dtype}: max|err| "
+            print(f"  flash_attention_bwd {role} {case} {dtype} ({rec['body']}, traced "
+                  f"{rec['traced_body']}; {rec['dq_splits']} key ranges): max|err| "
                   f"{rec['max_abs_err']:.3g}, device {rec['ms'] * 1e3:.1f} us "
                   f"({rec['ms_from']}), per call {rec['call_ms'] * 1e3:.1f} us, plain "
                   f"{rec['plain_ms'] * 1e3:.1f} us, "
@@ -1901,9 +1953,13 @@ def phase_flash_bwd(torch, rate, name, records):
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "kernels_per_call": fa.BWD_KERNELS_PER_CALL,
-        # The shapes phases 30-32 train (one call each, as above).
-        "family_shapes": [{k: r[k] for k in ("case", "dtype", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms", "max_abs_err")}
+        # The families' shapes: phases 30-32's, llama4's, stablelm-12b's (one
+        # call each, as above), with the body and the dQ key ranges the C
+        # entry reported, and the body the trace's kernel names show.
+        "family_shapes": [{k: r[k] for k in ("case", "dtype", "body", "traced_body",
+                                             "dq_splits", "ms",
+                                             "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                             "max_abs_err")}
                           for r in records
                           if r["kernel"] == "flash_attention_bwd" and r["role"] == "family"],
     }

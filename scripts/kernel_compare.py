@@ -1,0 +1,242 @@
+"""Time one kernel of the port in two source trees, in turns, on one card.
+
+    python3 scripts/kernel_compare.py --kernel KERNEL --before DIR [--after DIR]
+                                      [--cases NAME,...] [--out FILE]
+    python3 scripts/kernel_compare.py --kernel KERNEL --variant NAME [...]
+
+``DIR`` is the root of a checkout of the repo (``git archive <commit> | tar
+-x -C DIR``); ``--after`` defaults to this checkout.  ``--variant NAME``
+compares this checkout (or ``--before``) with a copy of ``--after``'s
+``src/`` under ``build/variants/NAME`` carrying the edit ``VARIANTS[NAME]``.
+Each tree is timed in a process of its own, in turns (before, after, after,
+before), through its own wrappers, with its kernels built from its own
+sources into its own ``build/``.  The timers are ``chip_smoke.py``'s:
+``device_ms`` (torch.profiler, the fullest of up to four traces, None when
+none holds the kernels), ``cuda_ms`` (CUDA events around back-to-back calls)
+and ``host_ms``.  Kernels (``CASES``):
+
+- ``mix``: the cohort's gossip mix, ``kernels.ops.gossip_mix_tree`` on the
+  simulator's MLP tree [32, 128, 64, 10] stacked over 32 rows (f32, u = 0),
+  one replica's six leaves through ``gossip_mix`` beside ``torch.lerp``, and
+  ``gossip_mix_rows`` / ``gossip_mix`` at large shapes; device time of all
+  kernels a call.
+- ``attn_bwd``: ``flash_attention.flash_attention_backward`` at the shapes
+  the training phases of ``chip_smoke.py`` run; device time of the kernels
+  named ``flash_bwd*`` a call, and of each of its four kernels, each over
+  its own traced launches.
+
+Prints one line per run and case, and the card's name and power limit; with
+``--out`` also writes the numbers as JSON.  Needs a card; imports nothing of
+JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+MLP_DIMS = [32, 128, 64, 10]
+ROWS = 32
+#: mix: name -> (entry point, shape, dtype, iterations) of the large cases.
+MIX_LARGE = {"rows_f32": ("gossip_mix_rows", (8, 2 ** 24), "float32", 5),
+             "rows_bf16": ("gossip_mix_rows", (8, 2 ** 24), "bfloat16", 5),
+             "scalar_f32": ("gossip_mix", (2 ** 27,), "float32", 5)}
+#: attn_bwd: name -> ((B, S, Sk, H, Hk, hd, causal), dtype), the training
+#: phases' shapes and llama4's and stablelm-12b's layers.
+ATTN_BWD_SHAPES = {
+    "tinyllama_bf16": ((2, 512, 512, 32, 4, 64, True), "bfloat16"),
+    "tinyllama_f32": ((2, 512, 512, 32, 4, 64, True), "float32"),
+    "internvl2_bf16": ((4, 768, 768, 14, 2, 64, True), "bfloat16"),
+    "whisper_enc_f32": ((4, 1500, 1500, 12, 12, 64, False), "float32"),
+    "whisper_cross_f32": ((4, 64, 1500, 12, 12, 64, False), "float32"),
+    "phi35_bf16": ((1, 512, 512, 32, 8, 128, True), "bfloat16"),
+    "llama4_bf16": ((1, 512, 512, 40, 8, 128, True), "bfloat16"),
+    "stablelm_bf16": ((1, 512, 512, 32, 8, 160, True), "bfloat16"),
+}
+ATTN_BWD_ITERS = 20
+ATTN_BWD_KINDS = ("dot", "dkdv", "dq", "reduce")
+#: name -> (kernel, file under src/, text, replacement): one edit of a tree.
+VARIANTS = {
+    # The 8-warp tensor-core backward at every bf16 head dim, not only at
+    # 128 and 160.
+    "bwd_wide_at_all_hd": ("attn_bwd", "repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                           "} else if constexpr (HD <= 64) {",
+                           "} else if constexpr (HD < 32) {"),
+}
+
+
+def mix_cases(torch, src: Path, only) -> dict:
+    from repro_torch.kernels import gossip_mix as tk
+    from repro_torch.kernels import ops
+
+    assert Path(tk.__file__).resolve().is_relative_to(src.resolve()), tk.__file__
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    h, p = ([{"w": draw((ROWS, a, b)), "b": draw((ROWS, b))}
+             for a, b in zip(MLP_DIMS[:-1], MLP_DIMS[1:])] for _ in range(2))
+    w = torch.rand(ROWS, generator=gen, device=dev)
+    out = {}
+
+    def case(name, fn, iters):
+        if only and name not in only:
+            return
+        tk.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = {"launches_a_call": sum(tk.LAUNCHES.values()),
+                     "device_ms": cs.device_ms(torch, fn, iters),
+                     "call_ms": cs.cuda_ms(torch, fn, iters),
+                     "host_ms": cs.host_ms(torch, fn, iters)}
+
+    case("tree", lambda: ops.gossip_mix_tree(h, p, w), 200)
+    # One replica's six leaves through the scalar entry point, one call each,
+    # and torch.lerp on the same leaves (u = 0 only; a yardstick).
+    leaves = [(layer[k], pl[k]) for layer, pl in zip(h, p) for k in layer]
+    replica = [(x[0].contiguous(), q[0].contiguous(), torch.zeros_like(x[0]))
+               for x, q in leaves]
+    case("replica", lambda: [tk.gossip_mix(x, z, q, 0.3) for x, q, z in replica], 200)
+    case("replica_lerp", lambda: [torch.lerp(x, q, 0.3) for x, q, _ in replica], 200)
+    for name, (entry, shape, dt, iters) in MIX_LARGE.items():
+        x, u, q = (draw(shape, getattr(torch, dt)) for _ in range(3))
+        if entry == "gossip_mix_rows":
+            wr = torch.linspace(0.0, 1.0, shape[0], device=dev)
+            case(name, lambda: tk.gossip_mix_rows(x, u, q, wr), iters)
+        else:
+            case(name, lambda: tk.gossip_mix(x, u, q, 0.3), iters)
+        del x, u, q
+        torch.cuda.empty_cache()
+    return out
+
+
+def attn_bwd_cases(torch, src: Path, only) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+
+    assert Path(fa.__file__).resolve().is_relative_to(src.resolve()), fa.__file__
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, ((B, S, Sk, H, Hk, hd, causal), dtype) in ATTN_BWD_SHAPES.items():
+        if only and name not in only:
+            continue
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        o, lse = fa._forward(q, k, v, causal, with_lse=True)
+
+        def fn():
+            return fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal)
+
+        it = ATTN_BWD_ITERS
+        out[name] = {
+            "device_ms": cs.device_ms(torch, fn, it, "flash_bwd",
+                                      per_call=fa.BWD_KERNELS_PER_CALL),
+            "kinds_ms": {kind: cs.device_ms(torch, fn, it, f"flash_bwd_{kind}_")
+                         for kind in ATTN_BWD_KINDS},
+            "call_ms": cs.cuda_ms(torch, fn, it),
+            "launched": dict(getattr(fa, "BWD_LAUNCHED", {})),
+        }
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+CASES = {"mix": mix_cases, "attn_bwd": attn_bwd_cases}
+
+
+def run_one(kernel: str, src: Path, only) -> dict:
+    """Time one tree's kernel in this process (``src``: its ``src/``)."""
+    sys.path.insert(0, str(src))
+    import torch
+
+    return CASES[kernel](torch, src, only)
+
+
+def make_variant(name: str, base: Path) -> Path:
+    """``base``'s ``src/`` copied to ``build/variants/NAME`` with the edit."""
+    _, rel, old, new = VARIANTS[name]
+    root = ROOT / "build" / "variants" / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(base / "src", root / "src",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = root / "src" / rel
+    text = path.read_text()
+    if text.count(old) != 1:
+        raise SystemExit(f"{rel} no longer holds {old!r} once")
+    path.write_text(text.replace(old, new))
+    return root
+
+
+def _fmt(ms):
+    return "    n/a" if ms is None else f"{ms * 1e3:9.2f}"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(CASES), required=True)
+    ap.add_argument("--before", type=Path, help="root of the earlier checkout")
+    ap.add_argument("--after", type=Path, default=ROOT, help="root of the later checkout")
+    ap.add_argument("--variant", choices=sorted(VARIANTS), default=None,
+                    help="time --after with this edit against --before (default: here)")
+    ap.add_argument("--cases", default="", help="comma-separated case names (default: all)")
+    ap.add_argument("--out", type=Path, default=None, help="JSON file for the numbers")
+    ap.add_argument("--one", type=Path, default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    only = [c for c in args.cases.split(",") if c]
+    if args.one is not None:  # a child: time one tree, print its JSON
+        print(json.dumps(run_one(args.kernel, args.one, only)))
+        return 0
+    if args.variant is not None:
+        if VARIANTS[args.variant][0] != args.kernel:
+            ap.error(f"variant {args.variant} edits {VARIANTS[args.variant][0]}")
+        args.before = args.before or ROOT
+        args.after = make_variant(args.variant, args.after)
+    if args.before is None:
+        ap.error("--before (or --variant) is required")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip()
+    print(card)
+    runs = []
+    for label, root in (("before", args.before), ("after", args.after),
+                        ("after", args.after), ("before", args.before)):
+        proc = subprocess.run([sys.executable, __file__, "--kernel", args.kernel,
+                               "--cases", args.cases, "--one", str(root / "src")],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
+            return 1
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append({"label": label, "root": str(root), "cases": res})
+        for name, r in res.items():
+            extra = ""
+            if "kinds_ms" in r:
+                extra = " (" + " ".join(f"{k} {_fmt(v).strip()}"
+                                        for k, v in r["kinds_ms"].items()) + ")"
+                extra += f" {r['launched']}"
+            if "host_ms" in r:
+                extra = f"  launches {r['launches_a_call']:2d}  host {_fmt(r['host_ms'])} us"
+            print(f"{label:6s} {name:18s} device {_fmt(r['device_ms'])} us{extra}  "
+                  f"per call {_fmt(r['call_ms'])} us")
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": card, "kernel": args.kernel,
+                                        "variant": args.variant, "runs": runs}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,40 +25,55 @@
 //
 // The FlashAttention-2 split, four launches, no atomics, deterministic:
 //   1. flash_bwd_dot_kernel: D, one warp a row;
-//   2. flash_bwd_dkdv_kernel: one block per (32-key tile, batch, query head)
+//   2. flash_bwd_dkdv_*kernel: one block per (key tile, batch, query head)
 //      walks the 64-position tiles of that head's queries that can see its
 //      keys (causal: from the tile holding position k0 on), recomputes P and
 //      dS for each and accumulates the head's share of dk and dv in
 //      registers, stored in f32 (one block a query head rather than a KV
 //      head: G times the blocks, each walking 1/G of the rows, so a
 //      training-shape call fills the SMs);
-//   3. flash_bwd_reduce_kernel: dk and dv, each the sum of its KV head's G
-//      shares in head order, in f32, scaled and cast once;
-//   4. flash_bwd_dq_kernel: one block per (64-row tile of folded rows,
-//      batch, KV head) walks the key tiles up to its causal limit and
-//      accumulates dq.
-// Each recomputes q k^T and dO v^T for its tiles, so the kernels together
-// do seven tile products where a fused kernel with atomics would do five.
+//   3. flash_bwd_dq_*kernel: one block per (64-row tile of folded rows,
+//      batch, KV head, key range) walks the key tiles of its range up to its
+//      causal limit and accumulates dq.  The wrapper picks the number of
+//      ranges (flash_attention.py::dq_splits): 1 where the row tiles fill the
+//      card, and the block then writes dq itself; more where a short query
+//      sequence leaves SMs idle (whisper's 64 decoder positions against 1500
+//      frames), and each block then writes an f32 partial dq;
+//   4. flash_bwd_reduce_kernel: dk and dv, each the sum of its KV head's G
+//      shares in head order, and dq, the sum of its partials in range order
+//      when split, all in f32, scaled and cast once.
+// The dK/dV and dQ kernels each recompute q k^T and dO v^T for their tiles,
+// so together they do seven tile products where a fused kernel with atomics
+// would do five.
 //
-// What bounds it: operations.  At the training shape (2 x 512 tokens, 32/4
-// heads, hd 64, causal) the five products the gradient needs are ~5.4
-// GFLOP on ~19 MB.  Two bodies for the dK/dV and dQ kernels, picked at
-// compile time by dtype and head dim:
-//   * bf16 at hd 32 and 64 (the training path's): mma.sync bf16 tensor-core
-//     products, described above flash_bwd_dkdv_mma_kernel below;
-//   * f32, and bf16 at hd 128 and 160: FMA products in f32, bf16 operands
-//     widened in shared memory; right first, its ceiling the 67 TFLOP/s f32
-//     rate.  Per block, tiles of q, dO, k and v live in shared memory in f32
-//     with rows hd + 1 floats apart (the rows a warp reads at once fall in
-//     distinct banks); P and dS of the current tile pair go through shared
-//     memory between the two product phases; each thread keeps its dk and
-//     dv (or dq) slice, hd / 2 floats, in registers for the whole walk.
+// What bounds it.  At the training shapes (2 x 512 tokens, 32/4 heads, hd
+// 64; 1 x 512, 32/8 heads, hd 128; causal) the five products the gradient
+// needs are ~5.4 GFLOP: in bf16 the bytes moved (5.7-6.3 us at 3.35 TB/s)
+// and the operations (~5.5 us at 989 TFLOP/s) about equal, bytes by a
+// little; in f32 the operations (~80 us at 67 TFLOP/s).  Three bodies for
+// the dK/dV and dQ kernels, picked at compile time by dtype and head dim:
+//   * bf16 at hd 32 and 64: mma.sync bf16 tensor-core products, 4 warps, each
+//     holding its 16 keys' (rows') operands as fragments in registers;
+//     described above flash_bwd_dkdv_mma_kernel below;
+//   * bf16 at hd 128 and 160: the same products with 8 warps, a pair of warps
+//     sharing 16 keys (rows) and splitting the score products by rows (keys)
+//     and the accumulators by columns, P^T and dS^T (dS) passed through
+//     shared memory, the streamed tile double-buffered; described above
+//     flash_bwd_dkdv_wide_mma_kernel below.  Registers bound its design: the
+//     4-warp body would hold ~256 a thread at hd 128;
+//   * f32: FMA products in f32, its ceiling the 67 TFLOP/s f32 rate (neither
+//     bf16 nor TF32 products hold the f32 tolerance).  Per block, tiles of
+//     q, dO, k and v live in shared memory in f32 with rows hd + 1 floats
+//     apart (the rows a warp reads at once fall in distinct banks); P and dS
+//     of the current tile pair go through shared memory between the two
+//     product phases; each thread keeps its dk and dv (or dq) slice, hd / 2
+//     floats, in registers for the whole walk.
 //
 // Plain C interface, built by nvcc into a shared library and called through
 // ctypes from repro_torch/kernels/flash_attention.py.  The launch enqueues on
-// the caller's stream, does not synchronise and allocates nothing (D's and
-// the f32 shares' buffers come from the wrapper); it returns
-// cudaGetLastError().
+// the caller's stream, does not synchronise and allocates nothing (D's, the
+// f32 shares' and dq's partials' buffers come from the wrapper); it returns
+// cudaGetLastError() and reports the body and the dQ key ranges it launched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -335,34 +350,59 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dk = scale * sum_g dk_share[g], dv = sum_g dv_share[g], in head order, f32,
-// cast once.
+// dk = scale * sum_g dk_share[g], dv = sum_g dv_share[g], in head order;
+// then, when the dq kernel's key walk was split into `splits` ranges,
+// dq = scale * sum_z dq_part[z] in range order.  f32, cast once.
 template <typename T>
 __global__ void __launch_bounds__(256)
 flash_bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ dk,
-                        T* __restrict__ dv, int64_t n, int G, float scale) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+                        T* __restrict__ dv, int64_t n, int G,
+                        const float* __restrict__ dq_part, T* __restrict__ dq, int64_t nq,
+                        int splits, float scale) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n + nq;
        i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float sk = 0.f, sv = 0.f;
-    for (int g = 0; g < G; ++g) {
-      sk += part[g * n + i];
-      sv += part[(G + g) * n + i];
+    if (i < n) {
+      float sk = 0.f, sv = 0.f;
+      for (int g = 0; g < G; ++g) {
+        sk += part[g * n + i];
+        sv += part[(G + g) * n + i];
+      }
+      dk[i] = from_f32<T>(sk * scale);
+      dv[i] = from_f32<T>(sv);
+    } else {
+      const int64_t j = i - n;
+      float sq = 0.f;
+      for (int z = 0; z < splits; ++z) sq += dq_part[z * nq + j];
+      dq[j] = from_f32<T>(sq * scale);
     }
-    dk[i] = from_f32<T>(sk * scale);
-    dv[i] = from_f32<T>(sv);
   }
 }
 
-// dq of one (64-row tile, batch, KV head).  Phase 2 thread mapping:
-// (ry, dx) = (tid / 16, tid % 16) owns rows 8ry .. 8ry + 7 and columns
-// dx + 16j of dq.
+// The key tiles [kt0, kt1) of the dq block's range blockIdx.z of gridDim.z:
+// its n visible tiles cut into runs of ceil(n / ranges), so the last ranges
+// may be shorter or empty (an empty one writes a zero partial).
+__device__ __forceinline__ void key_range(int n, int& kt0, int& kt1) {
+  const int per = (n + static_cast<int>(gridDim.z) - 1) / static_cast<int>(gridDim.z);
+  kt0 = min(n, static_cast<int>(blockIdx.z) * per);
+  kt1 = min(n, kt0 + per);
+}
+
+// Element offset of key range blockIdx.z's partial in the f32 dq_part
+// buffer, (ranges, B, S, H, hd), B = gridDim.y / Hk.
+__device__ __forceinline__ int64_t dq_part_base(int S, int H, int Hk, int hd) {
+  return static_cast<int64_t>(blockIdx.z) * (gridDim.y / Hk) * S * H * hd;
+}
+
+// dq of one (64-row tile, batch, KV head, key range).  Phase 2 thread
+// mapping: (ry, dx) = (tid / 16, tid % 16) owns rows 8ry .. 8ry + 7 and
+// columns dx + 16j of dq.
 template <int HD, bool kCausal, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ D,
-                    T* __restrict__ dq, int S, int Sk, int H, int Hk, float scale,
-                    float scale_log2) {
+                    T* __restrict__ dq, float* __restrict__ dq_part, int S, int Sk, int H,
+                    int Hk, float scale, float scale_log2) {
   using L = Smem<HD>;
   constexpr int kLd = L::kLd;
   constexpr int kCols = HD / 16;
@@ -386,6 +426,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int limit = static_cast<int>(R.pos(last_row)) / kKeys + 1;
     n_tiles = n_tiles < limit ? n_tiles : limit;
   }
+  int kt0, kt1;
+  key_range(n_tiles, kt0, kt1);
 
   float acc[8][kCols];
 #pragma unroll
@@ -393,7 +435,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * kKeys;
     __syncthreads();  // the last tile's k, v and dS are read
     load_keys<HD>(sm, k, v, R.b, kvh, Hk, Sk, k0);
@@ -416,38 +458,47 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  const bool whole = gridDim.z == 1;
+  float* part = dq_part + (whole ? 0 : dq_part_base(S, H, Hk, HD));
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int64_t row = row0 + 8 * ry + i;
     if (row >= R.total) continue;
     const int64_t off = R.offset(row, HD);
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) dq[off + dx + 16 * j] = from_f32<T>(acc[i][j] * scale);
+    for (int j = 0; j < kCols; ++j) {
+      if (whole) {
+        dq[off + dx + 16 * j] = from_f32<T>(acc[i][j] * scale);
+      } else {
+        part[off + dx + 16 * j] = acc[i][j];
+      }
+    }
   }
 }
 
 
 // ------------------------------------------------- bf16 bodies, tensor cores
 //
-// For bf16 at hd 32 and 64 the dK/dV and dQ kernels run their products on
+// For bf16 the dK/dV and dQ kernels run their products on
 // mma.sync.m16n8k16 bf16 with f32 accumulation, in the forward's fragment
 // layouts (csrc/flash_attention.cu); P and dS are rounded to bf16 as
-// operands of the second products, as FlashAttention-2 does.  Blocks of 4
-// warps; tiles of 64 rows of hd + 8 bf16 in shared memory (the 8 rows an
-// ldmatrix reads fall in distinct banks), copied with 16-byte cp.async
-// (zero-filled past the end).  At hd 128 and 160 a warp's accumulators
-// (dK and dV of 16 keys, plus the 16 x 64 score and dP tiles) would not fit
-// in its registers, so those keep the FMA kernels above.
+// operands of the second products, as FlashAttention-2 does.  Tiles of 64
+// rows of hd + 8 bf16 in shared memory (the 8 rows an ldmatrix reads fall in
+// distinct banks), copied with 16-byte cp.async (zero-filled past the end).
 //
-// dK/dV: one block per (64-key tile, batch, query head), warp w owns keys
-// 16w .. 16w + 15 and keeps their k and v rows as A fragments; for each
-// 64-position q tile it forms S^T = k q^T and dP^T = v dO^T (16 keys x 64
-// rows a warp), P^T and dS^T in registers, then dV += P^T dO and
-// dK += dS^T q with the accumulators repacked as A fragments and dO, q read
-// with ldmatrix.trans as B.  The shares go to the same f32 buffer as the
-// FMA kernel's.  dQ: one block per (64 folded rows, batch, KV head), warp w
-// owns rows 16w .. 16w + 15 and keeps their q and dO rows as A fragments;
-// for each 64-key tile S = q k^T and dP = dO v^T, then dQ += dS k.
+// hd 32 and 64, blocks of 4 warps.  dK/dV: one block per (64-key tile,
+// batch, query head), warp w owns keys 16w .. 16w + 15 and keeps their k and
+// v rows as A fragments; for each 64-position q tile it forms S^T = k q^T
+// and dP^T = v dO^T (16 keys x 64 rows a warp), P^T and dS^T in registers,
+// then dV += P^T dO and dK += dS^T q with the accumulators repacked as A
+// fragments and dO, q read with ldmatrix.trans as B.  The shares go to the
+// same f32 buffer as the FMA kernel's.  dQ: one block per (64 folded rows,
+// batch, KV head, key range), warp w owns rows 16w .. 16w + 15 and keeps
+// their q and dO rows as A fragments; for each 64-key tile S = q k^T and
+// dP = dO v^T, then dQ += dS k.  At hd 128 and 160 a warp of this design
+// would hold its 16 keys' fragments, dK and dV across all hd columns and the
+// 16 x 64 S^T and dP^T tiles, ~256 and ~304 registers a thread: the wide
+// bodies below split that work between two warps.
 
 constexpr int kMmaThreads = 128;  // 4 warps
 constexpr int kMmaTile = 64;      // keys (dK/dV) or rows (dQ) a block; the streamed tile
@@ -469,6 +520,17 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
                : "memory");
+}
+
+// 4-byte global -> shared copy (one f32); zero-fills when !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -504,12 +566,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// 64 rows of hd bf16 into a tile; off(r) is row r's element offset, or -1
-// for a row past the end (zero-filled).
-template <int HD, typename Off>
+// 64 rows of hd bf16 into a tile (rows hd + 8 apart) by a block of kNThreads;
+// off(r) is row r's element offset, or -1 for a row past the end
+// (zero-filled).
+template <int HD, int kNThreads, typename Off>
 __device__ __forceinline__ void mma_load_tile(bf16* dst, const bf16* __restrict__ src, Off off) {
   constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < kMmaTile * kChunks; i += kMmaThreads) {
+  for (int i = threadIdx.x; i < kMmaTile * kChunks; i += kNThreads) {
     const int r = i / kChunks;
     const int c = i % kChunks;
     const int64_t o = off(r);
@@ -521,28 +584,27 @@ __device__ __forceinline__ void mma_load_tile(bf16* dst, const bf16* __restrict_
 // Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t.  A holds rows
 // g and g + 8, columns 2t, 2t + 1 (+ 8); B holds column g, rows 2t, 2t + 1
 // (+ 8); the f32 accumulator holds rows g and g + 8, columns 2t and 2t + 1.
+// Tiles are bf16 in shared memory with rows kLd elements apart.
 // A tile's rows as A fragments (16 rows from `row`, k-step kk):
-template <int HD>
+template <int kLd>
 __device__ __forceinline__ void frag_a(uint32_t (&f)[4], const bf16* tile, int row, int kk) {
   const int lane = threadIdx.x % 32;
-  ldsm_x4(f, smem_u32(tile + (row + (lane & 15)) * MmaSmem<HD>::kStride + kk * 16 +
-                      (lane >> 4) * 8));
+  ldsm_x4(f, smem_u32(tile + (row + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8));
 }
 
 // B fragments of n-tiles 2np, 2np + 1 of X^T, X a tile stored [n][k] (k-step kk).
-template <int HD>
+template <int kLd>
 __device__ __forceinline__ void frag_bt(uint32_t (&f)[4], const bf16* tile, int np, int kk) {
   const int lane = threadIdx.x % 32;
-  ldsm_x4(f, smem_u32(tile + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * MmaSmem<HD>::kStride +
-                      kk * 16 + ((lane >> 3) & 1) * 8));
+  ldsm_x4(f, smem_u32(tile + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd + kk * 16 +
+                      ((lane >> 3) & 1) * 8));
 }
 
 // B fragments of n-tiles 2dp, 2dp + 1 of X, X a tile stored [k][n] (k-step kk).
-template <int HD>
+template <int kLd>
 __device__ __forceinline__ void frag_b(uint32_t (&f)[4], const bf16* tile, int kk, int dp) {
   const int lane = threadIdx.x % 32;
-  ldsm_x4_trans(f, smem_u32(tile + (kk * 16 + (lane & 15)) * MmaSmem<HD>::kStride + dp * 16 +
-                            (lane >> 4) * 8));
+  ldsm_x4_trans(f, smem_u32(tile + (kk * 16 + (lane & 15)) * kLd + dp * 16 + (lane >> 4) * 8));
 }
 
 // The accumulators of n-tiles 2kk, 2kk + 1 as the A fragment of k-step kk.
@@ -561,6 +623,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           float* __restrict__ part, int B, int S, int Sk, int H, int Hk,
                           float scale_log2) {
   using L = MmaSmem<HD>;
+  constexpr int kLd = L::kStride;
   constexpr int kDK = HD / 16;        // k-steps over hd
   constexpr int kDN = HD / 8;         // n-tiles over hd
   constexpr int kRN = kMmaTile / 8;   // n-tiles over the q tile's rows
@@ -585,15 +648,15 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const auto kv_off = [&](int j) -> int64_t {
     return k0 + j < Sk ? ((static_cast<int64_t>(b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
   };
-  mma_load_tile<HD>(Ks, k, kv_off);
-  mma_load_tile<HD>(Vs, v, kv_off);
+  mma_load_tile<HD, kMmaThreads>(Ks, k, kv_off);
+  mma_load_tile<HD, kMmaThreads>(Vs, v, kv_off);
   cp_async_wait_all();
   __syncthreads();
   uint32_t kf[kDK][4], vf[kDK][4];
 #pragma unroll
   for (int kk = 0; kk < kDK; ++kk) {
-    frag_a<HD>(kf[kk], Ks, wk, kk);
-    frag_a<HD>(vf[kk], Vs, wk, kk);
+    frag_a<kLd>(kf[kk], Ks, wk, kk);
+    frag_a<kLd>(vf[kk], Vs, wk, kk);
   }
 
   float dk[kDN][4], dv[kDN][4];
@@ -608,8 +671,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const auto q_off = [&](int r) -> int64_t {
       return row0 + r < S ? ((static_cast<int64_t>(b) * S + row0 + r) * H + h) * HD : -1;
     };
-    mma_load_tile<HD>(Qs, q, q_off);
-    mma_load_tile<HD>(dOs, dout, q_off);
+    mma_load_tile<HD, kMmaThreads>(Qs, q, q_off);
+    mma_load_tile<HD, kMmaThreads>(dOs, dout, q_off);
     for (int r = threadIdx.x; r < kMmaTile; r += kMmaThreads) {
       const bool ok = row0 + r < S;
       const int64_t i = (static_cast<int64_t>(b) * H + h) * S + row0 + r;
@@ -630,8 +693,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int np = 0; np < kRN / 2; ++np) {
         uint32_t bq[4], bo[4];
-        frag_bt<HD>(bq, Qs, np, kk);
-        frag_bt<HD>(bo, dOs, np, kk);
+        frag_bt<kLd>(bq, Qs, np, kk);
+        frag_bt<kLd>(bo, dOs, np, kk);
         mma_bf16(st[2 * np], kf[kk], bq[0], bq[1]);
         mma_bf16(st[2 * np + 1], kf[kk], bq[2], bq[3]);
         mma_bf16(dpt[2 * np], vf[kk], bo[0], bo[1]);
@@ -661,8 +724,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int dp = 0; dp < kDN / 2; ++dp) {
         uint32_t bo[4], bq[4];
-        frag_b<HD>(bo, dOs, kk, dp);
-        frag_b<HD>(bq, Qs, kk, dp);
+        frag_b<kLd>(bo, dOs, kk, dp);
+        frag_b<kLd>(bq, Qs, kk, dp);
         mma_bf16(dv[2 * dp], ap, bo[0], bo[1]);
         mma_bf16(dv[2 * dp + 1], ap, bo[2], bo[3]);
         mma_bf16(dk[2 * dp], as, bq[0], bq[1]);
@@ -686,14 +749,28 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
+// dq's two values at (row, column col) of a warp's accumulator pair: scaled
+// and cast into dq when the key walk is whole, else unscaled f32 into the
+// block's partial (`part`, already offset to its key range).
+__device__ __forceinline__ void store_dq_pair(bf16* __restrict__ dq, float* __restrict__ part,
+                                              bool whole, int64_t off, float x0, float x1,
+                                              float scale) {
+  if (whole) {
+    *reinterpret_cast<uint32_t*>(dq + off) = pack_bf16(x0 * scale, x1 * scale);
+  } else {
+    *reinterpret_cast<float2*>(part + off) = make_float2(x0, x1);
+  }
+}
+
 template <int HD, bool kCausal>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ D,
-                        bf16* __restrict__ dq, int S, int Sk, int H, int Hk, float scale,
-                        float scale_log2) {
+                        bf16* __restrict__ dq, float* __restrict__ dq_part, int S, int Sk, int H,
+                        int Hk, float scale, float scale_log2) {
   using L = MmaSmem<HD>;
+  constexpr int kLd = L::kStride;
   constexpr int kDK = HD / 16;
   constexpr int kDN = HD / 8;
   constexpr int kKN = kMmaTile / 8;  // n-tiles over the key tile
@@ -717,15 +794,15 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const auto row_off = [&](int r) -> int64_t {
     return row0 + r < R.total ? R.offset(row0 + r, HD) : -1;
   };
-  mma_load_tile<HD>(Qs, q, row_off);
-  mma_load_tile<HD>(dOs, dout, row_off);
+  mma_load_tile<HD, kMmaThreads>(Qs, q, row_off);
+  mma_load_tile<HD, kMmaThreads>(dOs, dout, row_off);
   cp_async_wait_all();
   __syncthreads();
   uint32_t qf[kDK][4], of[kDK][4];
 #pragma unroll
   for (int kk = 0; kk < kDK; ++kk) {
-    frag_a<HD>(qf[kk], Qs, wrow, kk);
-    frag_a<HD>(of[kk], dOs, wrow, kk);
+    frag_a<kLd>(qf[kk], Qs, wrow, kk);
+    frag_a<kLd>(of[kk], dOs, wrow, kk);
   }
   // This thread's rows g and g + 8 of the warp.
   bool row_ok[2];
@@ -746,6 +823,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int limit = static_cast<int>(R.pos(last_row)) / kMmaTile + 1;
     n_tiles = n_tiles < limit ? n_tiles : limit;
   }
+  int kt0, kt1;
+  key_range(n_tiles, kt0, kt1);
 
   float acc[kDN][4];
 #pragma unroll
@@ -753,14 +832,14 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * kMmaTile;
     __syncthreads();  // the last tile's k and v are read
     const auto kv_off = [&](int j) -> int64_t {
       return k0 + j < Sk ? ((static_cast<int64_t>(R.b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
     };
-    mma_load_tile<HD>(Ks, k, kv_off);
-    mma_load_tile<HD>(Vs, v, kv_off);
+    mma_load_tile<HD, kMmaThreads>(Ks, k, kv_off);
+    mma_load_tile<HD, kMmaThreads>(Vs, v, kv_off);
     cp_async_wait_all();
     __syncthreads();
 
@@ -774,8 +853,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int np = 0; np < kKN / 2; ++np) {
         uint32_t bk[4], bv[4];
-        frag_bt<HD>(bk, Ks, np, kk);
-        frag_bt<HD>(bv, Vs, np, kk);
+        frag_bt<kLd>(bk, Ks, np, kk);
+        frag_bt<kLd>(bv, Vs, np, kk);
         mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
         mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
         mma_bf16(dp[2 * np], of[kk], bv[0], bv[1]);
@@ -802,28 +881,384 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int d2 = 0; d2 < kDN / 2; ++d2) {
         uint32_t bk[4];
-        frag_b<HD>(bk, Ks, kk, d2);
+        frag_b<kLd>(bk, Ks, kk, d2);
         mma_bf16(acc[2 * d2], a, bk[0], bk[1]);
         mma_bf16(acc[2 * d2 + 1], a, bk[2], bk[3]);
       }
     }
   }
 
+  const bool whole = gridDim.z == 1;
+  float* part = dq_part + (whole ? 0 : dq_part_base(S, H, Hk, HD));
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!row_ok[i]) continue;
-    bf16* out = dq + R.offset(row0 + wrow + g + 8 * i, HD) + 2 * t4;
+    const int64_t off = R.offset(row0 + wrow + g + 8 * i, HD) + 2 * t4;
 #pragma unroll
     for (int nn = 0; nn < kDN; ++nn) {
-      *reinterpret_cast<uint32_t*>(out + 8 * nn) =
-          pack_bf16(acc[nn][2 * i] * scale, acc[nn][2 * i + 1] * scale);
+      store_dq_pair(dq, part, whole, off + 8 * nn, acc[nn][2 * i], acc[nn][2 * i + 1], scale);
     }
   }
 }
 
-// bf16 at hd 32 and 64 runs the tensor-core bodies (see above).
+// ------------------------------------------- bf16 at hd 128 and 160, wide
+//
+// Blocks of 8 warps.  Warps w and w + 4 (w < 4) are a pair that shares 16
+// keys (dK/dV) or 16 rows (dQ); `half` = w / 4 says which half of the pair's
+// work a warp does: in the score products, rows (keys) 32 half .. 32 half +
+// 31 of the streamed tile; in the accumulating products, columns hd/2 half
+// .. of dK and dV (dQ), hd/4 floats a thread for each (32 at hd 128, 40 at
+// hd 160).  So no product is done twice and the accumulators plus one
+// warp's 16 x 32 score and dP tiles fit in a thread's registers.  The A
+// operands of the score products (k and v, or q and dO) are read from shared
+// memory with ldmatrix for each k-step rather than held.  The pair passes P
+// and dS between its halves through shared memory in bf16 (tiles of 64 x 64
+// with rows 72 apart: the rounding the hd 64 body does when it repacks its
+// accumulators), after which each warp reads the pair's full 16 x 64 tiles
+// back as A fragments.  The streamed tile (q, dO, lse and D in dK/dV; k and
+// v in dQ) is double-buffered: the copy of tile t + 1 is issued with
+// cp.async after the barrier that opens tile t and overlaps its products.
+// Shared memory: six 64-row tiles and the bf16 P^T and dS^T (dS) tiles,
+// ~121 KB (dK/dV) / ~113 KB (dQ) at hd 128 and ~145 / ~136 KB at hd 160;
+// one block an SM.  The dK/dV shares go to the same f32 buffer as the other
+// bodies'.
+
+constexpr int kWideThreads = 256;         // 8 warps
+constexpr int kXLd = kMmaTile + 8;         // row stride of the bf16 P^T, dS^T, dS tiles
+constexpr int kXTile = kMmaTile * kXLd;
+
+template <int HD>
+struct WideSmem {
+  static constexpr int kTile = MmaSmem<HD>::kTile;
+  // k, v, q[2], dO[2], P^T, dS^T, then f32 lse[2] and D[2].
+  static constexpr size_t kDkdvBytes =
+      sizeof(bf16) * (6 * kTile + 2 * kXTile) + sizeof(float) * 4 * kMmaTile;
+  // q, dO, k[2], v[2], dS.
+  static constexpr size_t kDqBytes = sizeof(bf16) * (6 * kTile + kXTile);
+  static_assert(kDkdvBytes <= 232448 && kDqBytes <= 232448, "over a block's shared memory");
+};
+
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dkdv_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ D,
+                               float* __restrict__ part, int B, int S, int Sk, int H, int Hk,
+                               float scale_log2) {
+  using L = WideSmem<HD>;
+  constexpr int kLd = MmaSmem<HD>::kStride;
+  constexpr int kDK = HD / 16;  // k-steps over hd
+  constexpr int kHN = HD / 16;  // n-tiles over half of hd's columns
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + L::kTile;
+  bf16* Qs = Vs + L::kTile;       // two buffers
+  bf16* dOs = Qs + 2 * L::kTile;  // two buffers
+  bf16* Pt = dOs + 2 * L::kTile;  // P^T, keys x rows
+  bf16* dSt = Pt + kXTile;        // dS^T
+  float* lse_s = reinterpret_cast<float*>(dSt + kXTile);  // two buffers
+  float* D_s = lse_s + 2 * kMmaTile;                      // two buffers
+
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const int b = static_cast<int>(blockIdx.y / Hk);
+  const int h = kvh * G + static_cast<int>(blockIdx.z);
+  const int k0 = blockIdx.x * kMmaTile;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int warp = threadIdx.x / 32;
+  const int wk = (warp & 3) * 16;  // the pair's first key in the tile
+  const int half = warp >> 2;
+  const int cp0 = half * (HD / 32);  // the warp's first 16-column pair of dK, dV
+
+  const auto kv_off = [&](int j) -> int64_t {
+    return k0 + j < Sk ? ((static_cast<int64_t>(b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
+  };
+  // q, dO, lse and D of the rows from row0 into buffer `buf`.
+  const auto load_q = [&](int row0, int buf) {
+    const auto q_off = [&](int r) -> int64_t {
+      return row0 + r < S ? ((static_cast<int64_t>(b) * S + row0 + r) * H + h) * HD : -1;
+    };
+    mma_load_tile<HD, kWideThreads>(Qs + buf * L::kTile, q, q_off);
+    mma_load_tile<HD, kWideThreads>(dOs + buf * L::kTile, dout, q_off);
+    if (threadIdx.x < 2 * kMmaTile) {
+      const int r = threadIdx.x % kMmaTile;
+      const bool ok = row0 + r < S;
+      const int64_t i = ok ? (static_cast<int64_t>(b) * H + h) * S + row0 + r : 0;
+      float* dst = (threadIdx.x < kMmaTile ? lse_s : D_s) + buf * kMmaTile + r;
+      cp_async4(smem_u32(dst), (threadIdx.x < kMmaTile ? lse : D) + i, ok);
+    }
+  };
+
+  // Causal: positions below k0 see none of the keys (k0 is a tile multiple).
+  const int first = kCausal ? k0 : 0;
+  const int n_q = first < S ? (S - first + kMmaTile - 1) / kMmaTile : 0;
+  if (n_q > 0) {  // else the keys' shares are zero: no copy is left in flight
+    mma_load_tile<HD, kWideThreads>(Ks, k, kv_off);
+    mma_load_tile<HD, kWideThreads>(Vs, v, kv_off);
+    load_q(first, 0);
+    cp_async_commit();
+  }
+
+  float dk[kHN][4], dv[kHN][4];
+#pragma unroll
+  for (int n = 0; n < kHN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int t = 0; t < n_q; ++t) {
+    const int row0 = first + t * kMmaTile;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t + 1 < n_q) load_q(row0 + kMmaTile, (t + 1) & 1);
+    cp_async_commit();
+    const bf16* Qb = Qs + (t & 1) * L::kTile;
+    const bf16* dOb = dOs + (t & 1) * L::kTile;
+    const float* lse_b = lse_s + (t & 1) * kMmaTile;
+    const float* D_b = D_s + (t & 1) * kMmaTile;
+
+    // S^T = k q^T and dP^T = v dO^T: the pair's 16 keys x this warp's 32 rows.
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+      uint32_t kf[4], vf[4];
+      frag_a<kLd>(kf, Ks, wk, kk);
+      frag_a<kLd>(vf, Vs, wk, kk);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bq[4], bo[4];
+        frag_bt<kLd>(bq, Qb, 2 * half + np, kk);
+        frag_bt<kLd>(bo, dOb, 2 * half + np, kk);
+        mma_bf16(st[2 * np], kf, bq[0], bq[1]);
+        mma_bf16(st[2 * np + 1], kf, bq[2], bq[3]);
+        mma_bf16(dpt[2 * np], vf, bo[0], bo[1]);
+        mma_bf16(dpt[2 * np + 1], vf, bo[2], bo[3]);
+      }
+    }
+    // P^T and dS^T into shared memory in bf16: rows r, r + 1 of key rows
+    // g and g + 8 of the pair.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 32 * half + 8 * j + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = k0 + wk + g + 8 * i;
+        float p[2], ds[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * i + c;
+          const int pos = row0 + r + c;
+          const bool ok = pos < S && key < Sk && (!kCausal || key <= pos);
+          p[c] = ok ? exp2f(st[j][e] * scale_log2 - lse_b[r + c] * kLog2e) : 0.f;
+          ds[c] = p[c] * (dpt[j][e] - D_b[r + c]);
+        }
+        const int at = (wk + g + 8 * i) * kXLd + r;
+        *reinterpret_cast<uint32_t*>(Pt + at) = pack_bf16(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(dSt + at) = pack_bf16(ds[0], ds[1]);
+      }
+    }
+    __syncthreads();  // the pair's P^T and dS^T are whole
+    // dV += P^T dO and dK += dS^T q on this warp's half of the columns,
+    // k = the tile's 64 rows.
+#pragma unroll
+    for (int kk = 0; kk < kMmaTile / 16; ++kk) {
+      uint32_t ap[4], as[4];
+      frag_a<kXLd>(ap, Pt, wk, kk);
+      frag_a<kXLd>(as, dSt, wk, kk);
+#pragma unroll
+      for (int dp = 0; dp < kHN / 2; ++dp) {
+        uint32_t bo[4], bq[4];
+        frag_b<kLd>(bo, dOb, kk, cp0 + dp);
+        frag_b<kLd>(bq, Qb, kk, cp0 + dp);
+        mma_bf16(dv[2 * dp], ap, bo[0], bo[1]);
+        mma_bf16(dv[2 * dp + 1], ap, bo[2], bo[3]);
+        mma_bf16(dk[2 * dp], as, bq[0], bq[1]);
+        mma_bf16(dk[2 * dp + 1], as, bq[2], bq[3]);
+      }
+    }
+  }
+
+  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;  // one share
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int key = k0 + wk + g + 8 * (e >> 1);
+    if (key >= Sk) continue;
+    const int64_t off = static_cast<int64_t>(blockIdx.z) * n +
+                        ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + 16 * cp0 +
+                        2 * t4 + (e & 1);
+#pragma unroll
+    for (int nn = 0; nn < kHN; ++nn) {
+      part[off + 8 * nn] = dk[nn][e];
+      part[static_cast<int64_t>(G) * n + off + 8 * nn] = dv[nn][e];
+    }
+  }
+}
+
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ D,
+                             bf16* __restrict__ dq, float* __restrict__ dq_part, int S, int Sk,
+                             int H, int Hk, float scale, float scale_log2) {
+  using L = WideSmem<HD>;
+  constexpr int kLd = MmaSmem<HD>::kStride;
+  constexpr int kDK = HD / 16;
+  constexpr int kHN = HD / 16;  // n-tiles over half of hd's columns
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* dOs = Qs + L::kTile;
+  bf16* Ks = dOs + L::kTile;     // two buffers
+  bf16* Vs = Ks + 2 * L::kTile;  // two buffers
+  bf16* dSs = Vs + 2 * L::kTile;  // dS, rows x keys
+
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const Rows R{S, H, G, kvh * G, static_cast<int>(blockIdx.y / Hk),
+               static_cast<int64_t>(S) * G};
+  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int64_t row0 = static_cast<int64_t>(tile) * kMmaTile;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int warp = threadIdx.x / 32;
+  const int wrow = (warp & 3) * 16;  // the pair's first row in the tile
+  const int half = warp >> 2;
+  const int cp0 = half * (HD / 32);  // the warp's first 16-column pair of dQ
+
+  int n_tiles = (Sk + kMmaTile - 1) / kMmaTile;
+  if (kCausal) {
+    const int64_t last_row = (row0 + kMmaTile < R.total ? row0 + kMmaTile : R.total) - 1;
+    const int limit = static_cast<int>(R.pos(last_row)) / kMmaTile + 1;
+    n_tiles = n_tiles < limit ? n_tiles : limit;
+  }
+  int kt0, kt1;
+  key_range(n_tiles, kt0, kt1);
+
+  const auto load_kv = [&](int kt, int buf) {
+    const int k0 = kt * kMmaTile;
+    const auto kv_off = [&](int j) -> int64_t {
+      return k0 + j < Sk ? ((static_cast<int64_t>(R.b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
+    };
+    mma_load_tile<HD, kWideThreads>(Ks + buf * L::kTile, k, kv_off);
+    mma_load_tile<HD, kWideThreads>(Vs + buf * L::kTile, v, kv_off);
+  };
+  if (kt0 < kt1) {
+    const auto row_off = [&](int r) -> int64_t {
+      return row0 + r < R.total ? R.offset(row0 + r, HD) : -1;
+    };
+    mma_load_tile<HD, kWideThreads>(Qs, q, row_off);
+    mma_load_tile<HD, kWideThreads>(dOs, dout, row_off);
+    load_kv(kt0, 0);
+    cp_async_commit();
+  }
+  // This thread's rows g and g + 8 of the pair.
+  bool row_ok[2];
+  int64_t pos[2];
+  float lse2[2], Dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + wrow + g + 8 * i;
+    row_ok[i] = row < R.total;
+    pos[i] = R.pos(row);
+    lse2[i] = row_ok[i] ? lse[R.stat(row)] * kLog2e : 0.f;
+    Dr[i] = row_ok[i] ? D[R.stat(row)] : 0.f;
+  }
+
+  float acc[kHN][4];
+#pragma unroll
+  for (int n = 0; n < kHN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * kMmaTile;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    if (kt + 1 < kt1) load_kv(kt + 1, (kt - kt0 + 1) & 1);
+    cp_async_commit();
+    const bf16* Kb = Ks + ((kt - kt0) & 1) * L::kTile;
+    const bf16* Vb = Vs + ((kt - kt0) & 1) * L::kTile;
+
+    // S = q k^T and dP = dO v^T: the pair's 16 rows x this warp's 32 keys.
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+      uint32_t qf[4], of[4];
+      frag_a<kLd>(qf, Qs, wrow, kk);
+      frag_a<kLd>(of, dOs, wrow, kk);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bk[4], bv[4];
+        frag_bt<kLd>(bk, Kb, 2 * half + np, kk);
+        frag_bt<kLd>(bv, Vb, 2 * half + np, kk);
+        mma_bf16(s[2 * np], qf, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf, bk[2], bk[3]);
+        mma_bf16(dp[2 * np], of, bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], of, bv[2], bv[3]);
+      }
+    }
+    // dS into shared memory in bf16: keys c, c + 1 of rows g and g + 8.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 32 * half + 8 * j + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float ds[2];
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int e = 2 * i + e1;
+          const int key = k0 + c + e1;
+          const bool ok = row_ok[i] && key < Sk && (!kCausal || key <= pos[i]);
+          const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[i]) : 0.f;
+          ds[e1] = p * (dp[j][e] - Dr[i]);
+        }
+        *reinterpret_cast<uint32_t*>(dSs + (wrow + g + 8 * i) * kXLd + c) =
+            pack_bf16(ds[0], ds[1]);
+      }
+    }
+    __syncthreads();  // the pair's dS is whole
+    // dQ += dS k on this warp's half of the columns, k = the tile's 64 keys.
+#pragma unroll
+    for (int kk = 0; kk < kMmaTile / 16; ++kk) {
+      uint32_t a[4];
+      frag_a<kXLd>(a, dSs, wrow, kk);
+#pragma unroll
+      for (int d2 = 0; d2 < kHN / 2; ++d2) {
+        uint32_t bk[4];
+        frag_b<kLd>(bk, Kb, kk, cp0 + d2);
+        mma_bf16(acc[2 * d2], a, bk[0], bk[1]);
+        mma_bf16(acc[2 * d2 + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+
+  const bool whole = gridDim.z == 1;
+  float* part = dq_part + (whole ? 0 : dq_part_base(S, H, Hk, HD));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!row_ok[i]) continue;
+    const int64_t off = R.offset(row0 + wrow + g + 8 * i, HD) + 16 * cp0 + 2 * t4;
+#pragma unroll
+    for (int nn = 0; nn < kHN; ++nn) {
+      store_dq_pair(dq, part, whole, off + 8 * nn, acc[nn][2 * i], acc[nn][2 * i + 1], scale);
+    }
+  }
+}
+
+// bf16 runs the tensor-core bodies at every head dim (the wide ones above
+// hd 64), f32 the FMA bodies.
 template <int HD, typename T>
-constexpr bool kUseMma = std::is_same<T, bf16>::value && (HD == 32 || HD == 64);
+constexpr bool kUseMma = std::is_same<T, bf16>::value;
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -831,11 +1266,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// What a call launched, for the caller to read back: launched[0] the body of
+// its dK/dV and dQ kernels (kBodyFma, kBodyMma, kBodyWideMma), launched[1]
+// the dQ grid's key ranges.
+constexpr int kBodyFma = 0;
+constexpr int kBodyMma = 1;
+constexpr int kBodyWideMma = 2;
+
 template <int HD, bool kCausal, typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, float* D, float* part,
-                         void* dq, void* dk, void* dv, int B, int S, int Sk, int H, int Hk,
-                         cudaStream_t stream) {
+                         float* dq_part, void* dq, void* dk, void* dv, int B, int S, int Sk,
+                         int H, int Hk, int splits, int* launched, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -851,59 +1293,72 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const void
   const unsigned bh = static_cast<unsigned>(B * Hk);
   const int G = H / Hk;
   const int64_t rows = static_cast<int64_t>(S) * G;
-  if constexpr (kUseMma<HD, T>) {
-    const size_t smem = MmaSmem<HD>::kBytes;
-    auto dkdv = flash_bwd_dkdv_mma_kernel<HD, kCausal>;
-    auto dqk = flash_bwd_dq_mma_kernel<HD, kCausal>;
-    if ((err = allow_smem(dkdv, smem)) != cudaSuccess) return err;
-    if ((err = allow_smem(dqk, smem)) != cudaSuccess) return err;
-    const dim3 grid_kv(static_cast<unsigned>((Sk + kMmaTile - 1) / kMmaTile), bh,
+  // The dK/dV and dQ kernels of one body: threads a block, shared memory of
+  // each, keys a dK/dV block; dQ blocks hold 64 rows.
+  const auto run = [&](int body, auto dkdv, auto dqk, int threads, size_t smem_kv,
+                       size_t smem_q, int key_tile) -> cudaError_t {
+    cudaError_t e;
+    if ((e = allow_smem(dkdv, smem_kv)) != cudaSuccess) return e;
+    if ((e = allow_smem(dqk, smem_q)) != cudaSuccess) return e;
+    const dim3 grid_kv(static_cast<unsigned>((Sk + key_tile - 1) / key_tile), bh,
                        static_cast<unsigned>(G));
-    dkdv<<<grid_kv, kMmaThreads, smem, stream>>>(qt, kt, vt, dot, lse, D, part, B, S, Sk, H,
-                                                 Hk, scale_log2);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const dim3 grid_q(static_cast<unsigned>((rows + kMmaTile - 1) / kMmaTile), bh);
-    dqk<<<grid_q, kMmaThreads, smem, stream>>>(qt, kt, vt, dot, lse, D, static_cast<bf16*>(dq),
-                                               S, Sk, H, Hk, scale, scale_log2);
+    dkdv<<<grid_kv, threads, smem_kv, stream>>>(qt, kt, vt, dot, lse, D, part, B, S, Sk, H,
+                                                Hk, scale_log2);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    const dim3 grid_q(static_cast<unsigned>((rows + kMmaTile - 1) / kMmaTile), bh,
+                      static_cast<unsigned>(splits));
+    dqk<<<grid_q, threads, smem_q, stream>>>(qt, kt, vt, dot, lse, D, static_cast<T*>(dq),
+                                             dq_part, S, Sk, H, Hk, scale, scale_log2);
+    launched[0] = body;
+    launched[1] = static_cast<int>(grid_q.z);
+    return cudaGetLastError();
+  };
+  static_assert(kRows == kMmaTile, "every dq body takes 64-row tiles");
+  if constexpr (!kUseMma<HD, T>) {
+    err = run(kBodyFma, flash_bwd_dkdv_kernel<HD, kCausal, T>,
+              flash_bwd_dq_kernel<HD, kCausal, T>, kThreads, Smem<HD>::kBytes,
+              Smem<HD>::kBytes, kKeys);
+  } else if constexpr (HD <= 64) {
+    err = run(kBodyMma, flash_bwd_dkdv_mma_kernel<HD, kCausal>,
+              flash_bwd_dq_mma_kernel<HD, kCausal>, kMmaThreads, MmaSmem<HD>::kBytes,
+              MmaSmem<HD>::kBytes, kMmaTile);
   } else {
-    const size_t smem = Smem<HD>::kBytes;
-    auto dkdv = flash_bwd_dkdv_kernel<HD, kCausal, T>;
-    auto dqk = flash_bwd_dq_kernel<HD, kCausal, T>;
-    if ((err = allow_smem(dkdv, smem)) != cudaSuccess) return err;
-    if ((err = allow_smem(dqk, smem)) != cudaSuccess) return err;
-    const dim3 grid_kv(static_cast<unsigned>((Sk + kKeys - 1) / kKeys), bh,
-                       static_cast<unsigned>(G));
-    dkdv<<<grid_kv, kThreads, smem, stream>>>(qt, kt, vt, dot, lse, D, part, B, S, Sk, H, Hk,
-                                              scale_log2);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const dim3 grid_q(static_cast<unsigned>((rows + kRows - 1) / kRows), bh);
-    dqk<<<grid_q, kThreads, smem, stream>>>(qt, kt, vt, dot, lse, D, static_cast<T*>(dq), S,
-                                            Sk, H, Hk, scale, scale_log2);
+    err = run(kBodyWideMma, flash_bwd_dkdv_wide_mma_kernel<HD, kCausal>,
+              flash_bwd_dq_wide_mma_kernel<HD, kCausal>, kWideThreads,
+              WideSmem<HD>::kDkdvBytes, WideSmem<HD>::kDqBytes, kMmaTile);
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // dk and dv: the G shares of each KV head summed in head order, cast once.
+  if (err != cudaSuccess) return err;
+  // dk and dv: the G shares of each KV head summed in head order; dq, when
+  // split, its partials in range order; each cast once.
   const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;
-  const int64_t red_blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+  const int64_t nq = splits > 1 ? n_rows * HD : 0;
+  const int64_t red_blocks = (n + nq + 255) / 256 < 4096 ? (n + nq + 255) / 256 : 4096;
   flash_bwd_reduce_kernel<T><<<static_cast<unsigned>(red_blocks), 256, 0, stream>>>(
-      part, static_cast<T*>(dk), static_cast<T*>(dv), n, G, scale);
+      part, static_cast<T*>(dk), static_cast<T*>(dv), n, G, dq_part, static_cast<T*>(dq), nq,
+      splits, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const float* lse, float* D, float* part, void* dq,
-                      void* dk, void* dv, int B, int S, int Sk, int H, int Hk, bool is_bf16,
-                      bool causal, cudaStream_t stream) {
+                      const void* dout, const float* lse, float* D, float* part,
+                      float* dq_part, void* dq, void* dk, void* dv, int B, int S, int Sk, int H,
+                      int Hk, int splits, bool is_bf16, bool causal, int* launched,
+                      cudaStream_t stream) {
   if (is_bf16) {
-    return causal ? launch_typed<HD, true, bf16>(q, k, v, o, dout, lse, D, part, dq, dk, dv,
-                                                 B, S, Sk, H, Hk, stream)
-                  : launch_typed<HD, false, bf16>(q, k, v, o, dout, lse, D, part, dq, dk,
-                                                  dv, B, S, Sk, H, Hk, stream);
+    return causal ? launch_typed<HD, true, bf16>(q, k, v, o, dout, lse, D, part, dq_part, dq,
+                                                 dk, dv, B, S, Sk, H, Hk, splits, launched,
+                                                 stream)
+                  : launch_typed<HD, false, bf16>(q, k, v, o, dout, lse, D, part, dq_part, dq,
+                                                  dk, dv, B, S, Sk, H, Hk, splits, launched,
+                                                  stream);
   }
-  return causal ? launch_typed<HD, true, float>(q, k, v, o, dout, lse, D, part, dq, dk, dv,
-                                                B, S, Sk, H, Hk, stream)
-                : launch_typed<HD, false, float>(q, k, v, o, dout, lse, D, part, dq, dk, dv,
-                                                 B, S, Sk, H, Hk, stream);
+  return causal ? launch_typed<HD, true, float>(q, k, v, o, dout, lse, D, part, dq_part, dq,
+                                                dk, dv, B, S, Sk, H, Hk, splits, launched,
+                                                stream)
+                : launch_typed<HD, false, float>(q, k, v, o, dout, lse, D, part, dq_part, dq,
+                                                 dk, dv, B, S, Sk, H, Hk, splits, launched,
+                                                 stream);
 }
 
 }  // namespace
@@ -914,37 +1369,46 @@ extern "C" {
 // dq are (B, S, H, hd), k, v, dk and dv (B, Sk, Hk, hd), all contiguous; lse
 // and D are f32 (B, H, S), lse from the forward, D scratch; part is f32
 // scratch of 2 * H * B * Sk * hd elements (the heads' dk and dv shares).
-// H % Hk == 0, B * Hk <= 65535, H / Hk <= 65535; the wrapper checks all of it.
+// dq_splits: the key ranges of the dq walk (1 <= dq_splits <= 65535); above
+// 1, dq_part is f32 scratch of dq_splits * B * S * H * hd elements (the
+// ranges' partials), else unused.  H % Hk == 0, B * Hk <= 65535,
+// H / Hk <= 65535; the wrapper checks all of it.  On success launched[0]
+// holds the body the call ran (0 = FMA, 1 = mma, 2 = wide mma) and
+// launched[1] the key ranges of the dQ grid it launched.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const float* lse, float* D, float* part,
-                               void* dq, void* dk, void* dv, int B, int S, int Sk, int H,
-                               int Hk, int hd, int dtype, int causal, int device,
-                               void* stream) {
+                               float* dq_part, void* dq, void* dk, void* dv, int B, int S,
+                               int Sk, int H, int Hk, int hd, int dtype, int causal,
+                               int dq_splits, int* launched, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0 || Sk <= 0 || Hk <= 0 || H % Hk != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dq_splits < 1 || dq_splits > 65535 || (dq_splits > 1 && dq_part == nullptr) ||
+      launched == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool is_bf16 = dtype == 1;
   const bool c = causal != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      err = launch_hd<32>(q, k, v, o, dout, lse, D, part, dq, dk, dv, B, S, Sk, H, Hk,
-                       is_bf16, c, st);
+      err = launch_hd<32>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
+                          Hk, dq_splits, is_bf16, c, launched, st);
       break;
     case 64:
-      err = launch_hd<64>(q, k, v, o, dout, lse, D, part, dq, dk, dv, B, S, Sk, H, Hk,
-                       is_bf16, c, st);
+      err = launch_hd<64>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
+                          Hk, dq_splits, is_bf16, c, launched, st);
       break;
     case 128:
-      err = launch_hd<128>(q, k, v, o, dout, lse, D, part, dq, dk, dv, B, S, Sk, H, Hk,
-                        is_bf16, c, st);
+      err = launch_hd<128>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
+                           Hk, dq_splits, is_bf16, c, launched, st);
       break;
     case 160:
-      err = launch_hd<160>(q, k, v, o, dout, lse, D, part, dq, dk, dv, B, S, Sk, H, Hk,
-                        is_bf16, c, st);
+      err = launch_hd<160>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
+                           Hk, dq_splits, is_bf16, c, launched, st);
       break;
     default:
       err = cudaErrorInvalidValue;

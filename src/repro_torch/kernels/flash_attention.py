@@ -17,8 +17,16 @@ masked scores at -1e30 and the row-sum floor of the reference.
 The Pallas kernel is forward only; here the gradient is a kernel too
 (``csrc/flash_attention_bwd.cu``, the FlashAttention-2 split: a row-dot
 pass, per-query-head dK/dV shares summed per KV head in f32, and a dQ
-kernel; bf16 at hd 32 and 64 on the tensor cores (``mma.sync``), f32 and
-the larger head dims on the FMA units).  Under
+kernel; four launches a call).  Its bodies (``BWD_LAUNCHED``): bf16 runs on
+the tensor cores (``mma.sync``) at every head dim -- at hd 32 and 64 a warp
+holds its 16 keys' (rows') operands in registers; at hd 128 and 160 two
+warps share them, splitting the score products by rows and the
+accumulators by columns, with P and dS passed through shared memory and
+the streamed tile double-buffered, so neither spills -- and f32 runs on
+the FMA units, bounded by the 67 TFLOP/s f32 rate.  Where a short query
+sequence leaves the dQ kernel's grid below one wave (whisper's 64 decoder
+positions against 1500 frames), ``dq_splits`` cuts its key walk into
+ranges whose f32 partials the last kernel sums in order.  Under
 autograd (grad enabled and an operand that requires grad) ``flash_attention``
 goes through ``FlashAttentionFn``: its forward launches the forward kernel
 with a log-sum-exp output and saves q, k, v, the output and the LSE, its
@@ -58,12 +66,42 @@ HEAD_DIMS = (32, 64, 128, 160)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 
-#: Kernels one backward call launches (row dot, per-head dK/dV shares, their
-#: sum over each KV head's query heads, dQ).
+#: Kernels one backward call launches (row dot, per-head dK/dV shares, dQ,
+#: and the sum of each KV head's dK/dV shares and of dQ's partials).
 BWD_KERNELS_PER_CALL = 4
+
+#: The bodies by the code the C entry reports: the FMA kernels, the 4-warp
+#: ``flash_bwd_*_mma_kernel`` (hd 32, 64), the 8-warp
+#: ``flash_bwd_*_wide_mma_kernel`` (hd 128, 160).
+_BWD_BODY_CODES = ("fma", "mma", "wide_mma")
+
+#: What the last backward call launched, as its C entry reported it: the
+#: body of its dK/dV and dQ kernels and the key ranges of its dQ grid.
+BWD_LAUNCHED = {"body": None, "dq_splits": None}
+
+#: Rows of a dQ block, and keys of the tensor-core bodies' key tile (the FMA
+#: body walks tiles of 32): the units of ``dq_splits``.
+DQ_ROW_TILE = 64
+DQ_KEY_TILE = 64
+
+#: The fewest 64-key tiles a key range of a split dQ walk holds.
+DQ_MIN_RANGE_TILES = 2
 
 _LIB = None
 _BWD_LIB = None
+
+
+def dq_splits(B: int, S: int, Sk: int, H: int, Hk: int, sms: int) -> int:
+    """Key ranges the dQ kernel's walk is cut into: 1 where its
+    ``ceil(S * G / 64) * B * Hk`` blocks already fill the card's ``sms``
+    SMs (each block then walks all its keys and writes dq itself), else
+    enough to reach about one wave, with no range shorter than
+    ``DQ_MIN_RANGE_TILES`` key tiles of 64."""
+    blocks = -(-S * (H // Hk) // DQ_ROW_TILE) * B * Hk
+    if blocks >= sms:
+        return 1
+    most = -(-Sk // DQ_KEY_TILE) // DQ_MIN_RANGE_TILES
+    return max(1, min(-(-sms // blocks), most))
 
 
 def reset_launches() -> None:
@@ -98,11 +136,13 @@ def _bwd_lib():
         lib.flash_attention_bwd_launch.argtypes = [
             *[ctypes.c_void_p] * 5,  # q, k, v, o, dout
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lse, D, shares (scratch)
+            ctypes.c_void_p,  # dq's partials (scratch, or NULL)
             *[ctypes.c_void_p] * 3,  # dq, dk, dv
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, Sk
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H, Hk, hd
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, causal, device
-            ctypes.c_void_p,  # stream
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, causal, dq_splits
+            ctypes.c_void_p,  # launched: int[2], written by the call
+            ctypes.c_int, ctypes.c_void_p,  # device, stream
         ]
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
@@ -180,7 +220,8 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True):
 
     q/out/dout: (B,S,H,hd); k/v: (B,Sk,Hk,hd); lse: the forward's (B,H,S)
     f32 log-sum-exp.  f32 math; dk and dv sum over their KV head's G query
-    heads in f32 before the one cast."""
+    heads in f32 before the one cast, and dq over its key ranges
+    (``dq_splits`` on this card's SM count) in range order."""
     _check_operands(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if (t.device != q.device or t.dtype != q.dtype or t.shape != q.shape
@@ -202,20 +243,27 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True):
     dv = torch.empty_like(v)
     D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     shares = torch.empty((2, H, B * Sk * hd), dtype=torch.float32, device=q.device)
+    splits = dq_splits(B, S, Sk, H, Hk,
+                       torch.cuda.get_device_properties(q.device).multi_processor_count)
+    dq_part = (torch.empty((splits, B * S * H * hd), dtype=torch.float32, device=q.device)
+               if splits > 1 else None)
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    launched = (ctypes.c_int * 2)()
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), D.data_ptr(), shares.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), shares.data_ptr(),
+        None if dq_part is None else dq_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(),
-        B, S, Sk, H, Hk, hd, _DTYPE_CODE[q.dtype], int(bool(causal)),
-        q.device.index, stream,
+        B, S, Sk, H, Hk, hd, _DTYPE_CODE[q.dtype], int(bool(causal)), splits,
+        ctypes.addressof(launched), q.device.index, stream,
     )
     if err != 0:
         msg = lib.flash_attention_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention_backward: kernel launch failed: CUDA error "
                            f"{err} ({msg})")
     LAUNCHES["flash_attention_bwd"] += 1
+    BWD_LAUNCHED.update(body=_BWD_BODY_CODES[launched[0]], dq_splits=launched[1])
     return dq, dk, dv
 
 

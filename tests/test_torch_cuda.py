@@ -321,10 +321,15 @@ def test_cuda_flash_wrapper_checks_operands(cuda_device):
 
 # The backward kernels: GQA with G = 8, MQA, causal and not, S != Sk both
 # ways, every head dim, ragged lengths, and the training shape (a
-# micro-batch of 2 x 512 tokens of tinyllama-1.1b).  Tolerance: max |err| of
-# dq, dk and dv within 1e-4 (f32) or 2e-2 (bf16) of the plain version's
-# max |grad| (f32 sums in another order; bf16 inputs, f32 math, one
-# rounding of each gradient, and the forward's bf16 output in D).
+# micro-batch of 2 x 512 tokens of tinyllama-1.1b); the layers of a 1 x 512
+# micro-batch of phi3.5-moe, llama4 (hd 128) and stablelm-12b (hd 160), bf16
+# there on the wide tensor-core body; short query sequences whose dQ key
+# walk is split on an H100 (``dq_splits`` > 1): whisper's cross-attention (64
+# x 1500), and causal ones whose later key ranges see no key (zero
+# partials).  Tolerance: max |err| of dq, dk and dv within 1e-4 (f32) or
+# 2e-2 (bf16) of the plain version's max |grad| (f32 sums in another order;
+# bf16 inputs, f32 math, one rounding of each gradient, and the forward's
+# bf16 output in D).
 ATTN_BWD_CASES = [
     (1, 128, 128, 4, 4, 64, True),
     (1, 200, 200, 32, 4, 64, True),
@@ -335,6 +340,14 @@ ATTN_BWD_CASES = [
     (1, 96, 96, 4, 2, 32, True),
     (1, 100, 100, 4, 2, 160, False),
     (2, 512, 512, 32, 4, 64, True),
+    (1, 512, 512, 32, 8, 128, True),
+    (1, 512, 512, 40, 8, 128, True),
+    (1, 512, 512, 32, 8, 160, True),
+    (2, 100, 37, 8, 2, 160, True),
+    (1, 64, 150, 4, 2, 160, True),
+    (4, 64, 1500, 12, 12, 64, False),
+    (2, 64, 1000, 8, 4, 128, True),
+    (2, 64, 1000, 8, 4, 160, True),
 ]
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -343,21 +356,31 @@ ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ATTN_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_cuda_flash_attention_backward_matches_plain(cuda_device, case, dtype):
+    """Within ``ATTN_BWD_TOL`` of the plain gradient; one launch a call;
+    a second call gives bit-equal gradients; the C entry reports the body
+    the dtype and head dim run and the ``dq_splits`` the wrapper asked for."""
     B, S, Sk, H, Hk, hd, causal = case
     q, k, v = (t.requires_grad_() for t in _qkv(11, B, S, Sk, H, Hk, hd, dtype, cuda_device))
     dout = _qkv(12, B, S, S, H, H, hd, dtype, cuda_device)[0]
     n0 = dict(fa.LAUNCHES)
     out = ops.attention(q, k, v, causal=causal)
-    got = torch.autograd.grad(out, (q, k, v), dout)
+    got = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {"flash_attention": n0["flash_attention"] + 1,
                            "flash_attention_bwd": n0["flash_attention_bwd"] + 1}
+    again = torch.autograd.grad(out, (q, k, v), dout)
+    assert fa.LAUNCHES["flash_attention_bwd"] == n0["flash_attention_bwd"] + 2
     want = ref.reference_attention_backward(q, k, v, dout, causal=causal)
-    for name, g, w in zip("qkv", got, want):
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert torch.equal(g, a), f"d{name} differs between two calls"
         assert g.shape == w.shape and g.dtype == w.dtype, name
         scale = w.float().abs().max().item()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= ATTN_BWD_TOL[dtype] * scale, f"d{name}: {err} against max {scale}"
+    body = "fma" if dtype == "float32" else "mma" if hd <= 64 else "wide_mma"
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert fa.BWD_LAUNCHED == {"body": body,
+                               "dq_splits": fa.dq_splits(B, S, Sk, H, Hk, sms)}
 
 
 @pytest.mark.cuda

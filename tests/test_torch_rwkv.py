@@ -366,6 +366,32 @@ def test_chip_smoke_device_ms_fails_when_no_trace_holds_the_kernel(capsys):
     assert cs.device_ms(fake, lambda: None, 10) == pytest.approx(0.004)
 
 
+def test_chip_smoke_reads_the_backward_body_from_the_traced_names():
+    """device_ms hands back the names of the kernels it matched in the trace
+    it read (the fullest), and traced_bwd_body reads the flash-attention
+    backward's body from them, as the C entry reports it (``bwd_body``)."""
+    cs = _chip_smoke()
+    dot, red = "flash_bwd_dot_kernel<bf16>", "flash_bwd_reduce_kernel<bf16>"
+    wide = ["void (anonymous namespace)::flash_bwd_dkdv_wide_mma_kernel<128, true>(...)",
+            "void (anonymous namespace)::flash_bwd_dq_wide_mma_kernel<128, true>(...)"]
+    fake, taken = _fake_profiled_torch([
+        [(dot, 2, 10.0)],
+        [(dot, 10, 50.0), (wide[0], 10, 600.0), (wide[1], 10, 400.0), (red, 10, 50.0),
+         ("fill", 10, 5.0)]])
+    names = []
+    assert cs.device_ms(fake, lambda: None, 10, "flash_bwd", per_call=4,
+                        names=names) == pytest.approx(0.11)
+    assert taken[0] == 2 and names == [dot, *wide, red]
+    assert cs.traced_bwd_body(names) == cs.bwd_body("bfloat16", 128) == "wide_mma"
+    assert cs.bwd_body("bfloat16", 160) == "wide_mma"
+    four = ["flash_bwd_dkdv_mma_kernel<64, true>", "flash_bwd_dq_mma_kernel<64, true>"]
+    assert cs.traced_bwd_body(four) == cs.bwd_body("bfloat16", 64) == "mma"
+    fma = ["flash_bwd_dkdv_kernel<64, false, float>", "flash_bwd_dq_kernel<64, false, float>"]
+    assert cs.traced_bwd_body(fma) == cs.bwd_body("float32", 128) == "fma"
+    assert cs.traced_bwd_body([dot, red]) is None
+    assert cs.traced_bwd_body([fma[0], four[1]]) == "fma+mma"
+
+
 def test_wkv_reset_launches_zeroes_every_count():
     trs.LAUNCHES["rwkv_scan"] += 3
     trs.LAUNCHES["rwkv_scan_bwd"] += 1
