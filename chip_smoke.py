@@ -198,7 +198,8 @@ Phases, in order; any failure exits non-zero before the result line:
              tokens 0..62 against the prefill logits of 0..63 at a capacity
              that drops no slot, within 1e-3 of max |logit| in f32 (the
              bf16 gap printed);
-27. wkv bwd — the WKV backward kernel (``csrc/rwkv_scan_bwd.cu``) against
+27. wkv bwd — the WKV backward kernels (``csrc/rwkv_scan_bwd.cu``: a
+             boundary walk and a range kernel, both with HMMA) against
              its plain version, ``ref.reference_rwkv_backward``, and against
              torch autograd through ``ref.reference_rwkv_state``: the WKV
              test cases in the three dtype combinations with and without an
@@ -206,9 +207,14 @@ Phases, in order; any failure exits non-zero before the result line:
              extreme decays (w = 1e-30, log w = -5 and -8, straddling
              sub-chunks) and the training shape (1 x 512 tokens, 64 heads of
              64, bf16 r/k/v/dy with f32 w): every gradient within 1e-4 (f32)
-             / 2e-2 (bf16) of its max |.|, two calls bit-equal; per case the
-             device time against the bound, at the training shape against the
-             plain version (no one-call library equivalent);
+             / 2e-2 (bf16) of its max |.|, two calls bit-equal; each call's
+             range plan and kernels, as the C entry reports them
+             (``rwkv_scan.BWD_LAUNCHED``), against ``bwd_range_len`` and the
+             traced kernel names (no fewer range blocks than the card has
+             SMs at the training shape);
+             per case the device time against the bound, at the training
+             shape against the plain version (no one-call library
+             equivalent);
 28. ssm train — NetMax training at the widths of rwkv6-7b, cut to 1 of
              its 32 layers, through ``launch.train.TrainLoop`` as phase 13
              (M = 4, 4 x 512 tokens a worker in the config's 4 micro-batches,
@@ -375,17 +381,31 @@ RWKV_DTYPES = {"float32": ("float32", "float32"), "bfloat16": ("bfloat16", "bflo
 #: Phase 27, the WKV backward kernel's cases (B, S, H, N, dtype, decays,
 #: initial state, final-state gradient): RWKV_CASES with and without an
 #: initial state and a final-state gradient in turn; ragged lengths (S not
-#: a multiple of the kernel's checkpoint interval of 8, or below it) in the
-#: three dtype combinations; RWKV_EXTREME's decays from a state and with a
-#: final-state gradient; then the training shape, one rwkv6-7b layer of a 1 x
-#: 512 micro-batch from the zero state the model passes (RWKV_BWD_MAIN).
+#: a multiple of 8, or below it) in the three dtype combinations;
+#: RWKV_EXTREME's decays from a state and with a final-state gradient;
+#: sequences cut into several ranges with a ragged last one at B * H < 132
+#: (S = 300 at 6 heads: 19 ranges of 16 tokens, the last of 12; S = 150 at
+#: 2 x 40 heads: 3 ranges of 64, the last of 22); ranges of several
+#: sub-chunks at every N under the extreme decays (2 x 40 heads: four
+#: sub-chunks a range, straddling ones beside factorised ones in a block;
+#: 1 x 40 heads: ranges of 32); then the training shape, one rwkv6-7b layer
+#: of a 1 x 512 micro-batch from the zero state the model passes
+#: (RWKV_BWD_MAIN).
 RWKV_BWD_CASES = (
     [(B, S, H, N, dtype, None, i % 2 == 1, (i // 2) % 2 == 1)
      for i, (B, S, H, N, _, dtype) in enumerate(RWKV_CASES)]
     + [(1, 7, 2, 16, "float32", None, True, True), (1, 1, 2, 64, "mixed", None, True, True),
        (2, 37, 2, 32, "bfloat16", None, False, True), (2, 100, 3, 64, "bfloat16", None, True,
                                                       False)]
-    + [(B, S, H, N, dtype, how, True, True) for (B, S, H, N, _, dtype), how in RWKV_EXTREME])
+    + [(B, S, H, N, dtype, how, True, True) for (B, S, H, N, _, dtype), how in RWKV_EXTREME]
+    + [(1, 300, 6, 64, "mixed", None, True, True), (2, 150, 40, 64, "float32", None, True,
+                                                    True)]
+    + [(2, 150, 40, 64, "mixed", "straddle", True, True),
+       (2, 150, 40, 32, "mixed", "straddle", False, True),
+       (2, 150, 40, 16, "bfloat16", None, False, True),
+       (2, 150, 40, 16, "float32", "straddle", True, True),
+       (1, 150, 40, 64, "float32", "-8", True, True),
+       (1, 100, 40, 32, "float32", "1e-30", True, True)])
 RWKV_BWD_MAIN = (1, 512, 64, 64, "mixed", None, False, False)
 #: Each gradient's max |err| against the plain version's max |.|, as the
 #: flash-attention backward (ATTN_BWD_TOL).
@@ -394,7 +414,8 @@ RWKV_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "mixed": 2e-2}
 #: symbol in ``cuobjdump -sass``), by library.
 TENSOR_CORE_KERNELS = {"flash_attention": "flash_fwd_bf16_mma_kernel",
                        "flash_attention_bwd": "mma_kernel",
-                       "rwkv_scan": "rwkv_scan_kernel"}
+                       "rwkv_scan": "rwkv_scan_kernel",
+                       "rwkv_scan_bwd": "rwkv_scan_bwd"}
 
 
 class SmokeError(RuntimeError):
@@ -1971,7 +1992,9 @@ def phase_flash_bwd(torch, rate, name, records):
 
 
 def rwkv_bwd_work(B, S, H, N, itemsize, w_itemsize, state_in, dstate_in, dstate0):
-    """(flops, bytes) of one WKV backward as a reverse recurrence.  Per token
+    """(flops, bytes) of one WKV backward as a reverse recurrence (the
+    flops are f32-exact products, which the card does at its 3xTF32 rate,
+    as the forward's).  Per token
     and head 14 N^2 f32 flops -- the state recomputed (w S + k v^T, 3),
     dr's, dk's and dv's products with the state or its adjoint (2 each),
     dw's (2) and the adjoint's update (w G + r dy^T, 3) -- and 14 N for v .
@@ -1992,14 +2015,19 @@ def phase_rwkv_bwd(torch, rate, name, records):
     and against torch autograd through ``ref.reference_rwkv_state`` on every
     case of RWKV_BWD_CASES and at RWKV_BWD_MAIN: each gradient in its operand's
     dtype within RWKV_BWD_TOL of its max |.|; repeated calls bit-equal; per
-    case the profiler's device time and the bound, at the training shape
-    also the plain version's time.  Appends to ``records``; returns the
-    kernel's summary at the training shape."""
+    case the profiler's device time and the bound (operations at the 3xTF32
+    rate, as the forward's; the same work at the f32 FMA rate is printed
+    beside it), at the training shape also the plain version's time.  The
+    grids the C entry reports (``rwkv_scan.BWD_LAUNCHED``) are held to the
+    range plan, a check that the entry launched what the plan asked; the
+    kernels that ran are observed in the profiler's trace.  Appends to
+    ``records``; returns the kernel's summary at the training shape."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv_scan as rs
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(27)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     main = None
     for role, case in ([("test", c) for c in RWKV_BWD_CASES] + [("main", RWKV_BWD_MAIN)]):
         B, S, H, N, dtype, how, with_state, with_dstate = case
@@ -2021,7 +2049,19 @@ def phase_rwkv_bwd(torch, rate, name, records):
             return rs.rwkv_scan_backward(r, k, v, w, u, s0, dy, ds,
                                          with_dstate0=s0 is not None)
 
+        rs.BWD_LAUNCHED.update(range_len=None, ranges=None, blocks=None, bound_blocks=None,
+                               kernels=None)
         got = kernel()
+        launched = dict(rs.BWD_LAUNCHED)
+        L = rs.bwd_range_len(B, S, H, sms)
+        n_ranges = -(-S // L)
+        asked = {"range_len": L, "ranges": n_ranges, "blocks": B * H * n_ranges,
+                 "bound_blocks": B * H * (2 if n_ranges > 1 else 1) if S > rs.BWD_SUB else 0,
+                 "kernels": rs.BWD_KERNELS[0 if S > rs.BWD_SUB else 1:]}
+        check(launched == asked, f"rwkv_scan_bwd {case}: the C entry launched {launched}, "
+              f"not the range plan's {asked}")
+        check(role != "main" or launched["blocks"] >= sms,
+              f"rwkv_scan_bwd {case}: {launched['blocks']} range blocks for {sms} SMs")
         want = ref.reference_rwkv_backward(r, k, v, w, u, s0, dy, ds)
         leaves = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
         s0l = None if s0 is None else s0.clone().requires_grad_()
@@ -2054,7 +2094,7 @@ def phase_rwkv_bwd(torch, rate, name, records):
         del got, again, want, auto
         flops, nbytes = rwkv_bwd_work(B, S, H, N, r.element_size(), w.element_size(),
                                       with_state, with_dstate, with_state)
-        t_ops = flops / flop_rate(name, "float32") * 1e3
+        t_ops = flops / flop_rate(name, "3xtf32") * 1e3
         t_bytes = nbytes / rate * 1e3
         rec = {"kernel": "rwkv_scan_bwd", "role": role, "case": list(case), "dtype": dtype,
                "decays": how or "sigmoid", "max_abs_err": max(abs_errs.values()),
@@ -2062,12 +2102,23 @@ def phase_rwkv_bwd(torch, rate, name, records):
                "flops": flops, "bytes": nbytes,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "library_ms": None}
+               "bytes_bound_ms": t_bytes,
+               "fma_ops_bound_ms": flops / flop_rate(name, "float32") * 1e3,
+               "library_ms": None, **launched}
         iters = {"test": 5, "main": 20}[role]
         call = cuda_ms(torch, kernel, iters)
-        dev_ms = device_ms(torch, kernel, iters, "rwkv_scan_bwd")
+        traced = []
+        dev_ms = device_ms(torch, kernel, iters, "rwkv_scan_bwd",
+                           per_call=len(launched["kernels"]), names=traced)
         rec.update(ms=call if dev_ms is None else dev_ms,
                    ms_from="events" if dev_ms is None else "profiler", call_ms=call)
+        # The kernels again, from the names the profiler traced.
+        rec["traced_kernels"] = sorted({kn for kn in rs.BWD_KERNELS
+                                        if any(kn in t for t in traced)})
+        check(set(rec["traced_kernels"]) <= set(launched["kernels"])
+              and all(any(kn in t for kn in rs.BWD_KERNELS) for t in traced),
+              f"rwkv_scan_bwd {case}: the trace ran {sorted(set(traced))}, not the "
+              f"kernels {launched['kernels']} the C entry reported")
         if role == "main":
             def plain():
                 return ref.reference_rwkv_backward(r, k, v, w, u, s0, dy, ds)
@@ -2079,13 +2130,17 @@ def phase_rwkv_bwd(torch, rate, name, records):
                        plain_call_ms=pcall)
             main = rec
         records.append(rec)
-        print(f"  rwkv_scan_bwd {role} {case}: max rel err "
+        print(f"  rwkv_scan_bwd {role} {case} ({launched['ranges']} ranges of "
+              f"{launched['range_len']}, {launched['blocks']} blocks, "
+              f"{len(launched['kernels'])} kernels): max rel err "
               f"{({g: float(f'{e:.3g}') for g, e in errs.items()})}, device "
               f"{rec['ms'] * 1e3:.1f} us ({rec['ms_from']}), per call "
               f"{rec['call_ms'] * 1e3:.1f} us"
               + (f", plain {rec['plain_ms'] * 1e3:.1f} us ({rec['plain_ms_from']})"
                  if role == "main" else "")
-              + f", bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}); "
+              + f", bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}; bytes "
+              f"{t_bytes * 1e3:.2f} us, operations {t_ops * 1e3:.2f} us at 3xTF32, "
+              f"{rec['fma_ops_bound_ms'] * 1e3:.2f} us at the f32 FMA rate); "
               f"{flops / (rec['ms'] * 1e-3) / 1e12:.2f} TFLOP/s, "
               f"{nbytes / (rec['ms'] * 1e-3) / 1e12:.3f} TB/s")
         del r, k, v, w, u, dy, s0, ds
@@ -2102,7 +2157,11 @@ def phase_rwkv_bwd(torch, rate, name, records):
                            if r["kernel"] == "rwkv_scan_bwd"),
         # One call at the training shape (bf16 r/k/v/dy, f32 decays).
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": None,
+        "bound_by": main["bound_by"], "bytes_bound_ms": main["bytes_bound_ms"],
+        "fma_ops_bound_ms": main["fma_ops_bound_ms"], "library_ms": None,
+        # The range plan at the training shape, as the C entry reported it.
+        "range_len": main["range_len"], "ranges": main["ranges"], "blocks": main["blocks"],
+        "kernels_per_call": len(main["kernels"]),
     }
     print(f"kernel rwkv_scan_bwd: max |err| {summary['max_abs_err']:.3g} ("
           f"{summary['max_rel_err']:.3g} of max |grad|), "

@@ -7,7 +7,7 @@
 ``DIR`` is the root of a checkout of the repo (``git archive <commit> | tar
 -x -C DIR``); ``--after`` defaults to this checkout.  ``--variant NAME``
 compares this checkout (or ``--before``) with a copy of ``--after``'s
-``src/`` under ``build/variants/NAME`` carrying the edit ``VARIANTS[NAME]``.
+``src/`` under ``build/variants/NAME`` carrying the edits ``VARIANTS[NAME]``.
 Each tree is timed in a process of its own, in turns (before, after, after,
 before), through its own wrappers, with its kernels built from its own
 sources into its own ``build/``.  The timers are ``chip_smoke.py``'s:
@@ -24,6 +24,15 @@ and ``host_ms``.  Kernels (``CASES``):
   the training phases of ``chip_smoke.py`` run; device time of the kernels
   named ``flash_bwd*`` a call, and of each of its four kernels, each over
   its own traced launches.
+- ``wkv_bwd``: ``rwkv_scan.rwkv_scan_backward`` at the training shape of
+  ``chip_smoke.py``'s phase 28 (one rwkv6-7b layer of a 1 x 512
+  micro-batch, bf16 r/k/v/dy with f32 decays, from the zero state), with
+  trained decays and with log w = -8 and w = 1e-30 (the score tiles'
+  pairwise branch); device time of the kernels named ``rwkv_scan_bwd*`` a
+  call, and of each kernel of ``rwkv_scan.BWD_KERNELS`` over its own traced
+  launches; each case's gradients against ``ref.reference_rwkv_backward``
+  (each gradient's max |err| over its max |.|, within ``chip_smoke``'s
+  ``RWKV_BWD_TOL``, or the run fails unless the tree is a variant).
 
 Prints one line per run and case, and the card's name and power limit; with
 ``--out`` also writes the numbers as JSON.  Needs a card; imports nothing of
@@ -63,14 +72,36 @@ ATTN_BWD_SHAPES = {
     "stablelm_bf16": ((1, 512, 512, 32, 8, 160, True), "bfloat16"),
 }
 ATTN_BWD_ITERS = 20
+#: wkv_bwd: name -> ((B, S, H, N), dtype name, decays as chip_smoke's
+#: ``strong_decays`` takes them, None for trained ones).
+WKV_BWD_SHAPES = {
+    "train_mixed": ((1, 512, 64, 64), "mixed", None),
+    "train_mixed_w8": ((1, 512, 64, 64), "mixed", "-8"),
+    "train_mixed_1e-30": ((1, 512, 64, 64), "mixed", "1e-30"),
+}
+WKV_BWD_ITERS = 20
 ATTN_BWD_KINDS = ("dot", "dkdv", "dq", "reduce")
-#: name -> (kernel, file under src/, text, replacement): one edit of a tree.
+#: name -> (kernel, file under src/, text, replacement[, file, text,
+#: replacement ...]): edits of a tree.
 VARIANTS = {
     # The 8-warp tensor-core backward at every bf16 head dim, not only at
     # 128 and 160.
     "bwd_wide_at_all_hd": ("attn_bwd", "repro_torch/kernels/csrc/flash_attention_bwd.cu",
                            "} else if constexpr (HD <= 64) {",
                            "} else if constexpr (HD < 32) {"),
+    # The range kernel of the WKV backward free of the two-blocks-an-SM
+    # register cap (one block an SM, no spill).
+    "wkv_bwd_one_block": ("wkv_bwd", "repro_torch/kernels/csrc/rwkv_scan_bwd.cu",
+                          "__launch_bounds__(Geo<N>::kThreads, 2)\nrwkv_scan_bwd_range_kernel(",
+                          "__launch_bounds__(Geo<N>::kThreads)\nrwkv_scan_bwd_range_kernel("),
+    # Ranges of at most 32 tokens (twice the blocks).
+    "wkv_bwd_range_32": ("wkv_bwd", "repro_torch/kernels/rwkv_scan.py",
+                         "BWD_MAX_SUBS = 4\n", "BWD_MAX_SUBS = 2\n"),
+    # Ablation: the range kernel without its token walk (dw and the adjoint
+    # are then wrong, which the run prints).
+    "wkv_bwd_no_walk": ("wkv_bwd", "repro_torch/kernels/csrc/rwkv_scan_bwd.cu",
+                        "for (int sl = 0; sl < Gm::kSlabs; ++sl) {",
+                        "for (int sl = 0; sl < 0; ++sl) {"),
 }
 
 
@@ -154,7 +185,56 @@ def attn_bwd_cases(torch, src: Path, only) -> dict:
     return out
 
 
-CASES = {"mix": mix_cases, "attn_bwd": attn_bwd_cases}
+def wkv_bwd_cases(torch, src: Path, only) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_scan as rs
+
+    assert Path(rs.__file__).resolve().is_relative_to(src.resolve()), rs.__file__
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    per_call = getattr(rs, "BWD_KERNELS_PER_CALL", 1)
+    out = {}
+    for name, (shape, dtype, how) in WKV_BWD_SHAPES.items():
+        if only and name not in only:
+            continue
+        dt, wdt = (getattr(torch, d) for d in cs.RWKV_DTYPES[dtype])
+        r, k = ((torch.randn(shape, generator=gen, device=dev) * 0.5).to(dt) for _ in range(2))
+        v, dy = (torch.randn(shape, generator=gen, device=dev).to(dt) for _ in range(2))
+        w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev) + 2.0).to(wdt)
+        if how is not None:
+            w = cs.strong_decays(torch, w, how, gen)
+        u = torch.randn((shape[2], shape[3]), generator=gen, device=dev) * 0.1
+
+        def fn():
+            return rs.rwkv_scan_backward(r, k, v, w, u, None, dy, None, with_dstate0=False)
+
+        it = WKV_BWD_ITERS
+        got = fn()
+        want = ref.reference_rwkv_backward(r, k, v, w, u, None, dy, None)
+        errs = {g: ((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-30)).item()
+                for g, a, b in zip(("dr", "dk", "dv", "dw", "du"), got, want)}
+        del got, want
+        launched = getattr(rs, "BWD_LAUNCHED", None)
+        if launched is not None:
+            per_call = len(launched["kernels"])
+        out[name] = {
+            "device_ms": cs.device_ms(torch, fn, it, "rwkv_scan_bwd", per_call=per_call),
+            "call_ms": cs.cuda_ms(torch, fn, it),
+            "kernels_per_call": per_call,
+            "max_rel_err": errs,
+            "within_tol": all(e <= cs.RWKV_BWD_TOL[dtype] for e in errs.values()),
+        }
+        if launched is not None:
+            out[name]["launched"] = dict(launched)
+            out[name]["kinds_ms"] = {kn: cs.device_ms(torch, fn, it, kn)
+                                     for kn in launched["kernels"]}
+        del r, k, v, w, u, dy
+        torch.cuda.empty_cache()
+    return out
+
+
+CASES = {"mix": mix_cases, "attn_bwd": attn_bwd_cases, "wkv_bwd": wkv_bwd_cases}
 
 
 def run_one(kernel: str, src: Path, only) -> dict:
@@ -166,17 +246,18 @@ def run_one(kernel: str, src: Path, only) -> dict:
 
 
 def make_variant(name: str, base: Path) -> Path:
-    """``base``'s ``src/`` copied to ``build/variants/NAME`` with the edit."""
-    _, rel, old, new = VARIANTS[name]
+    """``base``'s ``src/`` copied to ``build/variants/NAME`` with the edits."""
+    edits = VARIANTS[name][1:]
     root = ROOT / "build" / "variants" / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(base / "src", root / "src",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = root / "src" / rel
-    text = path.read_text()
-    if text.count(old) != 1:
-        raise SystemExit(f"{rel} no longer holds {old!r} once")
-    path.write_text(text.replace(old, new))
+    for rel, old, new in zip(edits[::3], edits[1::3], edits[2::3]):
+        path = root / "src" / rel
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"{rel} no longer holds {old!r} once")
+        path.write_text(text.replace(old, new))
     return root
 
 
@@ -210,7 +291,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip()
     print(card)
-    runs = []
+    runs, wrong = [], []
     for label, root in (("before", args.before), ("after", args.after),
                         ("after", args.after), ("before", args.before)):
         proc = subprocess.run([sys.executable, __file__, "--kernel", args.kernel,
@@ -226,15 +307,25 @@ def main() -> int:
             if "kinds_ms" in r:
                 extra = " (" + " ".join(f"{k} {_fmt(v).strip()}"
                                         for k, v in r["kinds_ms"].items()) + ")"
+            if "launched" in r:
                 extra += f" {r['launched']}"
             if "host_ms" in r:
                 extra = f"  launches {r['launches_a_call']:2d}  host {_fmt(r['host_ms'])} us"
+            if "max_rel_err" in r:
+                extra += f"  max rel err {max(r['max_rel_err'].values()):.3g}"
+                if not r["within_tol"]:
+                    extra += " BEYOND TOLERANCE"
+                    if not (label == "after" and args.variant):
+                        wrong.append((label, name))
             print(f"{label:6s} {name:18s} device {_fmt(r['device_ms'])} us{extra}  "
                   f"per call {_fmt(r['call_ms'])} us")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "kernel": args.kernel,
                                         "variant": args.variant, "runs": runs}, indent=1))
+    if wrong:
+        print(f"gradients beyond tolerance: {wrong}")
+        return 1
     return 0
 
 

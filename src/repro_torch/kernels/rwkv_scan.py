@@ -17,9 +17,14 @@ cache.  Any S works; the last chunk and sub-chunk may be short.
 
 The Pallas kernel is forward only (the JAX package differentiates its
 model's scan with XLA); here the gradient is a kernel too
-(``csrc/rwkv_scan_bwd.cu``: the explicit reverse recurrence of
-``ref.reference_rwkv_backward``, token by token on the FMA units, from
-states checkpointed every ``BWD_SUB`` tokens).  Under autograd (grad enabled
+(``csrc/rwkv_scan_bwd.cu``: ``ref.reference_rwkv_backward`` in chunk form
+over sub-chunks of ``BWD_SUB`` tokens, with each sequence cut into ranges of
+``bwd_range_len`` tokens, one block a range: a first kernel walks the state
+to every sub-chunk boundary and its adjoint to the range ends, a second
+forms dr, dk, dv of each
+range's sub-chunks on the tensor cores and dw = rowsum(G_t * S_{t-1}) from
+the sub-chunk's states and adjoints on the FMA units; ``BWD_LAUNCHED`` holds
+what the last call launched).  Under autograd (grad enabled
 and an operand that requires grad) ``rwkv_scan`` goes through
 ``RwkvScanFn``: its forward launches the forward kernel and saves the
 operands, its backward launches the backward kernel, with the final-state
@@ -68,9 +73,23 @@ DTYPES = {
 }
 _MAX_BLOCKS = 2 ** 31 - 1
 
-#: Tokens between the backward kernel's state checkpoints: its ``kC``, which
-#: sizes the scratch; the kernel refuses any other value.
-BWD_SUB = 8
+#: Tokens of the backward kernels' sub-chunk (their ``kT``): the unit of a range.
+BWD_SUB = 16
+
+#: Sub-chunks of a backward range at most (the kernels' ``kMaxSubs``).
+BWD_MAX_SUBS = 4
+
+#: The backward kernels, by the symbols a trace names them with; a call
+#: launches the first only when its sequences hold more than one sub-chunk.
+BWD_KERNELS = ("rwkv_scan_bwd_bounds_kernel", "rwkv_scan_bwd_range_kernel")
+
+#: What the last backward call launched, as its C entry reported it: the
+#: range kernel's blocks and the tokens of the range it gave each (its
+#: sub-chunks a range times ``BWD_SUB``), the ranges a sequence that makes
+#: (blocks over B * H), the boundary kernel's blocks (0 when not launched)
+#: and the kernels launched (names from ``BWD_KERNELS``).
+BWD_LAUNCHED = {"range_len": None, "ranges": None, "blocks": None, "bound_blocks": None,
+                "kernels": None}
 
 _LIB = None
 _BWD_LIB = None
@@ -124,10 +143,11 @@ def _bwd_lib():
             ctypes.c_void_p, ctypes.c_void_p,  # dy, dstate (or None)
             *[ctypes.c_void_p] * 4,  # dr dk dv dw
             ctypes.c_void_p, ctypes.c_void_p,  # du partials, dstate0 (or None)
-            ctypes.c_void_p,  # checkpoints (scratch)
+            ctypes.c_void_p, ctypes.c_void_p,  # range-start states, range-end adjoints
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, N
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # sub, dtype, device
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # range_len, dtype, device
             ctypes.c_void_p,  # stream
+            ctypes.POINTER(ctypes.c_int),  # range blocks, sub-chunks a range, boundary blocks
         ]
         lib.rwkv_scan_bwd_launch.restype = ctypes.c_int
         lib.rwkv_scan_bwd_error_string.argtypes = [ctypes.c_int]
@@ -206,18 +226,39 @@ def _forward(r, k, v, w, u, state, chunk):
     return y, state_out
 
 
+def bwd_range_len(B: int, S: int, H: int, sms: int) -> int:
+    """Tokens of a backward range: the longest of 64, 32 and 16 whose ranges
+    give the range kernel ``B * H * ceil(S / L)`` blocks enough to fill the
+    card's ``sms`` SMs (16 when none does).  A sequence no longer than the
+    range is one range."""
+    L = BWD_MAX_SUBS * BWD_SUB
+    while L > BWD_SUB and B * H * -(-S // L) < sms:
+        L //= 2
+    return L
+
+
 def _run_backward(r, k, v, w, u, state, dy, dstate, with_dstate0):
-    """Launch the backward kernel on checked operands -> (dr, dk, dv, dw,
+    """Launch the backward kernels on checked operands -> (dr, dk, dv, dw,
     du partials (B, H, N) f32, dstate0 or None)."""
     B, S, H, N = r.shape
     code, _ = dtype_code(r, k, v, w)
+    L = bwd_range_len(B, S, H, torch.cuda.get_device_properties(r.device).multi_processor_count)
+    n_ranges = -(-S // L)
+    if B * H * n_ranges > _MAX_BLOCKS:
+        raise ValueError(f"rwkv_scan_backward: {B * H * n_ranges} ranges are too many blocks "
+                         "for one launch")
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
-    du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, n_ranges, N), dtype=torch.float32, device=r.device)
     dstate0 = (torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
                if with_dstate0 else None)
+    # The states before every sub-chunk and the adjoints at the range ends.
     n_sub = -(-S // BWD_SUB)
-    ckpt = torch.empty((B * H, n_sub, N * N), dtype=torch.float32, device=r.device)
+    s_sub = (torch.empty((B * H, n_sub, N, N), dtype=torch.float32, device=r.device)
+             if n_sub > 1 else None)
+    g_bound = (torch.empty((B * H, n_ranges, N, N), dtype=torch.float32, device=r.device)
+               if n_ranges > 1 else None)
+    launched = (ctypes.c_int * 3)()
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = lib.rwkv_scan_bwd_launch(
@@ -225,14 +266,21 @@ def _run_backward(r, k, v, w, u, state, dy, dstate, with_dstate0):
         None if state is None else state.data_ptr(), dy.data_ptr(),
         None if dstate is None else dstate.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-        None if dstate0 is None else dstate0.data_ptr(), ckpt.data_ptr(),
-        B, S, H, N, BWD_SUB, code, r.device.index, stream,
+        None if dstate0 is None else dstate0.data_ptr(),
+        None if s_sub is None else s_sub.data_ptr(),
+        None if g_bound is None else g_bound.data_ptr(),
+        B, S, H, N, L, code, r.device.index, stream, launched,
     )
     if err != 0:
         msg = lib.rwkv_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"rwkv_scan_backward: kernel launch failed: CUDA error {err} "
                            f"({msg})")
-    return dr, dk, dv, dw, du_part, dstate0
+    blocks, subs, bound_blocks = launched
+    BWD_LAUNCHED.update(range_len=subs * BWD_SUB, ranges=blocks // (B * H), blocks=blocks,
+                        bound_blocks=bound_blocks,
+                        kernels=BWD_KERNELS[0 if bound_blocks else 1:])
+    # du over the ranges of each (batch, head), in a fixed order (no atomics).
+    return dr, dk, dv, dw, du_part.sum(2), dstate0
 
 
 def _backward(r, k, v, w, u, state, dy, dstate, with_dstate0):

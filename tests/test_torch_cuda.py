@@ -893,12 +893,16 @@ def test_cuda_rwkv_wrapper_checks_operands(cuda_device):
                               torch.zeros((1, 2, 16, 8), device=cuda_device))
 
 
-# The WKV backward kernel's cases (B, S, H, N, dtype, decays, initial state,
+# The WKV backward kernels' cases (B, S, H, N, dtype, decays, initial state,
 # final-state gradient): the forward's test cases in the three dtype
-# combinations, ragged lengths (S not a multiple of the kernel's checkpoint
-# interval of 8, or below it), the extreme decays (w = 1e-30, log w = -5 and
-# -8, sub-chunks straddling the factorised range), and the training shape
-# (one rwkv6-7b layer of a 1 x 512 micro-batch).
+# combinations, ragged lengths (S not a multiple of 8 or of 16, or below
+# them), the extreme decays (w = 1e-30, log w = -5 and -8, sub-chunks
+# straddling the factorised range), sequences cut into several ranges with a
+# ragged last one (19 ranges of 16 tokens; 3 of 64, the last of 22), ranges
+# of several sub-chunks at every N under the extreme decays (2 x 40 heads:
+# four sub-chunks a range, straddling ones beside factorised ones in a
+# block; 1 x 40 heads: ranges of 32), and the training shape (one rwkv6-7b
+# layer of a 1 x 512 micro-batch).
 RWKV_BWD_CASES = [
     (1, 64, 2, 16, "float32", "sigmoid", False, False),
     (2, 128, 4, 32, "float32", "sigmoid", True, True),
@@ -917,6 +921,14 @@ RWKV_BWD_CASES = [
     (1, 128, 2, 64, "float32", "-8", True, True),
     (1, 128, 2, 64, "float32", "mixed", True, True),
     (2, 100, 3, 64, "mixed", "mixed", False, True),
+    (1, 300, 6, 64, "mixed", "sigmoid", True, True),
+    (2, 150, 40, 64, "float32", "sigmoid", True, True),
+    (2, 150, 40, 64, "mixed", "mixed", True, True),
+    (2, 150, 40, 32, "mixed", "mixed", False, True),
+    (2, 150, 40, 16, "bfloat16", "sigmoid", False, True),
+    (2, 150, 40, 16, "float32", "mixed", True, True),
+    (1, 150, 40, 64, "float32", "-8", True, True),
+    (1, 100, 40, 32, "float32", "1e-30", True, True),
     (1, 512, 64, 64, "mixed", "sigmoid", False, False),
 ]
 #: Each gradient's max |err| against the plain version's max |.|, as the
@@ -947,12 +959,21 @@ def test_cuda_rwkv_scan_backward_matches_plain(cuda_device, case):
     """The WKV backward kernel against ``ref.reference_rwkv_backward`` and
     against torch autograd through ``ref.reference_rwkv_state``: every
     gradient in its operand's dtype, within 1e-4 (f32) / 2e-2 (bf16) of its
-    max |.|, dw included at w = 1e-30; repeated calls bit-equal."""
+    max |.|, dw included at w = 1e-30; repeated calls bit-equal; the grids
+    the C entry reports are the range plan's."""
     (r, k, v, w, u, s0), dy, ds = _rwkv_bwd_operands(case, cuda_device)
+    B, S, H = case[:3]
     n0 = rs.LAUNCHES["rwkv_scan_bwd"]
     got = rs.rwkv_scan_backward(r, k, v, w, u, s0, dy, ds, with_dstate0=s0 is not None)
     torch.cuda.synchronize()
     assert rs.LAUNCHES["rwkv_scan_bwd"] == n0 + 1
+    L = rs.bwd_range_len(B, S, H, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    n_ranges = -(-S // L)
+    assert rs.BWD_LAUNCHED == {
+        "range_len": L, "ranges": n_ranges, "blocks": B * H * n_ranges,
+        "bound_blocks": B * H * (2 if n_ranges > 1 else 1) if S > rs.BWD_SUB else 0,
+        "kernels": rs.BWD_KERNELS[0 if S > rs.BWD_SUB else 1:]}
     assert [t.dtype for t in got[:4]] == [r.dtype] * 3 + [w.dtype]
     assert got[4].dtype == torch.float32 and (got[5] is None) == (s0 is None)
     want = ref.reference_rwkv_backward(r, k, v, w, u, s0, dy, ds)
