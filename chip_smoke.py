@@ -262,7 +262,28 @@ Phases, in order; any failure exits non-zero before the result line:
              (relative), in bf16 with every MoE layer of the CPU's round --
              the remat recomputation's too -- taking the card's expert
              choices (the unpinned gap and the differing choices printed);
-             B3's launches as in phases 30-32 at the cut.
+             B3's launches as in phases 30-32 at the cut;
+34. sharded train — the multi-card trainer in a one-rank NCCL group
+             (the script initialises it over a ``FileStore`` in a temporary
+             directory with ``device_id=cuda:0``, and destroys it at the
+             end; NCCL failing fails the run, with no fall-back), at phase
+             13's cut of tinyllama-1.1b (8 layers, M = 4, 2 micro-batches,
+             remat, the fused mix, netmax), pull modes gather and
+             masked_psum: 3 rounds unsharded, their params moved to the host
+             and freed, then the same 3 rounds through ``make_train_step``
+             with ``mesh=make_debug_mesh(1, 1)``: params bit-equal, losses
+             within 1e-6 (relative); the sharded rounds' launch counters
+             zeroed just before and read just after: B3 forward, backward
+             and B1 as phase 13 counts them.  Prints ms a round of both
+             runs and the peak memory (ppermute cannot engage at one rank
+             with M = 4: it would need four);
+35. sharded engine — phase 4's ``simulate`` (netmax, M = 32, 3000
+             events) with ``shard_workers=True`` in the one-rank group and
+             unsharded: times, events, trace stream and published policies
+             bit-equal, losses within 5e-4, dispatches different (one a
+             cohort on the sharded path), B1 once a cohort on both; events/s
+             of both.  At one rank every collective is a copy: no
+             cross-card traffic is measured.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, last, the
 ``{"ok": true, "device": {...}}`` line.  With ``--out DIR`` the per-case
@@ -274,6 +295,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3663,7 +3685,7 @@ def cut_only_arithmetic(card):
         print(f"[{card}] family train parity: {arch} at published widths, one period "
               f"({period} of {full.n_layers} layers) is {n / 1e9:.2f} B params, ~{gb:.0f} GB "
               f"to train at M = 1 ({2 * gb:.0f} GB at M = 2) against {CARD_BYTES / 1e9:.0f} "
-              "GB: trained here at its cut only (ROADMAP A5)")
+              "GB: trained here at its cut only (ROADMAP A6b, A7)")
         check(gb * 1e9 > CARD_BYTES, f"{arch}: one period would fit one card")
     return rows
 
@@ -3802,6 +3824,208 @@ def phase_family_train_parity(torch, card):
     return out
 
 
+# -- the multi-card layer in a one-rank group (phases 34-35) -----------------
+
+#: Phase 34's rounds of each run.
+SHARDED_ROUNDS = 3
+
+
+@contextlib.contextmanager
+def nccl_group(torch):
+    """A one-rank NCCL default group over a FileStore in a temporary
+    directory, destroyed on exit.  NCCL failing fails the phase: there is
+    no fall-back to gloo or to the CPU."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(str(Path(tmp) / "store"), 1)
+        torch.cuda.set_device(0)
+        try:
+            dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                    device_id=torch.device("cuda:0"))
+        except Exception as e:  # noqa: BLE001 -- any failure fails the phase
+            raise SmokeError(f"NCCL did not initialise a one-rank group: {e!r}") from e
+        try:
+            check(dist.get_backend() == "nccl", f"the group's backend is {dist.get_backend()}")
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms (warnings only where there is none), without
+    filling fresh allocations.  The embedding's gradient (``index_select``'s
+    backward, an atomic ``index_add_`` on CUDA) otherwise differs between
+    two runs of one step in its last bits."""
+    import torch.utils.deterministic as det
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(), det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        det.fill_uninitialized_memory = was[2]
+
+
+def phase_sharded_train(torch, card):
+    """Phase 34: phase 13's cut trained unsharded and through the sharded
+    ``make_train_step`` on a (1, 1) mesh, from the same params and draws,
+    both under ``deterministic``: params bit-equal, losses within 1e-6, B3
+    and B1 launched by the sharded rounds as phase 13 counts them."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.consensus import sample_round
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import sgd
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TRAIN_LAYERS)
+    M, lr, rounds = TRAIN_WORKERS, TRAIN_LR, SHARDED_ROUNDS
+    opt = sgd(momentum=0.9, weight_decay=1e-4)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    dmask = np.ones((M, M)) - np.eye(M)
+    P = np.where(dmask > 0, 1.0 / (M - 1), 0.0)
+    draws_rng = np.random.default_rng(0)
+    draws = [sample_round(draws_rng, P, lr, 0.5 / (2 * lr * (M - 1)), dmask)
+             for _ in range(rounds)]
+    mesh = make_debug_mesh(1, 1)
+    print(f"[{card}] sharded train: one rank holds all M = {M} workers; ppermute "
+          f"cannot engage (it needs {M} worker ranks, one a worker)")
+    held_gb = free_card(torch)
+    out = {"held_before_gb": held_gb}
+    with deterministic(torch):
+        for mode in ("gather", "masked_psum"):
+            out[mode] = sharded_train_mode(torch, card, cfg, opt, stream, draws, mesh, mode,
+                                           held_gb)
+    return out
+
+
+def sharded_train_mode(torch, card, cfg, opt, stream, draws, mesh, mode, held_gb):
+    """One pull mode of phase 34: the unsharded rounds, their params moved
+    to the host and freed, then the sharded rounds; the checks."""
+    import numpy as np
+
+    from repro_torch.train.trainer import TrainStepConfig, init_stacked, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    M, lr, rounds = TRAIN_WORKERS, TRAIN_LR, SHARDED_ROUNDS
+    step_cfg = TrainStepConfig(gossip_mode=mode, use_gossip_mix_kernel=True)
+    runs = {}
+    for sharded in (False, True):
+        kw = dict(mesh=mesh, worker_axes=("data",)) if sharded else {}
+        step = make_train_step(cfg, opt, M, "netmax", step_cfg, **kw)
+        params, state = init_stacked(cfg, opt, M,
+                                     torch.Generator(device="cuda").manual_seed(0), **kw)
+        losses, round_s = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        for r in range(rounds):
+            batch = {k: torch.from_numpy(np.stack(
+                [stream.batch(w, r)[k] for w in range(M)]).astype(np.int64)).cuda()
+                for k in ("tokens", "labels")}
+            nb, wts = draws[r]
+            t = time.perf_counter()
+            params, state, m = step(params, state, batch,
+                                    {"neighbors": nb, "weights": wts, "lr": lr})
+            losses.append(m["loss_per_worker"].tolist())
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t)
+        launches = read_all_launches()
+        peak = torch.cuda.max_memory_allocated()
+        host = [leaf.cpu() for leaf in tree_leaves(params)]
+        del params, state, m, step, batch
+        free_card(torch)
+        runs[sharded] = {"losses": losses, "round_s": round_s, "peak_memory_bytes": peak,
+                         "launches": launches, "params": host}
+    plain, shard = runs[False], runs[True]
+    check(all(math.isfinite(x) for row in shard["losses"] for x in row),
+          f"sharded train {mode}: non-finite losses {shard['losses']}")
+    loss_rel = max(abs(a - b) / abs(b) for ra, rb in zip(shard["losses"], plain["losses"])
+                   for a, b in zip(ra, rb))
+    check(loss_rel <= 1e-6, f"sharded train {mode}: losses differ by {loss_rel} (relative)")
+    bad = [i for i, (a, b) in enumerate(zip(shard["params"], plain["params"]))
+           if not bits_equal(torch, a, b)]
+    check(not bad, f"sharded train {mode}: params differ at leaves {bad} of "
+                   f"{len(plain['params'])}")
+    want = train_launches_expected(cfg, M, TRAIN_BATCH)
+    want["gossip_mix_rows"] = mix_groups({"x": plain["params"]})
+    got = {k: shard["launches"][k] / rounds for k in want}
+    check(got == want, f"sharded train {mode}: launches a round {got}, {want} expected")
+    others = {k: n for k, n in shard["launches"].items() if k not in want and n}
+    check(not others, f"sharded train {mode}: other kernels launched: {others}")
+    row = {}
+    for name, run in (("unsharded", plain), ("sharded", shard)):
+        row[name] = {"round_s": run["round_s"],
+                     "round_ms_median": statistics.median(run["round_s"][1:]) * 1e3,
+                     "peak_memory_bytes": run["peak_memory_bytes"],
+                     "losses": run["losses"], "launches": run["launches"]}
+    row.update(loss_rel_err=loss_rel, params_bit_equal=True, launches_per_round=got)
+    print(f"[{card}] sharded train ({mode}): {cfg.name} widths at {cfg.n_layers} layers, "
+          f"M={M}, {rounds} rounds, deterministic algorithms; ms a round (after the first) "
+          f"unsharded {row['unsharded']['round_ms_median']:.1f}, sharded "
+          f"{row['sharded']['round_ms_median']:.1f}; peak "
+          f"{plain['peak_memory_bytes'] / 1e9:.2f} / {shard['peak_memory_bytes'] / 1e9:.2f} "
+          f"GB ({held_gb:.2f} GB held before); params bit-equal on "
+          f"{len(plain['params'])} leaves, losses within {loss_rel:.3g}; sharded launches "
+          f"a round {got}")
+    return row
+
+
+def phase_sharded_main(torch, card):
+    """Phase 35: phase 4's ``simulate`` with ``shard_workers=True`` in the
+    one-rank group against the unsharded run: host results bit-equal,
+    losses within 5e-4, dispatches different, B1 once a cohort."""
+    from repro_torch.train.simulator import simulate
+
+    out = {}
+    for shard in (False, True):
+        cfg, link, (x, y, parts, ex, ey) = sim_setup(3000, trace=True)
+        cfg = dataclasses.replace(cfg, shard_workers=shard)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = simulate(cfg, link, x, y, parts, ex, ey, record_every=500, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_all_launches()
+        check(launches["gossip_mix_rows"] == res.cohorts,
+              f"sharded main path (shard_workers={shard}): gossip_mix_rows launched "
+              f"{launches['gossip_mix_rows']} times for {res.cohorts} cohorts")
+        ev = res.events[-1]
+        out["sharded" if shard else "unsharded"] = res
+        print(f"[{card}] sharded main path, shard_workers={shard}: {ev} events, "
+              f"{res.cohorts} cohorts, {res.dispatches} dispatches in {secs:.3f} s: "
+              f"{ev / secs:.1f} events/s; losses {[round(v, 4) for v in res.losses]}")
+        out[f"{'sharded' if shard else 'unsharded'}_stats"] = {
+            "events": ev, "seconds": secs, "events_per_s": ev / secs,
+            "cohorts": res.cohorts, "dispatches": res.dispatches,
+            "losses": res.losses, "launches": launches}
+    a, b = out.pop("sharded"), out.pop("unsharded")
+    check(a.times == b.times and a.events == b.events, "sharded main path: times differ")
+    check(a.trace_events == b.trace_events, "sharded main path: trace_events differ")
+    check(a.comm_time == b.comm_time and a.compute_time == b.compute_time,
+          "sharded main path: comm/compute time differs")
+    check(len(a.policy_log) == len(b.policy_log)
+          and all(ta == tb and ra == rb and (Pa == Pb).all()
+                  for (ta, ra, Pa), (tb, rb, Pb) in zip(a.policy_log, b.policy_log)),
+          "sharded main path: policy_log differs")
+    check(a.cohorts == b.cohorts and a.dispatches != b.dispatches,
+          f"sharded main path: cohorts {a.cohorts}/{b.cohorts}, dispatches "
+          f"{a.dispatches}/{b.dispatches} (the same cohorts, other dispatches expected)")
+    diff = losses_close(a, b, "sharded main path")
+    print(f"[{card}] sharded main path: host results bit-equal, max |loss diff| {diff:.3g}")
+    out["max_loss_diff"] = diff
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3854,6 +4078,9 @@ def main() -> int:
         ssm_train_path["parity"] = phase_ssm_train_parity(torch)
         family_train = {row[0]: phase_family_train(torch, card, *row) for row in FAMILY_TRAIN}
         family_train["parity"] = phase_family_train_parity(torch, card)
+        with nccl_group(torch):
+            sharded = {"train": phase_sharded_train(torch, card),
+                       "main": phase_sharded_main(torch, card)}
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3882,6 +4109,13 @@ def main() -> int:
         if s["name"] in ("flash_attention", "flash_attention_bwd", "gossip_mix_rows"):
             s["launches_family_training"] = {
                 row[0]: family_train[row[0]]["launches"][s["name"]] for row in FAMILY_TRAIN}
+    # B3, its backward and B1 on the sharded trainer's path (phase 34), the
+    # sharded rounds' counts zeroed just before them and read just after.
+    for s in summaries:
+        if s["name"] in ("flash_attention", "flash_attention_bwd", "gossip_mix_rows"):
+            s["launches_sharded_training"] = {
+                mode: sharded["train"][mode]["sharded"]["launches"][s["name"]]
+                for mode in ("gather", "masked_psum")}
     for s in summaries:
         if s["name"] == "gossip_mix_rows":
             s["launches_network_dynamics"] = {
@@ -3901,7 +4135,7 @@ def main() -> int:
              "ssm_path": ssm_path, "train_path": train_path,
              "ssm_train_path": ssm_train_path,
              "network_dynamics": dynamics, "families": families,
-             "family_train": family_train},
+             "family_train": family_train, "sharded": sharded},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -315,9 +315,11 @@ class Algorithm(abc.ABC):
             params, grads)
         return self.mix_stacked_tree(x_half, pulled, weights)
 
-    def transform_grads(self, grads, M: int):
+    def transform_grads(self, grads, M: int, shard=None):
         """SPMD trainer hook: grad reduction before the optimizer step
-        (identity for gossip; global/group mean for collective families)."""
+        (identity for gossip; global/group mean for collective families).
+        ``shard``: when the grads hold one rank's rows of the M workers, its
+        ``dist.sharding.WorkerShard``; the reduction is then a collective."""
         return grads
 
     @property
@@ -415,6 +417,16 @@ def mean_params(replicas):
     return tree_map(lambda *xs: sum(xs) / len(xs), *replicas)
 
 
-def global_mean_grads(grads):
-    """Mean over the stacked worker dim, broadcast back to every row."""
-    return tree_map(lambda g: g.mean(dim=0, keepdim=True).expand_as(g).contiguous(), grads)
+def global_mean_grads(grads, shard=None):
+    """Mean over the stacked worker dim, broadcast back to every row.  With a
+    ``WorkerShard`` the grads are this rank's rows: their f32 sum is summed
+    across the worker ranks and divided by M."""
+    if shard is None:
+        return tree_map(lambda g: g.mean(dim=0, keepdim=True).expand_as(g).contiguous(),
+                        grads)
+
+    def leaf(g):
+        total = shard.sum(g.float().sum(dim=0, keepdim=True))
+        return (total / shard.M).to(g.dtype).expand_as(g).contiguous()
+
+    return tree_map(leaf, grads)

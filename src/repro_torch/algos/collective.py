@@ -11,6 +11,8 @@ and round times are bit-identical to it; the grad reductions are torch.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.algos.base import (
     Algorithm,
     AlgoState,
@@ -47,8 +49,8 @@ class Allreduce(SynchronousAlgorithm):
         comp = link.compute_time
         return Timing(duration=comp + comm, comm=comm, compute=comp)
 
-    def transform_grads(self, grads, M):
-        return global_mean_grads(grads)
+    def transform_grads(self, grads, M, shard=None):
+        return global_mean_grads(grads, shard)
 
 
 @register("prague")
@@ -94,7 +96,7 @@ class Prague(SynchronousAlgorithm):
         comp = link.compute_time
         return Timing(duration=comp + comm, comm=comm, compute=comp)
 
-    def transform_grads(self, grads, M):
+    def transform_grads(self, grads, M, shard=None):
         G = self.trainer_groups
         if G <= 1:
             return grads
@@ -108,4 +110,13 @@ class Prague(SynchronousAlgorithm):
             gg = gg.mean(dim=1, keepdim=True).expand_as(gg)
             return gg.reshape(g.shape)
 
-        return tree_map(group_mean, grads)
+        def sharded_group_mean(g):
+            # This rank's rows; a contiguous group may span ranks, so each
+            # group's f32 sum is summed across the worker ranks.
+            gid = torch.arange(shard.rows.start, shard.rows.stop,
+                               device=g.device) // (M // G)
+            sums = torch.zeros((G,) + tuple(g.shape[1:]), dtype=torch.float32,
+                               device=g.device).index_add_(0, gid, g.float())
+            return (shard.sum(sums) / (M // G))[gid].to(g.dtype)
+
+        return tree_map(group_mean if shard is None else sharded_group_mean, grads)

@@ -46,8 +46,8 @@ class PSSync(Algorithm):
         comp = link.compute_time
         return Timing(duration=comp + comm, comm=comm, compute=comp)
 
-    def transform_grads(self, grads, M):
-        return global_mean_grads(grads)
+    def transform_grads(self, grads, M, shard=None):
+        return global_mean_grads(grads, shard)
 
 
 @register("ps-async")

@@ -104,14 +104,20 @@ def adamw(
     return Optimizer(init, update)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, reduce=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in tree order) of each leaf's f32 sum of
-    squares."""
-    return torch.sqrt(sum(torch.sum(leaf.float() ** 2) for leaf in tree_leaves(tree)))
+    squares.  ``reduce`` sums that f32 total across ranks (in place) when a
+    tree holds one rank's rows of stacked leaves
+    (``dist.sharding.WorkerShard.sum``)."""
+    sq = sum(torch.sum(leaf.float() ** 2) for leaf in tree_leaves(tree))
+    if reduce is not None:
+        sq = reduce(sq)
+    return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled by min(1, max_norm / norm), the norm)."""
-    n = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, reduce=None):
+    """(grads scaled by min(1, max_norm / norm), the norm); ``reduce`` as in
+    ``global_norm``."""
+    n = global_norm(grads, reduce)
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), n

@@ -57,8 +57,18 @@ identity-delta gossip strategies only; the ps-serial fold, netmax-topk's
 sparsified delta and the sync rounds take the leaf rule, as in the JAX
 package.
 
-Not ported yet: the device-sharded path ``shard_workers`` (ROADMAP A5),
-which raises ``NotImplementedError``.
+**Device-sharded** (``SimConfig.shard_workers``, async gossip family only):
+the stacked rows split over the ranks of the default process group (one a
+card), each rank holding M / world of them.  Every rank runs the whole
+host event loop, which is deterministic from the seed, so the host results
+are the same on every rank.  Each cohort runs as one full-M masked step
+(``_sharded_step``): host vectors perm (M,) (identity for idle workers),
+w (M,), valid (M,) and bidx (M, B), of which each rank steps its own rows;
+the pre-cohort pull is ``dist.gossip.pull_ppermute`` when every worker has
+its own rank and the peer map is a permutation, the cross-rank gather
+otherwise.  One dispatch a cohort, as in the JAX package; the evaluation
+sees every row (``all_gather``).  The path exists to split replica memory
+across cards, not for speed.
 """
 
 from __future__ import annotations
@@ -68,6 +78,8 @@ import torch
 
 from repro_torch.algos.base import Algorithm
 from repro_torch.core.monitor import IterationTimeEMA
+from repro_torch.dist import gossip
+from repro_torch.dist.sharding import worker_shard
 from repro_torch.kernels import ops as kops
 from repro_torch.scenarios.driver import (
     apply_action,
@@ -298,6 +310,75 @@ def _operands(ints: np.ndarray, w: np.ndarray, dev):
             torch.from_numpy(w).to(dev))
 
 
+def _sharded_step(algo: Algorithm, lr: float, mu: float, use_mix_kernel: bool,
+                  mesh, shard):
+    """The full-M masked cohort step of the device-sharded path.
+
+    Signature: (R, Mom, dx, dy, perm, w, valid, bidx) with R/Mom this
+    rank's rows (M/world, ...), updated in place, and host operands over
+    all M workers: perm (M,) peer rows (identity for idle workers), w (M,)
+    mix weights, valid (M,) actor mask, bidx (M, B) batch indices.  Every
+    local row takes the grad + momentum half-step; the actors' rows take
+    the mix with their pre-cohort peer rows, the others stay as they were.
+    Under ``use_mix_kernel`` identity-delta strategies mix through
+    ``kernels/ops.gossip_mix_tree``, as the cohort body does.  ``shard``:
+    this rank's ``WorkerShard`` of the 1-D ``("workers",)`` mesh."""
+    identity_delta = type(algo).delta_transform is Algorithm.delta_transform
+    axes, M = ("workers",), shard.M
+    lo, hi = shard.rows.start, shard.rows.stop
+
+    def step(R, Mom, dx, dy, perm, w, valid, bidx):
+        dev = dx.device
+        b = torch.from_numpy(bidx[lo:hi].astype(np.int64)).to(dev)
+        _, grads = _sim.value_and_grad(_stacked_loss, R, dx[b], dy[b])
+        with torch.no_grad():
+            new_m = tree_map(lambda m_, g: mu * m_ + g, Mom, grads)
+            x_half = tree_map(lambda p, m_: p - lr * m_, R, new_m)
+            if len(shard.ranks) == M and len(set(perm.tolist())) == M:
+                # One worker a rank and a true permutation: point to point.
+                pulled = gossip.pull_ppermute(R, tuple(int(p) for p in perm), mesh, axes)
+            else:
+                pulled = gossip.pull_gather(R, perm, mesh, axes)
+            wd = torch.from_numpy(w[lo:hi]).to(dev)
+            if use_mix_kernel and identity_delta:
+                mixed = kops.gossip_mix_tree(x_half, pulled, wd)
+            else:
+                mixed = algo.mix_stacked_tree(x_half, pulled, wd)
+            keep = torch.from_numpy(valid[lo:hi]).to(dev)
+            tree_map(lambda l, v: l.copy_(v), R, _keep_valid(keep, mixed, R))
+            tree_map(lambda l, v: l.copy_(v), Mom, _keep_valid(keep, new_m, Mom))
+        return R, Mom
+
+    return step
+
+
+def _sharded_mesh(algo: Algorithm, M: int, device: torch.device):
+    """The 1-D ``("workers",)`` mesh over every rank of the default process
+    group; refuses what the sharded path cannot run."""
+    if algo.batched_variant != "gossip":
+        raise ValueError(
+            "cfg.shard_workers supports async gossip-family strategies "
+            f"only, not {algo.name!r} (variant {algo.batched_variant!r})"
+        )
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            "cfg.shard_workers splits the replicas over the ranks of the default "
+            "process group; initialise it first (torch.distributed."
+            "init_process_group, one rank a card)"
+        )
+    world = dist.get_world_size()
+    if M % world != 0:
+        raise ValueError(
+            f"cfg.shard_workers needs n_workers ({M}) divisible by the "
+            f"world size ({world})"
+        )
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device.type, (world,), mesh_dim_names=("workers",))
+
+
 def _steps_for(algo: Algorithm, lr: float, mu: float, use_mix_kernel: bool,
                sr: int | None):
     """(step, chain_step, burst_step) over host (numpy) operands."""
@@ -347,11 +428,6 @@ def run_batched(
     cohort structure; it only packs consecutive levels into fewer device
     dispatches (``res.dispatches``).
     """
-    if getattr(cfg, "shard_workers", False):
-        raise NotImplementedError(
-            "cfg.shard_workers (replicas split across devices) is not ported "
-            "yet (ROADMAP A5)"
-        )
     M = cfg.n_workers
     total = cfg.total_events
     sr = algo.serial_row(state) if algo.batched_variant == "ps-serial" else None
@@ -360,10 +436,21 @@ def run_batched(
     fuse = getattr(cfg, "fuse_chains", True)
     dev = tree_leaves(p0)[0].device
 
+    # Device-sharded path (SimConfig.shard_workers): this rank holds rows
+    # lo..hi of the stacked state, and cohorts run as full-M masked steps.
+    shard = None
+    lo, hi = 0, M
+    if getattr(cfg, "shard_workers", False):
+        mesh = _sharded_mesh(algo, M, dev)
+        shard = worker_shard(mesh, ("workers",), M)
+        lo, hi = shard.rows.start, shard.rows.stop
+        sharded_step = _sharded_step(algo, cfg.lr, cfg.momentum, cfg.use_mix_kernel,
+                                     mesh, shard)
+
     # Stacked replicas: all workers start from the same p0, like the
     # reference engine's per-replica copies.
-    R = tree_map(lambda l: l.unsqueeze(0).repeat((M,) + (1,) * l.ndim), p0)
-    Mom = tree_map(lambda l: torch.zeros((M,) + tuple(l.shape), dtype=l.dtype,
+    R = tree_map(lambda l: l.unsqueeze(0).repeat((hi - lo,) + (1,) * l.ndim), p0)
+    Mom = tree_map(lambda l: torch.zeros((hi - lo,) + tuple(l.shape), dtype=l.dtype,
                                          device=dev), p0)
 
     monitor = algo.make_monitor(cfg, M, d=state.d) if algo.wants_monitor(cfg) else None
@@ -382,7 +469,19 @@ def run_batched(
 
     def reseed(w, src):
         nonlocal R, Mom
-        R, Mom = reseed_row(R, Mom, w, src)
+        if shard is None:
+            R, Mom = reseed_row(R, Mom, w, src)
+            return
+        # Row src may live on another rank: every rank takes part in the pull.
+        perm = np.arange(M)
+        perm[w] = src
+        pulled = gossip.pull_gather(R, perm, mesh, ("workers",))
+        if lo <= w < hi:
+            with torch.no_grad():
+                for leaf, p in zip(tree_leaves(R), tree_leaves(pulled)):
+                    leaf[w - lo].copy_(p[w - lo])
+                for leaf in tree_leaves(Mom):
+                    leaf[w - lo].zero_()
 
     ex, ey = _sim.to_device(eval_x, dev), _sim.to_device(eval_y, dev)
     # Training set lives on the device; per-cohort batches are gathered
@@ -391,7 +490,8 @@ def run_batched(
 
     def eval_now(t, ev):
         with torch.no_grad():
-            mean_p = tree_map(lambda l: l.mean(dim=0), R)
+            rows = R if shard is None else tree_map(shard.gather, R)  # every row
+            mean_p = tree_map(lambda l: l.mean(dim=0), rows)
         loss, acc = _sim.evaluate(mean_p, ex, ey)
         res.times.append(t)
         res.losses.append(loss)
@@ -535,6 +635,23 @@ def run_batched(
                 ints[K:, 1] = free
         return ints, w
 
+    def dispatch_sharded(cohort):
+        """One cohort as a full-M masked step on every rank's rows."""
+        nonlocal R, Mom
+        blen = len(cohort[0][5])
+        perm = np.arange(M, dtype=np.int64)
+        wv = np.zeros(M, np.float32)
+        valid = np.zeros(M, bool)
+        bidx = np.zeros((M, blen), np.int64)
+        for e in cohort:
+            i = e[1]
+            perm[i] = e[2] if e[4] else i
+            wv[i] = e[3]
+            valid[i] = True
+            bidx[i] = e[5]
+        R, Mom = sharded_step(R, Mom, dx, dy, perm, wv, valid, bidx)
+        res.dispatches += 1
+
     chain_acc: list = []  # consecutive fusable cohorts awaiting one dispatch
     chain_lo = chain_hi = 0  # row-bucket band of the accumulating chain
 
@@ -628,6 +745,12 @@ def run_batched(
                 cohort_log.append(
                     [(e[6], e[1], e[2] if e[4] else None) for e in cohort]
                 )
+        if shard is not None:
+            # The sharded path has its own dispatch shape (full-M masked
+            # rows); the fusion machinery stays on the dense path.
+            for cohort in levels:
+                dispatch_sharded(cohort)
+            return
         if not fuse:
             for cohort in levels:
                 ints, w = pack(cohort, _bucket(len(cohort), M))

@@ -170,8 +170,8 @@ class SimConfig:
     # kernels/ops.gossip_mix_tree path (the CUDA gossip-mix kernel on a
     # card, its plain torch version on the CPU) instead of the leaf rule.
     use_mix_kernel: bool = False
-    # Batched engine: split replicas across devices (not ported yet,
-    # ROADMAP A5; raises when set).
+    # Batched engine, async gossip family: split the stacked replicas over
+    # the ranks of the default process group (one a card; train/engine.py).
     shard_workers: bool = False
     # Batched engine only: fuse consecutive cohorts into one dispatch (a
     # Python loop over levels) plus single-worker burst dispatches.  The
@@ -288,6 +288,12 @@ def simulate(
         engine = "batched" if algo.supports_batched else "reference"
     if engine not in ("reference", "batched"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
+    if cfg.shard_workers and (engine != "batched" or algo.synchronous):
+        # Where the JAX package would run unsharded, say so instead.
+        raise ValueError(
+            "cfg.shard_workers runs the batched engine's async gossip-family "
+            f"strategies only, not {algo.name!r} on engine {engine!r}"
+        )
     if engine == "batched":
         if not algo.supports_batched:
             raise ValueError(

@@ -1,8 +1,9 @@
 """NetMax training step on stacked LM replicas, driven by an ``Algorithm``.
 
-A transcription of ``repro/train/trainer.py`` for one process and one
-device.  Parameters are *stacked* over the M NetMax workers (leading axis
-of every leaf); one round = every worker performs one Alg.-2 iteration:
+A transcription of ``repro/train/trainer.py``, for one process and one
+device or (with a mesh) one process a card.  Parameters are *stacked*
+over the M NetMax workers (leading axis of every leaf); one round = every
+worker performs one Alg.-2 iteration:
 
   1. per-worker loss and grads      (a loop over the workers; each worker's
                                      loss reads only its own row, and its
@@ -11,7 +12,7 @@ of every leaf); one round = every worker performs one Alg.-2 iteration:
   2. optional clip                  (``clip_by_global_norm``)
   3. algorithm grad reduction       (identity | all-mean | group-mean)
   4. local optimizer step           (x_half; momenta stay worker-local)
-  5. gossip pull of pre-round x     (gather | masked_psum)
+  5. gossip pull of pre-round x     (gather | masked_psum | ppermute)
   6. algorithm consensus mix        (``Algorithm.mix_stacked``, or the fused
                                      tree mix ``ops.gossip_mix_tree`` -- the
                                      gossip-mix kernel on the card, one launch
@@ -36,7 +37,13 @@ hybrid, audio and vlm families in ``tests/test_torch_family_training.py``)
 and trains on the card (``chip_smoke.py``: phi3.5-moe, whisper-small and
 internvl2-1b at their published widths, each family's reduced cut card
 against CPU).
-``pull_ppermute`` needs one process per card and raises (ROADMAP A5).
+With a mesh (``launch.mesh``) the step runs on every rank of a process
+group, one a card: each rank steps its own rows of the stacked state, and
+what spans the worker axis (the clip's norm, the strategy's grad
+reduction, the pull, the mean loss) is a collective over the worker ranks
+(``dist.sharding.WorkerShard``); held to the JAX trainer in gloo groups of
+2, 4 and 8 ranks in ``tests/test_torch_dist.py``.  Tensor-parallel leaves
+(a trailing dim on 'model') are refused (ROADMAP A7).
 The legacy ``TrainStepConfig`` flags (``allreduce``, ``prague_groups``)
 still select a strategy, with the JAX package's ``DeprecationWarning``s.
 """
@@ -52,6 +59,7 @@ from repro_torch.algos import Algorithm, get_algorithm
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.dist import gossip
+from repro_torch.dist.sharding import worker_rows, worker_shard
 from repro_torch.kernels import ops as kops
 from repro_torch.models import lm
 from repro_torch.models.scan_utils import microbatch_scan
@@ -106,21 +114,44 @@ def _as_tensor(x, dtype, device):
     return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
+def _check_worker_specs(param_specs):
+    """Only the leading worker dim of a leaf may be split: the JAX package
+    only lowers tensor-parallel compute (launch/dryrun.py), never runs it."""
+    for spec in tree_leaves(param_specs):
+        if any(e is not None for e in tuple(spec)[1:]):
+            raise NotImplementedError(
+                f"param spec {spec} splits a leaf past its worker dim: "
+                "tensor-parallel training is not ported (ROADMAP A7)")
+
+
 def make_train_step(
     cfg: ArchConfig,
     optimizer: Optimizer,
     M: int,
     algo: Algorithm | str | TrainStepConfig | None = None,
     step_cfg: TrainStepConfig | None = None,
+    mesh=None,
+    worker_axes: tuple = (),
+    param_specs=None,
 ):
-    """Returns train_step(params, opt_state, batch, gossip_in) ->
-    (params, opt_state, metrics).
+    """Returns train_step(params, opt_state, batch, gossip_in, *, perm=None)
+    -> (params, opt_state, metrics).
 
     params/opt_state leaves: (M, ...), on one device.  batch leaves:
     (M, B/M, ...): int token ids and labels, and the family's f32 frames or
     vision tokens.  gossip_in: {'neighbors': (M,) ints,
     'weights': (M,) f32, 'lr': a number}, as numpy arrays or tensors.
     metrics: {'loss': the mean over workers, 'loss_per_worker': (M,)}.
+
+    With a ``mesh`` (``launch.mesh``) and ``worker_axes``, each rank holds
+    its rows of every stacked leaf of params, opt state and batch
+    (``dist.sharding.worker_rows``) on its own device; ``gossip_in`` is the
+    whole (M,) draw on every rank, and ``loss_per_worker`` all M losses.
+    Whatever spans the worker axis is a collective over the worker ranks:
+    the clip's global norm, the strategy's grad reduction, the pull and
+    the mean loss.  ``param_specs`` may split only the worker dim.
+    ``gossip_mode="ppermute"`` needs a mesh; ``perm`` (one source a worker
+    rank) defaults to the neighbours.
 
     ``algo``: an Algorithm instance or registry name.  Passing a
     TrainStepConfig here (the pre-registry calling convention) still works:
@@ -139,13 +170,22 @@ def make_train_step(
             f"algorithm {algorithm.name!r} has no lockstep SPMD form; "
             "use the event-driven simulator (train/simulator.py) instead"
         )
+    if step_cfg.gossip_mode == "ppermute" and mesh is None:
+        raise ValueError("gossip_mode='ppermute' pulls between the ranks of a mesh; "
+                         "pass mesh= and worker_axes=")
+    if param_specs is not None:
+        _check_worker_specs(param_specs)
+    shard = None if mesh is None else worker_shard(mesh, worker_axes, M)
+    reduce = None if shard is None else shard.sum
 
     def per_worker(params, batch):
-        """(losses (M,) f32, grads (M, ...) in the param dtype): worker i's
-        loss on its own row of the params, differentiated into that row."""
-        losses = torch.empty((M,), dtype=torch.float32, device=tree_leaves(batch)[0].device)
+        """(losses (n,) f32, grads (n, ...) in the param dtype) for the n
+        rows held here: worker i's loss on its own row of the params,
+        differentiated into that row."""
+        n = tree_leaves(params)[0].shape[0]
+        losses = torch.empty((n,), dtype=torch.float32, device=tree_leaves(batch)[0].device)
         grads = tree_map(torch.empty_like, params)
-        for i in range(M):
+        for i in range(n):
             p_i = worker_leaves(params, i, lambda leaf: leaf.detach().requires_grad_())
             b_i = tree_map(lambda a: a[i], batch)
             with torch.enable_grad():
@@ -158,13 +198,13 @@ def make_train_step(
             del loss, gs, p_i
         return losses, grads
 
-    def gossip_pull(params, neighbors):
+    def gossip_pull(params, neighbors, perm):
         if step_cfg.gossip_mode == "gather":
-            return gossip.pull_gather(params, neighbors)
+            return gossip.pull_gather(params, neighbors, mesh, worker_axes)
         if step_cfg.gossip_mode == "masked_psum":
-            return gossip.pull_masked_psum(params, neighbors, M)
+            return gossip.pull_masked_psum(params, neighbors, M, mesh, worker_axes)
         if step_cfg.gossip_mode == "ppermute":
-            return gossip.pull_ppermute(params, None, None, ())
+            return gossip.pull_ppermute(params, perm, mesh, worker_axes, specs=param_specs)
         raise ValueError(step_cfg.gossip_mode)
 
     communicates = (
@@ -176,7 +216,7 @@ def make_train_step(
     fused_mix = (step_cfg.use_gossip_mix_kernel
                  and type(algorithm).delta_transform is Algorithm.delta_transform)
 
-    def train_step(params, opt_state, batch, gossip_in):
+    def train_step(params, opt_state, batch, gossip_in, *, perm=None):
         leaves = tree_leaves(params)
         dev = leaves[0].device
         lr = gossip_in["lr"]
@@ -184,10 +224,10 @@ def make_train_step(
         with torch.no_grad():
             losses, grads = microbatch_scan(per_worker, params, batch, cfg.microbatches)
             if step_cfg.grad_clip:
-                grads, _ = clip_by_global_norm(grads, step_cfg.grad_clip)
+                grads, _ = clip_by_global_norm(grads, step_cfg.grad_clip, reduce)
             # Strategy-owned grad reduction: identity for gossip, global mean
             # for allreduce/ps-sync, group mean for prague.
-            grads = algorithm.transform_grads(grads, M)
+            grads = algorithm.transform_grads(grads, M, shard)
             updates, opt_state = optimizer.update(grads, opt_state, params, lr)
             del grads
             x_half = optimizer.apply(params, updates)
@@ -197,7 +237,12 @@ def make_train_step(
                 # for the device).
                 neighbors = _as_tensor(gossip_in["neighbors"], torch.int64, dev)
                 weights = _as_tensor(gossip_in["weights"], torch.float32, dev)
-                pulled = gossip_pull(params, neighbors)
+                if shard is not None:
+                    weights = weights[shard.rows.start:shard.rows.stop]
+                if step_cfg.gossip_mode == "ppermute":
+                    perm = tuple(int(p) for p in (gossip_in["neighbors"] if perm is None
+                                                  else perm))
+                pulled = gossip_pull(params, neighbors, perm)
                 if fused_mix:
                     new_params = kops.gossip_mix_tree(x_half, pulled, weights)
                 else:
@@ -205,6 +250,8 @@ def make_train_step(
                 del pulled, x_half
             else:
                 new_params = x_half
+            if shard is not None:
+                losses = shard.gather(losses)
         metrics = {"loss": losses.mean(), "loss_per_worker": losses}
         return new_params, opt_state, metrics
 
@@ -234,16 +281,19 @@ def worker_leaves(params, i: int, fn=lambda leaf: leaf):
 
 
 def init_stacked(cfg: ArchConfig, optimizer: Optimizer, M: int, generator=None,
-                 device=None):
+                 device=None, mesh=None, worker_axes: tuple = ()):
     """M identical worker replicas (paper Alg. 2 line 1 allows independent
     x_i^0; identical init is the common practical choice, as in the JAX
     package) and the optimizer state.  The parameters are drawn from
     ``generator`` on its device; without one, from a generator seeded 0 on
-    ``device`` (CUDA unless the caller asks for the CPU)."""
+    ``device`` (CUDA unless the caller asks for the CPU).  With a ``mesh``
+    and ``worker_axes``, this rank's rows of them (every rank draws the
+    same seeded replica)."""
     if generator is None:
         generator = torch.Generator(device=resolve_device(device)).manual_seed(0)
+    rows = M if mesh is None else len(worker_rows(mesh, worker_axes, M))
     params1 = lm.init_params(cfg, generator)
-    params = tree_map(lambda leaf: leaf.unsqueeze(0).expand((M,) + tuple(leaf.shape))
+    params = tree_map(lambda leaf: leaf.unsqueeze(0).expand((rows,) + tuple(leaf.shape))
                       .contiguous(), params1)
     del params1
     return params, optimizer.init(params)

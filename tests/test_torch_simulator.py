@@ -165,8 +165,10 @@ def test_seeded_init_is_device_independent_and_deterministic():
 def test_sync_and_unported_paths_raise():
     """A synchronous strategy runs on the default engine (it raised before
     the round engine was ported; tests/test_torch_engines.py holds it to the
-    JAX package); an unknown strategy and the unported device-sharded path
-    raise."""
+    JAX package); an unknown strategy raises, and the device-sharded path
+    refuses a strategy outside the gossip family, as the JAX package's
+    ``test_shard_workers_rejects_unsupported_shapes`` pins (the sharded
+    path itself: tests/test_torch_dist.py)."""
     M, topo_kw, split, link_kw, _, cfg_kw, rec = SHAPES["quickstart"]
     x, y, ex, ey = _data(split)
     parts = uniform_partition(len(y), M, seed=0)
@@ -181,8 +183,8 @@ def test_sync_and_unported_paths_raise():
     assert res.engine == "batched" and res.cohorts == cfg_kw["total_events"] // M
     with pytest.raises(KeyError, match="unknown algorithm"):
         run(algorithm="no-such-strategy")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        run(engine="batched", shard_workers=True)
+    with pytest.raises(ValueError, match="gossip"):
+        run(algorithm="ps-async", engine="batched", shard_workers=True)
 
 
 def test_reseed_replica_clones_the_seed():

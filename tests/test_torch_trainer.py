@@ -298,8 +298,15 @@ def test_pulls_and_mix_bit_equal_to_jax(dtype):
 
 
 def test_pull_ppermute_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tgossip.pull_ppermute({"w": torch.zeros(2)}, (1, 0), None, ())
+    """With no worker axes pull_ppermute is pull_gather (the JAX package's
+    ``:61-62``); across ranks it is held to the JAX package in
+    tests/test_torch_dist.py."""
+    tree = {k: torch.from_numpy(v) for k, v in _stacked(3).items()}
+    nb = (2, 0, 3, 1)
+    want = tgossip.pull_gather(tree, nb)
+    for got in (tgossip.pull_ppermute(tree, nb, None, ()),
+                tgossip.pull_ppermute(tree, nb, {"data": 1}, ())):
+        assert _max_err(want, got) == 0.0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
