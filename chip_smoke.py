@@ -283,7 +283,24 @@ Phases, in order; any failure exits non-zero before the result line:
              bit-equal, losses within 5e-4, dispatches different (one a
              cohort on the sharded path), B1 once a cohort on both; events/s
              of both.  At one rank every collective is a copy: no
-             cross-card traffic is measured.
+             cross-card traffic is measured;
+36. dry-run — ``launch.dryrun.run_cell`` in a subprocess (a fake process
+             group of 256 / 512 ranks, ``meta`` tensors, a CUDA-typed
+             mesh): tinyllama-1.1b and rwkv6-7b at full width, every shape
+             each supports, on 16x16, and tinyllama's train_4k on
+             2x16x16; each cell ok (or an explicit unsupported-shape
+             skip) with its per-rank FLOPs, bytes, collective bytes by
+             kind, argument and temp GB, the roofline's dominant term and
+             its seconds;
+37. cost   — ``analysis.cost.CostCounter`` around two rounds of phase 13's
+             cut under the profiler (the two rounds traced again, up to 4
+             times, when CUPTI drops kernels from a trace): the kernel
+             calls it counts equal the launch counters and the profiler's
+             kernels (B3 128, B3 backward 64, B1 1 a round); its FLOPs beside 6 N D plus the
+             remat forward and the attention products; the compute and
+             memory terms at the H100's rates beside the round time
+             measured without the counter, with the card's name and power
+             limit.
 
 Prints one ``{"kernels": [...]}`` JSON line, then, last, the
 ``{"ok": true, "device": {...}}`` line.  With ``--out DIR`` the per-case
@@ -300,6 +317,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -716,7 +734,7 @@ def phase_kernels(torch, rate):
               f"{kernel} {shape}: output {tuple(got.shape)} {got.dtype}")
         err = (got.float() - want.float()).abs().max().item()
         check(err <= TOL[dtype], f"{kernel} {shape} {dtype}: max |err| {err}")
-        nbytes = 4 * x.numel() * x.element_size() + 4 * n_w
+        _, nbytes = mix_work(x.numel() * x.element_size(), x.numel(), n_w, True)
         rec = {"kernel": kernel, "role": role, "shape": list(shape), "dtype": dtype,
                "max_abs_err": err, "bound_ms": nbytes / rate * 1e3, "bytes": nbytes}
         # torch.lerp(x, p, w) computes the u = 0 case; a yardstick only.
@@ -862,7 +880,8 @@ def main_tree(torch, tk, ref, rate, draw, dev, records, iters=200):
                       "mix_tree_kernel", 1),
     }
     n_el = sum(x.numel() for x in xs)
-    nbytes = {"tree": 3 * n_el * 4 + 4 * N_WORKERS, "tree_u": 4 * n_el * 4 + 4 * N_WORKERS}
+    nbytes = {key: mix_work(n_el * 4, n_el, N_WORKERS, with_u)[1]
+              for key, with_u in (("tree", False), ("tree_u", True))}
     out = {}
     for key, (fn, match, per_call) in ways.items():
         dev_ms = device_ms(torch, fn, iters, match, per_call)
@@ -894,17 +913,21 @@ def main_tree(torch, tk, ref, rate, draw, dev, records, iters=200):
     return out
 
 
+def mix_work(nbytes, elements, rows, with_u):
+    """(flops, bytes) of one gossip-mix call: ``analysis.cost.mix_work``
+    (x, pulled and u read, the output written, the f32 weights read)."""
+    from repro_torch.analysis.cost import mix_work as work
+
+    return work(nbytes, elements, rows, with_u)
+
+
 def attn_work(B, S, Sk, H, Hk, hd, causal, itemsize):
-    """(flops, bytes) of one attention call: 4 * hd flops per visible
-    (query head, key) pair -- QK^T and PV, 2 each -- and q, k, v read once,
-    the output written once."""
-    if causal:  # query s sees keys 0..min(s, Sk-1)
-        pairs = sum(min(s + 1, Sk) for s in range(S))
-    else:
-        pairs = S * Sk
-    flops = 4 * B * H * hd * pairs
-    nbytes = (2 * B * S * H + 2 * B * Sk * Hk) * hd * itemsize
-    return flops, nbytes
+    """(flops, bytes) of one attention call: ``analysis.cost.attention_work``
+    (4 * hd flops per visible (query head, key) pair; q, k, v read once,
+    the output written once)."""
+    from repro_torch.analysis.cost import attention_work
+
+    return attention_work(B, S, Sk, H, Hk, hd, causal, itemsize)
 
 
 def phase_flash(torch, rate, name, records):
@@ -992,27 +1015,11 @@ def phase_flash(torch, rate, name, records):
 
 
 def rwkv_work(B, S, H, N, chunk, itemsize, w_itemsize, state_in):
-    """(flops, bytes) of one WKV call in the kernel's chunk form.  Per
-    sub-chunk of c tokens and head: 8 c N elementwise ops (log decay, its
-    cumulative sum, two exp, four products) and N exp; c (c - 1) / 2 scores
-    and c diagonal terms of 2 N each; y = r_dec S and P v, 2 c N^2 and
-    c (c + 1) N; the state update, (2 c + 1) N^2.  Bytes: r, k, v (at
-    ``itemsize``) and w (at ``w_itemsize``) read once, y (at ``itemsize``)
-    written once, u, the initial state (when given) read and the final state
-    written."""
-    chunk = min(chunk, S)
-    sub = min(16, chunk)
-    per_head = 0
-    for c0 in range(0, S, chunk):
-        c_end = min(c0 + chunk, S)
-        for t0 in range(c0, c_end, sub):
-            c = min(sub, c_end - t0)
-            per_head += (8 * c * N + N + c * (c - 1) * N + 2 * c * N
-                         + 2 * c * N * N + c * (c + 1) * N + (2 * c + 1) * N * N)
-    flops = B * H * per_head
-    nbytes = (B * S * H * N * (4 * itemsize + w_itemsize) + 4 * H * N
-              + (2 if state_in else 1) * 4 * B * H * N * N)
-    return flops, nbytes
+    """(flops, bytes) of one WKV call in the kernel's chunk form:
+    ``analysis.cost.rwkv_work``."""
+    from repro_torch.analysis.cost import rwkv_work as work
+
+    return work(B, S, H, N, itemsize, w_itemsize, state_in, chunk=chunk)
 
 
 def strong_decays(torch, w, how, gen):
@@ -1875,13 +1882,11 @@ def traced_bwd_body(names):
 
 
 def attn_bwd_work(B, S, Sk, H, Hk, hd, causal, itemsize):
-    """(flops, bytes) of one attention backward: five products of 2 * hd
-    flops per visible (query head, key) pair (q k^T again, dO v^T, dv, dk,
-    dq); q, k, v, o, dO and the f32 lse read once, dq, dk, dv written once."""
-    flops, _ = attn_work(B, S, Sk, H, Hk, hd, causal, itemsize)  # 4 hd per pair
-    flops = flops // 4 * 10
-    nbytes = ((4 * B * S * H + 4 * B * Sk * Hk) * hd * itemsize + 4 * B * H * S)
-    return flops, nbytes
+    """(flops, bytes) of one attention backward:
+    ``analysis.cost.attention_bwd_work``."""
+    from repro_torch.analysis.cost import attention_bwd_work
+
+    return attention_bwd_work(B, S, Sk, H, Hk, hd, causal, itemsize)
 
 
 def phase_flash_bwd(torch, rate, name, records):
@@ -2014,22 +2019,10 @@ def phase_flash_bwd(torch, rate, name, records):
 
 
 def rwkv_bwd_work(B, S, H, N, itemsize, w_itemsize, state_in, dstate_in, dstate0):
-    """(flops, bytes) of one WKV backward as a reverse recurrence (the
-    flops are f32-exact products, which the card does at its 3xTF32 rate,
-    as the forward's).  Per token
-    and head 14 N^2 f32 flops -- the state recomputed (w S + k v^T, 3),
-    dr's, dk's and dv's products with the state or its adjoint (2 each),
-    dw's (2) and the adjoint's update (w G + r dy^T, 3) -- and 14 N for v .
-    dy, r . (u k) and the u terms.  Bytes: r, k, v, dy (at ``itemsize``)
-    and w (at ``w_itemsize``) read once, dr, dk, dv and dw written once at
-    the same widths; u read and du written (f32); the initial state and the
-    final-state gradient read when given, the initial-state gradient
-    written when asked for."""
-    tokens = B * S * H
-    flops = tokens * (14 * N * N + 14 * N)
-    nbytes = (tokens * N * (7 * itemsize + 2 * w_itemsize) + 2 * 4 * H * N
-              + (int(state_in) + int(dstate_in) + int(dstate0)) * 4 * B * H * N * N)
-    return flops, nbytes
+    """(flops, bytes) of one WKV backward: ``analysis.cost.rwkv_bwd_work``."""
+    from repro_torch.analysis.cost import rwkv_bwd_work as work
+
+    return work(B, S, H, N, itemsize, w_itemsize, state_in, dstate_in, dstate0)
 
 
 def phase_rwkv_bwd(torch, rate, name, records):
@@ -4026,6 +4019,161 @@ def phase_sharded_main(torch, card):
     return out
 
 
+#: Phase 36: the dry-run's cells, (arch, shape, multi-pod): every shape
+#: tinyllama-1.1b and rwkv6-7b support on 16x16 (tinyllama's long_500k is
+#: an explicit skip), and one 2x16x16 cell.
+DRYRUN_CELLS = ([("tinyllama-1.1b", s, False) for s in
+                 ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+                + [("rwkv6-7b", s, False) for s in
+                   ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+                + [("tinyllama-1.1b", "train_4k", True)])
+DRYRUN_TIMEOUT_S = 600
+_DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun
+for arch, shape, multi_pod in json.loads(sys.argv[1]):
+    rec = dryrun.run_cell(arch, shape, multi_pod, "ppermute", quiet=True)
+    print("RECORD " + json.dumps(rec), flush=True)
+"""
+
+
+def phase_dryrun(card):
+    """Phase 36: ``launch.dryrun.run_cell`` on every cell of DRYRUN_CELLS
+    at full width, in a subprocess (its fake process group of 256 / 512
+    ranks cannot share a process with phase 34's NCCL group): each cell
+    ``ok`` or an explicit unsupported-shape skip, its per-rank FLOPs, bytes
+    and collective bytes by kind, argument and temp GB, the roofline's
+    dominant term (H100 rates, ``analysis.roofline``) and its seconds."""
+    from repro_torch.analysis.roofline import from_record
+    from repro_torch.configs.base import SHAPES
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(SRC), env.get("PYTHONPATH", "")])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS)],
+                          capture_output=True, text=True, env=env,
+                          timeout=DRYRUN_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    recs = [json.loads(line[7:]) for line in proc.stdout.splitlines()
+            if line.startswith("RECORD ")]
+    check(proc.returncode == 0 and len(recs) == len(DRYRUN_CELLS),
+          f"dry-run: exit {proc.returncode}, {len(recs)} of {len(DRYRUN_CELLS)} records; "
+          f"{proc.stderr[-2000:]}")
+    print(f"dry-run: {len(recs)} cells in {secs:.1f} s (one subprocess; {card})")
+    for rec in recs:
+        cell = f"{rec['mesh']}|{rec['arch']}|{rec['shape']}"
+        if rec["skipped"]:
+            print(f"  {cell}: skipped ({rec['reason']})")
+            continue
+        check(rec["ok"], f"dry-run {cell}: {rec.get('error')}")
+        roof = from_record(rec, SHAPES[rec["shape"]])
+        mem = rec["memory_analysis"]
+        print(f"  {cell}: ok, {rec['t_trace_s']} s; per rank {rec['hlo_flops_per_device']:.4g} "
+              f"FLOPs, {rec['hlo_bytes_per_device']:.4g} bytes, collective bytes "
+              f"{ {k: f'{v:.4g}' for k, v in rec['collective_bytes_per_device'].items()} }; "
+              f"argument {mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+              f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB; roofline compute "
+              f"{roof.compute_s * 1e3:.2f} ms, memory {roof.memory_s * 1e3:.2f} ms, collective "
+              f"{roof.collective_s * 1e3:.2f} ms: {roof.dominant}; kernel calls "
+              f"{rec['kernel_calls']}")
+    check(any(r["mesh"] == "2x16x16" and r["ok"] for r in recs), "dry-run: no 2x16x16 cell")
+    return {"seconds": secs, "records": recs}
+
+
+#: Phase 37: the rounds counted (phase 13's cut, one warm round first).
+COST_ROUNDS = 2
+
+
+def phase_cost(torch, card):
+    """Phase 37: ``analysis.cost.CostCounter`` around COST_ROUNDS rounds of
+    phase 13's cut (tinyllama-1.1b widths, 8 layers, M = 4) under the
+    profiler (again, up to PROFILE_ATTEMPTS traces, when CUPTI drops
+    kernels): the counter's kernel calls equal the launch counters and the
+    profiler's kernels (B3 128, B3 bwd 64 and B1 1 a round); its FLOPs
+    beside 6 N D plus the remat forward and the attention products; the
+    compute and memory terms at this card's rates beside the round time
+    measured without the counter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.cost import CostCounter, attention_work
+    from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import lm
+
+    free_card(torch)
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TRAIN_LAYERS)
+    loop = TrainLoop(cfg, workers=TRAIN_WORKERS, seq=TRAIN_SEQ, batch_per_worker=TRAIN_BATCH,
+                     lr=TRAIN_LR, algo="netmax", gossip="gather",
+                     monitor_every=TRAIN_MONITOR_EVERY, device="cuda")
+    loop.round(0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loop.round(1)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t
+    want = {k: v * COST_ROUNDS for k, v in
+            {**train_launches_expected(cfg, TRAIN_WORKERS, TRAIN_BATCH),
+             "gossip_mix_rows": mix_groups(loop.params)}.items()}
+    r0 = 2
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        reset_all_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                CostCounter(log_ops=False) as cc:
+            for r in range(r0, r0 + COST_ROUNDS):
+                loop.round(r)
+            torch.cuda.synchronize()
+        r0 += COST_ROUNDS
+        launches = read_all_launches()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        profiled = {"flash_attention": sum("flash_fwd" in n for n in names),
+                    "flash_attention_bwd": sum("flash_bwd_dkdv" in n for n in names),
+                    "gossip_mix_rows": sum("mix_tree_kernel" in n for n in names)}
+        rep = cc.report
+        counted = {k: rep.kernel_calls.get(k, 0) for k in profiled}
+        print(f"cost: {COST_ROUNDS} rounds of phase 13's cut (attempt {attempt}); kernel "
+              f"calls counted {counted}, launch counters { {k: launches[k] for k in profiled} }"
+              f", profiler kernels {profiled}, expected {want}")
+        check(counted == want and {k: launches[k] for k in profiled} == want,
+              f"cost: kernel calls {counted} / launches {launches} against {want}")
+        if profiled == want:
+            break
+        # CUPTI drops events from some traces (PR 20): trace the rounds again.
+    check(profiled == want, f"cost: the profiler's kernels {profiled} against {want} in "
+                            f"each of {PROFILE_ATTEMPTS} traces")
+    # 6 N D (N the model's parameters, D the round's tokens), the remat
+    # forward of the blocks (2 N_blocks D), and the attention products the
+    # kernel formulas count (forward twice, backward once).
+    N = lm.param_count(cfg)
+    n_blocks = sum(t.numel() for t in torch.utils._pytree.tree_leaves(
+        lm.init_params(cfg, device="meta")["blocks"]))
+    D = TRAIN_WORKERS * TRAIN_BATCH * TRAIN_SEQ
+    mb = TRAIN_BATCH // min(cfg.microbatches, TRAIN_BATCH)
+    attn_f, _ = attention_work(mb, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                               True, 2)
+    calls_fwd = want["flash_attention"] // COST_ROUNDS
+    analytic = 6 * N * D + 2 * n_blocks * D + attn_f * (calls_fwd + calls_fwd // 2 * 10 / 4)
+    per_round = {"flops": rep.flops / COST_ROUNDS, "bytes": rep.bytes_accessed / COST_ROUNDS}
+    compute_ms = per_round["flops"] / PEAK_FLOPS * 1e3
+    memory_ms = per_round["bytes"] / HBM_BW * 1e3
+    print(f"cost: {per_round['flops']:.4g} FLOPs a round counted against {analytic:.4g} "
+          f"analytic (6 N D = {6 * N * D:.4g}, N = {N}, D = {D} tokens; remat forward "
+          f"{2 * n_blocks * D:.4g}; attention products); {per_round['bytes']:.4g} bytes a "
+          f"round; compute term {compute_ms:.2f} ms, memory term {memory_ms:.2f} ms at "
+          f"{PEAK_FLOPS:.3g} FLOP/s and {HBM_BW:.3g} B/s, against a measured round of "
+          f"{round_s * 1e3:.1f} ms without the counter ({card}); peak of live bytes "
+          f"counted {cc.peak_bytes / 1e9:.2f} GB")
+    check(0.8 <= per_round["flops"] / analytic <= 1.5,
+          f"cost: counted FLOPs {per_round['flops']:.4g} far from the analytic {analytic:.4g}")
+    del loop, prof
+    torch.cuda.empty_cache()
+    return {"round_ms": round_s * 1e3, "kernel_calls": counted, "launches": launches,
+            "profiled_kernels": profiled, "flops_per_round": per_round["flops"],
+            "bytes_per_round": per_round["bytes"], "analytic_flops": analytic,
+            "compute_ms": compute_ms, "memory_ms": memory_ms,
+            "peak_live_bytes": cc.peak_bytes}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4081,6 +4229,7 @@ def main() -> int:
         with nccl_group(torch):
             sharded = {"train": phase_sharded_train(torch, card),
                        "main": phase_sharded_main(torch, card)}
+        analysis = {"dryrun": phase_dryrun(card), "cost": phase_cost(torch, card)}
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4135,7 +4284,8 @@ def main() -> int:
              "ssm_path": ssm_path, "train_path": train_path,
              "ssm_train_path": ssm_train_path,
              "network_dynamics": dynamics, "families": families,
-             "family_train": family_train, "sharded": sharded},
+             "family_train": family_train, "sharded": sharded,
+             "analysis": analysis},
             indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

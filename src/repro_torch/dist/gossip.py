@@ -69,19 +69,15 @@ def pull_ppermute(params, perm, mesh, worker_axes, specs=None):
     """Point-to-point pull: worker block i receives block perm[i].
 
     ``perm``: one source block a worker block of the mesh (its length is
-    the number of worker ranks).  ``specs``: the params' partition specs;
-    only the leading worker dim may be sharded (tensor-parallel leaves are
-    ROADMAP A7).  With no worker axis in the mesh this is ``pull_gather``.
+    the number of worker ranks).  A leaf split over 'model' too sends this
+    rank's slice to the ranks of the same 'model' coordinate
+    (``dist.sharding.worker_ranks``).  ``specs`` (the params' partition
+    specs) is accepted for the JAX signature and not needed.  With no
+    worker axis in the mesh this is ``pull_gather``.
     """
     shard = None if mesh is None else worker_shard(mesh, worker_axes, len(perm))
     if shard is None:
         return pull_gather(params, perm)
-    if specs is not None:
-        for spec in tree_flatten(specs)[0]:
-            if any(e is not None for e in tuple(spec)[1:]):
-                raise NotImplementedError(
-                    f"pull_ppermute of a leaf split past its worker dim ({spec}): "
-                    "tensor-parallel leaves are not ported (ROADMAP A7)")
     import torch.distributed as dist
 
     n, me = len(shard.ranks), shard.block

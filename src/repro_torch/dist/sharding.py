@@ -11,7 +11,9 @@ worker dim and keeps TP only.  A mesh here is a ``DeviceMesh``, a
 Specs are ``PartitionSpec``s, one entry a tensor dim: ``None``
 (replicated), an axis name, or a tuple of names; they compare equal to the
 JAX package's ``jax.sharding.PartitionSpec`` entry by entry.
-``placements`` turns one into DTensor placements on a ``DeviceMesh``.
+``placements`` turns one into DTensor placements on a ``DeviceMesh``,
+``distribute`` a tree of local shards into DTensors, ``local_shape`` and
+``local_meta`` give a rank's shard shapes (the dry-run's inputs).
 
 Where the worker rows lie, seen from one rank: ``worker_rows`` (the rows
 of the stacked axis a rank holds), ``worker_ranks`` (the ranks holding
@@ -175,6 +177,85 @@ def placements(spec, mesh) -> list:
         for p in pos:
             out[p] = Shard(d)
     return out
+
+
+def spec_on(spec, mesh) -> PartitionSpec:
+    """``spec`` restricted to ``mesh``'s dims: names of other mesh dims are
+    dropped (a worker axis, seen from the 'model' sub-mesh)."""
+    names = set(mesh_shape(mesh))
+
+    def keep(entry):
+        if entry is None:
+            return None
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        return tuple(a for a in axes if a in names)
+
+    return P(*(keep(e) for e in spec))
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """A rank's shard of a tensor of global ``shape``: each dim divided by
+    the sizes of the mesh dims its spec entry names (even splits only)."""
+    sizes = mesh_shape(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for ax in (entry,) if isinstance(entry, str) else entry:
+            n = int(sizes.get(ax, 1))
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split evenly over "
+                                 f"{ax!r} ({n}); spec {spec}")
+            out[d] //= n
+    return tuple(out)
+
+
+def local_meta(tree, specs, mesh):
+    """``meta`` tensors of each leaf's local shape: a rank's shards of a tree
+    of (global) tensors, allocating nothing."""
+    return tree_map(lambda leaf, spec: torch.empty(local_shape(leaf.shape, spec, mesh),
+                                                   dtype=leaf.dtype, device="meta"),
+                    tree, specs)
+
+
+def local_slices(shape, spec, mesh, skip=()) -> tuple:
+    """The slices of a tensor of global ``shape`` that this rank holds on the
+    ``DeviceMesh`` ``mesh``: each dim cut at the rank's coordinates on the
+    mesh dims its spec entry names (a dim over several, flattened in mesh
+    order), except the names in ``skip``."""
+    names = list(mesh_shape(mesh))
+    out = []
+    for d, size in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        axes = [a for a in names if a in axes and a not in skip]
+        n, index = 1, 0
+        for a in axes:
+            k = int(mesh_shape(mesh)[a])
+            n, index = n * k, index * k + mesh.get_local_rank(a)
+        per = size // n
+        out.append(slice(index * per, (index + 1) * per))
+    return tuple(out)
+
+
+def local_part(tree, specs, mesh, skip=()):
+    """This rank's part of each leaf of a tree held whole along the mesh
+    dims the specs name (``local_slices``), as contiguous copies."""
+    return tree_map(lambda x, spec: x[local_slices(x.shape, spec, mesh, skip)].contiguous(),
+                    tree, specs)
+
+
+def distribute(tree, specs, mesh):
+    """DTensors on the ``DeviceMesh`` ``mesh`` from this rank's local shards
+    (on any device, ``meta`` too), placed by ``placements`` of each spec
+    restricted to the mesh (``spec_on``); no data moves."""
+    from torch.distributed.tensor import DTensor
+
+    def leaf(x, spec):
+        return DTensor.from_local(x, mesh, placements(spec_on(spec, mesh), mesh),
+                                  run_check=False)
+
+    return tree_map(leaf, tree, specs)
 
 
 def _rank_grid(mesh) -> np.ndarray:

@@ -1,0 +1,368 @@
+"""Multi-pod dry-run of the port: trace every (arch x shape x mesh) cell per rank.
+
+The port of ``repro/launch/dryrun.py``.  No machine here has 256 cards, so
+a cell runs as rank 0 of a *fake* process group (torch's
+``FakeProcessGroup``: every collective returns at once and moves nothing)
+of 256 or 512 ranks, on ``meta`` tensors (shapes and dtypes, no storage).
+For each cell this driver:
+
+  1. joins the fake group and builds the production mesh on it
+     (``launch.mesh.PRODUCTION_SHAPE``: 16x16 single-pod, 2x16x16
+     multi-pod), typed ``cuda`` so that DTensor picks the collectives NCCL
+     would run (on a ``cpu`` mesh it would stand an all-gather and a chunk
+     in for each all-to-all); a serving cell runs on its (data, model)
+     sub-mesh, since serving replicates over 'pod';
+  2. resolves the sharding plan (worker axes / TP -- ``dist.sharding``);
+  3. runs the program once on rank 0's shards of ``launch.specs``' inputs
+     (``dist.sharding.local_meta``): the training step
+     (``train.trainer.make_train_step`` with the plan's specs: a worker's
+     loss and grads as DTensors over 'model', the pulls and means over the
+     worker ranks), or the serving prefill / decode step on DTensors over
+     the whole mesh; every kernel takes its ``meta`` route
+     (``kernels/ops.py``);
+  4. counts it with ``analysis.cost.CostCounter``: per-rank FLOPs, bytes,
+     collective bytes by kind, kernel calls, and the live-bytes peak that
+     stands in for XLA's ``memory_analysis()``;
+  5. appends a JSON record under ``artifacts/dryrun_torch/`` (never
+     ``artifacts/dryrun/``, the JAX sweep's).
+
+The record keeps the JAX record's key names (``hlo_flops_per_device`` and
+so on), so ``analysis.roofline.from_record`` reads both; ``t_trace_s``
+stands where the JAX record has its lower and compile times.  A decode
+step runs at position ``seq_len - 1`` (a Python int: the port's decode
+writes the cache in place at a host position).
+
+Usage (the CPU is enough):
+  python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
+  python -m repro_torch.launch.dryrun --all [--multi-pod] [--gossip ppermute]
+"""
+
+from __future__ import annotations
+
+import argparse
+import gzip
+import json
+import time
+import traceback
+from contextlib import contextmanager
+from dataclasses import asdict, replace
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.analysis.cost import CostCounter, CostReport, OpRecord
+from repro_torch.configs.base import SHAPES, all_archs
+from repro_torch.dist import sharding as shd
+from repro_torch.launch import specs as sp
+from repro_torch.launch.mesh import PRODUCTION_SHAPE, mesh_shape
+from repro_torch.models import lm
+from repro_torch.optim import sgd
+from repro_torch.tree import tree_leaves, tree_map
+
+ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
+#: Backends of the fake group, by device type (meta too: point-to-point
+#: pulls send meta tensors).
+FAKE_BACKEND = "cpu:fake,cuda:fake,meta:fake"
+
+
+@contextmanager
+def fake_group(world: int):
+    """A fake default process group of ``world`` ranks, this process rank 0,
+    for the duration of the block."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("the dry-run needs a process without a default group "
+                           "(run it in a subprocess)")
+    dist.init_process_group(FAKE_BACKEND, store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _opt_state_specs(opt_state, pspecs):
+    """Momentum trees mirror params; scalars replicate."""
+    return {k: pspecs if k in ("m", "v") else shd.P() for k in opt_state}
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def build_traced(cfg, shape_name, mesh, gossip_mode="ppermute"):
+    """Returns (run, meta) for one cell: ``run()`` executes the program once
+    on meta shards and returns (argument bytes, outputs).  The counterpart
+    of the JAX ``build_lowered``."""
+    shape = SHAPES[shape_name]
+    optimizer = sgd(momentum=0.9, weight_decay=1e-4)
+
+    if shape.kind == "train":
+        from repro_torch.train.trainer import TrainStepConfig, make_train_step
+
+        plan = shd.plan_for(cfg, mesh)
+        M = max(plan.n_workers, 1)
+        waxes = plan.worker_axes
+        inputs = sp.input_specs(cfg, shape_name, M, optimizer)
+        pspecs = shd.param_specs(cfg, inputs["params"], plan, stacked=True)
+        ospecs = _opt_state_specs(inputs["opt_state"], pspecs)
+        bspecs = shd.batch_specs(cfg, plan, shape, stacked=True)
+        mode = gossip_mode if M > 1 else "none"
+        perm = tuple((i + 1) % M for i in range(M)) if mode == "ppermute" else None
+        train_step = make_train_step(cfg, optimizer, M, TrainStepConfig(gossip_mode=mode),
+                                     mesh=mesh, worker_axes=waxes, param_specs=pspecs)
+        rng = np.random.default_rng(0)
+        gossip_in = {"neighbors": np.asarray(perm if perm else rng.permutation(M)),
+                     "weights": np.full((M,), 0.5, np.float32), "lr": 0.1}
+
+        def run():
+            params = shd.local_meta(inputs["params"], pspecs, mesh)
+            opt_state = shd.local_meta(inputs["opt_state"], ospecs, mesh)
+            batch = shd.local_meta(inputs["batch"], bspecs, mesh)
+            args = _nbytes((params, opt_state, batch))
+            out = train_step(params, opt_state, batch, gossip_in, perm=perm)
+            return args, out
+
+        return run, dict(M=M, mode=mode, program="train_step")
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    # Serving replicates over 'pod': its cells run on the (data, model)
+    # sub-mesh, the same program a rank runs (DTensor's propagation over
+    # three mesh dims takes minutes an op at these widths).
+    if "pod" in mesh.mesh_dim_names:
+        mesh = mesh[tuple(n for n in mesh.mesh_dim_names if n != "pod")]
+    plan = shd.plan_for(cfg, mesh, serve=True)
+    inputs = sp.input_specs(cfg, shape_name, 1, optimizer)
+    pspecs = shd.param_specs(cfg, inputs["params"], plan, stacked=False)
+
+    def dtensors(tree, specs):
+        return shd.distribute(shd.local_meta(tree, specs, mesh), specs, mesh)
+
+    if shape.kind == "prefill":
+        bspecs = shd.prefill_batch_specs(cfg, plan, inputs["batch"])
+
+        def run():
+            params = dtensors(inputs["params"], pspecs)
+            batch = dtensors(inputs["batch"], bspecs)
+            args = _nbytes(tree_map(lambda t: t.to_local(), (params, batch)))
+            with torch.no_grad(), implicit_replication():
+                return args, lm.prefill_logits(params, batch, cfg)
+
+        return run, dict(M=1, mode="serve", program="serve_prefill")
+
+    cspecs = shd.cache_specs(cfg, inputs["cache"], plan, shape.global_batch)
+    tspec = shd.serve_batch_spec(plan, shape.global_batch)
+
+    def run():
+        params = dtensors(inputs["params"], pspecs)
+        cache = dtensors(inputs["cache"], cspecs)
+        token = dtensors(inputs["token"], tspec)
+        args = _nbytes(tree_map(lambda t: t.to_local(), (params, cache, token)))
+        with torch.no_grad(), implicit_replication():
+            return args, lm.decode_step(params, cache, token, shape.seq_len - 1, cfg)[0]
+
+    return run, dict(M=1, mode="serve", program="serve_step")
+
+
+def apply_opt_flags(cfg, opt: str):
+    """Perf hillclimb variants, applied on top of the baseline config.
+
+    noselect  -- the JAX package drops the redundant causal carry select of
+                 its chunked attention scan; the port's attention is the
+                 flash kernel, which has no such select, so this flag is
+                 accepted and switches nothing
+    padheads  -- zero-init inert heads to the next TP multiple (unlocks head
+                 sharding for archs with H % 16 != 0: llama4/starcoder/
+                 internvl/whisper)
+    dpworkers -- enumerate workers over ALL mesh axes (pure NetMax-DP,
+                 TP=1): no TP activation collectives, at the cost of a
+                 whole replica per rank
+    nogossip  -- ablation: local SGD only (``run_cell`` runs the step with
+                 gossip mode "none")
+    """
+    for flag in filter(None, opt.split(",")):
+        if flag in ("noselect", "nogossip"):
+            pass
+        elif flag == "dpworkers":
+            cfg = replace(cfg, worker_axes=("pod", "data", "model"))
+        elif flag == "padheads":
+            tp = 16
+            He = -(-cfg.n_heads // tp) * tp  # next multiple of tp
+            if (He - cfg.n_heads) % cfg.n_kv_heads == 0:
+                cfg = replace(cfg, pad_heads=He - cfg.n_heads)
+            else:
+                # MHA-style: pad q and kv together (whisper 12 -> 16).
+                pkv = (-cfg.n_kv_heads) % tp
+                g = cfg.n_heads // cfg.n_kv_heads
+                cfg = replace(cfg, pad_heads=pkv * g, pad_kv_heads=pkv)
+        else:
+            raise ValueError(f"unknown opt flag {flag!r}")
+    return cfg
+
+
+def _ops_path(mesh_name, arch, shape_name, opt) -> Path:
+    suffix = f"_{opt.replace(',', '+')}" if opt else ""
+    return ARTIFACTS / f"{mesh_name}_{arch}_{shape_name}{suffix}.ops.jsonl.gz"
+
+
+def _cost_fields(rep: CostReport) -> dict:
+    return dict(hlo_flops_per_device=rep.flops, hlo_bytes_per_device=rep.bytes_accessed,
+                collective_bytes_per_device=dict(rep.collective_bytes),
+                collective_count=dict(rep.collective_count),
+                kernel_calls=dict(rep.kernel_calls))
+
+
+def run_cell(arch, shape_name, multi_pod, gossip_mode="ppermute", save_ops=False,
+             quiet=False, opt="", cfg=None, mesh_spec=None):
+    """One cell's record.  ``cfg`` overrides the registered config (a
+    reduced one in tests) and ``mesh_spec`` the production mesh's
+    ``(sizes, names)`` (a small fake group)."""
+    cfg = all_archs()[arch] if cfg is None else cfg
+    if opt:
+        cfg = apply_opt_flags(cfg, opt)
+    if "nogossip" in opt.split(","):
+        gossip_mode = "none"
+    shape = SHAPES[shape_name]
+    sizes, names = mesh_spec or PRODUCTION_SHAPE[bool(multi_pod)]
+    mesh_name = "x".join(str(n) for n in sizes)
+    rec = dict(arch=arch, shape=shape_name, mesh=mesh_name, gossip=gossip_mode, opt=opt,
+               ok=False, skipped=False)
+    if not cfg.supports(shape):
+        rec.update(skipped=True, reason="full-attention arch at 500k context (DESIGN.md §4)")
+        return rec
+    n_chips = int(np.prod(sizes))
+    t0 = time.time()
+    try:
+        with fake_group(n_chips):
+            # Typed cuda: DTensor then runs the all-to-all NCCL would.
+            mesh = init_device_mesh("cuda", tuple(sizes), mesh_dim_names=tuple(names))
+            run, meta = build_traced(cfg, shape_name, mesh, gossip_mode)
+            with CostCounter(log_ops=save_ops) as cc:
+                args, out = run()
+            out_bytes = _nbytes(out)
+            del out
+        t_trace = time.time() - t0
+        rep = cc.report
+        mem = dict(argument_size_in_bytes=args, output_size_in_bytes=out_bytes,
+                   temp_size_in_bytes=max(cc.peak_bytes - out_bytes, 0),
+                   peak_live_bytes=cc.peak_bytes)
+        rec.update(ok=True, torch=torch.__version__, chips=n_chips,
+                   mesh_axes=mesh_shape(mesh), M=meta["M"],
+                   program=meta["program"], t_trace_s=round(t_trace, 2),
+                   memory_analysis=mem, **_cost_fields(rep),
+                   params=lm.param_count(cfg), active_params=lm.active_param_count(cfg))
+        if save_ops:
+            ARTIFACTS.mkdir(parents=True, exist_ok=True)
+            with gzip.open(_ops_path(mesh_name, arch, shape_name, opt), "wt") as f:
+                for op in rep.ops:
+                    f.write(json.dumps(asdict(op)) + "\n")
+        if not quiet:
+            print(f"[{mesh_name}|{arch}|{shape_name}] OK trace={t_trace:.1f}s "
+                  f"flops/dev={rep.flops:.3e} bytes/dev={rep.bytes_accessed:.3e} "
+                  f"coll={rep.collective_bytes}")
+            print("  memory:", mem)
+            print("  kernel calls:", rep.kernel_calls)
+    except Exception as e:  # noqa: BLE001 -- a failed cell is a record
+        rec.update(error=f"{type(e).__name__}: {e}", traceback=traceback.format_exc()[-2000:])
+        if not quiet:
+            print(f"[{mesh_name}|{arch}|{shape_name}] FAIL: {type(e).__name__}: {e}")
+    return rec
+
+
+def report_from_ops(path) -> CostReport:
+    """A CostReport rebuilt from a saved op log."""
+    rep = CostReport()
+    with gzip.open(path, "rt") as f:
+        for line in f:
+            op = OpRecord(**json.loads(line))
+            rep.ops.append(op)
+            rep.flops += op.flops
+            rep.bytes_accessed += op.bytes
+            if op.collective:
+                rep.collective_bytes[op.collective] = (
+                    rep.collective_bytes.get(op.collective, 0.0) + op.collective_bytes)
+                if op.collective_bytes or not op.op.startswith("c10d.recv"):
+                    rep.collective_count[op.collective] = (
+                        rep.collective_count.get(op.collective, 0.0) + 1)
+            if op.op.startswith("kernel."):
+                name = op.op.removeprefix("kernel.")
+                rep.kernel_calls[name] = rep.kernel_calls.get(name, 0) + 1
+    return rep
+
+
+def reanalyze(records_path: str) -> None:
+    """Re-count saved op logs (``--save-ops``) into their records, no
+    re-trace."""
+    with open(records_path) as f:
+        recs = [json.loads(line) for line in f]
+    out = []
+    for rec in recs:
+        p = _ops_path(rec["mesh"], rec["arch"], rec["shape"], rec.get("opt", ""))
+        if rec.get("ok") and p.exists():
+            rep = report_from_ops(p)
+            rec.update(_cost_fields(rep))
+            print(f"reanalyzed {rec['mesh']}|{rec['arch']}|{rec['shape']}: "
+                  f"flops={rep.flops:.3e} bytes={rep.bytes_accessed:.3e}")
+        out.append(rec)
+    with open(records_path, "w") as f:
+        for rec in out:
+            f.write(json.dumps(rec) + "\n")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--gossip", default="ppermute",
+                    choices=["ppermute", "gather", "masked_psum", "none"])
+    ap.add_argument("--save-ops", action="store_true",
+                    help="write each cell's gzipped op log beside the records")
+    ap.add_argument("--reanalyze", metavar="RECORDS")
+    ap.add_argument("--opt", default="", help="comma-separated hillclimb flags")
+    ap.add_argument("--out", default=str(ARTIFACTS / "records.jsonl"),
+                    help="JSONL file the records are appended to")
+    args = ap.parse_args(argv)
+
+    if args.reanalyze:
+        reanalyze(args.reanalyze)
+        return 0
+
+    cells = []
+    archs = sorted(a for a in all_archs() if a != "netmax_paper")
+    if args.all:
+        for a in archs:
+            for s in SHAPES:
+                cells.append((a, s))
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch/--shape or --all")
+        cells.append((args.arch, args.shape))
+
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    records = []
+    for mp in meshes:
+        for a, s in cells:
+            rec = run_cell(a, s, mp, args.gossip, args.save_ops, opt=args.opt)
+            records.append(rec)
+            if args.out:
+                outp = Path(args.out)
+                outp.parent.mkdir(parents=True, exist_ok=True)
+                with open(outp, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+    n_ok = sum(r["ok"] for r in records)
+    n_skip = sum(r["skipped"] for r in records)
+    print(f"\ndry-run: {n_ok} ok, {n_skip} skipped, "
+          f"{len(records) - n_ok - n_skip} failed / {len(records)} cells")
+    return 0 if n_ok + n_skip == len(records) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

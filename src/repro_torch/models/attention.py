@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.modules import apply_rope, lecun_normal, matmul, promote
+from repro_torch.models.modules import (apply_rope, lecun_normal, matmul, promote,
+                                       split_dim, split_heads)
 
 NEG_INF = -1e30
 
@@ -79,9 +80,9 @@ def qkv_project(p, x, cfg, positions=None, rope=True):
     v = matmul(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, Hk, hd)
-    v = v.reshape(B, S, Hk, hd)
+    q = split_heads(q, H, hd)
+    k = split_heads(k, Hk, hd)
+    v = split_heads(v, Hk, hd)
     if rope:
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
@@ -95,14 +96,18 @@ def chunked_attention(q, k, v, *, causal=True, q_chunk=512, kv_chunk=1024):
 
     On CUDA: the flash-attention kernel (``ops.attention``), which tiles
     for itself, so the chunk sizes do not apply; operands of mixed dtypes
-    enter it in their common dtype and the output is q's.  On the CPU: the
-    JAX package's scan over KV chunks, transcribed (``_scan_attention``)."""
-    if q.device.type == "cuda":
+    enter it in their common dtype and the output is q's; on ``meta`` the
+    dry-run's route, likewise.  On the CPU: the JAX package's scan over KV
+    chunks, transcribed (``_scan_attention``), as ``ops.attention``'s plain
+    version.  DTensors go to ``ops.attention`` whole, which runs it on
+    their local shards."""
+    if q.device.type in ("cuda", "meta"):
         qc, kc, vc = (t.contiguous() for t in promote(q, k, v))
         return ops.attention(qc, kc, vc, causal=causal).to(q.dtype)
     if q.device.type != "cpu":
         raise ValueError(f"no attention path for device {q.device}")
-    return _scan_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return ops.attention(q, k, v, causal=causal, plain=lambda q, k, v, causal: _scan_attention(
+        q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk))
 
 
 def _scan_attention(q, k, v, *, causal, q_chunk, kv_chunk):
@@ -158,7 +163,7 @@ def decode_attention(q, k_cache, v_cache, length=None):
     B, _, H, hd = q.shape
     S, Hk = k_cache.shape[1], k_cache.shape[2]
     G = H // Hk
-    qg = q.reshape(B, Hk, G, hd)
+    qg = split_dim(q, 2, (Hk, G)).reshape(B, Hk, G, hd)
     # Scalars stay Python numbers: a tensor made from one on the card is a
     # host-to-device copy, which waits for the stream.
     s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) / math.sqrt(hd)
@@ -186,9 +191,9 @@ def cross_attn_apply(p, x, kv_src, cfg, q_chunk=512, kv_chunk=1024):
     B, S, _ = x.shape
     H, Hk, hd = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.hd
     Se = kv_src.shape[1]
-    q = matmul(x, p["wq"]).reshape(B, S, H, hd)
-    k = matmul(kv_src, p["wk"]).reshape(B, Se, Hk, hd)
-    v = matmul(kv_src, p["wv"]).reshape(B, Se, Hk, hd)
+    q = split_heads(matmul(x, p["wq"]), H, hd)
+    k = split_heads(matmul(kv_src, p["wk"]), Hk, hd)
+    v = split_heads(matmul(kv_src, p["wv"]), Hk, hd)
     o = chunked_attention(q, k, v, causal=False, q_chunk=q_chunk, kv_chunk=kv_chunk)
     return matmul(o.reshape(B, S, -1), p["wo"])
 
@@ -203,9 +208,9 @@ def decode_qkv(p, x, cfg, position):
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, 1, H, hd)
-    k = k.reshape(B, 1, Hk, hd)
-    v = v.reshape(B, 1, Hk, hd)
+    q = split_heads(q, H, hd)
+    k = split_heads(k, Hk, hd)
+    v = split_heads(v, Hk, hd)
     if isinstance(position, torch.Tensor) and position.ndim == 1:
         pos = position[:, None]
     else:  # a fill, not a host-to-device copy (which would wait for the stream)

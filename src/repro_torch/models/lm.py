@@ -34,11 +34,13 @@ def chunked_ce_loss(x, w_head, labels, mask=None, chunk: int = 512):
         xc = x[:, c0:c0 + chunk]
         lc = labels[:, c0:c0 + chunk].long()
         logits = (xc @ w_head).float()  # (B, chunk, V)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        # (B, chunk, 1) until the difference: a gather from a DTensor split
+        # over the vocab is a masked partial that reduces at that shape.
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+        gold = torch.gather(logits, -1, lc[..., None])
         mc = (torch.ones((B, chunk), dtype=torch.float32, device=x.device)
               if mask is None else mask[:, c0:c0 + chunk].float())
-        tot = tot + ((logz - gold) * mc).sum()
+        tot = tot + ((logz - gold)[..., 0] * mc).sum()
         cnt = cnt + mc.sum()
     return tot / torch.clamp(cnt, min=1.0)
 

@@ -149,6 +149,50 @@ def mlp(p, x, activation="swiglu"):
     return matmul(h, p["w_down"]) + p["b_down"]
 
 
+# -- reshapes of DTensors -----------------------------------------------------------
+
+
+def split_dim(x, dim: int, sizes: tuple):
+    """``x`` with dim ``dim`` split into ``sizes`` (a reshape).  A DTensor
+    split over that dim is first gathered on each mesh dim whose size does
+    not divide ``sizes[0]`` (DTensor cannot unflatten an uneven split, e.g.
+    12 heads over 16 ranks); a plain tensor is only reshaped."""
+    dim = dim % x.ndim
+    shape = tuple(x.shape[:dim]) + tuple(sizes) + tuple(x.shape[dim + 1:])
+    if hasattr(x, "placements"):
+        from torch.distributed.tensor import Replicate, Shard
+
+        fixed = [Replicate() if p == Shard(dim) and sizes[0] % n else p
+                 for p, n in zip(x.placements, x.device_mesh.shape)]
+        if fixed != list(x.placements):
+            x = x.redistribute(x.device_mesh, fixed)
+    return x.reshape(shape)
+
+
+def settle_partial(x):
+    """A DTensor with pending sums (``Partial``, from a product whose
+    contracted dim is split) summed now: scattered over its last dim where
+    that dim divides the mesh dim, else replicated.  Some torch releases
+    cannot add such a tensor to a split one (they would have to turn the
+    split operand into a partial).  A plain tensor is returned as it is."""
+    if not hasattr(x, "placements"):
+        return x
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    last = x.ndim - 1
+    fixed = [(Shard(last) if x.shape[last] % n == 0 else Replicate())
+             if isinstance(p, Partial) else p
+             for p, n in zip(x.placements, x.device_mesh.shape)]
+    if fixed == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, fixed)
+
+
+def split_heads(x, heads: int, hd: int):
+    """(..., heads * hd) -> (..., heads, hd), through ``split_dim``."""
+    return split_dim(x, -1, (heads, hd))
+
+
 # -- embeddings -----------------------------------------------------------------
 
 

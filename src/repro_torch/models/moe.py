@@ -65,6 +65,12 @@ def moe_apply(p, x, cfg):
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     probs, expert_idx, gate_vals, pos, C = route(p, x, cfg)
 
+    if hasattr(x, "placements"):  # DTensors: dispatch and combine per batch shard
+        local, wrap = _batch_local(x)
+        x, expert_idx, gate_vals, pos = (local(t) for t in (x, expert_idx, gate_vals, pos))
+        B = x.shape[0]
+    else:
+        wrap = None
     # Scatter tokens into (B, E, C+1, D); slot C collects the drops.
     e_flat = expert_idx.reshape(B, S * K)
     pos_flat = pos.reshape(B, S * K)
@@ -81,22 +87,60 @@ def moe_apply(p, x, cfg):
     buf = buf[:, :, :C]
 
     # Expert FFN: (B,E,C,D) x (E,D,F).
-    h = torch.einsum("becd,edf->becf", buf, p["w_gate"])
-    u = torch.einsum("becd,edf->becf", buf, p["w_up"])
-    h = F.silu(h.float()).to(x.dtype) * u
-    out = torch.einsum("becf,efd->becd", h, p["w_down"])  # (B,E,C,D)
+    if wrap is None:
+        h = torch.einsum("becd,edf->becf", buf, p["w_gate"])
+        u = torch.einsum("becd,edf->becf", buf, p["w_up"])
+        h = F.silu(h.float()).to(x.dtype) * u
+        out = torch.einsum("becf,efd->becd", h, p["w_down"])  # (B,E,C,D)
+    else:
+        out = local(_experts_bmm(p, wrap(buf), x.dtype))
 
     # Gather back and combine with the gates in f32.
     out_pad = torch.cat([out, torch.zeros((B, E, 1, D), dtype=out.dtype,
                                           device=out.device)], dim=2)
     picked = out_pad[b_idx, e_flat, pos_flat].reshape(B, S, K, D)
     y = (picked.float() * gate_vals[..., None]).sum(dim=2).to(x.dtype)
+    if wrap is not None:
+        y = wrap(y)
 
     # Switch-style load-balance loss: E * sum_e f_e * P_e.
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(expert_idx, E).sum(2).float().mean(dim=(0, 1)) / K
     aux = E * torch.sum(me * ce)
     return y, aux
+
+
+def _experts_bmm(p, buf, dtype):
+    """The expert FFN of DTensors as batched products over contiguous
+    (E, B*C, .) operands: DTensor's einsum decomposition views a permuted
+    local gradient in its backward, which torch refuses."""
+    B, E, C, D = buf.shape
+    be = buf.permute(1, 0, 2, 3).contiguous().reshape(E, B * C, D)
+    h = torch.bmm(be, p["w_gate"])
+    u = torch.bmm(be, p["w_up"])
+    h = F.silu(h.float()).to(dtype) * u
+    out = torch.bmm(h, p["w_down"])  # (E, B*C, D)
+    return out.reshape(E, B, C, D).permute(1, 0, 2, 3)
+
+
+def _batch_local(x):
+    """(local, wrap) for a DTensor x (B, S, D): ``local(t)`` is this rank's
+    batch shard of t, whole on every other dim (t gathered where it is
+    split past the batch); ``wrap`` makes a batch shard a DTensor again.
+    The scatter and gather of the dispatch (``index_put_``, advanced
+    indexing) have no DTensor rule; per batch shard they are the plain ops."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    batch = [Shard(0) if p == Shard(0) else Replicate() for p in x.placements]
+
+    def local(t):
+        return t.redistribute(mesh, batch).to_local()
+
+    def wrap(t):
+        return DTensor.from_local(t, mesh, batch, run_check=False)
+
+    return local, wrap
 
 
 def moe_param_count(cfg) -> tuple[int, int]:

@@ -11,8 +11,9 @@ the state are f32, r/k/v enter the recurrence in f32 (on the card the
 kernel widens bf16 projections itself), the gate is computed in f32.  The recurrence runs
 where the JAX package's scan would, by device: on a CUDA tensor a prefill
 (S > 1) goes through the hand-written chunked kernel (``ops.rwkv``, which
-also returns the final state), a decode step (S == 1) takes one plain step
-of the scan; on the CPU the transcribed ``chunked_scan`` runs.  Under
+also returns the final state; on ``meta``, the dry-run's route), a decode
+step (S == 1) takes one plain step of the scan; on the CPU the transcribed
+``chunked_scan`` runs, as ``ops.rwkv``'s plain version.  Under
 autograd (training) the CUDA call is the same: ``ops.rwkv`` then goes
 through the kernel's autograd Function, whose backward is the WKV backward
 kernel; with remat (``transformer.forward``'s non-reentrant checkpoint) the
@@ -26,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.modules import _device, _normal, lecun_normal, rmsnorm, rmsnorm_init
+from repro_torch.models.modules import (_device, _normal, lecun_normal, rmsnorm, rmsnorm_init,
+                                       settle_partial, split_heads)
 from repro_torch.models.scan_utils import check_chunk, chunked_scan
 
 #: Time chunk of the scan (``repro/models/rwkv.py``'s ``chunked_scan(..., chunk=64)``).
@@ -76,10 +78,22 @@ def _wkv_step(u):
     def step(st, inp):
         rt, kt, vt, wt = inp  # (B,H,N) each
         kv = kt[..., :, None] * vt[..., None, :]  # (B,H,N,N)
-        y = torch.einsum("bhn,bhnm->bhm", rt, st + u[None, :, :, None] * kv)
+        if hasattr(rt, "placements"):
+            # DTensors split over b and h: the einsum's batched product would
+            # flatten two split dims, which some torch releases refuse.
+            y = (rt[..., :, None] * (st + u[None, :, :, None] * kv)).sum(-2)
+        else:
+            y = torch.einsum("bhn,bhnm->bhm", rt, st + u[None, :, :, None] * kv)
         return wt[..., :, None] * st + kv, y
 
     return step
+
+
+def _plain_wkv(r, k, v, w, u, state):
+    """The JAX model's scan, transcribed: (y (B,S,H,N) f32, final state)."""
+    xs_t = tuple(t.float().movedim(1, 0) for t in (r, k, v, w))  # (S,B,H,N)
+    state, ys = chunked_scan(_wkv_step(u), state, xs_t, chunk=CHUNK)
+    return ys.movedim(0, 1), state
 
 
 def timemix_apply(p, x, cfg, state=None, x_prev=None):
@@ -99,25 +113,25 @@ def timemix_apply(p, x, cfg, state=None, x_prev=None):
     xg = x + (xs - x) * p["mu_g"]
     xw = x + (xs - x) * p["mu_w"]
 
-    r = (xr @ p["wr"]).reshape(B, S, H, N)
-    k = (xk @ p["wk"]).reshape(B, S, H, N)
-    v = (xv @ p["wv"]).reshape(B, S, H, N)
+    r = split_heads(xr @ p["wr"], H, N)
+    k = split_heads(xk @ p["wk"], H, N)
+    v = split_heads(xv @ p["wv"], H, N)
     g = F.silu((xg @ p["wg"]).float())
     # data-dependent decay in (0,1): w = exp(-exp(w0 + lora))
-    lora = (xw @ p["wA"]) @ p["wB"]
-    w = torch.exp(-torch.exp(p["w0"] + lora.float())).reshape(B, S, H, N)
+    lora = settle_partial((xw @ p["wA"]) @ p["wB"])
+    w = split_heads(torch.exp(-torch.exp(p["w0"] + lora.float())), H, N)
     u = p["u"]  # (H,N)
 
-    if x.device.type == "cuda" and S > 1:
+    if x.device.type in ("cuda", "meta") and S > 1:
         # r/k/v in x's dtype: the kernel widens bf16 to f32 exactly and rounds
         # y to bf16 as ``y.to(x.dtype)`` below would, so this is the same
         # function as on the f32 projections, without three casts.
         check_chunk(S, CHUNK)
         y, state = ops.rwkv(r, k, v, w, u, chunk=CHUNK, state=state)
+    elif S > 1:
+        y, state = ops.rwkv(r, k, v, w, u, chunk=CHUNK, state=state, plain=_plain_wkv)
     else:
-        xs_t = tuple(t.float().movedim(1, 0) for t in (r, k, v, w))  # (S,B,H,N)
-        state, ys = chunked_scan(_wkv_step(u), state, xs_t, chunk=CHUNK)
-        y = ys.movedim(0, 1)
+        y, state = _plain_wkv(r, k, v, w, u, state)
     y = y.reshape(B, S, D)
     y = rmsnorm(p["ln_x"], y.to(x.dtype))
     y = (y.float() * g).to(x.dtype)

@@ -11,6 +11,8 @@ the trainer's gradient accumulation over micro-batches.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 
 from repro_torch.tree import tree_leaves, tree_map
@@ -22,11 +24,53 @@ def check_chunk(S: int, chunk: int) -> None:
         raise ValueError(f"seq {S} not divisible by chunk {chunk}")
 
 
+def _counted(how: str, *args):
+    """The running cost counter's ``repeat(n)`` or ``quiet()``, if one runs."""
+    from repro_torch.kernels import ops
+
+    return nullcontext() if ops.COST_HOOK is None else getattr(ops.COST_HOOK, how)(*args)
+
+
+class _MetaScanFn(torch.autograd.Function):
+    """A scan of S steps on ``meta``: one step, forward and backward, counted
+    S times by a running cost counter (the backward's recompute of the step
+    not at all); ys is that step's y copied S times.
+    (Tensors the step closes over get no gradient here; on meta there are
+    no values to lose.)"""
+
+    @staticmethod
+    def forward(ctx, step_fn, S, init, *x0):
+        ctx.step_fn, ctx.S = step_fn, S
+        ctx.save_for_backward(init, *x0)
+        with _counted("repeat", S):
+            carry, y = step_fn(init, x0)
+        return carry, y.unsqueeze(0).expand((S,) + tuple(y.shape)).contiguous()
+
+    @staticmethod
+    def backward(ctx, dcarry, dys):
+        needs = ctx.needs_input_grad[2:]
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            with _counted("quiet"):  # the recompute only rebuilds the graph
+                carry, y = ctx.step_fn(inputs[0], tuple(inputs[1:]))
+            pairs = [(o, d) for o, d in ((carry, dcarry), (y, None if dys is None else dys[0]))
+                     if d is not None and o.requires_grad]
+            wrt = [t for t in inputs if t.requires_grad]
+            with _counted("repeat", ctx.S):
+                grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                                 [d for _, d in pairs], allow_unused=True)
+                             if pairs and wrt else [None] * len(wrt))
+        return (None, None) + tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
 def chunked_scan(step_fn, init, xs, chunk: int = 64):
     """Like ``lax.scan(step_fn, init, xs)``: xs is a tuple of (S, ...)
-    tensors; returns (final carry, ys stacked (S, ...))."""
+    tensors; returns (final carry, ys stacked (S, ...)).  On ``meta``
+    (the dry-run) one step stands for all S (``_MetaScanFn``)."""
     S = xs[0].shape[0]
     check_chunk(S, chunk)
+    if xs[0].device.type == "meta" and S > 1:
+        return _MetaScanFn.apply(step_fn, S, init, *(x[0] for x in xs))
     carry, ys = init, []
     for t in range(S):
         carry, y = step_fn(carry, tuple(x[t] for x in xs))

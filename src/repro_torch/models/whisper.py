@@ -38,6 +38,7 @@ from repro_torch.models.modules import (
     mlp_init,
     pick_chunk,
     sinusoidal_positions,
+    split_heads,
 )
 from repro_torch.models.transformer import _dt, _dus_seq, _layer, _stack
 
@@ -164,14 +165,14 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig):
         blk, c = _layer(params["dec_blocks"], i), _layer(cache, i)
         h = layernorm(blk["ln1"], x)
         sa = blk["self_attn"]
-        q = (h @ sa["wq"]).reshape(B, 1, H, hd)
-        _dus_seq(c["k"], (h @ sa["wk"]).reshape(B, 1, Hk, hd), pos)
-        _dus_seq(c["v"], (h @ sa["wv"]).reshape(B, 1, Hk, hd), pos)
+        q = split_heads(h @ sa["wq"], H, hd)
+        _dus_seq(c["k"], split_heads(h @ sa["wk"], Hk, hd), pos)
+        _dus_seq(c["v"], split_heads(h @ sa["wv"], Hk, hd), pos)
         o = attn.decode_attention(q, c["k"], c["v"], length=pos + 1)
         x = x + o.reshape(B, 1, -1) @ sa["wo"]
         # cross attention against the cache's encoder K/V
         h = layernorm(blk["ln_x"], x)
-        q = (h @ blk["cross_attn"]["wq"]).reshape(B, 1, H, hd)
+        q = split_heads(h @ blk["cross_attn"]["wq"], H, hd)
         o = attn.decode_attention(q, c["xk"], c["xv"])
         x = x + o.reshape(B, 1, -1) @ blk["cross_attn"]["wo"]
         x = x + mlp(blk["mlp"], layernorm(blk["ln2"], x), "gelu")

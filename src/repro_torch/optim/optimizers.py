@@ -104,20 +104,36 @@ def adamw(
     return Optimizer(init, update)
 
 
-def global_norm(tree, reduce=None) -> torch.Tensor:
+def global_norm(tree, reduce=None, split=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in tree order) of each leaf's f32 sum of
     squares.  ``reduce`` sums that f32 total across ranks (in place) when a
     tree holds one rank's rows of stacked leaves
-    (``dist.sharding.WorkerShard.sum``)."""
-    sq = sum(torch.sum(leaf.float() ** 2) for leaf in tree_leaves(tree))
+    (``dist.sharding.WorkerShard.sum``).  ``split``: (one flag a leaf, fn)
+    when flagged leaves hold one rank's slice of a tensor-parallel leaf:
+    their squares are summed across that group by ``fn`` first (the others
+    are whole on every rank of it)."""
+    leaves = tree_leaves(tree)
+    if split is None:
+        sq = sum(torch.sum(leaf.float() ** 2) for leaf in leaves)
+    else:
+        flags, split_sum = split
+        parts = [torch.sum(leaf.float() ** 2) for leaf in leaves]
+        sliced = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for part, flag in zip(parts, flags):
+            if flag:
+                sliced = sliced + part
+        sq = split_sum(sliced)
+        for part, flag in zip(parts, flags):
+            if not flag:
+                sq = sq + part
     if reduce is not None:
         sq = reduce(sq)
     return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads, max_norm: float, reduce=None):
-    """(grads scaled by min(1, max_norm / norm), the norm); ``reduce`` as in
-    ``global_norm``."""
-    n = global_norm(grads, reduce)
+def clip_by_global_norm(grads, max_norm: float, reduce=None, split=None):
+    """(grads scaled by min(1, max_norm / norm), the norm); ``reduce`` and
+    ``split`` as in ``global_norm``."""
+    n = global_norm(grads, reduce, split)
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), n

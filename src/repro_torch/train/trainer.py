@@ -43,7 +43,9 @@ what spans the worker axis (the clip's norm, the strategy's grad
 reduction, the pull, the mean loss) is a collective over the worker ranks
 (``dist.sharding.WorkerShard``); held to the JAX trainer in gloo groups of
 2, 4 and 8 ranks in ``tests/test_torch_dist.py``.  Tensor-parallel leaves
-(a trailing dim on 'model') are refused (ROADMAP A7).
+(a trailing dim on 'model') run each worker's loss and grads as DTensors
+over the 'model' sub-mesh (``TensorParallel``); the rest of the step acts on
+the local shards.
 The legacy ``TrainStepConfig`` flags (``allreduce``, ``prague_groups``)
 still select a strategy, with the JAX package's ``DeprecationWarning``s.
 """
@@ -51,6 +53,7 @@ still select a strategy, with the JAX package's ``DeprecationWarning``s.
 from __future__ import annotations
 
 import warnings
+from contextlib import nullcontext
 from dataclasses import dataclass
 
 import torch
@@ -59,7 +62,9 @@ from repro_torch.algos import Algorithm, get_algorithm
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.dist import gossip
-from repro_torch.dist.sharding import worker_rows, worker_shard
+from repro_torch.dist.sharding import (P, distribute, local_part, spec_on, worker_rows,
+                                       worker_shard)
+from repro_torch.launch.mesh import mesh_shape, worker_axis_names
 from repro_torch.kernels import ops as kops
 from repro_torch.models import lm
 from repro_torch.models.scan_utils import microbatch_scan
@@ -114,14 +119,56 @@ def _as_tensor(x, dtype, device):
     return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
-def _check_worker_specs(param_specs):
-    """Only the leading worker dim of a leaf may be split: the JAX package
-    only lowers tensor-parallel compute (launch/dryrun.py), never runs it."""
+def _model_axes(mesh, worker_axes, param_specs) -> tuple:
+    """The mesh dims (in mesh order) that specs name past the worker dim,
+    worker axes excepted: 'model' in every plan."""
+    waxes = set(worker_axis_names(mesh, worker_axes))
+    used = set()
     for spec in tree_leaves(param_specs):
-        if any(e is not None for e in tuple(spec)[1:]):
-            raise NotImplementedError(
-                f"param spec {spec} splits a leaf past its worker dim: "
-                "tensor-parallel training is not ported (ROADMAP A7)")
+        for entry in tuple(spec)[1:]:
+            if entry is not None:
+                used.update((entry,) if isinstance(entry, str) else entry)
+    return tuple(n for n in mesh_shape(mesh) if n in used and n not in waxes)
+
+
+class TensorParallel:
+    """The tensor-parallel part of a plan: the sub-mesh of the mesh dims
+    that param specs name past the worker dim (``'model'``), and per leaf
+    its spec with the worker dim dropped and whether it is split there.  A
+    worker's rows run as DTensors on that sub-mesh (``wrap``); the rest of
+    the step acts on the local shards."""
+
+    def __init__(self, mesh, axes, param_specs):
+        self.mesh = mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten()
+        self.specs = tree_map(lambda spec: spec_on(P(None, *tuple(spec)[1:]), self.mesh),
+                              param_specs)
+        self.split = [any(e is not None for e in spec) for spec in tree_leaves(self.specs)]
+
+    @staticmethod
+    def of(mesh, worker_axes, param_specs):
+        """A ``TensorParallel``, or None when no spec splits past the worker
+        dim."""
+        if mesh is None or param_specs is None:
+            return None
+        axes = _model_axes(mesh, worker_axes, param_specs)
+        return TensorParallel(mesh, axes, param_specs) if axes else None
+
+    def wrap(self, params):
+        """The stacked local shards as DTensors on the sub-mesh."""
+        return distribute(params, self.specs, self.mesh)
+
+    def replicated(self, x):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        return DTensor.from_local(x, self.mesh, [Replicate()] * self.mesh.ndim,
+                                  run_check=False)
+
+    def sum(self, x):
+        """``x`` summed over the sub-mesh's ranks, in place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.mesh.get_group())
+        return x
 
 
 def make_train_step(
@@ -149,7 +196,12 @@ def make_train_step(
     whole (M,) draw on every rank, and ``loss_per_worker`` all M losses.
     Whatever spans the worker axis is a collective over the worker ranks:
     the clip's global norm, the strategy's grad reduction, the pull and
-    the mean loss.  ``param_specs`` may split only the worker dim.
+    the mean loss.  ``param_specs`` (``dist.sharding.param_specs``) may also
+    split a leaf's other dims over the mesh's 'model' dim: each rank then
+    holds its slice of those leaves too, every worker's loss and grads run
+    as DTensors over the 'model' sub-mesh (``TensorParallel``), and the
+    clip's norm also sums over it; the optimizer, the pull and the mix act
+    on the local shards.
     ``gossip_mode="ppermute"`` needs a mesh; ``perm`` (one source a worker
     rank) defaults to the neighbours.
 
@@ -173,25 +225,33 @@ def make_train_step(
     if step_cfg.gossip_mode == "ppermute" and mesh is None:
         raise ValueError("gossip_mode='ppermute' pulls between the ranks of a mesh; "
                          "pass mesh= and worker_axes=")
-    if param_specs is not None:
-        _check_worker_specs(param_specs)
     shard = None if mesh is None else worker_shard(mesh, worker_axes, M)
     reduce = None if shard is None else shard.sum
+    tp = TensorParallel.of(mesh, worker_axes, param_specs)
 
     def per_worker(params, batch):
         """(losses (n,) f32, grads (n, ...) in the param dtype) for the n
         rows held here: worker i's loss on its own row of the params,
-        differentiated into that row."""
+        differentiated into that row.  With tensor-parallel leaves each row
+        runs as DTensors on the 'model' sub-mesh, and its grads come back
+        as this rank's shards."""
         n = tree_leaves(params)[0].shape[0]
         losses = torch.empty((n,), dtype=torch.float32, device=tree_leaves(batch)[0].device)
         grads = tree_map(torch.empty_like, params)
+        source = params if tp is None else tp.wrap(params)
         for i in range(n):
-            p_i = worker_leaves(params, i, lambda leaf: leaf.detach().requires_grad_())
+            p_i = worker_leaves(source, i, lambda leaf: leaf.detach().requires_grad_())
             b_i = tree_map(lambda a: a[i], batch)
-            with torch.enable_grad():
+            with torch.enable_grad(), _implicit_replication(tp):
+                if tp is not None:
+                    b_i = tree_map(tp.replicated, b_i)
                 loss = lm.loss_fn(p_i, b_i, cfg)
                 gs = torch.autograd.grad(loss, tree_leaves(p_i), allow_unused=True,
                                          materialize_grads=True)
+            if tp is not None:
+                loss = loss.full_tensor()
+                gs = [g.redistribute(p.device_mesh, p.placements).to_local()
+                      for g, p in zip(gs, tree_leaves(p_i))]
             for dst, g in zip(tree_leaves(worker_leaves(grads, i)), gs):
                 dst.copy_(g)
             losses[i] = loss.detach()
@@ -224,7 +284,8 @@ def make_train_step(
         with torch.no_grad():
             losses, grads = microbatch_scan(per_worker, params, batch, cfg.microbatches)
             if step_cfg.grad_clip:
-                grads, _ = clip_by_global_norm(grads, step_cfg.grad_clip, reduce)
+                split = None if tp is None else (tp.split, tp.sum)
+                grads, _ = clip_by_global_norm(grads, step_cfg.grad_clip, reduce, split)
             # Strategy-owned grad reduction: identity for gossip, global mean
             # for allreduce/ps-sync, group mean for prague.
             grads = algorithm.transform_grads(grads, M, shard)
@@ -280,15 +341,26 @@ def worker_leaves(params, i: int, fn=lambda leaf: leaf):
     return out
 
 
+def _implicit_replication(tp):
+    """Plain tensors made inside the model (zeros, positions) count as
+    replicated beside DTensors."""
+    if tp is None:
+        return nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
 def init_stacked(cfg: ArchConfig, optimizer: Optimizer, M: int, generator=None,
-                 device=None, mesh=None, worker_axes: tuple = ()):
+                 device=None, mesh=None, worker_axes: tuple = (), param_specs=None):
     """M identical worker replicas (paper Alg. 2 line 1 allows independent
     x_i^0; identical init is the common practical choice, as in the JAX
     package) and the optimizer state.  The parameters are drawn from
     ``generator`` on its device; without one, from a generator seeded 0 on
     ``device`` (CUDA unless the caller asks for the CPU).  With a ``mesh``
     and ``worker_axes``, this rank's rows of them (every rank draws the
-    same seeded replica)."""
+    same seeded replica); with ``param_specs`` that split past the worker
+    dim, this rank's slices of those leaves too (``dist.sharding.local_part``)."""
     if generator is None:
         generator = torch.Generator(device=resolve_device(device)).manual_seed(0)
     rows = M if mesh is None else len(worker_rows(mesh, worker_axes, M))
@@ -296,6 +368,8 @@ def init_stacked(cfg: ArchConfig, optimizer: Optimizer, M: int, generator=None,
     params = tree_map(lambda leaf: leaf.unsqueeze(0).expand((rows,) + tuple(leaf.shape))
                       .contiguous(), params1)
     del params1
+    if TensorParallel.of(mesh, worker_axes, param_specs) is not None:
+        params = local_part(params, param_specs, mesh, skip=worker_axis_names(mesh, worker_axes))
     return params, optimizer.init(params)
 
 

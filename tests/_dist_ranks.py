@@ -52,19 +52,19 @@ TRAIN_LR = 0.05
 TRAIN_CLIP = 0.5
 
 
-def train_cfg(get_arch):
-    return replace(get_arch("qwen1.5-0.5b").reduced(), vocab_size=128)
+def train_cfg(get_arch, arch="qwen1.5-0.5b"):
+    return replace(get_arch(arch).reduced(), vocab_size=128)
 
 
-def train_inputs(r: int, permutation: bool):
+def train_inputs(r: int, permutation: bool, M: int = TRAIN_M):
     """Round r's batch (numpy int64, (M, 2, 32)) and gossip draw."""
     rng = np.random.default_rng(100 + r)
-    batch = {k: rng.integers(0, 128, size=(TRAIN_M, 2, 32)) for k in ("tokens", "labels")}
+    batch = {k: rng.integers(0, 128, size=(M, 2, 32)) for k in ("tokens", "labels")}
     if permutation:
-        neighbors = rng.permutation(TRAIN_M)
+        neighbors = rng.permutation(M)
     else:
-        neighbors = rng.integers(0, TRAIN_M, TRAIN_M)
-    weights = rng.uniform(0.0, 0.5, TRAIN_M).astype(np.float32)
+        neighbors = rng.integers(0, M, M)
+    weights = rng.uniform(0.0, 0.5, M).astype(np.float32)
     return batch, {"neighbors": neighbors, "weights": weights, "lr": np.float32(TRAIN_LR)}
 
 
@@ -251,6 +251,87 @@ def case_train(mode, mesh_shape):
             "params": tree_map(lambda t: t.clone(), params)}
 
 
+#: Tensor-parallel training cases: name -> (TRAIN_MODES key, M, arch,
+#: (workers, 'model') mesh of 4 ranks).  On (1, 4), tinyllama's 4 query
+#: heads split 4 ways over 2 KV heads: each rank slices its KV head.
+TP_TRAIN = {"train-tp-netmax-gather": ("netmax-gather", 4, "qwen1.5-0.5b", (2, 2)),
+            "train-tp-netmax-ppermute": ("netmax-ppermute", 2, "qwen1.5-0.5b", (2, 2)),
+            "train-tp-rwkv-gather": ("netmax-gather", 2, "rwkv6-7b", (2, 2)),
+            "train-tp-gqa-slice": ("netmax-gather", 1, "tinyllama-1.1b", (1, 4))}
+#: Tensor-parallel prefill cases: name -> arch.
+TP_PREFILL = {"prefill-tp": "qwen1.5-0.5b", "prefill-tp-rwkv": "rwkv6-7b"}
+#: The tensor-parallel prefill's batch: (4, 32) token ids.
+TP_PREFILL_SEED = 7
+
+
+def tp_prefill_tokens():
+    return np.random.default_rng(TP_PREFILL_SEED).integers(0, 128, size=(4, 32))
+
+
+def case_train_tp(name):
+    """TRAIN_ROUNDS of make_train_step with the plan's specs on a (data,
+    model) mesh of 4 ranks: each leaf split on 'model' where its trailing dim
+    divides.  This rank's shards of the params, their slices of the whole
+    stacked leaves, and the losses."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import (TrainStepConfig, abstract_stacked, init_stacked,
+                                           make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mode, M, arch, mesh_shape = TP_TRAIN[name]
+    algo, _, gossip_mode, permutation = TRAIN_MODES[mode]
+    cfg, opt = train_cfg(get_arch, arch), sgd(momentum=0.9)
+    mesh = make_debug_mesh(*mesh_shape, device_type="cpu")
+    axes = ("data",)
+    specs = shd.param_specs(cfg, abstract_stacked(cfg, opt, M)[0], shd.plan_for(cfg, mesh))
+    params, opt_state = init_stacked(cfg, opt, M, device="cpu", mesh=mesh, worker_axes=axes,
+                                     param_specs=specs)
+    rows = shd.worker_rows(mesh, axes, M)
+    split = sum(any(e is not None for e in tuple(sp)[1:]) for sp in tree_leaves(specs))
+    step = make_train_step(cfg, opt, M, algo,
+                           TrainStepConfig(gossip_mode=gossip_mode, grad_clip=TRAIN_CLIP),
+                           mesh=mesh, worker_axes=axes, param_specs=specs)
+    losses = []
+    for r in range(TRAIN_ROUNDS):
+        batch, gossip_in = train_inputs(r, permutation, M)
+        local = {k: torch.from_numpy(v[rows.start:rows.stop]) for k, v in batch.items()}
+        params, opt_state, m = step(params, opt_state, local, gossip_in)
+        losses.append((m["loss_per_worker"].numpy().copy(), float(m["loss"])))
+    whole = abstract_stacked(cfg, opt, M)[0]
+    slices = [[(sl.start, sl.stop) for sl in shd.local_slices(a.shape, spec, mesh)]
+              for a, spec in zip(tree_leaves(whole), tree_leaves(specs))]
+    return {"losses": losses, "slices": slices, "split_leaves": split,
+            "params": tree_map(lambda t: t.clone(), params)}
+
+
+def case_prefill_tp(name):
+    """``lm.prefill_logits`` on DTensors over the (2, 2) mesh with the
+    serving plan's specs (params split on 'model', the batch on 'data'):
+    the whole logits."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+
+    cfg = train_cfg(get_arch, TP_PREFILL[name])
+    mesh = make_debug_mesh(2, 2, device_type="cpu")
+    plan = shd.plan_for(cfg, mesh, serve=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    pspecs = shd.param_specs(cfg, params, plan, stacked=False)
+    batch = {"tokens": torch.from_numpy(tp_prefill_tokens()).to(torch.int32)}
+    bspecs = shd.prefill_batch_specs(cfg, plan, batch)
+    dparams = shd.distribute(shd.local_part(params, pspecs, mesh), pspecs, mesh)
+    dbatch = shd.distribute(shd.local_part(batch, bspecs, mesh), bspecs, mesh)
+    with torch.no_grad(), implicit_replication():
+        out = lm.prefill_logits(dparams, dbatch, cfg)
+    return {"logits": out.full_tensor().clone(), "placements": [str(p) for p in out.placements]}
+
+
 def case_sim(name, init):
     """The sharded engine's run, and how many cohorts it pulled point to
     point (only where every worker has a rank of its own)."""
@@ -310,6 +391,8 @@ def cases(world: int, init) -> list:
     if world == 4:
         out += [(f"train-{m}", lambda m=m: case_train(m, (4, 1)))
                 for m in ("netmax-ppermute", "prague")]
+        out += [(name, lambda name=name: case_train_tp(name)) for name in TP_TRAIN]
+        out += [(name, lambda name=name: case_prefill_tp(name)) for name in TP_PREFILL]
     if world == 8:
         out += [("jax-ppermute", case_jax_ppermute), ("layout", case_layout),
                 ("pulls-pod-data", lambda: case_pulls(

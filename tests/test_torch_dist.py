@@ -22,7 +22,11 @@ devices, as tests/test_fleet.py runs it.  Held to it:
   different orders);
 * the sharded trainer against JAX's unsharded ``make_train_step`` (its
   sharded step cannot run under this jax, ROADMAP C4): losses within 1e-4,
-  params within 1e-4 x max |param| (tests/test_torch_trainer.py's).
+  params within 1e-4 x max |param| (tests/test_torch_trainer.py's);
+* tensor parallelism on 2 workers x 2 'model' ranks: ``make_train_step``
+  with the plan's 'model'-split specs (gather and ppermute pulls), each
+  rank's shards against the same slices of JAX's unsharded step, to that
+  tolerance; ``prefill_logits`` on DTensors against JAX's within 1e-4.
 """
 
 import functools
@@ -415,21 +419,20 @@ def jax_train():
     groups, permutation draws)."""
     cache = {}
 
-    def get(algo, groups, permutation):
-        key = (algo, groups, permutation)
+    def get(algo, groups, permutation, M=dr.TRAIN_M, arch="qwen1.5-0.5b"):
+        key = (algo, groups, permutation, M, arch)
         if key not in cache:
-            M = dr.TRAIN_M
-            tp, to = ttr.init_stacked(dr.train_cfg(tget), topt.sgd(momentum=0.9), M,
+            tp, to = ttr.init_stacked(dr.train_cfg(tget, arch), topt.sgd(momentum=0.9), M,
                                       device="cpu")
             to_j = lambda t: jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()), t)  # noqa: E731
             params, opt_state = to_j(tp), to_j(to)
             strategy = jalgo("prague", trainer_groups=groups) if groups else algo
             step = jax.jit(jtr.make_train_step(
-                dr.train_cfg(jget), jopt.sgd(momentum=0.9), M, strategy,
+                dr.train_cfg(jget, arch), jopt.sgd(momentum=0.9), M, strategy,
                 step_cfg=jtr.TrainStepConfig(gossip_mode="gather", grad_clip=dr.TRAIN_CLIP)))
             losses = []
             for r in range(dr.TRAIN_ROUNDS):
-                batch, gi = dr.train_inputs(r, permutation)
+                batch, gi = dr.train_inputs(r, permutation, M)
                 params, opt_state, m = step(
                     params, opt_state, {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()},
                     {"neighbors": jnp.asarray(gi["neighbors"], jnp.int32),
@@ -505,18 +508,52 @@ def test_ppermute_needs_a_mesh():
                       "--device", "cpu"])
 
 
-def test_tensor_parallel_specs_are_refused():
-    """A plan that splits trailing dims on 'model' is the JAX package's
-    lowering-only case (launch/dryrun.py): ROADMAP A7."""
-    cfg = dr.train_cfg(tget)
-    plan = tshd.plan_for(cfg, {"data": 2, "model": 2})
-    params, _ = ttr.abstract_stacked(cfg, topt.sgd(), 2)
-    specs = tshd.param_specs(cfg, params, plan)
-    assert any("model" in s for s in _torch_specs(specs))
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttr.make_train_step(cfg, topt.sgd(), 2, "netmax", param_specs=specs)
-    replicated = tshd.param_specs(cfg, params, tshd.plan_for(cfg, {"data": 2, "model": 1}))
-    ttr.make_train_step(cfg, topt.sgd(), 2, "netmax", param_specs=replicated)
+@pytest.mark.parametrize("case", list(dr.TP_TRAIN))
+def test_tensor_parallel_trainer_matches_jax(cluster, jax_train, case):
+    """make_train_step with the plan's 'model'-split specs on 4 ranks (2
+    workers x 2 'model', or 1 x 4 where each rank's query heads share a
+    sliced KV head): each rank's shards of every leaf after TRAIN_ROUNDS
+    (clip on: its norm spans both axes) against the same slices of JAX's
+    unsharded step, losses likewise, to the worker-sharded step's
+    tolerance."""
+    mode, M, arch, _ = dr.TP_TRAIN[case]
+    algo, groups, _, permutation = dr.TRAIN_MODES[mode]
+    jparams, jlosses = jax_train(algo, groups, permutation, M, arch)
+    want = [_np(x) for x in jax.tree_util.tree_leaves(jparams)]
+    scale = max(float(np.abs(x).max()) for x in want)
+    results = cluster.case(4, case)
+    assert results[0]["split_leaves"] > 0  # the plan splits leaves on 'model'
+    pieces = set()
+    for r, res in enumerate(results):
+        for (got_w, got_mean), (want_w, want_mean) in zip(res["losses"], jlosses):
+            np.testing.assert_allclose(got_w, want_w, atol=TRAIN_TOL, rtol=0)
+            assert abs(got_mean - want_mean) <= TRAIN_TOL
+        got = [_np(x) for x in tree_leaves(res["params"])]
+        assert len(got) == len(want)
+        for g, w, sl in zip(got, want, res["slices"]):
+            part = w[tuple(slice(a, b) for a, b in sl)]
+            assert g.shape == part.shape, (r, g.shape, part.shape)
+            assert float(np.abs(g - part).max()) <= TRAIN_TOL * scale, r
+        pieces.add(tuple(tuple(map(tuple, sl)) for sl in res["slices"]))
+    assert len(pieces) == 4  # every rank holds its own shards
+
+
+@pytest.mark.parametrize("case", list(dr.TP_PREFILL))
+def test_tensor_parallel_prefill_matches_jax(cluster, case):
+    """lm.prefill_logits on DTensors (params split on 'model', the batch on
+    'data'; the dense family's attention and the ssm family's WKV scan over
+    heads) against the JAX package's, from the same params, to 1e-4."""
+    from repro.models import lm as jlm
+    from repro_torch.models import lm as tlm
+
+    arch = dr.TP_PREFILL[case]
+    params = tlm.init_params(dr.train_cfg(tget, arch), torch.Generator().manual_seed(0))
+    jparams = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()), params)
+    tokens = dr.tp_prefill_tokens()
+    want = np.asarray(jlm.prefill_logits(jparams, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                                         dr.train_cfg(jget, arch)))
+    for res in cluster.case(4, case):
+        np.testing.assert_allclose(res["logits"].numpy(), want, atol=1e-4, rtol=0)
 
 
 def test_placements_follow_mesh_order():
