@@ -291,7 +291,12 @@ Phases, in order; any failure exits non-zero before the result line:
              2x16x16; each cell ok (or an explicit unsupported-shape
              skip) with its per-rank FLOPs, bytes, collective bytes by
              kind, argument and temp GB, the roofline's dominant term and
-             its seconds;
+             its seconds; a second subprocess counts each 16x16 cell's
+             program unsharded (``dryrun.unsharded_flops``), and
+             tinyllama's 16x16 cells must do per-rank FLOPs x 256 within
+             ``dryrun.PLAN_RATIO`` of it (1.0-1.3x), with a rank's
+             collective bytes and temp within ``dryrun.PLAN_BOUNDS``
+             (ROADMAP C16-C18, C20); rwkv6-7b's ratios are printed;
 37. cost   — ``analysis.cost.CostCounter`` around two rounds of phase 13's
              cut under the profiler (the two rounds traced again, up to 4
              times, when CUPTI drops kernels from a trace): the kernel
@@ -4028,38 +4033,71 @@ DRYRUN_CELLS = ([("tinyllama-1.1b", s, False) for s in
                    ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
                 + [("tinyllama-1.1b", "train_4k", True)])
 DRYRUN_TIMEOUT_S = 600
+#: Run in two subprocesses at once: the cells, and the unsharded counts of
+#: the 16x16 cells' programs (``dryrun.unsharded_flops``).
 _DRYRUN_SCRIPT = """
 import json, sys
+from repro_torch.configs.base import SHAPES, all_archs
 from repro_torch.launch import dryrun
-for arch, shape, multi_pod in json.loads(sys.argv[1]):
-    rec = dryrun.run_cell(arch, shape, multi_pod, "ppermute", quiet=True)
-    print("RECORD " + json.dumps(rec), flush=True)
+cells = json.loads(sys.argv[2])
+if sys.argv[1] == "cells":
+    for arch, shape, multi_pod in cells:
+        rec = dryrun.run_cell(arch, shape, multi_pod, "ppermute", quiet=True)
+        print("RECORD " + json.dumps(rec), flush=True)
+else:
+    for arch, shape, multi_pod in cells:
+        cfg = all_archs()[arch]
+        if not multi_pod and cfg.supports(SHAPES[shape]):
+            flops = dryrun.unsharded_flops(cfg, shape)
+            print("UNSHARDED " + json.dumps([arch, shape, flops]), flush=True)
 """
 
 
 def phase_dryrun(card):
     """Phase 36: ``launch.dryrun.run_cell`` on every cell of DRYRUN_CELLS
     at full width, in a subprocess (its fake process group of 256 / 512
-    ranks cannot share a process with phase 34's NCCL group): each cell
+    ranks cannot share a process with phase 34's NCCL group), beside a
+    second that counts each 16x16 cell's program unsharded: each cell
     ``ok`` or an explicit unsupported-shape skip, its per-rank FLOPs, bytes
-    and collective bytes by kind, argument and temp GB, the roofline's
-    dominant term (H100 rates, ``analysis.roofline``) and its seconds."""
+    and collective bytes by kind, argument and temp GB, per-rank FLOPs x
+    ranks over the unsharded count, the roofline's dominant term (H100
+    rates, ``analysis.roofline``) and its seconds; tinyllama-1.1b's 16x16
+    cells within ``dryrun.PLAN_RATIO`` and ``dryrun.PLAN_BOUNDS``."""
     from repro_torch.analysis.roofline import from_record
     from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import PLAN_BOUNDS, PLAN_RATIO
 
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(SRC), env.get("PYTHONPATH", "")])
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", _DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS)],
-                          capture_output=True, text=True, env=env,
-                          timeout=DRYRUN_TIMEOUT_S)
+    procs = {kind: subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_SCRIPT, kind, json.dumps(DRYRUN_CELLS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for kind in ("cells", "unsharded")}
+    outs = {}
+    try:
+        for kind, proc in procs.items():
+            left = max(DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1)
+            out, err = proc.communicate(timeout=left)
+            outs[kind] = (proc.returncode, out, err)
+    except subprocess.TimeoutExpired:
+        raise SmokeError(f"dry-run: not done in {DRYRUN_TIMEOUT_S} s") from None
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     secs = time.perf_counter() - t0
-    recs = [json.loads(line[7:]) for line in proc.stdout.splitlines()
+    recs = [json.loads(line[7:]) for line in outs["cells"][1].splitlines()
             if line.startswith("RECORD ")]
-    check(proc.returncode == 0 and len(recs) == len(DRYRUN_CELLS),
-          f"dry-run: exit {proc.returncode}, {len(recs)} of {len(DRYRUN_CELLS)} records; "
-          f"{proc.stderr[-2000:]}")
-    print(f"dry-run: {len(recs)} cells in {secs:.1f} s (one subprocess; {card})")
+    unsharded = {(a, s): f for a, s, f in (json.loads(line[10:]) for line in
+                                           outs["unsharded"][1].splitlines()
+                                           if line.startswith("UNSHARDED "))}
+    for kind, (rc, _, err) in outs.items():
+        check(rc == 0, f"dry-run {kind}: exit {rc}; {err[-2000:]}")
+    check(len(recs) == len(DRYRUN_CELLS),
+          f"dry-run: {len(recs)} of {len(DRYRUN_CELLS)} records")
+    print(f"dry-run: {len(recs)} cells in {secs:.1f} s (two subprocesses; {card})")
     for rec in recs:
         cell = f"{rec['mesh']}|{rec['arch']}|{rec['shape']}"
         if rec["skipped"]:
@@ -4068,14 +4106,31 @@ def phase_dryrun(card):
         check(rec["ok"], f"dry-run {cell}: {rec.get('error')}")
         roof = from_record(rec, SHAPES[rec["shape"]])
         mem = rec["memory_analysis"]
+        coll = sum(rec["collective_bytes_per_device"].values())
+        base = unsharded.get((rec["arch"], rec["shape"])) if rec["mesh"] == "16x16" else None
+        ratio = None if base is None else rec["hlo_flops_per_device"] * rec["chips"] / base
+        rec["unsharded_flops"], rec["ratio_to_unsharded"] = base, ratio
         print(f"  {cell}: ok, {rec['t_trace_s']} s; per rank {rec['hlo_flops_per_device']:.4g} "
-              f"FLOPs, {rec['hlo_bytes_per_device']:.4g} bytes, collective bytes "
+              f"FLOPs (x ranks / unsharded "
+              f"{'-' if ratio is None else f'{ratio:.4f}'}), "
+              f"{rec['hlo_bytes_per_device']:.4g} bytes, collective bytes {coll:.4g} "
               f"{ {k: f'{v:.4g}' for k, v in rec['collective_bytes_per_device'].items()} }; "
               f"argument {mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
               f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB; roofline compute "
               f"{roof.compute_s * 1e3:.2f} ms, memory {roof.memory_s * 1e3:.2f} ms, collective "
               f"{roof.collective_s * 1e3:.2f} ms: {roof.dominant}; kernel calls "
               f"{rec['kernel_calls']}")
+        if rec["arch"] == "tinyllama-1.1b" and rec["mesh"] == "16x16":
+            lo, hi = PLAN_RATIO
+            check(ratio is not None and lo <= ratio <= hi,
+                  f"dry-run {cell}: per-rank FLOPs x ranks / unsharded {ratio}, "
+                  f"not in [{lo}, {hi}]")
+            bounds = PLAN_BOUNDS[rec["shape"]]
+            check(coll <= bounds.get("collective", math.inf),
+                  f"dry-run {cell}: collective bytes {coll:.4g} > {bounds.get('collective')}")
+            check(mem["temp_size_in_bytes"] <= bounds.get("temp", math.inf),
+                  f"dry-run {cell}: temp {mem['temp_size_in_bytes']:.4g} > "
+                  f"{bounds.get('temp')}")
     check(any(r["mesh"] == "2x16x16" and r["ok"] for r in recs), "dry-run: no 2x16x16 cell")
     return {"seconds": secs, "records": recs}
 

@@ -7,6 +7,8 @@ Each row's scope is the chain of ``repro_torch`` functions on the Python
 stack when the op ran (``lm.prefill_logits/transformer.forward/.../
 attention.chunked_attention``), where the JAX module reads the HLO's
 ``op_name`` metadata; a kernel call is one row, ``kernel.<name>``.
+``peak_groups`` does the same for memory: the tensors live at the counted
+run's peak.
 """
 
 from __future__ import annotations
@@ -59,3 +61,21 @@ def print_breakdown(report: CostReport, n: int = 12) -> None:
         for r in rows:
             scope = r.scope.split("/")[-1][:60] if r.scope else "?"
             print(f"  {r.value:12.3e}  {r.opcode:30s} {r.shape:40s} {scope}")
+
+
+#: Rows ``peak_groups`` keeps.
+PEAK_ROWS = 10
+
+
+def peak_groups(buffers) -> list:
+    """The tensors live at a counter's peak (``CostCounter.peak_buffers``)
+    grouped by op, shape and scope, largest total first: up to
+    ``PEAK_ROWS`` rows of (bytes, tensors, op, shape, scope)."""
+    groups: dict = {}
+    for b in buffers:
+        key = (b.op, b.shape, b.scope)
+        nbytes, count = groups.get(key, (0.0, 0))
+        groups[key] = (nbytes + b.bytes, count + 1)
+    rows = [(nbytes, count, *key) for key, (nbytes, count) in groups.items()]
+    rows.sort(key=lambda r: -r[0])
+    return rows[:PEAK_ROWS]

@@ -25,8 +25,9 @@ model:
 
 The counter defers to tensor subclasses (``NotImplemented`` for a DTensor),
 so a DTensor program is counted as one rank runs it: local ops at local
-shapes plus the collectives.  It skips ``FakeTensor`` ops, which are
-DTensor's sharding propagation at global shapes, not work.
+shapes plus the collectives.  It skips an op with a ``FakeTensor`` input
+or output: DTensor's sharding propagation at global shapes, neither work
+nor a rank's memory (its allocations take no tensor input).
 
 Kernels (B1-B4 and the two backwards) are counted once a call, by formula
 (``KERNEL_WORK``, the bound column of PERF.md §6: each input byte read
@@ -38,7 +39,9 @@ nothing runs, on the CPU the plain version runs.
 
 Memory: the live bytes of the tensors allocated while the counter runs
 (each op's fresh outputs, freed when their tensor is), and their peak, so a
-dry-run record can report the JAX record's argument, output and temp sizes.
+dry-run record can report the JAX record's argument, output and temp sizes;
+with the op log on, also which tensors were live at the peak
+(``peak_buffers``), the memory's breakdown.
 
 ``hlo.py``'s ``unknown_trip_loops`` has no counterpart: eager code runs its
 loops, so there is no loop whose trip count could be unknown.  One loop is
@@ -323,7 +326,9 @@ class CostCounter(TorchDispatchMode):
 
     ``with CostCounter() as cc: ...`` then ``cc.report``; ``cc.peak_bytes``
     is the peak of live bytes allocated inside, ``cc.live_bytes`` what is
-    still alive.  ``log_ops=False`` keeps no per-op log (no breakdown)."""
+    still alive, ``cc.peak_buffers()`` the tensors live at the peak.
+    ``log_ops=False`` keeps no per-op log and no allocation log (no
+    breakdown)."""
 
     def __init__(self, log_ops: bool = True):
         super().__init__()
@@ -331,6 +336,11 @@ class CostCounter(TorchDispatchMode):
         self.log_ops = log_ops
         self.live_bytes = 0
         self.peak_bytes = 0
+        # Allocations and frees in order; with the op log, [allocated at,
+        # freed at, op, scope, shape, bytes] of each tensor allocated.
+        self._seq = 0
+        self._peak_seq = 0
+        self._allocs: list = []
         self._quiet = 0
         self._times = 1
         self._prev_hook = None
@@ -395,16 +405,34 @@ class CostCounter(TorchDispatchMode):
         return super().__exit__(*exc)
 
     # -- memory --
-    def _alloc(self, t: torch.Tensor) -> None:
+    def _alloc(self, t: torch.Tensor, name: str) -> None:
         nbytes = t.untyped_storage().nbytes()
         if not nbytes:
             return
         self.live_bytes += nbytes
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
-        weakref.finalize(t, self._free, nbytes)
+        self._seq += 1
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes, self._peak_seq = self.live_bytes, self._seq
+        entry = None
+        if self.log_ops:
+            entry = [self._seq, None, name, python_scope(), _shape_str(t), nbytes]
+            self._allocs.append(entry)
+        weakref.finalize(t, self._free, nbytes, entry)
 
-    def _free(self, nbytes: int) -> None:
+    def _free(self, nbytes: int, entry) -> None:
         self.live_bytes -= nbytes
+        self._seq += 1
+        if entry is not None:
+            entry[1] = self._seq
+
+    def peak_buffers(self) -> list:
+        """The tensors allocated inside that were live at the peak, one
+        ``OpRecord`` each (``bytes`` its storage's), in allocation order;
+        empty without the op log."""
+        p = self._peak_seq
+        return [OpRecord(name, scope, shape, bytes=float(nbytes))
+                for at, freed, name, scope, shape, nbytes in self._allocs
+                if at <= p and (freed is None or freed > p)]
 
     # -- ops --
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -412,19 +440,21 @@ class CostCounter(TorchDispatchMode):
         if any(issubclass(t, self._dtensor) for t in types):
             return NotImplemented
         out = func(*args, **kwargs)
-        ins = _tensors((args, kwargs))
-        if any(isinstance(t, self._fake) for t in ins):
-            return out  # DTensor's sharding propagation, not work
-        self._count(func, args, kwargs, ins, out)
+        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        # DTensor's sharding propagation, not work: FakeTensor inputs, or
+        # FakeTensor outputs of an op with none (its ``empty_strided`` of a
+        # global shape), which are no rank's live bytes either.
+        if any(isinstance(t, self._fake) for t in ins + outs):
+            return out
+        self._count(func, args, kwargs, ins, out, outs)
         return out
 
-    def _count(self, func, args, kwargs, ins, out) -> None:
+    def _count(self, func, args, kwargs, ins, out, outs) -> None:
         name = f"{func.namespace}.{func._opname}"
-        outs = _tensors(out)
         aliases = any(r.alias_info is not None for r in func._schema.returns)
         if not aliases and not func.is_view:
             for t in outs:
-                self._alloc(t)
+                self._alloc(t, name)
         kind = _COLLECTIVE_OPS.get(name)
         rep = self.report
         if kind is not None:

@@ -21,8 +21,11 @@ For each cell this driver:
      the whole mesh; every kernel takes its ``meta`` route
      (``kernels/ops.py``);
   4. counts it with ``analysis.cost.CostCounter``: per-rank FLOPs, bytes,
-     collective bytes by kind, kernel calls, and the live-bytes peak that
-     stands in for XLA's ``memory_analysis()``;
+     collective bytes by kind, kernel calls, and the peak of the bytes the
+     program allocates, which stands in for XLA's ``memory_analysis()``:
+     the inputs are made before the counter, so the argument bytes stay
+     out of the temp, as XLA counts them (with ``--save-ops``, the
+     tensors live at that peak too, ``analysis.breakdown.peak_groups``);
   5. appends a JSON record under ``artifacts/dryrun_torch/`` (never
      ``artifacts/dryrun/``, the JAX sweep's).
 
@@ -52,6 +55,7 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import init_device_mesh
 
+from repro_torch.analysis.breakdown import peak_groups
 from repro_torch.analysis.cost import CostCounter, CostReport, OpRecord
 from repro_torch.configs.base import SHAPES, all_archs
 from repro_torch.dist import sharding as shd
@@ -59,7 +63,7 @@ from repro_torch.launch import specs as sp
 from repro_torch.launch.mesh import PRODUCTION_SHAPE, mesh_shape
 from repro_torch.models import lm
 from repro_torch.optim import sgd
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 #: Backends of the fake group, by device type (meta too: point-to-point
@@ -90,14 +94,19 @@ def _opt_state_specs(opt_state, pspecs):
 
 
 def _nbytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
-               if isinstance(t, torch.Tensor))
+    """The bytes this rank holds of a tree's tensors (a DTensor's local
+    shard)."""
+    local = [t.to_local() if hasattr(t, "placements") else t for t in tree_leaves(tree)
+             if isinstance(t, torch.Tensor)]
+    return sum(t.numel() * t.element_size() for t in local)
 
 
 def build_traced(cfg, shape_name, mesh, gossip_mode="ppermute"):
-    """Returns (run, meta) for one cell: ``run()`` executes the program once
-    on meta shards and returns (argument bytes, outputs).  The counterpart
-    of the JAX ``build_lowered``."""
+    """Returns (args, run, meta) for one cell: ``args``, rank 0's meta
+    shards of the program's inputs, made here (before any counter, as XLA
+    counts arguments apart from temp), and ``run(*args)``, which executes
+    the program once and returns its outputs.  The counterpart of the JAX
+    ``build_lowered``."""
     shape = SHAPES[shape_name]
     optimizer = sgd(momentum=0.9, weight_decay=1e-4)
 
@@ -119,15 +128,13 @@ def build_traced(cfg, shape_name, mesh, gossip_mode="ppermute"):
         gossip_in = {"neighbors": np.asarray(perm if perm else rng.permutation(M)),
                      "weights": np.full((M,), 0.5, np.float32), "lr": 0.1}
 
-        def run():
-            params = shd.local_meta(inputs["params"], pspecs, mesh)
-            opt_state = shd.local_meta(inputs["opt_state"], ospecs, mesh)
-            batch = shd.local_meta(inputs["batch"], bspecs, mesh)
-            args = _nbytes((params, opt_state, batch))
-            out = train_step(params, opt_state, batch, gossip_in, perm=perm)
-            return args, out
+        def run(params, opt_state, batch):
+            return train_step(params, opt_state, batch, gossip_in, perm=perm)
 
-        return run, dict(M=M, mode=mode, program="train_step")
+        args = (shd.local_meta(inputs["params"], pspecs, mesh),
+                shd.local_meta(inputs["opt_state"], ospecs, mesh),
+                shd.local_meta(inputs["batch"], bspecs, mesh))
+        return args, run, dict(M=M, mode=mode, program="train_step")
 
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -146,27 +153,65 @@ def build_traced(cfg, shape_name, mesh, gossip_mode="ppermute"):
     if shape.kind == "prefill":
         bspecs = shd.prefill_batch_specs(cfg, plan, inputs["batch"])
 
-        def run():
-            params = dtensors(inputs["params"], pspecs)
-            batch = dtensors(inputs["batch"], bspecs)
-            args = _nbytes(tree_map(lambda t: t.to_local(), (params, batch)))
+        def run(params, batch):
             with torch.no_grad(), implicit_replication():
-                return args, lm.prefill_logits(params, batch, cfg)
+                return lm.prefill_logits(params, batch, cfg)
 
-        return run, dict(M=1, mode="serve", program="serve_prefill")
+        args = (dtensors(inputs["params"], pspecs), dtensors(inputs["batch"], bspecs))
+        return args, run, dict(M=1, mode="serve", program="serve_prefill")
 
     cspecs = shd.cache_specs(cfg, inputs["cache"], plan, shape.global_batch)
     tspec = shd.serve_batch_spec(plan, shape.global_batch)
 
-    def run():
-        params = dtensors(inputs["params"], pspecs)
-        cache = dtensors(inputs["cache"], cspecs)
-        token = dtensors(inputs["token"], tspec)
-        args = _nbytes(tree_map(lambda t: t.to_local(), (params, cache, token)))
+    def run(params, cache, token):
         with torch.no_grad(), implicit_replication():
-            return args, lm.decode_step(params, cache, token, shape.seq_len - 1, cfg)[0]
+            return lm.decode_step(params, cache, token, shape.seq_len - 1, cfg)[0]
 
-    return run, dict(M=1, mode="serve", program="serve_step")
+    args = (dtensors(inputs["params"], pspecs), dtensors(inputs["cache"], cspecs),
+            dtensors(inputs["token"], tspec))
+    return args, run, dict(M=1, mode="serve", program="serve_step")
+
+
+#: The bounds on tinyllama-1.1b's cells at full width on the 16x16 plan
+#: (ROADMAP C16-C18, C20), held by ``chip_smoke.py``'s phase 36 and
+#: ``tests/test_torch_dryrun.py``: per-rank FLOPs x ranks within
+#: ``PLAN_RATIO`` of ``unsharded_flops``, and a rank's collective bytes
+#: (train_4k's 1.5x the JAX program's 1.15e11 a device) and temp at most
+#: ``PLAN_BOUNDS``'.
+PLAN_RATIO = (1.0, 1.3)
+PLAN_BOUNDS = {"train_4k": {"collective": 1.73e11},
+               "prefill_32k": {"collective": 1.5e10, "temp": 6e9},
+               "decode_32k": {"collective": 1e6, "temp": 8e9}}
+
+
+def unsharded_flops(cfg, shape_name) -> float:
+    """The port's FLOPs of a cell's program on one device, with no mesh
+    (``meta`` tensors, no group): the floor of what a plan's ranks do
+    together, so per-rank FLOPs x ranks over it is the plan's overhead.
+    Training runs M = 2 workers over the shape's global batch: the model's
+    FLOPs are the batch's whatever M is, and the optimizer's share, which
+    grows with M, stays under 0.1% (a 256-way plan's M = 16 takes a minute
+    to count on a CPU)."""
+    M = 2
+    shape = SHAPES[shape_name]
+    optimizer = sgd(momentum=0.9, weight_decay=1e-4)
+    inputs = sp.input_specs(cfg, shape_name, M if shape.kind == "train" else 1, optimizer)
+    with CostCounter(log_ops=False) as cc:
+        if shape.kind == "train":
+            from repro_torch.train.trainer import TrainStepConfig, make_train_step
+
+            step = make_train_step(cfg, optimizer, M, TrainStepConfig(gossip_mode="gather"))
+            gossip_in = {"neighbors": np.roll(np.arange(M), -1),
+                         "weights": np.full((M,), 0.5, np.float32), "lr": 0.1}
+            step(inputs["params"], inputs["opt_state"], inputs["batch"], gossip_in)
+        else:
+            with torch.no_grad():
+                if shape.kind == "prefill":
+                    lm.prefill_logits(inputs["params"], inputs["batch"], cfg)
+                else:
+                    lm.decode_step(inputs["params"], inputs["cache"], inputs["token"],
+                                   shape.seq_len - 1, cfg)
+    return cc.report.flops
 
 
 def apply_opt_flags(cfg, opt: str):
@@ -241,16 +286,18 @@ def run_cell(arch, shape_name, multi_pod, gossip_mode="ppermute", save_ops=False
         with fake_group(n_chips):
             # Typed cuda: DTensor then runs the all-to-all NCCL would.
             mesh = init_device_mesh("cuda", tuple(sizes), mesh_dim_names=tuple(names))
-            run, meta = build_traced(cfg, shape_name, mesh, gossip_mode)
+            args, run, meta = build_traced(cfg, shape_name, mesh, gossip_mode)
             with CostCounter(log_ops=save_ops) as cc:
-                args, out = run()
-            out_bytes = _nbytes(out)
-            del out
+                out = run(*args)
+            arg_bytes, out_bytes = _nbytes(args), _nbytes(out)
+            del out, args
         t_trace = time.time() - t0
         rep = cc.report
-        mem = dict(argument_size_in_bytes=args, output_size_in_bytes=out_bytes,
+        mem = dict(argument_size_in_bytes=arg_bytes, output_size_in_bytes=out_bytes,
                    temp_size_in_bytes=max(cc.peak_bytes - out_bytes, 0),
                    peak_live_bytes=cc.peak_bytes)
+        if save_ops:  # what is live at the peak, by op, shape and scope
+            mem["peak_buffers"] = [list(row) for row in peak_groups(cc.peak_buffers())]
         rec.update(ok=True, torch=torch.__version__, chips=n_chips,
                    mesh_axes=mesh_shape(mesh), M=meta["M"],
                    program=meta["program"], t_trace_s=round(t_trace, 2),
@@ -265,7 +312,10 @@ def run_cell(arch, shape_name, multi_pod, gossip_mode="ppermute", save_ops=False
             print(f"[{mesh_name}|{arch}|{shape_name}] OK trace={t_trace:.1f}s "
                   f"flops/dev={rep.flops:.3e} bytes/dev={rep.bytes_accessed:.3e} "
                   f"coll={rep.collective_bytes}")
-            print("  memory:", mem)
+            print("  memory:", {k: v for k, v in mem.items() if k != "peak_buffers"})
+            for nbytes, count, op, shape, scope in mem.get("peak_buffers", []):
+                print(f"    at the peak: {nbytes / 1e9:8.3f} GB in {count:3d} x {op} "
+                      f"{shape} ({scope.split('/')[-1]})")
             print("  kernel calls:", rep.kernel_calls)
     except Exception as e:  # noqa: BLE001 -- a failed cell is a record
         rec.update(error=f"{type(e).__name__}: {e}", traceback=traceback.format_exc()[-2000:])

@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.modules import (apply_rope, lecun_normal, matmul, promote,
-                                       split_dim, split_heads)
+from repro_torch.models.modules import (apply_rope, gather_input, lecun_normal, matmul,
+                                       promote, row_project, split_dim, split_heads)
 
 NEG_INF = -1e30
 
@@ -75,6 +75,7 @@ def qkv_project(p, x, cfg, positions=None, rope=True):
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,Hk,hd), with RoPE applied."""
     B, S, _ = x.shape
     H, Hk, hd = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.hd
+    x = gather_input(x, p["wq"])
     q = matmul(x, p["wq"])
     k = matmul(x, p["wk"])
     v = matmul(x, p["wv"])
@@ -159,7 +160,13 @@ def _scan_attention(q, k, v, *, causal, q_chunk, kv_chunk):
 
 def decode_attention(q, k_cache, v_cache, length=None):
     """Single-token attention against the KV cache (a plain einsum, as in
-    the JAX package).  q: (B, 1, H, hd); caches: (B, S, Hk, hd)."""
+    the JAX package).  q: (B, 1, H, hd); caches: (B, S, Hk, hd).  DTensors
+    with q split on heads run on the local shards where they can
+    (``_decode_attention_local``)."""
+    if hasattr(q, "placements"):
+        out = _decode_attention_local(q, k_cache, v_cache, length)
+        if out is not None:
+            return out
     B, _, H, hd = q.shape
     S, Hk = k_cache.shape[1], k_cache.shape[2]
     G = H // Hk
@@ -175,13 +182,47 @@ def decode_attention(q, k_cache, v_cache, length=None):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _decode_attention_local(q, k_cache, v_cache, length):
+    """``decode_attention`` of DTensors on the local shards, the attention
+    split over the mesh dim that splits q's heads, as the prefill's
+    (``kernels/ops.py``): rank c of n holds query heads [c h, (c + 1) h),
+    h = H / n, and slices their KV heads from its cache, which that dim
+    replicates (the cache's other splits, the batch's, must be q's), before
+    the cast to f32, so it casts only those.  The output is split on heads
+    as q is.  None where that does not hold: q split on heads over no mesh
+    dim or several, H not divisible, a rank's heads not whole KV groups nor
+    within one (12 heads on 16 ranks, 3 heads of groups of 2)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not hasattr(k_cache, "placements"):
+        return None
+    mesh = q.device_mesh
+    dims = [i for i, p in enumerate(q.placements) if p == Shard(2)]
+    if len(dims) != 1:
+        return None
+    i = dims[0]
+    B, _, H, hd = q.shape
+    G, n = H // k_cache.shape[2], mesh.shape[i]
+    h = H // n
+    if H % n or (G % h and h % G):
+        return None
+    for j, (pq, pk) in enumerate(zip(q.placements, k_cache.placements)):
+        if pk != (Replicate() if j == i else pq) or pk != v_cache.placements[j]:
+            return None
+    lo, nk = mesh.get_local_rank(i) * h // G, max(h // G, 1)
+    out = decode_attention(q.to_local(), k_cache.to_local()[:, :, lo:lo + nk],
+                           v_cache.to_local()[:, :, lo:lo + nk], length)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False, shape=q.shape,
+                              stride=(H * hd, H * hd, hd, 1))
+
+
 def attn_apply(p, x, cfg, *, causal=True, positions=None, rope=True,
                q_chunk=512, kv_chunk=1024):
     """Full attention sub-layer (projections + flash attention + out proj)."""
     q, k, v = qkv_project(p, x, cfg, positions=positions, rope=rope)
     o = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
     B, S = x.shape[:2]
-    return matmul(o.reshape(B, S, -1), p["wo"])
+    return row_project(o.reshape(B, S, -1), p["wo"])
 
 
 def cross_attn_apply(p, x, kv_src, cfg, q_chunk=512, kv_chunk=1024):
@@ -191,11 +232,12 @@ def cross_attn_apply(p, x, kv_src, cfg, q_chunk=512, kv_chunk=1024):
     B, S, _ = x.shape
     H, Hk, hd = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.hd
     Se = kv_src.shape[1]
-    q = split_heads(matmul(x, p["wq"]), H, hd)
+    kv_src = gather_input(kv_src, p["wk"])
+    q = split_heads(matmul(gather_input(x, p["wq"]), p["wq"]), H, hd)
     k = split_heads(matmul(kv_src, p["wk"]), Hk, hd)
     v = split_heads(matmul(kv_src, p["wv"]), Hk, hd)
     o = chunked_attention(q, k, v, causal=False, q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return matmul(o.reshape(B, S, -1), p["wo"])
+    return row_project(o.reshape(B, S, -1), p["wo"])
 
 
 def decode_qkv(p, x, cfg, position):
@@ -203,6 +245,7 @@ def decode_qkv(p, x, cfg, position):
     scalar or a (B,) tensor."""
     B = x.shape[0]
     H, Hk, hd = cfg.n_heads_eff, cfg.n_kv_heads_eff, cfg.hd
+    x = gather_input(x, p["wq"])
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]

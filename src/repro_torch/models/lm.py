@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer, whisper
-from repro_torch.models.modules import count_params, pick_chunk
+from repro_torch.models.modules import count_params, gather_input, pick_chunk
 
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
@@ -33,7 +33,7 @@ def chunked_ce_loss(x, w_head, labels, mask=None, chunk: int = 512):
     for c0 in range(0, S, chunk):
         xc = x[:, c0:c0 + chunk]
         lc = labels[:, c0:c0 + chunk].long()
-        logits = (xc @ w_head).float()  # (B, chunk, V)
+        logits = (gather_input(xc, w_head) @ w_head).float()  # (B, chunk, V)
         # (B, chunk, 1) until the difference: a gather from a DTensor split
         # over the vocab is a masked partial that reduces at that shape.
         logz = torch.logsumexp(logits, dim=-1, keepdim=True)

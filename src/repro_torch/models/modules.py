@@ -54,7 +54,7 @@ def rmsnorm_init(d, dtype, device):
 
 def rmsnorm(p, x, eps=1e-6):
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    var = row_stat((xf * xf).mean(dim=-1, keepdim=True))
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
 
@@ -66,10 +66,28 @@ def layernorm_init(d, dtype, device):
 
 def layernorm(p, x, eps=1e-5):
     xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    mu = row_stat(xf.mean(dim=-1, keepdim=True))
+    var = row_stat(((xf - mu) ** 2).mean(dim=-1, keepdim=True))
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def row_stat(v):
+    """A norm's ``[.., 1]`` statistic, taken over a dim that a DTensor may
+    split: summed over the ranks now (one all-reduce of ``[.., 1]``), and
+    its gradient likewise before it spreads back over that dim.  DTensor
+    alone would carry the gradient's pending sum into the ``[.., D]``
+    expansion and reduce-scatter that, in f32.  A plain tensor is returned
+    as it is."""
+    if not hasattr(v, "placements"):
+        return v
+    from torch.distributed.tensor import DTensor, Replicate
+
+    v = v.redistribute(v.device_mesh, [Replicate() if p.is_partial() else p
+                                       for p in v.placements])
+    # from_local's backward brings the incoming gradient to these placements.
+    return DTensor.from_local(v.to_local(), v.device_mesh, v.placements, run_check=False,
+                              shape=v.shape, stride=v.stride())
 
 
 def make_norm(kind: str):
@@ -142,11 +160,15 @@ def mlp_init(gen, d_model, d_ff, dtype, activation="swiglu", device=None):
 
 
 def mlp(p, x, activation="swiglu"):
+    """Megatron's layout on DTensors: the input gathered once
+    (``gather_input``), the in-projections split on F, the activation on
+    the split hidden, the down product reduce-scattered (``row_project``)."""
+    x = gather_input(x, p["w_up"])
     if activation == "swiglu":
         h = swiglu(matmul(x, p["w_gate"]), matmul(x, p["w_up"]))
-        return matmul(h, p["w_down"])
+        return row_project(h, p["w_down"])
     h = F.gelu((matmul(x, p["w_up"]) + p["b_up"]).float(), approximate="tanh").to(x.dtype)
-    return matmul(h, p["w_down"]) + p["b_down"]
+    return row_project(h, p["w_down"]) + p["b_down"]
 
 
 # -- reshapes of DTensors -----------------------------------------------------------
@@ -186,6 +208,52 @@ def settle_partial(x):
     if fixed == list(x.placements):
         return x
     return x.redistribute(x.device_mesh, fixed)
+
+
+def gather_input(x, w):
+    """The input of an in-projection ``x @ w`` in Megatron's layout: a
+    DTensor split over its last dim, or holding pending sums, is replicated
+    on those mesh dims (one all-gather of ``[.., D]``), so that the product
+    is split as ``w``'s last dim is and its hidden never moves.  On a mesh
+    dim where ``w`` splits its first (contracted) dim, as a tied head's
+    ``table.T`` does, ``x`` stays as it is.  Gathered once, it feeds every
+    in-projection of a sub-layer.  A plain tensor is returned as it is."""
+    if not hasattr(x, "placements"):
+        return x
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    last = x.ndim - 1
+    wp = getattr(w, "placements", (None,) * len(x.placements))  # a plain w splits nothing
+    fixed = [Replicate() if (p == Shard(last) or isinstance(p, Partial)) and q != Shard(0)
+             else p for p, q in zip(x.placements, wp)]
+    if fixed == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, fixed)
+
+
+def row_project(h, w):
+    """``h @ w`` for an out-projection, on each mesh dim where the DTensor
+    ``h`` is split over its last dim.  Megatron's layout: ``w`` is
+    redistributed to split its first dim alike (its stored split stays on
+    the last dim; the gradient goes back through the redistribution), so
+    the product is a partial sum, reduce-scattered over its last dim by
+    ``settle_partial``.  Where gathering ``h`` moves no more than a rank's
+    shard of ``w`` (a decode step's few rows), ``h`` is gathered instead and
+    ``w`` stays as stored: the product is split as ``w`` is, with no sum.
+    Plain tensors: ``matmul(h, w)``."""
+    if hasattr(h, "placements") and hasattr(w, "placements"):
+        from torch.distributed.tensor import Replicate, Shard
+
+        split = [p == Shard(h.ndim - 1) for p in h.placements]
+        local = h.to_local()
+        if any(split) and local.numel() // local.shape[-1] * h.shape[-1] <= w.to_local().numel():
+            h = h.redistribute(h.device_mesh, [Replicate() if s else p
+                                               for s, p in zip(split, h.placements)])
+        else:
+            fixed = [Shard(0) if s else q for s, q in zip(split, w.placements)]
+            if fixed != list(w.placements):
+                w = w.redistribute(w.device_mesh, fixed)
+    return settle_partial(matmul(h, w))
 
 
 def split_heads(x, heads: int, hd: int):

@@ -40,12 +40,14 @@ from repro_torch.models.modules import (
     DTYPES,
     embedding_init,
     embedding_lookup,
+    gather_input,
     lecun_normal,
     make_norm,
     matmul,
     mlp,
     mlp_init,
     pick_chunk,
+    row_project,
 )
 
 
@@ -133,7 +135,7 @@ def dense_block_decode(p, x, cache, cfg: ArchConfig, pos):
     }
     o = attn.decode_attention(q, cache["k"], cache["v"], length=pos + 1)
     B = x.shape[0]
-    x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+    x = x + row_project(o.reshape(B, 1, -1), p["attn"]["wo"])
     h, _ = _mlp_apply(p, norm(p["ln2"], x), cfg)
     return x + h, cache
 
@@ -238,7 +240,7 @@ def hybrid_period_decode(p, x, cache, cfg: ArchConfig, pos):
             _dus_seq(c["k"], k, pos)
             _dus_seq(c["v"], v, pos)
             o = attn.decode_attention(q, c["k"], c["v"], length=pos + 1)
-            h = o.reshape(x.shape[0], 1, -1) @ sub["attn"]["wo"]
+            h = row_project(o.reshape(x.shape[0], 1, -1), sub["attn"]["wo"])
         else:
             h, new = mam.mamba_apply(sub["mamba"], h, cfg, state=c)
             _copy_state(c, new)
@@ -364,7 +366,7 @@ def forward(params, tokens, cfg: ArchConfig, vis_embeds=None):
 
 def logits_head(params, x, cfg: ArchConfig):
     w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    return x @ w
+    return gather_input(x, w) @ w
 
 
 # -- decode -----------------------------------------------------------------

@@ -268,6 +268,30 @@ def tp_prefill_tokens():
     return np.random.default_rng(TP_PREFILL_SEED).integers(0, 128, size=(4, 32))
 
 
+#: Tensor-parallel decode cases: name -> arch.  On (1, 4), reduced
+#: tinyllama's 4 query heads split 4 ways over its 2 KV heads: each rank
+#: slices its head's KV head from the replicated cache (ROADMAP C17).
+TP_DECODE = {"decode-tp": "tinyllama-1.1b"}
+#: The decode step follows a prefill of TP_DECODE_PREFILL tokens into a
+#: cache of TP_DECODE_SEQ positions, a batch of 4.
+TP_DECODE_PREFILL, TP_DECODE_SEQ = 8, 16
+
+
+def tp_decode_inputs():
+    """The prefill's token ids (4, TP_DECODE_PREFILL) and the decoded
+    token ids (4,), numpy int64."""
+    rng = np.random.default_rng(TP_PREFILL_SEED + 1)
+    return rng.integers(0, 128, size=(4, TP_DECODE_PREFILL)), rng.integers(0, 128, size=4)
+
+
+def tp_decode_cache(cfg, params):
+    """The port's cache after the prefill (plain tensors on the CPU)."""
+    from repro_torch.serve.engine import capture_prefill
+
+    tokens, _ = tp_decode_inputs()
+    return capture_prefill(cfg, params, torch.from_numpy(tokens), TP_DECODE_SEQ)[1]
+
+
 def case_train_tp(name):
     """TRAIN_ROUNDS of make_train_step with the plan's specs on a (data,
     model) mesh of 4 ranks: each leaf split on 'model' where its trailing dim
@@ -332,6 +356,47 @@ def case_prefill_tp(name):
     return {"logits": out.full_tensor().clone(), "placements": [str(p) for p in out.placements]}
 
 
+def case_decode_tp(name):
+    """``lm.decode_step`` at position TP_DECODE_PREFILL on DTensors over a
+    (1, 4) mesh with the serving plan's specs, from the prefill's params and
+    cache: the whole logits, the whole cache after the step, and the layers
+    whose attention ran split over 'model'."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import attention, lm
+    from repro_torch.tree import tree_map
+
+    cfg = train_cfg(get_arch, TP_DECODE[name])
+    mesh = make_debug_mesh(1, 4, device_type="cpu")
+    plan = shd.plan_for(cfg, mesh, serve=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    cache = tp_decode_cache(cfg, params)
+    token = torch.from_numpy(tp_decode_inputs()[1]).to(torch.int32)
+    specs = (shd.param_specs(cfg, params, plan, stacked=False),
+             shd.cache_specs(cfg, cache, plan, token.shape[0]),
+             shd.serve_batch_spec(plan, token.shape[0]))
+    dparams, dcache, dtoken = (shd.distribute(shd.local_part(tree, spec, mesh), spec, mesh)
+                               for tree, spec in zip((params, cache, token), specs))
+    local, split = attention._decode_attention_local, [0]
+
+    def counted(*args):
+        out = local(*args)
+        split[0] += out is not None
+        return out
+
+    attention._decode_attention_local = counted
+    try:
+        with torch.no_grad(), implicit_replication():
+            logits, dcache = lm.decode_step(dparams, dcache, dtoken, TP_DECODE_PREFILL, cfg)
+    finally:
+        attention._decode_attention_local = local
+    return {"logits": logits.full_tensor().clone(), "split_layers": split[0],
+            "cache": tree_map(lambda t: t.full_tensor().clone(), dcache)}
+
+
 def case_sim(name, init):
     """The sharded engine's run, and how many cohorts it pulled point to
     point (only where every worker has a rank of its own)."""
@@ -393,6 +458,7 @@ def cases(world: int, init) -> list:
                 for m in ("netmax-ppermute", "prague")]
         out += [(name, lambda name=name: case_train_tp(name)) for name in TP_TRAIN]
         out += [(name, lambda name=name: case_prefill_tp(name)) for name in TP_PREFILL]
+        out += [(name, lambda name=name: case_decode_tp(name)) for name in TP_DECODE]
     if world == 8:
         out += [("jax-ppermute", case_jax_ppermute), ("layout", case_layout),
                 ("pulls-pod-data", lambda: case_pulls(

@@ -7,10 +7,13 @@ JAX package's HLO cost model (``repro.analysis``), on the CPU.
   relu MLP within 10% of ``HloCostModel``'s count of the JAX program (the
   tolerance that file holds it to against ``cost_analysis``);
 * (b) collectives, in a fake process group made and torn down inside each
-  test (``launch.dryrun.fake_group``): an ``all_reduce`` of an f32[4] is
-  16 bytes once; a column-parallel MLP's per-rank ``mm`` FLOPs on 16x16
-  are the global FLOPs / 256 exactly; an all-to-all on the dry-run's
-  (CUDA-typed) mesh is counted as one, not as an all-gather and a chunk;
+  test (``launch.dryrun.fake_group``): DTensor's sharding propagation is
+  not a rank's memory (ROADMAP C18: the peak is the local outputs', the
+  reduced decode cell's temp not its global caches); an ``all_reduce`` of
+  an f32[4] is 16 bytes once; a column-parallel MLP's per-rank ``mm``
+  FLOPs on 16x16 are the global FLOPs / 256 exactly; an all-to-all on the
+  dry-run's (CUDA-typed) mesh is counted as one, not as an all-gather and
+  a chunk;
 * (c) the kernel formulas at the first shape of each PERF.md §6 row
   against that row's bound (bytes over 3.35 TB/s, operations over the
   row's rate), to 1%;
@@ -193,6 +196,49 @@ def test_all_reduce_counts_its_operand_once():
     assert cc.report.collective_bytes == {"all-reduce": 16.0}
     assert cc.report.collective_count == {"all-reduce": 1.0}
     assert cc.report.flops == 0
+
+
+def test_dtensor_propagation_is_no_rank_memory():
+    """ROADMAP C18: DTensor's sharding propagation allocates FakeTensors of
+    the global shape with no tensor input (``empty_strided``); the peak
+    counts the rank's own outputs only.  On 4 ranks, x of local f32 (8, 16,
+    32) split on its last dim: x + x is one local output of 8 * 16 * 32 * 4
+    bytes, and x.sum(-1), a partial sum, one of 8 * 16 * 4; the peak's only
+    buffer is that output."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.dryrun import fake_group
+
+    with fake_group(4):
+        mesh = init_device_mesh("cuda", (4,), mesh_dim_names=("model",))
+        x = DTensor.from_local(torch.empty((8, 16, 32), device="meta"), mesh, [Shard(2)],
+                               run_check=False)
+        cases = ((lambda: x + x, 8 * 16 * 32 * 4, "aten.add", "f32[8,16,32]"),
+                 (lambda: x.sum(-1), 8 * 16 * 4, "aten.sum", "f32[8,16]"))
+        for fn, nbytes, op, shape in cases:
+            with cost.CostCounter() as cc:
+                y = fn()
+            assert cc.peak_bytes == nbytes
+            peak = [(b.op, b.shape, b.bytes) for b in cc.peak_buffers()]
+            assert peak == [(op, shape, nbytes)]
+            assert y.to_local().numel() * 4 == nbytes
+            del y
+
+
+def test_reduced_decode_cell_temp_is_not_the_global_caches():
+    """ROADMAP C18: the reduced decode_32k cell on the (2, 4) plan holds
+    half the global k and v caches a rank (the batch split over 'data';
+    2 x 1.0738 GB globally); its temp, once those caches' global fakes,
+    stays below 1.7 GB."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import dryrun
+
+    cfg = get_arch("tinyllama-1.1b").reduced()
+    rec = dryrun.run_cell("tinyllama-1.1b", "decode_32k", False, quiet=True, cfg=cfg,
+                          mesh_spec=((2, 4), ("data", "model")))
+    assert rec["ok"], rec.get("traceback")
+    assert rec["memory_analysis"]["temp_size_in_bytes"] <= 1.7e9
 
 
 def test_column_parallel_mm_flops_are_global_over_256(fake16):

@@ -26,7 +26,10 @@ devices, as tests/test_fleet.py runs it.  Held to it:
 * tensor parallelism on 2 workers x 2 'model' ranks: ``make_train_step``
   with the plan's 'model'-split specs (gather and ppermute pulls), each
   rank's shards against the same slices of JAX's unsharded step, to that
-  tolerance; ``prefill_logits`` on DTensors against JAX's within 1e-4.
+  tolerance; ``prefill_logits`` on DTensors against JAX's within 1e-4;
+  ``decode_step`` on 1 x 4 'model' ranks, the cache attention split over
+  them (ROADMAP C17), its logits and the cache it wrote against JAX's
+  within 1e-4.
 """
 
 import functools
@@ -554,6 +557,34 @@ def test_tensor_parallel_prefill_matches_jax(cluster, case):
                                          dr.train_cfg(jget, arch)))
     for res in cluster.case(4, case):
         np.testing.assert_allclose(res["logits"].numpy(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", list(dr.TP_DECODE))
+def test_tensor_parallel_decode_matches_jax(cluster, case):
+    """lm.decode_step on DTensors over 1 x 4 'model' ranks, each holding
+    one query head and slicing its KV head from the replicated cache
+    (ROADMAP C17), from a short prefill's params and cache, against the JAX
+    package's decode_step from the same: the logits and the cache it wrote,
+    to 1e-4, on every rank, every layer's attention split."""
+    from repro.models import lm as jlm
+    from repro_torch.models import lm as tlm
+
+    arch = dr.TP_DECODE[case]
+    cfg = dr.train_cfg(tget, arch)
+    params = tlm.init_params(cfg, torch.Generator().manual_seed(0))
+    cache = dr.tp_decode_cache(cfg, params)
+    _, token = dr.tp_decode_inputs()
+    to_j = lambda t: jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()), t)  # noqa: E731
+    logits, jcache = jlm.decode_step(to_j(params), to_j(cache), jnp.asarray(token, jnp.int32),
+                                     dr.TP_DECODE_PREFILL, dr.train_cfg(jget, arch))
+    want = [np.asarray(x) for x in jax.tree_util.tree_leaves(jcache)]
+    for res in cluster.case(4, case):
+        assert res["split_layers"] == cfg.n_layers
+        np.testing.assert_allclose(res["logits"].numpy(), np.asarray(logits), atol=1e-4, rtol=0)
+        got = [t.numpy() for t in tree_leaves(res["cache"])]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
 
 
 def test_placements_follow_mesh_order():

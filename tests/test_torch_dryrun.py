@@ -11,17 +11,17 @@ shapes (the chunked scan, and its gradient for training).  The port's
 * ``params``, ``active_params`` and the roofline's ``model_flops`` are
   equal;
 * per-rank FLOPs within 25% of the JAX package's, or else the difference
-  is one named term: prefill and training differ by the attention term
-  (the kernel formula counts the causal pairs once, the JAX chunked scan
-  computes all S^2 pairs), and the difference equals the two attention
-  terms' difference to 5% (prefill; training 10%, ``TERM_TOL``); the decode
-  step differs by its cache
-  attention, which the port runs on every 'model' rank (2 KV heads do not
-  split 4 ways) where the JAX program splits it: the port's count is the
-  higher, by at most that term's share the split could save;
+  is one named term, to 5% (``TERM_TOL``): prefill and training differ by
+  the attention term (the kernel formula counts the causal pairs once, the
+  JAX chunked scan computes all S^2 pairs); the decode step by the JAX
+  program's elementwise FLOPs (XLA rewrites the whole stacked cache in each
+  layer, 1 FLOP an element, where the port writes one position in place),
+  its dots -- the cache attention split over 'model' included -- being the
+  same;
 * per-rank FLOPs x 8 within 1.0-1.3x of the port's unsharded count of the
-  same program (meta tensors, no mesh), the decode step's cache attention
-  taken as split;
+  same program (``dryrun.unsharded_flops``: meta tensors, no mesh); and at
+  full width on the 16x16 plan, port only, per-rank FLOPs x 256 likewise,
+  with the collective bytes and the temp below the plan's bounds;
 * the train cell (M = 2) under ``--gossip ppermute`` has collective-permute
   bytes, as tests/test_system.py asks of the JAX records.
 """
@@ -42,19 +42,17 @@ from repro_torch.analysis import cost
 from repro_torch.analysis.roofline import from_record
 from repro_torch.configs.base import SHAPES, get_arch
 from repro_torch.launch import dryrun
-from repro_torch.models import lm
-from repro_torch.optim import sgd
-from repro_torch.train.trainer import TrainStepConfig, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "tinyllama-1.1b"
 CELLS = ("train_4k", "prefill_32k", "decode_32k")
 MESH = ((2, 4), ("data", "model"))
 FLOPS_TOL = 0.25
-#: The attention term explains the prefill's difference to 5%; training's
-#: to 10%: there DTensor's placement of the block products leaves the
-#: port's other FLOPs ~4e10 a rank above the JAX program's (of ~1e11).
-TERM_TOL = {"prefill_32k": 0.05, "train_4k": 0.10}
+#: How closely the named term explains a cell's difference from the JAX
+#: program's count.
+TERM_TOL = {"prefill_32k": 0.05, "train_4k": 0.05, "decode_32k": 0.05}
+#: The port's dot ops (their FLOPs by ``flop_counter``'s formulas).
+DOTS = ("aten.mm", "aten.bmm", "aten.addmm", "aten.baddbmm")
 
 _JAX_SCRIPT = textwrap.dedent("""
     import json, os, sys
@@ -63,6 +61,10 @@ _JAX_SCRIPT = textwrap.dedent("""
     assert len(jax.devices()) == 8  # before repro.launch.dryrun sets its own count
     from jax.sharding import AxisType
     from repro.analysis.hlo import HloCostModel
+
+    class NoDots(HloCostModel):  # the count without its dots
+        def _dot_flops(self, op, comp):
+            return 0.0
     from repro.configs.base import get_arch
     from repro.launch import dryrun
     from repro.models import lm
@@ -74,9 +76,10 @@ _JAX_SCRIPT = textwrap.dedent("""
     out = {"params": lm.param_count(cfg), "active_params": lm.active_param_count(cfg)}
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
         lowered, meta = dryrun.build_lowered(cfg, shape, mesh, "ppermute")
-        rep = HloCostModel(lowered.compile().as_text()).entry_cost()
+        text = lowered.compile().as_text()
+        rep = HloCostModel(text).entry_cost()
         out[shape] = {"flops": rep.flops, "collective_bytes": rep.collective_bytes,
-                      "M": meta["M"]}
+                      "M": meta["M"], "elementwise": NoDots(text).entry_cost().flops}
 
     def attention_term(B, S, grad):
         # One device's attention call: its batch rows and one query head,
@@ -127,33 +130,20 @@ def jax_side(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def port_cells(jax_side):
+def port_cells(jax_side, tmp_path_factory):
+    """The port's reduced cells, each with the dot FLOPs of its op log."""
     cfg = get_arch(ARCH).reduced()
-    return {s: dryrun.run_cell(ARCH, s, False, "ppermute", quiet=True, cfg=cfg,
-                               mesh_spec=MESH) for s in CELLS}
-
-
-def _unsharded_flops(cfg, shape_name):
-    """The port's count of the same program on one device (meta, no mesh)."""
-    from repro_torch.launch import specs as sp
-
-    shape = SHAPES[shape_name]
-    opt = sgd(momentum=0.9, weight_decay=1e-4)
-    if shape.kind == "train":
-        M = 2
-        inp = sp.input_specs(cfg, shape_name, M, opt)
-        step = make_train_step(cfg, opt, M, TrainStepConfig(gossip_mode="gather"))
-        gossip_in = {"neighbors": [1, 0], "weights": torch.full((M,), 0.5), "lr": 0.1}
-        with cost.CostCounter(log_ops=False) as cc:
-            step(inp["params"], inp["opt_state"], inp["batch"], gossip_in)
-        return cc.report.flops
-    inp = sp.input_specs(cfg, shape_name, 1, opt)
-    with torch.no_grad(), cost.CostCounter(log_ops=False) as cc:
-        if shape.kind == "prefill":
-            lm.prefill_logits(inp["params"], inp["batch"], cfg)
-        else:
-            lm.decode_step(inp["params"], inp["cache"], inp["token"], shape.seq_len - 1, cfg)
-    return cc.report.flops
+    cells = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dryrun, "ARTIFACTS", tmp_path_factory.mktemp("port_dryrun"))
+        for s in CELLS:
+            rec = dryrun.run_cell(ARCH, s, False, "ppermute", save_ops=True, quiet=True,
+                                  cfg=cfg, mesh_spec=MESH)
+            if rec["ok"]:
+                ops = dryrun.report_from_ops(dryrun._ops_path(rec["mesh"], ARCH, s, "")).ops
+                rec["dot_flops"] = sum(op.flops for op in ops if op.op in DOTS)
+            cells[s] = rec
+    return cells
 
 
 @pytest.mark.parametrize("shape", CELLS)
@@ -197,26 +187,39 @@ def test_per_rank_flops_against_jax(port_cells, jax_side, shape):
         term = want["attention"] - _port_attention(cfg, shape)
         assert jax_flops - port == pytest.approx(term, rel=TERM_TOL[shape])
     else:
-        # The decode step's cache attention: on every 'model' rank in the
-        # port; split in the JAX program.
-        assert 0 < port - jax_flops <= _decode_attention(cfg) * (1 - 1 / 4)
-
-
-def _decode_attention(cfg):
-    """q k^T and p v of a decode step over all heads of rank 0's 64
-    sequences and the 32k cache, every layer: the term the port runs on
-    each of the 4 'model' ranks (2 KV heads do not split 4 ways)."""
-    return cfg.n_layers * 2 * (2 * 64 * cfg.n_heads * 32768 * cfg.hd)
+        # The elementwise term: the JAX program's count without its dots
+        # (XLA's dynamic-update-slice and copies of the whole stacked cache
+        # in each layer) against the port's (one position written in
+        # place); the dots, the cache attention split over 'model' as GSPMD
+        # splits it, are the same.
+        term = want["elementwise"] - (port - rec["dot_flops"])
+        assert jax_flops - port == pytest.approx(term, rel=TERM_TOL[shape])
 
 
 @pytest.mark.parametrize("shape", CELLS)
 def test_per_rank_flops_times_ranks_against_unsharded(port_cells, shape):
     cfg = get_arch(ARCH).reduced()
-    per_rank = port_cells[shape]["hlo_flops_per_device"]
-    if shape == "decode_32k":  # its cache attention counted once, as if split
-        per_rank -= _decode_attention(cfg) * (1 - 1 / 4)
-    ratio = per_rank * 8 / _unsharded_flops(cfg, shape)
+    ratio = (port_cells[shape]["hlo_flops_per_device"] * 8
+             / dryrun.unsharded_flops(cfg, shape))
     assert 1.0 <= ratio <= 1.3, ratio
+
+
+@pytest.mark.parametrize("shape", CELLS)
+def test_full_width_plan_against_unsharded(shape):
+    """tinyllama-1.1b at full width on the production 16x16 plan, the port
+    alone: per-rank FLOPs x 256 over the unsharded count (training's at
+    M = 2 over the same global batch) within ``dryrun.PLAN_RATIO``, and the
+    cell's collective bytes and temp within ``dryrun.PLAN_BOUNDS``."""
+    rec = dryrun.run_cell(ARCH, shape, False, "ppermute", quiet=True)
+    assert rec["ok"], rec.get("traceback")
+    ratio = rec["hlo_flops_per_device"] * 256 / dryrun.unsharded_flops(get_arch(ARCH), shape)
+    lo, hi = dryrun.PLAN_RATIO
+    assert lo <= ratio <= hi, ratio
+    bounds = dryrun.PLAN_BOUNDS[shape]
+    if "collective" in bounds:
+        assert sum(rec["collective_bytes_per_device"].values()) <= bounds["collective"]
+    if "temp" in bounds:
+        assert rec["memory_analysis"]["temp_size_in_bytes"] <= bounds["temp"]
 
 
 def test_train_cell_pulls_by_collective_permute(port_cells, jax_side):
