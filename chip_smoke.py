@@ -9,10 +9,11 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build   — compile every CUDA source of the port with nvcc (one process
              per source, all started together), print the seconds and, per
              kernel, the tensor-core instructions (HMMA / HGMMA) that
-             ``cuobjdump -sass`` lists: every bf16 flash-attention forward,
-             every tensor-core backward kernel (``*mma_kernel``) and every
-             WKV forward instantiation must have some (the WKV backward
-             runs on the FMA units and is not asked for any);
+             ``cuobjdump -sass`` lists: every flash-attention forward and
+             backward body (``*mma_kernel``: bf16, and f32 in 3xTF32) and
+             every WKV forward and backward instantiation must have some
+             (the forward's merge kernel and the backward's row-dot and
+             reduce kernels hold no product and are not asked for any);
 3. kernels — every hand-written kernel against its plain torch version on
              the card, at the test shapes, the main path's shapes and a
              large shape (flash attention also at the shapes phases 21-25
@@ -99,8 +100,8 @@ Phases, in order; any failure exits non-zero before the result line:
              query sequence whose dQ key walk is split (``dq_splits``),
              and the training shape (2 x 512 tokens, 32/4 heads, hd 64);
              max |err| of dq, dk and dv within 1e-4 (f32) / 2e-2 (bf16) of
-             max |grad|; per case the body (bf16 on the tensor cores at
-             every head dim, f32 on the FMA units), the key ranges, and the
+             max |grad|; per case the body (bf16 and f32, in 3xTF32, on the
+             tensor cores at every head dim), the key ranges, and the
              device time a call against the bound, and at the training
              shapes against SDPA's backward: the dense phase's, and phases
              30-32's in the dtype each trains in (phi3.5's 1 x 512, 32/8
@@ -182,9 +183,10 @@ Phases, in order; any failure exits non-zero before the result line:
              (prompt 32, 16 new).  The launch counters are zeroed just
              before and read just after: flash attention launches 8 / 2 /
              1 / 36 / 24 times a forward (whisper: its encoder and cross-
-             attention on the f32 FMA body, the f32 frames promoted as JAX
-             does, its self-attention on the tensor cores; the rest all on
-             the tensor cores) and no other kernel launches; logits finite,
+             attention on the f32 3xTF32 body, the f32 frames promoted as
+             JAX does, the cross-attention's key walk split in 3 ranges,
+             its self-attention on the bf16 body; the rest all on the bf16
+             body) and no other kernel launches; logits finite,
              tokens in the vocab, the captured K/V (and Jamba's mamba
              states) finite and non-zero.  Prints the slots the MoE
              capacity dropped, the expert bytes a decode step reads, peak
@@ -296,7 +298,7 @@ Phases, in order; any failure exits non-zero before the result line:
              tinyllama's 16x16 cells must do per-rank FLOPs x 256 within
              ``dryrun.PLAN_RATIO`` of it (1.0-1.3x), with a rank's
              collective bytes and temp within ``dryrun.PLAN_BOUNDS``
-             (ROADMAP C16-C18, C20); rwkv6-7b's ratios are printed;
+             (ROADMAP C16-C20); rwkv6-7b's ratios are printed;
 37. cost   — ``analysis.cost.CostCounter`` around two rounds of phase 13's
              cut under the profiler (the two rounds traced again, up to 4
              times, when CUPTI drops kernels from a trace): the kernel
@@ -388,6 +390,9 @@ ATTN_FAMILY_CASES = [(4, 1500, 1500, 12, 12, 64, False, "float32"),
 ATTN_MAIN = (4, 512, 512, 32, 4, 64, True, "bfloat16")
 ATTN_LARGE = (1, 8192, 8192, 32, 4, 64, True, "bfloat16")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: The split f32 walk's merged log-sum-exp against one whole walk's: f32
+#: sums of the same products in another order, relative to 1 + max |lse|.
+FWD_SPLIT_LSE_TOL = 1e-5
 #: tests/test_kernels.py RWKV_CASES (B, S, H, N, chunk, dtype), a ragged one,
 #: the model's dtypes ("mixed": r/k/v bf16, w f32) at N 16/32/64 and ragged,
 #: the extreme-decay cases (below the Pallas wrapper's clamp, held to the
@@ -457,7 +462,7 @@ RWKV_BWD_MAIN = (1, 512, 64, 64, "mixed", None, False, False)
 RWKV_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "mixed": 2e-2}
 #: Kernels that must hold tensor-core instructions (a substring of their
 #: symbol in ``cuobjdump -sass``), by library.
-TENSOR_CORE_KERNELS = {"flash_attention": "flash_fwd_bf16_mma_kernel",
+TENSOR_CORE_KERNELS = {"flash_attention": "mma_kernel",
                        "flash_attention_bwd": "mma_kernel",
                        "rwkv_scan": "rwkv_scan_kernel",
                        "rwkv_scan_bwd": "rwkv_scan_bwd"}
@@ -935,10 +940,19 @@ def attn_work(B, S, Sk, H, Hk, hd, causal, itemsize):
     return attention_work(B, S, Sk, H, Hk, hd, causal, itemsize)
 
 
+def flash_rate(name, dtype):
+    """The peak rate of a flash-attention body's products: bf16 on the
+    tensor cores, f32 as 3xTF32 on them."""
+    return flop_rate(name, "3xtf32" if dtype == "float32" else dtype)
+
+
 def phase_flash(torch, rate, name, records):
     """Flash attention against ``ref.reference_attention`` on every case;
-    per case the profiler's device time, the time per call, the plain
-    version's, SDPA's (main and large shapes) and the bound.  Appends to
+    per case the body and key ranges the C entry reported (held to
+    ``BODIES`` and ``forward_key_splits``), the profiler's device time, the
+    time per call, the plain version's, SDPA's (family, main and large
+    shapes) and the bound.  Where the f32 walk is split, the call's
+    log-sum-exp against one whole walk's (``FWD_SPLIT_LSE_TOL``).  Appends to
     ``records``; returns the kernel's summary at the main shape."""
     import torch.nn.functional as F
 
@@ -947,6 +961,7 @@ def phase_flash(torch, rate, name, records):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
     for role, cases in (("test", ATTN_CASES), ("family", ATTN_FAMILY_CASES),
                         ("main", [ATTN_MAIN]), ("large", [ATTN_LARGE])):
@@ -956,9 +971,15 @@ def phase_flash(torch, rate, name, records):
             q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt)
             k = torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
             v = torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
+            fa.FWD_LAUNCHED.update(body=None, key_splits=None)
             got = fa.flash_attention(q, k, v, causal=causal)
+            launched = dict(fa.FWD_LAUNCHED)
             want = ref.reference_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
+            asked = {"body": fa.BODIES[dt],
+                     "key_splits": fa.forward_key_splits(dt, B, S, Sk, H, Hk, sms)}
+            check(launched == asked, f"flash_attention {case}: the C entry launched "
+                  f"{launched}, not {asked}")
             check(got.shape == q.shape and got.dtype == q.dtype,
                   f"flash_attention {case}: output {tuple(got.shape)} {got.dtype}")
             diff = (got.float() - want.float()).abs()
@@ -969,13 +990,24 @@ def phase_flash(torch, rate, name, records):
                                  f"atol = rtol = {tol}")
             del want, diff
             flops, nbytes = attn_work(B, S, Sk, H, Hk, hd, causal, q.element_size())
-            t_ops = flops / flop_rate(name, dtype) * 1e3
+            t_ops = flops / flash_rate(name, dtype) * 1e3
             t_bytes = nbytes / rate * 1e3
             rec = {"kernel": "flash_attention", "role": role, "case": list(case),
-                   "dtype": dtype, "body": fa.BODIES[dt], "max_abs_err": err,
+                   "dtype": dtype, **launched, "max_abs_err": err,
                    "flops": flops, "bytes": nbytes,
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            if launched["key_splits"] > 1:
+                # The ranges' merged log-sum-exp against one whole walk's.
+                split_lse = fa._forward(q, k, v, causal, with_lse=True)[1]
+                whole_lse = fa._forward(q, k, v, causal, with_lse=True, key_splits=1)[1]
+                torch.cuda.synchronize()
+                lse_err = (split_lse - whole_lse).abs().max().item()
+                check(lse_err <= FWD_SPLIT_LSE_TOL * (1 + whole_lse.abs().max().item()),
+                      f"flash_attention {case}: the split walk's lse differs from the "
+                      f"whole walk's by {lse_err}")
+                rec["split_lse_err"] = lse_err
+                del split_lse, whole_lse
             fns = {"": lambda: fa.flash_attention(q, k, v, causal=causal),
                    "plain_": lambda: ref.reference_attention(q, k, v, causal=causal)}
             if role != "test":
@@ -983,17 +1015,20 @@ def phase_flash(torch, rate, name, records):
                 fns["library_"] = lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, enable_gqa=True)
             iters = {"test": 10, "family": 10, "main": 20, "large": 2}[role]
+            # A split walk launches the merge kernel after the body.
+            per_call = 2 if launched["key_splits"] > 1 else 1
             for key, fn in fns.items():
                 call = cuda_ms(torch, fn, iters)
-                dev_ms = device_ms(torch, fn, iters,
-                                   "flash_fwd" if key == "" else None)
+                dev_ms = device_ms(torch, fn, iters, "flash_fwd" if key == "" else None,
+                                   per_call=per_call if key == "" else 1)
                 rec[key + "ms"] = call if dev_ms is None else dev_ms
                 rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
                 rec[key + "call_ms"] = call
             rec.setdefault("library_ms", None)
             records.append(rec)
             out.setdefault(role, []).append(rec)
-            print(f"  flash_attention {role} {case} ({rec['body']}): max|err| {err:.3g}, device "
+            print(f"  flash_attention {role} {case} ({rec['body']}, {rec['key_splits']} key "
+                  f"ranges): max|err| {err:.3g}, device "
                   f"{rec['ms'] * 1e3:.1f} us ({rec['ms_from']}), per call "
                   f"{rec['call_ms'] * 1e3:.1f} us, plain {rec['plain_ms'] * 1e3:.1f} us, "
                   + (f"sdpa {rec['library_ms'] * 1e3:.1f} us, " if rec["library_ms"] else "")
@@ -1011,6 +1046,12 @@ def phase_flash(torch, rate, name, records):
         # One launch at the LM phase's shape (one layer of the prefill).
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        # The families' shapes (whisper's f32 encoder and cross-attention on
+        # the 3xTF32 body, the latter's walk split), one call each.
+        "family_shapes": [{k: r[k] for k in ("case", "dtype", "body", "key_splits", "ms",
+                                             "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                             "max_abs_err")}
+                          for r in out["family"]],
     }
     print(f"kernel flash_attention: max|err| {summary['max_abs_err']:.3g}, main-path "
           f"launch {summary['ms'] * 1e3:.1f} us on the device (plain "
@@ -1492,9 +1533,9 @@ def phase_lm(torch):
     check(launches["flash_attention"] == cfg.n_layers * forwards,
           f"flash_attention launched {launches['flash_attention']} times for "
           f"{forwards} forwards of {cfg.n_layers} layers")
-    check(bodies == {"tensor_core": cfg.n_layers * forwards, "fma": 0},
+    check(bodies == {"bf16_mma": cfg.n_layers * forwards, "tf32x3_mma": 0},
           f"flash_attention launches by body {bodies}: every prefill layer must run "
-          "the tensor-core body")
+          "the bf16 body")
     check(launches["rwkv_scan"] == 0,
           f"rwkv_scan launched {launches['rwkv_scan']} times on the dense LM path")
     check(tuple(logits.shape) == (B, cfg.vocab_size) and logits.dtype == torch.float32,
@@ -1645,16 +1686,16 @@ def phase_lm_parity(torch):
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.inference_mode():
         params = lm.init_params(cfg16, gen)
-        n0 = fa.BODY_LAUNCHES["tensor_core"]
+        n0 = fa.BODY_LAUNCHES["bf16_mma"]
         on_card16 = lm.prefill_logits(params, {"tokens": tokens}, cfg16)
         torch.cuda.synchronize()
-        tc_launches = fa.BODY_LAUNCHES["tensor_core"] - n0
+        tc_launches = fa.BODY_LAUNCHES["bf16_mma"] - n0
         on_cpu16 = lm.prefill_logits(_tree_to(params, "cpu"), {"tokens": tokens.cpu()},
                                      cfg16)
     scale16 = on_cpu16.abs().max().item()
     d16 = (on_card16.cpu() - on_cpu16).abs().max().item()
     check(tc_launches == cfg16.n_layers,
-          f"bf16 parity prefill ran the tensor-core body {tc_launches} times")
+          f"bf16 parity prefill ran the bf16 body {tc_launches} times")
     check(bool(torch.isfinite(on_card16).all()), "non-finite bf16 prefill logits")
     check(d16 <= LM_BF16_TOL * scale16, f"bf16 card vs CPU prefill logits differ by {d16} "
                                         f"(max |logit| {scale16})")
@@ -1854,7 +1895,7 @@ ATTN_BWD_MAIN = (2, 512, 512, 32, 4, 64, True)
 #: internvl2-1b's 256 vision + 512 text tokens (14/2 heads of 64, bf16); then
 #: llama4's (40/8 heads of 128) and stablelm-12b's (32/8 heads of 160) layers
 #: of a 1 x 512 micro-batch in bf16.  bf16 runs on the tensor cores at every
-#: head dim, f32 on the FMA units.
+#: head dim, f32 in 3xTF32 likewise.
 ATTN_BWD_FAMILY = [((1, 512, 512, 32, 8, 128, True), "bfloat16"),
                    ((4, 1500, 1500, 12, 12, 64, False), "float32"),
                    ((4, 64, 1500, 12, 12, 64, False), "float32"),
@@ -1863,16 +1904,18 @@ ATTN_BWD_FAMILY = [((1, 512, 512, 32, 8, 128, True), "bfloat16"),
                    ((1, 512, 512, 32, 8, 160, True), "bfloat16")]
 #: max |err| of dq, dk and dv against the plain version's max |grad|.
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-#: The part of the backward kernels' names that marks each tensor-core body
-#: (the FMA body's names carry neither).
-ATTN_BWD_BODY_MARKS = (("wide_mma", "_wide_mma_kernel"), ("mma", "_mma_kernel"))
+#: The part of the backward kernels' names that marks each body, the first
+#: that matches.
+ATTN_BWD_BODY_MARKS = (("tf32x3_wide_mma", "_tf32x3_wide_mma_kernel"),
+                       ("tf32x3_mma", "_tf32x3_mma_kernel"),
+                       ("wide_mma", "_wide_mma_kernel"), ("mma", "_mma_kernel"))
 
 
 def bwd_body(dtype: str, hd: int) -> str:
-    """The backward body a dtype and head dim run: the FMA kernels for f32,
-    the 4-warp tensor-core body for bf16 at hd 32/64, the 8-warp one at hd
-    128/160."""
-    return "fma" if dtype == "float32" else "mma" if hd <= 64 else "wide_mma"
+    """The backward body a dtype and head dim run: the 4-warp tensor-core
+    body at hd 32/64, the 8-warp one at hd 128/160, in 3xTF32 for f32."""
+    body = "mma" if hd <= 64 else "wide_mma"
+    return "tf32x3_" + body if dtype == "float32" else body
 
 
 def traced_bwd_body(names):
@@ -1881,7 +1924,7 @@ def traced_bwd_body(names):
     found = [n for n in names if "flash_bwd_dkdv" in n or "flash_bwd_dq" in n]
     if not found:
         return None
-    bodies = {next((body for body, mark in ATTN_BWD_BODY_MARKS if mark in n), "fma")
+    bodies = {next((body for body, mark in ATTN_BWD_BODY_MARKS if mark in n), "unknown")
               for n in found}
     return bodies.pop() if len(bodies) == 1 else "+".join(sorted(bodies))
 
@@ -1944,7 +1987,7 @@ def phase_flash_bwd(torch, rate, name, records):
                 errs[gname] = err
             del got, want
             flops, nbytes = attn_bwd_work(B, S, Sk, H, Hk, hd, causal, q.element_size())
-            t_ops = flops / flop_rate(name, dtype) * 1e3
+            t_ops = flops / flash_rate(name, dtype) * 1e3
             t_bytes = nbytes / rate * 1e3
             rec = {"kernel": "flash_attention_bwd", "role": role, "case": list(case),
                    "dtype": dtype, "max_abs_err": max(errs.values()), "errs": errs,
@@ -3116,17 +3159,17 @@ def attention_layers(cfg) -> int:
 
 
 def attention_bodies(cfg) -> dict:
-    """Launches a prefill makes by body: an f32 model runs the FMA body
+    """Launches a prefill makes by body: an f32 model runs the 3xTF32 body
     throughout; a bf16 whisper runs its encoder and cross-attention on f32
-    operands (the f32 frames, promoted as JAX does) on the FMA body and its
-    self-attention on the tensor cores; any other bf16 model the tensor
-    cores throughout."""
+    operands (the f32 frames, promoted as JAX does) on the 3xTF32 body and
+    its self-attention on the bf16 body; any other bf16 model the bf16 body
+    throughout."""
     n = attention_layers(cfg)
     if cfg.dtype == "float32":
-        return {"tensor_core": 0, "fma": n}
+        return {"bf16_mma": 0, "tf32x3_mma": n}
     if cfg.family == "audio":
-        return {"tensor_core": cfg.n_layers, "fma": cfg.n_enc_layers + cfg.n_layers}
-    return {"tensor_core": n, "fma": 0}
+        return {"bf16_mma": cfg.n_layers, "tf32x3_mma": cfg.n_enc_layers + cfg.n_layers}
+    return {"bf16_mma": n, "tf32x3_mma": 0}
 
 
 def family_batch(torch, cfg, gen, B, S):
@@ -4181,7 +4224,9 @@ def phase_cost(torch, card):
         r0 += COST_ROUNDS
         launches = read_all_launches()
         names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
-        profiled = {"flash_attention": sum("flash_fwd" in n for n in names),
+        # One body kernel a forward call (a split f32 walk adds a merge).
+        profiled = {"flash_attention": sum("flash_fwd" in n and "merge" not in n
+                                           for n in names),
                     "flash_attention_bwd": sum("flash_bwd_dkdv" in n for n in names),
                     "gossip_mix_rows": sum("mix_tree_kernel" in n for n in names)}
         rep = cc.report

@@ -20,10 +20,17 @@ and ``host_ms``.  Kernels (``CASES``):
   one replica's six leaves through ``gossip_mix`` beside ``torch.lerp``, and
   ``gossip_mix_rows`` / ``gossip_mix`` at large shapes; device time of all
   kernels a call.
+- ``attn_fwd``: ``flash_attention.flash_attention`` at ``chip_smoke.py``'s
+  ``ATTN_FAMILY_CASES`` and ``ATTN_MAIN`` (whisper's f32 encoder and
+  cross-attention, the bf16 families' layers, tinyllama's prefill layer);
+  device time of the kernels named ``flash_fwd*`` a call (the body, and the
+  merge kernel where the f32 walk is split), the key ranges, max |err|
+  against ``ref.reference_attention``, and SDPA's time on the same inputs
+  in the same process.
 - ``attn_bwd``: ``flash_attention.flash_attention_backward`` at the shapes
   the training phases of ``chip_smoke.py`` run; device time of the kernels
   named ``flash_bwd*`` a call, and of each of its four kernels, each over
-  its own traced launches.
+  its own traced launches, and SDPA's backward on the same inputs.
 - ``wkv_bwd``: ``rwkv_scan.rwkv_scan_backward`` at the training shape of
   ``chip_smoke.py``'s phase 28 (one rwkv6-7b layer of a 1 x 512
   micro-batch, bf16 r/k/v/dy with f32 decays, from the zero state), with
@@ -72,6 +79,7 @@ ATTN_BWD_SHAPES = {
     "stablelm_bf16": ((1, 512, 512, 32, 8, 160, True), "bfloat16"),
 }
 ATTN_BWD_ITERS = 20
+ATTN_FWD_ITERS = 20
 #: wkv_bwd: name -> ((B, S, H, N), dtype name, decays as chip_smoke's
 #: ``strong_decays`` takes them, None for trained ones).
 WKV_BWD_SHAPES = {
@@ -152,7 +160,54 @@ def mix_cases(torch, src: Path, only) -> dict:
     return out
 
 
+def attn_fwd_cases(torch, src: Path, only) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    assert Path(fa.__file__).resolve().is_relative_to(src.resolve()), fa.__file__
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for case in [*cs.ATTN_FAMILY_CASES, cs.ATTN_MAIN]:
+        B, S, Sk, H, Hk, hd, causal, dtype = case
+        name = f"{dtype}_{B}x{S}x{Sk}_{H}-{Hk}_hd{hd}{'_causal' if causal else ''}"
+        if only and name not in only:
+            continue
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+
+        def fn():
+            return fa.flash_attention(q, k, v, causal=causal)
+
+        err = (fn().float() - ref.reference_attention(q, k, v, causal=causal).float()
+               ).abs().max().item()
+        launched = dict(getattr(fa, "FWD_LAUNCHED", {}))
+        per_call = 2 if launched.get("key_splits", 1) > 1 else 1
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        it = ATTN_FWD_ITERS
+        out[name] = {
+            "device_ms": cs.device_ms(torch, fn, it, "flash_fwd", per_call=per_call),
+            "call_ms": cs.cuda_ms(torch, fn, it),
+            "library_ms": cs.cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), it),
+            "max_abs_err": err,
+            "launched": launched,
+        }
+        if per_call == 2:
+            out[name]["kinds_ms"] = {kind: cs.device_ms(torch, fn, it, f"flash_fwd_{kind}")
+                                     for kind in ("tf32x3", "merge")}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
 def attn_bwd_cases(torch, src: Path, only) -> dict:
+    import torch.nn.functional as F
+
     from repro_torch.kernels import flash_attention as fa
 
     assert Path(fa.__file__).resolve().is_relative_to(src.resolve()), fa.__file__
@@ -171,6 +226,10 @@ def attn_bwd_cases(torch, src: Path, only) -> dict:
         def fn():
             return fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal)
 
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
         it = ATTN_BWD_ITERS
         out[name] = {
             "device_ms": cs.device_ms(torch, fn, it, "flash_bwd",
@@ -178,9 +237,11 @@ def attn_bwd_cases(torch, src: Path, only) -> dict:
             "kinds_ms": {kind: cs.device_ms(torch, fn, it, f"flash_bwd_{kind}_")
                          for kind in ATTN_BWD_KINDS},
             "call_ms": cs.cuda_ms(torch, fn, it),
+            "library_ms": cs.cuda_ms(torch, lambda: torch.autograd.grad(
+                sdpa_out, (qt, kt, vt), dot, retain_graph=True), it),
             "launched": dict(getattr(fa, "BWD_LAUNCHED", {})),
         }
-        del q, k, v, do, o, lse
+        del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, dot
         torch.cuda.empty_cache()
     return out
 
@@ -234,7 +295,8 @@ def wkv_bwd_cases(torch, src: Path, only) -> dict:
     return out
 
 
-CASES = {"mix": mix_cases, "attn_bwd": attn_bwd_cases, "wkv_bwd": wkv_bwd_cases}
+CASES = {"mix": mix_cases, "attn_fwd": attn_fwd_cases, "attn_bwd": attn_bwd_cases,
+         "wkv_bwd": wkv_bwd_cases}
 
 
 def run_one(kernel: str, src: Path, only) -> dict:
@@ -309,6 +371,8 @@ def main() -> int:
                                         for k, v in r["kinds_ms"].items()) + ")"
             if "launched" in r:
                 extra += f" {r['launched']}"
+            if "library_ms" in r:
+                extra += f"  sdpa {_fmt(r['library_ms'])} us"
             if "host_ms" in r:
                 extra = f"  launches {r['launches_a_call']:2d}  host {_fmt(r['host_ms'])} us"
             if "max_rel_err" in r:

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` for Hopper (``sm_90a``) into ``lib<name>-<digest>.so`` under the
 build directory, then loaded with ``ctypes``.  The digest covers the source
-text and the flags, so an edited source never meets a stale library.  A
-library that is missing is built; nothing here falls back to anything else
-when ``nvcc`` is absent or fails, it raises.
+text, the headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source or header never meets a stale library.  A library that is missing is
+built; nothing here falls back to anything else when ``nvcc`` is absent or
+fails, it raises.
 
 The build directory is ``build/torch_ext`` at the root of the checkout.
 ``build()`` starts one ``nvcc`` per source, all together, and waits for
@@ -66,6 +67,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the headers the sources include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -50,8 +50,9 @@
 // 64; 1 x 512, 32/8 heads, hd 128; causal) the five products the gradient
 // needs are ~5.4 GFLOP: in bf16 the bytes moved (5.7-6.3 us at 3.35 TB/s)
 // and the operations (~5.5 us at 989 TFLOP/s) about equal, bytes by a
-// little; in f32 the operations (~80 us at 67 TFLOP/s).  Three bodies for
-// the dK/dV and dQ kernels, picked at compile time by dtype and head dim:
+// little; in f32 the operations (~33 us at 3xTF32's 495 / 3 TFLOP/s).  Four
+// bodies for the dK/dV and dQ kernels, picked at compile time by dtype and
+// head dim, all on the tensor cores:
 //   * bf16 at hd 32 and 64: mma.sync bf16 tensor-core products, 4 warps, each
 //     holding its 16 keys' (rows') operands as fragments in registers;
 //     described above flash_bwd_dkdv_mma_kernel below;
@@ -61,14 +62,13 @@
 //     shared memory, the streamed tile double-buffered; described above
 //     flash_bwd_dkdv_wide_mma_kernel below.  Registers bound its design: the
 //     4-warp body would hold ~256 a thread at hd 128;
-//   * f32: FMA products in f32, its ceiling the 67 TFLOP/s f32 rate (neither
-//     bf16 nor TF32 products hold the f32 tolerance).  Per block, tiles of
-//     q, dO, k and v live in shared memory in f32 with rows hd + 1 floats
-//     apart (the rows a warp reads at once fall in distinct banks); P and dS
-//     of the current tile pair go through shared memory between the two
-//     product phases; each thread keeps its dk and dv (or dq) slice, hd / 2
-//     floats, in registers for the whole walk.
-//
+//   * f32 at hd 32 and 64, and at hd 128 and 160: the same two warp layouts
+//     (4 warps; 8 warps in pairs) on mma.sync TF32 in 3xTF32, f32 tiles
+//     swizzled in shared memory, the score accumulators permuted so they are
+//     the A fragments of the accumulating products as they stand; described
+//     above dkdv_tf32x3 below.  (Whisper's encoder and cross-attention train
+//     in f32: JAX promotes their f32 frames.)
+
 // Plain C interface, built by nvcc into a shared library and called through
 // ctypes from repro_torch/kernels/flash_attention.py.  The launch enqueues on
 // the caller's stream, does not synchronise and allocates nothing (D's, the
@@ -84,10 +84,8 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 64;            // folded query rows per tile
-constexpr int kKeys = 32;            // keys per tile
-constexpr int kPLd = kKeys + 4;      // row stride of P and dS (floats), 16-byte rows
+#include "flash_tf32x3.cuh"
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
@@ -101,25 +99,6 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
-
-// Shared memory, in floats: q and dO tiles (kRows x hd), k and v tiles
-// (kKeys x hd), rows hd + 1 apart; P and dS (kRows x kKeys, rows kPLd
-// apart); the tile rows' lse and D.
-template <int HD>
-struct Smem {
-  static constexpr int kLd = HD + 1;
-  static constexpr int kQ = 0;
-  static constexpr int kdO = kQ + kRows * kLd;
-  static constexpr int kK = kdO + kRows * kLd;
-  static constexpr int kV = kK + kKeys * kLd;
-  static constexpr int kP = kV + kKeys * kLd;  // a multiple of 4: 192 * kLd
-  static constexpr int kdS = kP + kRows * kPLd;
-  static constexpr int kLse = kdS + kRows * kPLd;
-  static constexpr int kD = kLse + kRows;
-  static constexpr int kFloats = kD + kRows;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
-  static_assert(kP % 4 == 0 && kdS % 4 == 0, "P and dS rows must be 16-byte aligned");
-};
 
 // The rows of one block: F query heads h0 .. h0 + F - 1 folded side by side,
 // row = position * F + (head - h0).  The dq kernel folds a KV head's G heads
@@ -137,118 +116,6 @@ struct Rows {
     return (static_cast<int64_t>(b) * H + h0 + row % F) * S + row / F;
   }
 };
-
-// Rows row0 .. row0 + kRows - 1 of q and dO into shared memory (zeros past
-// the end), with their lse and D.
-template <int HD, typename T>
-__device__ __forceinline__ void load_rows(float* sm, const T* __restrict__ q,
-                                          const T* __restrict__ dout,
-                                          const float* __restrict__ lse,
-                                          const float* __restrict__ D, const Rows& R,
-                                          int64_t row0) {
-  using L = Smem<HD>;
-  for (int i = threadIdx.x; i < kRows * HD; i += kThreads) {
-    const int r = i / HD;
-    const int d = i % HD;
-    const int64_t row = row0 + r;
-    float qv = 0.f, dv = 0.f;
-    if (row < R.total) {
-      const int64_t off = R.offset(row, HD) + d;
-      qv = to_f32(q[off]);
-      dv = to_f32(dout[off]);
-    }
-    sm[L::kQ + r * L::kLd + d] = qv;
-    sm[L::kdO + r * L::kLd + d] = dv;
-  }
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    const int64_t row = row0 + r;
-    const bool ok = row < R.total;
-    sm[L::kLse + r] = ok ? lse[R.stat(row)] : 0.f;
-    sm[L::kD + r] = ok ? D[R.stat(row)] : 0.f;
-  }
-}
-
-// Keys k0 .. k0 + kKeys - 1 of k and v into shared memory (zeros past Sk).
-template <int HD, typename T>
-__device__ __forceinline__ void load_keys(float* sm, const T* __restrict__ k,
-                                          const T* __restrict__ v, int b, int kvh, int Hk,
-                                          int Sk, int k0) {
-  using L = Smem<HD>;
-  for (int i = threadIdx.x; i < kKeys * HD; i += kThreads) {
-    const int j = i / HD;
-    const int d = i % HD;
-    const int key = k0 + j;
-    float kv = 0.f, vv = 0.f;
-    if (key < Sk) {
-      const int64_t off = ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + d;
-      kv = to_f32(k[off]);
-      vv = to_f32(v[off]);
-    }
-    sm[L::kK + j * L::kLd + d] = kv;
-    sm[L::kV + j * L::kLd + d] = vv;
-  }
-}
-
-// P and dS of the (rows row0.., keys k0..) tile pair into shared memory.
-// Thread (ty, tx) = (tid / 8, tid % 8) computes rows 4ty .. 4ty + 3 against
-// keys tx + 8c, c < 4: q k^T and dO v^T together, from the same loop.
-template <int HD, bool kCausal>
-__device__ __forceinline__ void tile_p_ds(float* sm, const Rows& R, int64_t row0, int k0,
-                                          int Sk, float scale_log2) {
-  using L = Smem<HD>;
-  constexpr int kLd = L::kLd;
-  const float* Qs = sm + L::kQ;
-  const float* dOs = sm + L::kdO;
-  const float* Ks = sm + L::kK;
-  const float* Vs = sm + L::kV;
-  const int ty = threadIdx.x / 8;
-  const int tx = threadIdx.x % 8;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float qr[4], dr[4], kr[4], vr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qr[i] = Qs[(4 * ty + i) * kLd + d];
-      dr[i] = dOs[(4 * ty + i) * kLd + d];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      kr[c] = Ks[(tx + 8 * c) * kLd + d];
-      vr[c] = Vs[(tx + 8 * c) * kLd + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i][c] = fmaf(qr[i], kr[c], s[i][c]);
-        dp[i][c] = fmaf(dr[i], vr[c], dp[i][c]);
-      }
-  }
-  float* Ps = sm + L::kP;
-  float* dSs = sm + L::kdS;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    const int64_t row = row0 + r;
-    const bool row_ok = row < R.total;
-    const int64_t pos = R.pos(row);
-    const float lse2 = sm[L::kLse + r] * kLog2e;
-    const float Di = sm[L::kD + r];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int key = k0 + tx + 8 * c;
-      const bool ok = row_ok && key < Sk && (!kCausal || key <= pos);
-      const float p = ok ? exp2f(s[i][c] * scale_log2 - lse2) : 0.f;
-      Ps[r * kPLd + tx + 8 * c] = p;
-      dSs[r * kPLd + tx + 8 * c] = p * (dp[i][c] - Di);
-    }
-  }
-}
 
 // D[b, h, s] = sum_d dO[b, s, h, d] * o[b, s, h, d], one warp a (b, s, h) row.
 template <typename T>
@@ -270,83 +137,6 @@ flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     const int64_t b = bs / S;
     const int64_t s = bs % S;
     D[(b * H + h) * S + s] = acc;
-  }
-}
-
-// Query head h's share of dk and dv for one (32-key tile, batch, h), in f32
-// into part[2][G][B][Sk][Hk][hd] (dk's shares first).  Phase 2 thread
-// mapping: (ky, dx) = (tid / 16, tid % 16) owns keys 4ky .. 4ky + 3 and
-// columns dx + 16j.
-template <int HD, bool kCausal, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ D,
-                      float* __restrict__ part, int B, int S, int Sk, int H, int Hk,
-                      float scale_log2) {
-  using L = Smem<HD>;
-  constexpr int kLd = L::kLd;
-  constexpr int kCols = HD / 16;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int G = H / Hk;
-  const int kvh = static_cast<int>(blockIdx.y % Hk);
-  const int g = static_cast<int>(blockIdx.z);
-  const Rows R{S, H, 1, kvh * G + g, static_cast<int>(blockIdx.y / Hk), S};
-  const int k0 = blockIdx.x * kKeys;
-  const int ky = threadIdx.x / 16;
-  const int dx = threadIdx.x % 16;
-
-  load_keys<HD>(sm, k, v, R.b, kvh, Hk, Sk, k0);
-
-  float adk[4][kCols], adv[4][kCols];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) adk[kk][j] = adv[kk][j] = 0.f;
-
-  // Causal: the first position that sees key k0 is k0.
-  const int64_t first = kCausal ? static_cast<int64_t>(k0) / kRows * kRows : 0;
-  for (int64_t row0 = first; row0 < R.total; row0 += kRows) {
-    __syncthreads();  // the last tile's q, dO, P and dS are read
-    load_rows<HD>(sm, q, dout, lse, D, R, row0);
-    __syncthreads();
-    tile_p_ds<HD, kCausal>(sm, R, row0, k0, Sk, scale_log2);
-    __syncthreads();
-    const float* Ps = sm + L::kP;
-    const float* dSs = sm + L::kdS;
-    const float* Qs = sm + L::kQ;
-    const float* dOs = sm + L::kdO;
-#pragma unroll 2
-    for (int r = 0; r < kRows; ++r) {
-      const float4 p4 = *reinterpret_cast<const float4*>(Ps + r * kPLd + 4 * ky);
-      const float4 s4 = *reinterpret_cast<const float4*>(dSs + r * kPLd + 4 * ky);
-      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float ds[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float dov = dOs[r * kLd + dx + 16 * j];
-        const float qv = Qs[r * kLd + dx + 16 * j];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          adv[kk][j] = fmaf(p[kk], dov, adv[kk][j]);
-          adk[kk][j] = fmaf(ds[kk], qv, adk[kk][j]);
-        }
-      }
-    }
-  }
-
-  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;  // one share
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int key = k0 + 4 * ky + kk;
-    if (key >= Sk) continue;
-    const int64_t off = g * n + ((static_cast<int64_t>(R.b) * Sk + key) * Hk + kvh) * HD;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      part[off + dx + 16 * j] = adk[kk][j];
-      part[static_cast<int64_t>(G) * n + off + dx + 16 * j] = adv[kk][j];
-    }
   }
 }
 
@@ -378,104 +168,11 @@ flash_bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ dk,
   }
 }
 
-// The key tiles [kt0, kt1) of the dq block's range blockIdx.z of gridDim.z:
-// its n visible tiles cut into runs of ceil(n / ranges), so the last ranges
-// may be shorter or empty (an empty one writes a zero partial).
-__device__ __forceinline__ void key_range(int n, int& kt0, int& kt1) {
-  const int per = (n + static_cast<int>(gridDim.z) - 1) / static_cast<int>(gridDim.z);
-  kt0 = min(n, static_cast<int>(blockIdx.z) * per);
-  kt1 = min(n, kt0 + per);
-}
-
 // Element offset of key range blockIdx.z's partial in the f32 dq_part
 // buffer, (ranges, B, S, H, hd), B = gridDim.y / Hk.
 __device__ __forceinline__ int64_t dq_part_base(int S, int H, int Hk, int hd) {
   return static_cast<int64_t>(blockIdx.z) * (gridDim.y / Hk) * S * H * hd;
 }
-
-// dq of one (64-row tile, batch, KV head, key range).  Phase 2 thread
-// mapping: (ry, dx) = (tid / 16, tid % 16) owns rows 8ry .. 8ry + 7 and
-// columns dx + 16j of dq.
-template <int HD, bool kCausal, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ D,
-                    T* __restrict__ dq, float* __restrict__ dq_part, int S, int Sk, int H,
-                    int Hk, float scale, float scale_log2) {
-  using L = Smem<HD>;
-  constexpr int kLd = L::kLd;
-  constexpr int kCols = HD / 16;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int G = H / Hk;
-  const int kvh = static_cast<int>(blockIdx.y % Hk);
-  const Rows R{S, H, G, kvh * G, static_cast<int>(blockIdx.y / Hk),
-               static_cast<int64_t>(S) * G};
-  // Causal tiles heaviest first.
-  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int64_t row0 = static_cast<int64_t>(tile) * kRows;
-  const int ry = threadIdx.x / 16;
-  const int dx = threadIdx.x % 16;
-
-  load_rows<HD>(sm, q, dout, lse, D, R, row0);
-
-  int n_tiles = (Sk + kKeys - 1) / kKeys;
-  if (kCausal) {
-    const int64_t last_row = (row0 + kRows < R.total ? row0 + kRows : R.total) - 1;
-    const int limit = static_cast<int>(R.pos(last_row)) / kKeys + 1;
-    n_tiles = n_tiles < limit ? n_tiles : limit;
-  }
-  int kt0, kt1;
-  key_range(n_tiles, kt0, kt1);
-
-  float acc[8][kCols];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * kKeys;
-    __syncthreads();  // the last tile's k, v and dS are read
-    load_keys<HD>(sm, k, v, R.b, kvh, Hk, Sk, k0);
-    __syncthreads();
-    tile_p_ds<HD, kCausal>(sm, R, row0, k0, Sk, scale_log2);
-    __syncthreads();
-    const float* dSs = sm + L::kdS;
-    const float* Ks = sm + L::kK;
-#pragma unroll 2
-    for (int kk = 0; kk < kKeys; ++kk) {
-      float kr[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kr[j] = Ks[kk * kLd + dx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float ds = dSs[(8 * ry + i) * kPLd + kk];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(ds, kr[j], acc[i][j]);
-      }
-    }
-  }
-
-  const bool whole = gridDim.z == 1;
-  float* part = dq_part + (whole ? 0 : dq_part_base(S, H, Hk, HD));
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t row = row0 + 8 * ry + i;
-    if (row >= R.total) continue;
-    const int64_t off = R.offset(row, HD);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      if (whole) {
-        dq[off + dx + 16 * j] = from_f32<T>(acc[i][j] * scale);
-      } else {
-        part[off + dx + 16 * j] = acc[i][j];
-      }
-    }
-  }
-}
-
 
 // ------------------------------------------------- bf16 bodies, tensor cores
 //
@@ -491,8 +188,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // v rows as A fragments; for each 64-position q tile it forms S^T = k q^T
 // and dP^T = v dO^T (16 keys x 64 rows a warp), P^T and dS^T in registers,
 // then dV += P^T dO and dK += dS^T q with the accumulators repacked as A
-// fragments and dO, q read with ldmatrix.trans as B.  The shares go to the
-// same f32 buffer as the FMA kernel's.  dQ: one block per (64 folded rows,
+// fragments and dO, q read with ldmatrix.trans as B.  The shares go to an
+// f32 buffer, as every body's.  dQ: one block per (64 folded rows,
 // batch, KV head, key range), warp w owns rows 16w .. 16w + 15 and keeps
 // their q and dO rows as A fragments; for each 64-key tile S = q k^T and
 // dP = dO v^T, then dQ += dS k.  At hd 128 and 160 a warp of this design
@@ -1255,10 +952,493 @@ flash_bwd_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   }
 }
 
-// bf16 runs the tensor-core bodies at every head dim (the wide ones above
-// hd 64), f32 the FMA bodies.
-template <int HD, typename T>
-constexpr bool kUseMma = std::is_same<T, bf16>::value;
+// ------------------------------------------------- f32 bodies, 3xTF32
+//
+// f32 runs the structure of the bf16 bodies on mma.sync.m16n8k8 TF32 in
+// 3xTF32: each operand split once, as it is read, into a TF32 big part and
+// the remainder (split_tf32, csrc/rwkv_scan.cu's), and big * big + big *
+// small + small * big accumulated in f32, which holds the f32 tolerance (1e-4
+// of max |grad|) that one TF32 product does not.  The five products (q k^T,
+// dO v^T, dV, dK, dQ) each run so.  dK/dV: one block per (64-key tile, batch,
+// query head); dQ: one block per (64 folded rows, batch, KV head, key range),
+// as the bf16 bodies.  kHalves = 1 at hd 32 and 64: 4 warps, warp w owns
+// keys (rows) 16w .. 16w + 15 and all of the streamed tile and of hd.
+// kHalves = 2 at hd 128 and 160: 8 warps, warps w and w + 4 a pair sharing
+// those 16 keys (rows), each forming the score products of half the streamed
+// tile's rows (keys) and accumulating half of hd's columns, as the wide bf16
+// bodies.  What the design does:
+//   * f32 tiles of 64 rows x hd, no padding, their 16-byte column chunks
+//     XOR-swizzled by row (swz), so the fragment reads of both products,
+//     8 rows x 4 columns and 4 rows x 8 columns, fall in 32 distinct banks.
+//     The A operands of the score products (k and v, or q and dO) are read
+//     from the tiles each k-step, which keeps a thread's registers to the
+//     accumulators;
+//   * the rows (keys) inside each 8-wide n-tile of the score accumulators
+//     are permuted (column 2t holds row t, column 2t + 1 row t + 4), so that
+//     P^T and dS^T (dS) in the accumulators are, as they stand, the A
+//     fragments of dV += P^T dO and dK += dS^T q (dQ += dS k).  With kHalves
+//     = 2 each lane passes its accumulators to the same lane of its pair's
+//     other warp through shared memory, in f32, one float4 a lane and n-tile;
+//   * the streamed tile (q, dO, lse and D; or k and v) is double-buffered
+//     with cp.async where two buffers fit the 227 KB (all but hd 160), and
+//     single-buffered otherwise;
+//   * the shares and dq's partials go to the f32 buffers of the bf16 bodies.
+
+// 64 rows of HD floats into a swizzled tile by a block of kNThreads; off(r)
+// is row r's element offset, or -1 for a row past the end (zero-filled).
+template <int HD, int kNThreads, typename Off>
+__device__ __forceinline__ void tf32_load_tile(float* dst, const float* __restrict__ src,
+                                               Off off) {
+  constexpr int kChunks = HD / 4;
+  for (int i = threadIdx.x; i < kMmaTile * kChunks; i += kNThreads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 4;
+    const int64_t o = off(r);
+    cp_async16(smem_u32(dst + at<HD>(r, c)), src + (o >= 0 ? o + c : 0), o >= 0);
+  }
+}
+
+// A warp's A fragment of k-step kk over the columns of 16 rows from `row`.
+template <int HD>
+__device__ __forceinline__ FragA tile_frag_a(const float* tile, int row, int kk) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int c = 8 * kk + (lane & 3);
+  const float x[4] = {tile[at<HD>(row + g, c)], tile[at<HD>(row + g + 8, c)],
+                      tile[at<HD>(row + g, c + 4)], tile[at<HD>(row + g + 8, c + 4)]};
+  return FragA(x);
+}
+
+// B fragment of X^T, X a tile stored [n][k]: n-tile j (rows permuted by
+// perm8), k-step kk.
+template <int HD>
+__device__ __forceinline__ FragB tile_frag_bt(const float* tile, int j, int kk) {
+  const int lane = threadIdx.x % 32;
+  const int r = 8 * j + perm8(lane >> 2);
+  const int c = 8 * kk + (lane & 3);
+  return FragB(tile[at<HD>(r, c)], tile[at<HD>(r, c + 4)]);
+}
+
+// B fragment of X, X a tile stored [k][n]: k-step kk, n-tile n.
+template <int HD>
+__device__ __forceinline__ FragB tile_frag_b(const float* tile, int kk, int n) {
+  const int lane = threadIdx.x % 32;
+  const int r = 8 * kk + (lane & 3);
+  const int c = 8 * n + (lane >> 2);
+  return FragB(tile[at<HD>(r, c)], tile[at<HD>(r + 4, c)]);
+}
+
+// A score accumulator n-tile as the A fragment of the product that
+// contracts over its (permuted) columns.
+__device__ __forceinline__ FragA acc_frag(const float (&x)[4]) {
+  const float a[4] = {x[0], x[2], x[1], x[3]};
+  return FragA(a);
+}
+
+// Shared memory, in floats.  An exchange tile holds a pair's 16 x 64 score
+// n-tiles, 4 pairs x 8 n-tiles x 32 lanes x 4 floats (kHalves = 2 only).
+template <int HD, int kHalves>
+struct Tf32Smem {
+  static constexpr int kTile = kMmaTile * HD;
+  static constexpr int kX = kHalves == 2 ? 4 * 8 * 32 * 4 : 0;
+  // dK/dV: k, v, then per buffer q, dO, lse, D; then P^T's and dS^T's exchanges.
+  static constexpr size_t dkdv(int bufs) {
+    return sizeof(float) * (2 * kTile + bufs * (2 * kTile + 2 * kMmaTile) + 2 * kX);
+  }
+  static constexpr int kDkdvBufs = dkdv(2) <= 232448 ? 2 : 1;
+  static constexpr size_t kDkdvBytes = dkdv(kDkdvBufs);
+  // dQ: q, dO, then per buffer k, v; then dS's exchange.
+  static constexpr size_t dq(int bufs) {
+    return sizeof(float) * (2 * kTile + bufs * 2 * kTile + kX);
+  }
+  static constexpr int kDqBufs = dq(2) <= 232448 ? 2 : 1;
+  static constexpr size_t kDqBytes = dq(kDqBufs);
+  static_assert(kDkdvBytes <= 232448 && kDqBytes <= 232448, "over a block's shared memory");
+};
+
+// Query head h's share of dk and dv for one (64-key tile, batch, h).  Warp
+// (wp, half) = (w % 4, w / 4): keys 16 wp .. of the tile; in S^T and dP^T
+// the q tile's n-tiles j0 .. j0 + kRN - 1; in dK and dV the column n-tiles
+// c0 .. c0 + kCN - 1.
+template <int HD, bool kCausal, int kHalves>
+__device__ __forceinline__ void dkdv_tf32x3(const float* __restrict__ q,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ v,
+                                            const float* __restrict__ dout,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ D,
+                                            float* __restrict__ part, int B, int S, int Sk,
+                                            int H, int Hk, float scale_log2) {
+  using L = Tf32Smem<HD, kHalves>;
+  constexpr int kNThreads = 128 * kHalves;
+  constexpr int kBufs = L::kDkdvBufs;
+  constexpr int kTile = L::kTile;
+  constexpr int kDK = HD / 8;           // k-steps over hd
+  constexpr int kRN = 8 / kHalves;      // the warp's n-tiles of the q tile's rows
+  constexpr int kCN = HD / 8 / kHalves;  // the warp's n-tiles of dK's and dV's columns
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kTile;
+  float* Qs = Vs + kTile;                    // kBufs buffers
+  float* dOs = Qs + kBufs * kTile;           // kBufs buffers
+  float* lse_s = dOs + kBufs * kTile;        // kBufs buffers
+  float* D_s = lse_s + kBufs * kMmaTile;     // kBufs buffers
+  float4* Xp = reinterpret_cast<float4*>(D_s + kBufs * kMmaTile);  // P^T exchange
+  float4* Xs = Xp + L::kX / 4;                                     // dS^T exchange
+
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const int b = static_cast<int>(blockIdx.y / Hk);
+  const int h = kvh * G + static_cast<int>(blockIdx.z);
+  const int k0 = blockIdx.x * kMmaTile;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wp = (threadIdx.x / 32) & 3;
+  const int half = threadIdx.x / 128;
+  const int wk = 16 * wp;  // the warp's first key in the tile
+  const int j0 = half * kRN;
+  const int c0 = half * kCN;
+
+  const auto kv_off = [&](int j) -> int64_t {
+    return k0 + j < Sk ? ((static_cast<int64_t>(b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
+  };
+  // q, dO, lse and D of the rows from row0 into buffer `buf`.
+  const auto load_q = [&](int row0, int buf) {
+    const auto q_off = [&](int r) -> int64_t {
+      return row0 + r < S ? ((static_cast<int64_t>(b) * S + row0 + r) * H + h) * HD : -1;
+    };
+    tf32_load_tile<HD, kNThreads>(Qs + buf * kTile, q, q_off);
+    tf32_load_tile<HD, kNThreads>(dOs + buf * kTile, dout, q_off);
+    if (threadIdx.x < 2 * kMmaTile) {
+      const int r = threadIdx.x % kMmaTile;
+      const bool ok = row0 + r < S;
+      const int64_t i = ok ? (static_cast<int64_t>(b) * H + h) * S + row0 + r : 0;
+      float* dst = (threadIdx.x < kMmaTile ? lse_s : D_s) + buf * kMmaTile + r;
+      cp_async4(smem_u32(dst), (threadIdx.x < kMmaTile ? lse : D) + i, ok);
+    }
+  };
+
+  // Causal: positions below k0 see none of the keys (k0 is a tile multiple).
+  const int first = kCausal ? k0 : 0;
+  const int n_q = first < S ? (S - first + kMmaTile - 1) / kMmaTile : 0;
+  if (n_q > 0) {  // else the keys' shares are zero: no copy is left in flight
+    tf32_load_tile<HD, kNThreads>(Ks, k, kv_off);
+    tf32_load_tile<HD, kNThreads>(Vs, v, kv_off);
+    load_q(first, 0);
+    cp_async_commit();
+  }
+
+  float dk[kCN][4], dv[kCN][4];
+#pragma unroll
+  for (int n = 0; n < kCN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int t = 0; t < n_q; ++t) {
+    const int row0 = first + t * kMmaTile;
+    const int buf = kBufs == 2 ? (t & 1) : 0;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (kBufs == 2 && t + 1 < n_q) load_q(row0 + kMmaTile, buf ^ 1);
+    cp_async_commit();
+    const float* Qb = Qs + buf * kTile;
+    const float* dOb = dOs + buf * kTile;
+    const float* lse_b = lse_s + buf * kMmaTile;
+    const float* D_b = D_s + buf * kMmaTile;
+
+    // S^T = k q^T and dP^T = v dO^T: the warp's 16 keys x its kRN n-tiles
+    // of rows (permuted within each).
+    float st[kRN][4], dpt[kRN][4];
+#pragma unroll
+    for (int j = 0; j < kRN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+      const FragA ka = tile_frag_a<HD>(Ks, wk, kk);
+      const FragA va = tile_frag_a<HD>(Vs, wk, kk);
+#pragma unroll
+      for (int j = 0; j < kRN; ++j) {
+        mma3(st[j], ka, tile_frag_bt<HD>(Qb, j0 + j, kk));
+        mma3(dpt[j], va, tile_frag_bt<HD>(dOb, j0 + j, kk));
+      }
+    }
+    // P^T and dS^T in place: element e holds key g + 8 (e >> 1) of the
+    // warp's and row 8 j + t + 4 (e & 1) of the tile.
+#pragma unroll
+    for (int j = 0; j < kRN; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * (j0 + j) + t4 + 4 * (e & 1);
+        const int key = k0 + wk + g + 8 * (e >> 1);
+        const int pos = row0 + r;
+        const bool ok = pos < S && key < Sk && (!kCausal || key <= pos);
+        const float p = ok ? exp2f(st[j][e] * scale_log2 - lse_b[r] * kLog2e) : 0.f;
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - D_b[r]);
+      }
+    }
+    if constexpr (kHalves == 2) {
+#pragma unroll
+      for (int j = 0; j < kRN; ++j) {
+        const int at4 = (wp * 8 + j0 + j) * 32 + lane;
+        Xp[at4] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
+        Xs[at4] = make_float4(dpt[j][0], dpt[j][1], dpt[j][2], dpt[j][3]);
+      }
+      __syncthreads();  // the pair's P^T and dS^T are whole
+    }
+    // dV += P^T dO and dK += dS^T q on the warp's columns, k = the tile's rows.
+#pragma unroll
+    for (int kk = 0; kk < kMmaTile / 8; ++kk) {
+      float pa[4], sa[4];
+      if constexpr (kHalves == 1) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pa[e] = st[kk][e];
+          sa[e] = dpt[kk][e];
+        }
+      } else {
+        const float4 x = Xp[(wp * 8 + kk) * 32 + lane];
+        const float4 y = Xs[(wp * 8 + kk) * 32 + lane];
+        pa[0] = x.x, pa[1] = x.y, pa[2] = x.z, pa[3] = x.w;
+        sa[0] = y.x, sa[1] = y.y, sa[2] = y.z, sa[3] = y.w;
+      }
+      const FragA ap = acc_frag(pa);
+      const FragA as = acc_frag(sa);
+#pragma unroll
+      for (int n = 0; n < kCN; ++n) {
+        mma3(dv[n], ap, tile_frag_b<HD>(dOb, kk, c0 + n));
+        mma3(dk[n], as, tile_frag_b<HD>(Qb, kk, c0 + n));
+      }
+    }
+    if constexpr (kBufs == 1) {
+      __syncthreads();  // every warp is done with tile t
+      if (t + 1 < n_q) load_q(row0 + kMmaTile, 0);
+      cp_async_commit();
+    }
+  }
+
+  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;  // one share
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + wk + g + 8 * i;
+    if (key >= Sk) continue;
+    const int64_t off = static_cast<int64_t>(blockIdx.z) * n +
+                        ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + 8 * c0 + 2 * t4;
+#pragma unroll
+    for (int nn = 0; nn < kCN; ++nn) {
+      *reinterpret_cast<float2*>(part + off + 8 * nn) = make_float2(dk[nn][2 * i], dk[nn][2 * i + 1]);
+      *reinterpret_cast<float2*>(part + static_cast<int64_t>(G) * n + off + 8 * nn) =
+          make_float2(dv[nn][2 * i], dv[nn][2 * i + 1]);
+    }
+  }
+}
+
+// dq of one (64-row tile, batch, KV head, key range).  Warp (wp, half): rows
+// 16 wp .. of the tile; in S and dP the key tile's n-tiles j0 .. j0 + kKN -
+// 1; in dQ the column n-tiles c0 .. c0 + kCN - 1.
+template <int HD, bool kCausal, int kHalves>
+__device__ __forceinline__ void dq_tf32x3(const float* __restrict__ q,
+                                          const float* __restrict__ k,
+                                          const float* __restrict__ v,
+                                          const float* __restrict__ dout,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ D, float* __restrict__ dq,
+                                          float* __restrict__ dq_part, int S, int Sk, int H,
+                                          int Hk, float scale, float scale_log2) {
+  using L = Tf32Smem<HD, kHalves>;
+  constexpr int kNThreads = 128 * kHalves;
+  constexpr int kBufs = L::kDqBufs;
+  constexpr int kTile = L::kTile;
+  constexpr int kDK = HD / 8;
+  constexpr int kKN = 8 / kHalves;       // the warp's n-tiles of the key tile
+  constexpr int kCN = HD / 8 / kHalves;  // the warp's n-tiles of dQ's columns
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + kTile;
+  float* Ks = dOs + kTile;           // kBufs buffers
+  float* Vs = Ks + kBufs * kTile;    // kBufs buffers
+  float4* Xd = reinterpret_cast<float4*>(Vs + kBufs * kTile);  // dS exchange
+
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const Rows R{S, H, G, kvh * G, static_cast<int>(blockIdx.y / Hk),
+               static_cast<int64_t>(S) * G};
+  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int64_t row0 = static_cast<int64_t>(tile) * kMmaTile;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wp = (threadIdx.x / 32) & 3;
+  const int half = threadIdx.x / 128;
+  const int wrow = 16 * wp;  // the warp's first row in the tile
+  const int j0 = half * kKN;
+  const int c0 = half * kCN;
+
+  int n_tiles = (Sk + kMmaTile - 1) / kMmaTile;
+  if (kCausal) {
+    const int64_t last_row = (row0 + kMmaTile < R.total ? row0 + kMmaTile : R.total) - 1;
+    const int limit = static_cast<int>(R.pos(last_row)) / kMmaTile + 1;
+    n_tiles = n_tiles < limit ? n_tiles : limit;
+  }
+  int kt0, kt1;
+  key_range(n_tiles, kt0, kt1);
+
+  const auto load_kv = [&](int kt, int buf) {
+    const int k0 = kt * kMmaTile;
+    const auto kv_off = [&](int j) -> int64_t {
+      return k0 + j < Sk ? ((static_cast<int64_t>(R.b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
+    };
+    tf32_load_tile<HD, kNThreads>(Ks + buf * kTile, k, kv_off);
+    tf32_load_tile<HD, kNThreads>(Vs + buf * kTile, v, kv_off);
+  };
+  if (kt0 < kt1) {
+    const auto row_off = [&](int r) -> int64_t {
+      return row0 + r < R.total ? R.offset(row0 + r, HD) : -1;
+    };
+    tf32_load_tile<HD, kNThreads>(Qs, q, row_off);
+    tf32_load_tile<HD, kNThreads>(dOs, dout, row_off);
+    load_kv(kt0, 0);
+    cp_async_commit();
+  }
+  // This thread's rows g and g + 8 of the warp.
+  bool row_ok[2];
+  int64_t pos[2];
+  float lse2[2], Dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + wrow + g + 8 * i;
+    row_ok[i] = row < R.total;
+    pos[i] = R.pos(row);
+    lse2[i] = row_ok[i] ? lse[R.stat(row)] * kLog2e : 0.f;
+    Dr[i] = row_ok[i] ? D[R.stat(row)] : 0.f;
+  }
+
+  float acc[kCN][4];
+#pragma unroll
+  for (int n = 0; n < kCN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * kMmaTile;
+    const int buf = kBufs == 2 ? ((kt - kt0) & 1) : 0;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    if (kBufs == 2 && kt + 1 < kt1) load_kv(kt + 1, buf ^ 1);
+    cp_async_commit();
+    const float* Kb = Ks + buf * kTile;
+    const float* Vb = Vs + buf * kTile;
+
+    // S = q k^T and dP = dO v^T: the warp's 16 rows x its kKN n-tiles of
+    // keys (permuted within each).
+    float s[kKN][4], dp[kKN][4];
+#pragma unroll
+    for (int j = 0; j < kKN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+      const FragA qa = tile_frag_a<HD>(Qs, wrow, kk);
+      const FragA oa = tile_frag_a<HD>(dOs, wrow, kk);
+#pragma unroll
+      for (int j = 0; j < kKN; ++j) {
+        mma3(s[j], qa, tile_frag_bt<HD>(Kb, j0 + j, kk));
+        mma3(dp[j], oa, tile_frag_bt<HD>(Vb, j0 + j, kk));
+      }
+    }
+    // dS in place of S: element e holds row g + 8 (e >> 1) of the warp's and
+    // key 8 j + t + 4 (e & 1) of the tile.
+#pragma unroll
+    for (int j = 0; j < kKN; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int key = k0 + 8 * (j0 + j) + t4 + 4 * (e & 1);
+        const bool ok = row_ok[i] && key < Sk && (!kCausal || key <= pos[i]);
+        const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[i]) : 0.f;
+        s[j][e] = p * (dp[j][e] - Dr[i]);
+      }
+    }
+    if constexpr (kHalves == 2) {
+#pragma unroll
+      for (int j = 0; j < kKN; ++j) {
+        Xd[(wp * 8 + j0 + j) * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      }
+      __syncthreads();  // the pair's dS is whole
+    }
+    // dQ += dS k on the warp's columns, k = the tile's keys.
+#pragma unroll
+    for (int kk = 0; kk < kMmaTile / 8; ++kk) {
+      float da[4];
+      if constexpr (kHalves == 1) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) da[e] = s[kk][e];
+      } else {
+        const float4 x = Xd[(wp * 8 + kk) * 32 + lane];
+        da[0] = x.x, da[1] = x.y, da[2] = x.z, da[3] = x.w;
+      }
+      const FragA a = acc_frag(da);
+#pragma unroll
+      for (int n = 0; n < kCN; ++n) mma3(acc[n], a, tile_frag_b<HD>(Kb, kk, c0 + n));
+    }
+    if constexpr (kBufs == 1) {
+      __syncthreads();  // every warp is done with tile kt
+      if (kt + 1 < kt1) load_kv(kt + 1, 0);
+      cp_async_commit();
+    }
+  }
+
+  const bool whole = gridDim.z == 1;
+  float* part = dq_part + (whole ? 0 : dq_part_base(S, H, Hk, HD));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!row_ok[i]) continue;
+    const int64_t off = R.offset(row0 + wrow + g + 8 * i, HD) + 8 * c0 + 2 * t4;
+#pragma unroll
+    for (int nn = 0; nn < kCN; ++nn) {
+      const float x0 = acc[nn][2 * i], x1 = acc[nn][2 * i + 1];
+      *reinterpret_cast<float2*>((whole ? dq : part) + off + 8 * nn) =
+          whole ? make_float2(x0 * scale, x1 * scale) : make_float2(x0, x1);
+    }
+  }
+}
+
+// The f32 kernels: 4 warps at hd 32 and 64, 8 (in pairs) at hd 128 and 160.
+#define FLASH_BWD_DKDV_ARGS                                                                 \
+  const float *__restrict__ q, const float *__restrict__ k, const float *__restrict__ v,    \
+      const float *__restrict__ dout, const float *__restrict__ lse,                        \
+      const float *__restrict__ D, float *__restrict__ part, int B, int S, int Sk, int H, \
+      int Hk, float scale_log2
+#define FLASH_BWD_DQ_ARGS                                                                   \
+  const float *__restrict__ q, const float *__restrict__ k, const float *__restrict__ v,    \
+      const float *__restrict__ dout, const float *__restrict__ lse,                        \
+      const float *__restrict__ D, float *__restrict__ dq, float *__restrict__ dq_part,     \
+      int S, int Sk, int H, int Hk, float scale, float scale_log2
+
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(128) flash_bwd_dkdv_tf32x3_mma_kernel(FLASH_BWD_DKDV_ARGS) {
+  dkdv_tf32x3<HD, kCausal, 1>(q, k, v, dout, lse, D, part, B, S, Sk, H, Hk, scale_log2);
+}
+
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(256)
+flash_bwd_dkdv_tf32x3_wide_mma_kernel(FLASH_BWD_DKDV_ARGS) {
+  dkdv_tf32x3<HD, kCausal, 2>(q, k, v, dout, lse, D, part, B, S, Sk, H, Hk, scale_log2);
+}
+
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(128) flash_bwd_dq_tf32x3_mma_kernel(FLASH_BWD_DQ_ARGS) {
+  dq_tf32x3<HD, kCausal, 1>(q, k, v, dout, lse, D, dq, dq_part, S, Sk, H, Hk, scale,
+                            scale_log2);
+}
+
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(256) flash_bwd_dq_tf32x3_wide_mma_kernel(FLASH_BWD_DQ_ARGS) {
+  dq_tf32x3<HD, kCausal, 2>(q, k, v, dout, lse, D, dq, dq_part, S, Sk, H, Hk, scale,
+                            scale_log2);
+}
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -1267,11 +1447,11 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // What a call launched, for the caller to read back: launched[0] the body of
-// its dK/dV and dQ kernels (kBodyFma, kBodyMma, kBodyWideMma), launched[1]
-// the dQ grid's key ranges.
-constexpr int kBodyFma = 0;
+// its dK/dV and dQ kernels, launched[1] the dQ grid's key ranges.
+constexpr int kBodyTf32x3 = 0;
 constexpr int kBodyMma = 1;
 constexpr int kBodyWideMma = 2;
+constexpr int kBodyTf32x3Wide = 3;
 
 template <int HD, bool kCausal, typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* o,
@@ -1313,11 +1493,18 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const void
     launched[1] = static_cast<int>(grid_q.z);
     return cudaGetLastError();
   };
-  static_assert(kRows == kMmaTile, "every dq body takes 64-row tiles");
-  if constexpr (!kUseMma<HD, T>) {
-    err = run(kBodyFma, flash_bwd_dkdv_kernel<HD, kCausal, T>,
-              flash_bwd_dq_kernel<HD, kCausal, T>, kThreads, Smem<HD>::kBytes,
-              Smem<HD>::kBytes, kKeys);
+  // f32 and bf16 each on their tensor-core bodies: 4 warps at hd 32 and 64,
+  // 8 at hd 128 and 160.
+  if constexpr (std::is_same<T, float>::value && HD <= 64) {
+    using L = Tf32Smem<HD, 1>;
+    err = run(kBodyTf32x3, flash_bwd_dkdv_tf32x3_mma_kernel<HD, kCausal>,
+              flash_bwd_dq_tf32x3_mma_kernel<HD, kCausal>, 128, L::kDkdvBytes, L::kDqBytes,
+              kMmaTile);
+  } else if constexpr (std::is_same<T, float>::value) {
+    using L = Tf32Smem<HD, 2>;
+    err = run(kBodyTf32x3Wide, flash_bwd_dkdv_tf32x3_wide_mma_kernel<HD, kCausal>,
+              flash_bwd_dq_tf32x3_wide_mma_kernel<HD, kCausal>, 256, L::kDkdvBytes,
+              L::kDqBytes, kMmaTile);
   } else if constexpr (HD <= 64) {
     err = run(kBodyMma, flash_bwd_dkdv_mma_kernel<HD, kCausal>,
               flash_bwd_dq_mma_kernel<HD, kCausal>, kMmaThreads, MmaSmem<HD>::kBytes,
@@ -1373,7 +1560,8 @@ extern "C" {
 // 1, dq_part is f32 scratch of dq_splits * B * S * H * hd elements (the
 // ranges' partials), else unused.  H % Hk == 0, B * Hk <= 65535,
 // H / Hk <= 65535; the wrapper checks all of it.  On success launched[0]
-// holds the body the call ran (0 = FMA, 1 = mma, 2 = wide mma) and
+// holds the body the call ran (0 = 3xTF32 mma, 1 = mma, 2 = wide mma, 3 =
+// 3xTF32 wide mma) and
 // launched[1] the key ranges of the dQ grid it launched.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const float* lse, float* D, float* part,

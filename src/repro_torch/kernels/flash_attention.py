@@ -7,36 +7,43 @@ the JAX package's Pallas kernel ``repro/kernels/flash_attention.py``.  One
 block serves all G = H / Hk query heads of one KV head for a tile of 64
 folded (position, group member) rows, so every K/V tile is read once; a
 causal block stops at the last key its positions can see.  It has two
-bodies, picked by dtype (``BODIES``): bf16, the serving path, runs
-FlashAttention-2 on the tensor cores (``mma.sync`` bf16 with f32
-accumulation, ``ldmatrix`` fragments, K/V tiles double-buffered with
-``cp.async``); f32 runs on the FMA units, because neither bf16 nor TF32
-tensor cores hold the f32 tolerance.  Both keep f32 softmax statistics,
-masked scores at -1e30 and the row-sum floor of the reference.
+bodies, picked by dtype (``BODIES``), both FlashAttention-2 on the tensor
+cores with K/V tiles double-buffered by ``cp.async``: bf16, the serving
+path, on ``mma.sync`` bf16 with f32 accumulation and ``ldmatrix``
+fragments; f32 (whisper's encoder and cross-attention, whose f32 frames JAX
+promotes) on ``mma.sync`` TF32 in 3xTF32 -- each operand split into a TF32
+big part and its remainder, big * big + big * small + small * big in f32 --
+which holds the f32 tolerance that one TF32 product does not.  Both keep
+f32 softmax statistics, masked scores at -1e30 and the row-sum floor of the
+reference.  Where the f32 body's row tiles leave the grid below one wave
+(whisper's 64 decoder positions against 1500 frames), ``dq_splits`` cuts
+each block's key walk into ranges whose f32 partials (output, running max
+and sum) a merge kernel combines in range order (``FWD_LAUNCHED``).
 
 The Pallas kernel is forward only; here the gradient is a kernel too
 (``csrc/flash_attention_bwd.cu``, the FlashAttention-2 split: a row-dot
 pass, per-query-head dK/dV shares summed per KV head in f32, and a dQ
-kernel; four launches a call).  Its bodies (``BWD_LAUNCHED``): bf16 runs on
-the tensor cores (``mma.sync``) at every head dim -- at hd 32 and 64 a warp
-holds its 16 keys' (rows') operands in registers; at hd 128 and 160 two
-warps share them, splitting the score products by rows and the
-accumulators by columns, with P and dS passed through shared memory and
-the streamed tile double-buffered, so neither spills -- and f32 runs on
-the FMA units, bounded by the 67 TFLOP/s f32 rate.  Where a short query
-sequence leaves the dQ kernel's grid below one wave (whisper's 64 decoder
-positions against 1500 frames), ``dq_splits`` cuts its key walk into
-ranges whose f32 partials the last kernel sums in order.  Under
-autograd (grad enabled and an operand that requires grad) ``flash_attention``
-goes through ``FlashAttentionFn``: its forward launches the forward kernel
-with a log-sum-exp output and saves q, k, v, the output and the LSE, its
-backward launches the backward kernels.  Otherwise (``no_grad``, serving) it
-launches the forward kernel alone, without the LSE, as before.
+kernel; four launches a call).  Its bodies (``BWD_LAUNCHED``) all run on
+the tensor cores: bf16 on ``mma.sync`` bf16, f32 on ``mma.sync`` TF32 in
+3xTF32.  At hd 32 and 64 a block has 4 warps, each owning 16 keys (rows);
+at hd 128 and 160 8 warps, two sharing 16 keys (rows) and splitting the
+score products by rows (keys) and the accumulators by columns, with P and
+dS passed through shared memory, so neither spills.  Where a short query
+sequence leaves the dQ kernel's grid below one wave, ``dq_splits`` cuts its
+key walk into ranges whose f32 partials the last kernel sums in order.
+Under autograd (grad enabled and an operand that requires grad)
+``flash_attention`` goes through ``FlashAttentionFn``: its forward launches
+the forward kernel with a log-sum-exp output and saves q, k, v, the output
+and the LSE, its backward launches the backward kernels.  Otherwise
+(``no_grad``, serving) it launches the forward kernel alone, without the
+LSE.
 
 Takes CUDA tensors only and raises on anything else: ``kernels/ops.py``
-sends CPU tensors to ``ref.reference_attention``.  The wrappers count their
-launches in ``LAUNCHES`` (raised only where a kernel is launched; one
-backward call launches ``BWD_KERNELS_PER_CALL`` kernels and counts once), and the forward's in
+sends CPU tensors to ``ref.reference_attention``, the plain version the
+CPU tests hold against the JAX package; the kernels run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).  The wrappers count
+their launches in ``LAUNCHES`` (raised only where a kernel is launched; a
+call counts once, whatever kernels it launches), and the forward's in
 ``BODY_LAUNCHES`` by body.  The libraries are built by nvcc on first use
 (``kernels/build.py``), never at import.
 """
@@ -52,12 +59,19 @@ from repro_torch.kernels import build
 #: Launch counts of the forward and the backward; ``reset_launches()`` zeroes them.
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
-#: The kernel body each dtype runs (``flash_fwd_bf16_mma_kernel`` on the
-#: tensor cores, ``flash_fwd_kernel`` on the FMA units).
-BODIES = {torch.bfloat16: "tensor_core", torch.float32: "fma"}
+#: The forward body each dtype runs: ``flash_fwd_bf16_mma_kernel`` (bf16
+#: tensor-core products) and ``flash_fwd_tf32x3_mma_kernel`` (3xTF32).
+BODIES = {torch.bfloat16: "bf16_mma", torch.float32: "tf32x3_mma"}
 
-#: The same launches by body.
-BODY_LAUNCHES = {"tensor_core": 0, "fma": 0}
+#: The forward's launches by body.
+BODY_LAUNCHES = {"bf16_mma": 0, "tf32x3_mma": 0}
+
+#: The bodies by the code the forward's C entry reports.
+_FWD_BODY_CODES = ("tf32x3_mma", "bf16_mma")
+
+#: What the last forward call launched, as its C entry reported it: the body
+#: and the key ranges of its grid (above 1, the merge kernel followed).
+FWD_LAUNCHED = {"body": None, "key_splits": None}
 
 #: Head dims the kernel is instantiated for (the test cases' 32, 64 and 128;
 #: tinyllama, qwen1.5 and starcoder2 use 64 or 128, stablelm-12b 160).
@@ -70,21 +84,23 @@ _MAX_GRID_Y = 65535
 #: and the sum of each KV head's dK/dV shares and of dQ's partials).
 BWD_KERNELS_PER_CALL = 4
 
-#: The bodies by the code the C entry reports: the FMA kernels, the 4-warp
-#: ``flash_bwd_*_mma_kernel`` (hd 32, 64), the 8-warp
-#: ``flash_bwd_*_wide_mma_kernel`` (hd 128, 160).
-_BWD_BODY_CODES = ("fma", "mma", "wide_mma")
+#: The bodies by the code the backward's C entry reports: bf16 on the 4-warp
+#: ``flash_bwd_*_mma_kernel`` (hd 32, 64) and the 8-warp
+#: ``flash_bwd_*_wide_mma_kernel`` (hd 128, 160); f32 on the 4-warp
+#: ``flash_bwd_*_tf32x3_mma_kernel`` and the 8-warp
+#: ``flash_bwd_*_tf32x3_wide_mma_kernel``, at the same head dims.
+_BWD_BODY_CODES = ("tf32x3_mma", "mma", "wide_mma", "tf32x3_wide_mma")
 
 #: What the last backward call launched, as its C entry reported it: the
 #: body of its dK/dV and dQ kernels and the key ranges of its dQ grid.
 BWD_LAUNCHED = {"body": None, "dq_splits": None}
 
-#: Rows of a dQ block, and keys of the tensor-core bodies' key tile (the FMA
-#: body walks tiles of 32): the units of ``dq_splits``.
+#: Rows of a dQ (and f32 forward) block, and keys of every body's key tile:
+#: the units of ``dq_splits``.
 DQ_ROW_TILE = 64
 DQ_KEY_TILE = 64
 
-#: The fewest 64-key tiles a key range of a split dQ walk holds.
+#: The fewest 64-key tiles a key range of a split walk holds.
 DQ_MIN_RANGE_TILES = 2
 
 _LIB = None
@@ -92,16 +108,22 @@ _BWD_LIB = None
 
 
 def dq_splits(B: int, S: int, Sk: int, H: int, Hk: int, sms: int) -> int:
-    """Key ranges the dQ kernel's walk is cut into: 1 where its
-    ``ceil(S * G / 64) * B * Hk`` blocks already fill the card's ``sms``
-    SMs (each block then walks all its keys and writes dq itself), else
-    enough to reach about one wave, with no range shorter than
-    ``DQ_MIN_RANGE_TILES`` key tiles of 64."""
+    """Key ranges the dQ kernel's walk, and the f32 forward's, is cut into:
+    1 where its ``ceil(S * G / 64) * B * Hk`` blocks already fill the card's
+    ``sms`` SMs (each block then walks all its keys and writes its rows
+    itself), else enough to reach about one wave, with no range shorter
+    than ``DQ_MIN_RANGE_TILES`` key tiles of 64."""
     blocks = -(-S * (H // Hk) // DQ_ROW_TILE) * B * Hk
     if blocks >= sms:
         return 1
     most = -(-Sk // DQ_KEY_TILE) // DQ_MIN_RANGE_TILES
     return max(1, min(-(-sms // blocks), most))
+
+
+def forward_key_splits(dtype, B: int, S: int, Sk: int, H: int, Hk: int, sms: int) -> int:
+    """Key ranges of the forward's walk: ``dq_splits`` for the f32 body, 1
+    for bf16 (its body walks whole)."""
+    return dq_splits(B, S, Sk, H, Hk, sms) if dtype == torch.float32 else 1
 
 
 def reset_launches() -> None:
@@ -117,10 +139,12 @@ def _lib():
         lib.flash_attention_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
             ctypes.c_void_p, ctypes.c_void_p,  # out, lse (or NULL)
+            ctypes.c_void_p, ctypes.c_void_p,  # the ranges' partials (scratch, or NULL)
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, Sk
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H, Hk, hd
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, causal, device
-            ctypes.c_void_p,  # stream
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, causal, key ranges
+            ctypes.c_void_p,  # launched: int[2], written by the call
+            ctypes.c_int, ctypes.c_void_p,  # device, stream
         ]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -167,9 +191,9 @@ def _check_operands(q, k, v) -> None:
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must start on a 16-byte boundary "
-                             "(the bf16 body copies 16-byte rows)")
+                             "(the kernels copy 16-byte chunks)")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -191,20 +215,34 @@ def _check_operands(q, k, v) -> None:
         raise ValueError(f"flash_attention: B * Hk = {B * Hk} exceeds {_MAX_GRID_Y}")
 
 
-def _forward(q, k, v, causal: bool, with_lse: bool):
-    """Launch the forward kernel -> (out, lse (B, H, S) f32 or None)."""
+def _forward(q, k, v, causal: bool, with_lse: bool, key_splits: int | None = None):
+    """Launch the forward kernel -> (out, lse (B, H, S) f32 or None).  The
+    f32 body's key walk is cut into ``key_splits`` ranges (by default
+    ``forward_key_splits`` on this card's SM count), their partials
+    allocated here."""
     B, S, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    splits = key_splits
+    if splits is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = forward_key_splits(q.dtype, B, S, Sk, H, Hk, sms)
+    o_part = stat_part = None
+    if splits > 1:
+        o_part = torch.empty((splits, B * S * H * hd), dtype=torch.float32, device=q.device)
+        stat_part = torch.empty((2, splits, B * H * S), dtype=torch.float32, device=q.device)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    launched = (ctypes.c_int * 2)()
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        B, S, Sk, H, Hk, hd, _DTYPE_CODE[q.dtype], int(bool(causal)),
-        q.device.index, stream,
+        None if o_part is None else o_part.data_ptr(),
+        None if stat_part is None else stat_part.data_ptr(),
+        B, S, Sk, H, Hk, hd, _DTYPE_CODE[q.dtype], int(bool(causal)), splits,
+        ctypes.addressof(launched), q.device.index, stream,
     )
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
@@ -212,6 +250,7 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
                            f"({msg})")
     LAUNCHES["flash_attention"] += 1
     BODY_LAUNCHES[BODIES[q.dtype]] += 1
+    FWD_LAUNCHED.update(body=_FWD_BODY_CODES[launched[0]], key_splits=launched[1])
     return out, lse
 
 
@@ -229,9 +268,9 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True):
             raise ValueError(f"flash_attention_backward: {name} must be a contiguous "
                              f"{q.dtype} tensor of q's shape {tuple(q.shape)} on "
                              f"{q.device}")
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise ValueError(f"flash_attention_backward: {name} must start on a 16-byte "
-                             "boundary (the bf16 bodies copy 16-byte rows)")
+                             "boundary (the kernels copy 16-byte chunks)")
     B, S, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if (lse.device != q.device or lse.dtype != torch.float32
@@ -289,9 +328,9 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal: bool = True):
     """GQA attention on CUDA. q: (B,S,H,hd); k/v: (B,Sk,Hk,hd) -> (B,S,H,hd).
 
-    f32 or bf16, contiguous, H % Hk == 0, hd in ``HEAD_DIMS``; f32 softmax
-    and accumulation (bf16 products on the tensor cores for bf16), the output
-    in q's dtype.  Causal positions align from 0 for any S and Sk.  Under
+    f32 or bf16, contiguous, 16-byte aligned, H % Hk == 0, hd in
+    ``HEAD_DIMS``; f32 softmax and accumulation (bf16 products on the tensor
+    cores for bf16, 3xTF32 ones for f32), the output in q's dtype.  Causal positions align from 0 for any S and Sk.  Under
     autograd it is differentiable through the backward kernels."""
     _check_operands(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -270,7 +270,49 @@ def embedding_init(gen, vocab, d_model, dtype, device=None):
 
 def embedding_lookup(p, ids):
     table = p["table"]
+    local = _embedding_lookup_local(table, ids)
+    if local is not None:
+        return local
     return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, table.shape[-1])
+
+
+def _embedding_lookup_local(table, ids):
+    """``embedding_lookup`` of DTensors on the local shards: each rank looks
+    up its own ids in its own columns of the table, so the output is split
+    as the ids are on their mesh dims and on D where the table's D is.
+    DTensor's own rule for ``index_select`` gathers the whole batch's rows
+    on every rank under some torch versions (2.11: 4.3 GB a rank for a
+    32k-token prefill of tinyllama-1.1b on a 16x16 mesh).  The gradient
+    of a table that a mesh dim replicates while it splits the ids is a
+    partial sum over that dim.  None where the local lookup does not cover
+    the placements: either operand not a DTensor, the table split on its
+    vocab, a mesh dim that splits both, or a partial operand."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not (isinstance(table, DTensor) and isinstance(ids, DTensor)):
+        return None
+    if table.device_mesh != ids.device_mesh or table.ndim != 2:
+        return None
+    out, grad = [], []
+    for pt, pi in zip(table.placements, ids.placements):
+        if pt == Replicate() and pi == Replicate():
+            out.append(Replicate())
+            grad.append(Replicate())
+        elif pt == Replicate() and isinstance(pi, Shard):
+            out.append(Shard(pi.dim))
+            grad.append(Partial())
+        elif pt == Shard(1) and pi == Replicate():
+            out.append(Shard(ids.ndim))
+            grad.append(Shard(1))
+        else:
+            return None
+    rows = table.to_local(grad_placements=grad)
+    ids_local = ids.to_local()
+    y = rows.index_select(0, ids_local.reshape(-1)).reshape(*ids_local.shape, rows.shape[-1])
+    shape = (*ids.shape, table.shape[-1])
+    stride = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+    return DTensor.from_local(y, table.device_mesh, out, run_check=False, shape=shape,
+                              stride=stride)
 
 
 def sinusoidal_positions(S: int, d: int, device=None) -> torch.Tensor:

@@ -486,3 +486,59 @@ def run_rank(rank: int, world: int, tmp: str) -> None:
     finally:
         torch.save(out, f"{tmp}/rank-{world}-{rank}.pt")
         dist.destroy_process_group()
+
+
+# ------------------------------------------------- the embedding lookup (C19)
+
+#: tests/test_torch_flash_f32_tc.py's lookup: a (VOCAB, D) table and (B, S)
+#: ids from numpy seeds, on a (2, 2) ('data', 'model') mesh.
+EMBED_VOCAB, EMBED_D, EMBED_B, EMBED_S = 32, 8, 4, 3
+
+
+def embed_inputs():
+    """The table (f32), the ids (int64) and a weight of the output's shape
+    for the gradient, from numpy seeds."""
+    rng = np.random.default_rng(19)
+    table = rng.standard_normal((EMBED_VOCAB, EMBED_D)).astype(np.float32)
+    ids = rng.integers(0, EMBED_VOCAB, size=(EMBED_B, EMBED_S))
+    weight = rng.standard_normal((EMBED_B, EMBED_S, EMBED_D)).astype(np.float32)
+    return table, ids, weight
+
+
+def run_embedding_rank(rank: int, tmp: str) -> None:
+    """One rank of a gloo group of 4 on a (2, 2) mesh: ``embedding_lookup``
+    on DTensors, the ids split on 'data' and the table's D on 'model' (the
+    serving plan's layout), then the table split on its vocab instead; each
+    lookup's local and whole output, and the whole gradient of
+    ``sum(out * weight)`` into the table."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import modules
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store-embed", rank=rank,
+                            world_size=4, timeout=TIMEOUT)
+    out = {}
+    try:
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        table, ids, weight = (torch.from_numpy(a) for a in embed_inputs())
+        dids = DTensor.from_local(ids.chunk(2, 0)[mesh.get_local_rank(0)].contiguous(), mesh,
+                                  [Shard(0), Replicate()], run_check=False)
+        for name, placement in (("d_split", Shard(1)), ("vocab_split", Shard(0))):
+            local = table.chunk(2, placement.dim)[mesh.get_local_rank(1)].contiguous()
+            dtable = DTensor.from_local(local.requires_grad_(), mesh, [Replicate(), placement],
+                                        run_check=False)
+            y = modules.embedding_lookup({"table": dtable}, dids)
+            (y.full_tensor() * weight).sum().backward()
+            out[name] = {"local": y.to_local().detach().clone(),
+                         "full": y.full_tensor().detach().clone(),
+                         "placements": [(type(p).__name__, getattr(p, "dim", None))
+                                        for p in y.placements],
+                         "grad": local.grad.clone()}
+    except Exception:  # noqa: BLE001 -- reported to the test process
+        out["error"] = traceback.format_exc()
+    finally:
+        torch.save(out, f"{tmp}/embed-{rank}.pt")
+        dist.destroy_process_group()

@@ -267,7 +267,7 @@ def test_cuda_flash_attention_tensor_core_body(cuda_device, case):
     n0 = dict(fa.BODY_LAUNCHES)
     got = ops.attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa.BODY_LAUNCHES == {"tensor_core": n0["tensor_core"] + 1, "fma": n0["fma"]}
+    assert fa.BODY_LAUNCHES == {"bf16_mma": n0["bf16_mma"] + 1, "tf32x3_mma": n0["tf32x3_mma"]}
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), ref.reference_attention(q, k, v, causal=causal)
                                .float(), atol=2e-2, rtol=2e-2)
@@ -276,7 +276,8 @@ def test_cuda_flash_attention_tensor_core_body(cuda_device, case):
 @pytest.mark.cuda
 def test_cuda_mixed_dtypes_promote_before_the_kernel(cuda_device):
     """whisper's cross-attention: a bf16 query against f32 keys and values
-    runs the f32 (FMA) body on the promoted operands, output in q's dtype."""
+    runs the f32 (3xTF32) body on the promoted operands, output in q's
+    dtype."""
     from repro_torch.models import attention as attn
 
     q, _, _ = _qkv(10, 2, 64, 300, 4, 4, 64, "bfloat16", cuda_device)
@@ -284,18 +285,79 @@ def test_cuda_mixed_dtypes_promote_before_the_kernel(cuda_device):
     n0 = dict(fa.BODY_LAUNCHES)
     got = attn.chunked_attention(q, k, v, causal=False)
     torch.cuda.synchronize()
-    assert fa.BODY_LAUNCHES == {"tensor_core": n0["tensor_core"], "fma": n0["fma"] + 1}
+    assert fa.BODY_LAUNCHES == {"bf16_mma": n0["bf16_mma"], "tf32x3_mma": n0["tf32x3_mma"] + 1}
     assert got.dtype == torch.bfloat16
     want = ref.reference_attention(q.float(), k, v, causal=False).to(torch.bfloat16)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda
-def test_cuda_flash_f32_runs_the_fma_body(cuda_device):
+def test_cuda_flash_f32_runs_the_tensor_core_body(cuda_device):
+    """f32 runs the 3xTF32 tensor-core body, its walk whole at this shape."""
     q, k, v = _qkv(9, 1, 64, 64, 4, 2, 64, "float32", cuda_device)
     n0 = dict(fa.BODY_LAUNCHES)
     fa.flash_attention(q, k, v)
-    assert fa.BODY_LAUNCHES == {"tensor_core": n0["tensor_core"], "fma": n0["fma"] + 1}
+    assert fa.BODY_LAUNCHES == {"bf16_mma": n0["bf16_mma"], "tf32x3_mma": n0["tf32x3_mma"] + 1}
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1}
+
+
+#: f32 at every head dim, causal with G = 2 and ragged, and non-causal with
+#: S != Sk (hd 128 and 160 read Q's fragments from shared memory each tile).
+ATTN_F32_HD_CASES = [(2, 100, 137, 4, 2, hd, causal)
+                     for hd in fa.HEAD_DIMS for causal in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_F32_HD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_f32_every_head_dim(cuda_device, case):
+    """The 3xTF32 bodies, forward (2e-5) and backward (1e-4 of max |grad|),
+    at every head dim, against the plain version."""
+    B, S, Sk, H, Hk, hd, causal = case
+    q, k, v = (t.requires_grad_() for t in _qkv(15, B, S, Sk, H, Hk, hd, "float32",
+                                                 cuda_device))
+    dout = _qkv(16, B, S, S, H, H, hd, "float32", cuda_device)[0]
+    out = ops.attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert fa.FWD_LAUNCHED["body"] == "tf32x3_mma"
+    assert fa.BWD_LAUNCHED["body"] == ("tf32x3_mma" if hd <= 64 else "tf32x3_wide_mma")
+    torch.testing.assert_close(out, ref.reference_attention(q, k, v, causal=causal),
+                               atol=2e-5, rtol=2e-5)
+    for name, g, w in zip("qkv", got, ref.reference_attention_backward(q, k, v, dout,
+                                                                       causal=causal)):
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * scale, f"d{name}: {err} against max {scale}"
+
+
+#: Short query sequences whose f32 walk is split on an H100 (``dq_splits``):
+#: whisper's cross-attention (64 x 1500, 3 ranges at B = 4), and a causal
+#: one whose later ranges hold no key its rows see.
+ATTN_F32_SPLIT_CASES = [(4, 64, 1500, 12, 12, 64, False), (1, 16, 200, 2, 1, 64, True),
+                        (1, 300, 300, 1, 1, 32, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_F32_SPLIT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_f32_split_walk(cuda_device, case):
+    """The split walk against the plain version (2e-5) and its merged lse
+    against one whole walk's; the C entry reports the ranges asked for."""
+    B, S, Sk, H, Hk, hd, causal = case
+    q, k, v = _qkv(17, B, S, Sk, H, Hk, hd, "float32", cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits = fa.forward_key_splits(torch.float32, B, S, Sk, H, Hk, sms)
+    if splits == 1:
+        pytest.skip(f"{sms} SMs: this shape's walk is whole")
+    out, lse = fa._forward(q, k, v, causal, with_lse=True)
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": splits}
+    whole_out, whole_lse = fa._forward(q, k, v, causal, with_lse=True, key_splits=1)
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1}
+    torch.cuda.synchronize()
+    want = ref.reference_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(whole_out, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, whole_lse, atol=1e-5, rtol=1e-5)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
 
 
 @pytest.mark.cuda
@@ -316,6 +378,9 @@ def test_cuda_flash_wrapper_checks_operands(cuda_device):
     qb = torch.zeros(q.numel() + 1, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention(qb[1:].view(q.shape), k.bfloat16(), v.bfloat16())
+    qf = torch.zeros(q.numel() + 1, device=cuda_device, dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(qf[1:].view(q.shape), k, v)
     assert fa.LAUNCHES["flash_attention"] == n0
 
 
@@ -377,7 +442,7 @@ def test_cuda_flash_attention_backward_matches_plain(cuda_device, case, dtype):
         scale = w.float().abs().max().item()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= ATTN_BWD_TOL[dtype] * scale, f"d{name}: {err} against max {scale}"
-    body = "fma" if dtype == "float32" else "mma" if hd <= 64 else "wide_mma"
+    body = ("tf32x3_" if dtype == "float32" else "") + ("mma" if hd <= 64 else "wide_mma")
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert fa.BWD_LAUNCHED == {"body": body,
                                "dq_splits": fa.dq_splits(B, S, Sk, H, Hk, sms)}

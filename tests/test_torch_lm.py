@@ -154,15 +154,16 @@ def test_reference_attention_matches_jax_flash_bf16(case):
 
 
 def test_flash_bodies_by_dtype_and_reset():
-    """bf16 runs the tensor-core body, f32 the FMA body; reset_launches
+    """bf16 runs the bf16 tensor-core body, f32 the 3xTF32 one; reset_launches
     zeroes both counts."""
-    assert tfa.BODIES == {torch.bfloat16: "tensor_core", torch.float32: "fma"}
+    assert tfa.BODIES == {torch.bfloat16: "bf16_mma", torch.float32: "tf32x3_mma"}
     tfa.LAUNCHES["flash_attention"] += 2
     tfa.LAUNCHES["flash_attention_bwd"] += 1
-    tfa.BODY_LAUNCHES["tensor_core"] += 2
+    tfa.BODY_LAUNCHES["bf16_mma"] += 2
+    tfa.BODY_LAUNCHES["tf32x3_mma"] += 1
     tfa.reset_launches()
     assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
-    assert tfa.BODY_LAUNCHES == {"tensor_core": 0, "fma": 0}
+    assert tfa.BODY_LAUNCHES == {"bf16_mma": 0, "tf32x3_mma": 0}
 
 
 # -------------------------------------------------------------------- modules

@@ -292,15 +292,21 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
         /*0100*/   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;
         /*0110*/   FFMA R1, R2, R3, R1 ;
         /*0120*/   HMMA.16816.F32.BF16 R8, R12, R22, R8 ;
-        Function : _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64ELb1EEEvPKT_
+        Function : _ZN12_GLOBAL__N_127flash_fwd_tf32x3_mma_kernelILi64ELb0EEEvPKfS2_S2_Pf
+        /*0100*/   HMMA.1688.F32.TF32 R4, R12, R20, R4 ;
+        Function : _ZN12_GLOBAL__N_122flash_fwd_merge_kernelEPKfS1_PfS2_liiii
         /*0100*/   FFMA R1, R2, R3, R1 ;
         Function : _ZN12_GLOBAL__N_116rwkv_scan_kernelIffLi64EEEvPKT_
         /*0200*/   HMMA.1688.F32.TF32 R4, R12, R20, R4 ;
     """
     counts = cs.sass_tensor_core_counts(sass)
-    assert list(counts.values()) == [2, 0, 1]
-    assert cs.TENSOR_CORE_KERNELS["flash_attention"] in list(counts)[0]
-    assert cs.TENSOR_CORE_KERNELS["rwkv_scan"] in list(counts)[2]
+    assert list(counts.values()) == [2, 1, 0, 1]
+    names = list(counts)
+    # Both forward bodies are held to their HMMA; the merge kernel, which
+    # holds no product, is not.
+    assert [cs.TENSOR_CORE_KERNELS["flash_attention"] in n for n in names[:3]] == [
+        True, True, False]
+    assert cs.TENSOR_CORE_KERNELS["rwkv_scan"] in names[3]
 
 
 def _fake_profiled_torch(traces):
@@ -386,10 +392,14 @@ def test_chip_smoke_reads_the_backward_body_from_the_traced_names():
     assert cs.bwd_body("bfloat16", 160) == "wide_mma"
     four = ["flash_bwd_dkdv_mma_kernel<64, true>", "flash_bwd_dq_mma_kernel<64, true>"]
     assert cs.traced_bwd_body(four) == cs.bwd_body("bfloat16", 64) == "mma"
-    fma = ["flash_bwd_dkdv_kernel<64, false, float>", "flash_bwd_dq_kernel<64, false, float>"]
-    assert cs.traced_bwd_body(fma) == cs.bwd_body("float32", 128) == "fma"
+    tf32 = ["flash_bwd_dkdv_tf32x3_mma_kernel<64, false>",
+            "flash_bwd_dq_tf32x3_mma_kernel<64, false>"]
+    assert cs.traced_bwd_body(tf32) == cs.bwd_body("float32", 64) == "tf32x3_mma"
+    tf32_wide = ["flash_bwd_dkdv_tf32x3_wide_mma_kernel<160, true>",
+                 "flash_bwd_dq_tf32x3_wide_mma_kernel<160, true>"]
+    assert cs.traced_bwd_body(tf32_wide) == cs.bwd_body("float32", 160) == "tf32x3_wide_mma"
     assert cs.traced_bwd_body([dot, red]) is None
-    assert cs.traced_bwd_body([fma[0], four[1]]) == "fma+mma"
+    assert cs.traced_bwd_body([tf32[0], four[1]]) == "mma+tf32x3_mma"
 
 
 def test_wkv_reset_launches_zeroes_every_count():
