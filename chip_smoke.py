@@ -11,9 +11,11 @@ Phases, in order; any failure exits non-zero before the result line:
              kernel, the tensor-core instructions (HMMA / HGMMA) that
              ``cuobjdump -sass`` lists: every flash-attention forward and
              backward body (``*mma_kernel``: bf16, and f32 in 3xTF32) and
-             every WKV forward and backward instantiation must have some
-             (the forward's merge kernel and the backward's row-dot and
-             reduce kernels hold no product and are not asked for any);
+             every WKV forward and backward instantiation must have some,
+             and every bf16 flash-attention body (``*_wgmma_kernel``,
+             Hopper's wgmma fed by TMA) HGMMA (the forward's merge kernel
+             and the backward's row-dot and reduce kernels hold no product
+             and are not asked for any);
 3. kernels — every hand-written kernel against its plain torch version on
              the card, at the test shapes, the main path's shapes and a
              large shape (flash attention also at the shapes phases 21-25
@@ -98,10 +100,11 @@ Phases, in order; any failure exits non-zero before the result line:
              in f32 and bf16: causal and not, GQA with G = 8 and MQA,
              S != Sk both ways, hd 32/64/128/160, ragged lengths, a short
              query sequence whose dQ key walk is split (``dq_splits``),
-             and the training shape (2 x 512 tokens, 32/4 heads, hd 64);
-             max |err| of dq, dk and dv within 1e-4 (f32) / 2e-2 (bf16) of
-             max |grad|; per case the body (bf16 and f32, in 3xTF32, on the
-             tensor cores at every head dim), the key ranges, and the
+             G = 5 and 7, and the training shape (2 x 512 tokens, 32/4
+             heads, hd 64); max |err| of dq, dk and dv within 1e-4 (f32) /
+             2e-2 (bf16) of max |grad|; per case the body (bf16 on wgmma,
+             f32 in 3xTF32 on mma.sync, at every head dim), the key ranges
+             and grids as the C entry reports them, and the
              device time a call against the bound, and at the training
              shapes against SDPA's backward: the dense phase's, and phases
              30-32's in the dtype each trains in (phi3.5's 1 x 512, 32/8
@@ -466,6 +469,11 @@ TENSOR_CORE_KERNELS = {"flash_attention": "mma_kernel",
                        "flash_attention_bwd": "mma_kernel",
                        "rwkv_scan": "rwkv_scan_kernel",
                        "rwkv_scan_bwd": "rwkv_scan_bwd"}
+#: The mark of the bodies on Hopper's warpgroup products (``wgmma``, fed by
+#: TMA), which must hold HGMMA, not only HMMA, and the libraries that have
+#: them.
+WGMMA_MARK = "_wgmma_kernel"
+WGMMA_LIBS = ("flash_attention", "flash_attention_bwd")
 
 
 class SmokeError(RuntimeError):
@@ -613,40 +621,47 @@ def phase_build():
     libs = build.build()
     secs = time.perf_counter() - t0
     print(f"build: {sorted(libs)} in {secs:.2f} s (build dir {build.build_dir()})")
-    sass = {name: tensor_core_counts(build, path) for name, path in libs.items()}
+    sass, hgmma = {}, {}
+    for name, path in libs.items():
+        sass[name], hgmma[name] = tensor_core_counts(build, path)
     for name, counts in sass.items():
         print(f"  sass {name}: {sum(counts.values())} HMMA/HGMMA in {len(counts)} kernels")
         for fn, n in sorted(counts.items()):
-            print(f"    {n:6d}  {fn[:100]}")
+            print(f"    {n:6d}  (HGMMA {hgmma[name][fn]:4d})  {fn[:100]}")
         want = TENSOR_CORE_KERNELS.get(name)
         if want is not None:
             mine = {fn: n for fn, n in counts.items() if want in fn}
             check(mine and all(mine.values()),
                   f"{name}: kernels {want}* without tensor-core instructions: {mine}")
-    return {"seconds": secs, "sass_tensor_core": sass}
+        wg = {fn: n for fn, n in hgmma[name].items() if WGMMA_MARK in fn}
+        check(all(wg.values()) and (wg or name not in WGMMA_LIBS),
+              f"{name}: {WGMMA_MARK} bodies without HGMMA (wgmma) instructions: {wg}")
+    return {"seconds": secs, "sass_tensor_core": sass, "sass_hgmma": hgmma}
 
 
 def tensor_core_counts(build, path):
     """Kernel symbol -> count of HMMA / HGMMA instructions in the library's
-    SASS (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+    SASS (``cuobjdump -sass``, from the toolkit beside nvcc), and kernel
+    symbol -> HGMMA (``wgmma``) alone."""
     exe = Path(build.nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(exe), "-sass", str(path)], capture_output=True, text=True,
                          timeout=300)
     check(out.returncode == 0, f"cuobjdump -sass {path} failed: {out.stderr[-2000:]}")
     counts = sass_tensor_core_counts(out.stdout)
     check(counts, f"cuobjdump -sass {path} lists no kernel")
-    return counts
+    return counts, sass_tensor_core_counts(out.stdout, r"\bHGMMA\.")
 
 
-def sass_tensor_core_counts(sass: str) -> dict:
-    """Kernel symbol -> HMMA / HGMMA instructions, from ``cuobjdump -sass``
-    text (a ``Function : <symbol>`` line opens each kernel)."""
+def sass_tensor_core_counts(sass: str, pattern: str = r"\bH(G)?MMA\.") -> dict:
+    """Kernel symbol -> instructions matching ``pattern`` (by default HMMA
+    and HGMMA), from ``cuobjdump -sass`` text (a ``Function : <symbol>``
+    line opens each kernel)."""
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and re.search(r"\bH(G)?MMA\.", line):
+        elif fn is not None and re.search(pattern, line):
             counts[fn] += 1
     return counts
 
@@ -971,13 +986,16 @@ def phase_flash(torch, rate, name, records):
             q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt)
             k = torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
             v = torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
-            fa.FWD_LAUNCHED.update(body=None, key_splits=None)
+            fa.FWD_LAUNCHED.update(body=None, key_splits=None, grid=None)
             got = fa.flash_attention(q, k, v, causal=causal)
             launched = dict(fa.FWD_LAUNCHED)
             want = ref.reference_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
             asked = {"body": fa.BODIES[dt],
-                     "key_splits": fa.forward_key_splits(dt, B, S, Sk, H, Hk, sms)}
+                     "key_splits": fa.forward_key_splits(dt, B, S, Sk, H, Hk, sms),
+                     "grid": (fa.wgmma_plan(B, S, Sk, H, Hk, hd)["fwd_grid"]
+                              if dt == torch.bfloat16
+                              else (-(-S * (H // Hk) // fa.DQ_ROW_TILE), B * Hk))}
             check(launched == asked, f"flash_attention {case}: the C entry launched "
                   f"{launched}, not {asked}")
             check(got.shape == q.shape and got.dtype == q.dtype,
@@ -1036,6 +1054,10 @@ def phase_flash(torch, rate, name, records):
                   f"{flops / (rec['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
             del q, k, v
             torch.cuda.empty_cache()
+    large = out["large"][0]
+    print(f"  flash_attention large {ATTN_LARGE}: device {large['ms'] * 1e3:.1f} us, sdpa "
+          f"{large['library_ms'] * 1e3:.1f} us, bound {large['bound_ms'] * 1e3:.1f} us "
+          f"({large['bound_by']}), {large['ms'] / large['bound_ms']:.2f}x the bound")
     main = out["main"][0]
     summary = {
         "name": "flash_attention", "route": "cuda",
@@ -1533,7 +1555,7 @@ def phase_lm(torch):
     check(launches["flash_attention"] == cfg.n_layers * forwards,
           f"flash_attention launched {launches['flash_attention']} times for "
           f"{forwards} forwards of {cfg.n_layers} layers")
-    check(bodies == {"bf16_mma": cfg.n_layers * forwards, "tf32x3_mma": 0},
+    check(bodies == {"bf16_wgmma": cfg.n_layers * forwards, "tf32x3_mma": 0},
           f"flash_attention launches by body {bodies}: every prefill layer must run "
           "the bf16 body")
     check(launches["rwkv_scan"] == 0,
@@ -1686,10 +1708,10 @@ def phase_lm_parity(torch):
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.inference_mode():
         params = lm.init_params(cfg16, gen)
-        n0 = fa.BODY_LAUNCHES["bf16_mma"]
+        n0 = fa.BODY_LAUNCHES["bf16_wgmma"]
         on_card16 = lm.prefill_logits(params, {"tokens": tokens}, cfg16)
         torch.cuda.synchronize()
-        tc_launches = fa.BODY_LAUNCHES["bf16_mma"] - n0
+        tc_launches = fa.BODY_LAUNCHES["bf16_wgmma"] - n0
         on_cpu16 = lm.prefill_logits(_tree_to(params, "cpu"), {"tokens": tokens.cpu()},
                                      cfg16)
     scale16 = on_cpu16.abs().max().item()
@@ -1880,13 +1902,15 @@ def _ssm_parity_cut(torch, w0):
 #: The backward kernels against ``ref.reference_attention_backward`` (B, S,
 #: Sk, H, Hk, hd, causal): GQA with G = 8, MQA, causal and not, S != Sk both
 #: ways, hd 64 and 128 (and 32, 160), ragged lengths, a short query sequence
-#: whose dQ key walk is split into 8 ranges; then the training shape, one
+#: whose dQ key walk is split into 8 ranges, G = 5 and 7 (the bf16 dQ tiles'
+#: padding rows); then the training shape, one
 #: tinyllama-1.1b layer of a 2 x 512 micro-batch.  Each in f32 and bf16.
 ATTN_BWD_CASES = [(1, 128, 128, 4, 4, 64, True), (1, 200, 200, 32, 4, 64, True),
                   (2, 128, 128, 8, 1, 64, True), (2, 100, 37, 8, 2, 128, True),
                   (1, 64, 150, 4, 2, 128, True), (2, 128, 256, 4, 4, 64, False),
                   (1, 96, 96, 4, 2, 32, True), (1, 100, 100, 4, 2, 160, False),
-                  (2, 64, 1000, 8, 4, 128, False)]
+                  (2, 64, 1000, 8, 4, 128, False), (2, 150, 130, 10, 2, 64, True),
+                  (1, 90, 200, 7, 1, 160, False)]
 ATTN_BWD_MAIN = (2, 512, 512, 32, 4, 64, True)
 #: The backward at the shapes phases 30-32 train, in the dtype each runs it:
 #: one phi3.5-moe layer of a 1 x 512 micro-batch (32/8 heads of 128, bf16);
@@ -1906,16 +1930,38 @@ ATTN_BWD_FAMILY = [((1, 512, 512, 32, 8, 128, True), "bfloat16"),
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: The part of the backward kernels' names that marks each body, the first
 #: that matches.
-ATTN_BWD_BODY_MARKS = (("tf32x3_wide_mma", "_tf32x3_wide_mma_kernel"),
-                       ("tf32x3_mma", "_tf32x3_mma_kernel"),
-                       ("wide_mma", "_wide_mma_kernel"), ("mma", "_mma_kernel"))
+ATTN_BWD_BODY_MARKS = (("wgmma", "_wgmma_kernel"),
+                       ("tf32x3_wide_mma", "_tf32x3_wide_mma_kernel"),
+                       ("tf32x3_mma", "_tf32x3_mma_kernel"))
 
 
 def bwd_body(dtype: str, hd: int) -> str:
-    """The backward body a dtype and head dim run: the 4-warp tensor-core
-    body at hd 32/64, the 8-warp one at hd 128/160, in 3xTF32 for f32."""
-    body = "mma" if hd <= 64 else "wide_mma"
-    return "tf32x3_" + body if dtype == "float32" else body
+    """The backward body a dtype and head dim run: bf16 on wgmma at every
+    head dim; f32 on the 4-warp 3xTF32 body at hd 32/64, the 8-warp one at
+    hd 128/160."""
+    if dtype == "bfloat16":
+        return "wgmma"
+    return "tf32x3_mma" if hd <= 64 else "tf32x3_wide_mma"
+
+
+def bwd_launch(dt, B, S, Sk, H, Hk, hd, sms) -> dict:
+    """What the backward's C entry should report for a call: the body, the
+    dQ grid's key ranges, the dK/dV grid (64 keys a block: bf16's one
+    consumer warpgroup, f32's four warps) and the dQ grid (``wgmma_plan``'s
+    padded folded tiles for bf16, 64 folded rows for f32)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    G = H // Hk
+    if dt == torch.bfloat16:
+        plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd)
+        grids = {"dkdv_grid": plan["dkdv_grid"], "dq_grid": plan["dq_grid"]}
+    else:
+        grids = {"dkdv_grid": (-(-Sk // 64), B * Hk, G),
+                 "dq_grid": (-(-S * G // fa.DQ_ROW_TILE), B * Hk)}
+    return {"body": bwd_body("bfloat16" if dt == torch.bfloat16 else "float32", hd),
+            "dq_splits": fa.backward_dq_splits(dt, B, S, Sk, H, Hk, hd, sms), **grids}
 
 
 def traced_bwd_body(names):
@@ -1965,11 +2011,10 @@ def phase_flash_bwd(torch, rate, name, records):
             k, v = (torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
                     for _ in range(2))
             out, lse = fa._forward(q, k, v, causal, with_lse=True)
-            fa.BWD_LAUNCHED.update(body=None, dq_splits=None)
+            fa.BWD_LAUNCHED.update(body=None, dq_splits=None, dkdv_grid=None, dq_grid=None)
             got = fa.flash_attention_backward(q, k, v, out, do, lse, causal=causal)
             launched = dict(fa.BWD_LAUNCHED)
-            asked = {"body": bwd_body(dtype, hd),
-                     "dq_splits": fa.dq_splits(B, S, Sk, H, Hk, sms)}
+            asked = bwd_launch(dt, B, S, Sk, H, Hk, hd, sms)
             check(launched == asked, f"flash_attention_bwd {case} {dtype}: the C entry "
                   f"launched {launched}, not {asked}")
             want = ref.reference_attention_backward(q, k, v, do, causal=causal)
@@ -3166,10 +3211,10 @@ def attention_bodies(cfg) -> dict:
     throughout."""
     n = attention_layers(cfg)
     if cfg.dtype == "float32":
-        return {"bf16_mma": 0, "tf32x3_mma": n}
+        return {"bf16_wgmma": 0, "tf32x3_mma": n}
     if cfg.family == "audio":
-        return {"bf16_mma": cfg.n_layers, "tf32x3_mma": cfg.n_enc_layers + cfg.n_layers}
-    return {"bf16_mma": n, "tf32x3_mma": 0}
+        return {"bf16_wgmma": cfg.n_layers, "tf32x3_mma": cfg.n_enc_layers + cfg.n_layers}
+    return {"bf16_wgmma": n, "tf32x3_mma": 0}
 
 
 def family_batch(torch, cfg, gen, B, S):

@@ -22,15 +22,18 @@ and ``host_ms``.  Kernels (``CASES``):
   kernels a call.
 - ``attn_fwd``: ``flash_attention.flash_attention`` at ``chip_smoke.py``'s
   ``ATTN_FAMILY_CASES`` and ``ATTN_MAIN`` (whisper's f32 encoder and
-  cross-attention, the bf16 families' layers, tinyllama's prefill layer);
+  cross-attention, the bf16 families' layers, tinyllama's prefill layer)
+  and ``ATTN_LARGE`` (one 8192-token causal prefill layer);
   device time of the kernels named ``flash_fwd*`` a call (the body, and the
   merge kernel where the f32 walk is split), the key ranges, max |err|
-  against ``ref.reference_attention``, and SDPA's time on the same inputs
-  in the same process.
+  against ``ref.reference_attention``, the host time a call spends
+  enqueueing (``least_host_ms``; bf16 calls make their TMA maps there), and
+  SDPA's time on the same inputs in the same process.
 - ``attn_bwd``: ``flash_attention.flash_attention_backward`` at the shapes
   the training phases of ``chip_smoke.py`` run; device time of the kernels
   named ``flash_bwd*`` a call, and of each of its four kernels, each over
-  its own traced launches, and SDPA's backward on the same inputs.
+  its own traced launches, its host time, and SDPA's backward on the same
+  inputs.
 - ``wkv_bwd``: ``rwkv_scan.rwkv_scan_backward`` at the training shape of
   ``chip_smoke.py``'s phase 28 (one rwkv6-7b layer of a 1 x 512
   micro-batch, bf16 r/k/v/dy with f32 decays, from the zero state), with
@@ -80,6 +83,11 @@ ATTN_BWD_SHAPES = {
 }
 ATTN_BWD_ITERS = 20
 ATTN_FWD_ITERS = 20
+#: attn_fwd / attn_bwd host time: the least of HOST_REPEATS readings of
+#: HOST_ITERS calls (the host clock of a shared machine only adds to a
+#: call's own cost).
+HOST_ITERS = 100
+HOST_REPEATS = 5
 #: wkv_bwd: name -> ((B, S, H, N), dtype name, decays as chip_smoke's
 #: ``strong_decays`` takes them, None for trained ones).
 WKV_BWD_SHAPES = {
@@ -92,11 +100,29 @@ ATTN_BWD_KINDS = ("dot", "dkdv", "dq", "reduce")
 #: name -> (kernel, file under src/, text, replacement[, file, text,
 #: replacement ...]): edits of a tree.
 VARIANTS = {
-    # The 8-warp tensor-core backward at every bf16 head dim, not only at
-    # 128 and 160.
-    "bwd_wide_at_all_hd": ("attn_bwd", "repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                           "} else if constexpr (HD <= 64) {",
-                           "} else if constexpr (HD < 32) {"),
+    # The bf16 forward's K/V tiles at 64 keys at every head dim.
+    "fwd_keys_64": ("attn_fwd", "repro_torch/kernels/csrc/flash_attention.cu",
+                    "static constexpr int kKeys = HD <= 64 ? 128 : 64;",
+                    "static constexpr int kKeys = 64;"),
+    # Three consumer warpgroups a forward block at hd 32 and 64, 64 keys a tile.
+    "fwd_three_consumers": ("attn_fwd", "repro_torch/kernels/csrc/flash_attention.cu",
+                            "static constexpr int kConsumers = 2;",
+                            "static constexpr int kConsumers = HD <= 64 ? 3 : 2;",
+                            "repro_torch/kernels/csrc/flash_attention.cu",
+                            "static constexpr int kKeys = HD <= 64 ? 128 : 64;",
+                            "static constexpr int kKeys = 64;"),
+    # The bf16 forward's TMA maps encoded by the driver at every call, none
+    # kept (host time).
+    "fwd_maps_uncached": ("attn_fwd", "repro_torch/kernels/csrc/hopper_wgmma.cuh",
+                          "constexpr bool kCacheMaps = true;",
+                          "constexpr bool kCacheMaps = false;"),
+    "bwd_maps_uncached": ("attn_bwd", "repro_torch/kernels/csrc/hopper_wgmma.cuh",
+                          "constexpr bool kCacheMaps = true;",
+                          "constexpr bool kCacheMaps = false;"),
+    # The bf16 dK/dV kernel streaming 32 query rows a tile at every head dim.
+    "bwd_dkdv_rows_32": ("attn_bwd", "repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                         "static constexpr int kRows = HD <= 64 ? 64 : 32;",
+                         "static constexpr int kRows = 32;"),
     # The range kernel of the WKV backward free of the two-blocks-an-SM
     # register cap (one block an SM, no spill).
     "wkv_bwd_one_block": ("wkv_bwd", "repro_torch/kernels/csrc/rwkv_scan_bwd.cu",
@@ -160,6 +186,10 @@ def mix_cases(torch, src: Path, only) -> dict:
     return out
 
 
+def least_host_ms(torch, fn) -> float:
+    return min(cs.host_ms(torch, fn, HOST_ITERS) for _ in range(HOST_REPEATS))
+
+
 def attn_fwd_cases(torch, src: Path, only) -> dict:
     import torch.nn.functional as F
 
@@ -170,7 +200,7 @@ def attn_fwd_cases(torch, src: Path, only) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for case in [*cs.ATTN_FAMILY_CASES, cs.ATTN_MAIN]:
+    for case in [*cs.ATTN_FAMILY_CASES, cs.ATTN_MAIN, cs.ATTN_LARGE]:
         B, S, Sk, H, Hk, hd, causal, dtype = case
         name = f"{dtype}_{B}x{S}x{Sk}_{H}-{Hk}_hd{hd}{'_causal' if causal else ''}"
         if only and name not in only:
@@ -192,6 +222,7 @@ def attn_fwd_cases(torch, src: Path, only) -> dict:
         out[name] = {
             "device_ms": cs.device_ms(torch, fn, it, "flash_fwd", per_call=per_call),
             "call_ms": cs.cuda_ms(torch, fn, it),
+            "host_ms": least_host_ms(torch, fn),
             "library_ms": cs.cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True), it),
             "max_abs_err": err,
@@ -237,6 +268,7 @@ def attn_bwd_cases(torch, src: Path, only) -> dict:
             "kinds_ms": {kind: cs.device_ms(torch, fn, it, f"flash_bwd_{kind}_")
                          for kind in ATTN_BWD_KINDS},
             "call_ms": cs.cuda_ms(torch, fn, it),
+            "host_ms": least_host_ms(torch, fn),
             "library_ms": cs.cuda_ms(torch, lambda: torch.autograd.grad(
                 sdpa_out, (qt, kt, vt), dot, retain_graph=True), it),
             "launched": dict(getattr(fa, "BWD_LAUNCHED", {})),
@@ -373,8 +405,10 @@ def main() -> int:
                 extra += f" {r['launched']}"
             if "library_ms" in r:
                 extra += f"  sdpa {_fmt(r['library_ms'])} us"
+            if "launches_a_call" in r:
+                extra = f"  launches {r['launches_a_call']:2d}"
             if "host_ms" in r:
-                extra = f"  launches {r['launches_a_call']:2d}  host {_fmt(r['host_ms'])} us"
+                extra += f"  host {_fmt(r['host_ms'])} us"
             if "max_rel_err" in r:
                 extra += f"  max rel err {max(r['max_rel_err'].values()):.3g}"
                 if not r["within_tol"]:

@@ -17,38 +17,48 @@
 // tensor cores are the resource.  Two bodies, picked by dtype, both on the
 // tensor cores:
 //
-// bf16 (flash_fwd_bf16_mma_kernel, the serving path): FlashAttention-2 on
-// mma.sync.m16n8k16 bf16 with f32 accumulation.  What the design does:
-//   * one block per (batch, KV head, 64 folded query rows), 4 warps of 16
-//     rows.  A folded row is (position, group member) with the G query heads
-//     of one KV head side by side, as the TPU kernel folds them, so each K/V
-//     tile is read into shared memory once and used by all G heads;
-//   * the Q tile is copied once; its A fragments (ldmatrix) stay in registers
-//     for the whole KV loop;
-//   * K/V tiles of 64 keys are double-buffered with 16-byte cp.async copies
-//     (zero-filled past Sk), issued right after the barrier that frees the
-//     buffer, so the next tile's load overlaps this tile's products: one
-//     block barrier a tile;
-//   * rows of every tile are hd + 8 bf16 apart, so the 8 rows an ldmatrix
-//     reads fall in distinct banks; K is read plain as the B operand of
-//     Q K^T, V with .trans as the B operand of P V;
-//   * the S accumulator is repacked in registers (f32 -> bf16 pairs) as the A
-//     operand of P V; the row max and row sum are quad shuffles, the running
-//     max, sum and output stay in f32 registers, exp2 with the scale folded;
-//   * the loop stops at the causal limit of the block's last row; causal
-//     tiles are issued heaviest first; the per-row causal mask (row / G) and
-//     the Sk tail mask are applied only on tiles that straddle them;
-//   * the output is staged through the warp's own Q rows and stored as
-//     16-byte rows.
-//
+// bf16 (flash_fwd_bf16_wgmma_kernel, the serving and training path): Hopper's
+// own route (csrc/hopper_wgmma.cuh), warpgroup products (wgmma) on tiles
+// that TMA copies into shared memory, which mma.sync on ldmatrix fragments
+// (the body before, Ampere's route) cannot reach: each of its warps re-read
+// its B fragments from shared memory for every 16 x 16 product.  What the
+// design does:
+//   * one block per (batch, KV head, 2 x P positions): two consumer
+//     warpgroups of 64 folded rows each and a producer warp.  A folded row
+//     is (position, group member), the G query heads of one KV head side by
+//     side as the TPU kernel folds them, so each K/V tile is read once for
+//     all G heads;
+//   * TMA cannot gather rows one by one, so a warpgroup's Q tile is one box
+//     of a 5-D view (hd, G, Hk, S, B) of q, box (atom columns, G, 1, P, 1)
+//     with P = 64 / G whole positions: for G = 5 and 7 a tile holds 60 and 63
+//     real rows, and the padding rows, which no box fills, are zeroed once,
+//     get no weight and are never stored; the output goes back through the
+//     same box, which clips positions past S;
+//   * K and V tiles of kKeys keys (a 4-D view (hd, Hk, Sk, B)) stream
+//     through a ring of three stages that the producer warp keeps full under
+//     mbarriers (full: the copy's bytes arrived; empty: every consumer warp
+//     is done); TMA's zero fill past Sk replaces the copies' zero fill;
+//   * tiles are laid out by TMA's 128-byte swizzle in atoms of 64 columns
+//     (64-byte swizzle and 32 columns at hd 32 and 160): hd 128 is two atoms
+//     along K.  S = Q K^T is an ss wgmma (both K-major); O += P V an rs
+//     wgmma, P from registers in bf16 and V the transposed (MN-major)
+//     operand, read through the descriptor, not ldmatrix.trans;
+//   * the online softmax runs on the wgmma accumulator layout in f32
+//     registers (row max and sum over quads, exp2 with the scale folded);
+//     tile kt's Q K^T is issued with tile kt-1's P V, and the softmax of kt
+//     runs while P V is in flight;
+//   * each warpgroup stops at its own causal limit; causal blocks run
+//     heaviest first; masks only on tiles that straddle a limit.
 // f32 (flash_fwd_tf32x3_mma_kernel; whisper's encoder and cross-attention,
-// whose f32 frames JAX promotes): the same structure on mma.sync.m16n8k8 TF32
-// in 3xTF32.  One TF32 product keeps 11 bits of each operand, short of the
-// f32 tolerance of 2e-5 (tests/test_kernels.py:43); each operand is split
-// once into a TF32 big part and the remainder (csrc/rwkv_scan.cu's
-// split_tf32), and big * big + big * small + small * big, accumulated in f32,
-// keeps about 21 bits: three tensor-core products at 495 TFLOP/s beat one
-// f32 FMA at 67.  What differs from the bf16 body:
+// whose f32 frames JAX promotes): FlashAttention-2 on mma.sync.m16n8k8 TF32
+// in 3xTF32, one block per (batch, KV head, 64 folded rows), 4 warps of 16
+// rows, K/V tiles of 64 keys double-buffered with 16-byte cp.async copies
+// (zero-filled past Sk).  One TF32 product keeps 11 bits of each operand,
+// short of the f32 tolerance of 2e-5 (tests/test_kernels.py:43); each
+// operand is split once into a TF32 big part and the remainder
+// (csrc/rwkv_scan.cu's split_tf32), and big * big + big * small + small *
+// big, accumulated in f32, keeps about 21 bits: three tensor-core products
+// at 495 TFLOP/s beat one f32 FMA at 67.  What the design does:
 //   * f32 tiles of 64 rows x hd with no padding; the 16-byte column chunks of
 //     row r are XOR-swizzled by swz(r), so both ways the fragments read a
 //     tile (8 rows x 4 columns, and 4 rows x 8 columns) fall in 32 distinct
@@ -76,7 +86,7 @@
 //     l = sum l_z 2^(m_z - m), o = sum o_z 2^(m_z - m) / l, lse = m + log l.
 // Both bodies: masked scores are -1e30 as in the reference, keys past Sk get
 // no weight, the row sum is floored at 1e-30 before the division, and ragged
-// tails (S * G or Sk not a multiple of 64) are masked in the kernel, so any
+// tails (S or Sk not a multiple of a tile) are masked in the kernel, so any
 // S and Sk work (the Pallas wrapper needs exact blocks).
 //
 // With an `lse` buffer (f32, (B, H, S)) both bodies also store each row's
@@ -85,15 +95,19 @@
 // serving does exactly the work it did without it.
 //
 // Plain C interface: built with nvcc into a shared library and called through
-// ctypes from repro_torch/kernels/flash_attention.py.  The launch enqueues on
-// the caller's stream, does not synchronise and allocates nothing (the split
-// walk's partials come from the wrapper); the return value is
-// cudaGetLastError() right after the launches.
+// ctypes from repro_torch/kernels/flash_attention.py.  The launch encodes
+// the bf16 body's TMA descriptors on the host (hopper::encode_tiled), passes
+// them as __grid_constant__ parameters, enqueues on the caller's stream, does
+// not synchronise and allocates nothing (the split walk's partials come from
+// the wrapper); the return value is cudaGetLastError() right after the
+// launches, or hopper::kTmaEncodeError.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -104,24 +118,346 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------- bf16 body
 
-constexpr int kMmaThreads = 128;  // 4 warps of 16 folded rows
-constexpr int kMmaRows = 64;      // folded query rows per block
-constexpr int kMmaKeys = 64;      // keys per KV tile
-static_assert(kMmaRows == kMmaKeys, "Q, K and V tiles share one shape");
 constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
 
-// Shared memory, in bf16: Q, K[2], V[2], each 64 rows of hd + 8.
+using hopper::smem_u32;
+
+// The bf16 body's tiles: kConsumers warpgroups of 64 folded rows each (one Q
+// box of P positions x G heads), K/V tiles of kKeys keys in a ring of
+// kStages, a producer warp.  Three stages: a stage is released only once
+// the P V that overlaps the next tile's softmax is done, so two would leave
+// the next load no time.  Shared memory, each tile 1024-byte aligned:
+// Q[kConsumers], K[kStages], V[kStages], then the mbarriers.  ptxas gives
+// this block 168 registers a thread (with setmaxnreg too, measured), which
+// hold S, P and O for 128 keys at hd 32 and 64, and for 64 keys above.
 template <int HD>
-struct MmaSmem {
-  static constexpr int kStride = HD + 8;
-  static constexpr int kTile = kMmaRows * kStride;
-  static constexpr size_t kBytes = sizeof(bf16) * 5 * kTile;
+struct FwdTile {
+  static constexpr int kConsumers = 2;
+  static constexpr int kThreads = 128 * kConsumers + 32;
+  static constexpr int kKeys = HD <= 64 ? 128 : 64;
+  static constexpr int kStages = 3;
+  static constexpr int kQBytes = 64 * HD * 2;
+  static constexpr int kKVBytes = kKeys * HD * 2;
+  static constexpr size_t kBytes =
+      1024 + kConsumers * kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 2 * kStages);
+  static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// One consumer warpgroup's walk: 64 folded rows from position p0 (rows r <
+// P * G real), key tiles [0, n_mine) of the block's n_tiles computed, the
+// rest only released.  The products of one tile overlap the softmax of the
+// next: tile kt's S = Q K^T is issued with tile kt-1's O += P V, and the
+// softmax of S runs while P V is in flight.
+template <int HD, bool kCausal>
+__device__ __forceinline__ void fwd_consumer(uint8_t* Qw, const uint8_t* Ks, const uint8_t* Vs,
+                                             uint64_t* q_full, uint64_t* full, uint64_t* empty,
+                                             const CUtensorMap* o_map, float* lse, int b,
+                                             int kvh, int p0, int n_tiles, int S, int Sk,
+                                             int H, int G, int P, float scale_log2) {
+  using T = FwdTile<HD>;
+  using A = hopper::Atoms<HD>;
+  constexpr int kKeys = T::kKeys;
+  constexpr int kStages = T::kStages;
+  const int t = threadIdx.x % 128;
+  const int wg = threadIdx.x / 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  const int rows_real = P * G;
+  if (rows_real < 64) {  // padding rows no box fills: zero, so they stay finite
+    for (int i = t; i < (64 - rows_real) * (HD / 8); i += 128) {
+      const int r = rows_real + i / (HD / 8);
+      *reinterpret_cast<uint4*>(Qw + hopper::swizzled<HD>(64, r, (i % (HD / 8)) * 8)) =
+          make_uint4(0, 0, 0, 0);
+    }
+    hopper::fence_async_smem();
+  }
+  hopper::bar_sync(1 + wg, 128);
+
+  // This thread's rows r0 = 16 warp + g and r0 + 8.
+  int row[2], pos[2];
+  bool ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = 16 * warp + g + 8 * i;
+    pos[i] = p0 + row[i] / G;
+    ok[i] = row[i] < rows_real && pos[i] < S;
+  }
+  int n_mine = p0 < S ? n_tiles : 0;
+  if (kCausal && p0 < S) n_mine = min(n_tiles, (min(p0 + P, S) - 1) / kKeys + 1);
+
+  float o[HD / 2];
+  hopper::zero(o);
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float s[kKeys / 2];
+  uint32_t pa[kKeys / 16][4];
+  const uint32_t q_addr = smem_u32(Qw);
+  const auto k_addr = [&](int kt) { return smem_u32(Ks + (kt % kStages) * T::kKVBytes); };
+  const auto v_addr = [&](int kt) { return smem_u32(Vs + (kt % kStages) * T::kKVBytes); };
+  const auto issue_s = [&](int kt) {  // S = Q K^T of tile kt, one commit group
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      hopper::Mma<kKeys, 0>::ss(s, hopper::desc_k<HD>(q_addr, 64, kk),
+                                hopper::desc_k<HD>(k_addr(kt), kKeys, kk), kk > 0);
+    }
+    hopper::commit();
+  };
+  const auto issue_pv = [&](int kt) {  // O += P V of tile kt, one commit group
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      hopper::Mma<HD, 1>::rs(o, pa[kk], hopper::desc_mn<HD>(v_addr(kt), kKeys, kk), 1);
+    }
+    hopper::commit();
+  };
+  // Online softmax of tile kt's S in the log2 domain, in place (P in f32);
+  // masks only on straddling tiles.  The row max is taken on the raw scores
+  // (the scale is positive) and the scale folded into one FFMA before the
+  // exp2.  Returns each row's rescale of O in corr.
+  const auto softmax = [&](int kt, float (&corr)[2]) {
+    const int k0 = kt * kKeys;
+    if ((kCausal && k0 + kKeys - 1 > p0) || k0 + kKeys > Sk) {
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * c4 + (e & 1);
+          if (key >= Sk) {
+            s[4 * j + e] = -INFINITY;  // past the end: no weight at all
+          } else if (kCausal && key > pos[e >> 1]) {
+            s[4 * j + e] = kNegInf / scale_log2;  // -1e30 once scaled
+          }
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    }
+    float sum[2] = {0.f, 0.f};
+    float shift[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+      corr[i] = hopper::ex2(m[i] - m_new);
+      m[i] = m_new;
+      shift[i] = -m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = hopper::ex2(fmaf(s[4 * j + e], scale_log2, shift[e >> 1]));
+        s[4 * j + e] = p;
+        sum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * corr[i] + sum[i];
+    }
+  };
+  const auto release = [&](int kt) {  // this warp is done with tile kt's stage
+    if (lane == 0) hopper::mbar_arrive(&empty[kt % kStages]);
+  };
+
+  hopper::mbar_wait(q_full, 0);
+  if (n_mine > 0) {
+    float corr[2];
+    hopper::mbar_wait(&full[0], 0);
+    hopper::fence();
+    issue_s(0);
+    hopper::wait<0>();
+    hopper::fence_regs(s);
+    softmax(0, corr);  // O is zero: nothing to rescale
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) hopper::acc_as_a(pa[kk], s, kk);
+    for (int kt = 1; kt < n_mine; ++kt) {
+      hopper::mbar_wait(&full[kt % kStages], (kt / kStages) & 1);
+      hopper::fence_regs(o);
+      hopper::fence();
+      issue_s(kt);
+      issue_pv(kt - 1);
+      hopper::wait<1>();  // S of tile kt (committed first) is complete
+      hopper::fence_regs(s);
+      softmax(kt, corr);
+      hopper::wait<0>();  // P V of tile kt - 1
+      hopper::fence_regs(o);
+      release(kt - 1);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j + 0] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) hopper::acc_as_a(pa[kk], s, kk);
+    }
+    hopper::fence_regs(o);
+    hopper::fence();
+    issue_pv(n_mine - 1);
+    hopper::wait<0>();
+    hopper::fence_regs(o);
+    release(n_mine - 1);
+  }
+  for (int kt = n_mine; kt < n_tiles; ++kt) {  // tiles past this warpgroup's limit
+    hopper::mbar_wait(&full[kt % kStages], (kt / kStages) & 1);
+    release(kt);
+  }
+  if (p0 >= S) return;
+
+  // Normalise; the LSE from registers; the output staged in the warpgroup's
+  // Q tile in TMA's swizzled layout and stored by TMA with the Q box, which
+  // skips the padding rows and clips positions past S.
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    inv[i] = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && c4 == 0 && ok[i]) {  // m and l are the same in the row's quad
+      // m is in the log2 domain of the scaled scores.
+      lse[(static_cast<int64_t>(b) * H + kvh * G + row[i] % G) * S + pos[i]] =
+          (m[i] + log2f(fmaxf(l[i], 1e-30f))) * kLn2;
+    }
+  }
+  hopper::bar_sync(1 + wg, 128);  // every warp's products have read Q
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      *reinterpret_cast<uint32_t*>(Qw + hopper::swizzled<HD>(64, row[i], 8 * j + 2 * c4)) =
+          hopper::pack_bf16(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
+    }
+  }
+  hopper::fence_async_smem();
+  hopper::bar_sync(1 + wg, 128);
+  if (t == 0) {
+    for (int a = 0; a < A::kCount; ++a) {
+      hopper::tma_store_5d(o_map, Qw + a * 64 * A::kRowBytes, a * A::kCols, 0, kvh, p0, b);
+    }
+    hopper::tma_store_commit();
+    hopper::tma_store_wait();
+  }
+}
+
+// Grid: (row tiles of kConsumers * P positions, B * Hk); a causal grid runs
+// its heaviest tiles first.  Folded row r of a warpgroup's tile is position
+// p0 + r / G, head kvh * G + r % G; rows r >= P * G are padding.  Warpgroups
+// 0 .. kConsumers - 1 compute, the last warp loads.
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(FwdTile<HD>::kThreads, 1)
+flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse,
+                            int S, int Sk, int H, int Hk, int P, float scale_log2) {
+  using T = FwdTile<HD>;
+  using A = hopper::Atoms<HD>;
+  constexpr int kNC = T::kConsumers;
+  constexpr int kKeys = T::kKeys;
+  constexpr int kStages = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = hopper::align1024(smem_raw);
+  uint8_t* Ks = Qs + kNC * T::kQBytes;
+  uint8_t* Vs = Ks + kStages * T::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * T::kKVBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int G = H / Hk;
+  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int b = blockIdx.y / Hk;
+  const int kvh = blockIdx.y % Hk;
+  const int cta_p0 = tile * kNC * P;  // the block's first position
+  int n_tiles = (Sk + kKeys - 1) / kKeys;
+  if (kCausal) n_tiles = min(n_tiles, (min(cta_p0 + kNC * P, S) - 1) / kKeys + 1);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kNC * 4);  // lane 0 of each consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kNC) {  // ---- producer warp: one thread keeps the ring full
+    if (threadIdx.x == kNC * 128) {
+      uint32_t q_bytes = 0;
+      for (int w = 0; w < kNC; ++w) q_bytes += cta_p0 + w * P < S ? HD * G * P * 2 : 0;
+      hopper::mbar_expect_tx(q_full, q_bytes);
+      for (int w = 0; w < kNC; ++w) {
+        if (cta_p0 + w * P >= S) continue;
+        for (int a = 0; a < A::kCount; ++a) {
+          hopper::tma_load_5d(Qs + w * T::kQBytes + a * 64 * A::kRowBytes, &q_map, q_full,
+                              a * A::kCols, 0, kvh, cta_p0 + w * P, b);
+        }
+      }
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int st = kt % kStages;
+        if (kt >= kStages) hopper::mbar_wait(&empty[st], (kt / kStages - 1) & 1);
+        hopper::mbar_expect_tx(&full[st], 2 * T::kKVBytes);
+        for (int a = 0; a < A::kCount; ++a) {
+          const int off = st * T::kKVBytes + a * kKeys * A::kRowBytes;
+          hopper::tma_load_4d(Ks + off, &k_map, &full[st], a * A::kCols, kvh, kt * kKeys, b);
+          hopper::tma_load_4d(Vs + off, &v_map, &full[st], a * A::kCols, kvh, kt * kKeys, b);
+        }
+      }
+    }
+  } else {  // ---- consumer warpgroup wg
+    fwd_consumer<HD, kCausal>(Qs + wg * T::kQBytes, Ks, Vs, q_full, full, empty, &o_map, lse, b,
+                              kvh, cta_p0 + wg * P, n_tiles, S, Sk, H, G, P, scale_log2);
+  }
+}
+
+// What a call launched, for the caller to read back: launched[0] the body
+// (kBodyTf32x3 or kBodyBf16Wgmma, named by flash_attention_body_name),
+// launched[1] the key ranges of its grid, launched[2] and [3] its row tiles
+// and (batch, KV head) blocks, each launcher filling them from the grid it
+// launched.
+constexpr int kBodyTf32x3 = 0;
+constexpr int kBodyBf16Wgmma = 1;
+constexpr const char* kBodyNames[] = {"tf32x3_mma", "bf16_wgmma"};
+
+template <int HD, bool kCausal>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+                 int Sk, int H, int Hk, int* launched, cudaStream_t stream) {
+  using T = FwdTile<HD>;
+  const int G = H / Hk;
+  if (G > 64) return static_cast<int>(cudaErrorInvalidValue);
+  const int P = hopper::folded_positions(G);
+  CUtensorMap qm, km, vm, om;
+  int e;
+  if ((e = hopper::map_folded<HD>(&qm, "q", q, B, S, Hk, G, P)) != 0) return e;
+  if ((e = hopper::map_rows<HD>(&km, "k", k, B, Sk, Hk, T::kKeys)) != 0) return e;
+  if ((e = hopper::map_rows<HD>(&vm, "v", v, B, Sk, Hk, T::kKeys)) != 0) return e;
+  if ((e = hopper::map_folded<HD>(&om, "out", out, B, S, Hk, G, P)) != 0) return e;
+  auto kernel = flash_fwd_bf16_wgmma_kernel<HD, kCausal>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(T::kBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_tile = T::kConsumers * P;
+  const dim3 grid(static_cast<unsigned>((S + per_tile - 1) / per_tile),
+                  static_cast<unsigned>(B * Hk));
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
+  kernel<<<grid, T::kThreads, T::kBytes, stream>>>(qm, km, vm, om, lse, S, Sk, H, Hk, P,
+                                                   scale_log2);
+  launched[0] = kBodyBf16Wgmma;
+  launched[1] = 1;
+  launched[2] = static_cast<int>(grid.x);
+  launched[3] = static_cast<int>(grid.y);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // 16-byte global -> shared copy; zero-fills the destination when !valid.
@@ -140,275 +476,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t.  A holds rows
-// g and g + 8, columns 2t, 2t + 1 (+ 8); B holds column g, rows 2t, 2t + 1
-// (+ 8); the f32 accumulator holds rows g and g + 8, columns 2t and 2t + 1.
-template <int HD, bool kCausal>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_bf16_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ out,
-                          float* __restrict__ lse, int S, int Sk, int H, int Hk,
-                          float scale_log2) {
-  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
-  using L = MmaSmem<HD>;
-  constexpr int kStride = L::kStride;
-  constexpr int kDK = HD / 16;     // k-steps of Q K^T
-  constexpr int kDN = HD / 8;      // n-tiles of the output
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  constexpr int kKN = kMmaKeys / 8;  // n-tiles of the score tile
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* Ks = Qs + L::kTile;
-  bf16* Vs = Ks + 2 * L::kTile;
-
-  const int G = H / Hk;
-  const int64_t rows_total = static_cast<int64_t>(S) * G;
-  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int64_t row0 = static_cast<int64_t>(tile) * kMmaRows;
-  const int b = blockIdx.y / Hk;
-  const int kvh = blockIdx.y % Hk;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wrow = warp * 16;  // the warp's first row in the block
-
-  auto row_offset = [&](int64_t row) -> int64_t {  // folded row -> element of q / out
-    const int64_t s = row / G;
-    const int gg = static_cast<int>(row % G);
-    return ((static_cast<int64_t>(b) * S + s) * H + kvh * G + gg) * HD;
-  };
-  auto load_kv = [&](int kt, int buf) {
-    bf16* kd = Ks + buf * L::kTile;
-    bf16* vd = Vs + buf * L::kTile;
-    for (int i = tid; i < kMmaKeys * kChunks; i += kMmaThreads) {
-      const int j = i / kChunks;
-      const int c = i % kChunks;
-      const int key = kt * kMmaKeys + j;
-      const bool ok = key < Sk;
-      const int64_t off =
-          ok ? ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + c * 8 : 0;
-      cp_async16(smem_u32(kd + j * kStride + c * 8), k + off, ok);
-      cp_async16(smem_u32(vd + j * kStride + c * 8), v + off, ok);
-    }
-  };
-
-  for (int i = tid; i < kMmaRows * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const int64_t row = row0 + r;
-    const bool ok = row < rows_total;
-    cp_async16(smem_u32(Qs + r * kStride + c * 8), q + (ok ? row_offset(row) + c * 8 : 0),
-               ok);
-  }
-  load_kv(0, 0);
-  cp_async_commit();
-
-  const int first_pos = static_cast<int>(row0 / G);
-  const int pos0 = static_cast<int>((row0 + wrow + g) / G);      // rows g and g + 8
-  const int pos1 = static_cast<int>((row0 + wrow + g + 8) / G);
-  int n_tiles = (Sk + kMmaKeys - 1) / kMmaKeys;
-  if (kCausal) {
-    const int64_t last_row =
-        (row0 + kMmaRows < rows_total ? row0 + kMmaRows : rows_total) - 1;
-    const int limit = static_cast<int>(last_row / G) / kMmaKeys + 1;
-    n_tiles = n_tiles < limit ? n_tiles : limit;
-  }
-
-  uint32_t qf[kDK][4];
-  float o[kDN][4];
-#pragma unroll
-  for (int n = 0; n < kDN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kDK; ++kk) {
-        ldsm_x4(qf[kk], smem_u32(Qs + (wrow + (lane & 15)) * kStride + kk * 16 +
-                                 (lane >> 4) * 8));
-      }
-    }
-    if (kt + 1 < n_tiles) load_kv(kt + 1, (kt + 1) & 1);
-    cp_async_commit();
-    const bf16* kb = Ks + (kt & 1) * L::kTile;
-    const bf16* vb = Vs + (kt & 1) * L::kTile;
-
-    // S = Q K^T for the warp's 16 rows x 64 keys.
-    float s[kKN][4];
-#pragma unroll
-    for (int j = 0; j < kKN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kKN / 2; ++np) {
-        uint32_t bf[4];
-        ldsm_x4(bf, smem_u32(kb + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kStride +
-                             kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
-      }
-    }
-
-    // Online softmax in the log2 domain; masks only on straddling tiles.
-    const int k0 = kt * kMmaKeys;
-    const bool edge = (kCausal && k0 + kMmaKeys - 1 > first_pos) || k0 + kMmaKeys > Sk;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kKN; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (edge) {
-          const int key = k0 + 8 * j + 2 * t4 + (e & 1);
-          if (key >= Sk) {
-            x = -INFINITY;  // past the end: no weight at all
-          } else if (kCausal && key > (e < 2 ? pos0 : pos1)) {
-            x = kNegInf;
-          }
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kKN; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = l[i] * corr[i] + sum[i];
-    }
-#pragma unroll
-    for (int n = 0; n < kDN; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-
-    // O += P V: the accumulator of key n-tiles 2kk, 2kk + 1 is the A fragment.
-#pragma unroll
-    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < kDN / 2; ++dp) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, smem_u32(vb + (kk * 16 + (lane & 15)) * kStride + dp * 16 +
-                                   (lane >> 4) * 8));
-        mma_bf16(o[2 * dp], a, bf[0], bf[1]);
-        mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
-      }
-    }
-  }
-
-  // Normalise, stage in the warp's own Q rows, store 16 bytes a lane.
-  const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
-  const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
-  if (lse != nullptr && t4 == 0) {  // m and l are the same in the row's quad
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int64_t row = row0 + wrow + g + 8 * i;
-      if (row < rows_total) {
-        const int64_t s = row / G;
-        const int gg = static_cast<int>(row % G);
-        // m is in the log2 domain of the scaled scores.
-        lse[(static_cast<int64_t>(b) * H + kvh * G + gg) * S + s] =
-            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * kLn2;
-      }
-    }
-  }
-  bf16* ow = Qs + wrow * kStride;
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < kDN; ++n) {
-    *reinterpret_cast<uint32_t*>(ow + g * kStride + 8 * n + 2 * t4) =
-        pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    *reinterpret_cast<uint32_t*>(ow + (g + 8) * kStride + 8 * n + 2 * t4) =
-        pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const int64_t row = row0 + wrow + r;
-    if (row < rows_total) {
-      *reinterpret_cast<uint4*>(out + row_offset(row) + c * 8) =
-          *reinterpret_cast<const uint4*>(ow + r * kStride + c * 8);
-    }
-  }
-}
-
-template <int HD, bool kCausal>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
-                       int B, int S, int Sk, int H, int Hk, cudaStream_t stream) {
-  auto kernel = flash_fwd_bf16_mma_kernel<HD, kCausal>;
-  const size_t smem = MmaSmem<HD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int64_t rows = static_cast<int64_t>(S) * (H / Hk);
-  const dim3 grid(static_cast<unsigned>((rows + kMmaRows - 1) / kMmaRows),
-                  static_cast<unsigned>(B * Hk));
-  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
-  kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), lse, S, Sk, H, Hk, scale_log2);
-  return cudaGetLastError();
-}
-
 // ------------------------------------------------------ f32 body, 3xTF32
 
 constexpr int kTcThreads = 128;  // 4 warps of 16 folded rows
@@ -424,7 +491,8 @@ struct TcSmem {
   static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
-// Fragment layouts as csrc/flash_tf32x3.cuh gives them.  Whole walk (gridDim.z == 1): out and lse as the bf16 body stores them.
+// Fragment layouts as csrc/flash_tf32x3.cuh gives them.  Whole walk
+// (gridDim.z == 1): out and lse, normalised, as the bf16 body stores them.
 // Split walk: range z stores its rows' unnormalised output into
 // o_part[z] (B, S, H, hd), and their running max (log2 domain of the scaled
 // scores) and sum into stat_part[z] and stat_part[ranges + z] (B, H, S).
@@ -700,7 +768,7 @@ flash_fwd_merge_kernel(const float* __restrict__ o_part, const float* __restrict
 template <int HD, bool kCausal>
 cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* out, float* lse,
                           float* o_part, float* stat_part, int B, int S, int Sk, int H, int Hk,
-                          int ranges, cudaStream_t stream) {
+                          int ranges, int* launched, cudaStream_t stream) {
   auto kernel = flash_fwd_tf32x3_mma_kernel<HD, kCausal>;
   const size_t smem = TcSmem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -713,6 +781,10 @@ cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* out
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), lse, o_part, stat_part, S, Sk, H, Hk, scale_log2);
+  launched[0] = kBodyTf32x3;
+  launched[1] = static_cast<int>(grid.z);
+  launched[2] = static_cast<int>(grid.x);
+  launched[3] = static_cast<int>(grid.y);
   err = cudaGetLastError();
   if (err != cudaSuccess || ranges == 1) return err;
   const int64_t n_rows = static_cast<int64_t>(B) * S * H;
@@ -723,34 +795,26 @@ cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* out
 
 // ---------------------------------------------------------------- launchers
 
-// What a call launched, for the caller to read back: launched[0] the body
-// (kBodyTf32x3 or kBodyBf16), launched[1] the key ranges of its grid.
-constexpr int kBodyTf32x3 = 0;
-constexpr int kBodyBf16 = 1;
-
-// bf16: the bf16 tensor-core body; f32: the 3xTF32 one, its key walk cut into
-// `ranges`.
+// bf16: the wgmma body, whole walk; f32: the 3xTF32 one, its key walk cut
+// into `ranges`.
 template <int HD>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, float* lse,
-                      float* o_part, float* stat_part, int B, int S, int Sk, int H, int Hk,
-                      bool bf16, bool causal, int ranges, int* launched, cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse, float* o_part,
+              float* stat_part, int B, int S, int Sk, int H, int Hk, bool bf16, bool causal,
+              int ranges, int* launched, cudaStream_t stream) {
   if (bf16) {
-    launched[0] = kBodyBf16;
-    launched[1] = 1;
-    return causal ? launch_mma<HD, true>(q, k, v, out, lse, B, S, Sk, H, Hk, stream)
-                  : launch_mma<HD, false>(q, k, v, out, lse, B, S, Sk, H, Hk, stream);
+    return causal ? launch_wgmma<HD, true>(q, k, v, out, lse, B, S, Sk, H, Hk, launched, stream)
+                  : launch_wgmma<HD, false>(q, k, v, out, lse, B, S, Sk, H, Hk, launched, stream);
   }
-  launched[0] = kBodyTf32x3;
-  launched[1] = ranges;
-  return causal ? launch_tf32x3<HD, true>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk,
-                                          ranges, stream)
-                : launch_tf32x3<HD, false>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H,
-                                           Hk, ranges, stream);
+  return static_cast<int>(
+      causal ? launch_tf32x3<HD, true>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk,
+                                       ranges, launched, stream)
+             : launch_tf32x3<HD, false>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk,
+                                        ranges, launched, stream));
 }
 
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
-                   float* o_part, float* stat_part, int B, int S, int Sk, int H, int Hk, int hd,
-                   bool bf16, bool causal, int ranges, int* launched, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, float* o_part,
+           float* stat_part, int B, int S, int Sk, int H, int Hk, int hd, bool bf16, bool causal,
+           int ranges, int* launched, cudaStream_t stream) {
   switch (hd) {
     case 32:
       return launch_hd<32>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, bf16, causal,
@@ -764,7 +828,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
     case 160:
       return launch_hd<160>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, bf16, causal,
                             ranges, launched, stream);
-    default: return cudaErrorInvalidValue;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -772,15 +836,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 
 extern "C" {
 
-// dtype: 0 = float32 (3xTF32 body), 1 = bfloat16 (bf16 tensor-core body).
-// hd: 32, 64, 128 or 160.  q, k, v and out are contiguous and 16-byte
-// aligned; H % Hk == 0, B * Hk <= 65535; the wrapper checks all of it.  lse
-// is null or an f32 (B, H, S) buffer for the rows' log-sum-exp.  key_ranges:
-// the ranges of the f32 body's key walk (1 for bf16, 1 <= key_ranges <=
-// 65535); above 1, o_part is f32 scratch of key_ranges * B * S * H * hd
-// elements and stat_part of 2 * key_ranges * B * H * S.  On success
-// launched[0] holds the body the call ran (0 = 3xTF32, 1 = bf16) and
-// launched[1] the key ranges it launched.
+// dtype: 0 = float32 (3xTF32 body), 1 = bfloat16 (wgmma body).  hd: 32, 64,
+// 128 or 160.  q, k, v and out are contiguous and 16-byte aligned (TMA's
+// rule for a tensor's base; its byte strides are multiples of 16 at these
+// head dims); H % Hk == 0, B * Hk <= 65535, H / Hk <= 64 for bf16 (a
+// folded tile holds at least one position); the wrapper checks all of it.
+// lse is null or an f32 (B, H, S) buffer for the rows' log-sum-exp.
+// key_ranges: the ranges of the f32 body's key walk (1 for bf16, 1 <=
+// key_ranges <= 65535); above 1, o_part is f32 scratch of key_ranges * B * S
+// * H * hd elements and stat_part of 2 * key_ranges * B * H * S.  On success
+// launched (int[4]) holds the body the call ran (flash_attention_body_name),
+// the key ranges it launched and its grid's x and y.  A TMA descriptor that does not
+// encode returns hopper::kTmaEncodeError, and the error string gives why.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            float* lse, float* o_part, float* stat_part, int B, int S, int Sk,
                            int H, int Hk, int hd, int dtype, int causal, int key_ranges,
@@ -790,18 +857,25 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
   if (B <= 0 || S <= 0 || Sk <= 0 || Hk <= 0 || H % Hk != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtype != 0 && dtype != 1) || (dtype == 1 && H / Hk > 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (key_ranges < 1 || key_ranges > 65535 || (dtype == 1 && key_ranges != 1) ||
       (key_ranges > 1 && (o_part == nullptr || stat_part == nullptr)) || launched == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = launch(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, hd, dtype == 1,
-               causal != 0, key_ranges, launched, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err);
+  return launch(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, hd, dtype == 1,
+                causal != 0, key_ranges, launched, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int err) {
+  if (err == hopper::kTmaEncodeError) return hopper::tma_error();
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The name of the body launched[0] reports.
+const char* flash_attention_body_name(int code) {
+  return code >= 0 && code < 2 ? kBodyNames[code] : "unknown";
 }
 
 }  // extern "C"

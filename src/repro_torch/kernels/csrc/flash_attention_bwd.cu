@@ -50,30 +50,26 @@
 // 64; 1 x 512, 32/8 heads, hd 128; causal) the five products the gradient
 // needs are ~5.4 GFLOP: in bf16 the bytes moved (5.7-6.3 us at 3.35 TB/s)
 // and the operations (~5.5 us at 989 TFLOP/s) about equal, bytes by a
-// little; in f32 the operations (~33 us at 3xTF32's 495 / 3 TFLOP/s).  Four
-// bodies for the dK/dV and dQ kernels, picked at compile time by dtype and
-// head dim, all on the tensor cores:
-//   * bf16 at hd 32 and 64: mma.sync bf16 tensor-core products, 4 warps, each
-//     holding its 16 keys' (rows') operands as fragments in registers;
-//     described above flash_bwd_dkdv_mma_kernel below;
-//   * bf16 at hd 128 and 160: the same products with 8 warps, a pair of warps
-//     sharing 16 keys (rows) and splitting the score products by rows (keys)
-//     and the accumulators by columns, P^T and dS^T (dS) passed through
-//     shared memory, the streamed tile double-buffered; described above
-//     flash_bwd_dkdv_wide_mma_kernel below.  Registers bound its design: the
-//     4-warp body would hold ~256 a thread at hd 128;
-//   * f32 at hd 32 and 64, and at hd 128 and 160: the same two warp layouts
-//     (4 warps; 8 warps in pairs) on mma.sync TF32 in 3xTF32, f32 tiles
-//     swizzled in shared memory, the score accumulators permuted so they are
-//     the A fragments of the accumulating products as they stand; described
-//     above dkdv_tf32x3 below.  (Whisper's encoder and cross-attention train
-//     in f32: JAX promotes their f32 frames.)
+// little; in f32 the operations (~33 us at 3xTF32's 495 / 3 TFLOP/s).  The
+// dK/dV and dQ kernels have two kinds of bodies, picked at compile time by
+// dtype and head dim:
+//   * bf16 at every head dim: wgmma products on tiles TMA loads under
+//     mbarriers, a producer warp and consumer warpgroups (csrc/hopper_wgmma
+//     .cuh); described above flash_bwd_dkdv_wgmma_kernel below;
+//   * f32 at hd 32 and 64, and at hd 128 and 160: mma.sync TF32 in 3xTF32,
+//     4 warps, or 8 in pairs, f32 tiles swizzled in shared memory, the score
+//     accumulators permuted so they are the A fragments of the accumulating
+//     products as they stand; described above dkdv_tf32x3 below.
+//     (Whisper's encoder and cross-attention train in f32: JAX promotes
+//     their f32 frames.)
 
 // Plain C interface, built by nvcc into a shared library and called through
-// ctypes from repro_torch/kernels/flash_attention.py.  The launch enqueues on
-// the caller's stream, does not synchronise and allocates nothing (D's, the
-// f32 shares' and dq's partials' buffers come from the wrapper); it returns
-// cudaGetLastError() and reports the body and the dQ key ranges it launched.
+// ctypes from repro_torch/kernels/flash_attention.py.  The launch encodes
+// the bf16 bodies' TMA descriptors on the host, enqueues on the caller's
+// stream, does not synchronise and allocates nothing (D's, the f32 shares'
+// and dq's partials' buffers come from the wrapper); it returns
+// cudaGetLastError() (or hopper::kTmaEncodeError) and reports the body, the
+// dQ key ranges and the grids it launched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +77,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -174,42 +172,473 @@ __device__ __forceinline__ int64_t dq_part_base(int S, int H, int Hk, int hd) {
   return static_cast<int64_t>(blockIdx.z) * (gridDim.y / Hk) * S * H * hd;
 }
 
-// ------------------------------------------------- bf16 bodies, tensor cores
+// ------------------------------------------------- bf16 bodies, wgmma + TMA
 //
-// For bf16 the dK/dV and dQ kernels run their products on
-// mma.sync.m16n8k16 bf16 with f32 accumulation, in the forward's fragment
-// layouts (csrc/flash_attention.cu); P and dS are rounded to bf16 as
-// operands of the second products, as FlashAttention-2 does.  Tiles of 64
-// rows of hd + 8 bf16 in shared memory (the 8 rows an ldmatrix reads fall in
-// distinct banks), copied with 16-byte cp.async (zero-filled past the end).
+// For bf16 the dK/dV and dQ kernels are Hopper's own route
+// (csrc/hopper_wgmma.cuh): every product a warpgroup wgmma (m64nNk16, f32
+// accumulators in registers), operands in shared memory where TMA put them,
+// a producer warp (one thread issuing the copies) keeping a ring of kStages
+// streamed tiles full under mbarriers, a consumer warpgroup computing.  P
+// and dS are rounded to bf16 as the A operands (from registers) of the
+// accumulating products, as FlashAttention-2 does.
 //
-// hd 32 and 64, blocks of 4 warps.  dK/dV: one block per (64-key tile,
-// batch, query head), warp w owns keys 16w .. 16w + 15 and keeps their k and
-// v rows as A fragments; for each 64-position q tile it forms S^T = k q^T
-// and dP^T = v dO^T (16 keys x 64 rows a warp), P^T and dS^T in registers,
-// then dV += P^T dO and dK += dS^T q with the accumulators repacked as A
-// fragments and dO, q read with ldmatrix.trans as B.  The shares go to an
-// f32 buffer, as every body's.  dQ: one block per (64 folded rows,
-// batch, KV head, key range), warp w owns rows 16w .. 16w + 15 and keeps
-// their q and dO rows as A fragments; for each 64-key tile S = q k^T and
-// dP = dO v^T, then dQ += dS k.  At hd 128 and 160 a warp of this design
-// would hold its 16 keys' fragments, dK and dV across all hd columns and the
-// 16 x 64 S^T and dP^T tiles, ~256 and ~304 registers a thread: the wide
-// bodies below split that work between two warps.
+// dK/dV: one block per (64 keys, batch, query head): a consumer warpgroup
+// holding its keys' k and v tiles (TMA, once) and their dK and dV
+// accumulators (hd / 2 floats a thread each); the query rows of the head
+// stream through the ring in tiles of kRows (64, or 32 at hd 128 and 160),
+// with their dO tile and their lse and D (copied by the producer warp's
+// lanes).  For each: S^T = k q^T and dP^T = v dO^T (ss, q and dO K-major),
+// P^T and dS^T in registers, then dV += P^T dO and dK += dS^T q (rs, dO and
+// q as the transposed, MN-major operand).  A causal block starts at the
+// tile holding its first key and skips none after it.  The shares go to the
+// f32 buffer, as every body's.
+//
+// dQ: one block per (64 folded rows, batch, KV head, key range): q and dO
+// of the tile as the forward's padded boxes (P = 64 / G positions of the G
+// heads; padding rows zeroed, never stored), one consumer warpgroup; the
+// K/V tiles of its range stream through the ring in tiles of 64 keys.  For
+// each: S = q k^T and dP = dO v^T (ss), dS in registers, dQ += dS k (rs, k
+// MN-major).
 
-constexpr int kMmaThreads = 128;  // 4 warps
-constexpr int kMmaTile = 64;      // keys (dK/dV) or rows (dQ) a block; the streamed tile
+constexpr int kMmaTile = 64;  // keys (dK/dV) or rows (dQ) a block of the f32 bodies
 
+using hopper::smem_u32;
+
+// dK/dV: one consumer warpgroup of 64 keys and a producer warp, 160
+// threads, which ptxas lets hold up to 255 registers a thread: dK and dV
+// (hd / 2 floats each) beside S^T and dP^T (kRows / 2 each).  Two consumer
+// warpgroups and a producer warp are held to 168 (ptxas reads a block of
+// 288 threads as 384) and measured slower at hd 64 (scripts/kernel_compare
+// .py --variant, PR 28).
 template <int HD>
-struct MmaSmem {
-  static constexpr int kStride = HD + 8;  // bf16 elements a row
-  static constexpr int kTile = kMmaTile * kStride;
-  // Four bf16 tiles, then the f32 lse and D of the q tile's rows.
-  static constexpr size_t kBytes = sizeof(bf16) * 4 * kTile + sizeof(float) * 2 * kMmaTile;
+struct DkdvTile {
+  static constexpr int kThreads = 128 + 32;
+  static constexpr int kKeys = 64;
+  static constexpr int kRows = HD <= 64 ? 64 : 32;  // query rows a streamed tile
+  static constexpr int kStages = 2;
+  static constexpr int kKBytes = kKeys * HD * 2;  // k (or v)
+  static constexpr int kQBytes = kRows * HD * 2;  // one streamed q (or dO)
+  static constexpr int kStatBytes = kRows * 4;    // its lse (or D)
+  // k, v, q[kStages], dO[kStages], lse[kStages], D[kStages], then the
+  // mbarriers; each bf16 tile 1024-byte aligned.  TMA
+  // copies the bf16 tiles; the producer warp's lanes copy lse and D (a
+  // row's 4 bytes: TMA wants a box to start 16-byte aligned, which (b, h)'s
+  // rows of S floats do not when S % 4 != 0).
+  static constexpr size_t kBytes = 1024 + 2 * kKBytes +
+                                   kStages * (2 * kQBytes + 2 * kStatBytes) +
+                                   8 * (1 + 2 * kStages);
+  static_assert(kQBytes % 1024 == 0, "streamed tiles stay 1024-byte aligned");
+  static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// dQ: one consumer warpgroup and a producer warp, two blocks an SM (up to
+// 168 registers a thread, as ptxas counts it) where that holds dQ, S and dP
+// (hd <= 128), one at hd 160.
+template <int HD>
+struct DqTile {
+  static constexpr int kThreads = 128 + 32;
+  static constexpr int kBlocksPerSm = HD <= 128 ? 2 : 1;
+  static constexpr int kKeys = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kQBytes = 64 * HD * 2;
+  static constexpr int kKVBytes = kKeys * HD * 2;
+  // q, dO, k[kStages], v[kStages], then the mbarriers.
+  static constexpr size_t kBytes = 1024 + 2 * kQBytes + 2 * kStages * kKVBytes +
+                                   8 * (1 + 2 * kStages);
+  static_assert(kBytes <= 232448, "over a block's shared memory");
+};
+
+// The dK/dV block's consumer warpgroup: keys kw .. kw + 63 (k and v at Kw,
+// Vw), the n_q streamed query tiles from tile t_first.
+template <int HD, bool kCausal>
+__device__ __forceinline__ void dkdv_consumer(const uint8_t* Kw, const uint8_t* Vw,
+                                              const uint8_t* Qs, const uint8_t* dOs,
+                                              const float* lse_s, const float* D_s,
+                                              uint64_t* kv_full, uint64_t* full, uint64_t* empty,
+                                              float* __restrict__ part, int B, int S, int Sk,
+                                              int H, int Hk, int kw, int t_first, int n_q,
+                                              float scale_log2) {
+  using T = DkdvTile<HD>;
+  constexpr int kRows = T::kRows;
+  constexpr int kStages = T::kStages;
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const int b = static_cast<int>(blockIdx.y / Hk);
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  const uint32_t k_addr = smem_u32(Kw);
+  const uint32_t v_addr = smem_u32(Vw);
+
+  float dk[HD / 2], dv[HD / 2];
+  hopper::zero(dk);
+  hopper::zero(dv);
+  if (n_q > 0) hopper::mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_q; ++i) {
+    const int st = i % kStages;
+    const int row0 = (t_first + i) * kRows;
+    hopper::mbar_wait(&full[st], (i / kStages) & 1);
+    const uint32_t q_addr = smem_u32(Qs + st * T::kQBytes);
+    const uint32_t do_addr = smem_u32(dOs + st * T::kQBytes);
+    const float* lse_b = lse_s + st * kRows;
+    const float* D_b = D_s + st * kRows;
+    // S^T = k q^T and dP^T = v dO^T: 64 keys x kRows rows.
+    float s[kRows / 2], dp[kRows / 2];
+    hopper::fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      hopper::Mma<kRows, 0>::ss(s, hopper::desc_k<HD>(k_addr, 64, kk),
+                                hopper::desc_k<HD>(q_addr, kRows, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      hopper::Mma<kRows, 0>::ss(dp, hopper::desc_k<HD>(v_addr, 64, kk),
+                                hopper::desc_k<HD>(do_addr, kRows, kk), kk > 0);
+    }
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    // P^T and dS^T in place: element e of n-tile j is key 16 warp + g + 8
+    // (e >> 1) of the warpgroup's, row 8 j + 2 c4 + (e & 1) of the tile
+    // (lse_b in the log2 domain).  Masks only on tiles that straddle a
+    // limit.
+    const bool edge = (kCausal && row0 < kw + 63) || row0 + kRows > S || kw + 64 > Sk;
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * c4 + (e & 1);
+        const int key = kw + 16 * warp + g + 8 * (e >> 1);
+        const int pos = row0 + r;
+        const bool ok = !edge || (pos < S && key < Sk && (!kCausal || key <= pos));
+        // ex2 on every element, then the select: no branch per element.
+        const float x = hopper::ex2(fmaf(s[4 * j + e], scale_log2, -lse_b[r]));
+        const float p = ok ? x : 0.f;
+        s[4 * j + e] = p;
+        dp[4 * j + e] = p * (dp[4 * j + e] - D_b[r]);
+      }
+    }
+    uint32_t ap[kRows / 16][4], as[kRows / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      hopper::acc_as_a(ap[kk], s, kk);
+      hopper::acc_as_a(as[kk], dp, kk);
+    }
+    // dV += P^T dO and dK += dS^T q, k = the tile's rows.
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    hopper::fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      hopper::Mma<HD, 1>::rs(dv, ap[kk], hopper::desc_mn<HD>(do_addr, kRows, kk), 1);
+      hopper::Mma<HD, 1>::rs(dk, as[kk], hopper::desc_mn<HD>(q_addr, kRows, kk), 1);
+    }
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;  // one share
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kw + 16 * warp + g + 8 * i;
+    if (key >= Sk) continue;
+    const int64_t off = static_cast<int64_t>(blockIdx.z) * n +
+                        ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + 2 * c4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<float2*>(part + off + 8 * j) =
+          make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+      *reinterpret_cast<float2*>(part + static_cast<int64_t>(G) * n + off + 8 * j) =
+          make_float2(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// Grid (ceil(Sk / 64), B * Hk, G): block (x, y, z) holds keys 64 x .. of KV
+// head y % Hk of batch y / Hk and query head (y % Hk) * G + z.
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(DkdvTile<HD>::kThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const float* __restrict__ lse, const float* __restrict__ D,
+                            float* __restrict__ part, int B, int S, int Sk, int H, int Hk,
+                            float scale_log2) {
+  using T = DkdvTile<HD>;
+  using A = hopper::Atoms<HD>;
+  constexpr int kRows = T::kRows;
+  constexpr int kStages = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = hopper::align1024(smem_raw);
+  uint8_t* Vs = Ks + T::kKBytes;
+  uint8_t* Qs = Vs + T::kKBytes;
+  uint8_t* dOs = Qs + kStages * T::kQBytes;
+  float* lse_s = reinterpret_cast<float*>(dOs + kStages * T::kQBytes);
+  float* D_s = lse_s + kStages * kRows;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(D_s + kStages * kRows);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const int b = static_cast<int>(blockIdx.y / Hk);
+  const int h = kvh * G + static_cast<int>(blockIdx.z);
+  const int k0 = blockIdx.x * T::kKeys;
+  // Causal: positions below k0 see none of the keys (k0 is a tile multiple).
+  const int t_first = kCausal ? k0 / kRows : 0;
+  const int n_q = max(0, (S + kRows - 1) / kRows - t_first);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);  // the copies' arrival, each lane's
+      hopper::mbar_init(&empty[s], 4);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= 128 && n_q > 0) {  // ---- producer warp
+    if (lane == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * T::kKBytes);
+      for (int a = 0; a < A::kCount; ++a) {
+        const int off = a * T::kKeys * A::kRowBytes;
+        hopper::tma_load_4d(Ks + off, &k_map, kv_full, a * A::kCols, kvh, k0, b);
+        hopper::tma_load_4d(Vs + off, &v_map, kv_full, a * A::kCols, kvh, k0, b);
+      }
+    }
+    const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * S;
+    for (int i = 0; i < n_q; ++i) {
+      const int st = i % kStages;
+      const int row0 = (t_first + i) * kRows;
+      if (i >= kStages) hopper::mbar_wait(&empty[st], (i / kStages - 1) & 1);
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&full[st], 2 * T::kQBytes);
+        for (int a = 0; a < A::kCount; ++a) {
+          const int off = st * T::kQBytes + a * kRows * A::kRowBytes;
+          hopper::tma_load_4d(Qs + off, &q_map, &full[st], a * A::kCols, h, row0, b);
+          hopper::tma_load_4d(dOs + off, &do_map, &full[st], a * A::kCols, h, row0, b);
+        }
+      }
+      for (int r = lane; r < kRows; r += 32) {
+        const bool ok = row0 + r < S;
+        lse_s[st * kRows + r] = ok ? lse[stat0 + row0 + r] * kLog2e : 0.f;
+        D_s[st * kRows + r] = ok ? D[stat0 + row0 + r] : 0.f;
+      }
+      hopper::mbar_arrive(&full[st]);  // releases this lane's lse and D
+    }
+  } else if (threadIdx.x < 128) {  // ---- consumer warpgroup: keys k0 .. k0 + 63
+    dkdv_consumer<HD, kCausal>(Ks, Vs, Qs, dOs, lse_s, D_s, kv_full, full, empty, part, B, S, Sk,
+                               H, Hk, k0, t_first, n_q, scale_log2);
+  }
+}
+
+// The dQ block's consumer warpgroup: the folded tile from position p0 (q
+// at Qs, dO at dOs), key tiles [kt0, kt1) through the ring.
+template <int HD, bool kCausal>
+__device__ __forceinline__ void dq_consumer(uint8_t* Qs, uint8_t* dOs, const uint8_t* Ks,
+                                            const uint8_t* Vs, uint64_t* q_full, uint64_t* full,
+                                            uint64_t* empty, const float* __restrict__ lse,
+                                            const float* __restrict__ D, bf16* __restrict__ dq,
+                                            float* __restrict__ dq_part, int S, int Sk, int H,
+                                            int Hk, int P, int p0, int kt0, int kt1, float scale,
+                                            float scale_log2) {
+  using T = DqTile<HD>;
+  constexpr int kKeys = T::kKeys;
+  constexpr int kStages = T::kStages;
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const int b = static_cast<int>(blockIdx.y / Hk);
+  const int t = threadIdx.x;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  const int rows_real = P * G;
+  if (rows_real < 64) {  // padding rows no box fills: zero, so they stay finite
+    for (int i = t; i < (64 - rows_real) * (HD / 8); i += 128) {
+      const int r = rows_real + i / (HD / 8);
+      const uint32_t off = hopper::swizzled<HD>(64, r, (i % (HD / 8)) * 8);
+      *reinterpret_cast<uint4*>(Qs + off) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(dOs + off) = make_uint4(0, 0, 0, 0);
+    }
+    hopper::fence_async_smem();
+  }
+  hopper::bar_sync(1, 128);
+
+  int row[2], pos[2];
+  bool ok[2];
+  float lse2[2], Dr[2];
+  int64_t stat[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = 16 * warp + g + 8 * i;
+    pos[i] = p0 + row[i] / G;
+    ok[i] = row[i] < rows_real && pos[i] < S;
+    stat[i] = (static_cast<int64_t>(b) * H + kvh * G + row[i] % G) * S + pos[i];
+    lse2[i] = ok[i] ? lse[stat[i]] * kLog2e : 0.f;
+    Dr[i] = ok[i] ? D[stat[i]] : 0.f;
+  }
+  const uint32_t q_addr = smem_u32(Qs);
+  const uint32_t do_addr = smem_u32(dOs);
+
+  float acc[HD / 2];
+  hopper::zero(acc);
+  if (kt0 < kt1) hopper::mbar_wait(q_full, 0);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int i = kt - kt0;
+    const int st = i % kStages;
+    const int k0 = kt * kKeys;
+    hopper::mbar_wait(&full[st], (i / kStages) & 1);
+    const uint32_t k_addr = smem_u32(Ks + st * T::kKVBytes);
+    const uint32_t v_addr = smem_u32(Vs + st * T::kKVBytes);
+    // S = q k^T and dP = dO v^T: 64 rows x 64 keys.
+    float s[kKeys / 2], dp[kKeys / 2];
+    hopper::fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      hopper::Mma<kKeys, 0>::ss(s, hopper::desc_k<HD>(q_addr, 64, kk),
+                                hopper::desc_k<HD>(k_addr, kKeys, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      hopper::Mma<kKeys, 0>::ss(dp, hopper::desc_k<HD>(do_addr, 64, kk),
+                                hopper::desc_k<HD>(v_addr, kKeys, kk), kk > 0);
+    }
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    // dS in place of S: element e of n-tile j is row r[e >> 1], key 8 j +
+    // 2 c4 + (e & 1) of the tile.  Masks only on tiles that straddle a
+    // limit: elsewhere a padding row or one past S has zero q and dO rows,
+    // so its dS is 0 (and it is never stored).
+    const bool edge = (kCausal && k0 + kKeys - 1 > p0) || k0 + kKeys > Sk;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ii = e >> 1;
+        const int key = k0 + 8 * j + 2 * c4 + (e & 1);
+        const bool live = !edge || (ok[ii] && key < Sk && (!kCausal || key <= pos[ii]));
+        const float x = hopper::ex2(fmaf(s[4 * j + e], scale_log2, -lse2[ii]));
+        const float p = live ? x : 0.f;
+        s[4 * j + e] = p * (dp[4 * j + e] - Dr[ii]);
+      }
+    }
+    uint32_t as[kKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) hopper::acc_as_a(as[kk], s, kk);
+    // dQ += dS k, k = the tile's keys (k the transposed operand).
+    hopper::fence_regs(acc);
+    hopper::fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      hopper::Mma<HD, 1>::rs(acc, as[kk], hopper::desc_mn<HD>(k_addr, kKeys, kk), 1);
+    }
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  const bool whole = gridDim.z == 1;
+  float* part = dq_part + (whole ? 0 : dq_part_base(S, H, Hk, HD));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!ok[i]) continue;
+    const int64_t off = ((static_cast<int64_t>(b) * S + pos[i]) * H + kvh * G + row[i] % G) * HD +
+                        2 * c4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const float x0 = acc[4 * j + 2 * i], x1 = acc[4 * j + 2 * i + 1];
+      if (whole) {
+        *reinterpret_cast<uint32_t*>(dq + off + 8 * j) = hopper::pack_bf16(x0 * scale, x1 * scale);
+      } else {
+        *reinterpret_cast<float2*>(part + off + 8 * j) = make_float2(x0, x1);
+      }
+    }
+  }
+}
+
+// Grid (ceil(S / P), B * Hk, key ranges): block (x, y, z) holds positions
+// P x .. of the G heads of KV head y % Hk of batch y / Hk, and walks key
+// range z of its visible key tiles (key_range).  Whole walk (gridDim.z ==
+// 1): dq scaled and cast; else its unscaled f32 partial into dq_part.
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(DqTile<HD>::kThreads, DqTile<HD>::kBlocksPerSm)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse, const float* __restrict__ D,
+                          bf16* __restrict__ dq, float* __restrict__ dq_part, int S, int Sk, int H,
+                          int Hk, int P, float scale, float scale_log2) {
+  using T = DqTile<HD>;
+  using A = hopper::Atoms<HD>;
+  constexpr int kKeys = T::kKeys;
+  constexpr int kStages = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = hopper::align1024(smem_raw);
+  uint8_t* dOs = Qs + T::kQBytes;
+  uint8_t* Ks = dOs + T::kQBytes;
+  uint8_t* Vs = Ks + kStages * T::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * T::kKVBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y % Hk);
+  const int b = static_cast<int>(blockIdx.y / Hk);
+  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int p0 = tile * P;
+  int n_tiles = (Sk + kKeys - 1) / kKeys;
+  if (kCausal) n_tiles = min(n_tiles, (min(p0 + P, S) - 1) / kKeys + 1);
+  int kt0, kt1;
+  key_range(n_tiles, kt0, kt1);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ---- producer warp
+    if (threadIdx.x == 128 && kt0 < kt1) {
+      hopper::mbar_expect_tx(q_full, 2 * HD * G * P * 2);
+      for (int a = 0; a < A::kCount; ++a) {
+        const int off = a * 64 * A::kRowBytes;
+        hopper::tma_load_5d(Qs + off, &q_map, q_full, a * A::kCols, 0, kvh, p0, b);
+        hopper::tma_load_5d(dOs + off, &do_map, q_full, a * A::kCols, 0, kvh, p0, b);
+      }
+      for (int kt = kt0; kt < kt1; ++kt) {
+        const int i = kt - kt0;
+        const int st = i % kStages;
+        if (i >= kStages) hopper::mbar_wait(&empty[st], (i / kStages - 1) & 1);
+        hopper::mbar_expect_tx(&full[st], 2 * T::kKVBytes);
+        for (int a = 0; a < A::kCount; ++a) {
+          const int off = st * T::kKVBytes + a * kKeys * A::kRowBytes;
+          hopper::tma_load_4d(Ks + off, &k_map, &full[st], a * A::kCols, kvh, kt * kKeys, b);
+          hopper::tma_load_4d(Vs + off, &v_map, &full[st], a * A::kCols, kvh, kt * kKeys, b);
+        }
+      }
+    }
+  } else {  // ---- consumer warpgroup: folded rows r = 16 warp + g (+ 8)
+    dq_consumer<HD, kCausal>(Qs, dOs, Ks, Vs, q_full, full, empty, lse, D, dq, dq_part, S, Sk, H,
+                             Hk, P, p0, kt0, kt1, scale, scale_log2);
+  }
 }
 
 // 16-byte global -> shared copy; zero-fills the destination when !valid.
@@ -232,724 +661,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// 64 rows of hd bf16 into a tile (rows hd + 8 apart) by a block of kNThreads;
-// off(r) is row r's element offset, or -1 for a row past the end
-// (zero-filled).
-template <int HD, int kNThreads, typename Off>
-__device__ __forceinline__ void mma_load_tile(bf16* dst, const bf16* __restrict__ src, Off off) {
-  constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < kMmaTile * kChunks; i += kNThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const int64_t o = off(r);
-    cp_async16(smem_u32(dst + r * MmaSmem<HD>::kStride + c * 8), src + (o >= 0 ? o + c * 8 : 0),
-               o >= 0);
-  }
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t.  A holds rows
-// g and g + 8, columns 2t, 2t + 1 (+ 8); B holds column g, rows 2t, 2t + 1
-// (+ 8); the f32 accumulator holds rows g and g + 8, columns 2t and 2t + 1.
-// Tiles are bf16 in shared memory with rows kLd elements apart.
-// A tile's rows as A fragments (16 rows from `row`, k-step kk):
-template <int kLd>
-__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const bf16* tile, int row, int kk) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(f, smem_u32(tile + (row + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8));
-}
-
-// B fragments of n-tiles 2np, 2np + 1 of X^T, X a tile stored [n][k] (k-step kk).
-template <int kLd>
-__device__ __forceinline__ void frag_bt(uint32_t (&f)[4], const bf16* tile, int np, int kk) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(f, smem_u32(tile + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd + kk * 16 +
-                      ((lane >> 3) & 1) * 8));
-}
-
-// B fragments of n-tiles 2dp, 2dp + 1 of X, X a tile stored [k][n] (k-step kk).
-template <int kLd>
-__device__ __forceinline__ void frag_b(uint32_t (&f)[4], const bf16* tile, int kk, int dp) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4_trans(f, smem_u32(tile + (kk * 16 + (lane & 15)) * kLd + dp * 16 + (lane >> 4) * 8));
-}
-
-// The accumulators of n-tiles 2kk, 2kk + 1 as the A fragment of k-step kk.
-__device__ __forceinline__ void acc_as_a(uint32_t (&a)[4], float (*x)[4], int kk) {
-  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-}
-
-template <int HD, bool kCausal>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ D,
-                          float* __restrict__ part, int B, int S, int Sk, int H, int Hk,
-                          float scale_log2) {
-  using L = MmaSmem<HD>;
-  constexpr int kLd = L::kStride;
-  constexpr int kDK = HD / 16;        // k-steps over hd
-  constexpr int kDN = HD / 8;         // n-tiles over hd
-  constexpr int kRN = kMmaTile / 8;   // n-tiles over the q tile's rows
-  extern __shared__ float4 smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);
-  bf16* Vs = Ks + L::kTile;
-  bf16* Qs = Vs + L::kTile;
-  bf16* dOs = Qs + L::kTile;
-  float* lse_s = reinterpret_cast<float*>(dOs + L::kTile);
-  float* D_s = lse_s + kMmaTile;
-
-  const int G = H / Hk;
-  const int kvh = static_cast<int>(blockIdx.y % Hk);
-  const int b = static_cast<int>(blockIdx.y / Hk);
-  const int h = kvh * G + static_cast<int>(blockIdx.z);
-  const int k0 = blockIdx.x * kMmaTile;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wk = (threadIdx.x / 32) * 16;  // the warp's first key in the tile
-
-  const auto kv_off = [&](int j) -> int64_t {
-    return k0 + j < Sk ? ((static_cast<int64_t>(b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
-  };
-  mma_load_tile<HD, kMmaThreads>(Ks, k, kv_off);
-  mma_load_tile<HD, kMmaThreads>(Vs, v, kv_off);
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t kf[kDK][4], vf[kDK][4];
-#pragma unroll
-  for (int kk = 0; kk < kDK; ++kk) {
-    frag_a<kLd>(kf[kk], Ks, wk, kk);
-    frag_a<kLd>(vf[kk], Vs, wk, kk);
-  }
-
-  float dk[kDN][4], dv[kDN][4];
-#pragma unroll
-  for (int n = 0; n < kDN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  // Causal: positions below k0 see none of the keys (k0 is a tile multiple).
-  for (int row0 = kCausal ? k0 : 0; row0 < S; row0 += kMmaTile) {
-    __syncthreads();  // the last tile's q, dO, lse and D are read
-    const auto q_off = [&](int r) -> int64_t {
-      return row0 + r < S ? ((static_cast<int64_t>(b) * S + row0 + r) * H + h) * HD : -1;
-    };
-    mma_load_tile<HD, kMmaThreads>(Qs, q, q_off);
-    mma_load_tile<HD, kMmaThreads>(dOs, dout, q_off);
-    for (int r = threadIdx.x; r < kMmaTile; r += kMmaThreads) {
-      const bool ok = row0 + r < S;
-      const int64_t i = (static_cast<int64_t>(b) * H + h) * S + row0 + r;
-      lse_s[r] = ok ? lse[i] * kLog2e : 0.f;
-      D_s[r] = ok ? D[i] : 0.f;
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    // S^T = k q^T and dP^T = v dO^T: the warp's 16 keys x 64 rows.
-    float st[kRN][4], dpt[kRN][4];
-#pragma unroll
-    for (int j = 0; j < kRN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kRN / 2; ++np) {
-        uint32_t bq[4], bo[4];
-        frag_bt<kLd>(bq, Qs, np, kk);
-        frag_bt<kLd>(bo, dOs, np, kk);
-        mma_bf16(st[2 * np], kf[kk], bq[0], bq[1]);
-        mma_bf16(st[2 * np + 1], kf[kk], bq[2], bq[3]);
-        mma_bf16(dpt[2 * np], vf[kk], bo[0], bo[1]);
-        mma_bf16(dpt[2 * np + 1], vf[kk], bo[2], bo[3]);
-      }
-    }
-    // P^T and dS^T in place.
-#pragma unroll
-    for (int j = 0; j < kRN; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 8 * j + 2 * t4 + (e & 1);
-        const int key = k0 + wk + g + 8 * (e >> 1);
-        const int pos = row0 + r;
-        const bool ok = pos < S && key < Sk && (!kCausal || key <= pos);
-        const float p = ok ? exp2f(st[j][e] * scale_log2 - lse_s[r]) : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - D_s[r]);
-      }
-    }
-    // dV += P^T dO and dK += dS^T q, k = the tile's rows.
-#pragma unroll
-    for (int kk = 0; kk < kMmaTile / 16; ++kk) {
-      uint32_t ap[4], as[4];
-      acc_as_a(ap, st, kk);
-      acc_as_a(as, dpt, kk);
-#pragma unroll
-      for (int dp = 0; dp < kDN / 2; ++dp) {
-        uint32_t bo[4], bq[4];
-        frag_b<kLd>(bo, dOs, kk, dp);
-        frag_b<kLd>(bq, Qs, kk, dp);
-        mma_bf16(dv[2 * dp], ap, bo[0], bo[1]);
-        mma_bf16(dv[2 * dp + 1], ap, bo[2], bo[3]);
-        mma_bf16(dk[2 * dp], as, bq[0], bq[1]);
-        mma_bf16(dk[2 * dp + 1], as, bq[2], bq[3]);
-      }
-    }
-  }
-
-  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;  // one share
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int key = k0 + wk + g + 8 * (e >> 1);
-    if (key >= Sk) continue;
-    const int64_t off = static_cast<int64_t>(blockIdx.z) * n +
-                        ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + 2 * t4 + (e & 1);
-#pragma unroll
-    for (int nn = 0; nn < kDN; ++nn) {
-      part[off + 8 * nn] = dk[nn][e];
-      part[static_cast<int64_t>(G) * n + off + 8 * nn] = dv[nn][e];
-    }
-  }
-}
-
-// dq's two values at (row, column col) of a warp's accumulator pair: scaled
-// and cast into dq when the key walk is whole, else unscaled f32 into the
-// block's partial (`part`, already offset to its key range).
-__device__ __forceinline__ void store_dq_pair(bf16* __restrict__ dq, float* __restrict__ part,
-                                              bool whole, int64_t off, float x0, float x1,
-                                              float scale) {
-  if (whole) {
-    *reinterpret_cast<uint32_t*>(dq + off) = pack_bf16(x0 * scale, x1 * scale);
-  } else {
-    *reinterpret_cast<float2*>(part + off) = make_float2(x0, x1);
-  }
-}
-
-template <int HD, bool kCausal>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ D,
-                        bf16* __restrict__ dq, float* __restrict__ dq_part, int S, int Sk, int H,
-                        int Hk, float scale, float scale_log2) {
-  using L = MmaSmem<HD>;
-  constexpr int kLd = L::kStride;
-  constexpr int kDK = HD / 16;
-  constexpr int kDN = HD / 8;
-  constexpr int kKN = kMmaTile / 8;  // n-tiles over the key tile
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dOs = Qs + L::kTile;
-  bf16* Ks = dOs + L::kTile;
-  bf16* Vs = Ks + L::kTile;
-
-  const int G = H / Hk;
-  const int kvh = static_cast<int>(blockIdx.y % Hk);
-  const Rows R{S, H, G, kvh * G, static_cast<int>(blockIdx.y / Hk),
-               static_cast<int64_t>(S) * G};
-  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int64_t row0 = static_cast<int64_t>(tile) * kMmaTile;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wrow = (threadIdx.x / 32) * 16;
-
-  const auto row_off = [&](int r) -> int64_t {
-    return row0 + r < R.total ? R.offset(row0 + r, HD) : -1;
-  };
-  mma_load_tile<HD, kMmaThreads>(Qs, q, row_off);
-  mma_load_tile<HD, kMmaThreads>(dOs, dout, row_off);
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qf[kDK][4], of[kDK][4];
-#pragma unroll
-  for (int kk = 0; kk < kDK; ++kk) {
-    frag_a<kLd>(qf[kk], Qs, wrow, kk);
-    frag_a<kLd>(of[kk], dOs, wrow, kk);
-  }
-  // This thread's rows g and g + 8 of the warp.
-  bool row_ok[2];
-  int64_t pos[2];
-  float lse2[2], Dr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int64_t row = row0 + wrow + g + 8 * i;
-    row_ok[i] = row < R.total;
-    pos[i] = R.pos(row);
-    lse2[i] = row_ok[i] ? lse[R.stat(row)] * kLog2e : 0.f;
-    Dr[i] = row_ok[i] ? D[R.stat(row)] : 0.f;
-  }
-
-  int n_tiles = (Sk + kMmaTile - 1) / kMmaTile;
-  if (kCausal) {
-    const int64_t last_row = (row0 + kMmaTile < R.total ? row0 + kMmaTile : R.total) - 1;
-    const int limit = static_cast<int>(R.pos(last_row)) / kMmaTile + 1;
-    n_tiles = n_tiles < limit ? n_tiles : limit;
-  }
-  int kt0, kt1;
-  key_range(n_tiles, kt0, kt1);
-
-  float acc[kDN][4];
-#pragma unroll
-  for (int n = 0; n < kDN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * kMmaTile;
-    __syncthreads();  // the last tile's k and v are read
-    const auto kv_off = [&](int j) -> int64_t {
-      return k0 + j < Sk ? ((static_cast<int64_t>(R.b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
-    };
-    mma_load_tile<HD, kMmaThreads>(Ks, k, kv_off);
-    mma_load_tile<HD, kMmaThreads>(Vs, v, kv_off);
-    cp_async_wait_all();
-    __syncthreads();
-
-    float s[kKN][4], dp[kKN][4];
-#pragma unroll
-    for (int j = 0; j < kKN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kKN / 2; ++np) {
-        uint32_t bk[4], bv[4];
-        frag_bt<kLd>(bk, Ks, np, kk);
-        frag_bt<kLd>(bv, Vs, np, kk);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-        mma_bf16(dp[2 * np], of[kk], bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], of[kk], bv[2], bv[3]);
-      }
-    }
-    // dS in place of S.
-#pragma unroll
-    for (int j = 0; j < kKN; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int key = k0 + 8 * j + 2 * t4 + (e & 1);
-        const bool ok = row_ok[i] && key < Sk && (!kCausal || key <= pos[i]);
-        const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[i]) : 0.f;
-        s[j][e] = p * (dp[j][e] - Dr[i]);
-      }
-    }
-    // dQ += dS k, k = the tile's keys.
-#pragma unroll
-    for (int kk = 0; kk < kMmaTile / 16; ++kk) {
-      uint32_t a[4];
-      acc_as_a(a, s, kk);
-#pragma unroll
-      for (int d2 = 0; d2 < kDN / 2; ++d2) {
-        uint32_t bk[4];
-        frag_b<kLd>(bk, Ks, kk, d2);
-        mma_bf16(acc[2 * d2], a, bk[0], bk[1]);
-        mma_bf16(acc[2 * d2 + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
-
-  const bool whole = gridDim.z == 1;
-  float* part = dq_part + (whole ? 0 : dq_part_base(S, H, Hk, HD));
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!row_ok[i]) continue;
-    const int64_t off = R.offset(row0 + wrow + g + 8 * i, HD) + 2 * t4;
-#pragma unroll
-    for (int nn = 0; nn < kDN; ++nn) {
-      store_dq_pair(dq, part, whole, off + 8 * nn, acc[nn][2 * i], acc[nn][2 * i + 1], scale);
-    }
-  }
-}
-
-// ------------------------------------------- bf16 at hd 128 and 160, wide
-//
-// Blocks of 8 warps.  Warps w and w + 4 (w < 4) are a pair that shares 16
-// keys (dK/dV) or 16 rows (dQ); `half` = w / 4 says which half of the pair's
-// work a warp does: in the score products, rows (keys) 32 half .. 32 half +
-// 31 of the streamed tile; in the accumulating products, columns hd/2 half
-// .. of dK and dV (dQ), hd/4 floats a thread for each (32 at hd 128, 40 at
-// hd 160).  So no product is done twice and the accumulators plus one
-// warp's 16 x 32 score and dP tiles fit in a thread's registers.  The A
-// operands of the score products (k and v, or q and dO) are read from shared
-// memory with ldmatrix for each k-step rather than held.  The pair passes P
-// and dS between its halves through shared memory in bf16 (tiles of 64 x 64
-// with rows 72 apart: the rounding the hd 64 body does when it repacks its
-// accumulators), after which each warp reads the pair's full 16 x 64 tiles
-// back as A fragments.  The streamed tile (q, dO, lse and D in dK/dV; k and
-// v in dQ) is double-buffered: the copy of tile t + 1 is issued with
-// cp.async after the barrier that opens tile t and overlaps its products.
-// Shared memory: six 64-row tiles and the bf16 P^T and dS^T (dS) tiles,
-// ~121 KB (dK/dV) / ~113 KB (dQ) at hd 128 and ~145 / ~136 KB at hd 160;
-// one block an SM.  The dK/dV shares go to the same f32 buffer as the other
-// bodies'.
-
-constexpr int kWideThreads = 256;         // 8 warps
-constexpr int kXLd = kMmaTile + 8;         // row stride of the bf16 P^T, dS^T, dS tiles
-constexpr int kXTile = kMmaTile * kXLd;
-
-template <int HD>
-struct WideSmem {
-  static constexpr int kTile = MmaSmem<HD>::kTile;
-  // k, v, q[2], dO[2], P^T, dS^T, then f32 lse[2] and D[2].
-  static constexpr size_t kDkdvBytes =
-      sizeof(bf16) * (6 * kTile + 2 * kXTile) + sizeof(float) * 4 * kMmaTile;
-  // q, dO, k[2], v[2], dS.
-  static constexpr size_t kDqBytes = sizeof(bf16) * (6 * kTile + kXTile);
-  static_assert(kDkdvBytes <= 232448 && kDqBytes <= 232448, "over a block's shared memory");
-};
-
-template <int HD, bool kCausal>
-__global__ void __launch_bounds__(kWideThreads)
-flash_bwd_dkdv_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                               const float* __restrict__ lse, const float* __restrict__ D,
-                               float* __restrict__ part, int B, int S, int Sk, int H, int Hk,
-                               float scale_log2) {
-  using L = WideSmem<HD>;
-  constexpr int kLd = MmaSmem<HD>::kStride;
-  constexpr int kDK = HD / 16;  // k-steps over hd
-  constexpr int kHN = HD / 16;  // n-tiles over half of hd's columns
-  extern __shared__ float4 smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);
-  bf16* Vs = Ks + L::kTile;
-  bf16* Qs = Vs + L::kTile;       // two buffers
-  bf16* dOs = Qs + 2 * L::kTile;  // two buffers
-  bf16* Pt = dOs + 2 * L::kTile;  // P^T, keys x rows
-  bf16* dSt = Pt + kXTile;        // dS^T
-  float* lse_s = reinterpret_cast<float*>(dSt + kXTile);  // two buffers
-  float* D_s = lse_s + 2 * kMmaTile;                      // two buffers
-
-  const int G = H / Hk;
-  const int kvh = static_cast<int>(blockIdx.y % Hk);
-  const int b = static_cast<int>(blockIdx.y / Hk);
-  const int h = kvh * G + static_cast<int>(blockIdx.z);
-  const int k0 = blockIdx.x * kMmaTile;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int warp = threadIdx.x / 32;
-  const int wk = (warp & 3) * 16;  // the pair's first key in the tile
-  const int half = warp >> 2;
-  const int cp0 = half * (HD / 32);  // the warp's first 16-column pair of dK, dV
-
-  const auto kv_off = [&](int j) -> int64_t {
-    return k0 + j < Sk ? ((static_cast<int64_t>(b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
-  };
-  // q, dO, lse and D of the rows from row0 into buffer `buf`.
-  const auto load_q = [&](int row0, int buf) {
-    const auto q_off = [&](int r) -> int64_t {
-      return row0 + r < S ? ((static_cast<int64_t>(b) * S + row0 + r) * H + h) * HD : -1;
-    };
-    mma_load_tile<HD, kWideThreads>(Qs + buf * L::kTile, q, q_off);
-    mma_load_tile<HD, kWideThreads>(dOs + buf * L::kTile, dout, q_off);
-    if (threadIdx.x < 2 * kMmaTile) {
-      const int r = threadIdx.x % kMmaTile;
-      const bool ok = row0 + r < S;
-      const int64_t i = ok ? (static_cast<int64_t>(b) * H + h) * S + row0 + r : 0;
-      float* dst = (threadIdx.x < kMmaTile ? lse_s : D_s) + buf * kMmaTile + r;
-      cp_async4(smem_u32(dst), (threadIdx.x < kMmaTile ? lse : D) + i, ok);
-    }
-  };
-
-  // Causal: positions below k0 see none of the keys (k0 is a tile multiple).
-  const int first = kCausal ? k0 : 0;
-  const int n_q = first < S ? (S - first + kMmaTile - 1) / kMmaTile : 0;
-  if (n_q > 0) {  // else the keys' shares are zero: no copy is left in flight
-    mma_load_tile<HD, kWideThreads>(Ks, k, kv_off);
-    mma_load_tile<HD, kWideThreads>(Vs, v, kv_off);
-    load_q(first, 0);
-    cp_async_commit();
-  }
-
-  float dk[kHN][4], dv[kHN][4];
-#pragma unroll
-  for (int n = 0; n < kHN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int t = 0; t < n_q; ++t) {
-    const int row0 = first + t * kMmaTile;
-    cp_async_wait_all();
-    __syncthreads();  // tile t landed; every warp is done with tile t - 1
-    if (t + 1 < n_q) load_q(row0 + kMmaTile, (t + 1) & 1);
-    cp_async_commit();
-    const bf16* Qb = Qs + (t & 1) * L::kTile;
-    const bf16* dOb = dOs + (t & 1) * L::kTile;
-    const float* lse_b = lse_s + (t & 1) * kMmaTile;
-    const float* D_b = D_s + (t & 1) * kMmaTile;
-
-    // S^T = k q^T and dP^T = v dO^T: the pair's 16 keys x this warp's 32 rows.
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-      uint32_t kf[4], vf[4];
-      frag_a<kLd>(kf, Ks, wk, kk);
-      frag_a<kLd>(vf, Vs, wk, kk);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bq[4], bo[4];
-        frag_bt<kLd>(bq, Qb, 2 * half + np, kk);
-        frag_bt<kLd>(bo, dOb, 2 * half + np, kk);
-        mma_bf16(st[2 * np], kf, bq[0], bq[1]);
-        mma_bf16(st[2 * np + 1], kf, bq[2], bq[3]);
-        mma_bf16(dpt[2 * np], vf, bo[0], bo[1]);
-        mma_bf16(dpt[2 * np + 1], vf, bo[2], bo[3]);
-      }
-    }
-    // P^T and dS^T into shared memory in bf16: rows r, r + 1 of key rows
-    // g and g + 8 of the pair.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = 32 * half + 8 * j + 2 * t4;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int key = k0 + wk + g + 8 * i;
-        float p[2], ds[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 2 * i + c;
-          const int pos = row0 + r + c;
-          const bool ok = pos < S && key < Sk && (!kCausal || key <= pos);
-          p[c] = ok ? exp2f(st[j][e] * scale_log2 - lse_b[r + c] * kLog2e) : 0.f;
-          ds[c] = p[c] * (dpt[j][e] - D_b[r + c]);
-        }
-        const int at = (wk + g + 8 * i) * kXLd + r;
-        *reinterpret_cast<uint32_t*>(Pt + at) = pack_bf16(p[0], p[1]);
-        *reinterpret_cast<uint32_t*>(dSt + at) = pack_bf16(ds[0], ds[1]);
-      }
-    }
-    __syncthreads();  // the pair's P^T and dS^T are whole
-    // dV += P^T dO and dK += dS^T q on this warp's half of the columns,
-    // k = the tile's 64 rows.
-#pragma unroll
-    for (int kk = 0; kk < kMmaTile / 16; ++kk) {
-      uint32_t ap[4], as[4];
-      frag_a<kXLd>(ap, Pt, wk, kk);
-      frag_a<kXLd>(as, dSt, wk, kk);
-#pragma unroll
-      for (int dp = 0; dp < kHN / 2; ++dp) {
-        uint32_t bo[4], bq[4];
-        frag_b<kLd>(bo, dOb, kk, cp0 + dp);
-        frag_b<kLd>(bq, Qb, kk, cp0 + dp);
-        mma_bf16(dv[2 * dp], ap, bo[0], bo[1]);
-        mma_bf16(dv[2 * dp + 1], ap, bo[2], bo[3]);
-        mma_bf16(dk[2 * dp], as, bq[0], bq[1]);
-        mma_bf16(dk[2 * dp + 1], as, bq[2], bq[3]);
-      }
-    }
-  }
-
-  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;  // one share
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int key = k0 + wk + g + 8 * (e >> 1);
-    if (key >= Sk) continue;
-    const int64_t off = static_cast<int64_t>(blockIdx.z) * n +
-                        ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + 16 * cp0 +
-                        2 * t4 + (e & 1);
-#pragma unroll
-    for (int nn = 0; nn < kHN; ++nn) {
-      part[off + 8 * nn] = dk[nn][e];
-      part[static_cast<int64_t>(G) * n + off + 8 * nn] = dv[nn][e];
-    }
-  }
-}
-
-template <int HD, bool kCausal>
-__global__ void __launch_bounds__(kWideThreads)
-flash_bwd_dq_wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ D,
-                             bf16* __restrict__ dq, float* __restrict__ dq_part, int S, int Sk,
-                             int H, int Hk, float scale, float scale_log2) {
-  using L = WideSmem<HD>;
-  constexpr int kLd = MmaSmem<HD>::kStride;
-  constexpr int kDK = HD / 16;
-  constexpr int kHN = HD / 16;  // n-tiles over half of hd's columns
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dOs = Qs + L::kTile;
-  bf16* Ks = dOs + L::kTile;     // two buffers
-  bf16* Vs = Ks + 2 * L::kTile;  // two buffers
-  bf16* dSs = Vs + 2 * L::kTile;  // dS, rows x keys
-
-  const int G = H / Hk;
-  const int kvh = static_cast<int>(blockIdx.y % Hk);
-  const Rows R{S, H, G, kvh * G, static_cast<int>(blockIdx.y / Hk),
-               static_cast<int64_t>(S) * G};
-  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int64_t row0 = static_cast<int64_t>(tile) * kMmaTile;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int warp = threadIdx.x / 32;
-  const int wrow = (warp & 3) * 16;  // the pair's first row in the tile
-  const int half = warp >> 2;
-  const int cp0 = half * (HD / 32);  // the warp's first 16-column pair of dQ
-
-  int n_tiles = (Sk + kMmaTile - 1) / kMmaTile;
-  if (kCausal) {
-    const int64_t last_row = (row0 + kMmaTile < R.total ? row0 + kMmaTile : R.total) - 1;
-    const int limit = static_cast<int>(R.pos(last_row)) / kMmaTile + 1;
-    n_tiles = n_tiles < limit ? n_tiles : limit;
-  }
-  int kt0, kt1;
-  key_range(n_tiles, kt0, kt1);
-
-  const auto load_kv = [&](int kt, int buf) {
-    const int k0 = kt * kMmaTile;
-    const auto kv_off = [&](int j) -> int64_t {
-      return k0 + j < Sk ? ((static_cast<int64_t>(R.b) * Sk + k0 + j) * Hk + kvh) * HD : -1;
-    };
-    mma_load_tile<HD, kWideThreads>(Ks + buf * L::kTile, k, kv_off);
-    mma_load_tile<HD, kWideThreads>(Vs + buf * L::kTile, v, kv_off);
-  };
-  if (kt0 < kt1) {
-    const auto row_off = [&](int r) -> int64_t {
-      return row0 + r < R.total ? R.offset(row0 + r, HD) : -1;
-    };
-    mma_load_tile<HD, kWideThreads>(Qs, q, row_off);
-    mma_load_tile<HD, kWideThreads>(dOs, dout, row_off);
-    load_kv(kt0, 0);
-    cp_async_commit();
-  }
-  // This thread's rows g and g + 8 of the pair.
-  bool row_ok[2];
-  int64_t pos[2];
-  float lse2[2], Dr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int64_t row = row0 + wrow + g + 8 * i;
-    row_ok[i] = row < R.total;
-    pos[i] = R.pos(row);
-    lse2[i] = row_ok[i] ? lse[R.stat(row)] * kLog2e : 0.f;
-    Dr[i] = row_ok[i] ? D[R.stat(row)] : 0.f;
-  }
-
-  float acc[kHN][4];
-#pragma unroll
-  for (int n = 0; n < kHN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * kMmaTile;
-    cp_async_wait_all();
-    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
-    if (kt + 1 < kt1) load_kv(kt + 1, (kt - kt0 + 1) & 1);
-    cp_async_commit();
-    const bf16* Kb = Ks + ((kt - kt0) & 1) * L::kTile;
-    const bf16* Vb = Vs + ((kt - kt0) & 1) * L::kTile;
-
-    // S = q k^T and dP = dO v^T: the pair's 16 rows x this warp's 32 keys.
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-      uint32_t qf[4], of[4];
-      frag_a<kLd>(qf, Qs, wrow, kk);
-      frag_a<kLd>(of, dOs, wrow, kk);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bk[4], bv[4];
-        frag_bt<kLd>(bk, Kb, 2 * half + np, kk);
-        frag_bt<kLd>(bv, Vb, 2 * half + np, kk);
-        mma_bf16(s[2 * np], qf, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf, bk[2], bk[3]);
-        mma_bf16(dp[2 * np], of, bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], of, bv[2], bv[3]);
-      }
-    }
-    // dS into shared memory in bf16: keys c, c + 1 of rows g and g + 8.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = 32 * half + 8 * j + 2 * t4;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float ds[2];
-#pragma unroll
-        for (int e1 = 0; e1 < 2; ++e1) {
-          const int e = 2 * i + e1;
-          const int key = k0 + c + e1;
-          const bool ok = row_ok[i] && key < Sk && (!kCausal || key <= pos[i]);
-          const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[i]) : 0.f;
-          ds[e1] = p * (dp[j][e] - Dr[i]);
-        }
-        *reinterpret_cast<uint32_t*>(dSs + (wrow + g + 8 * i) * kXLd + c) =
-            pack_bf16(ds[0], ds[1]);
-      }
-    }
-    __syncthreads();  // the pair's dS is whole
-    // dQ += dS k on this warp's half of the columns, k = the tile's 64 keys.
-#pragma unroll
-    for (int kk = 0; kk < kMmaTile / 16; ++kk) {
-      uint32_t a[4];
-      frag_a<kXLd>(a, dSs, wrow, kk);
-#pragma unroll
-      for (int d2 = 0; d2 < kHN / 2; ++d2) {
-        uint32_t bk[4];
-        frag_b<kLd>(bk, Kb, kk, cp0 + d2);
-        mma_bf16(acc[2 * d2], a, bk[0], bk[1]);
-        mma_bf16(acc[2 * d2 + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
-
-  const bool whole = gridDim.z == 1;
-  float* part = dq_part + (whole ? 0 : dq_part_base(S, H, Hk, HD));
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!row_ok[i]) continue;
-    const int64_t off = R.offset(row0 + wrow + g + 8 * i, HD) + 16 * cp0 + 2 * t4;
-#pragma unroll
-    for (int nn = 0; nn < kHN; ++nn) {
-      store_dq_pair(dq, part, whole, off + 8 * nn, acc[nn][2 * i], acc[nn][2 * i + 1], scale);
-    }
-  }
 }
 
 // ------------------------------------------------- f32 bodies, 3xTF32
@@ -1440,24 +1151,71 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_tf32x3_wide_mma_kernel(FLASH
                             scale_log2);
 }
 
+// What a call launched, for the caller to read back: launched[0] the body of
+// its dK/dV and dQ kernels (named by flash_attention_bwd_body_name),
+// launched[1] the dQ grid's key ranges, launched[2..4] the dK/dV grid and
+// launched[5..6] the dQ grid's x and y.
+constexpr int kBodyTf32x3 = 0;
+constexpr int kBodyWgmma = 1;
+constexpr int kBodyTf32x3Wide = 2;
+constexpr const char* kBodyNames[] = {"tf32x3_mma", "wgmma", "tf32x3_wide_mma"};
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
 
-// What a call launched, for the caller to read back: launched[0] the body of
-// its dK/dV and dQ kernels, launched[1] the dQ grid's key ranges.
-constexpr int kBodyTf32x3 = 0;
-constexpr int kBodyMma = 1;
-constexpr int kBodyWideMma = 2;
-constexpr int kBodyTf32x3Wide = 3;
+// The bf16 dK/dV and dQ kernels: their TMA maps, then the launches.
+template <int HD, bool kCausal>
+int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+                 const float* D, float* part, float* dq_part, bf16* dq, int B, int S, int Sk,
+                 int H, int Hk, int splits, int* launched, cudaStream_t stream) {
+  using TK = DkdvTile<HD>;
+  using TQ = DqTile<HD>;
+  const int G = H / Hk;
+  const int P = hopper::folded_positions(G);
+  CUtensorMap q_rows, do_rows, k_map, v_map, q_folded, do_folded;
+  int e;
+  if ((e = hopper::map_rows<HD>(&q_rows, "q", q, B, S, H, TK::kRows)) != 0) return e;
+  if ((e = hopper::map_rows<HD>(&do_rows, "dout", dout, B, S, H, TK::kRows)) != 0) return e;
+  if ((e = hopper::map_rows<HD>(&k_map, "k", k, B, Sk, Hk, 64)) != 0) return e;
+  if ((e = hopper::map_rows<HD>(&v_map, "v", v, B, Sk, Hk, 64)) != 0) return e;
+  if ((e = hopper::map_folded<HD>(&q_folded, "q", q, B, S, Hk, G, P)) != 0) return e;
+  if ((e = hopper::map_folded<HD>(&do_folded, "dout", dout, B, S, Hk, G, P)) != 0) return e;
+  static_assert(TQ::kKeys == 64, "dQ's K/V boxes are dK/dV's: 64 keys");
+
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const float scale_log2 = scale * kLog2e;
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<HD, kCausal>;
+  auto dqk = flash_bwd_dq_wgmma_kernel<HD, kCausal>;
+  cudaError_t err;
+  if ((err = allow_smem(dkdv, TK::kBytes)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = allow_smem(dqk, TQ::kBytes)) != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_kv(static_cast<unsigned>((Sk + TK::kKeys - 1) / TK::kKeys),
+                     static_cast<unsigned>(B * Hk), static_cast<unsigned>(G));
+  dkdv<<<grid_kv, TK::kThreads, TK::kBytes, stream>>>(q_rows, k_map, v_map, do_rows, lse, D,
+                                                      part, B, S, Sk, H, Hk, scale_log2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(static_cast<unsigned>((S + P - 1) / P), static_cast<unsigned>(B * Hk),
+                    static_cast<unsigned>(splits));
+  dqk<<<grid_q, TQ::kThreads, TQ::kBytes, stream>>>(q_folded, k_map, v_map, do_folded, lse, D, dq,
+                                                    dq_part, S, Sk, H, Hk, P, scale, scale_log2);
+  launched[0] = kBodyWgmma;
+  launched[1] = static_cast<int>(grid_q.z);
+  launched[2] = static_cast<int>(grid_kv.x);
+  launched[3] = static_cast<int>(grid_kv.y);
+  launched[4] = static_cast<int>(grid_kv.z);
+  launched[5] = static_cast<int>(grid_q.x);
+  launched[6] = static_cast<int>(grid_q.y);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int HD, bool kCausal, typename T>
-cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* o,
-                         const void* dout, const float* lse, float* D, float* part,
-                         float* dq_part, void* dq, void* dk, void* dv, int B, int S, int Sk,
-                         int H, int Hk, int splits, int* launched, cudaStream_t stream) {
+int launch_typed(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                 const float* lse, float* D, float* part, float* dq_part, void* dq, void* dk,
+                 void* dv, int B, int S, int Sk, int H, int Hk, int splits, int* launched,
+                 cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -1466,21 +1224,21 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const void
   flash_bwd_dot_kernel<T><<<static_cast<unsigned>((n_rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const T*>(o), dot, D, n_rows, S, H, HD);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   const float scale_log2 = scale * kLog2e;
   const unsigned bh = static_cast<unsigned>(B * Hk);
   const int G = H / Hk;
   const int64_t rows = static_cast<int64_t>(S) * G;
-  // The dK/dV and dQ kernels of one body: threads a block, shared memory of
-  // each, keys a dK/dV block; dQ blocks hold 64 rows.
+  // The f32 dK/dV and dQ kernels of one body: threads a block, shared memory
+  // of each; 64 keys a dK/dV block, 64 rows a dQ block.
   const auto run = [&](int body, auto dkdv, auto dqk, int threads, size_t smem_kv,
-                       size_t smem_q, int key_tile) -> cudaError_t {
+                       size_t smem_q) -> cudaError_t {
     cudaError_t e;
     if ((e = allow_smem(dkdv, smem_kv)) != cudaSuccess) return e;
     if ((e = allow_smem(dqk, smem_q)) != cudaSuccess) return e;
-    const dim3 grid_kv(static_cast<unsigned>((Sk + key_tile - 1) / key_tile), bh,
+    const dim3 grid_kv(static_cast<unsigned>((Sk + kMmaTile - 1) / kMmaTile), bh,
                        static_cast<unsigned>(G));
     dkdv<<<grid_kv, threads, smem_kv, stream>>>(qt, kt, vt, dot, lse, D, part, B, S, Sk, H,
                                                 Hk, scale_log2);
@@ -1491,30 +1249,31 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const void
                                              dq_part, S, Sk, H, Hk, scale, scale_log2);
     launched[0] = body;
     launched[1] = static_cast<int>(grid_q.z);
+    launched[2] = static_cast<int>(grid_kv.x);
+    launched[3] = static_cast<int>(grid_kv.y);
+    launched[4] = static_cast<int>(grid_kv.z);
+    launched[5] = static_cast<int>(grid_q.x);
+    launched[6] = static_cast<int>(grid_q.y);
     return cudaGetLastError();
   };
-  // f32 and bf16 each on their tensor-core bodies: 4 warps at hd 32 and 64,
-  // 8 at hd 128 and 160.
-  if constexpr (std::is_same<T, float>::value && HD <= 64) {
-    using L = Tf32Smem<HD, 1>;
-    err = run(kBodyTf32x3, flash_bwd_dkdv_tf32x3_mma_kernel<HD, kCausal>,
-              flash_bwd_dq_tf32x3_mma_kernel<HD, kCausal>, 128, L::kDkdvBytes, L::kDqBytes,
-              kMmaTile);
-  } else if constexpr (std::is_same<T, float>::value) {
-    using L = Tf32Smem<HD, 2>;
-    err = run(kBodyTf32x3Wide, flash_bwd_dkdv_tf32x3_wide_mma_kernel<HD, kCausal>,
-              flash_bwd_dq_tf32x3_wide_mma_kernel<HD, kCausal>, 256, L::kDkdvBytes,
-              L::kDqBytes, kMmaTile);
+  // bf16 on wgmma at every head dim; f32 on 3xTF32 mma.sync, 4 warps at hd
+  // 32 and 64, 8 at hd 128 and 160.
+  int rc;
+  if constexpr (std::is_same<T, bf16>::value) {
+    rc = launch_wgmma<HD, kCausal>(qt, kt, vt, dot, lse, D, part, dq_part, static_cast<bf16*>(dq),
+                                   B, S, Sk, H, Hk, splits, launched, stream);
   } else if constexpr (HD <= 64) {
-    err = run(kBodyMma, flash_bwd_dkdv_mma_kernel<HD, kCausal>,
-              flash_bwd_dq_mma_kernel<HD, kCausal>, kMmaThreads, MmaSmem<HD>::kBytes,
-              MmaSmem<HD>::kBytes, kMmaTile);
+    using L = Tf32Smem<HD, 1>;
+    rc = static_cast<int>(run(kBodyTf32x3, flash_bwd_dkdv_tf32x3_mma_kernel<HD, kCausal>,
+                              flash_bwd_dq_tf32x3_mma_kernel<HD, kCausal>, 128, L::kDkdvBytes,
+                              L::kDqBytes));
   } else {
-    err = run(kBodyWideMma, flash_bwd_dkdv_wide_mma_kernel<HD, kCausal>,
-              flash_bwd_dq_wide_mma_kernel<HD, kCausal>, kWideThreads,
-              WideSmem<HD>::kDkdvBytes, WideSmem<HD>::kDqBytes, kMmaTile);
+    using L = Tf32Smem<HD, 2>;
+    rc = static_cast<int>(run(kBodyTf32x3Wide, flash_bwd_dkdv_tf32x3_wide_mma_kernel<HD, kCausal>,
+                              flash_bwd_dq_tf32x3_wide_mma_kernel<HD, kCausal>, 256,
+                              L::kDkdvBytes, L::kDqBytes));
   }
-  if (err != cudaSuccess) return err;
+  if (rc != 0) return rc;
   // dk and dv: the G shares of each KV head summed in head order; dq, when
   // split, its partials in range order; each cast once.
   const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;
@@ -1523,15 +1282,14 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const void
   flash_bwd_reduce_kernel<T><<<static_cast<unsigned>(red_blocks), 256, 0, stream>>>(
       part, static_cast<T*>(dk), static_cast<T*>(dv), n, G, dq_part, static_cast<T*>(dq), nq,
       splits, scale);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const float* lse, float* D, float* part,
-                      float* dq_part, void* dq, void* dk, void* dv, int B, int S, int Sk, int H,
-                      int Hk, int splits, bool is_bf16, bool causal, int* launched,
-                      cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const float* lse, float* D, float* part, float* dq_part, void* dq, void* dk,
+              void* dv, int B, int S, int Sk, int H, int Hk, int splits, bool is_bf16,
+              bool causal, int* launched, cudaStream_t stream) {
   if (is_bf16) {
     return causal ? launch_typed<HD, true, bf16>(q, k, v, o, dout, lse, D, part, dq_part, dq,
                                                  dk, dv, B, S, Sk, H, Hk, splits, launched,
@@ -1553,27 +1311,31 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  hd: 32, 64, 128 or 160.  q, o, dout and
-// dq are (B, S, H, hd), k, v, dk and dv (B, Sk, Hk, hd), all contiguous; lse
-// and D are f32 (B, H, S), lse from the forward, D scratch; part is f32
-// scratch of 2 * H * B * Sk * hd elements (the heads' dk and dv shares).
-// dq_splits: the key ranges of the dq walk (1 <= dq_splits <= 65535); above
-// 1, dq_part is f32 scratch of dq_splits * B * S * H * hd elements (the
-// ranges' partials), else unused.  H % Hk == 0, B * Hk <= 65535,
-// H / Hk <= 65535; the wrapper checks all of it.  On success launched[0]
-// holds the body the call ran (0 = 3xTF32 mma, 1 = mma, 2 = wide mma, 3 =
-// 3xTF32 wide mma) and
-// launched[1] the key ranges of the dQ grid it launched.
+// dq are (B, S, H, hd), k, v, dk and dv (B, Sk, Hk, hd), all contiguous and
+// 16-byte aligned (TMA's rule for a tensor's base); lse and D are f32 (B, H,
+// S), lse from the forward, D scratch; part is f32 scratch of 2 * H * B * Sk
+// * hd elements (the heads' dk and dv shares).  dq_splits: the key ranges of
+// the dq walk (1 <= dq_splits <= 65535); above 1, dq_part is f32 scratch of
+// dq_splits * B * S * H * hd elements (the ranges' partials), else unused.
+// H % Hk == 0, B * Hk <= 65535, H / Hk <= 64 (bf16: a folded tile holds at
+// least one position); the wrapper checks all of it.  On success launched
+// (int[7]) holds the body the call ran (flash_attention_bwd_body_name), the
+// key ranges of the dQ grid, the dK/dV grid and the dQ grid's x and y.  A
+// TMA descriptor that does not encode returns hopper::kTmaEncodeError, and
+// the error string gives why.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const float* lse, float* D, float* part,
                                float* dq_part, void* dq, void* dk, void* dv, int B, int S,
                                int Sk, int H, int Hk, int hd, int dtype, int causal,
                                int dq_splits, int* launched, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0 || Sk <= 0 || Hk <= 0 || H % Hk != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtype != 0 && dtype != 1) || (dtype == 1 && H / Hk > 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dq_splits < 1 || dq_splits > 65535 || (dq_splits > 1 && dq_part == nullptr) ||
       launched == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1583,29 +1345,30 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      err = launch_hd<32>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
-                          Hk, dq_splits, is_bf16, c, launched, st);
-      break;
+      return launch_hd<32>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H, Hk,
+                           dq_splits, is_bf16, c, launched, st);
     case 64:
-      err = launch_hd<64>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
-                          Hk, dq_splits, is_bf16, c, launched, st);
-      break;
+      return launch_hd<64>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H, Hk,
+                           dq_splits, is_bf16, c, launched, st);
     case 128:
-      err = launch_hd<128>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
-                           Hk, dq_splits, is_bf16, c, launched, st);
-      break;
+      return launch_hd<128>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
+                            Hk, dq_splits, is_bf16, c, launched, st);
     case 160:
-      err = launch_hd<160>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
-                           Hk, dq_splits, is_bf16, c, launched, st);
-      break;
+      return launch_hd<160>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
+                            Hk, dq_splits, is_bf16, c, launched, st);
     default:
-      err = cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }
 
 const char* flash_attention_bwd_error_string(int err) {
+  if (err == hopper::kTmaEncodeError) return hopper::tma_error();
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The name of the body launched[0] reports.
+const char* flash_attention_bwd_body_name(int code) {
+  return code >= 0 && code < 3 ? kBodyNames[code] : "unknown";
 }
 
 }  // extern "C"

@@ -247,7 +247,9 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
 
 
 # The tensor-core body (bf16): every head dim, ragged causal with 8 query
-# heads a KV head, non-causal with S != Sk, and MQA.
+# heads a KV head, non-causal with S != Sk, and MQA; then the wgmma body's
+# padded folded tiles, G = 5 and 7 (60 and 63 real rows of 64) at every head
+# dim, causal and not, ragged S and Sk.
 ATTN_BF16_CASES = [
     (1, 256, 256, 4, 2, 32, True, "bfloat16"),
     (1, 256, 256, 4, 2, 64, True, "bfloat16"),
@@ -256,18 +258,25 @@ ATTN_BF16_CASES = [
     (1, 200, 200, 32, 4, 64, True, "bfloat16"),
     (2, 128, 256, 4, 4, 64, False, "bfloat16"),
     (1, 128, 128, 4, 1, 32, True, "bfloat16"),
-]
+] + [(2, 300, 170, 5 * 2, 2, hd, causal, "bfloat16") for hd in fa.HEAD_DIMS
+     for causal in (True, False)] + [(1, 77, 300, 7, 1, hd, True, "bfloat16")
+                                     for hd in fa.HEAD_DIMS]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ATTN_BF16_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_cuda_flash_attention_tensor_core_body(cuda_device, case):
+    """The wgmma body against the plain version (2e-2); the C entry reports
+    it and the grid ``wgmma_plan`` gives."""
     B, S, Sk, H, Hk, hd, causal, dtype = case
     q, k, v = _qkv(8, B, S, Sk, H, Hk, hd, dtype, cuda_device)
     n0 = dict(fa.BODY_LAUNCHES)
     got = ops.attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa.BODY_LAUNCHES == {"bf16_mma": n0["bf16_mma"] + 1, "tf32x3_mma": n0["tf32x3_mma"]}
+    assert fa.BODY_LAUNCHES == {"bf16_wgmma": n0["bf16_wgmma"] + 1,
+                                "tf32x3_mma": n0["tf32x3_mma"]}
+    assert fa.FWD_LAUNCHED == {"body": "bf16_wgmma", "key_splits": 1,
+                               "grid": fa.wgmma_plan(B, S, Sk, H, Hk, hd)["fwd_grid"]}
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), ref.reference_attention(q, k, v, causal=causal)
                                .float(), atol=2e-2, rtol=2e-2)
@@ -285,7 +294,8 @@ def test_cuda_mixed_dtypes_promote_before_the_kernel(cuda_device):
     n0 = dict(fa.BODY_LAUNCHES)
     got = attn.chunked_attention(q, k, v, causal=False)
     torch.cuda.synchronize()
-    assert fa.BODY_LAUNCHES == {"bf16_mma": n0["bf16_mma"], "tf32x3_mma": n0["tf32x3_mma"] + 1}
+    assert fa.BODY_LAUNCHES == {"bf16_wgmma": n0["bf16_wgmma"],
+                                "tf32x3_mma": n0["tf32x3_mma"] + 1}
     assert got.dtype == torch.bfloat16
     want = ref.reference_attention(q.float(), k, v, causal=False).to(torch.bfloat16)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
@@ -297,8 +307,9 @@ def test_cuda_flash_f32_runs_the_tensor_core_body(cuda_device):
     q, k, v = _qkv(9, 1, 64, 64, 4, 2, 64, "float32", cuda_device)
     n0 = dict(fa.BODY_LAUNCHES)
     fa.flash_attention(q, k, v)
-    assert fa.BODY_LAUNCHES == {"bf16_mma": n0["bf16_mma"], "tf32x3_mma": n0["tf32x3_mma"] + 1}
-    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1}
+    assert fa.BODY_LAUNCHES == {"bf16_wgmma": n0["bf16_wgmma"],
+                                "tf32x3_mma": n0["tf32x3_mma"] + 1}
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1, "grid": (2, 2)}
 
 
 #: f32 at every head dim, causal with G = 2 and ragged, and non-causal with
@@ -348,16 +359,51 @@ def test_cuda_flash_f32_split_walk(cuda_device, case):
     splits = fa.forward_key_splits(torch.float32, B, S, Sk, H, Hk, sms)
     if splits == 1:
         pytest.skip(f"{sms} SMs: this shape's walk is whole")
+    grid = (-(-S * (H // Hk) // fa.DQ_ROW_TILE), B * Hk)
     out, lse = fa._forward(q, k, v, causal, with_lse=True)
-    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": splits}
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": splits, "grid": grid}
     whole_out, whole_lse = fa._forward(q, k, v, causal, with_lse=True, key_splits=1)
-    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1}
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1, "grid": grid}
     torch.cuda.synchronize()
     want = ref.reference_attention(q, k, v, causal=causal)
     torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(whole_out, want, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(lse, whole_lse, atol=1e-5, rtol=1e-5)
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_maps_follow_the_tensors(cuda_device):
+    """The bf16 bodies keep their TMA maps by address and geometry: calls on
+    two sets of tensors of one shape, then on the first set rewritten in
+    place, and the same storage seen as another shape, each read their own
+    operands, forward and backward."""
+    B, S, Sk, H, Hk, hd = 2, 96, 96, 8, 2, 64
+    sets = [_qkv(seed, B, S, Sk, H, Hk, hd, "bfloat16", cuda_device) for seed in (31, 32)]
+    rng = np.random.default_rng(33)
+    dout = torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(np.float32)).to(
+        device=cuda_device, dtype=torch.bfloat16)
+
+    def check(q, k, v, dout):
+        out, lse = fa._forward(q, k, v, True, with_lse=True)
+        got = fa.flash_attention_backward(q, k, v, out, dout, lse, causal=True)
+        torch.cuda.synchronize()
+        want = ref.reference_attention(q, k, v, causal=True)
+        tol = ATTN_TOL["bfloat16"]
+        torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+        for g, w in zip(got, ref.reference_attention_backward(q, k, v, dout, causal=True)):
+            scale = w.float().abs().max().item()
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= ATTN_BWD_TOL["bfloat16"] * scale, f"{err} against max {scale}"
+
+    check(*sets[0], dout)
+    check(*sets[1], dout)
+    for t in sets[0]:
+        t.copy_(t.flip(1))
+    check(*sets[0], dout)
+    q, k, v = sets[0]
+    check(q.view(B, S // 2, 2 * H, hd), k.view(B, Sk // 2, 2 * Hk, hd),
+          v.view(B, Sk // 2, 2 * Hk, hd), dout.view(B, S // 2, 2 * H, hd))
 
 
 @pytest.mark.cuda
@@ -391,7 +437,7 @@ def test_cuda_flash_wrapper_checks_operands(cuda_device):
 # there on the wide tensor-core body; short query sequences whose dQ key
 # walk is split on an H100 (``dq_splits`` > 1): whisper's cross-attention (64
 # x 1500), and causal ones whose later key ranges see no key (zero
-# partials).  Tolerance: max |err| of dq, dk and dv within 1e-4 (f32) or
+# partials); G = 5 and 7, whose bf16 dQ tiles hold padding rows.  Tolerance: max |err| of dq, dk and dv within 1e-4 (f32) or
 # 2e-2 (bf16) of the plain version's max |grad| (f32 sums in another order;
 # bf16 inputs, f32 math, one rounding of each gradient, and the forward's
 # bf16 output in D).
@@ -413,6 +459,10 @@ ATTN_BWD_CASES = [
     (4, 64, 1500, 12, 12, 64, False),
     (2, 64, 1000, 8, 4, 128, True),
     (2, 64, 1000, 8, 4, 160, True),
+    (2, 150, 130, 10, 2, 64, True),
+    (1, 90, 200, 7, 1, 128, False),
+    (1, 130, 130, 14, 2, 160, True),
+    (1, 70, 70, 5, 1, 32, True),
 ]
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -442,10 +492,17 @@ def test_cuda_flash_attention_backward_matches_plain(cuda_device, case, dtype):
         scale = w.float().abs().max().item()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= ATTN_BWD_TOL[dtype] * scale, f"d{name}: {err} against max {scale}"
-    body = ("tf32x3_" if dtype == "float32" else "") + ("mma" if hd <= 64 else "wide_mma")
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert fa.BWD_LAUNCHED == {"body": body,
-                               "dq_splits": fa.dq_splits(B, S, Sk, H, Hk, sms)}
+    G = H // Hk
+    if dtype == "bfloat16":
+        plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd)
+        want = {"body": "wgmma", "dkdv_grid": plan["dkdv_grid"], "dq_grid": plan["dq_grid"]}
+    else:
+        want = {"body": "tf32x3_mma" if hd <= 64 else "tf32x3_wide_mma",
+                "dkdv_grid": (-(-Sk // 64), B * Hk, G),
+                "dq_grid": (-(-S * G // 64), B * Hk)}
+    want["dq_splits"] = fa.backward_dq_splits(getattr(torch, dtype), B, S, Sk, H, Hk, hd, sms)
+    assert fa.BWD_LAUNCHED == want
 
 
 @pytest.mark.cuda

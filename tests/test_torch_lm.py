@@ -154,16 +154,17 @@ def test_reference_attention_matches_jax_flash_bf16(case):
 
 
 def test_flash_bodies_by_dtype_and_reset():
-    """bf16 runs the bf16 tensor-core body, f32 the 3xTF32 one; reset_launches
-    zeroes both counts."""
-    assert tfa.BODIES == {torch.bfloat16: "bf16_mma", torch.float32: "tf32x3_mma"}
+    """bf16 runs the wgmma body, f32 the 3xTF32 one, and their launches are
+    counted under those names; reset_launches zeroes both counts."""
+    assert tfa.BODIES == {torch.bfloat16: "bf16_wgmma", torch.float32: "tf32x3_mma"}
+    assert set(tfa.BODY_LAUNCHES) == set(tfa.BODIES.values())
     tfa.LAUNCHES["flash_attention"] += 2
     tfa.LAUNCHES["flash_attention_bwd"] += 1
-    tfa.BODY_LAUNCHES["bf16_mma"] += 2
+    tfa.BODY_LAUNCHES["bf16_wgmma"] += 2
     tfa.BODY_LAUNCHES["tf32x3_mma"] += 1
     tfa.reset_launches()
     assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
-    assert tfa.BODY_LAUNCHES == {"bf16_mma": 0, "tf32x3_mma": 0}
+    assert tfa.BODY_LAUNCHES == {"bf16_wgmma": 0, "tf32x3_mma": 0}
 
 
 # -------------------------------------------------------------------- modules

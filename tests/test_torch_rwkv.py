@@ -378,8 +378,8 @@ def test_chip_smoke_reads_the_backward_body_from_the_traced_names():
     backward's body from them, as the C entry reports it (``bwd_body``)."""
     cs = _chip_smoke()
     dot, red = "flash_bwd_dot_kernel<bf16>", "flash_bwd_reduce_kernel<bf16>"
-    wide = ["void (anonymous namespace)::flash_bwd_dkdv_wide_mma_kernel<128, true>(...)",
-            "void (anonymous namespace)::flash_bwd_dq_wide_mma_kernel<128, true>(...)"]
+    wide = ["void (anonymous namespace)::flash_bwd_dkdv_wgmma_kernel<128, true>(...)",
+            "void (anonymous namespace)::flash_bwd_dq_wgmma_kernel<128, true>(...)"]
     fake, taken = _fake_profiled_torch([
         [(dot, 2, 10.0)],
         [(dot, 10, 50.0), (wide[0], 10, 600.0), (wide[1], 10, 400.0), (red, 10, 50.0),
@@ -388,10 +388,10 @@ def test_chip_smoke_reads_the_backward_body_from_the_traced_names():
     assert cs.device_ms(fake, lambda: None, 10, "flash_bwd", per_call=4,
                         names=names) == pytest.approx(0.11)
     assert taken[0] == 2 and names == [dot, *wide, red]
-    assert cs.traced_bwd_body(names) == cs.bwd_body("bfloat16", 128) == "wide_mma"
-    assert cs.bwd_body("bfloat16", 160) == "wide_mma"
-    four = ["flash_bwd_dkdv_mma_kernel<64, true>", "flash_bwd_dq_mma_kernel<64, true>"]
-    assert cs.traced_bwd_body(four) == cs.bwd_body("bfloat16", 64) == "mma"
+    assert cs.traced_bwd_body(names) == cs.bwd_body("bfloat16", 128) == "wgmma"
+    assert cs.bwd_body("bfloat16", 160) == "wgmma"
+    four = ["flash_bwd_dkdv_wgmma_kernel<64, true>", "flash_bwd_dq_wgmma_kernel<64, true>"]
+    assert cs.traced_bwd_body(four) == cs.bwd_body("bfloat16", 64) == "wgmma"
     tf32 = ["flash_bwd_dkdv_tf32x3_mma_kernel<64, false>",
             "flash_bwd_dq_tf32x3_mma_kernel<64, false>"]
     assert cs.traced_bwd_body(tf32) == cs.bwd_body("float32", 64) == "tf32x3_mma"
@@ -399,7 +399,7 @@ def test_chip_smoke_reads_the_backward_body_from_the_traced_names():
                  "flash_bwd_dq_tf32x3_wide_mma_kernel<160, true>"]
     assert cs.traced_bwd_body(tf32_wide) == cs.bwd_body("float32", 160) == "tf32x3_wide_mma"
     assert cs.traced_bwd_body([dot, red]) is None
-    assert cs.traced_bwd_body([tf32[0], four[1]]) == "mma+tf32x3_mma"
+    assert cs.traced_bwd_body([tf32[0], four[1]]) == "tf32x3_mma+wgmma"
 
 
 def test_wkv_reset_launches_zeroes_every_count():
