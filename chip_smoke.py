@@ -986,16 +986,20 @@ def phase_flash(torch, rate, name, records):
             q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dt)
             k = torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
             v = torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
-            fa.FWD_LAUNCHED.update(body=None, key_splits=None, grid=None)
+            fa.FWD_LAUNCHED.update(body=None, key_splits=None, grid=None, blocks=None)
             got = fa.flash_attention(q, k, v, causal=causal)
             launched = dict(fa.FWD_LAUNCHED)
             want = ref.reference_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            asked = {"body": fa.BODIES[dt],
-                     "key_splits": fa.forward_key_splits(dt, B, S, Sk, H, Hk, sms),
-                     "grid": (fa.wgmma_plan(B, S, Sk, H, Hk, hd)["fwd_grid"]
-                              if dt == torch.bfloat16
-                              else (-(-S * (H // Hk) // fa.DQ_ROW_TILE), B * Hk))}
+            splits = fa.forward_key_splits(dt, B, S, Sk, H, Hk, sms)
+            if dt == torch.bfloat16:  # the persistent blocks walking the row tiles
+                plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd, causal=causal, sms=sms)
+                grid, blocks = plan["fwd_grid"], plan["fwd_blocks"]
+            else:
+                grid = (-(-S * (H // Hk) // fa.DQ_ROW_TILE), B * Hk)
+                blocks = grid[0] * grid[1] * splits
+            asked = {"body": fa.BODIES[dt], "key_splits": splits, "grid": grid,
+                     "blocks": blocks}
             check(launched == asked, f"flash_attention {case}: the C entry launched "
                   f"{launched}, not {asked}")
             check(got.shape == q.shape and got.dtype == q.dtype,
@@ -1944,24 +1948,27 @@ def bwd_body(dtype: str, hd: int) -> str:
     return "tf32x3_mma" if hd <= 64 else "tf32x3_wide_mma"
 
 
-def bwd_launch(dt, B, S, Sk, H, Hk, hd, sms) -> dict:
+def bwd_launch(dt, B, S, Sk, H, Hk, hd, causal, sms) -> dict:
     """What the backward's C entry should report for a call: the body, the
-    dQ grid's key ranges, the dK/dV grid (64 keys a block: bf16's one
-    consumer warpgroup, f32's four warps) and the dQ grid (``wgmma_plan``'s
-    padded folded tiles for bf16, 64 folded rows for f32)."""
+    dQ grid's key ranges, the dK/dV grid (64 keys a block; bf16's head
+    groups of ``wgmma_plan``, f32's one head a block), the dQ grid
+    (``wgmma_plan``'s padded folded tiles for bf16, 64 folded rows for f32)
+    and the kernels launched (``bwd_kernels``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     G = H // Hk
     if dt == torch.bfloat16:
-        plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd)
+        plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd, causal=causal, sms=sms)
         grids = {"dkdv_grid": plan["dkdv_grid"], "dq_grid": plan["dq_grid"]}
     else:
         grids = {"dkdv_grid": (-(-Sk // 64), B * Hk, G),
                  "dq_grid": (-(-S * G // fa.DQ_ROW_TILE), B * Hk)}
+    splits = fa.backward_dq_splits(dt, B, S, Sk, H, Hk, hd, sms)
     return {"body": bwd_body("bfloat16" if dt == torch.bfloat16 else "float32", hd),
-            "dq_splits": fa.backward_dq_splits(dt, B, S, Sk, H, Hk, hd, sms), **grids}
+            "dq_splits": splits, **grids,
+            "kernels": fa.bwd_kernels(dt, grids["dkdv_grid"][2], splits)}
 
 
 def traced_bwd_body(names):
@@ -1986,10 +1993,11 @@ def attn_bwd_work(B, S, Sk, H, Hk, hd, causal, itemsize):
 def phase_flash_bwd(torch, rate, name, records):
     """The backward kernels against the plain version's autograd gradient on
     every case, in f32 and bf16 (the families' training shapes in the dtype
-    each trains in); per case the device time per call (its
-    ``BWD_KERNELS_PER_CALL`` kernels), the plain version's, SDPA's backward
-    (training shapes) and the bound.  Returns the summary at the training
-    shape (bf16)."""
+    each trains in), and a second call on the same inputs bit-equal to the
+    first (no atomics: the gradients are deterministic); per case the device
+    time per call (the kernels its C entry reports it launched), the plain
+    version's, SDPA's backward (training shapes) and the bound.  Returns the
+    summary at the training shape (bf16)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2011,15 +2019,21 @@ def phase_flash_bwd(torch, rate, name, records):
             k, v = (torch.randn((B, Sk, Hk, hd), generator=gen, device=dev).to(dt)
                     for _ in range(2))
             out, lse = fa._forward(q, k, v, causal, with_lse=True)
-            fa.BWD_LAUNCHED.update(body=None, dq_splits=None, dkdv_grid=None, dq_grid=None)
+            fa.BWD_LAUNCHED.update(body=None, dq_splits=None, dkdv_grid=None, dq_grid=None,
+                                   kernels=None)
             got = fa.flash_attention_backward(q, k, v, out, do, lse, causal=causal)
             launched = dict(fa.BWD_LAUNCHED)
-            asked = bwd_launch(dt, B, S, Sk, H, Hk, hd, sms)
+            asked = bwd_launch(dt, B, S, Sk, H, Hk, hd, causal, sms)
             check(launched == asked, f"flash_attention_bwd {case} {dtype}: the C entry "
                   f"launched {launched}, not {asked}")
+            again = fa.flash_attention_backward(q, k, v, out, do, lse, causal=causal)
             want = ref.reference_attention_backward(q, k, v, do, causal=causal)
             torch.cuda.synchronize()
             errs = {}
+            for gname, g, a in zip(("dq", "dk", "dv"), got, again):
+                check(torch.equal(g, a), f"flash_attention_bwd {case} {dtype}: {gname} of "
+                      "two calls on the same inputs differ")
+            del again
             for gname, g, w in zip(("dq", "dk", "dv"), got, want):
                 check(g.shape == w.shape and g.dtype == w.dtype,
                       f"flash_attention_bwd {case} {dtype}: {gname} {tuple(g.shape)} "
@@ -2038,7 +2052,7 @@ def phase_flash_bwd(torch, rate, name, records):
                    "dtype": dtype, "max_abs_err": max(errs.values()), "errs": errs,
                    "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "kernels_per_call": fa.BWD_KERNELS_PER_CALL, **launched}
+                   "kernels_per_call": launched["kernels"], **launched}
             fns = {"": lambda: fa.flash_attention_backward(q, k, v, out, do, lse,
                                                            causal=causal),
                    "plain_": lambda: ref.reference_attention_backward(q, k, v, do,
@@ -2056,7 +2070,7 @@ def phase_flash_bwd(torch, rate, name, records):
             for key, fn in fns.items():
                 call = cuda_ms(torch, fn, iters)
                 dev_ms = device_ms(torch, fn, iters, "flash_bwd" if key == "" else None,
-                                   per_call=fa.BWD_KERNELS_PER_CALL if key == "" else 1,
+                                   per_call=launched["kernels"] if key == "" else 1,
                                    names=traced if key == "" else None)
                 rec[key + "ms"] = call if dev_ms is None else dev_ms
                 rec[key + "ms_from"] = "events" if dev_ms is None else "profiler"
@@ -2093,7 +2107,7 @@ def phase_flash_bwd(torch, rate, name, records):
         # One backward call at the training shape (all its kernels).
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "kernels_per_call": fa.BWD_KERNELS_PER_CALL,
+        "kernels_per_call": main["kernels"],
         # The families' shapes: phases 30-32's, llama4's, stablelm-12b's (one
         # call each, as above), with the body and the dQ key ranges the C
         # entry reported, and the body the trace's kernel names show.

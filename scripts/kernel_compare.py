@@ -22,18 +22,23 @@ and ``host_ms``.  Kernels (``CASES``):
   kernels a call.
 - ``attn_fwd``: ``flash_attention.flash_attention`` at ``chip_smoke.py``'s
   ``ATTN_FAMILY_CASES`` and ``ATTN_MAIN`` (whisper's f32 encoder and
-  cross-attention, the bf16 families' layers, tinyllama's prefill layer)
-  and ``ATTN_LARGE`` (one 8192-token causal prefill layer);
-  device time of the kernels named ``flash_fwd*`` a call (the body, and the
-  merge kernel where the f32 walk is split), the key ranges, max |err|
-  against ``ref.reference_attention``, the host time a call spends
-  enqueueing (``least_host_ms``; bf16 calls make their TMA maps there), and
-  SDPA's time on the same inputs in the same process.
+  cross-attention, the bf16 families' layers, tinyllama's prefill layer),
+  ``ATTN_LARGE`` (one 8192-token causal prefill layer) and ``ATTN_FWD_EXTRA``
+  (stablelm-12b's hd 160 layer); device time of the kernels named
+  ``flash_fwd*`` a call (the body, and the merge kernel where the f32 walk
+  is split), the key ranges, max |err| against ``ref.reference_attention``,
+  the host time a call spends enqueueing (``least_host_ms``; bf16 calls
+  make their TMA maps there), and SDPA's time on the same inputs in the
+  same process, by the same clock (``library_ms``: profiler device time of
+  all its kernels a call) and by CUDA events around the calls
+  (``library_call_ms``).
 - ``attn_bwd``: ``flash_attention.flash_attention_backward`` at the shapes
   the training phases of ``chip_smoke.py`` run; device time of the kernels
-  named ``flash_bwd*`` a call, and of each of its four kernels, each over
-  its own traced launches, its host time, and SDPA's backward on the same
-  inputs.
+  named ``flash_bwd*`` a call (as many a call as its C entry reports it
+  launched, ``BWD_LAUNCHED["kernels"]``; 4 in a tree before that report),
+  and of each kernel of ``ATTN_BWD_KINDS`` the call launched, each over its
+  own traced launches, its host time, and SDPA's backward on the same
+  inputs by both clocks, as for ``attn_fwd``.
 - ``wkv_bwd``: ``rwkv_scan.rwkv_scan_backward`` at the training shape of
   ``chip_smoke.py``'s phase 28 (one rwkv6-7b layer of a 1 x 512
   micro-batch, bf16 r/k/v/dy with f32 decays, from the zero state), with
@@ -83,6 +88,9 @@ ATTN_BWD_SHAPES = {
 }
 ATTN_BWD_ITERS = 20
 ATTN_FWD_ITERS = 20
+#: attn_fwd cases beside chip_smoke's: stablelm-12b's layer (32/8 heads of
+#: 160, causal, bf16) at the LM phase's batch.
+ATTN_FWD_EXTRA = [(4, 512, 512, 32, 8, 160, True, "bfloat16")]
 #: attn_fwd / attn_bwd host time: the least of HOST_REPEATS readings of
 #: HOST_ITERS calls (the host clock of a shared machine only adds to a
 #: call's own cost).
@@ -96,21 +104,24 @@ WKV_BWD_SHAPES = {
     "train_mixed_1e-30": ((1, 512, 64, 64), "mixed", "1e-30"),
 }
 WKV_BWD_ITERS = 20
+#: The backward's kernels, by the part of their names after ``flash_bwd_``;
+#: the reduce runs only where there are shares or partials to sum.
 ATTN_BWD_KINDS = ("dot", "dkdv", "dq", "reduce")
 #: name -> (kernel, file under src/, text, replacement[, file, text,
 #: replacement ...]): edits of a tree.
 VARIANTS = {
-    # The bf16 forward's K/V tiles at 64 keys at every head dim.
-    "fwd_keys_64": ("attn_fwd", "repro_torch/kernels/csrc/flash_attention.cu",
-                    "static constexpr int kKeys = HD <= 64 ? 128 : 64;",
-                    "static constexpr int kKeys = 64;"),
-    # Three consumer warpgroups a forward block at hd 32 and 64, 64 keys a tile.
-    "fwd_three_consumers": ("attn_fwd", "repro_torch/kernels/csrc/flash_attention.cu",
-                            "static constexpr int kConsumers = 2;",
-                            "static constexpr int kConsumers = HD <= 64 ? 3 : 2;",
-                            "repro_torch/kernels/csrc/flash_attention.cu",
-                            "static constexpr int kKeys = HD <= 64 ? 128 : 64;",
-                            "static constexpr int kKeys = 64;"),
+    # The bf16 forward's K/V tiles at 128 keys at every head dim, which the
+    # consumers' 240 registers hold (64 at hd 128 and 160 measured faster).
+    "fwd_keys_128": ("attn_fwd", "repro_torch/kernels/csrc/flash_attention.cu",
+                     "static constexpr int kKeys = HD <= 64 ? 128 : 64;",
+                     "static constexpr int kKeys = 128;"),
+    # The bf16 forward with one block a row tile instead of a persistent grid.
+    "fwd_not_persistent": ("attn_fwd", "repro_torch/kernels/csrc/flash_attention.cu",
+                           "const int blocks = sms > 0 && sms < items ? sms : items;",
+                           "const int blocks = items;",
+                           "repro_torch/kernels/flash_attention.py",
+                           '"fwd_blocks": min(row_tiles * B * Hk, sms),',
+                           '"fwd_blocks": row_tiles * B * Hk,'),
     # The bf16 forward's TMA maps encoded by the driver at every call, none
     # kept (host time).
     "fwd_maps_uncached": ("attn_fwd", "repro_torch/kernels/csrc/hopper_wgmma.cuh",
@@ -123,6 +134,22 @@ VARIANTS = {
     "bwd_dkdv_rows_32": ("attn_bwd", "repro_torch/kernels/csrc/flash_attention_bwd.cu",
                          "static constexpr int kRows = HD <= 64 ? 64 : 32;",
                          "static constexpr int kRows = 32;"),
+    # The bf16 dK/dV kernel as one consumer warpgroup and a producer warp at
+    # every head dim, two blocks an SM where the registers allow it (hd <=
+    # 128), the head groups planned for that.
+    "bwd_dkdv_two_blocks": ("attn_bwd", "repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "static constexpr int kConsumers = HD <= 64 ? 2 : 1;",
+                            "static constexpr int kConsumers = 1;",
+                            "repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "__launch_bounds__(DkdvTile<HD>::kThreads, 1)",
+                            "__launch_bounds__(DkdvTile<HD>::kThreads, HD <= 128 ? 2 : 1)",
+                            "repro_torch/kernels/flash_attention.py",
+                            "    return 2 if hd <= 64 else 1\n", "    return 1\n",
+                            "repro_torch/kernels/flash_attention.py",
+                            "/ (sms * C)", "/ (sms * C * (2 if hd <= 128 else 1))"),
+    # The bf16 dK/dV grid with one head a block, G shares.
+    "bwd_dkdv_heads_each": ("attn_bwd", "repro_torch/kernels/flash_attention.py",
+                            "    return -(-G // per)\n", "    return G\n"),
     # The range kernel of the WKV backward free of the two-blocks-an-SM
     # register cap (one block an SM, no spill).
     "wkv_bwd_one_block": ("wkv_bwd", "repro_torch/kernels/csrc/rwkv_scan_bwd.cu",
@@ -200,7 +227,7 @@ def attn_fwd_cases(torch, src: Path, only) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for case in [*cs.ATTN_FAMILY_CASES, cs.ATTN_MAIN, cs.ATTN_LARGE]:
+    for case in [*cs.ATTN_FAMILY_CASES, cs.ATTN_MAIN, cs.ATTN_LARGE, *ATTN_FWD_EXTRA]:
         B, S, Sk, H, Hk, hd, causal, dtype = case
         name = f"{dtype}_{B}x{S}x{Sk}_{H}-{Hk}_hd{hd}{'_causal' if causal else ''}"
         if only and name not in only:
@@ -219,12 +246,16 @@ def attn_fwd_cases(torch, src: Path, only) -> dict:
         per_call = 2 if launched.get("key_splits", 1) > 1 else 1
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         it = ATTN_FWD_ITERS
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
         out[name] = {
             "device_ms": cs.device_ms(torch, fn, it, "flash_fwd", per_call=per_call),
             "call_ms": cs.cuda_ms(torch, fn, it),
             "host_ms": least_host_ms(torch, fn),
-            "library_ms": cs.cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), it),
+            "library_ms": cs.device_ms(torch, sdpa, it),
+            "library_call_ms": cs.cuda_ms(torch, sdpa, it),
             "max_abs_err": err,
             "launched": launched,
         }
@@ -257,21 +288,28 @@ def attn_bwd_cases(torch, src: Path, only) -> dict:
         def fn():
             return fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal)
 
+        fn()
+        launched = dict(getattr(fa, "BWD_LAUNCHED", {}))
+        per_call = launched.get("kernels") or 4
+        kinds = ATTN_BWD_KINDS if per_call == 4 else ATTN_BWD_KINDS[:per_call]
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                   enable_gqa=True)
         dot = do.transpose(1, 2).contiguous()
         it = ATTN_BWD_ITERS
+
+        def sdpa():
+            return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True)
+
         out[name] = {
-            "device_ms": cs.device_ms(torch, fn, it, "flash_bwd",
-                                      per_call=fa.BWD_KERNELS_PER_CALL),
+            "device_ms": cs.device_ms(torch, fn, it, "flash_bwd", per_call=per_call),
             "kinds_ms": {kind: cs.device_ms(torch, fn, it, f"flash_bwd_{kind}_")
-                         for kind in ATTN_BWD_KINDS},
+                         for kind in kinds},
             "call_ms": cs.cuda_ms(torch, fn, it),
             "host_ms": least_host_ms(torch, fn),
-            "library_ms": cs.cuda_ms(torch, lambda: torch.autograd.grad(
-                sdpa_out, (qt, kt, vt), dot, retain_graph=True), it),
-            "launched": dict(getattr(fa, "BWD_LAUNCHED", {})),
+            "library_ms": cs.device_ms(torch, sdpa, it),
+            "library_call_ms": cs.cuda_ms(torch, sdpa, it),
+            "launched": launched,
         }
         del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, dot
         torch.cuda.empty_cache()
@@ -405,6 +443,8 @@ def main() -> int:
                 extra += f" {r['launched']}"
             if "library_ms" in r:
                 extra += f"  sdpa {_fmt(r['library_ms'])} us"
+                if "library_call_ms" in r:
+                    extra += f" (events {_fmt(r['library_call_ms']).strip()})"
             if "launches_a_call" in r:
                 extra = f"  launches {r['launches_a_call']:2d}"
             if "host_ms" in r:

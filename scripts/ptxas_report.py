@@ -5,7 +5,8 @@
 Compiles each source of ``repro_torch.kernels.build.SOURCES`` with the
 port's own nvcc flags plus ``-Xptxas -v`` into a temporary directory, all
 sources at once, and prints per kernel instantiation its registers, stack
-frame and spill bytes.  With ``--sass`` it also disassembles each library
+frame and spill bytes, and every warning (ptxas's C7508 says it ignored a
+``setmaxnreg``).  With ``--sass`` it also disassembles each library
 (``cuobjdump -sass``) and prints per kernel the count of each instruction
 family in ``SASS_OPS``: tensor-core products (HMMA of ``mma.sync``, HGMMA
 of ``wgmma``), shared-memory fragment loads (LDSM), ``cp.async`` copies
@@ -69,7 +70,7 @@ def main() -> int:
             rc |= proc.returncode
             for line in log.splitlines():
                 if ("Compiling entry function" in line or "registers" in line
-                        or "spill" in line or proc.returncode):
+                        or "spill" in line or "warning" in line or proc.returncode):
                     print(line.strip())
         if args.sass and not rc:
             dump = Path(exe).parent / "cuobjdump"

@@ -23,21 +23,32 @@
 // (the body before, Ampere's route) cannot reach: each of its warps re-read
 // its B fragments from shared memory for every 16 x 16 product.  What the
 // design does:
-//   * one block per (batch, KV head, 2 x P positions): two consumer
-//     warpgroups of 64 folded rows each and a producer warp.  A folded row
-//     is (position, group member), the G query heads of one KV head side by
-//     side as the TPU kernel folds them, so each K/V tile is read once for
-//     all G heads;
+//   * a row tile is (batch, KV head, 2 x P positions): two consumer
+//     warpgroups of 64 folded rows each.  A folded row is (position, group
+//     member), the G query heads of one KV head side by side as the TPU
+//     kernel folds them, so each K/V tile is read once for all G heads;
+//   * the grid is persistent: one block an SM walks the row tiles, heaviest
+//     first (causal), dealt to the blocks back and forth so their sums of
+//     work even out, so one tile's last products, softmax and stores run
+//     under the next tile's Q and first K/V loads, and no block pays a
+//     launch and an empty ring;
+//   * a producer warpgroup, one thread of which issues every copy, lowers
+//     itself to 24 registers a thread with setmaxnreg and the consumers rise
+//     to 240 (hopper_wgmma.cuh), which hold S, P and O for 128-key tiles at
+//     every head dim (the 168 of the whole block held 64 at hd 128 and
+//     160); the tiles are 128 keys at hd 32 and 64, 64 above, which
+//     measured faster there;
 //   * TMA cannot gather rows one by one, so a warpgroup's Q tile is one box
 //     of a 5-D view (hd, G, Hk, S, B) of q, box (atom columns, G, 1, P, 1)
 //     with P = 64 / G whole positions: for G = 5 and 7 a tile holds 60 and 63
 //     real rows, and the padding rows, which no box fills, are zeroed once,
-//     get no weight and are never stored; the output goes back through the
-//     same box, which clips positions past S;
-//   * K and V tiles of kKeys keys (a 4-D view (hd, Hk, Sk, B)) stream
-//     through a ring of three stages that the producer warp keeps full under
-//     mbarriers (full: the copy's bytes arrived; empty: every consumer warp
-//     is done); TMA's zero fill past Sk replaces the copies' zero fill;
+//     get no weight and are never stored.  A warpgroup's Q is released once
+//     its last S = Q K^T is done, and the output goes from registers to
+//     global memory, so the next tile's Q loads under this tile's end;
+//   * K and V tiles (a 4-D view (hd, Hk, Sk, B)) stream through a ring of
+//     three stages that runs on across row tiles,
+//     under mbarriers (full: the copy's bytes arrived; empty: every consumer
+//     warp is done); TMA's zero fill past Sk replaces the copies' zero fill;
 //   * tiles are laid out by TMA's 128-byte swizzle in atoms of 64 columns
 //     (64-byte swizzle and 32 columns at hd 32 and 160): hd 128 is two atoms
 //     along K.  S = Q K^T is an ss wgmma (both K-major); O += P V an rs
@@ -46,9 +57,10 @@
 //   * the online softmax runs on the wgmma accumulator layout in f32
 //     registers (row max and sum over quads, exp2 with the scale folded);
 //     tile kt's Q K^T is issued with tile kt-1's P V, and the softmax of kt
-//     runs while P V is in flight;
-//   * each warpgroup stops at its own causal limit; causal blocks run
-//     heaviest first; masks only on tiles that straddle a limit.
+//     runs while P V is in flight, and the other warpgroup's products run
+//     under it;
+//   * each warpgroup stops at its own causal limit; masks only on tiles
+//     that straddle a limit.
 // f32 (flash_fwd_tf32x3_mma_kernel; whisper's encoder and cross-attention,
 // whose f32 frames JAX promotes): FlashAttention-2 on mma.sync.m16n8k8 TF32
 // in 3xTF32, one block per (batch, KV head, 64 folded rows), 4 warps of 16
@@ -100,7 +112,8 @@
 // them as __grid_constant__ parameters, enqueues on the caller's stream, does
 // not synchronise and allocates nothing (the split walk's partials come from
 // the wrapper); the return value is cudaGetLastError() right after the
-// launches, or hopper::kTmaEncodeError.
+// launches, hopper::kTmaEncodeError, or hopper::kHandOverError (a build whose
+// registers setmaxnreg's hand-over cannot count on).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,38 +139,75 @@ using hopper::smem_u32;
 
 // The bf16 body's tiles: kConsumers warpgroups of 64 folded rows each (one Q
 // box of P positions x G heads), K/V tiles of kKeys keys in a ring of
-// kStages, a producer warp.  Three stages: a stage is released only once
-// the P V that overlaps the next tile's softmax is done, so two would leave
-// the next load no time.  Shared memory, each tile 1024-byte aligned:
-// Q[kConsumers], K[kStages], V[kStages], then the mbarriers.  ptxas gives
-// this block 168 registers a thread (with setmaxnreg too, measured), which
-// hold S, P and O for 128 keys at hd 32 and 64, and for 64 keys above.
+// kStages, a producer warpgroup that hands its registers to the consumers
+// (hopper_wgmma.cuh: 168 a thread at launch, 240 a consumer thread after),
+// which hold S, P and O for 128 keys at every head dim; at hd 128 and 160
+// 64-key tiles measured faster all the same (scripts/kernel_compare.py
+// --variant fwd_keys_128).  Three stages where they fit (a stage is
+// released only once the P V that overlaps the next tile's softmax is
+// done, so two leave the next load less time), else two.  Shared memory, each tile 1024-byte aligned: Q[kConsumers],
+// K[kStages], V[kStages], then the mbarriers.
 template <int HD>
 struct FwdTile {
   static constexpr int kConsumers = 2;
-  static constexpr int kThreads = 128 * kConsumers + 32;
+  static constexpr int kThreads = hopper::kHandOverThreads;
   static constexpr int kKeys = HD <= 64 ? 128 : 64;
-  static constexpr int kStages = 3;
   static constexpr int kQBytes = 64 * HD * 2;
   static constexpr int kKVBytes = kKeys * HD * 2;
-  static constexpr size_t kBytes =
-      1024 + kConsumers * kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 2 * kStages);
+  static constexpr int kBarBytes = 8 * (2 * kConsumers + 2 * 3);
+  static constexpr int kStages =
+      1024 + kConsumers * kQBytes + 2 * 3 * kKVBytes + kBarBytes <= 232448 ? 3 : 2;
+  static constexpr size_t kBytes = 1024 + kConsumers * kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+  static_assert(kThreads == 128 * (kConsumers + 1), "a producer warpgroup and the consumers");
   static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
-// One consumer warpgroup's walk: 64 folded rows from position p0 (rows r <
-// P * G real), key tiles [0, n_mine) of the block's n_tiles computed, the
-// rest only released.  The products of one tile overlap the softmax of the
-// next: tile kt's S = Q K^T is issued with tile kt-1's O += P V, and the
-// softmax of S runs while P V is in flight.
+// A row tile of the grid (kConsumers * P positions of one (batch, KV head)):
+// item j of the causal order is row tile row_tiles - 1 - j / n_bh (heaviest
+// first), (batch, KV head) j % n_bh; the full order runs the tiles upwards.
+struct FwdItem {
+  int b, kvh, p0, n_tiles;
+};
+
+// The item of round k of block x's walk, the rounds dealt back and forth
+// (x, then gridDim.x - 1 - x, ...) so each block's heavy and light tiles
+// even out; >= items when the walk is over.
+__device__ __forceinline__ int fwd_walk(int k) {
+  const int n = static_cast<int>(gridDim.x);
+  const int x = static_cast<int>(blockIdx.x);
+  return k * n + ((k & 1) ? n - 1 - x : x);
+}
+
+template <int HD, bool kCausal>
+__device__ __forceinline__ FwdItem fwd_item(int j, int n_bh, int Hk, int row_tiles, int per_tile,
+                                            int S, int Sk) {
+  constexpr int kKeys = FwdTile<HD>::kKeys;
+  const int t = j / n_bh;
+  const int bh = j % n_bh;
+  FwdItem it;
+  it.b = bh / Hk;
+  it.kvh = bh % Hk;
+  it.p0 = (kCausal ? row_tiles - 1 - t : t) * per_tile;
+  it.n_tiles = (Sk + kKeys - 1) / kKeys;
+  if (kCausal) it.n_tiles = min(it.n_tiles, (min(it.p0 + per_tile, S) - 1) / kKeys + 1);
+  return it;
+}
+
+// One consumer warpgroup's walk over the block's items: for each, 64 folded
+// rows from position p0 (rows r < P * G real), key tiles [0, n_mine) of the
+// item's n_tiles computed, the rest only released.  The products of one
+// tile overlap the softmax of the next: tile kt's S = Q K^T is issued with
+// tile kt-1's O += P V, and the softmax of S runs while P V is in flight.
+// Q is released as soon as its last S product is done, so the producer
+// loads the next item's Q under this item's last softmax, P V and stores;
+// the output goes from registers straight to global memory.
 template <int HD, bool kCausal>
 __device__ __forceinline__ void fwd_consumer(uint8_t* Qw, const uint8_t* Ks, const uint8_t* Vs,
-                                             uint64_t* q_full, uint64_t* full, uint64_t* empty,
-                                             const CUtensorMap* o_map, float* lse, int b,
-                                             int kvh, int p0, int n_tiles, int S, int Sk,
-                                             int H, int G, int P, float scale_log2) {
+                                             uint64_t* q_full, uint64_t* q_empty, uint64_t* full,
+                                             uint64_t* empty, bf16* __restrict__ out,
+                                             float* __restrict__ lse, int S, int Sk, int H, int Hk,
+                                             int n_bh, int row_tiles, int P, float scale_log2) {
   using T = FwdTile<HD>;
-  using A = hopper::Atoms<HD>;
   constexpr int kKeys = T::kKeys;
   constexpr int kStages = T::kStages;
   const int t = threadIdx.x % 128;
@@ -166,8 +216,10 @@ __device__ __forceinline__ void fwd_consumer(uint8_t* Qw, const uint8_t* Ks, con
   const int lane = t % 32;
   const int g = lane >> 2;
   const int c4 = lane & 3;
+  const int G = H / Hk;
   const int rows_real = P * G;
-  if (rows_real < 64) {  // padding rows no box fills: zero, so they stay finite
+  const int per_tile = T::kConsumers * P;
+  if (rows_real < 64) {  // padding rows no box fills: zero once, so they stay finite
     for (int i = t; i < (64 - rows_real) * (HD / 8); i += 128) {
       const int r = rows_real + i / (HD / 8);
       *reinterpret_cast<uint4*>(Qw + hopper::swizzled<HD>(64, r, (i % (HD / 8)) * 8)) =
@@ -177,191 +229,201 @@ __device__ __forceinline__ void fwd_consumer(uint8_t* Qw, const uint8_t* Ks, con
   }
   hopper::bar_sync(1 + wg, 128);
 
-  // This thread's rows r0 = 16 warp + g and r0 + 8.
-  int row[2], pos[2];
-  bool ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row[i] = 16 * warp + g + 8 * i;
-    pos[i] = p0 + row[i] / G;
-    ok[i] = row[i] < rows_real && pos[i] < S;
-  }
-  int n_mine = p0 < S ? n_tiles : 0;
-  if (kCausal && p0 < S) n_mine = min(n_tiles, (min(p0 + P, S) - 1) / kKeys + 1);
-
   float o[HD / 2];
-  hopper::zero(o);
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
   float s[kKeys / 2];
   uint32_t pa[kKeys / 16][4];
+  float m[2], l[2];
   const uint32_t q_addr = smem_u32(Qw);
-  const auto k_addr = [&](int kt) { return smem_u32(Ks + (kt % kStages) * T::kKVBytes); };
-  const auto v_addr = [&](int kt) { return smem_u32(Vs + (kt % kStages) * T::kKVBytes); };
-  const auto issue_s = [&](int kt) {  // S = Q K^T of tile kt, one commit group
+  int kv = 0;  // ring slots this warpgroup consumed before the item
+  for (int li = 0, j = fwd_walk(0); j < row_tiles * n_bh; j = fwd_walk(++li)) {
+    const FwdItem it = fwd_item<HD, kCausal>(j, n_bh, Hk, row_tiles, per_tile, S, Sk);
+    const int p0 = it.p0 + wg * P;
+    // This thread's rows r0 = 16 warp + g and r0 + 8.
+    int row[2], pos[2];
+    bool ok[2];
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      hopper::Mma<kKeys, 0>::ss(s, hopper::desc_k<HD>(q_addr, 64, kk),
-                                hopper::desc_k<HD>(k_addr(kt), kKeys, kk), kk > 0);
+    for (int i = 0; i < 2; ++i) {
+      row[i] = 16 * warp + g + 8 * i;
+      pos[i] = p0 + row[i] / G;
+      ok[i] = row[i] < rows_real && pos[i] < S;
     }
-    hopper::commit();
-  };
-  const auto issue_pv = [&](int kt) {  // O += P V of tile kt, one commit group
+    int n_mine = p0 < S ? it.n_tiles : 0;
+    if (kCausal && p0 < S) n_mine = min(it.n_tiles, (min(p0 + P, S) - 1) / kKeys + 1);
+
+    const auto slot = [&](int kt) { return (kv + kt) % kStages; };
+    const auto parity = [&](int kt) { return static_cast<uint32_t>(((kv + kt) / kStages) & 1); };
+    const auto k_addr = [&](int kt) { return smem_u32(Ks + slot(kt) * T::kKVBytes); };
+    const auto v_addr = [&](int kt) { return smem_u32(Vs + slot(kt) * T::kKVBytes); };
+    const auto issue_s = [&](int kt) {  // S = Q K^T of tile kt, one commit group
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-      hopper::Mma<HD, 1>::rs(o, pa[kk], hopper::desc_mn<HD>(v_addr(kt), kKeys, kk), 1);
-    }
-    hopper::commit();
-  };
-  // Online softmax of tile kt's S in the log2 domain, in place (P in f32);
-  // masks only on straddling tiles.  The row max is taken on the raw scores
-  // (the scale is positive) and the scale folded into one FFMA before the
-  // exp2.  Returns each row's rescale of O in corr.
-  const auto softmax = [&](int kt, float (&corr)[2]) {
-    const int k0 = kt * kKeys;
-    if ((kCausal && k0 + kKeys - 1 > p0) || k0 + kKeys > Sk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        hopper::Mma<kKeys, 0>::ss(s, hopper::desc_k<HD>(q_addr, 64, kk),
+                                  hopper::desc_k<HD>(k_addr(kt), kKeys, kk), kk > 0);
+      }
+      hopper::commit();
+    };
+    const auto issue_pv = [&](int kt) {  // O += P V of tile kt, one commit group
 #pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) {
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        hopper::Mma<HD, 1>::rs(o, pa[kk], hopper::desc_mn<HD>(v_addr(kt), kKeys, kk), 1);
+      }
+      hopper::commit();
+    };
+    // Online softmax of tile kt's S in the log2 domain, in place (P in f32);
+    // masks only on straddling tiles.  The row max is taken on the raw
+    // scores (the scale is positive) and the scale folded into one FFMA
+    // before the exp2.  Returns each row's rescale of O in corr.
+    const auto softmax = [&](int kt, float (&corr)[2]) {
+      const int k0 = kt * kKeys;
+      if ((kCausal && k0 + kKeys - 1 > p0) || k0 + kKeys > Sk) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * c4 + (e & 1);
-          if (key >= Sk) {
-            s[4 * j + e] = -INFINITY;  // past the end: no weight at all
-          } else if (kCausal && key > pos[e >> 1]) {
-            s[4 * j + e] = kNegInf / scale_log2;  // -1e30 once scaled
+        for (int jj = 0; jj < kKeys / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * jj + 2 * c4 + (e & 1);
+            if (key >= Sk) {
+              s[4 * jj + e] = -INFINITY;  // past the end: no weight at all
+            } else if (kCausal && key > pos[e >> 1]) {
+              s[4 * jj + e] = kNegInf / scale_log2;  // -1e30 once scaled
+            }
           }
         }
       }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
+      for (int jj = 0; jj < kKeys / 8; ++jj) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
-    }
-    float sum[2] = {0.f, 0.f};
-    float shift[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i] * scale_log2);
-      corr[i] = hopper::ex2(m[i] - m_new);
-      m[i] = m_new;
-      shift[i] = -m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = hopper::ex2(fmaf(s[4 * j + e], scale_log2, shift[e >> 1]));
-        s[4 * j + e] = p;
-        sum[e >> 1] += p;
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * jj + e]);
       }
-    }
+      float sum[2] = {0.f, 0.f};
+      float shift[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = l[i] * corr[i] + sum[i];
-    }
-  };
-  const auto release = [&](int kt) {  // this warp is done with tile kt's stage
-    if (lane == 0) hopper::mbar_arrive(&empty[kt % kStages]);
-  };
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+        corr[i] = hopper::ex2(m[i] - m_new);
+        m[i] = m_new;
+        shift[i] = -m_new;
+      }
+#pragma unroll
+      for (int jj = 0; jj < kKeys / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = hopper::ex2(fmaf(s[4 * jj + e], scale_log2, shift[e >> 1]));
+          s[4 * jj + e] = p;
+          sum[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+        l[i] = l[i] * corr[i] + sum[i];
+      }
+    };
+    const auto release = [&](int kt) {  // this warp is done with tile kt's slot
+      if (lane == 0) hopper::mbar_arrive(&empty[slot(kt)]);
+    };
+    const auto release_q = [&]() {  // every warp's products have read Q
+      if (lane == 0) hopper::mbar_arrive(&q_empty[wg]);
+    };
 
-  hopper::mbar_wait(q_full, 0);
-  if (n_mine > 0) {
-    float corr[2];
-    hopper::mbar_wait(&full[0], 0);
-    hopper::fence();
-    issue_s(0);
-    hopper::wait<0>();
-    hopper::fence_regs(s);
-    softmax(0, corr);  // O is zero: nothing to rescale
-#pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) hopper::acc_as_a(pa[kk], s, kk);
-    for (int kt = 1; kt < n_mine; ++kt) {
-      hopper::mbar_wait(&full[kt % kStages], (kt / kStages) & 1);
-      hopper::fence_regs(o);
+    hopper::zero(o);
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+    hopper::mbar_wait(&q_full[wg], li & 1);
+    if (n_mine > 0) {
+      float corr[2];
+      hopper::mbar_wait(&full[slot(0)], parity(0));
       hopper::fence();
-      issue_s(kt);
-      issue_pv(kt - 1);
-      hopper::wait<1>();  // S of tile kt (committed first) is complete
+      issue_s(0);
+      hopper::wait<0>();
       hopper::fence_regs(s);
-      softmax(kt, corr);
-      hopper::wait<0>();  // P V of tile kt - 1
-      hopper::fence_regs(o);
-      release(kt - 1);
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        o[4 * j + 0] *= corr[0];
-        o[4 * j + 1] *= corr[0];
-        o[4 * j + 2] *= corr[1];
-        o[4 * j + 3] *= corr[1];
-      }
+      if (n_mine == 1) release_q();
+      softmax(0, corr);  // O is zero: nothing to rescale
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk) hopper::acc_as_a(pa[kk], s, kk);
+      for (int kt = 1; kt < n_mine; ++kt) {
+        hopper::mbar_wait(&full[slot(kt)], parity(kt));
+        hopper::fence_regs(o);
+        hopper::fence();
+        issue_s(kt);
+        issue_pv(kt - 1);
+        hopper::wait<1>();  // S of tile kt (committed first) is complete
+        hopper::fence_regs(s);
+        if (kt == n_mine - 1) release_q();
+        softmax(kt, corr);
+        hopper::wait<0>();  // P V of tile kt - 1
+        hopper::fence_regs(o);
+        release(kt - 1);
+#pragma unroll
+        for (int jj = 0; jj < HD / 8; ++jj) {
+          o[4 * jj + 0] *= corr[0];
+          o[4 * jj + 1] *= corr[0];
+          o[4 * jj + 2] *= corr[1];
+          o[4 * jj + 3] *= corr[1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) hopper::acc_as_a(pa[kk], s, kk);
+      }
+      hopper::fence_regs(o);
+      hopper::fence();
+      issue_pv(n_mine - 1);
+      hopper::wait<0>();
+      hopper::fence_regs(o);
+      release(n_mine - 1);
+    } else {
+      release_q();
     }
-    hopper::fence_regs(o);
-    hopper::fence();
-    issue_pv(n_mine - 1);
-    hopper::wait<0>();
-    hopper::fence_regs(o);
-    release(n_mine - 1);
-  }
-  for (int kt = n_mine; kt < n_tiles; ++kt) {  // tiles past this warpgroup's limit
-    hopper::mbar_wait(&full[kt % kStages], (kt / kStages) & 1);
-    release(kt);
-  }
-  if (p0 >= S) return;
+    for (int kt = n_mine; kt < it.n_tiles; ++kt) {  // tiles past this warpgroup's limit
+      hopper::mbar_wait(&full[slot(kt)], parity(kt));
+      release(kt);
+    }
+    kv += it.n_tiles;
+    if (p0 >= S) continue;
 
-  // Normalise; the LSE from registers; the output staged in the warpgroup's
-  // Q tile in TMA's swizzled layout and stored by TMA with the Q box, which
-  // skips the padding rows and clips positions past S.
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    inv[i] = 1.f / fmaxf(l[i], 1e-30f);
-    if (lse != nullptr && c4 == 0 && ok[i]) {  // m and l are the same in the row's quad
-      // m is in the log2 domain of the scaled scores.
-      lse[(static_cast<int64_t>(b) * H + kvh * G + row[i] % G) * S + pos[i]] =
-          (m[i] + log2f(fmaxf(l[i], 1e-30f))) * kLn2;
-    }
-  }
-  hopper::bar_sync(1 + wg, 128);  // every warp's products have read Q
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+    // Normalise; the LSE and the output from registers (the output's rows
+    // are the folded rows' (position, head) vectors of q's layout).
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      *reinterpret_cast<uint32_t*>(Qw + hopper::swizzled<HD>(64, row[i], 8 * j + 2 * c4)) =
-          hopper::pack_bf16(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
+      if (!ok[i]) continue;
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      const int h = it.kvh * G + row[i] % G;
+      if (lse != nullptr && c4 == 0) {  // m and l are the same in the row's quad
+        // m is in the log2 domain of the scaled scores.
+        lse[(static_cast<int64_t>(it.b) * H + h) * S + pos[i]] =
+            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * kLn2;
+      }
+      bf16* orow = out + ((static_cast<int64_t>(it.b) * S + pos[i]) * H + h) * HD + 2 * c4;
+#pragma unroll
+      for (int jj = 0; jj < HD / 8; ++jj) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * jj) =
+            hopper::pack_bf16(o[4 * jj + 2 * i] * inv, o[4 * jj + 2 * i + 1] * inv);
+      }
     }
-  }
-  hopper::fence_async_smem();
-  hopper::bar_sync(1 + wg, 128);
-  if (t == 0) {
-    for (int a = 0; a < A::kCount; ++a) {
-      hopper::tma_store_5d(o_map, Qw + a * 64 * A::kRowBytes, a * A::kCols, 0, kvh, p0, b);
-    }
-    hopper::tma_store_commit();
-    hopper::tma_store_wait();
   }
 }
 
-// Grid: (row tiles of kConsumers * P positions, B * Hk); a causal grid runs
-// its heaviest tiles first.  Folded row r of a warpgroup's tile is position
-// p0 + r / G, head kvh * G + r % G; rows r >= P * G are padding.  Warpgroups
-// 0 .. kConsumers - 1 compute, the last warp loads.
+// Grid: min(items, SMs) blocks, block x walking items x, 2 gridDim.x - 1 -
+// x, 2 gridDim.x + x, ... of fwd_item's order (fwd_walk).  An item is a
+// row tile of kConsumers * P positions of one (batch, KV head): folded row r
+// of consumer warpgroup w's tile is position p0 + w P + r / G, head kvh * G
+// + r % G; rows r >= P * G are padding.  Warpgroups 0 .. kConsumers - 1
+// compute, the last loads: its first thread issues every copy, for each item
+// the consumers' Q tiles (each once that warpgroup released the previous
+// one) and the item's K/V tiles through the ring, which runs on across
+// items, so the next item's first tiles load under this one's last.
 template <int HD, bool kCausal>
 __global__ void __launch_bounds__(FwdTile<HD>::kThreads, 1)
 flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
-                            const __grid_constant__ CUtensorMap v_map,
-                            const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse,
-                            int S, int Sk, int H, int Hk, int P, float scale_log2) {
+                            const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
+                            float* __restrict__ lse, int S, int Sk, int H, int Hk, int n_bh, int P,
+                            int row_tiles, float scale_log2) {
   using T = FwdTile<HD>;
   using A = hopper::Atoms<HD>;
+  using HandOver = hopper::HandOver<24>;  // a producer thread issues copies only
   constexpr int kNC = T::kConsumers;
   constexpr int kKeys = T::kKeys;
   constexpr int kStages = T::kStages;
@@ -370,19 +432,15 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   uint8_t* Ks = Qs + kNC * T::kQBytes;
   uint8_t* Vs = Ks + kStages * T::kKVBytes;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * T::kKVBytes);
-  uint64_t* full = q_full + 1;
+  uint64_t* q_empty = q_full + kNC;
+  uint64_t* full = q_empty + kNC;
   uint64_t* empty = full + kStages;
 
-  const int G = H / Hk;
-  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int b = blockIdx.y / Hk;
-  const int kvh = blockIdx.y % Hk;
-  const int cta_p0 = tile * kNC * P;  // the block's first position
-  int n_tiles = (Sk + kKeys - 1) / kKeys;
-  if (kCausal) n_tiles = min(n_tiles, (min(cta_p0 + kNC * P, S) - 1) / kKeys + 1);
-
   if (threadIdx.x == 0) {
-    hopper::mbar_init(q_full, 1);
+    for (int w = 0; w < kNC; ++w) {
+      hopper::mbar_init(&q_full[w], 1);
+      hopper::mbar_init(&q_empty[w], 4);  // lane 0 of each warp of the warpgroup
+    }
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], kNC * 4);  // lane 0 of each consumer warp
@@ -391,72 +449,99 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == kNC) {  // ---- producer warp: one thread keeps the ring full
+  if (threadIdx.x >= kNC * 128) {  // ---- producer warpgroup
+    HandOver::producer();
     if (threadIdx.x == kNC * 128) {
-      uint32_t q_bytes = 0;
-      for (int w = 0; w < kNC; ++w) q_bytes += cta_p0 + w * P < S ? HD * G * P * 2 : 0;
-      hopper::mbar_expect_tx(q_full, q_bytes);
-      for (int w = 0; w < kNC; ++w) {
-        if (cta_p0 + w * P >= S) continue;
-        for (int a = 0; a < A::kCount; ++a) {
-          hopper::tma_load_5d(Qs + w * T::kQBytes + a * 64 * A::kRowBytes, &q_map, q_full,
-                              a * A::kCols, 0, kvh, cta_p0 + w * P, b);
+      const int G = H / Hk;
+      const int per_tile = kNC * P;
+      int kv = 0;
+      for (int li = 0, j = fwd_walk(0); j < row_tiles * n_bh; j = fwd_walk(++li)) {
+        const FwdItem it = fwd_item<HD, kCausal>(j, n_bh, Hk, row_tiles, per_tile, S, Sk);
+        for (int w = 0; w < kNC; ++w) {
+          const int p0 = it.p0 + w * P;
+          if (li > 0) hopper::mbar_wait(&q_empty[w], (li - 1) & 1);
+          hopper::mbar_expect_tx(&q_full[w], p0 < S ? HD * G * P * 2 : 0);
+          if (p0 >= S) continue;
+          for (int a = 0; a < A::kCount; ++a) {
+            hopper::tma_load_5d(Qs + w * T::kQBytes + a * 64 * A::kRowBytes, &q_map, &q_full[w],
+                                a * A::kCols, 0, it.kvh, p0, it.b);
+          }
         }
-      }
-      for (int kt = 0; kt < n_tiles; ++kt) {
-        const int st = kt % kStages;
-        if (kt >= kStages) hopper::mbar_wait(&empty[st], (kt / kStages - 1) & 1);
-        hopper::mbar_expect_tx(&full[st], 2 * T::kKVBytes);
-        for (int a = 0; a < A::kCount; ++a) {
-          const int off = st * T::kKVBytes + a * kKeys * A::kRowBytes;
-          hopper::tma_load_4d(Ks + off, &k_map, &full[st], a * A::kCols, kvh, kt * kKeys, b);
-          hopper::tma_load_4d(Vs + off, &v_map, &full[st], a * A::kCols, kvh, kt * kKeys, b);
+        for (int kt = 0; kt < it.n_tiles; ++kt, ++kv) {
+          const int st = kv % kStages;
+          if (kv >= kStages) hopper::mbar_wait(&empty[st], (kv / kStages - 1) & 1);
+          hopper::mbar_expect_tx(&full[st], 2 * T::kKVBytes);
+          for (int a = 0; a < A::kCount; ++a) {
+            const int off = st * T::kKVBytes + a * kKeys * A::kRowBytes;
+            hopper::tma_load_4d(Ks + off, &k_map, &full[st], a * A::kCols, it.kvh, kt * kKeys,
+                                it.b);
+            hopper::tma_load_4d(Vs + off, &v_map, &full[st], a * A::kCols, it.kvh, kt * kKeys,
+                                it.b);
+          }
         }
       }
     }
-  } else {  // ---- consumer warpgroup wg
-    fwd_consumer<HD, kCausal>(Qs + wg * T::kQBytes, Ks, Vs, q_full, full, empty, &o_map, lse, b,
-                              kvh, cta_p0 + wg * P, n_tiles, S, Sk, H, G, P, scale_log2);
+  } else {  // ---- consumer warpgroup
+    HandOver::consumer();
+    fwd_consumer<HD, kCausal>(Qs + (threadIdx.x / 128) * T::kQBytes, Ks, Vs, q_full, q_empty, full,
+                              empty, out, lse, S, Sk, H, Hk, n_bh, row_tiles, P, scale_log2);
   }
 }
 
 // What a call launched, for the caller to read back: launched[0] the body
 // (kBodyTf32x3 or kBodyBf16Wgmma, named by flash_attention_body_name),
 // launched[1] the key ranges of its grid, launched[2] and [3] its row tiles
-// and (batch, KV head) blocks, each launcher filling them from the grid it
-// launched.
+// and (batch, KV head) blocks, launched[4] the blocks it launched (bf16:
+// the persistent blocks; f32: row tiles x (batch, KV head) x ranges), each
+// launcher filling them from the grid it launched.
 constexpr int kBodyTf32x3 = 0;
 constexpr int kBodyBf16Wgmma = 1;
 constexpr const char* kBodyNames[] = {"tf32x3_mma", "bf16_wgmma"};
 
+// The card's SMs, asked of the runtime once a device.
+inline int sm_count(int device) {
+  static int counts[64] = {};
+  if (device < 0 || device >= 64) return 0;
+  if (counts[device] == 0) {
+    cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount, device);
+  }
+  return counts[device];
+}
+
 template <int HD, bool kCausal>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
-                 int Sk, int H, int Hk, int* launched, cudaStream_t stream) {
+                 int Sk, int H, int Hk, int device, int* launched, cudaStream_t stream) {
   using T = FwdTile<HD>;
   const int G = H / Hk;
   if (G > 64) return static_cast<int>(cudaErrorInvalidValue);
   const int P = hopper::folded_positions(G);
-  CUtensorMap qm, km, vm, om;
+  CUtensorMap qm, km, vm;
   int e;
   if ((e = hopper::map_folded<HD>(&qm, "q", q, B, S, Hk, G, P)) != 0) return e;
   if ((e = hopper::map_rows<HD>(&km, "k", k, B, Sk, Hk, T::kKeys)) != 0) return e;
   if ((e = hopper::map_rows<HD>(&vm, "v", v, B, Sk, Hk, T::kKeys)) != 0) return e;
-  if ((e = hopper::map_folded<HD>(&om, "out", out, B, S, Hk, G, P)) != 0) return e;
   auto kernel = flash_fwd_bf16_wgmma_kernel<HD, kCausal>;
+  static int regs = -1;
+  if ((e = hopper::launch_regs_ok(reinterpret_cast<const void*>(kernel),
+                                  "flash_fwd_bf16_wgmma_kernel", &regs)) != 0) {
+    return e;
+  }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(T::kBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int per_tile = T::kConsumers * P;
-  const dim3 grid(static_cast<unsigned>((S + per_tile - 1) / per_tile),
-                  static_cast<unsigned>(B * Hk));
+  const int row_tiles = (S + per_tile - 1) / per_tile;
+  const int items = row_tiles * B * Hk;
+  const int sms = sm_count(device);
+  const int blocks = sms > 0 && sms < items ? sms : items;  // persistent
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
-  kernel<<<grid, T::kThreads, T::kBytes, stream>>>(qm, km, vm, om, lse, S, Sk, H, Hk, P,
-                                                   scale_log2);
+  kernel<<<blocks, T::kThreads, T::kBytes, stream>>>(qm, km, vm, static_cast<bf16*>(out), lse, S,
+                                                     Sk, H, Hk, B * Hk, P, row_tiles, scale_log2);
   launched[0] = kBodyBf16Wgmma;
   launched[1] = 1;
-  launched[2] = static_cast<int>(grid.x);
-  launched[3] = static_cast<int>(grid.y);
+  launched[2] = row_tiles;
+  launched[3] = B * Hk;
+  launched[4] = blocks;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -785,6 +870,7 @@ cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* out
   launched[1] = static_cast<int>(grid.z);
   launched[2] = static_cast<int>(grid.x);
   launched[3] = static_cast<int>(grid.y);
+  launched[4] = static_cast<int>(grid.x * grid.y * grid.z);
   err = cudaGetLastError();
   if (err != cudaSuccess || ranges == 1) return err;
   const int64_t n_rows = static_cast<int64_t>(B) * S * H;
@@ -799,11 +885,13 @@ cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* out
 // into `ranges`.
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse, float* o_part,
-              float* stat_part, int B, int S, int Sk, int H, int Hk, bool bf16, bool causal,
-              int ranges, int* launched, cudaStream_t stream) {
-  if (bf16) {
-    return causal ? launch_wgmma<HD, true>(q, k, v, out, lse, B, S, Sk, H, Hk, launched, stream)
-                  : launch_wgmma<HD, false>(q, k, v, out, lse, B, S, Sk, H, Hk, launched, stream);
+              float* stat_part, int B, int S, int Sk, int H, int Hk, bool is_bf16, bool causal,
+              int ranges, int device, int* launched, cudaStream_t stream) {
+  if (is_bf16) {
+    return causal ? launch_wgmma<HD, true>(q, k, v, out, lse, B, S, Sk, H, Hk, device, launched,
+                                           stream)
+                  : launch_wgmma<HD, false>(q, k, v, out, lse, B, S, Sk, H, Hk, device, launched,
+                                            stream);
   }
   return static_cast<int>(
       causal ? launch_tf32x3<HD, true>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk,
@@ -813,21 +901,21 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, float* o_part,
-           float* stat_part, int B, int S, int Sk, int H, int Hk, int hd, bool bf16, bool causal,
-           int ranges, int* launched, cudaStream_t stream) {
+           float* stat_part, int B, int S, int Sk, int H, int Hk, int hd, bool is_bf16,
+           bool causal, int ranges, int device, int* launched, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_hd<32>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, bf16, causal,
-                           ranges, launched, stream);
+      return launch_hd<32>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, is_bf16, causal,
+                           ranges, device, launched, stream);
     case 64:
-      return launch_hd<64>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, bf16, causal,
-                           ranges, launched, stream);
+      return launch_hd<64>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, is_bf16, causal,
+                           ranges, device, launched, stream);
     case 128:
-      return launch_hd<128>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, bf16, causal,
-                            ranges, launched, stream);
+      return launch_hd<128>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, is_bf16,
+                            causal, ranges, device, launched, stream);
     case 160:
-      return launch_hd<160>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, bf16, causal,
-                            ranges, launched, stream);
+      return launch_hd<160>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, is_bf16,
+                            causal, ranges, device, launched, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -845,8 +933,9 @@ extern "C" {
 // key_ranges: the ranges of the f32 body's key walk (1 for bf16, 1 <=
 // key_ranges <= 65535); above 1, o_part is f32 scratch of key_ranges * B * S
 // * H * hd elements and stat_part of 2 * key_ranges * B * H * S.  On success
-// launched (int[4]) holds the body the call ran (flash_attention_body_name),
-// the key ranges it launched and its grid's x and y.  A TMA descriptor that does not
+// launched (int[5]) holds the body the call ran (flash_attention_body_name),
+// the key ranges it launched, its row tiles and (batch, KV head) count, and
+// the blocks it launched.  A TMA descriptor that does not
 // encode returns hopper::kTmaEncodeError, and the error string gives why.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            float* lse, float* o_part, float* stat_part, int B, int S, int Sk,
@@ -865,11 +954,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk, hd, dtype == 1,
-                causal != 0, key_ranges, launched, static_cast<cudaStream_t>(stream));
+                causal != 0, key_ranges, device, launched, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int err) {
-  if (err == hopper::kTmaEncodeError) return hopper::tma_error();
+  if (err == hopper::kTmaEncodeError || err == hopper::kHandOverError) return hopper::tma_error();
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

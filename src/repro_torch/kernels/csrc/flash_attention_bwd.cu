@@ -23,15 +23,18 @@
 // dtype: dk and dv sum over the G heads of their KV head in f32 and are cast
 // once, as autograd through the plain version's f32 casts does.
 //
-// The FlashAttention-2 split, four launches, no atomics, deterministic:
-//   1. flash_bwd_dot_kernel: D, one warp a row;
-//   2. flash_bwd_dkdv_*kernel: one block per (key tile, batch, query head)
-//      walks the 64-position tiles of that head's queries that can see its
-//      keys (causal: from the tile holding position k0 on), recomputes P and
-//      dS for each and accumulates the head's share of dk and dv in
-//      registers, stored in f32 (one block a query head rather than a KV
-//      head: G times the blocks, each walking 1/G of the rows, so a
-//      training-shape call fills the SMs);
+// The FlashAttention-2 split, three or four launches, no atomics,
+// deterministic:
+//   1. flash_bwd_dot_kernel: D, at the bytes of o and dO (16-byte loads,
+//      several rows a warp);
+//   2. flash_bwd_dkdv_*kernel: one block per (key tile, batch, KV head, head
+//      group) walks, head after head of its group, the 64-position tiles of
+//      that head's queries that can see its keys (causal: from the tile
+//      holding position k0 on), recomputes P and dS for each and
+//      accumulates the group's share of dk and dv in registers, stored in f32
+//      (the f32 bodies: one head a group, G shares; the bf16 body: as few
+//      groups as keep the grid balanced, and where that is one, dk and dv
+//      themselves in bf16, no share);
 //   3. flash_bwd_dq_*kernel: one block per (64-row tile of folded rows,
 //      batch, KV head, key range) walks the key tiles of its range up to its
 //      causal limit and accumulates dq.  The wrapper picks the number of
@@ -39,9 +42,10 @@
 //      card, and the block then writes dq itself; more where a short query
 //      sequence leaves SMs idle (whisper's 64 decoder positions against 1500
 //      frames), and each block then writes an f32 partial dq;
-//   4. flash_bwd_reduce_kernel: dk and dv, each the sum of its KV head's G
-//      shares in head order, and dq, the sum of its partials in range order
-//      when split, all in f32, scaled and cast once.
+//   4. flash_bwd_reduce_kernel, where there are shares or partials: dk and
+//      dv, each the sum of its KV head's shares in group order, and dq, the
+//      sum of its partials in range order when split, all in f32, scaled and
+//      cast once.
 // The dK/dV and dQ kernels each recompute q k^T and dO v^T for their tiles,
 // so together they do seven tile products where a fused kernel with atomics
 // would do five.
@@ -54,8 +58,8 @@
 // dK/dV and dQ kernels have two kinds of bodies, picked at compile time by
 // dtype and head dim:
 //   * bf16 at every head dim: wgmma products on tiles TMA loads under
-//     mbarriers, a producer warp and consumer warpgroups (csrc/hopper_wgmma
-//     .cuh); described above flash_bwd_dkdv_wgmma_kernel below;
+//     mbarriers, a producer and consumer warpgroups (csrc/hopper_wgmma.cuh);
+//     described above flash_bwd_dkdv_wgmma_kernel below;
 //   * f32 at hd 32 and 64, and at hd 128 and 160: mma.sync TF32 in 3xTF32,
 //     4 warps, or 8 in pairs, f32 tiles swizzled in shared memory, the score
 //     accumulators permuted so they are the A fragments of the accumulating
@@ -68,8 +72,9 @@
 // the bf16 bodies' TMA descriptors on the host, enqueues on the caller's
 // stream, does not synchronise and allocates nothing (D's, the f32 shares'
 // and dq's partials' buffers come from the wrapper); it returns
-// cudaGetLastError() (or hopper::kTmaEncodeError) and reports the body, the
-// dQ key ranges and the grids it launched.
+// cudaGetLastError() (or hopper::kTmaEncodeError / kHandOverError) and
+// reports the body, the dQ key ranges, the grids and the kernels it
+// launched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,9 +92,6 @@ namespace {
 constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -115,45 +117,85 @@ struct Rows {
   }
 };
 
-// D[b, h, s] = sum_d dO[b, s, h, d] * o[b, s, h, d], one warp a (b, s, h) row.
-template <typename T>
+// A 16-byte chunk of o and of dO: the sum of its elements' products.
+__device__ __forceinline__ float dot_chunk(uint4 a, uint4 d, const float*) {
+  float acc = __uint_as_float(a.x) * __uint_as_float(d.x);
+  acc = fmaf(__uint_as_float(a.y), __uint_as_float(d.y), acc);
+  acc = fmaf(__uint_as_float(a.z), __uint_as_float(d.z), acc);
+  return fmaf(__uint_as_float(a.w), __uint_as_float(d.w), acc);
+}
+__device__ __forceinline__ float dot_chunk(uint4 a, uint4 d, const bf16*) {
+  const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, dw[4] = {d.x, d.y, d.z, d.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[i]));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dw[i]));
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  return acc;
+}
+
+// D[b, h, s] = sum_d dO[b, s, h, d] * o[b, s, h, d].  Bound by the bytes of o
+// and dO: each lane reads 16-byte chunks (8 bf16 or 4 f32), kLanes lanes a
+// row (the largest power of two up to its chunks, at most 32), 32 / kLanes
+// rows a warp, then sums over its row's lanes.
+template <typename T, int HD>
+struct DotTile {
+  static constexpr int kChunks = HD * static_cast<int>(sizeof(T)) / 16;
+  static constexpr int kLanes = kChunks >= 32 ? 32 : kChunks >= 16 ? 16 : kChunks >= 8 ? 8 : 4;
+  static constexpr int kRowsPerWarp = 32 / kLanes;
+  static constexpr int kRowsPerBlock = 8 * kRowsPerWarp;  // 256 threads
+  static_assert(HD * sizeof(T) % 16 == 0 && kChunks >= 4, "whole 16-byte chunks");
+};
+
+template <typename T, int HD>
 __global__ void __launch_bounds__(256)
 flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                     float* __restrict__ D, int64_t n_rows, int S, int H, int hd) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+                     float* __restrict__ D, int64_t n_rows, int S, int H) {
+  using L = DotTile<T, HD>;
   const int lane = threadIdx.x % 32;
-  if (r >= n_rows) return;
-  const T* orow = o + r * hd;
-  const T* drow = dout + r * hd;
+  const int sub = lane % L::kLanes;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * L::kRowsPerBlock +
+                    (threadIdx.x / 32) * L::kRowsPerWarp + lane / L::kLanes;
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
+  if (r < n_rows) {
+    const uint4* orow = reinterpret_cast<const uint4*>(o + r * HD);
+    const uint4* drow = reinterpret_cast<const uint4*>(dout + r * HD);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
+    for (int i = 0; i < (L::kChunks + L::kLanes - 1) / L::kLanes; ++i) {
+      const int c = sub + i * L::kLanes;
+      if (c < L::kChunks) acc += dot_chunk(__ldg(orow + c), __ldg(drow + c), o);
+    }
+  }
+#pragma unroll
+  for (int off = L::kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (sub == 0 && r < n_rows) {
     const int h = static_cast<int>(r % H);
     const int64_t bs = r / H;  // b * S + s
-    const int64_t b = bs / S;
-    const int64_t s = bs % S;
-    D[(b * H + h) * S + s] = acc;
+    D[(bs / S * H + h) * S + bs % S] = acc;
   }
 }
 
-// dk = scale * sum_g dk_share[g], dv = sum_g dv_share[g], in head order;
-// then, when the dq kernel's key walk was split into `splits` ranges,
-// dq = scale * sum_z dq_part[z] in range order.  f32, cast once.
+// dk = scale * sum_z dk_share[z], dv = sum_z dv_share[z] over the `shares`
+// shares of each KV head (its head groups, in group order); then, when the
+// dq kernel's key walk was split into `splits` ranges, dq = scale * sum_z
+// dq_part[z] in range order.  f32, cast once.  n = 0 where the dK/dV kernel
+// wrote dk and dv itself.
 template <typename T>
 __global__ void __launch_bounds__(256)
 flash_bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ dk,
-                        T* __restrict__ dv, int64_t n, int G,
+                        T* __restrict__ dv, int64_t n, int shares,
                         const float* __restrict__ dq_part, T* __restrict__ dq, int64_t nq,
                         int splits, float scale) {
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n + nq;
        i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     if (i < n) {
       float sk = 0.f, sv = 0.f;
-      for (int g = 0; g < G; ++g) {
-        sk += part[g * n + i];
-        sv += part[(G + g) * n + i];
+      for (int z = 0; z < shares; ++z) {
+        sk += part[z * n + i];
+        sv += part[(shares + z) * n + i];
       }
       dk[i] = from_f32<T>(sk * scale);
       dv[i] = from_f32<T>(sv);
@@ -177,26 +219,40 @@ __device__ __forceinline__ int64_t dq_part_base(int S, int H, int Hk, int hd) {
 // For bf16 the dK/dV and dQ kernels are Hopper's own route
 // (csrc/hopper_wgmma.cuh): every product a warpgroup wgmma (m64nNk16, f32
 // accumulators in registers), operands in shared memory where TMA put them,
-// a producer warp (one thread issuing the copies) keeping a ring of kStages
-// streamed tiles full under mbarriers, a consumer warpgroup computing.  P
-// and dS are rounded to bf16 as the A operands (from registers) of the
+// a producer (one thread issuing the copies) keeping a ring of kStages
+// streamed tiles full under mbarriers, consumer warpgroups computing.  P and
+// dS are rounded to bf16 as the A operands (from registers) of the
 // accumulating products, as FlashAttention-2 does.
 //
-// dK/dV: one block per (64 keys, batch, query head): a consumer warpgroup
-// holding its keys' k and v tiles (TMA, once) and their dK and dV
-// accumulators (hd / 2 floats a thread each); the query rows of the head
-// stream through the ring in tiles of kRows (64, or 32 at hd 128 and 160),
-// with their dO tile and their lse and D (copied by the producer warp's
-// lanes).  For each: S^T = k q^T and dP^T = v dO^T (ss, q and dO K-major),
-// P^T and dS^T in registers, then dV += P^T dO and dK += dS^T q (rs, dO and
-// q as the transposed, MN-major operand).  A causal block starts at the
-// tile holding its first key and skips none after it.  The shares go to the
-// f32 buffer, as every body's.
+// dK/dV: one block per (64 keys, batch, KV head, head group): two consumer
+// warpgroups at hd 32 and 64 (one above, DkdvTile), each reading the keys'
+// k and v tiles (TMA, once a block) and holding its own dK and dV
+// accumulators (hd / 2 floats a thread each), and a producer warpgroup that
+// hands its registers to them (setmaxnreg: 240 a consumer thread at hd 64,
+// 232 at hd 32).  The
+// query rows of the group's heads, head after head, stream through the
+// ring in tiles of kRows (64, or 32 at hd 128 and 160), with their dO tile
+// and their lse and D (copied by the producer's first warp's lanes); the
+// consumer warpgroups take the streamed tiles in turn, so one's
+// elementwise pass runs under the other's products and neither waits on
+// the other.  For each: S^T = k q^T and dP^T = v dO^T (ss, q and dO
+// K-major), P^T and dS^T in registers, then dV += P^T dO and dK += dS^T q
+// (rs, dO and q as the transposed, MN-major operand).  At the end the
+// second warpgroup hands its sums to the first through shared memory, which
+// adds them in that order.  A causal block starts at the tile holding its
+// first key and skips none after it.  A group of several heads writes one
+// f32 share for them all, so the shares (and the reduce that sums them)
+// shrink by the group's size; where one group holds all G heads, the block
+// writes dk and dv in bf16 itself and no share is made.  The wrapper picks
+// the groups (flash_attention.py::dkdv_head_groups): as few as keep the
+// heaviest block within the grid's average per warpgroup.
 //
 // dQ: one block per (64 folded rows, batch, KV head, key range): q and dO
 // of the tile as the forward's padded boxes (P = 64 / G positions of the G
-// heads; padding rows zeroed, never stored), one consumer warpgroup; the
-// K/V tiles of its range stream through the ring in tiles of 64 keys.  For
+// heads; padding rows zeroed, never stored), one consumer warpgroup and a
+// producer warp, two blocks an SM where the registers allow (hd <= 128), so
+// one block's elementwise pass runs under the other's products; the K/V
+// tiles of its range stream through the ring in tiles of 64 keys.  For
 // each: S = q k^T and dP = dO v^T (ss), dS in registers, dQ += dS k (rs, k
 // MN-major).
 
@@ -204,29 +260,32 @@ constexpr int kMmaTile = 64;  // keys (dK/dV) or rows (dQ) a block of the f32 bo
 
 using hopper::smem_u32;
 
-// dK/dV: one consumer warpgroup of 64 keys and a producer warp, 160
-// threads, which ptxas lets hold up to 255 registers a thread: dK and dV
-// (hd / 2 floats each) beside S^T and dP^T (kRows / 2 each).  Two consumer
-// warpgroups and a producer warp are held to 168 (ptxas reads a block of
-// 288 threads as 384) and measured slower at hd 64 (scripts/kernel_compare
-// .py --variant, PR 28).
+// dK/dV: kConsumers warpgroups on a block's 64 keys.  Two at hd 32 and 64:
+// a producer warpgroup hands them its registers (384 threads, 240 a
+// consumer thread), which hold dK and dV beside S^T and dP^T (kRows / 2
+// each), one block an SM.  One at hd 128 and 160, where 240 spilled (ptxas:
+// 140 and 880 bytes): a producer warp (160 threads, up to 255 registers).  Shared memory: k, v,
+// q[kStages], dO[kStages], lse[kStages], D[kStages], the second consumer's
+// sums (f32), then the mbarriers; each bf16 tile 1024-byte aligned.  TMA
+// copies the bf16 tiles; the producer's lanes copy lse and D (a row's 4
+// bytes: TMA wants a box to start 16-byte aligned, which (b, h)'s rows of S
+// floats do not when S % 4 != 0).
 template <int HD>
 struct DkdvTile {
-  static constexpr int kThreads = 128 + 32;
+  static constexpr int kConsumers = HD <= 64 ? 2 : 1;
+  static constexpr int kThreads = kConsumers == 2 ? hopper::kHandOverThreads : 128 + 32;
   static constexpr int kKeys = 64;
   static constexpr int kRows = HD <= 64 ? 64 : 32;  // query rows a streamed tile
-  static constexpr int kStages = 2;
+  static constexpr int kStages = HD <= 64 ? 4 : 2;  // two a consumer warpgroup
   static constexpr int kKBytes = kKeys * HD * 2;  // k (or v)
   static constexpr int kQBytes = kRows * HD * 2;  // one streamed q (or dO)
   static constexpr int kStatBytes = kRows * 4;    // its lse (or D)
-  // k, v, q[kStages], dO[kStages], lse[kStages], D[kStages], then the
-  // mbarriers; each bf16 tile 1024-byte aligned.  TMA
-  // copies the bf16 tiles; the producer warp's lanes copy lse and D (a
-  // row's 4 bytes: TMA wants a box to start 16-byte aligned, which (b, h)'s
-  // rows of S floats do not when S % 4 != 0).
+  static constexpr int kMergeBytes = kConsumers > 1 ? 128 * HD * 4 : 0;
   static constexpr size_t kBytes = 1024 + 2 * kKBytes +
-                                   kStages * (2 * kQBytes + 2 * kStatBytes) +
+                                   kStages * (2 * kQBytes + 2 * kStatBytes) + kMergeBytes +
                                    8 * (1 + 2 * kStages);
+  static_assert(kConsumers == 1 || kConsumers == 2, "one or two consumer warpgroups");
+  static_assert(kStages % kConsumers == 0, "each ring slot has one consuming warpgroup");
   static_assert(kQBytes % 1024 == 0, "streamed tiles stay 1024-byte aligned");
   static_assert(kBytes <= 232448, "over a block's shared memory");
 };
@@ -248,23 +307,34 @@ struct DqTile {
   static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
-// The dK/dV block's consumer warpgroup: keys kw .. kw + 63 (k and v at Kw,
-// Vw), the n_q streamed query tiles from tile t_first.
+// A dK/dV block's walk: n_heads heads from h0, each over the n_q streamed
+// tiles from t_first, as one stream of n_heads * n_q entries (head after
+// head), entry i through ring slot i % kStages.
+struct DkdvWalk {
+  int h0, n_heads, t_first, n_q;
+  __device__ __forceinline__ int total() const { return n_heads * n_q; }
+};
+
+// A dK/dV consumer warpgroup: keys kw .. kw + 63 (k and v at Kw, Vw), the
+// walk's entries wg, wg + kConsumers, ...; then the sums (the second
+// warpgroup's added to the first's) stored: dk and dv in bf16 where the grid
+// has one head group, else this group's f32 share.
 template <int HD, bool kCausal>
 __device__ __forceinline__ void dkdv_consumer(const uint8_t* Kw, const uint8_t* Vw,
                                               const uint8_t* Qs, const uint8_t* dOs,
-                                              const float* lse_s, const float* D_s,
+                                              const float* lse_s, const float* D_s, float* merge,
                                               uint64_t* kv_full, uint64_t* full, uint64_t* empty,
-                                              float* __restrict__ part, int B, int S, int Sk,
-                                              int H, int Hk, int kw, int t_first, int n_q,
+                                              float* __restrict__ part, bf16* __restrict__ dk_out,
+                                              bf16* __restrict__ dv_out, int B, int S, int Sk,
+                                              int Hk, int kw, DkdvWalk walk, float scale,
                                               float scale_log2) {
   using T = DkdvTile<HD>;
   constexpr int kRows = T::kRows;
   constexpr int kStages = T::kStages;
-  const int G = H / Hk;
   const int kvh = static_cast<int>(blockIdx.y % Hk);
   const int b = static_cast<int>(blockIdx.y / Hk);
   const int t = threadIdx.x % 128;
+  const int wg = threadIdx.x / 128;
   const int warp = t / 32;
   const int lane = t % 32;
   const int g = lane >> 2;
@@ -275,93 +345,125 @@ __device__ __forceinline__ void dkdv_consumer(const uint8_t* Kw, const uint8_t* 
   float dk[HD / 2], dv[HD / 2];
   hopper::zero(dk);
   hopper::zero(dv);
-  if (n_q > 0) hopper::mbar_wait(kv_full, 0);
-  for (int i = 0; i < n_q; ++i) {
-    const int st = i % kStages;
-    const int row0 = (t_first + i) * kRows;
-    hopper::mbar_wait(&full[st], (i / kStages) & 1);
-    const uint32_t q_addr = smem_u32(Qs + st * T::kQBytes);
-    const uint32_t do_addr = smem_u32(dOs + st * T::kQBytes);
-    const float* lse_b = lse_s + st * kRows;
-    const float* D_b = D_s + st * kRows;
-    // S^T = k q^T and dP^T = v dO^T: 64 keys x kRows rows.
-    float s[kRows / 2], dp[kRows / 2];
-    hopper::fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      hopper::Mma<kRows, 0>::ss(s, hopper::desc_k<HD>(k_addr, 64, kk),
-                                hopper::desc_k<HD>(q_addr, kRows, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      hopper::Mma<kRows, 0>::ss(dp, hopper::desc_k<HD>(v_addr, 64, kk),
-                                hopper::desc_k<HD>(do_addr, kRows, kk), kk > 0);
-    }
-    hopper::commit();
-    hopper::wait<0>();
-    hopper::fence_regs(s);
-    hopper::fence_regs(dp);
-    // P^T and dS^T in place: element e of n-tile j is key 16 warp + g + 8
-    // (e >> 1) of the warpgroup's, row 8 j + 2 c4 + (e & 1) of the tile
-    // (lse_b in the log2 domain).  Masks only on tiles that straddle a
-    // limit.
-    const bool edge = (kCausal && row0 < kw + 63) || row0 + kRows > S || kw + 64 > Sk;
-#pragma unroll
-    for (int j = 0; j < kRows / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 8 * j + 2 * c4 + (e & 1);
-        const int key = kw + 16 * warp + g + 8 * (e >> 1);
-        const int pos = row0 + r;
-        const bool ok = !edge || (pos < S && key < Sk && (!kCausal || key <= pos));
-        // ex2 on every element, then the select: no branch per element.
-        const float x = hopper::ex2(fmaf(s[4 * j + e], scale_log2, -lse_b[r]));
-        const float p = ok ? x : 0.f;
-        s[4 * j + e] = p;
-        dp[4 * j + e] = p * (dp[4 * j + e] - D_b[r]);
+  if (wg < walk.total()) hopper::mbar_wait(kv_full, 0);
+  for (int hh = 0; hh < walk.n_heads; ++hh) {
+    for (int i = 0; i < walk.n_q; ++i) {  // entry hh n_q + i: query tile t_first + i
+      const int entry = hh * walk.n_q + i;
+      if constexpr (T::kConsumers > 1) {
+        if (entry % T::kConsumers != wg) continue;
       }
-    }
-    uint32_t ap[kRows / 16][4], as[kRows / 16][4];
+      const int st = entry % kStages;
+      const int row0 = (walk.t_first + i) * kRows;
+      hopper::mbar_wait(&full[st], (entry / kStages) & 1);
+      const uint32_t q_addr = smem_u32(Qs + st * T::kQBytes);
+      const uint32_t do_addr = smem_u32(dOs + st * T::kQBytes);
+      const float* lse_b = lse_s + st * kRows;
+      const float* D_b = D_s + st * kRows;
+      // S^T = k q^T and dP^T = v dO^T: 64 keys x kRows rows.
+      float s[kRows / 2], dp[kRows / 2];
+      hopper::fence();
 #pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      hopper::acc_as_a(ap[kk], s, kk);
-      hopper::acc_as_a(as[kk], dp, kk);
-    }
-    // dV += P^T dO and dK += dS^T q, k = the tile's rows.
-    hopper::fence_regs(dv);
-    hopper::fence_regs(dk);
-    hopper::fence();
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        hopper::Mma<kRows, 0>::ss(s, hopper::desc_k<HD>(k_addr, 64, kk),
+                                  hopper::desc_k<HD>(q_addr, kRows, kk), kk > 0);
+      }
 #pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      hopper::Mma<HD, 1>::rs(dv, ap[kk], hopper::desc_mn<HD>(do_addr, kRows, kk), 1);
-      hopper::Mma<HD, 1>::rs(dk, as[kk], hopper::desc_mn<HD>(q_addr, kRows, kk), 1);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        hopper::Mma<kRows, 0>::ss(dp, hopper::desc_k<HD>(v_addr, 64, kk),
+                                  hopper::desc_k<HD>(do_addr, kRows, kk), kk > 0);
+      }
+      hopper::commit();
+      hopper::wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      // P^T and dS^T in place: element e of n-tile j is key 16 warp + g + 8
+      // (e >> 1) of the warpgroup's, row 8 j + 2 c4 + (e & 1) of the tile
+      // (lse_b in the log2 domain).  Masks only on tiles that straddle a
+      // limit.
+      const bool edge = (kCausal && row0 < kw + 63) || row0 + kRows > S || kw + 64 > Sk;
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * j + 2 * c4 + (e & 1);
+          const int key = kw + 16 * warp + g + 8 * (e >> 1);
+          const int pos = row0 + r;
+          const bool ok = !edge || (pos < S && key < Sk && (!kCausal || key <= pos));
+          // ex2 on every element, then the select: no branch per element.
+          const float x = hopper::ex2(fmaf(s[4 * j + e], scale_log2, -lse_b[r]));
+          const float p = ok ? x : 0.f;
+          s[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - D_b[r]);
+        }
+      }
+      uint32_t ap[kRows / 16][4], as[kRows / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        hopper::acc_as_a(ap[kk], s, kk);
+        hopper::acc_as_a(as[kk], dp, kk);
+      }
+      // dV += P^T dO and dK += dS^T q, k = the tile's rows.
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+      hopper::fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        hopper::Mma<HD, 1>::rs(dv, ap[kk], hopper::desc_mn<HD>(do_addr, kRows, kk), 1);
+        hopper::Mma<HD, 1>::rs(dk, as[kk], hopper::desc_mn<HD>(q_addr, kRows, kk), 1);
+      }
+      hopper::commit();
+      hopper::wait<0>();
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);
     }
-    hopper::commit();
-    hopper::wait<0>();
-    hopper::fence_regs(dv);
-    hopper::fence_regs(dk);
-    if (lane == 0) hopper::mbar_arrive(&empty[st]);
   }
 
+  if constexpr (T::kConsumers == 2) {  // the second warpgroup's sums to the first
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) {
+        merge[i * 128 + t] = dk[i];
+        merge[(HD / 2 + i) * 128 + t] = dv[i];
+      }
+      hopper::bar_arrive(3, 256);
+      return;
+    }
+    hopper::bar_sync(3, 256);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) {
+      dk[i] += merge[i * 128 + t];
+      dv[i] += merge[(HD / 2 + i) * 128 + t];
+    }
+  }
+  const bool direct = gridDim.z == 1;
   const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;  // one share
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = kw + 16 * warp + g + 8 * i;
     if (key >= Sk) continue;
-    const int64_t off = static_cast<int64_t>(blockIdx.z) * n +
-                        ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + 2 * c4;
+    const int64_t off = ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + 2 * c4;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
-      *reinterpret_cast<float2*>(part + off + 8 * j) =
-          make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
-      *reinterpret_cast<float2*>(part + static_cast<int64_t>(G) * n + off + 8 * j) =
-          make_float2(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+      const int e = 4 * j + 2 * i;
+      if (direct) {
+        *reinterpret_cast<uint32_t*>(dk_out + off + 8 * j) =
+            hopper::pack_bf16(dk[e] * scale, dk[e + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv_out + off + 8 * j) = hopper::pack_bf16(dv[e], dv[e + 1]);
+      } else {
+        *reinterpret_cast<float2*>(part + static_cast<int64_t>(blockIdx.z) * n + off + 8 * j) =
+            make_float2(dk[e], dk[e + 1]);
+        *reinterpret_cast<float2*>(part + static_cast<int64_t>(gridDim.z + blockIdx.z) * n + off +
+                                   8 * j) = make_float2(dv[e], dv[e + 1]);
+      }
     }
   }
 }
 
-// Grid (ceil(Sk / 64), B * Hk, G): block (x, y, z) holds keys 64 x .. of KV
-// head y % Hk of batch y / Hk and query head (y % Hk) * G + z.
+// Grid (ceil(Sk / 64), B * Hk, head groups): block (x, y, z) holds keys 64 x
+// .. of KV head y % Hk of batch y / Hk and the heads of group z, kvh * G + z
+// * per .. (per = ceil(G / groups), the last group the rest).  Consumer
+// warpgroups first, the producer last.
 template <int HD, bool kCausal>
 __global__ void __launch_bounds__(DkdvTile<HD>::kThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -369,12 +471,16 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap v_map,
                             const __grid_constant__ CUtensorMap do_map,
                             const float* __restrict__ lse, const float* __restrict__ D,
-                            float* __restrict__ part, int B, int S, int Sk, int H, int Hk,
-                            float scale_log2) {
+                            float* __restrict__ part, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int B, int S, int Sk, int H, int Hk, float scale, float scale_log2) {
   using T = DkdvTile<HD>;
   using A = hopper::Atoms<HD>;
+  // ptxas spilled the consumers at hd 64 with 40 / 232, the producer at hd
+  // 32 with 24 / 240.
+  using HandOver = hopper::HandOver<HD == 32 ? 40 : 24>;
   constexpr int kRows = T::kRows;
   constexpr int kStages = T::kStages;
+  constexpr int kNC = T::kConsumers;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Ks = hopper::align1024(smem_raw);
   uint8_t* Vs = Ks + T::kKBytes;
@@ -382,62 +488,75 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   uint8_t* dOs = Qs + kStages * T::kQBytes;
   float* lse_s = reinterpret_cast<float*>(dOs + kStages * T::kQBytes);
   float* D_s = lse_s + kStages * kRows;
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(D_s + kStages * kRows);
+  float* merge = D_s + kStages * kRows;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(merge) +
+                                                  T::kMergeBytes);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kStages;
 
   const int G = H / Hk;
   const int kvh = static_cast<int>(blockIdx.y % Hk);
   const int b = static_cast<int>(blockIdx.y / Hk);
-  const int h = kvh * G + static_cast<int>(blockIdx.z);
+  const int per = (G + static_cast<int>(gridDim.z) - 1) / static_cast<int>(gridDim.z);
   const int k0 = blockIdx.x * T::kKeys;
+  DkdvWalk walk;
+  walk.h0 = kvh * G + static_cast<int>(blockIdx.z) * per;
+  walk.n_heads = max(0, min(per, G - static_cast<int>(blockIdx.z) * per));
   // Causal: positions below k0 see none of the keys (k0 is a tile multiple).
-  const int t_first = kCausal ? k0 / kRows : 0;
-  const int n_q = max(0, (S + kRows - 1) / kRows - t_first);
+  walk.t_first = kCausal ? k0 / kRows : 0;
+  walk.n_q = max(0, (S + kRows - 1) / kRows - walk.t_first);
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1 + 32);  // the copies' arrival, each lane's
-      hopper::mbar_init(&empty[s], 4);
+      hopper::mbar_init(&empty[s], 4);      // the consuming warpgroup's warps
     }
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  const int lane = threadIdx.x % 32;
-  if (threadIdx.x >= 128 && n_q > 0) {  // ---- producer warp
-    if (lane == 0) {
-      hopper::mbar_expect_tx(kv_full, 2 * T::kKBytes);
-      for (int a = 0; a < A::kCount; ++a) {
-        const int off = a * T::kKeys * A::kRowBytes;
-        hopper::tma_load_4d(Ks + off, &k_map, kv_full, a * A::kCols, kvh, k0, b);
-        hopper::tma_load_4d(Vs + off, &v_map, kv_full, a * A::kCols, kvh, k0, b);
-      }
-    }
-    const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * S;
-    for (int i = 0; i < n_q; ++i) {
-      const int st = i % kStages;
-      const int row0 = (t_first + i) * kRows;
-      if (i >= kStages) hopper::mbar_wait(&empty[st], (i / kStages - 1) & 1);
+  if (threadIdx.x >= kNC * 128) {  // ---- producer: its first warp copies
+    if constexpr (kNC == 2) HandOver::producer();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < kNC * 128 + 32 && walk.total() > 0) {
       if (lane == 0) {
-        hopper::mbar_expect_tx(&full[st], 2 * T::kQBytes);
+        hopper::mbar_expect_tx(kv_full, 2 * T::kKBytes);
         for (int a = 0; a < A::kCount; ++a) {
-          const int off = st * T::kQBytes + a * kRows * A::kRowBytes;
-          hopper::tma_load_4d(Qs + off, &q_map, &full[st], a * A::kCols, h, row0, b);
-          hopper::tma_load_4d(dOs + off, &do_map, &full[st], a * A::kCols, h, row0, b);
+          const int off = a * T::kKeys * A::kRowBytes;
+          hopper::tma_load_4d(Ks + off, &k_map, kv_full, a * A::kCols, kvh, k0, b);
+          hopper::tma_load_4d(Vs + off, &v_map, kv_full, a * A::kCols, kvh, k0, b);
         }
       }
-      for (int r = lane; r < kRows; r += 32) {
-        const bool ok = row0 + r < S;
-        lse_s[st * kRows + r] = ok ? lse[stat0 + row0 + r] * kLog2e : 0.f;
-        D_s[st * kRows + r] = ok ? D[stat0 + row0 + r] : 0.f;
+      for (int hh = 0; hh < walk.n_heads; ++hh) {
+        const int h = walk.h0 + hh;
+        const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * S;
+        for (int i = 0; i < walk.n_q; ++i) {  // entry hh n_q + i: query tile t_first + i
+          const int entry = hh * walk.n_q + i;
+          const int st = entry % kStages;
+          const int row0 = (walk.t_first + i) * kRows;
+          if (entry >= kStages) hopper::mbar_wait(&empty[st], (entry / kStages - 1) & 1);
+          if (lane == 0) {
+            hopper::mbar_expect_tx(&full[st], 2 * T::kQBytes);
+            for (int a = 0; a < A::kCount; ++a) {
+              const int off = st * T::kQBytes + a * kRows * A::kRowBytes;
+              hopper::tma_load_4d(Qs + off, &q_map, &full[st], a * A::kCols, h, row0, b);
+              hopper::tma_load_4d(dOs + off, &do_map, &full[st], a * A::kCols, h, row0, b);
+            }
+          }
+          for (int r = lane; r < kRows; r += 32) {
+            const bool ok = row0 + r < S;
+            lse_s[st * kRows + r] = ok ? lse[stat0 + row0 + r] * kLog2e : 0.f;
+            D_s[st * kRows + r] = ok ? D[stat0 + row0 + r] : 0.f;
+          }
+          hopper::mbar_arrive(&full[st]);  // releases this lane's lse and D
+        }
       }
-      hopper::mbar_arrive(&full[st]);  // releases this lane's lse and D
     }
-  } else if (threadIdx.x < 128) {  // ---- consumer warpgroup: keys k0 .. k0 + 63
-    dkdv_consumer<HD, kCausal>(Ks, Vs, Qs, dOs, lse_s, D_s, kv_full, full, empty, part, B, S, Sk,
-                               H, Hk, k0, t_first, n_q, scale_log2);
+  } else {  // ---- consumer warpgroups: keys k0 .. k0 + 63
+    if constexpr (kNC == 2) HandOver::consumer();
+    dkdv_consumer<HD, kCausal>(Ks, Vs, Qs, dOs, lse_s, D_s, merge, kv_full, full, empty, part, dk,
+                               dv, B, S, Sk, Hk, k0, walk, scale, scale_log2);
   }
 }
 
@@ -1153,8 +1272,9 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_tf32x3_wide_mma_kernel(FLASH
 
 // What a call launched, for the caller to read back: launched[0] the body of
 // its dK/dV and dQ kernels (named by flash_attention_bwd_body_name),
-// launched[1] the dQ grid's key ranges, launched[2..4] the dK/dV grid and
-// launched[5..6] the dQ grid's x and y.
+// launched[1] the dQ grid's key ranges, launched[2..4] the dK/dV grid (its z
+// the head groups), launched[5..6] the dQ grid's x and y, launched[7] the
+// kernels the call launched (3, or 4 with the reduce).
 constexpr int kBodyTf32x3 = 0;
 constexpr int kBodyWgmma = 1;
 constexpr int kBodyTf32x3Wide = 2;
@@ -1166,11 +1286,13 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// The bf16 dK/dV and dQ kernels: their TMA maps, then the launches.
+// The bf16 dK/dV and dQ kernels: their TMA maps, then the launches; dk and
+// dv written by the dK/dV kernel where it has one head group.
 template <int HD, bool kCausal>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
-                 const float* D, float* part, float* dq_part, bf16* dq, int B, int S, int Sk,
-                 int H, int Hk, int splits, int* launched, cudaStream_t stream) {
+                 const float* D, float* part, float* dq_part, bf16* dq, bf16* dk, bf16* dv, int B,
+                 int S, int Sk, int H, int Hk, int splits, int groups, int* launched,
+                 cudaStream_t stream) {
   using TK = DkdvTile<HD>;
   using TQ = DqTile<HD>;
   const int G = H / Hk;
@@ -1183,19 +1305,27 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, 
   if ((e = hopper::map_rows<HD>(&v_map, "v", v, B, Sk, Hk, 64)) != 0) return e;
   if ((e = hopper::map_folded<HD>(&q_folded, "q", q, B, S, Hk, G, P)) != 0) return e;
   if ((e = hopper::map_folded<HD>(&do_folded, "dout", dout, B, S, Hk, G, P)) != 0) return e;
-  static_assert(TQ::kKeys == 64, "dQ's K/V boxes are dK/dV's: 64 keys");
+  static_assert(TQ::kKeys == 64 && TK::kKeys == 64, "dQ's K/V boxes are dK/dV's: 64 keys");
 
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   const float scale_log2 = scale * kLog2e;
   auto dkdv = flash_bwd_dkdv_wgmma_kernel<HD, kCausal>;
   auto dqk = flash_bwd_dq_wgmma_kernel<HD, kCausal>;
+  if constexpr (TK::kConsumers == 2) {
+    static int regs = -1;
+    if ((e = hopper::launch_regs_ok(reinterpret_cast<const void*>(dkdv),
+                                    "flash_bwd_dkdv_wgmma_kernel", &regs)) != 0) {
+      return e;
+    }
+  }
   cudaError_t err;
   if ((err = allow_smem(dkdv, TK::kBytes)) != cudaSuccess) return static_cast<int>(err);
   if ((err = allow_smem(dqk, TQ::kBytes)) != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_kv(static_cast<unsigned>((Sk + TK::kKeys - 1) / TK::kKeys),
-                     static_cast<unsigned>(B * Hk), static_cast<unsigned>(G));
+                     static_cast<unsigned>(B * Hk), static_cast<unsigned>(groups));
   dkdv<<<grid_kv, TK::kThreads, TK::kBytes, stream>>>(q_rows, k_map, v_map, do_rows, lse, D,
-                                                      part, B, S, Sk, H, Hk, scale_log2);
+                                                      part, dk, dv, B, S, Sk, H, Hk, scale,
+                                                      scale_log2);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_q(static_cast<unsigned>((S + P - 1) / P), static_cast<unsigned>(B * Hk),
                     static_cast<unsigned>(splits));
@@ -1214,32 +1344,34 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, 
 template <int HD, bool kCausal, typename T>
 int launch_typed(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const float* lse, float* D, float* part, float* dq_part, void* dq, void* dk,
-                 void* dv, int B, int S, int Sk, int H, int Hk, int splits, int* launched,
-                 cudaStream_t stream) {
+                 void* dv, int B, int S, int Sk, int H, int Hk, int splits, int groups,
+                 int* launched, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
   const int64_t n_rows = static_cast<int64_t>(B) * S * H;
-  flash_bwd_dot_kernel<T><<<static_cast<unsigned>((n_rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), dot, D, n_rows, S, H, HD);
+  using L = DotTile<T, HD>;
+  flash_bwd_dot_kernel<T, HD>
+      <<<static_cast<unsigned>((n_rows + L::kRowsPerBlock - 1) / L::kRowsPerBlock), 256, 0,
+         stream>>>(static_cast<const T*>(o), dot, D, n_rows, S, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   const float scale_log2 = scale * kLog2e;
   const unsigned bh = static_cast<unsigned>(B * Hk);
-  const int G = H / Hk;
-  const int64_t rows = static_cast<int64_t>(S) * G;
+  const int64_t rows = static_cast<int64_t>(S) * (H / Hk);
   // The f32 dK/dV and dQ kernels of one body: threads a block, shared memory
-  // of each; 64 keys a dK/dV block, 64 rows a dQ block.
+  // of each; 64 keys a dK/dV block (one query head: groups == G), 64 rows a
+  // dQ block.
   const auto run = [&](int body, auto dkdv, auto dqk, int threads, size_t smem_kv,
                        size_t smem_q) -> cudaError_t {
     cudaError_t e;
     if ((e = allow_smem(dkdv, smem_kv)) != cudaSuccess) return e;
     if ((e = allow_smem(dqk, smem_q)) != cudaSuccess) return e;
     const dim3 grid_kv(static_cast<unsigned>((Sk + kMmaTile - 1) / kMmaTile), bh,
-                       static_cast<unsigned>(G));
+                       static_cast<unsigned>(groups));
     dkdv<<<grid_kv, threads, smem_kv, stream>>>(qt, kt, vt, dot, lse, D, part, B, S, Sk, H,
                                                 Hk, scale_log2);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -1261,26 +1393,31 @@ int launch_typed(const void* q, const void* k, const void* v, const void* o, con
   int rc;
   if constexpr (std::is_same<T, bf16>::value) {
     rc = launch_wgmma<HD, kCausal>(qt, kt, vt, dot, lse, D, part, dq_part, static_cast<bf16*>(dq),
-                                   B, S, Sk, H, Hk, splits, launched, stream);
+                                   static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S, Sk, H,
+                                   Hk, splits, groups, launched, stream);
   } else if constexpr (HD <= 64) {
-    using L = Tf32Smem<HD, 1>;
+    using M = Tf32Smem<HD, 1>;
     rc = static_cast<int>(run(kBodyTf32x3, flash_bwd_dkdv_tf32x3_mma_kernel<HD, kCausal>,
-                              flash_bwd_dq_tf32x3_mma_kernel<HD, kCausal>, 128, L::kDkdvBytes,
-                              L::kDqBytes));
+                              flash_bwd_dq_tf32x3_mma_kernel<HD, kCausal>, 128, M::kDkdvBytes,
+                              M::kDqBytes));
   } else {
-    using L = Tf32Smem<HD, 2>;
+    using M = Tf32Smem<HD, 2>;
     rc = static_cast<int>(run(kBodyTf32x3Wide, flash_bwd_dkdv_tf32x3_wide_mma_kernel<HD, kCausal>,
                               flash_bwd_dq_tf32x3_wide_mma_kernel<HD, kCausal>, 256,
-                              L::kDkdvBytes, L::kDqBytes));
+                              M::kDkdvBytes, M::kDqBytes));
   }
   if (rc != 0) return rc;
-  // dk and dv: the G shares of each KV head summed in head order; dq, when
+  // dk and dv: each KV head's shares (one a head group) summed in group
+  // order, unless the bf16 body's one group wrote them itself; dq, when
   // split, its partials in range order; each cast once.
-  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;
+  const bool shared = !std::is_same<T, bf16>::value || groups > 1;
+  const int64_t n = shared ? static_cast<int64_t>(B) * Sk * Hk * HD : 0;
   const int64_t nq = splits > 1 ? n_rows * HD : 0;
+  launched[7] = n + nq > 0 ? 4 : 3;
+  if (n + nq == 0) return 0;
   const int64_t red_blocks = (n + nq + 255) / 256 < 4096 ? (n + nq + 255) / 256 : 4096;
   flash_bwd_reduce_kernel<T><<<static_cast<unsigned>(red_blocks), 256, 0, stream>>>(
-      part, static_cast<T*>(dk), static_cast<T*>(dv), n, G, dq_part, static_cast<T*>(dq), nq,
+      part, static_cast<T*>(dk), static_cast<T*>(dv), n, groups, dq_part, static_cast<T*>(dq), nq,
       splits, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1288,22 +1425,22 @@ int launch_typed(const void* q, const void* k, const void* v, const void* o, con
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const float* lse, float* D, float* part, float* dq_part, void* dq, void* dk,
-              void* dv, int B, int S, int Sk, int H, int Hk, int splits, bool is_bf16,
+              void* dv, int B, int S, int Sk, int H, int Hk, int splits, int groups, bool is_bf16,
               bool causal, int* launched, cudaStream_t stream) {
   if (is_bf16) {
     return causal ? launch_typed<HD, true, bf16>(q, k, v, o, dout, lse, D, part, dq_part, dq,
-                                                 dk, dv, B, S, Sk, H, Hk, splits, launched,
-                                                 stream)
+                                                 dk, dv, B, S, Sk, H, Hk, splits, groups,
+                                                 launched, stream)
                   : launch_typed<HD, false, bf16>(q, k, v, o, dout, lse, D, part, dq_part, dq,
-                                                  dk, dv, B, S, Sk, H, Hk, splits, launched,
-                                                  stream);
+                                                  dk, dv, B, S, Sk, H, Hk, splits, groups,
+                                                  launched, stream);
   }
   return causal ? launch_typed<HD, true, float>(q, k, v, o, dout, lse, D, part, dq_part, dq,
-                                                dk, dv, B, S, Sk, H, Hk, splits, launched,
+                                                dk, dv, B, S, Sk, H, Hk, splits, groups, launched,
                                                 stream)
                 : launch_typed<HD, false, float>(q, k, v, o, dout, lse, D, part, dq_part, dq,
-                                                 dk, dv, B, S, Sk, H, Hk, splits, launched,
-                                                 stream);
+                                                 dk, dv, B, S, Sk, H, Hk, splits, groups,
+                                                 launched, stream);
 }
 
 }  // namespace
@@ -1313,21 +1450,27 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  hd: 32, 64, 128 or 160.  q, o, dout and
 // dq are (B, S, H, hd), k, v, dk and dv (B, Sk, Hk, hd), all contiguous and
 // 16-byte aligned (TMA's rule for a tensor's base); lse and D are f32 (B, H,
-// S), lse from the forward, D scratch; part is f32 scratch of 2 * H * B * Sk
-// * hd elements (the heads' dk and dv shares).  dq_splits: the key ranges of
-// the dq walk (1 <= dq_splits <= 65535); above 1, dq_part is f32 scratch of
-// dq_splits * B * S * H * hd elements (the ranges' partials), else unused.
-// H % Hk == 0, B * Hk <= 65535, H / Hk <= 64 (bf16: a folded tile holds at
-// least one position); the wrapper checks all of it.  On success launched
-// (int[7]) holds the body the call ran (flash_attention_bwd_body_name), the
-// key ranges of the dQ grid, the dK/dV grid and the dQ grid's x and y.  A
-// TMA descriptor that does not encode returns hopper::kTmaEncodeError, and
-// the error string gives why.
+// S), lse from the forward, D scratch.  head_groups: the dK/dV grid's head
+// groups (f32: G, one head a block; bf16: 1 <= head_groups <= G); part is
+// f32 scratch of 2 * head_groups * B * Sk * Hk * hd elements (each group's dk
+// and dv shares), unused for bf16 at one group (the dK/dV kernel writes dk
+// and dv).
+// dq_splits: the key ranges of the dq walk (1 <= dq_splits <= 65535); above
+// 1, dq_part is f32 scratch of dq_splits * B * S * H * hd elements (the
+// ranges' partials), else unused.  H % Hk == 0, B * Hk <= 65535, H / Hk <=
+// 64 (bf16: a folded tile holds at least one position); the wrapper checks
+// all of it.  On success launched (int[8]) holds the body the call ran
+// (flash_attention_bwd_body_name), the key ranges of the dQ grid, the dK/dV
+// grid, the dQ grid's x and y and the kernels launched.  A TMA descriptor
+// that does not encode returns hopper::kTmaEncodeError, a dK/dV build that
+// setmaxnreg's hand-over cannot count on hopper::kHandOverError, and the
+// error string gives why.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const float* lse, float* D, float* part,
                                float* dq_part, void* dq, void* dk, void* dv, int B, int S,
                                int Sk, int H, int Hk, int hd, int dtype, int causal,
-                               int dq_splits, int* launched, int device, void* stream) {
+                               int dq_splits, int head_groups, int* launched, int device,
+                               void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0 || Sk <= 0 || Hk <= 0 || H % Hk != 0) {
@@ -1340,29 +1483,33 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
       launched == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (head_groups < 1 || head_groups > H / Hk || (dtype == 0 && head_groups != H / Hk) ||
+      ((dtype == 0 || head_groups > 1) && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool is_bf16 = dtype == 1;
   const bool c = causal != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
       return launch_hd<32>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H, Hk,
-                           dq_splits, is_bf16, c, launched, st);
+                           dq_splits, head_groups, is_bf16, c, launched, st);
     case 64:
       return launch_hd<64>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H, Hk,
-                           dq_splits, is_bf16, c, launched, st);
+                           dq_splits, head_groups, is_bf16, c, launched, st);
     case 128:
       return launch_hd<128>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
-                            Hk, dq_splits, is_bf16, c, launched, st);
+                            Hk, dq_splits, head_groups, is_bf16, c, launched, st);
     case 160:
       return launch_hd<160>(q, k, v, o, dout, lse, D, part, dq_part, dq, dk, dv, B, S, Sk, H,
-                            Hk, dq_splits, is_bf16, c, launched, st);
+                            Hk, dq_splits, head_groups, is_bf16, c, launched, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 const char* flash_attention_bwd_error_string(int err) {
-  if (err == hopper::kTmaEncodeError) return hopper::tma_error();
+  if (err == hopper::kTmaEncodeError || err == hopper::kHandOverError) return hopper::tma_error();
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,7 +1,8 @@
 // Hopper's own route for the bf16 flash-attention bodies (csrc/flash_attention.cu's
 // forward, csrc/flash_attention_bwd.cu's dK/dV and dQ): warpgroup products
 // (wgmma) on tiles that the Tensor Memory Accelerator (TMA) copies into shared
-// memory under mbarriers, with a producer warp and consumer warpgroups.
+// memory under mbarriers, with a producer warp or warpgroup and consumer
+// warpgroups.
 // Included at file scope by both sources; the build hashes it with every
 // source (kernels/build.py).
 //
@@ -21,8 +22,8 @@
 //     registers (rs), N = 32, 64, 128 or 160, B transposed (MN-major) when
 //     kTransB;
 //   * mbarrier init, arrive, expect_tx and a try_wait loop on a phase parity;
-//   * cp.async.bulk.tensor loads (4-D, 5-D) completing on an mbarrier, and
-//     the 5-D store with its bulk-group commit and wait;
+//   * named barriers, and setmaxnreg's register hand-over (below);
+//   * cp.async.bulk.tensor loads (4-D, 5-D) completing on an mbarrier;
 //   * on the host, encode_tiled: cuTensorMapEncodeTiled, fetched from the
 //     driver through the runtime's entry-point query so that no library
 //     beyond the runtime is linked; a map that does not encode returns
@@ -30,13 +31,24 @@
 //     are kept in a per-thread table keyed on every argument of the encode
 //     (kCacheMaps), so a call on tensors already seen skips the driver.
 //
-// No setmaxnreg: with a producer warpgroup and setmaxnreg (dec 24, inc
-// 240), ptxas (CUDA 12.8) still compiled the consumers within the 168
-// registers of 384 threads and spilled at hd 128 and 160; with a producer
-// warp (288 threads, which ptxas also held to 168) the consumers'
-// setmaxnreg.inc waited for registers no warp gave back.  The bodies size
-// their tiles to 168 registers, or run one consumer warpgroup (160 threads,
-// up to 255).
+// Register hand-over (setmaxnreg): a block of one producer warpgroup and
+// two consumer warpgroups (384 threads) is compiled to 168 registers a
+// thread, the most 384 threads can hold (65,536 / 384, rounded down to 8).
+// The producer warpgroup lowers itself to p registers and the consumers
+// raise themselves to c (HandOver<p>), 128 p + 256 c = 384 * 168, so the
+// registers the producer gives back are the ones the consumers take (24 /
+// 240, or 40 / 232 where a producer needs more, hd 32's dK/dV).  All
+// four warps of a warpgroup run the instruction, and the roles split in one
+// if/else whose paths never meet again (mbarrier init and __syncthreads()
+// come before it): otherwise ptxas ignores it (warning C7508) and compiles
+// every thread within the launch's 168.  A producer warp is not enough: at
+// 288 threads its decrease frees 4,608 registers where the consumers'
+// increase asks 18,432, so the increase waits forever.  launch_regs_ok()
+// checks on the host, once a kernel, that ptxas compiled the kernel to the
+// registers the hand-over counts on, so a build that did not cannot hang
+// the card.  So built, ptxas honours it: the 384-thread bodies report 168
+// registers, no C7508 and no spill with 128-key tiles at hd 128 and 160
+// (scripts/ptxas_report.py), which 168 registers could not hold.
 //
 // Accumulator layout of m64nNk16 (PTX ISA, "wgmma register fragments"):
 // thread t of the warpgroup, warp w = t / 32, lane = 4 g + c, holds rows
@@ -400,6 +412,34 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// Arrives at barrier `id` of `threads` threads without waiting for it.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------ setmaxnreg
+
+// A block of one producer warpgroup and two consumer warpgroups: registers
+// a thread at launch, and after the hand-over, kProducer a producer thread
+// and what that frees for a consumer thread (p + 2 c = 3 kLaunchRegs).
+constexpr int kHandOverThreads = 384;
+constexpr int kLaunchRegs = 168;
+
+template <int kProducerRegs>
+struct HandOver {
+  static constexpr int kProducer = kProducerRegs;
+  static constexpr int kConsumer = (3 * kLaunchRegs - kProducer) / 2;
+  static_assert(kProducer % 8 == 0 && kConsumer % 8 == 0 && kConsumer <= 256 &&
+                    kProducer + 2 * kConsumer == 3 * kLaunchRegs,
+                "the consumers take exactly what the producer gives back");
+  // Every thread of the calling warpgroup, outside any branch that splits it.
+  static __device__ __forceinline__ void producer() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducer));
+  }
+  static __device__ __forceinline__ void consumer() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumer));
+  }
+};
 
 // ------------------------------------------------------------------ TMA
 
@@ -423,23 +463,6 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// Shared -> global; the box's parts past the tensor's edge are not written.
-__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.global.shared::cta.tile.bulk_group [%0, {%2, %3, %4, %5, %6}], "
-      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// Waits until the committed stores have read their shared memory.
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
 // A pointer into dynamic shared memory rounded up to 1024 bytes (the 128-byte
 // swizzle's period), and an offset from it.
 __device__ __forceinline__ uint8_t* align1024(void* p) {
@@ -456,6 +479,28 @@ constexpr int kTmaEncodeError = 100000;
 inline char* tma_error() {
   static char msg[512] = "";
   return msg;
+}
+
+// The launch's error code for a hand-over kernel that ptxas compiled to
+// fewer registers than kLaunchRegs (its consumers' increase would wait
+// forever); tma_error() holds the count.
+constexpr int kHandOverError = 100001;
+
+// Whether `kernel` (a hand-over block) was compiled to kLaunchRegs registers
+// a thread, asked of the runtime once (`cache`: the caller's, -1 at first).
+// 0 or kHandOverError.
+inline int launch_regs_ok(const void* kernel, const char* what, int* cache) {
+  if (*cache < 0) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *cache = attr.numRegs >= kLaunchRegs ? 0 : kHandOverError;
+    if (*cache != 0) {
+      snprintf(tma_error(), 512, "%s: compiled to %d registers a thread, below the %d that "
+               "setmaxnreg's hand-over counts on", what, attr.numRegs, kLaunchRegs);
+    }
+  }
+  return *cache;
 }
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

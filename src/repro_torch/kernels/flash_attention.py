@@ -10,8 +10,10 @@ causal block stops at the last key its positions can see.  It has two
 bodies, picked by dtype (``BODIES``; the C entry reports the one it ran).
 bf16, the serving and training path, is Hopper's own route
 (``csrc/hopper_wgmma.cuh``): ``wgmma`` products on tiles that TMA loads
-into shared memory under mbarriers, a producer warp keeping a ring of
-K/V tiles full for two consumer warpgroups of 64 folded rows each.  TMA
+into shared memory under mbarriers, a producer warpgroup keeping a ring of
+K/V tiles full for two consumer warpgroups of 64 folded rows each and
+handing them its registers (setmaxnreg), on a persistent grid of one
+block an SM that walks the row tiles heaviest first.  TMA
 loads a folded tile as one box of a 5-D view (hd, G, Hk, S, B) of q: P =
 64 // G whole positions of all G heads, so for G = 5 or 7 a tile holds 60
 or 63 real rows and padding that no box fills or stores
@@ -28,12 +30,14 @@ max and sum) a merge kernel combines in range order (``FWD_LAUNCHED``).
 
 The Pallas kernel is forward only; here the gradient is a kernel too
 (``csrc/flash_attention_bwd.cu``, the FlashAttention-2 split: a row-dot
-pass, per-query-head dK/dV shares summed per KV head in f32, and a dQ
-kernel; four launches a call, deterministic, no atomics).  Its bodies
-(``BWD_LAUNCHED``) all run on the tensor cores: bf16 on ``wgmma`` fed by
-TMA at every head dim (dK/dV: one consumer warpgroup of 64 keys, the query
-rows of one head streamed in a TMA ring; dQ: one consumer warpgroup of 64
-folded rows in the forward's padded boxes, K/V streamed), f32 on
+pass, dK/dV shares of head groups summed per KV head in f32, and a dQ
+kernel; three or four launches a call, deterministic, no atomics).  Its
+bodies (``BWD_LAUNCHED``) all run on the tensor cores: bf16 on ``wgmma``
+fed by TMA at every head dim (dK/dV: two consumer warpgroups (one at hd
+128 and 160) on 64 keys taking in turn the streamed query tiles of a
+group of heads, ``dkdv_head_groups``, dk and dv written in bf16 where one
+group holds all G heads; dQ: one consumer warpgroup of 64 folded rows in
+the forward's padded boxes, K/V streamed), f32 on
 ``mma.sync`` TF32 in 3xTF32 (4 warps at hd 32 and 64, 8 at hd 128 and
 160).  Where a short query sequence leaves the dQ kernel's grid below one
 wave, ``dq_splits`` cuts its key walk into ranges whose f32 partials the
@@ -74,9 +78,10 @@ BODIES = {torch.bfloat16: "bf16_wgmma", torch.float32: "tf32x3_mma"}
 BODY_LAUNCHES = {"bf16_wgmma": 0, "tf32x3_mma": 0}
 
 #: What the last forward call launched, as its C entry reported it: the body,
-#: the key ranges of its grid (above 1, the merge kernel followed) and its
-#: grid's row tiles and (batch, KV head) blocks.
-FWD_LAUNCHED = {"body": None, "key_splits": None, "grid": None}
+#: the key ranges of its grid (above 1, the merge kernel followed), its
+#: grid's row tiles and (batch, KV head) pairs, and the blocks it launched
+#: (bf16: the persistent blocks walking those row tiles).
+FWD_LAUNCHED = {"body": None, "key_splits": None, "grid": None, "blocks": None}
 
 #: Head dims the kernel is instantiated for (the test cases' 32, 64 and 128;
 #: tinyllama, qwen1.5 and starcoder2 use 64 or 128, stablelm-12b 160).
@@ -85,16 +90,15 @@ HEAD_DIMS = (32, 64, 128, 160)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 
-#: Kernels one backward call launches (row dot, per-head dK/dV shares, dQ,
-#: and the sum of each KV head's dK/dV shares and of dQ's partials).
-BWD_KERNELS_PER_CALL = 4
-
 #: What the last backward call launched, as its C entry reported it: the
 #: body of its dK/dV and dQ kernels (``flash_attention_bwd_body_name``:
 #: ``wgmma`` for bf16 at every head dim, ``tf32x3_mma`` / ``tf32x3_wide_mma``
-#: for f32 at hd <= 64 / above), the key ranges of its dQ grid, and the
-#: dK/dV and dQ grids.
-BWD_LAUNCHED = {"body": None, "dq_splits": None, "dkdv_grid": None, "dq_grid": None}
+#: for f32 at hd <= 64 / above), the key ranges of its dQ grid, the dK/dV
+#: grid (its third dimension the head groups) and the dQ grid, and the
+#: kernels it launched (``bwd_kernels``: row dot, dK/dV, dQ, and the reduce
+#: where there are shares or partials to sum).
+BWD_LAUNCHED = {"body": None, "dq_splits": None, "dkdv_grid": None, "dq_grid": None,
+                "kernels": None}
 
 #: Rows of a dQ (and f32 forward) block, and keys of every f32 body's key
 #: tile: the units of ``dq_splits``.
@@ -106,28 +110,70 @@ DQ_MIN_RANGE_TILES = 2
 
 #: The bf16 (wgmma) bodies' tiles that fix their grids: folded rows a
 #: consumer warpgroup (one TMA box of P = 64 // G positions x G heads), the
-#: forward's consumer warpgroups a block and the keys of a dK/dV block (one
-#: consumer warpgroup).  The C structs ``FwdTile`` and ``DkdvTile`` hold
-#: them; the C entries report the grids they launched.
+#: forward's consumer warpgroups a block (its grid is persistent: at most
+#: one block an SM walking the row tiles), the keys of a dK/dV block and its
+#: consumer warpgroups (one dK/dV block an SM).  The C structs ``FwdTile``
+#: and ``DkdvTile`` hold them; the C entries report the grids they launched.
 WGMMA_ROWS = 64
 FWD_CONSUMERS = 2
 DKDV_KEYS = 64
 
 
-def wgmma_plan(B: int, S: int, Sk: int, H: int, Hk: int, hd: int) -> dict:
-    """The bf16 bodies' boxes and grids, as their C entries compute them.
+def dkdv_rows(hd: int) -> int:
+    """Query rows of one streamed tile of the bf16 dK/dV kernel
+    (``DkdvTile::kRows``)."""
+    return 64 if hd <= 64 else 32
+
+
+def dkdv_consumers(hd: int) -> int:
+    """Consumer warpgroups of a bf16 dK/dV block, taking its streamed tiles
+    in turn (``DkdvTile::kConsumers``)."""
+    return 2 if hd <= 64 else 1
+
+
+def dkdv_head_groups(B: int, S: int, Sk: int, H: int, Hk: int, hd: int, causal: bool,
+                     sms: int) -> int:
+    """Head groups of the bf16 dK/dV grid, the third dimension of its grid:
+    the fewest whose heaviest block -- all the streamed query tiles of its
+    first key tile for its group's heads, shared by its
+    ``dkdv_consumers`` warpgroups -- takes no more tiles than the grid's
+    average per warpgroup slot (``sms`` x consumers).  Each group
+    writes one f32 share of dk and dv for its heads; one group writes dk
+    and dv themselves."""
+    G = H // Hk
+    rows = dkdv_rows(hd)
+    q_tiles = -(-S // rows)
+    walks = [max(0, q_tiles - (x * DKDV_KEYS // rows if causal else 0))
+             for x in range(-(-Sk // DKDV_KEYS))]
+    C = dkdv_consumers(hd)
+    mean = G * B * Hk * sum(walks) / (sms * C)
+    per = next((d for d in range(G, 1, -1) if -(-d * walks[0] // C) <= mean), 1)
+    return -(-G // per)
+
+
+def wgmma_plan(B: int, S: int, Sk: int, H: int, Hk: int, hd: int, *, causal: bool,
+               sms: int) -> dict:
+    """The bf16 bodies' boxes and grids, as their C entries compute them on
+    a card of ``sms`` SMs.
 
     ``positions`` P = 64 // G per folded tile, ``rows`` P * G real rows of
     its 64, ``padding`` the rest (no box fills or stores them); the
-    forward's grid (row tiles of ``FWD_CONSUMERS`` * P positions, B * Hk),
-    the dK/dV grid (key tiles of ``DKDV_KEYS``, B * Hk, G)
-    and the dQ grid's row tiles and blocks (ceil(S / P), B * Hk), before its
-    key ranges."""
+    forward's row tiles of ``FWD_CONSUMERS`` * P positions for each of the
+    B * Hk (batch, KV head) pairs (``fwd_grid``) and the persistent blocks
+    that walk them (``fwd_blocks``, at most one an SM); the
+    dK/dV grid (key tiles of ``DKDV_KEYS``, B * Hk, ``dkdv_head_groups``)
+    with ``dkdv_heads`` heads a group (the last group the rest), and the dQ
+    grid's row tiles and blocks (ceil(S / P), B * Hk), before its key
+    ranges."""
     G = H // Hk
     P = WGMMA_ROWS // G
+    row_tiles = -(-S // (FWD_CONSUMERS * P))
+    groups = dkdv_head_groups(B, S, Sk, H, Hk, hd, causal, sms)
     return {"positions": P, "rows": P * G, "padding": WGMMA_ROWS - P * G,
-            "fwd_grid": (-(-S // (FWD_CONSUMERS * P)), B * Hk),
-            "dkdv_grid": (-(-Sk // DKDV_KEYS), B * Hk, G),
+            "fwd_grid": (row_tiles, B * Hk),
+            "fwd_blocks": min(row_tiles * B * Hk, sms),
+            "dkdv_grid": (-(-Sk // DKDV_KEYS), B * Hk, groups),
+            "dkdv_heads": -(-G // groups),
             "dq_grid": (-(-S // P), B * Hk)}
 
 
@@ -156,9 +202,24 @@ def dq_splits(B: int, S: int, Sk: int, H: int, Hk: int, sms: int,
 def backward_dq_splits(dtype, B: int, S: int, Sk: int, H: int, Hk: int, hd: int,
                        sms: int) -> int:
     """``dq_splits`` on the row tiles of the body ``dtype`` runs."""
-    tiles = (wgmma_plan(B, S, Sk, H, Hk, hd)["dq_grid"][0] if dtype == torch.bfloat16
-             else None)
+    tiles = -(-S // (WGMMA_ROWS // (H // Hk))) if dtype == torch.bfloat16 else None
     return dq_splits(B, S, Sk, H, Hk, sms, row_tiles=tiles)
+
+
+def backward_head_groups(dtype, B: int, S: int, Sk: int, H: int, Hk: int, hd: int,
+                         causal: bool, sms: int) -> int:
+    """The dK/dV grid's head groups: ``dkdv_head_groups`` for bf16, G (one
+    head a block) for the f32 bodies."""
+    if dtype == torch.bfloat16:
+        return dkdv_head_groups(B, S, Sk, H, Hk, hd, causal, sms)
+    return H // Hk
+
+
+def bwd_kernels(dtype, groups: int, splits: int) -> int:
+    """Kernels a backward call launches: row dot, dK/dV, dQ, and the reduce
+    unless the bf16 dK/dV kernel wrote dk and dv itself (one head group) and
+    dQ's walk is whole."""
+    return 3 if dtype == torch.bfloat16 and groups == 1 and splits == 1 else 4
 
 
 def forward_key_splits(dtype, B: int, S: int, Sk: int, H: int, Hk: int, sms: int) -> int:
@@ -184,7 +245,7 @@ def _lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, Sk
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H, Hk, hd
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, causal, key ranges
-            ctypes.c_void_p,  # launched: int[4], written by the call
+            ctypes.c_void_p,  # launched: int[5], written by the call
             ctypes.c_int, ctypes.c_void_p,  # device, stream
         ]
         lib.flash_attention_launch.restype = ctypes.c_int
@@ -207,7 +268,8 @@ def _bwd_lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, Sk
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H, Hk, hd
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtype, causal, dq_splits
-            ctypes.c_void_p,  # launched: int[7], written by the call
+            ctypes.c_int,  # the dK/dV grid's head groups
+            ctypes.c_void_p,  # launched: int[8], written by the call
             ctypes.c_int, ctypes.c_void_p,  # device, stream
         ]
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
@@ -282,7 +344,7 @@ def _forward(q, k, v, causal: bool, with_lse: bool, key_splits: int | None = Non
         stat_part = torch.empty((2, splits, B * H * S), dtype=torch.float32, device=q.device)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    launched = (ctypes.c_int * 4)()
+    launched = (ctypes.c_int * 5)()
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -298,7 +360,8 @@ def _forward(q, k, v, causal: bool, with_lse: bool, key_splits: int | None = Non
     body = lib.flash_attention_body_name(launched[0]).decode()
     LAUNCHES["flash_attention"] += 1
     BODY_LAUNCHES[body] += 1
-    FWD_LAUNCHED.update(body=body, key_splits=launched[1], grid=(launched[2], launched[3]))
+    FWD_LAUNCHED.update(body=body, key_splits=launched[1], grid=(launched[2], launched[3]),
+                        blocks=launched[4])
     return out, lse
 
 
@@ -307,8 +370,10 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True):
 
     q/out/dout: (B,S,H,hd); k/v: (B,Sk,Hk,hd); lse: the forward's (B,H,S)
     f32 log-sum-exp.  f32 math; dk and dv sum over their KV head's G query
-    heads in f32 before the one cast, and dq over its key ranges
-    (``backward_dq_splits`` on this card's SM count) in range order."""
+    heads in f32 before the one cast (head after head inside a head group,
+    ``backward_head_groups``, the groups' shares in group order), and dq
+    over its key ranges (``backward_dq_splits``) in range order, both on
+    this card's SM count."""
     _check_operands(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if (t.device != q.device or t.dtype != q.dtype or t.shape != q.shape
@@ -329,20 +394,22 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    shares = torch.empty((2, H, B * Sk * hd), dtype=torch.float32, device=q.device)
-    splits = backward_dq_splits(q.dtype, B, S, Sk, H, Hk, hd,
-                                torch.cuda.get_device_properties(q.device).multi_processor_count)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = backward_dq_splits(q.dtype, B, S, Sk, H, Hk, hd, sms)
+    groups = backward_head_groups(q.dtype, B, S, Sk, H, Hk, hd, causal, sms)
+    shares = (torch.empty((2, groups, B * Sk * Hk * hd), dtype=torch.float32, device=q.device)
+              if q.dtype == torch.float32 or groups > 1 else None)
     dq_part = (torch.empty((splits, B * S * H * hd), dtype=torch.float32, device=q.device)
                if splits > 1 else None)
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    launched = (ctypes.c_int * 7)()
+    launched = (ctypes.c_int * 8)()
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), D.data_ptr(), shares.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), None if shares is None else shares.data_ptr(),
         None if dq_part is None else dq_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(),
-        B, S, Sk, H, Hk, hd, _DTYPE_CODE[q.dtype], int(bool(causal)), splits,
+        B, S, Sk, H, Hk, hd, _DTYPE_CODE[q.dtype], int(bool(causal)), splits, groups,
         ctypes.addressof(launched), q.device.index, stream,
     )
     if err != 0:
@@ -352,7 +419,7 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True):
     LAUNCHES["flash_attention_bwd"] += 1
     BWD_LAUNCHED.update(body=lib.flash_attention_bwd_body_name(launched[0]).decode(),
                         dq_splits=launched[1], dkdv_grid=tuple(launched[2:5]),
-                        dq_grid=tuple(launched[5:7]))
+                        dq_grid=tuple(launched[5:7]), kernels=launched[7])
     return dq, dk, dv
 
 

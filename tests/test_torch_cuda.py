@@ -275,8 +275,10 @@ def test_cuda_flash_attention_tensor_core_body(cuda_device, case):
     torch.cuda.synchronize()
     assert fa.BODY_LAUNCHES == {"bf16_wgmma": n0["bf16_wgmma"] + 1,
                                 "tf32x3_mma": n0["tf32x3_mma"]}
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd, causal=causal, sms=sms)
     assert fa.FWD_LAUNCHED == {"body": "bf16_wgmma", "key_splits": 1,
-                               "grid": fa.wgmma_plan(B, S, Sk, H, Hk, hd)["fwd_grid"]}
+                               "grid": plan["fwd_grid"], "blocks": plan["fwd_blocks"]}
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), ref.reference_attention(q, k, v, causal=causal)
                                .float(), atol=2e-2, rtol=2e-2)
@@ -309,7 +311,8 @@ def test_cuda_flash_f32_runs_the_tensor_core_body(cuda_device):
     fa.flash_attention(q, k, v)
     assert fa.BODY_LAUNCHES == {"bf16_wgmma": n0["bf16_wgmma"],
                                 "tf32x3_mma": n0["tf32x3_mma"] + 1}
-    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1, "grid": (2, 2)}
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1, "grid": (2, 2),
+                               "blocks": 4}
 
 
 #: f32 at every head dim, causal with G = 2 and ragged, and non-causal with
@@ -361,9 +364,11 @@ def test_cuda_flash_f32_split_walk(cuda_device, case):
         pytest.skip(f"{sms} SMs: this shape's walk is whole")
     grid = (-(-S * (H // Hk) // fa.DQ_ROW_TILE), B * Hk)
     out, lse = fa._forward(q, k, v, causal, with_lse=True)
-    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": splits, "grid": grid}
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": splits, "grid": grid,
+                               "blocks": grid[0] * grid[1] * splits}
     whole_out, whole_lse = fa._forward(q, k, v, causal, with_lse=True, key_splits=1)
-    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1, "grid": grid}
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1, "grid": grid,
+                               "blocks": grid[0] * grid[1]}
     torch.cuda.synchronize()
     want = ref.reference_attention(q, k, v, causal=causal)
     torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
@@ -495,13 +500,15 @@ def test_cuda_flash_attention_backward_matches_plain(cuda_device, case, dtype):
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     G = H // Hk
     if dtype == "bfloat16":
-        plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd)
+        plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd, causal=causal, sms=sms)
         want = {"body": "wgmma", "dkdv_grid": plan["dkdv_grid"], "dq_grid": plan["dq_grid"]}
     else:
         want = {"body": "tf32x3_mma" if hd <= 64 else "tf32x3_wide_mma",
                 "dkdv_grid": (-(-Sk // 64), B * Hk, G),
                 "dq_grid": (-(-S * G // 64), B * Hk)}
     want["dq_splits"] = fa.backward_dq_splits(getattr(torch, dtype), B, S, Sk, H, Hk, hd, sms)
+    want["kernels"] = fa.bwd_kernels(getattr(torch, dtype), want["dkdv_grid"][2],
+                                     want["dq_splits"])
     assert fa.BWD_LAUNCHED == want
 
 
