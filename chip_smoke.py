@@ -996,9 +996,9 @@ def phase_flash(torch, rate, name, records):
                 plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd, causal=causal, sms=sms)
                 grid, blocks = plan["fwd_grid"], plan["fwd_blocks"]
             else:
-                grid = (-(-S * (H // Hk) // fa.DQ_ROW_TILE), B * Hk)
+                grid = fa.tf32_plan(B, S, Sk, H, Hk, hd)["fwd_grid"]
                 blocks = grid[0] * grid[1] * splits
-            asked = {"body": fa.BODIES[dt], "key_splits": splits, "grid": grid,
+            asked = {"body": fa.forward_body(dt, hd), "key_splits": splits, "grid": grid,
                      "blocks": blocks}
             check(launched == asked, f"flash_attention {case}: the C entry launched "
                   f"{launched}, not {asked}")
@@ -1559,7 +1559,8 @@ def phase_lm(torch):
     check(launches["flash_attention"] == cfg.n_layers * forwards,
           f"flash_attention launched {launches['flash_attention']} times for "
           f"{forwards} forwards of {cfg.n_layers} layers")
-    check(bodies == {"bf16_wgmma": cfg.n_layers * forwards, "tf32x3_mma": 0},
+    check(bodies == {"bf16_wgmma": cfg.n_layers * forwards, "tf32x3_wgmma": 0,
+                     "tf32x3_mma": 0},
           f"flash_attention launches by body {bodies}: every prefill layer must run "
           "the bf16 body")
     check(launches["rwkv_scan"] == 0,
@@ -1934,41 +1935,42 @@ ATTN_BWD_FAMILY = [((1, 512, 512, 32, 8, 128, True), "bfloat16"),
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: The part of the backward kernels' names that marks each body, the first
 #: that matches.
-ATTN_BWD_BODY_MARKS = (("wgmma", "_wgmma_kernel"),
-                       ("tf32x3_wide_mma", "_tf32x3_wide_mma_kernel"),
-                       ("tf32x3_mma", "_tf32x3_mma_kernel"))
+ATTN_BWD_BODY_MARKS = (("tf32x3_wgmma", "_tf32x3_wgmma_kernel"),
+                       ("wgmma", "_wgmma_kernel"),
+                       ("tf32x3_wide_mma", "_tf32x3_wide_mma_kernel"))
 
 
 def bwd_body(dtype: str, hd: int) -> str:
-    """The backward body a dtype and head dim run: bf16 on wgmma at every
-    head dim; f32 on the 4-warp 3xTF32 body at hd 32/64, the 8-warp one at
-    hd 128/160."""
-    if dtype == "bfloat16":
-        return "wgmma"
-    return "tf32x3_mma" if hd <= 64 else "tf32x3_wide_mma"
+    """The backward body a dtype and head dim run
+    (``flash_attention.backward_body``): bf16 on wgmma at every head dim;
+    f32 in 3xTF32 on wgmma at hd 32/64, on the 8-warp mma.sync body at hd
+    128/160."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    return fa.backward_body(getattr(torch, dtype), hd)
 
 
 def bwd_launch(dt, B, S, Sk, H, Hk, hd, causal, sms) -> dict:
     """What the backward's C entry should report for a call: the body, the
     dQ grid's key ranges, the dK/dV grid (64 keys a block; bf16's head
     groups of ``wgmma_plan``, f32's one head a block), the dQ grid
-    (``wgmma_plan``'s padded folded tiles for bf16, 64 folded rows for f32)
-    and the kernels launched (``bwd_kernels``)."""
+    (``wgmma_plan``'s padded folded tiles for bf16, ``tf32_plan``'s folded
+    rows for f32) and the kernels launched (``bwd_kernels``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
-    G = H // Hk
     if dt == torch.bfloat16:
         plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd, causal=causal, sms=sms)
-        grids = {"dkdv_grid": plan["dkdv_grid"], "dq_grid": plan["dq_grid"]}
     else:
-        grids = {"dkdv_grid": (-(-Sk // 64), B * Hk, G),
-                 "dq_grid": (-(-S * G // fa.DQ_ROW_TILE), B * Hk)}
+        plan = fa.tf32_plan(B, S, Sk, H, Hk, hd)
+    grids = {"dkdv_grid": plan["dkdv_grid"], "dq_grid": plan["dq_grid"]}
     splits = fa.backward_dq_splits(dt, B, S, Sk, H, Hk, hd, sms)
     return {"body": bwd_body("bfloat16" if dt == torch.bfloat16 else "float32", hd),
             "dq_splits": splits, **grids,
-            "kernels": fa.bwd_kernels(dt, grids["dkdv_grid"][2], splits)}
+            "kernels": fa.bwd_kernels(dt, grids["dkdv_grid"][2], splits, hd)}
 
 
 def traced_bwd_body(names):
@@ -3219,16 +3221,26 @@ def attention_layers(cfg) -> int:
 
 def attention_bodies(cfg) -> dict:
     """Launches a prefill makes by body: an f32 model runs the 3xTF32 body
-    throughout; a bf16 whisper runs its encoder and cross-attention on f32
-    operands (the f32 frames, promoted as JAX does) on the 3xTF32 body and
-    its self-attention on the bf16 body; any other bf16 model the bf16 body
+    of its head dim throughout (``flash_attention.forward_body``: wgmma at
+    hd 32/64); a bf16 whisper runs its encoder and cross-attention on f32
+    operands (the f32 frames, promoted as JAX does) on that body and its
+    self-attention on the bf16 body; any other bf16 model the bf16 body
     throughout."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
     n = attention_layers(cfg)
+    counts = dict.fromkeys(fa.BODY_LAUNCHES, 0)
+    f32 = fa.forward_body(torch.float32, cfg.hd)
     if cfg.dtype == "float32":
-        return {"bf16_wgmma": 0, "tf32x3_mma": n}
-    if cfg.family == "audio":
-        return {"bf16_wgmma": cfg.n_layers, "tf32x3_mma": cfg.n_enc_layers + cfg.n_layers}
-    return {"bf16_wgmma": n, "tf32x3_mma": 0}
+        counts[f32] = n
+    elif cfg.family == "audio":
+        counts["bf16_wgmma"] = cfg.n_layers
+        counts[f32] = cfg.n_enc_layers + cfg.n_layers
+    else:
+        counts["bf16_wgmma"] = n
+    return counts
 
 
 def family_batch(torch, cfg, gen, B, S):

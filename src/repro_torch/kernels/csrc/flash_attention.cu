@@ -61,8 +61,11 @@
 //     under it;
 //   * each warpgroup stops at its own causal limit; masks only on tiles
 //     that straddle a limit.
-// f32 (flash_fwd_tf32x3_mma_kernel; whisper's encoder and cross-attention,
-// whose f32 frames JAX promotes): FlashAttention-2 on mma.sync.m16n8k8 TF32
+// f32 (whisper's encoder and cross-attention, whose f32 frames JAX
+// promotes), in 3xTF32 on the tensor cores: at hd 32 and 64
+// flash_fwd_tf32x3_wgmma_kernel on wgmma, each operand split once into its
+// TF32 parts in shared memory (described above it, below); at hd 128 and
+// 160 flash_fwd_tf32x3_mma_kernel: FlashAttention-2 on mma.sync.m16n8k8 TF32
 // in 3xTF32, one block per (batch, KV head, 64 folded rows), 4 warps of 16
 // rows, K/V tiles of 64 keys double-buffered with 16-byte cp.async copies
 // (zero-filled past Sk).  One TF32 product keeps 11 bits of each operand,
@@ -74,8 +77,8 @@
 //   * f32 tiles of 64 rows x hd with no padding; the 16-byte column chunks of
 //     row r are XOR-swizzled by swz(r), so both ways the fragments read a
 //     tile (8 rows x 4 columns, and 4 rows x 8 columns) fall in 32 distinct
-//     banks.  Q, K[2], V[2] and P take 1280 * hd + 16384 bytes (96 KB at
-//     hd 64);
+//     banks.  Q, K[2], V[2] and P take 1280 * hd + 16384 bytes (176 KB at
+//     hd 128);
 //   * the key order inside each 8-key n-tile of the score tile is permuted
 //     (column 2t holds key t, column 2t + 1 key t + 4), so each lane's S
 //     accumulator is already its own part of P's A fragment for P V: no
@@ -89,19 +92,20 @@
 //     products and spilled at hd 64-160 at its 255-register cap
 //     (scripts/ptxas_report.py);
 //   * where the row tiles leave the grid below one wave (whisper's 64 decoder
-//     positions against 1500 frames: 48 blocks on 132 SMs), the wrapper cuts
+//     positions against 1500 frames: 48 blocks on 132 SMs), in both f32
+//     bodies, the wrapper cuts
 //     each block's key walk into ranges (flash_attention.py::dq_splits, the
 //     backward's rule), a third grid dimension.  Each block then stores its
 //     rows' unnormalised f32 output, running max and sum; a range that holds
 //     no key a row may see stores a sum and output of 0.  flash_fwd_merge_kernel
 //     combines the ranges in range order, no atomics: m = max m_z,
 //     l = sum l_z 2^(m_z - m), o = sum o_z 2^(m_z - m) / l, lse = m + log l.
-// Both bodies: masked scores are -1e30 as in the reference, keys past Sk get
+// Every body: masked scores are -1e30 as in the reference, keys past Sk get
 // no weight, the row sum is floored at 1e-30 before the division, and ragged
 // tails (S or Sk not a multiple of a tile) are masked in the kernel, so any
 // S and Sk work (the Pallas wrapper needs exact blocks).
 //
-// With an `lse` buffer (f32, (B, H, S)) both bodies also store each row's
+// With an `lse` buffer (f32, (B, H, S)) every body also stores each row's
 // log-sum-exp, m + log l in natural-log units, for the backward kernels
 // (csrc/flash_attention_bwd.cu); with a null one they store nothing more, so
 // serving does exactly the work it did without it.
@@ -496,7 +500,8 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // launcher filling them from the grid it launched.
 constexpr int kBodyTf32x3 = 0;
 constexpr int kBodyBf16Wgmma = 1;
-constexpr const char* kBodyNames[] = {"tf32x3_mma", "bf16_wgmma"};
+constexpr int kBodyTf32x3Wgmma = 2;
+constexpr const char* kBodyNames[] = {"tf32x3_mma", "bf16_wgmma", "tf32x3_wgmma"};
 
 // The card's SMs, asked of the runtime once a device.
 inline int sm_count(int device) {
@@ -850,6 +855,467 @@ flash_fwd_merge_kernel(const float* __restrict__ o_part, const float* __restrict
   if (lse != nullptr && lane == 0) lse[st] = (m + log2f(fmaxf(l, 1e-30f))) * kLn2;
 }
 
+// ------------------------------------------- f32 body on wgmma, 3xTF32
+//
+// flash_fwd_tf32x3_wgmma_kernel, hd 32 and 64 (whisper's encoder and
+// cross-attention): the products on Hopper's warpgroup wgmma in TF32, each
+// as three (small x big, big x small, big x big into one f32 accumulator),
+// on K and V tiles split once into their TF32 parts in shared memory.  The
+// mma.sync body above split every operand at every warp's read (each K and
+// V value once by each of its 4 warps, Q again for each key tile), about
+// two issue slots beside each product, so its products waited on issue; and
+// mma.sync does not reach wgmma's rate.  What the design does:
+//   * a block is 128 folded rows (two consumer warpgroups of 64) of one
+//     (batch, KV head) and one key range, as the mma.sync body's grid with
+//     twice its rows, so each K/V tile is loaded and split once for 128
+//     rows.  Q is loaded once and split: its big part held as the A
+//     fragments of S = Q K^T in registers (rs), its small part K-major in
+//     shared memory (ss);
+//   * a producer warpgroup: one thread issues TMA copies of K (64 keys x hd)
+//     and of V (four quarters of 16 keys) into a ring of stages (three at hd
+//     64: 3 x 64 KB beside Q's small parts, 2 x 16 KB), and three splitter
+//     warps round K in place beside its remainder and transpose V's
+//     quarters into V^T's big and small parts (over V's raw quarters, each
+//     read whole before any is written), which P V reads K-major, its keys
+//     permuted by sigma8 (flash_tf32x3.cuh) so the S accumulator is P's A
+//     fragment as it stands; a stage is "ready" once split, so the consumers
+//     never wait on raw tiles.  The producer gives its registers to the
+//     consumers (setmaxnreg, HandOver<kTf32Producer>);
+//   * each consumer runs a tile through S, its softmax, O's rescale and P V
+//     (in two halves of 32 keys), waiting on each product, and the other
+//     warpgroup's products run under its softmax.  The bf16 body's overlap
+//     (tile j's S issued with tile j - 1's P V) held S, P's split
+//     fragments, O and Q's at once, and ptxas spilled and serialized the
+//     products (C7512);
+//   * where all the folded rows of a (batch, KV head) fit one warpgroup
+//     (whisper's 64 decoder positions), the two consumers share them and
+//     take the tiles in turn, the second handing its output, running max and
+//     sum to the first through shared memory at the end;
+//   * the split walk, its partials and flash_fwd_merge_kernel are the
+//     mma.sync body's.
+// At hd 128 and 160 the f32 forward keeps the mma.sync body: Q's big part
+// (hd 128: 64 registers) beside O (64) and S, P's fragments and a 64-key
+// stage of 128 KB beside Q's small parts (2 x 32 KB) leave no ring of two
+// stages in the 227 KB.
+
+template <int HD>
+struct Tf32FwdTile {
+  static constexpr int kConsumers = 2;
+  static constexpr int kThreads = hopper::kHandOverThreads;
+  static constexpr int kRows = 64 * kConsumers;  // folded rows a block
+  static constexpr int kKeys = 64;
+  static constexpr int kQSmall = 64 * HD * 4;  // a consumer's Q, small part
+  static constexpr int kPart = kKeys * HD * 4;  // one part (big or small) of K or of V^T
+  static constexpr int kStageBytes = 4 * kPart;  // K big, K small, V^T big, V^T small
+  static constexpr int kMaxStages = 4;
+  static constexpr int kBarBytes = 8 * 3 * kMaxStages;
+  static constexpr int kMergeBytes = 64 * 2 * 4;  // a shared row tile's running max and sum
+  static constexpr int kFit =
+      (232448 - 1024 - kBarBytes - kMergeBytes - kConsumers * kQSmall) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr size_t kBytes = 1024 + static_cast<size_t>(kConsumers) * kQSmall +
+                                   static_cast<size_t>(kStages) * kStageBytes + kBarBytes +
+                                   kMergeBytes;
+  static_assert(HD == 32 || HD == 64, "the wgmma f32 body serves hd 32 and 64");
+  static_assert(kStages >= 2, "a stage splits while the consumers read the other");
+  static_assert(kQSmall == 128 * (HD / 2) * 4, "a consumer's O fits its Q small part");
+  static_assert(kBytes <= 232448, "over a block's shared memory");
+};
+
+// The online softmax of a 64-key S tile in the log2 domain, in place (P in
+// f32), as the bf16 body's: masks only on a straddling tile, the row max on
+// the raw scores and the scale folded into one FFMA before the exp2.
+template <bool kCausal>
+__device__ __forceinline__ void tf32_softmax(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], const int (&pos)[2], int k0,
+                                             bool edge, int Sk, float scale_log2) {
+  const int c4 = (threadIdx.x % 32) & 3;
+  if (edge) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * jj + 2 * c4 + (e & 1);
+        if (key >= Sk) {
+          s[4 * jj + e] = -INFINITY;  // past the end: no weight at all
+        } else if (kCausal && key > pos[e >> 1]) {
+          s[4 * jj + e] = kNegInf / scale_log2;  // -1e30 once scaled
+        }
+      }
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * jj + e]);
+  }
+  float sum[2] = {0.f, 0.f};
+  float shift[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+    corr[i] = hopper::ex2(m[i] - m_new);
+    m[i] = m_new;
+    shift[i] = -m_new;
+  }
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = hopper::ex2(fmaf(s[4 * jj + e], scale_log2, shift[e >> 1]));
+      s[4 * jj + e] = p;
+      sum[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    l[i] = l[i] * corr[i] + sum[i];
+  }
+}
+
+// One consumer warpgroup: folded rows row0 .. row0 + 63, the block's key
+// tiles j = 0 .. n - 1 (key tile kt0 + j, ring slot j % kStages), those past
+// its rows' causal limit only released; with `share`, the two warpgroups
+// hold the same rows and take the tiles in turn (j % 2 == wg), and the
+// second hands its output, running max and sum to the first through shared
+// memory (merge_o, merge_ml), which combines them.  Whole walk (gridDim.z
+// == 1): out and lse normalised; split: the unnormalised output, running max
+// and sum of range blockIdx.z, as the mma.sync body stores them.
+template <int HD, bool kCausal>
+__device__ __forceinline__ void tf32_fwd_consumer(uint8_t* q_small, const uint8_t* ring,
+                                                  uint64_t* ready, uint64_t* empty,
+                                                  float* merge_ml, const float* __restrict__ q,
+                                                  float* __restrict__ out, float* __restrict__ lse,
+                                                  float* __restrict__ o_part,
+                                                  float* __restrict__ stat_part, int S, int Sk,
+                                                  int H, int Hk, int64_t row0, int kt0, int n,
+                                                  bool share, float scale_log2) {
+  using T = Tf32FwdTile<HD>;
+  constexpr int kKeys = T::kKeys;
+  constexpr int kStages = T::kStages;
+  constexpr int kDK = HD / 8;  // k-steps of Q K^T
+  const int t = threadIdx.x % 128;
+  const int wg = threadIdx.x / 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  const int G = H / Hk;
+  const int b = static_cast<int>(blockIdx.y) / Hk;
+  const int kvh = static_cast<int>(blockIdx.y) % Hk;
+  const int64_t rows_total = static_cast<int64_t>(S) * G;
+  // This thread's rows 16 warp + g and + 8: (position, head) and q's offset.
+  int64_t row[2], off[2];
+  int pos[2];
+  bool ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = row0 + 16 * warp + g + 8 * i;
+    ok[i] = row[i] < rows_total;
+    pos[i] = static_cast<int>(row[i] / G);
+    off[i] = ((static_cast<int64_t>(b) * S + pos[i]) * H + kvh * G + row[i] % G) * HD;
+  }
+  // Q split once: its big part as the A fragments of S = Q K^T in registers
+  // (k-step kk: rows g and g + 8, columns 8 kk + c4 and + 4), its small part
+  // K-major in shared memory (registers for both spilled: ptxas C7512).
+  uint32_t qb[kDK][4];
+#pragma unroll
+  for (int kk = 0; kk < kDK; ++kk) {
+    const int c = 8 * kk + c4;
+    const float x[4] = {ok[0] ? __ldg(q + off[0] + c) : 0.f, ok[1] ? __ldg(q + off[1] + c) : 0.f,
+                        ok[0] ? __ldg(q + off[0] + c + 4) : 0.f,
+                        ok[1] ? __ldg(q + off[1] + c + 4) : 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qb[kk][i] = __float_as_uint(tf32_big(x[i]));
+      const int r = 16 * warp + g + 8 * (i & 1);
+      *reinterpret_cast<float*>(q_small + hopper::f32_at<128>(64, r, c + 4 * (i >> 1))) =
+          x[i] - tf32_big(x[i]);
+    }
+  }
+  hopper::fence_async_smem();
+  hopper::bar_sync(1 + wg, 128);
+  const uint32_t qs_addr = smem_u32(q_small);
+  int n_mine = row0 < rows_total ? n : 0;
+  if (kCausal && n_mine > 0) {
+    const int64_t last = (row0 + 64 < rows_total ? row0 + 64 : rows_total) - 1;
+    n_mine = max(0, min(n, static_cast<int>(last / G) / kKeys + 1 - kt0));
+  }
+  const int first_pos = static_cast<int>(row0 / G);
+
+  const auto slot = [&](int j) { return j % kStages; };
+  const auto part = [&](int j, int p) {
+    return smem_u32(ring + slot(j) * T::kStageBytes + p * T::kPart);
+  };
+  float o[HD / 2];
+  float s[kKeys / 2];
+  uint32_t pb[kKeys / 16][4], ps[kKeys / 16][4];  // half of P's split fragments
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  hopper::zero(o);
+  // Tile by tile: S = Q K^T, its softmax, O rescaled, O += P V, each a wait
+  // on the products; the other warpgroup's products run under this one's
+  // softmax.  (Tile j's S issued with tile j - 1's P V, as the bf16 body
+  // does, kept S, P's fragments and O live at once: ptxas spilled and
+  // serialized the products, C7512.)
+  for (int j = share ? wg : 0; j < n; j += share ? 2 : 1) {
+    hopper::mbar_wait(&ready[slot(j)], static_cast<uint32_t>((j / kStages) & 1));
+    if (j < n_mine) {
+      const uint32_t kb = part(j, 0), ks = part(j, 1), vb = part(j, 2), vs = part(j, 3);
+      hopper::fence();
+#pragma unroll
+      for (int kk = 0; kk < kDK; ++kk) {  // S = Q K^T, 3xTF32
+        hopper::MmaTf32<kKeys>::ss(s, hopper::f32_desc<128>(qs_addr, 64, kk),
+                                   hopper::f32_desc<128>(kb, kKeys, kk), kk > 0);
+        hopper::MmaTf32<kKeys>::rs(s, qb[kk], hopper::f32_desc<128>(ks, kKeys, kk), 1);
+        hopper::MmaTf32<kKeys>::rs(s, qb[kk], hopper::f32_desc<128>(kb, kKeys, kk), 1);
+      }
+      hopper::commit();
+      hopper::wait<0>();
+      hopper::fence_regs(s);
+      const int k0 = (kt0 + j) * kKeys;
+      const bool edge = (kCausal && k0 + kKeys - 1 > first_pos) || k0 + kKeys > Sk;
+      float corr[2];
+      tf32_softmax<kCausal>(s, m, l, corr, pos, k0, edge, Sk, scale_log2);
+#pragma unroll
+      for (int jj = 0; jj < HD / 8; ++jj) {
+        o[4 * jj + 0] *= corr[0];
+        o[4 * jj + 1] *= corr[0];
+        o[4 * jj + 2] *= corr[1];
+        o[4 * jj + 3] *= corr[1];
+      }
+      // O += P V against V^T, 3xTF32, in two halves of 32 keys, so half of
+      // P's split fragments are live at a time (all of them beside S, O and
+      // Q's fragments made ptxas serialize the products, C7512).
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) acc_frag_tf32(s, 4 * h + kk, pb[kk], ps[kk]);
+        hopper::fence_regs(o);
+        hopper::fence();
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+          const int k8 = 4 * h + kk;
+          hopper::MmaTf32<HD>::rs(o, ps[kk], hopper::f32_desc<64>(vb, HD, k8), 1);
+          hopper::MmaTf32<HD>::rs(o, pb[kk], hopper::f32_desc<64>(vs, HD, k8), 1);
+          hopper::MmaTf32<HD>::rs(o, pb[kk], hopper::f32_desc<64>(vb, HD, k8), 1);
+        }
+        hopper::commit();
+        hopper::wait<0>();
+        hopper::fence_regs(o);
+      }
+    }
+    if (lane == 0) hopper::mbar_arrive(&empty[slot(j)]);
+  }
+
+  if (share) {  // the second warpgroup's sums to the first (same thread, same rows)
+    float* merge_o = reinterpret_cast<float*>(q_small);  // the second's Q, read no more
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) merge_o[i * 128 + t] = o[i];
+      if (c4 == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          merge_ml[2 * (16 * warp + g + 8 * i)] = m[i];
+          merge_ml[2 * (16 * warp + g + 8 * i) + 1] = l[i];
+        }
+      }
+      hopper::bar_arrive(4, 256);
+      return;
+    }
+    hopper::bar_sync(4, 256);
+    merge_o += T::kQSmall / 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m1 = merge_ml[2 * (16 * warp + g + 8 * i)];
+      const float l1 = merge_ml[2 * (16 * warp + g + 8 * i) + 1];
+      const float mx = fmaxf(m[i], m1);
+      const float a0 = hopper::ex2(m[i] - mx), a1 = hopper::ex2(m1 - mx);
+      m[i] = mx;
+      l[i] = l[i] * a0 + l1 * a1;
+#pragma unroll
+      for (int jj = 0; jj < HD / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 4 * jj + 2 * i + e;
+          o[r] = o[r] * a0 + merge_o[r * 128 + t] * a1;
+        }
+      }
+    }
+  }
+
+  if (gridDim.z == 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!ok[i]) continue;
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      float* orow = out + off[i] + 2 * c4;
+#pragma unroll
+      for (int jj = 0; jj < HD / 8; ++jj) {
+        *reinterpret_cast<float2*>(orow + 8 * jj) =
+            make_float2(o[4 * jj + 2 * i] * inv, o[4 * jj + 2 * i + 1] * inv);
+      }
+      if (lse != nullptr && c4 == 0) {  // m and l are the same in the row's quad
+        lse[(static_cast<int64_t>(b) * H + kvh * G + row[i] % G) * S + pos[i]] =
+            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * kLn2;
+      }
+    }
+    return;
+  }
+  // A range with no key a row may see stores l = 0 and o = 0 (its m stays
+  // near -1e30: its tiles were skipped or all masked), so the merge gives it
+  // no weight.
+  const int64_t n_stat = static_cast<int64_t>(gridDim.y / Hk) * H * S;  // B * H * S
+  float* op = o_part + static_cast<int64_t>(blockIdx.z) * n_stat * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!ok[i]) continue;
+    const bool none = m[i] < 0.5f * kNegInf;
+    float* orow = op + off[i] + 2 * c4;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      *reinterpret_cast<float2*>(orow + 8 * jj) =
+          none ? make_float2(0.f, 0.f) : make_float2(o[4 * jj + 2 * i], o[4 * jj + 2 * i + 1]);
+    }
+    if (c4 == 0) {
+      const int64_t st = (static_cast<int64_t>(b) * H + kvh * G + row[i] % G) * S + pos[i];
+      stat_part[static_cast<int64_t>(blockIdx.z) * n_stat + st] = m[i];
+      stat_part[static_cast<int64_t>(gridDim.z + blockIdx.z) * n_stat + st] = none ? 0.f : l[i];
+    }
+  }
+}
+
+// Grid (row tiles of 128 folded rows, or of 64 with `share`, B * Hk, key
+// ranges), causal tiles heaviest first; block (x, y, z) walks key range z
+// (key_range) of the 64-key tiles its rows see.  Threads: two consumer
+// warpgroups, then the producer warpgroup (warp 0's first lane issues the
+// copies, warps 1-3 split).  `share` (the launcher's choice where all the
+// folded rows of a (batch, KV head) fit one warpgroup, as whisper's 64
+// decoder positions): both consumers on the same 64 rows, each tile to one
+// of them in turn, so neither idles.
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(Tf32FwdTile<HD>::kThreads, 1)
+flash_fwd_tf32x3_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const float* __restrict__ q, float* __restrict__ out,
+                              float* __restrict__ lse, float* __restrict__ o_part,
+                              float* __restrict__ stat_part, int S, int Sk, int H, int Hk,
+                              int share, float scale_log2) {
+  using T = Tf32FwdTile<HD>;
+  using HandOver = hopper::HandOver<kTf32Producer>;
+  constexpr int kKeys = T::kKeys;
+  constexpr int kStages = T::kStages;
+  constexpr int kNC = T::kConsumers;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = hopper::align1024(smem_raw);
+  uint8_t* q_small = ring + kStages * T::kStageBytes;  // [kConsumers] Q small parts
+  uint64_t* full = reinterpret_cast<uint64_t*>(q_small + kNC * T::kQSmall);
+  uint64_t* ready = full + kStages;
+  uint64_t* empty = ready + kStages;
+  float* merge_ml = reinterpret_cast<float*>(full + 3 * T::kMaxStages);
+
+  const int G = H / Hk;
+  const int64_t rows_total = static_cast<int64_t>(S) * G;
+  const int rows = share ? 64 : T::kRows;  // folded rows of the block
+  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int64_t row0 = static_cast<int64_t>(tile) * rows;
+  const int b = static_cast<int>(blockIdx.y) / Hk;
+  const int kvh = static_cast<int>(blockIdx.y) % Hk;
+  int n_tiles = (Sk + kKeys - 1) / kKeys;
+  if (kCausal) {
+    const int64_t last = (row0 + rows < rows_total ? row0 + rows : rows_total) - 1;
+    n_tiles = min(n_tiles, static_cast<int>(last / G) / kKeys + 1);
+  }
+  int kt0, kt1;
+  key_range(n_tiles, kt0, kt1);
+  const int n = kt1 - kt0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&ready[s], kSplitThreads);
+      hopper::mbar_init(&empty[s], (share ? 1 : kNC) * 4);  // lane 0 of each consuming warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kNC * 128) {  // ---- producer warpgroup
+    HandOver::producer();
+    const int t = threadIdx.x - kNC * 128;
+    if (t == 0) {  // the copies: K raw into K's big part, V's quarters into V^T's small
+      for (int j = 0; j < n; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) hopper::mbar_wait(&empty[st], ((j / kStages) - 1) & 1);
+        hopper::mbar_expect_tx(&full[st], 2 * T::kPart);
+        const int k0 = (kt0 + j) * kKeys;
+        uint8_t* base = ring + st * T::kStageBytes;
+        for (int a = 0; a < HD / 32; ++a) {
+          hopper::tma_load_4d(base + a * kKeys * 128, &k_map, &full[st], 32 * a, kvh, k0, b);
+          for (int qq = 0; qq < 4; ++qq) {
+            hopper::tma_load_4d(base + 3 * T::kPart + qq * HD * 64 + a * 16 * 128, &v_map,
+                                &full[st], 32 * a, kvh, k0 + 16 * qq, b);
+          }
+        }
+      }
+    } else if (t >= 32) {  // the splitters
+      const int sp = t - 32;
+      // This splitter's 4 x 4 block of a V quarter: V^T rows d0 .. d0 + 3,
+      // columns 4 b4 .. 4 b4 + 3 of the quarter (keys 8 (b4 / 2) + 2 i + b4 % 2).
+      const bool mine = sp < HD;
+      const int d0 = 4 * (sp % (HD / 4));
+      const int b4 = sp / (HD / 4);
+      for (int j = 0; j < n; ++j) {
+        const int st = j % kStages;
+        hopper::mbar_wait(&full[st], (j / kStages) & 1);
+        uint8_t* kb = ring + st * T::kStageBytes;
+        uint8_t* vb = kb + 2 * T::kPart;
+        uint8_t* vs = kb + 3 * T::kPart;
+        split_copy(kb, kb, kb + T::kPart, T::kPart, sp);
+        for (int qq = 0; qq < 4; ++qq) {
+          uint8_t* raw = vs + qq * HD * 64;
+          float4 x[4];
+          if (mine) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int key = 8 * (b4 >> 1) + 2 * i + (b4 & 1);
+              x[i] = *reinterpret_cast<const float4*>(raw + hopper::f32_at<128>(16, key, d0));
+            }
+          }
+          hopper::bar_sync(3, kSplitThreads);  // every raw key of the quarter is read
+          if (mine) {
+            const float4 y[4] = {make_float4(x[0].x, x[1].x, x[2].x, x[3].x),
+                                 make_float4(x[0].y, x[1].y, x[2].y, x[3].y),
+                                 make_float4(x[0].z, x[1].z, x[2].z, x[3].z),
+                                 make_float4(x[0].w, x[1].w, x[2].w, x[3].w)};
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              float4 small;
+              const float4 big = split4(y[jj], small);
+              const uint32_t o = hopper::f32_at<64>(HD, d0 + jj, 16 * qq + 4 * b4);
+              *reinterpret_cast<float4*>(vb + o) = big;
+              *reinterpret_cast<float4*>(vs + o) = small;
+            }
+          }
+        }
+        hopper::fence_async_smem();
+        hopper::mbar_arrive(&ready[st]);
+      }
+    }
+  } else {  // ---- consumer warpgroups
+    HandOver::consumer();
+    const int wg = static_cast<int>(threadIdx.x / 128);
+    tf32_fwd_consumer<HD, kCausal>(q_small + wg * T::kQSmall, ring, ready, empty, merge_ml, q,
+                                   out, lse, o_part, stat_part, S, Sk, H, Hk,
+                                   row0 + (share ? 0 : 64 * wg), kt0, n, share != 0, scale_log2);
+  }
+}
+
 template <int HD, bool kCausal>
 cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* out, float* lse,
                           float* o_part, float* stat_part, int B, int S, int Sk, int H, int Hk,
@@ -871,12 +1337,63 @@ cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* out
   launched[2] = static_cast<int>(grid.x);
   launched[3] = static_cast<int>(grid.y);
   launched[4] = static_cast<int>(grid.x * grid.y * grid.z);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || ranges == 1) return err;
+  return cudaGetLastError();
+}
+
+template <int HD, bool kCausal>
+int launch_tf32x3_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                        float* o_part, float* stat_part, int B, int S, int Sk, int H, int Hk,
+                        int ranges, int* launched, cudaStream_t stream) {
+  using T = Tf32FwdTile<HD>;
+  CUtensorMap km, vm;
+  int e;
+  if ((e = hopper::map_rows_f32<HD>(&km, "k", k, B, Sk, Hk, T::kKeys)) != 0) return e;
+  if ((e = hopper::map_rows_f32<HD>(&vm, "v", v, B, Sk, Hk, 16)) != 0) return e;
+  auto kernel = flash_fwd_tf32x3_wgmma_kernel<HD, kCausal>;
+  static int regs = -1;
+  if ((e = hopper::launch_regs_ok(reinterpret_cast<const void*>(kernel),
+                                  "flash_fwd_tf32x3_wgmma_kernel", &regs)) != 0) {
+    return e;
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(T::kBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t rows = static_cast<int64_t>(S) * (H / Hk);
+  const int share = rows <= 64 ? 1 : 0;  // one warpgroup's rows: the two share them
+  const int per_block = share ? 64 : T::kRows;
+  const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block),
+                  static_cast<unsigned>(B * Hk), static_cast<unsigned>(ranges));
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
+  kernel<<<grid, T::kThreads, T::kBytes, stream>>>(km, vm, static_cast<const float*>(q),
+                                                   static_cast<float*>(out), lse, o_part,
+                                                   stat_part, S, Sk, H, Hk, share, scale_log2);
+  launched[0] = kBodyTf32x3Wgmma;
+  launched[1] = static_cast<int>(grid.z);
+  launched[2] = static_cast<int>(grid.x);
+  launched[3] = static_cast<int>(grid.y);
+  launched[4] = static_cast<int>(grid.x * grid.y * grid.z);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32: the wgmma body at hd 32 and 64, the mma.sync one above; then, where
+// the walk is split, the merge.
+template <int HD, bool kCausal>
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, float* o_part,
+               float* stat_part, int B, int S, int Sk, int H, int Hk, int ranges, int* launched,
+               cudaStream_t stream) {
+  int err;
+  if constexpr (HD <= 64) {
+    err = launch_tf32x3_wgmma<HD, kCausal>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk,
+                                           ranges, launched, stream);
+  } else {
+    err = static_cast<int>(launch_tf32x3<HD, kCausal>(q, k, v, out, lse, o_part, stat_part, B,
+                                                      S, Sk, H, Hk, ranges, launched, stream));
+  }
+  if (err != 0 || ranges == 1) return err;
   const int64_t n_rows = static_cast<int64_t>(B) * S * H;
   flash_fwd_merge_kernel<<<static_cast<unsigned>((n_rows + 7) / 8), 256, 0, stream>>>(
       o_part, stat_part, static_cast<float*>(out), lse, n_rows, S, H, HD, ranges);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- launchers
@@ -893,11 +1410,10 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse
                   : launch_wgmma<HD, false>(q, k, v, out, lse, B, S, Sk, H, Hk, device, launched,
                                             stream);
   }
-  return static_cast<int>(
-      causal ? launch_tf32x3<HD, true>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk,
+  return causal ? launch_f32<HD, true>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk,
                                        ranges, launched, stream)
-             : launch_tf32x3<HD, false>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk,
-                                        ranges, launched, stream));
+                : launch_f32<HD, false>(q, k, v, out, lse, o_part, stat_part, B, S, Sk, H, Hk,
+                                        ranges, launched, stream);
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, float* o_part,
@@ -964,7 +1480,7 @@ const char* flash_attention_error_string(int err) {
 
 // The name of the body launched[0] reports.
 const char* flash_attention_body_name(int code) {
-  return code >= 0 && code < 2 ? kBodyNames[code] : "unknown";
+  return code >= 0 && code < 3 ? kBodyNames[code] : "unknown";
 }
 
 }  // extern "C"

@@ -60,10 +60,15 @@
 //   * bf16 at every head dim: wgmma products on tiles TMA loads under
 //     mbarriers, a producer and consumer warpgroups (csrc/hopper_wgmma.cuh);
 //     described above flash_bwd_dkdv_wgmma_kernel below;
-//   * f32 at hd 32 and 64, and at hd 128 and 160: mma.sync TF32 in 3xTF32,
-//     4 warps, or 8 in pairs, f32 tiles swizzled in shared memory, the score
-//     accumulators permuted so they are the A fragments of the accumulating
-//     products as they stand; described above dkdv_tf32x3 below.
+//   * f32 at hd 32 and 64: wgmma in 3xTF32 on tiles TMA loads and a
+//     producer warpgroup splits once into their TF32 parts (and transposes
+//     where a product reads them MN-major), bound by shared memory's
+//     bandwidth, which the products' operand reads and the split share;
+//     described above Tf32DqTile below;
+//   * f32 at hd 128 and 160: mma.sync TF32 in 3xTF32, 8 warps in pairs, f32
+//     tiles swizzled in shared memory, the score accumulators permuted so
+//     they are the A fragments of the accumulating products as they stand;
+//     described above dkdv_tf32x3 below.
 //     (Whisper's encoder and cross-attention train in f32: JAX promotes
 //     their f32 frames.)
 
@@ -784,19 +789,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // ------------------------------------------------- f32 bodies, 3xTF32
 //
-// f32 runs the structure of the bf16 bodies on mma.sync.m16n8k8 TF32 in
-// 3xTF32: each operand split once, as it is read, into a TF32 big part and
-// the remainder (split_tf32, csrc/rwkv_scan.cu's), and big * big + big *
-// small + small * big accumulated in f32, which holds the f32 tolerance (1e-4
-// of max |grad|) that one TF32 product does not.  The five products (q k^T,
-// dO v^T, dV, dK, dQ) each run so.  dK/dV: one block per (64-key tile, batch,
-// query head); dQ: one block per (64 folded rows, batch, KV head, key range),
-// as the bf16 bodies.  kHalves = 1 at hd 32 and 64: 4 warps, warp w owns
-// keys (rows) 16w .. 16w + 15 and all of the streamed tile and of hd.
-// kHalves = 2 at hd 128 and 160: 8 warps, warps w and w + 4 a pair sharing
-// those 16 keys (rows), each forming the score products of half the streamed
-// tile's rows (keys) and accumulating half of hd's columns, as the wide bf16
-// bodies.  What the design does:
+// At hd 128 and 160 f32 runs the structure of the bf16 bodies on
+// mma.sync.m16n8k8 TF32 in 3xTF32: each operand split once, as it is read,
+// into a TF32 big part and the remainder (split_tf32, csrc/rwkv_scan.cu's),
+// and big * big + big * small + small * big accumulated in f32, which holds
+// the f32 tolerance (1e-4 of max |grad|) that one TF32 product does not.  The
+// five products (q k^T, dO v^T, dV, dK, dQ) each run so.  dK/dV: one block
+// per (64-key tile, batch, query head); dQ: one block per (64 folded rows,
+// batch, KV head, key range), as the bf16 bodies.  8 warps, warps w and w +
+// 4 a pair sharing 16 keys (rows), each forming the score products of half
+// the streamed tile's rows (keys) and accumulating half of hd's columns.
+// What the design does:
 //   * f32 tiles of 64 rows x hd, no padding, their 16-byte column chunks
 //     XOR-swizzled by row (swz), so the fragment reads of both products,
 //     8 rows x 4 columns and 4 rows x 8 columns, fall in 32 distinct banks.
@@ -806,9 +809,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 //   * the rows (keys) inside each 8-wide n-tile of the score accumulators
 //     are permuted (column 2t holds row t, column 2t + 1 row t + 4), so that
 //     P^T and dS^T (dS) in the accumulators are, as they stand, the A
-//     fragments of dV += P^T dO and dK += dS^T q (dQ += dS k).  With kHalves
-//     = 2 each lane passes its accumulators to the same lane of its pair's
-//     other warp through shared memory, in f32, one float4 a lane and n-tile;
+//     fragments of dV += P^T dO and dK += dS^T q (dQ += dS k).  Each lane
+//     passes its accumulators to the same lane of its pair's other warp
+//     through shared memory, in f32, one float4 a lane and n-tile;
 //   * the streamed tile (q, dO, lse and D; or k and v) is double-buffered
 //     with cp.async where two buffers fit the 227 KB (all but hd 160), and
 //     single-buffered otherwise;
@@ -866,11 +869,11 @@ __device__ __forceinline__ FragA acc_frag(const float (&x)[4]) {
 }
 
 // Shared memory, in floats.  An exchange tile holds a pair's 16 x 64 score
-// n-tiles, 4 pairs x 8 n-tiles x 32 lanes x 4 floats (kHalves = 2 only).
-template <int HD, int kHalves>
+// n-tiles, 4 pairs x 8 n-tiles x 32 lanes x 4 floats.
+template <int HD>
 struct Tf32Smem {
   static constexpr int kTile = kMmaTile * HD;
-  static constexpr int kX = kHalves == 2 ? 4 * 8 * 32 * 4 : 0;
+  static constexpr int kX = 4 * 8 * 32 * 4;
   // dK/dV: k, v, then per buffer q, dO, lse, D; then P^T's and dS^T's exchanges.
   static constexpr size_t dkdv(int bufs) {
     return sizeof(float) * (2 * kTile + bufs * (2 * kTile + 2 * kMmaTile) + 2 * kX);
@@ -890,7 +893,7 @@ struct Tf32Smem {
 // (wp, half) = (w % 4, w / 4): keys 16 wp .. of the tile; in S^T and dP^T
 // the q tile's n-tiles j0 .. j0 + kRN - 1; in dK and dV the column n-tiles
 // c0 .. c0 + kCN - 1.
-template <int HD, bool kCausal, int kHalves>
+template <int HD, bool kCausal>
 __device__ __forceinline__ void dkdv_tf32x3(const float* __restrict__ q,
                                             const float* __restrict__ k,
                                             const float* __restrict__ v,
@@ -899,13 +902,13 @@ __device__ __forceinline__ void dkdv_tf32x3(const float* __restrict__ q,
                                             const float* __restrict__ D,
                                             float* __restrict__ part, int B, int S, int Sk,
                                             int H, int Hk, float scale_log2) {
-  using L = Tf32Smem<HD, kHalves>;
-  constexpr int kNThreads = 128 * kHalves;
+  using L = Tf32Smem<HD>;
+  constexpr int kNThreads = 256;
   constexpr int kBufs = L::kDkdvBufs;
   constexpr int kTile = L::kTile;
   constexpr int kDK = HD / 8;           // k-steps over hd
-  constexpr int kRN = 8 / kHalves;      // the warp's n-tiles of the q tile's rows
-  constexpr int kCN = HD / 8 / kHalves;  // the warp's n-tiles of dK's and dV's columns
+  constexpr int kRN = 4;  // the warp's n-tiles of the q tile's rows
+  constexpr int kCN = HD / 16;  // the warp's n-tiles of dK's and dV's columns
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + kTile;
@@ -1009,31 +1012,21 @@ __device__ __forceinline__ void dkdv_tf32x3(const float* __restrict__ q,
         dpt[j][e] = p * (dpt[j][e] - D_b[r]);
       }
     }
-    if constexpr (kHalves == 2) {
 #pragma unroll
-      for (int j = 0; j < kRN; ++j) {
-        const int at4 = (wp * 8 + j0 + j) * 32 + lane;
-        Xp[at4] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
-        Xs[at4] = make_float4(dpt[j][0], dpt[j][1], dpt[j][2], dpt[j][3]);
-      }
-      __syncthreads();  // the pair's P^T and dS^T are whole
+    for (int j = 0; j < kRN; ++j) {
+      const int at4 = (wp * 8 + j0 + j) * 32 + lane;
+      Xp[at4] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
+      Xs[at4] = make_float4(dpt[j][0], dpt[j][1], dpt[j][2], dpt[j][3]);
     }
+    __syncthreads();  // the pair's P^T and dS^T are whole
     // dV += P^T dO and dK += dS^T q on the warp's columns, k = the tile's rows.
 #pragma unroll
     for (int kk = 0; kk < kMmaTile / 8; ++kk) {
       float pa[4], sa[4];
-      if constexpr (kHalves == 1) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          pa[e] = st[kk][e];
-          sa[e] = dpt[kk][e];
-        }
-      } else {
-        const float4 x = Xp[(wp * 8 + kk) * 32 + lane];
-        const float4 y = Xs[(wp * 8 + kk) * 32 + lane];
-        pa[0] = x.x, pa[1] = x.y, pa[2] = x.z, pa[3] = x.w;
-        sa[0] = y.x, sa[1] = y.y, sa[2] = y.z, sa[3] = y.w;
-      }
+      const float4 x = Xp[(wp * 8 + kk) * 32 + lane];
+      const float4 y = Xs[(wp * 8 + kk) * 32 + lane];
+      pa[0] = x.x, pa[1] = x.y, pa[2] = x.z, pa[3] = x.w;
+      sa[0] = y.x, sa[1] = y.y, sa[2] = y.z, sa[3] = y.w;
       const FragA ap = acc_frag(pa);
       const FragA as = acc_frag(sa);
 #pragma unroll
@@ -1068,7 +1061,7 @@ __device__ __forceinline__ void dkdv_tf32x3(const float* __restrict__ q,
 // dq of one (64-row tile, batch, KV head, key range).  Warp (wp, half): rows
 // 16 wp .. of the tile; in S and dP the key tile's n-tiles j0 .. j0 + kKN -
 // 1; in dQ the column n-tiles c0 .. c0 + kCN - 1.
-template <int HD, bool kCausal, int kHalves>
+template <int HD, bool kCausal>
 __device__ __forceinline__ void dq_tf32x3(const float* __restrict__ q,
                                           const float* __restrict__ k,
                                           const float* __restrict__ v,
@@ -1077,13 +1070,13 @@ __device__ __forceinline__ void dq_tf32x3(const float* __restrict__ q,
                                           const float* __restrict__ D, float* __restrict__ dq,
                                           float* __restrict__ dq_part, int S, int Sk, int H,
                                           int Hk, float scale, float scale_log2) {
-  using L = Tf32Smem<HD, kHalves>;
-  constexpr int kNThreads = 128 * kHalves;
+  using L = Tf32Smem<HD>;
+  constexpr int kNThreads = 256;
   constexpr int kBufs = L::kDqBufs;
   constexpr int kTile = L::kTile;
   constexpr int kDK = HD / 8;
-  constexpr int kKN = 8 / kHalves;       // the warp's n-tiles of the key tile
-  constexpr int kCN = HD / 8 / kHalves;  // the warp's n-tiles of dQ's columns
+  constexpr int kKN = 4;  // the warp's n-tiles of the key tile
+  constexpr int kCN = HD / 16;  // the warp's n-tiles of dQ's columns
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* dOs = Qs + kTile;
@@ -1191,24 +1184,17 @@ __device__ __forceinline__ void dq_tf32x3(const float* __restrict__ q,
         s[j][e] = p * (dp[j][e] - Dr[i]);
       }
     }
-    if constexpr (kHalves == 2) {
 #pragma unroll
-      for (int j = 0; j < kKN; ++j) {
-        Xd[(wp * 8 + j0 + j) * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
-      }
-      __syncthreads();  // the pair's dS is whole
+    for (int j = 0; j < kKN; ++j) {
+      Xd[(wp * 8 + j0 + j) * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
     }
+    __syncthreads();  // the pair's dS is whole
     // dQ += dS k on the warp's columns, k = the tile's keys.
 #pragma unroll
     for (int kk = 0; kk < kMmaTile / 8; ++kk) {
       float da[4];
-      if constexpr (kHalves == 1) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) da[e] = s[kk][e];
-      } else {
-        const float4 x = Xd[(wp * 8 + kk) * 32 + lane];
-        da[0] = x.x, da[1] = x.y, da[2] = x.z, da[3] = x.w;
-      }
+      const float4 x = Xd[(wp * 8 + kk) * 32 + lane];
+      da[0] = x.x, da[1] = x.y, da[2] = x.z, da[3] = x.w;
       const FragA a = acc_frag(da);
 #pragma unroll
       for (int n = 0; n < kCN; ++n) mma3(acc[n], a, tile_frag_b<HD>(Kb, kk, c0 + n));
@@ -1235,7 +1221,7 @@ __device__ __forceinline__ void dq_tf32x3(const float* __restrict__ q,
   }
 }
 
-// The f32 kernels: 4 warps at hd 32 and 64, 8 (in pairs) at hd 128 and 160.
+// The f32 kernels at hd 128 and 160: 8 warps in pairs.
 #define FLASH_BWD_DKDV_ARGS                                                                 \
   const float *__restrict__ q, const float *__restrict__ k, const float *__restrict__ v,    \
       const float *__restrict__ dout, const float *__restrict__ lse,                        \
@@ -1248,26 +1234,618 @@ __device__ __forceinline__ void dq_tf32x3(const float* __restrict__ q,
       int S, int Sk, int H, int Hk, float scale, float scale_log2
 
 template <int HD, bool kCausal>
-__global__ void __launch_bounds__(128) flash_bwd_dkdv_tf32x3_mma_kernel(FLASH_BWD_DKDV_ARGS) {
-  dkdv_tf32x3<HD, kCausal, 1>(q, k, v, dout, lse, D, part, B, S, Sk, H, Hk, scale_log2);
-}
-
-template <int HD, bool kCausal>
 __global__ void __launch_bounds__(256)
 flash_bwd_dkdv_tf32x3_wide_mma_kernel(FLASH_BWD_DKDV_ARGS) {
-  dkdv_tf32x3<HD, kCausal, 2>(q, k, v, dout, lse, D, part, B, S, Sk, H, Hk, scale_log2);
-}
-
-template <int HD, bool kCausal>
-__global__ void __launch_bounds__(128) flash_bwd_dq_tf32x3_mma_kernel(FLASH_BWD_DQ_ARGS) {
-  dq_tf32x3<HD, kCausal, 1>(q, k, v, dout, lse, D, dq, dq_part, S, Sk, H, Hk, scale,
-                            scale_log2);
+  dkdv_tf32x3<HD, kCausal>(q, k, v, dout, lse, D, part, B, S, Sk, H, Hk, scale_log2);
 }
 
 template <int HD, bool kCausal>
 __global__ void __launch_bounds__(256) flash_bwd_dq_tf32x3_wide_mma_kernel(FLASH_BWD_DQ_ARGS) {
-  dq_tf32x3<HD, kCausal, 2>(q, k, v, dout, lse, D, dq, dq_part, S, Sk, H, Hk, scale,
+  dq_tf32x3<HD, kCausal>(q, k, v, dout, lse, D, dq, dq_part, S, Sk, H, Hk, scale,
                             scale_log2);
+}
+
+// ------------------------------------------- f32 bodies on wgmma, 3xTF32
+//
+// At hd 32 and 64 (whisper's encoder and cross-attention, the f32 training
+// shape) the f32 dK/dV and dQ kernels run every product on Hopper's
+// warpgroup wgmma in TF32, as three (small x big, big x small, big x big
+// into one f32 accumulator), on tiles split once into their TF32 parts in
+// shared memory.  The mma.sync bodies above split every operand at every
+// warp's read, about two issue slots beside each product.  TMA lands each
+// streamed tile raw (dQ: where its big part goes; dK/dV: in a raw ring of
+// its own); three splitter warps of the producer warpgroup round it into its
+// big part beside its remainder and, for an operand a product reads
+// transposed (.tf32 has no transpose), write the transposed copy
+// (flash_tf32x3.cuh: split_copy, transpose32, its rows permuted by sigma8
+// so each score accumulator is its A fragment as it stands).  A stage is
+// "ready" once split: the consumers never wait on raw tiles.  Shared memory
+// is the budget (f32 tiles are twice bf16's, and each is held twice, big and
+// small), and its bandwidth what bounds them: the products' operand reads
+// and the split pass share it, so operands that stay put (k and v in dK/dV,
+// q and dO in dQ) hold their big parts in registers:
+//   * dK/dV: one block per (64 keys, batch, query head), as the mma.sync
+//     bodies' grid: k and v split once (64 KB at hd 64), then the head's
+//     query rows streamed in tiles of 32 -- q, dO and their transposed
+//     copies, 64 KB a stage at hd 64, two stages, beside a raw ring of two
+//     where TMA lands q and dO (2 x 16 KB), so no copy waits on the
+//     consumer -- into one consumer warpgroup: S^T = k q^T and dP^T = v
+//     dO^T (ss), P^T and dS^T in registers, dV += P^T dO and dK += dS^T q
+//     (rs, dO^T and q^T).  k's and v's big parts are held as the A
+//     fragments of the score products in registers (rs), so only small x
+//     big reads its A from shared memory.  256 threads, up to 255 registers
+//     each; one block an SM.  At one query head a KV head (G = 1: whisper)
+//     the block writes dk and dv itself; else the G shares and their reduce
+//     are the mma.sync bodies';
+//   * dQ: one block per (128 folded rows, batch, KV head, key range): two
+//     consumer warpgroups, each with its 64 rows' q and dO split once (their
+//     big parts as A fragments in registers, the small parts in shared
+//     memory, 32 KB at hd 64), take the same 32-key tiles of k, v and k^T
+//     (48 KB a stage, three stages at hd 64): S = q k^T and dP = dO v^T
+//     (rs, and ss for small x big), dS in registers, dQ += dS k (rs, k^T);
+//     the producer hands them its registers (setmaxnreg).  Where all the
+//     folded rows of a (batch, KV head) fit one warpgroup (whisper's 64
+//     decoder positions) the two share them and take the tiles in turn.
+//     The key ranges and partials are the mma.sync bodies'.
+// At hd 128 and 160 the f32 backward keeps the 8-warp mma.sync bodies: one
+// dK/dV stage of 32 rows is 8 x 16 KB = 128 KB beside k and v's parts (128
+// KB, or 64 KB with their big parts in 128 registers a thread), and dQ's
+// q and dO big parts would take 128 registers a thread, their small parts
+// 64 KB a consumer beside a 96 KB stage: no ring of two stages fits.
+
+template <int HD>
+struct Tf32DqTile {
+  static constexpr int kConsumers = 2;
+  static constexpr int kThreads = hopper::kHandOverThreads;  // two consumers, the producer
+  static constexpr int kRows = 64 * kConsumers;  // folded rows a block
+  static constexpr int kKeys = 32;
+  static constexpr int kRowPart = 64 * HD * 4;   // a consumer's q or dO, one part
+  static constexpr int kOwn = 2 * kRowPart;      // q small, dO small (the big parts in registers)
+  static constexpr int kPart = kKeys * HD * 4;   // k, v or k^T, one part
+  static constexpr int kStageBytes = 6 * kPart;  // k, v, k^T: big and small
+  static constexpr int kMaxStages = 4;
+  static constexpr int kBarBytes = 8 * 3 * kMaxStages;
+  static constexpr int kFit =
+      (232448 - 1024 - kBarBytes - kConsumers * kOwn) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr size_t kBytes = 1024 + static_cast<size_t>(kConsumers) * kOwn +
+                                   static_cast<size_t>(kStages) * kStageBytes + kBarBytes;
+  static_assert(HD == 32 || HD == 64, "the wgmma f32 bodies serve hd 32 and 64");
+  static_assert(kStages >= 2, "a stage splits while the consumers read the other");
+  static_assert(kBytes <= 232448, "over a block's shared memory");
+};
+
+template <int HD>
+struct Tf32DkdvTile {
+  static constexpr int kConsumers = 1;
+  static constexpr int kThreads = 256;  // the consumer warpgroup, the producer warpgroup
+  static constexpr int kKeys = 64;
+  static constexpr int kRows = 32;  // query rows a streamed tile
+  static constexpr int kKVPart = kKeys * HD * 4;
+  static constexpr int kOwn = 4 * kKVPart;       // k big, k small, v big, v small
+  static constexpr int kPart = kRows * HD * 4;   // q, dO, q^T or dO^T, one part
+  static constexpr int kStageBytes = 8 * kPart;  // q, dO, q^T, dO^T: big and small
+  static constexpr int kRawStages = 2;           // q and dO as TMA lands them
+  static constexpr int kRawBytes = 2 * kPart;
+  static constexpr int kMaxStages = 4;
+  static constexpr int kStatBytes = (kMaxStages + kRawStages) * 2 * kRows * 4;  // lse and D
+  static constexpr int kBarBytes = 8 * (2 + 2 * kRawStages + 2 * kMaxStages);
+  static constexpr int kFit =
+      (232448 - 1024 - kOwn - kRawStages * kRawBytes - kStatBytes - kBarBytes) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr size_t kBytes = 1024 + kOwn + static_cast<size_t>(kStages) * kStageBytes +
+                                   kRawStages * kRawBytes + kStatBytes + kBarBytes;
+  static_assert(HD == 32 || HD == 64, "the wgmma f32 bodies serve hd 32 and 64");
+  static_assert(kRows == 32, "a transposed copy is one 128-byte atom of 32 rows");
+  static_assert(kStages >= 2, "a stage splits while the consumer reads the other");
+  static_assert(kBytes <= 232448, "over a block's shared memory");
+};
+
+// The dQ consumer warpgroup wg: folded rows row0 .. row0 + 63, its q and dO
+// split, their big parts the A fragments of S and dP in registers (rs), their
+// small parts K-major in `own` (ss); the block's 32-key tiles j = 0 .. n - 1
+// (tile t0 + j, ring slot j % kStages), those past its rows' causal limit
+// only released.
+template <int HD, bool kCausal>
+__device__ __forceinline__ void tf32_dq_consumer(uint8_t* own, const uint8_t* ring,
+                                                 uint64_t* ready, uint64_t* empty,
+                                                 const float* __restrict__ q,
+                                                 const float* __restrict__ dout,
+                                                 const float* __restrict__ lse,
+                                                 const float* __restrict__ D,
+                                                 float* __restrict__ dq,
+                                                 float* __restrict__ dq_part, int S, int Sk,
+                                                 int H, int Hk, int64_t row0, int t0, int n,
+                                                 bool share, float scale, float scale_log2) {
+  using T = Tf32DqTile<HD>;
+  constexpr int kKeys = T::kKeys;
+  constexpr int kStages = T::kStages;
+  const int t = threadIdx.x % 128;
+  const int wg = threadIdx.x / 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  const int G = H / Hk;
+  const int b = static_cast<int>(blockIdx.y) / Hk;
+  const int kvh = static_cast<int>(blockIdx.y) % Hk;
+  const int64_t rows_total = static_cast<int64_t>(S) * G;
+  const auto offset = [&](int64_t row) {  // folded row -> element of q, dO, dq
+    return ((static_cast<int64_t>(b) * S + row / G) * H + kvh * G + row % G) * HD;
+  };
+  // q and dO of the 64 rows split (rows past the end zero): k-step kk of a
+  // fragment holds rows 16 warp + g (+ 8), columns 8 kk + c4 (+ 4).
+  uint32_t qa[HD / 8][4], da[HD / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 16 * warp + g + 8 * (i & 1);
+      const int c = 8 * kk + c4 + 4 * (i >> 1);
+      const bool ok = row0 + r < rows_total;
+      const float xq = ok ? __ldg(q + offset(row0 + r) + c) : 0.f;
+      const float xd = ok ? __ldg(dout + offset(row0 + r) + c) : 0.f;
+      const uint32_t at = hopper::f32_at<128>(64, r, c);
+      qa[kk][i] = __float_as_uint(tf32_big(xq));
+      da[kk][i] = __float_as_uint(tf32_big(xd));
+      *reinterpret_cast<float*>(own + at) = xq - tf32_big(xq);
+      *reinterpret_cast<float*>(own + T::kRowPart + at) = xd - tf32_big(xd);
+    }
+  }
+  hopper::fence_async_smem();
+  hopper::bar_sync(1 + wg, 128);
+
+  int64_t row[2];
+  int pos[2];
+  bool ok[2];
+  float lse2[2], Dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = row0 + 16 * warp + g + 8 * i;
+    ok[i] = row[i] < rows_total;
+    pos[i] = static_cast<int>(row[i] / G);
+    const int64_t st = (static_cast<int64_t>(b) * H + kvh * G + row[i] % G) * S + pos[i];
+    lse2[i] = ok[i] ? lse[st] * kLog2e : 0.f;
+    Dr[i] = ok[i] ? D[st] : 0.f;
+  }
+  int n_mine = row0 < rows_total ? n : 0;
+  if (kCausal && n_mine > 0) {
+    const int64_t last = (row0 + 64 < rows_total ? row0 + 64 : rows_total) - 1;
+    n_mine = max(0, min(n, static_cast<int>(last / G) / kKeys + 1 - t0));
+  }
+  const int first_pos = static_cast<int>(row0 / G);
+  const uint32_t qs = smem_u32(own), ds = qs + T::kRowPart;
+
+  float acc[HD / 2];
+  hopper::zero(acc);
+  const int step = share ? 2 : 1;
+  for (int j = share ? wg : 0; j < n_mine; j += step) {
+    const int st = j % kStages;
+    const int k0 = (t0 + j) * kKeys;
+    hopper::mbar_wait(&ready[st], (j / kStages) & 1);
+    const uint32_t kb = smem_u32(ring + st * T::kStageBytes);
+    const uint32_t ks = kb + T::kPart, vb = kb + 2 * T::kPart, vs = kb + 3 * T::kPart;
+    const uint32_t ktb = kb + 4 * T::kPart, kts = kb + 5 * T::kPart;
+    // S = q k^T and dP = dO v^T: 64 rows x 32 keys, 3xTF32.
+    float s[kKeys / 2], dp[kKeys / 2];
+    hopper::fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      using M = hopper::MmaTf32<kKeys>;
+      M::ss(s, hopper::f32_desc<128>(qs, 64, kk), hopper::f32_desc<128>(kb, kKeys, kk), kk > 0);
+      M::rs(s, qa[kk], hopper::f32_desc<128>(ks, kKeys, kk), 1);
+      M::rs(s, qa[kk], hopper::f32_desc<128>(kb, kKeys, kk), 1);
+      M::ss(dp, hopper::f32_desc<128>(ds, 64, kk), hopper::f32_desc<128>(vb, kKeys, kk), kk > 0);
+      M::rs(dp, da[kk], hopper::f32_desc<128>(vs, kKeys, kk), 1);
+      M::rs(dp, da[kk], hopper::f32_desc<128>(vb, kKeys, kk), 1);
+    }
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    // dS in place of S: element e of n-tile jj is row r[e >> 1], key 8 jj +
+    // 2 c4 + (e & 1).  Masks only on straddling tiles: elsewhere a row past
+    // the end has zero q and dO, so its dS is 0 (and it is never stored).
+    const bool edge = (kCausal && k0 + kKeys - 1 > first_pos) || k0 + kKeys > Sk;
+#pragma unroll
+    for (int jj = 0; jj < kKeys / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ii = e >> 1;
+        const int key = k0 + 8 * jj + 2 * c4 + (e & 1);
+        const bool live = !edge || (ok[ii] && key < Sk && (!kCausal || key <= pos[ii]));
+        const float x = hopper::ex2(fmaf(s[4 * jj + e], scale_log2, -lse2[ii]));
+        s[4 * jj + e] = (live ? x : 0.f) * (dp[4 * jj + e] - Dr[ii]);
+      }
+    }
+    uint32_t sb[kKeys / 8][4], sm[kKeys / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 8; ++kk) acc_frag_tf32(s, kk, sb[kk], sm[kk]);
+    // dQ += dS k against k^T, 3xTF32.
+    hopper::fence_regs(acc);
+    hopper::fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 8; ++kk) {
+      hopper::MmaTf32<HD>::rs(acc, sm[kk], hopper::f32_desc<128>(ktb, HD, kk), 1);
+      hopper::MmaTf32<HD>::rs(acc, sb[kk], hopper::f32_desc<128>(kts, HD, kk), 1);
+      hopper::MmaTf32<HD>::rs(acc, sb[kk], hopper::f32_desc<128>(ktb, HD, kk), 1);
+    }
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+  for (int j = n_mine; j < n; ++j) {  // tiles past this warpgroup's limit
+    if (share && j % 2 != wg) continue;
+    const int st = j % kStages;
+    hopper::mbar_wait(&ready[st], (j / kStages) & 1);
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+  if (share) {  // the second warpgroup's sums to the first, through its q's small part
+    float* merge = reinterpret_cast<float*>(own);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) merge[i * 128 + t] = acc[i];
+      hopper::bar_arrive(4, 256);
+      return;
+    }
+    hopper::bar_sync(4, 256);
+    merge += T::kOwn / 4;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] += merge[i * 128 + t];
+  }
+
+  const bool whole = gridDim.z == 1;
+  float* out = whole ? dq : dq_part + dq_part_base(S, H, Hk, HD);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!ok[i]) continue;
+    float* orow = out + offset(row[i]) + 2 * c4;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      const float x0 = acc[4 * jj + 2 * i], x1 = acc[4 * jj + 2 * i + 1];
+      *reinterpret_cast<float2*>(orow + 8 * jj) =
+          whole ? make_float2(x0 * scale, x1 * scale) : make_float2(x0, x1);
+    }
+  }
+}
+
+// Grid (row tiles of 128 folded rows, B * Hk, key ranges), causal tiles
+// heaviest first; block (x, y, z) walks key range z (key_range, in 64-key
+// units as the other bodies, walked in 32-key tiles).  Whole walk: dq
+// scaled; else its unscaled f32 partial into dq_part.  Threads: two
+// consumer warpgroups, then the producer's (warp 0's first lane issues the
+// copies, warps 1-3 split), which hands them its registers (setmaxnreg).
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(Tf32DqTile<HD>::kThreads, 1)
+flash_bwd_dq_tf32x3_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 const float* __restrict__ q, const float* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ D,
+                                 float* __restrict__ dq, float* __restrict__ dq_part, int S,
+                                 int Sk, int H, int Hk, int share, float scale,
+                                 float scale_log2) {
+  using T = Tf32DqTile<HD>;
+  constexpr int kKeys = T::kKeys;
+  constexpr int kStages = T::kStages;
+  constexpr int kNC = T::kConsumers;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* own = hopper::align1024(smem_raw);
+  uint8_t* ring = own + kNC * T::kOwn;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * T::kStageBytes);
+  uint64_t* ready = full + kStages;
+  uint64_t* empty = ready + kStages;
+
+  const int G = H / Hk;
+  const int64_t rows_total = static_cast<int64_t>(S) * G;
+  const int rows = share ? 64 : T::kRows;  // folded rows of the block
+  const int tile = kCausal ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int64_t row0 = static_cast<int64_t>(tile) * rows;
+  const int b = static_cast<int>(blockIdx.y) / Hk;
+  const int kvh = static_cast<int>(blockIdx.y) % Hk;
+  int n64 = (Sk + 63) / 64;
+  int n32 = (Sk + kKeys - 1) / kKeys;
+  if (kCausal) {
+    const int64_t last = (row0 + rows < rows_total ? row0 + rows : rows_total) - 1;
+    const int lp = static_cast<int>(last / G);
+    n64 = min(n64, lp / 64 + 1);
+    n32 = min(n32, lp / kKeys + 1);
+  }
+  int kt0, kt1;
+  key_range(n64, kt0, kt1);
+  const int t0 = 2 * kt0;
+  const int n = max(0, min(2 * kt1, n32) - t0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&ready[s], kSplitThreads);
+      hopper::mbar_init(&empty[s], (share ? 1 : kNC) * 4);  // lane 0 of each consuming warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kNC * 128) {  // ---- producer warpgroup
+    hopper::HandOver<kTf32Producer>::producer();
+    const int t = threadIdx.x - kNC * 128;
+    if (t == 0) {  // the copies: k and v raw into their big parts
+      for (int j = 0; j < n; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) hopper::mbar_wait(&empty[st], ((j / kStages) - 1) & 1);
+        hopper::mbar_expect_tx(&full[st], 2 * T::kPart);
+        const int k0 = (t0 + j) * kKeys;
+        uint8_t* base = ring + st * T::kStageBytes;
+        for (int a = 0; a < HD / 32; ++a) {
+          hopper::tma_load_4d(base + a * kKeys * 128, &k_map, &full[st], 32 * a, kvh, k0, b);
+          hopper::tma_load_4d(base + 2 * T::kPart + a * kKeys * 128, &v_map, &full[st], 32 * a,
+                              kvh, k0, b);
+        }
+      }
+    } else if (t >= 32) {  // the splitters: k, v in place, then k^T
+      const int sp = t - 32;
+      for (int j = 0; j < n; ++j) {
+        const int st = j % kStages;
+        hopper::mbar_wait(&full[st], (j / kStages) & 1);
+        uint8_t* base = ring + st * T::kStageBytes;
+        split_copy(base, base, base + T::kPart, T::kPart, sp);
+        split_copy(base + 2 * T::kPart, base + 2 * T::kPart, base + 3 * T::kPart, T::kPart, sp);
+        hopper::bar_sync(3, kSplitThreads);  // k's parts are whole
+        transpose32<HD>(base, base + 4 * T::kPart, sp);
+        transpose32<HD>(base + T::kPart, base + 5 * T::kPart, sp);
+        hopper::fence_async_smem();
+        hopper::mbar_arrive(&ready[st]);
+      }
+    }
+  } else {  // ---- consumer warpgroups
+    hopper::HandOver<kTf32Producer>::consumer();
+    const int wg = threadIdx.x / 128;
+    tf32_dq_consumer<HD, kCausal>(own + wg * T::kOwn, ring, ready, empty, q, dout, lse, D, dq,
+                                  dq_part, S, Sk, H, Hk, row0 + (share ? 0 : 64 * wg), t0, n,
+                                  share != 0, scale, scale_log2);
+  }
+}
+
+// Grid (ceil(Sk / 64), B * Hk, G): block (x, y, z) holds keys 64 x .. of KV
+// head y % Hk of batch y / Hk and writes query head kvh * G + z's f32 share
+// of dk and dv.  Threads: the consumer warpgroup, then the producer's (warp
+// 0 issues the copies and copies lse and D, warps 1-3 split).  The streamed
+// q and dO land in a raw ring of their own, so a copy waits only for the
+// splitters to have read its slot, never for the consumer.
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(Tf32DkdvTile<HD>::kThreads, 1)
+flash_bwd_dkdv_tf32x3_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                                   const __grid_constant__ CUtensorMap v_map,
+                                   const __grid_constant__ CUtensorMap q_map,
+                                   const __grid_constant__ CUtensorMap do_map,
+                                   const float* __restrict__ lse, const float* __restrict__ D,
+                                   float* __restrict__ part, float* __restrict__ dk_out,
+                                   float* __restrict__ dv_out, int B, int S, int Sk, int H,
+                                   int Hk, float scale, float scale_log2) {
+  using T = Tf32DkdvTile<HD>;
+  constexpr int kRows = T::kRows;
+  constexpr int kStages = T::kStages;
+  constexpr int kRaw = T::kRawStages;
+  constexpr int kDK = HD / 8;  // k-steps over hd
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* own = hopper::align1024(smem_raw);  // k big, k small, v big, v small
+  uint8_t* ring = own + T::kOwn;  // split stages: q, q small, dO, dO small, q^T (2), dO^T (2)
+  uint8_t* raw = ring + kStages * T::kStageBytes;  // raw stages: q, dO
+  float* stat = reinterpret_cast<float*>(raw + kRaw * T::kRawBytes);  // [stage][lse, D][row]
+  float* raw_stat = stat + kStages * 2 * kRows;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(stat) +
+                                                  T::kStatBytes);
+  uint64_t* kv_ready = kv_full + 1;
+  uint64_t* raw_full = kv_ready + 1;
+  uint64_t* raw_empty = raw_full + kRaw;
+  uint64_t* ready = raw_empty + kRaw;
+  uint64_t* empty = ready + kStages;
+
+  const int G = H / Hk;
+  const int kvh = static_cast<int>(blockIdx.y) % Hk;
+  const int b = static_cast<int>(blockIdx.y) / Hk;
+  const int h = kvh * G + static_cast<int>(blockIdx.z);
+  const int k0 = blockIdx.x * T::kKeys;
+  // Causal: positions below k0 see none of the keys (k0 is a tile multiple).
+  const int t_first = kCausal ? k0 / kRows : 0;
+  const int n_q = max(0, (S + kRows - 1) / kRows - t_first);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    hopper::mbar_init(kv_ready, kSplitThreads);
+    for (int s = 0; s < kRaw; ++s) {
+      hopper::mbar_init(&raw_full[s], 1 + 32);  // the copies' arrival, each lane's lse and D
+      hopper::mbar_init(&raw_empty[s], kSplitThreads);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&ready[s], kSplitThreads);
+      hopper::mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ---- producer warpgroup
+    const int t = threadIdx.x - 128;
+    if (t < 32 && n_q > 0) {  // the copies, and the streamed tiles' lse and D
+      if (t == 0) {
+        hopper::mbar_expect_tx(kv_full, 2 * T::kKVPart);
+        for (int a = 0; a < HD / 32; ++a) {
+          hopper::tma_load_4d(own + a * T::kKeys * 128, &k_map, kv_full, 32 * a, kvh, k0, b);
+          hopper::tma_load_4d(own + 2 * T::kKVPart + a * T::kKeys * 128, &v_map, kv_full,
+                              32 * a, kvh, k0, b);
+        }
+      }
+      const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * S;
+      for (int e = 0; e < n_q; ++e) {
+        const int rs = e % kRaw;
+        const int row0 = (t_first + e) * kRows;
+        if (e >= kRaw) hopper::mbar_wait(&raw_empty[rs], ((e / kRaw) - 1) & 1);
+        if (t == 0) {
+          hopper::mbar_expect_tx(&raw_full[rs], 2 * T::kPart);
+          uint8_t* base = raw + rs * T::kRawBytes;
+          for (int a = 0; a < HD / 32; ++a) {
+            hopper::tma_load_4d(base + a * kRows * 128, &q_map, &raw_full[rs], 32 * a, h, row0,
+                                b);
+            hopper::tma_load_4d(base + T::kPart + a * kRows * 128, &do_map, &raw_full[rs],
+                                32 * a, h, row0, b);
+          }
+        }
+        const bool ok = row0 + t < S;
+        raw_stat[(2 * rs) * kRows + t] = ok ? lse[stat0 + row0 + t] * kLog2e : 0.f;
+        raw_stat[(2 * rs + 1) * kRows + t] = ok ? D[stat0 + row0 + t] : 0.f;
+        hopper::mbar_arrive(&raw_full[rs]);  // releases this lane's lse and D
+      }
+    } else if (t >= 32 && n_q > 0) {  // the splitters
+      const int sp = t - 32;
+      hopper::mbar_wait(kv_full, 0);
+      split_copy(own, own, own + T::kKVPart, T::kKVPart, sp);
+      split_copy(own + 2 * T::kKVPart, own + 2 * T::kKVPart, own + 3 * T::kKVPart, T::kKVPart,
+                 sp);
+      hopper::fence_async_smem();
+      hopper::mbar_arrive(kv_ready);
+      for (int e = 0; e < n_q; ++e) {
+        const int st = e % kStages;
+        const int rs = e % kRaw;
+        hopper::mbar_wait(&raw_full[rs], (e / kRaw) & 1);
+        if (e >= kStages) hopper::mbar_wait(&empty[st], ((e / kStages) - 1) & 1);
+        const uint8_t* in = raw + rs * T::kRawBytes;
+        uint8_t* base = ring + st * T::kStageBytes;
+        split_copy(in, base, base + T::kPart, T::kPart, sp);
+        split_copy(in + T::kPart, base + 2 * T::kPart, base + 3 * T::kPart, T::kPart, sp);
+        if (sp < 2 * kRows) {
+          stat[(2 * st) * kRows + sp] = raw_stat[(2 * rs) * kRows + sp];
+        }
+        hopper::bar_sync(3, kSplitThreads);  // q's and dO's parts are whole; the raw slot read
+        hopper::mbar_arrive(&raw_empty[rs]);
+        transpose32<HD>(base, base + 4 * T::kPart, sp);
+        transpose32<HD>(base + T::kPart, base + 5 * T::kPart, sp);
+        transpose32<HD>(base + 2 * T::kPart, base + 6 * T::kPart, sp);
+        transpose32<HD>(base + 3 * T::kPart, base + 7 * T::kPart, sp);
+        hopper::fence_async_smem();
+        hopper::mbar_arrive(&ready[st]);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: keys k0 + 16 warp + g (+ 8)
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+  const uint32_t ks = smem_u32(own) + T::kKVPart, vs = smem_u32(own) + 3 * T::kKVPart;
+  float dk[HD / 2], dv[HD / 2];
+  hopper::zero(dk);
+  hopper::zero(dv);
+  // k's and v's big parts as the A fragments of S^T and dP^T in registers
+  // (rs): the big x big and big x small products read no A from shared
+  // memory, whose bandwidth the products and the split pass share.
+  uint32_t ka[kDK][4], va[kDK][4];
+  if (n_q > 0) {
+    hopper::mbar_wait(kv_ready, 0);
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t at = hopper::f32_at<128>(64, 16 * warp + g + 8 * (i & 1),
+                                                8 * kk + c4 + 4 * (i >> 1));
+        ka[kk][i] = *reinterpret_cast<const uint32_t*>(own + at);
+        va[kk][i] = *reinterpret_cast<const uint32_t*>(own + 2 * T::kKVPart + at);
+      }
+    }
+  }
+  for (int e = 0; e < n_q; ++e) {
+    const int st = e % kStages;
+    const int row0 = (t_first + e) * kRows;
+    hopper::mbar_wait(&ready[st], (e / kStages) & 1);
+    const uint32_t qb = smem_u32(ring + st * T::kStageBytes);
+    const uint32_t qs = qb + T::kPart, db = qb + 2 * T::kPart, ds = qb + 3 * T::kPart;
+    const uint32_t qtb = qb + 4 * T::kPart, qts = qb + 5 * T::kPart;
+    const uint32_t dtb = qb + 6 * T::kPart, dts = qb + 7 * T::kPart;
+    const float* lse_b = stat + (2 * st) * kRows;
+    const float* D_b = stat + (2 * st + 1) * kRows;
+    // S^T = k q^T and dP^T = v dO^T: 64 keys x 32 rows, 3xTF32.
+    float s[kRows / 2], dp[kRows / 2];
+    hopper::fence();
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+      using M = hopper::MmaTf32<kRows>;
+      M::ss(s, hopper::f32_desc<128>(ks, 64, kk), hopper::f32_desc<128>(qb, kRows, kk), kk > 0);
+      M::rs(s, ka[kk], hopper::f32_desc<128>(qs, kRows, kk), 1);
+      M::rs(s, ka[kk], hopper::f32_desc<128>(qb, kRows, kk), 1);
+      M::ss(dp, hopper::f32_desc<128>(vs, 64, kk), hopper::f32_desc<128>(db, kRows, kk), kk > 0);
+      M::rs(dp, va[kk], hopper::f32_desc<128>(ds, kRows, kk), 1);
+      M::rs(dp, va[kk], hopper::f32_desc<128>(db, kRows, kk), 1);
+    }
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    // P^T and dS^T in place: element e of n-tile j is key 16 warp + g + 8
+    // (e >> 1) of the block's, row 8 j + 2 c4 + (e & 1) of the tile (lse_b
+    // in the log2 domain).  Masks only on tiles that straddle a limit.
+    const bool edge = (kCausal && row0 < k0 + 63) || row0 + kRows > S || k0 + 64 > Sk;
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * c4 + (e & 1);
+        const int key = k0 + 16 * warp + g + 8 * (e >> 1);
+        const int pos = row0 + r;
+        const bool ok = !edge || (pos < S && key < Sk && (!kCausal || key <= pos));
+        const float x = hopper::ex2(fmaf(s[4 * j + e], scale_log2, -lse_b[r]));
+        const float p = ok ? x : 0.f;
+        s[4 * j + e] = p;
+        dp[4 * j + e] = p * (dp[4 * j + e] - D_b[r]);
+      }
+    }
+    uint32_t pb[kRows / 8][4], ps[kRows / 8][4], sb[kRows / 8][4], sm[kRows / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < kRows / 8; ++kk) {
+      acc_frag_tf32(s, kk, pb[kk], ps[kk]);
+      acc_frag_tf32(dp, kk, sb[kk], sm[kk]);
+    }
+    // dV += P^T dO and dK += dS^T q against dO^T and q^T, 3xTF32.
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    hopper::fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 8; ++kk) {
+      using M = hopper::MmaTf32<HD>;
+      M::rs(dv, ps[kk], hopper::f32_desc<128>(dtb, HD, kk), 1);
+      M::rs(dv, pb[kk], hopper::f32_desc<128>(dts, HD, kk), 1);
+      M::rs(dv, pb[kk], hopper::f32_desc<128>(dtb, HD, kk), 1);
+      M::rs(dk, sm[kk], hopper::f32_desc<128>(qtb, HD, kk), 1);
+      M::rs(dk, sb[kk], hopper::f32_desc<128>(qts, HD, kk), 1);
+      M::rs(dk, sb[kk], hopper::f32_desc<128>(qtb, HD, kk), 1);
+    }
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  // One query head a KV head (gridDim.z == 1): dk (scaled) and dv
+  // themselves, no share; else head z's f32 share.
+  const bool direct = gridDim.z == 1;
+  const int64_t n = static_cast<int64_t>(B) * Sk * Hk * HD;  // one share
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + 16 * warp + g + 8 * i;
+    if (key >= Sk) continue;
+    const int64_t off = ((static_cast<int64_t>(b) * Sk + key) * Hk + kvh) * HD + 2 * c4;
+    float* dk_row = direct ? dk_out + off : part + static_cast<int64_t>(blockIdx.z) * n + off;
+    float* dv_row = direct ? dv_out + off : part + (G + static_cast<int64_t>(blockIdx.z)) * n + off;
+    const float sk = direct ? scale : 1.f;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int e = 4 * j + 2 * i;
+      *reinterpret_cast<float2*>(dk_row + 8 * j) = make_float2(dk[e] * sk, dk[e + 1] * sk);
+      *reinterpret_cast<float2*>(dv_row + 8 * j) = make_float2(dv[e], dv[e + 1]);
+    }
+  }
 }
 
 // What a call launched, for the caller to read back: launched[0] the body of
@@ -1275,10 +1853,10 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_tf32x3_wide_mma_kernel(FLASH
 // launched[1] the dQ grid's key ranges, launched[2..4] the dK/dV grid (its z
 // the head groups), launched[5..6] the dQ grid's x and y, launched[7] the
 // kernels the call launched (3, or 4 with the reduce).
-constexpr int kBodyTf32x3 = 0;
+constexpr int kBodyTf32x3Wgmma = 0;
 constexpr int kBodyWgmma = 1;
 constexpr int kBodyTf32x3Wide = 2;
-constexpr const char* kBodyNames[] = {"tf32x3_mma", "wgmma", "tf32x3_wide_mma"};
+constexpr const char* kBodyNames[] = {"tf32x3_wgmma", "wgmma", "tf32x3_wide_mma"};
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -1341,6 +1919,60 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The f32 wgmma dK/dV and dQ kernels (hd 32 and 64): their TMA maps, then
+// the launches; the shares (one a query head) and dq's partials to the
+// reduce.
+template <int HD, bool kCausal>
+int launch_tf32_wgmma(const float* q, const float* k, const float* v, const float* dout,
+                      const float* lse, const float* D, float* part, float* dq_part, float* dq,
+                      float* dk, float* dv, int B, int S, int Sk, int H, int Hk, int splits,
+                      int groups, int* launched, cudaStream_t stream) {
+  using TK = Tf32DkdvTile<HD>;
+  using TQ = Tf32DqTile<HD>;
+  CUtensorMap q_rows, do_rows, k_keys, v_keys, k_tiles, v_tiles;
+  int e;
+  if ((e = hopper::map_rows_f32<HD>(&q_rows, "q", q, B, S, H, TK::kRows)) != 0) return e;
+  if ((e = hopper::map_rows_f32<HD>(&do_rows, "dout", dout, B, S, H, TK::kRows)) != 0) return e;
+  if ((e = hopper::map_rows_f32<HD>(&k_keys, "k", k, B, Sk, Hk, TK::kKeys)) != 0) return e;
+  if ((e = hopper::map_rows_f32<HD>(&v_keys, "v", v, B, Sk, Hk, TK::kKeys)) != 0) return e;
+  if ((e = hopper::map_rows_f32<HD>(&k_tiles, "k", k, B, Sk, Hk, TQ::kKeys)) != 0) return e;
+  if ((e = hopper::map_rows_f32<HD>(&v_tiles, "v", v, B, Sk, Hk, TQ::kKeys)) != 0) return e;
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const float scale_log2 = scale * kLog2e;
+  auto dkdv = flash_bwd_dkdv_tf32x3_wgmma_kernel<HD, kCausal>;
+  auto dqk = flash_bwd_dq_tf32x3_wgmma_kernel<HD, kCausal>;
+  static int regs = -1;
+  if ((e = hopper::launch_regs_ok(reinterpret_cast<const void*>(dqk),
+                                  "flash_bwd_dq_tf32x3_wgmma_kernel", &regs)) != 0) {
+    return e;
+  }
+  cudaError_t err;
+  if ((err = allow_smem(dkdv, TK::kBytes)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = allow_smem(dqk, TQ::kBytes)) != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_kv(static_cast<unsigned>((Sk + TK::kKeys - 1) / TK::kKeys),
+                     static_cast<unsigned>(B * Hk), static_cast<unsigned>(groups));
+  dkdv<<<grid_kv, TK::kThreads, TK::kBytes, stream>>>(k_keys, v_keys, q_rows, do_rows, lse, D,
+                                                      part, dk, dv, B, S, Sk, H, Hk, scale,
+                                                      scale_log2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int64_t rows = static_cast<int64_t>(S) * (H / Hk);
+  const int share = rows <= 64 ? 1 : 0;  // one warpgroup's rows: the two share them
+  const int per_block = share ? 64 : TQ::kRows;
+  const dim3 grid_q(static_cast<unsigned>((rows + per_block - 1) / per_block),
+                    static_cast<unsigned>(B * Hk), static_cast<unsigned>(splits));
+  dqk<<<grid_q, TQ::kThreads, TQ::kBytes, stream>>>(k_tiles, v_tiles, q, dout, lse, D, dq,
+                                                    dq_part, S, Sk, H, Hk, share, scale,
+                                                    scale_log2);
+  launched[0] = kBodyTf32x3Wgmma;
+  launched[1] = static_cast<int>(grid_q.z);
+  launched[2] = static_cast<int>(grid_kv.x);
+  launched[3] = static_cast<int>(grid_kv.y);
+  launched[4] = static_cast<int>(grid_kv.z);
+  launched[5] = static_cast<int>(grid_q.x);
+  launched[6] = static_cast<int>(grid_q.y);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD, bool kCausal, typename T>
 int launch_typed(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const float* lse, float* D, float* part, float* dq_part, void* dq, void* dk,
@@ -1388,29 +2020,30 @@ int launch_typed(const void* q, const void* k, const void* v, const void* o, con
     launched[6] = static_cast<int>(grid_q.y);
     return cudaGetLastError();
   };
-  // bf16 on wgmma at every head dim; f32 on 3xTF32 mma.sync, 4 warps at hd
-  // 32 and 64, 8 at hd 128 and 160.
+  // bf16 on wgmma at every head dim; f32 on wgmma in 3xTF32 at hd 32 and
+  // 64, on 3xTF32 mma.sync (8 warps) at hd 128 and 160.
   int rc;
   if constexpr (std::is_same<T, bf16>::value) {
     rc = launch_wgmma<HD, kCausal>(qt, kt, vt, dot, lse, D, part, dq_part, static_cast<bf16*>(dq),
                                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S, Sk, H,
                                    Hk, splits, groups, launched, stream);
   } else if constexpr (HD <= 64) {
-    using M = Tf32Smem<HD, 1>;
-    rc = static_cast<int>(run(kBodyTf32x3, flash_bwd_dkdv_tf32x3_mma_kernel<HD, kCausal>,
-                              flash_bwd_dq_tf32x3_mma_kernel<HD, kCausal>, 128, M::kDkdvBytes,
-                              M::kDqBytes));
+    rc = launch_tf32_wgmma<HD, kCausal>(qt, kt, vt, dot, lse, D, part, dq_part,
+                                        static_cast<float*>(dq), static_cast<float*>(dk),
+                                        static_cast<float*>(dv), B, S, Sk, H, Hk, splits, groups,
+                                        launched, stream);
   } else {
-    using M = Tf32Smem<HD, 2>;
+    using M = Tf32Smem<HD>;
     rc = static_cast<int>(run(kBodyTf32x3Wide, flash_bwd_dkdv_tf32x3_wide_mma_kernel<HD, kCausal>,
                               flash_bwd_dq_tf32x3_wide_mma_kernel<HD, kCausal>, 256,
                               M::kDkdvBytes, M::kDqBytes));
   }
   if (rc != 0) return rc;
   // dk and dv: each KV head's shares (one a head group) summed in group
-  // order, unless the bf16 body's one group wrote them itself; dq, when
+  // order, unless the dK/dV kernel's one group wrote them itself (the bf16
+  // body, and the f32 wgmma body at one query head a KV head); dq, when
   // split, its partials in range order; each cast once.
-  const bool shared = !std::is_same<T, bf16>::value || groups > 1;
+  const bool shared = groups > 1 || (!std::is_same<T, bf16>::value && HD > 64);
   const int64_t n = shared ? static_cast<int64_t>(B) * Sk * Hk * HD : 0;
   const int64_t nq = splits > 1 ? n_rows * HD : 0;
   launched[7] = n + nq > 0 ? 4 : 3;
@@ -1453,8 +2086,8 @@ extern "C" {
 // S), lse from the forward, D scratch.  head_groups: the dK/dV grid's head
 // groups (f32: G, one head a block; bf16: 1 <= head_groups <= G); part is
 // f32 scratch of 2 * head_groups * B * Sk * Hk * hd elements (each group's dk
-// and dv shares), unused for bf16 at one group (the dK/dV kernel writes dk
-// and dv).
+// and dv shares), unused at one group for bf16 and for f32 at hd 32 and 64
+// (the dK/dV kernel writes dk and dv).
 // dq_splits: the key ranges of the dq walk (1 <= dq_splits <= 65535); above
 // 1, dq_part is f32 scratch of dq_splits * B * S * H * hd elements (the
 // ranges' partials), else unused.  H % Hk == 0, B * Hk <= 65535, H / Hk <=
@@ -1484,7 +2117,7 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (head_groups < 1 || head_groups > H / Hk || (dtype == 0 && head_groups != H / Hk) ||
-      ((dtype == 0 || head_groups > 1) && part == nullptr)) {
+      ((head_groups > 1 || (dtype == 0 && hd > 64)) && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool is_bf16 = dtype == 1;

@@ -1,6 +1,7 @@
-// Hopper's own route for the bf16 flash-attention bodies (csrc/flash_attention.cu's
-// forward, csrc/flash_attention_bwd.cu's dK/dV and dQ): warpgroup products
-// (wgmma) on tiles that the Tensor Memory Accelerator (TMA) copies into shared
+// Hopper's own route for the flash-attention bodies on wgmma
+// (csrc/flash_attention.cu's forward, csrc/flash_attention_bwd.cu's dK/dV and
+// dQ; bf16, and f32 in 3xTF32 at hd 32 and 64): warpgroup products (wgmma)
+// on tiles that the Tensor Memory Accelerator (TMA) copies into shared
 // memory under mbarriers, with a producer warp or warpgroup and consumer
 // warpgroups.
 // Included at file scope by both sources; the build hashes it with every
@@ -21,6 +22,9 @@
 //     m64nNk16 bf16 x bf16 -> f32 with A from shared memory (ss) or from
 //     registers (rs), N = 32, 64, 128 or 160, B transposed (MN-major) when
 //     kTransB;
+//   * for the f32 bodies, MmaTf32<N>: m64nNk8 TF32 x TF32 -> f32, ss and
+//     rs, N = 32 or 64, both shared-memory operands K-major, on f32 tiles
+//     under a 128- or 64-byte swizzle (f32_at, f32_desc; map_rows_f32);
 //   * mbarrier init, arrive, expect_tx and a try_wait loop on a phase parity;
 //   * named barriers, and setmaxnreg's register hand-over (below);
 //   * cp.async.bulk.tensor loads (4-D, 5-D) completing on an mbarrier;
@@ -37,7 +41,8 @@
 // The producer warpgroup lowers itself to p registers and the consumers
 // raise themselves to c (HandOver<p>), 128 p + 256 c = 384 * 168, so the
 // registers the producer gives back are the ones the consumers take (24 /
-// 240, or 40 / 232 where a producer needs more, hd 32's dK/dV).  All
+// 240, or 40 / 232 where a producer needs more, hd 32's dK/dV, or 56 / 224
+// in the f32 bodies, whose producer splits tiles).  All
 // four warps of a warpgroup run the instruction, and the roles split in one
 // if/else whose paths never meet again (mbarrier init and __syncthreads()
 // come before it): otherwise ptxas ignores it (warning C7508) and compiles
@@ -352,6 +357,113 @@ struct Mma<160, kTransB> {
   }
 };
 
+// ----------------------------------------------------- wgmma in TF32 (f32)
+//
+// The f32 bodies' products: m64nNk8 TF32 x TF32 -> f32, the operands f32
+// containers of which the tensor core reads the top 19 bits.  The ISA has no
+// transpose for .tf32, so both shared-memory operands are K-major (the
+// contracted index contiguous): an operand that is MN-major as stored (V of
+// P V, dO and q of dV and dK, K of dQ) is read from a transposed copy.
+// Tiles are f32 rows of kSwz bytes an atom (128: 32 columns; 64: 16), atoms
+// along the columns `rows` rows apart, each 1024- (512-) byte aligned --
+// where TMA puts a box of (atom columns, rows) under that swizzle.  A k-step
+// is 8 columns, 32 bytes, as bf16's 16.  The accumulator layout is bf16's
+// (above); an A fragment from registers (rs) is the m16n8k8 TF32 one of the
+// warp's 16 rows: a[0] row g, column c; a[1] row g + 8, column c; a[2] row
+// g, column c + 4; a[3] row g + 8, column c + 4.
+
+template <int kSwz>
+struct F32Atoms {
+  static_assert(kSwz == 128 || kSwz == 64, "128- or 64-byte swizzle");
+  static constexpr int kCols = kSwz / 4;
+  static constexpr uint64_t kLayout = kSwz == 128 ? 1 : 2;
+  static constexpr uint32_t kMask = kSwz == 128 ? 7 : 3;
+};
+
+// Byte offset of (row r, column c) of an f32 tile of `rows` rows (a multiple
+// of 8) under the kSwz-byte swizzle.
+template <int kSwz>
+__device__ __forceinline__ uint32_t f32_at(int rows, int r, int c) {
+  using A = F32Atoms<kSwz>;
+  const uint32_t off = (c / A::kCols) * rows * kSwz + r * kSwz + (c % A::kCols) * 4;
+  return off ^ (((off >> 7) & A::kMask) << 4);
+}
+
+// k-step kk (columns 8 kk ..) of a K-major f32 tile of `rows` rows at `base`.
+template <int kSwz>
+__device__ __forceinline__ uint64_t f32_desc(uint32_t base, int rows, int kk) {
+  using A = F32Atoms<kSwz>;
+  const int col = 8 * kk;
+  return desc(base + (col / A::kCols) * rows * kSwz + (col % A::kCols) * 4, 16, 8 * kSwz,
+              A::kLayout);
+}
+
+// d (64 x N, f32) = or += A (64 x 8) B (8 x N), TF32: `acc` 0 overwrites.
+template <int N>
+struct MmaTf32;
+
+template <>
+struct MmaTf32<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct MmaTf32<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
 // ------------------------------------------------------------- mbarriers
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -636,6 +748,22 @@ inline int map_rows(CUtensorMap* map, const char* what, const void* base, int B,
   return encode_tiled(map, what, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
                       Atoms<HD>::kCols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                                              : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// An f32 (B, S, heads, HD) tensor as the TF32 bodies' TMA sees it: rows of
+// one head, 4-D (HD, heads, S, B), box (32 columns, 1, rows, 1) under the
+// 128-byte swizzle (f32_at<128>).
+template <int HD>
+inline int map_rows_f32(CUtensorMap* map, const char* what, const void* base, int B, int S,
+                        int heads, int rows) {
+  const uint64_t dims[4] = {HD, static_cast<uint64_t>(heads), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t e = 4;
+  const uint64_t strides[3] = {HD * e, static_cast<uint64_t>(heads) * HD * e,
+                               static_cast<uint64_t>(S) * heads * HD * e};
+  const uint32_t box[4] = {32, 1, static_cast<uint32_t>(rows), 1};
+  return encode_tiled(map, what, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Positions of a folded 64-row tile: the most whole positions of G heads.

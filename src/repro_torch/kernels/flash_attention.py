@@ -18,12 +18,17 @@ loads a folded tile as one box of a 5-D view (hd, G, Hk, S, B) of q: P =
 64 // G whole positions of all G heads, so for G = 5 or 7 a tile holds 60
 or 63 real rows and padding that no box fills or stores
 (``wgmma_plan``).  f32 (whisper's encoder and cross-attention, whose f32
-frames JAX promotes) is FlashAttention-2 on ``mma.sync`` TF32 in 3xTF32 --
-each operand split into a TF32 big part and its remainder, big * big +
-big * small + small * big in f32 -- which holds the f32 tolerance that one
-TF32 product does not, its K/V tiles double-buffered by ``cp.async``.  Both
-keep f32 softmax statistics, masked scores at -1e30 and the row-sum floor
-of the reference.  Where the f32 body's row tiles leave the grid below one
+frames JAX promotes) runs every product in 3xTF32 -- each operand split
+into a TF32 big part and its remainder, big * big + big * small + small *
+big in f32 -- which holds the f32 tolerance that one TF32 product does not:
+at hd 32 and 64 on ``wgmma`` (``TF32_WGMMA_HEAD_DIMS``), its K and V tiles
+landed by TMA and split once into their parts in shared memory by the
+producer warpgroup (V transposed, since ``.tf32`` has no transposed
+operand), two consumer warpgroups of 64 folded rows holding Q's split
+fragments in registers; at hd 128 and 160 on ``mma.sync``, its K/V tiles
+double-buffered by ``cp.async`` (``forward_body``).  Both dtypes keep f32
+softmax statistics, masked scores at -1e30 and the row-sum floor of the
+reference.  Where the f32 body's row tiles leave the grid below one
 wave (whisper's 64 decoder positions against 1500 frames), ``dq_splits``
 cuts each block's key walk into ranges whose f32 partials (output, running
 max and sum) a merge kernel combines in range order (``FWD_LAUNCHED``).
@@ -37,9 +42,12 @@ fed by TMA at every head dim (dK/dV: two consumer warpgroups (one at hd
 128 and 160) on 64 keys taking in turn the streamed query tiles of a
 group of heads, ``dkdv_head_groups``, dk and dv written in bf16 where one
 group holds all G heads; dQ: one consumer warpgroup of 64 folded rows in
-the forward's padded boxes, K/V streamed), f32 on
-``mma.sync`` TF32 in 3xTF32 (4 warps at hd 32 and 64, 8 at hd 128 and
-160).  Where a short query sequence leaves the dQ kernel's grid below one
+the forward's padded boxes, K/V streamed), f32 in 3xTF32 on ``wgmma`` at
+hd 32 and 64 (dK/dV: one consumer warpgroup on 64 keys split once, the
+head's query rows streamed in tiles of 32 with their transposed copies;
+dQ: two consumer warpgroups of 64 folded rows, 32-key tiles of k, v and
+k^T streamed) and on ``mma.sync`` at hd 128 and 160 (8 warps;
+``backward_body``).  Where a short query sequence leaves the dQ kernel's grid below one
 wave, ``dq_splits`` cuts its key walk into ranges whose f32 partials the
 last kernel sums in order.  Under autograd (grad enabled and an operand
 that requires grad) ``flash_attention`` goes through ``FlashAttentionFn``:
@@ -71,11 +79,24 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 #: The forward body each dtype runs, as the C entry names it
 #: (``flash_attention_body_name``): ``flash_fwd_bf16_wgmma_kernel`` (wgmma
-#: and TMA) and ``flash_fwd_tf32x3_mma_kernel`` (3xTF32 on mma.sync).
-BODIES = {torch.bfloat16: "bf16_wgmma", torch.float32: "tf32x3_mma"}
+#: and TMA) and, at the f32 head dims of ``TF32_WGMMA_HEAD_DIMS``,
+#: ``flash_fwd_tf32x3_wgmma_kernel`` (3xTF32 on wgmma, each operand split
+#: once in shared memory); f32 at hd 128 and 160 runs ``F32_WIDE_BODY``
+#: (``flash_fwd_tf32x3_mma_kernel``, 3xTF32 on mma.sync): ``forward_body``.
+BODIES = {torch.bfloat16: "bf16_wgmma", torch.float32: "tf32x3_wgmma"}
+F32_WIDE_BODY = "tf32x3_mma"
 
 #: The forward's launches by the body its C entry reports.
-BODY_LAUNCHES = {"bf16_wgmma": 0, "tf32x3_mma": 0}
+BODY_LAUNCHES = {"bf16_wgmma": 0, "tf32x3_wgmma": 0, F32_WIDE_BODY: 0}
+
+#: Head dims whose f32 bodies, forward and backward, run on wgmma; above
+#: them shared memory holds no ring of two stages beside Q's (or k and
+#: v's) split parts, and the f32 bodies stay on mma.sync.
+TF32_WGMMA_HEAD_DIMS = (32, 64)
+
+#: Folded rows of an f32 wgmma forward or dQ block: two consumer warpgroups
+#: of 64 (``Tf32FwdTile`` / ``Tf32DqTile``).
+TF32_WGMMA_ROWS = 128
 
 #: What the last forward call launched, as its C entry reported it: the body,
 #: the key ranges of its grid (above 1, the merge kernel followed), its
@@ -92,16 +113,17 @@ _MAX_GRID_Y = 65535
 
 #: What the last backward call launched, as its C entry reported it: the
 #: body of its dK/dV and dQ kernels (``flash_attention_bwd_body_name``:
-#: ``wgmma`` for bf16 at every head dim, ``tf32x3_mma`` / ``tf32x3_wide_mma``
-#: for f32 at hd <= 64 / above), the key ranges of its dQ grid, the dK/dV
+#: ``wgmma`` for bf16 at every head dim, ``tf32x3_wgmma`` / ``tf32x3_wide_mma``
+#: for f32 at hd <= 64 / above: ``backward_body``), the key ranges of its dQ grid, the dK/dV
 #: grid (its third dimension the head groups) and the dQ grid, and the
 #: kernels it launched (``bwd_kernels``: row dot, dK/dV, dQ, and the reduce
 #: where there are shares or partials to sum).
 BWD_LAUNCHED = {"body": None, "dq_splits": None, "dkdv_grid": None, "dq_grid": None,
                 "kernels": None}
 
-#: Rows of a dQ (and f32 forward) block, and keys of every f32 body's key
-#: tile: the units of ``dq_splits``.
+#: Rows of an f32 mma.sync dQ (and forward) block, and keys of a forward
+#: key tile: the units of ``dq_splits`` (and of ``key_range``'s ranges in
+#: every f32 body; the wgmma dQ walks each range in 32-key tiles).
 DQ_ROW_TILE = 64
 DQ_KEY_TILE = 64
 
@@ -177,6 +199,63 @@ def wgmma_plan(B: int, S: int, Sk: int, H: int, Hk: int, hd: int, *, causal: boo
             "dq_grid": (-(-S // P), B * Hk)}
 
 
+def forward_body(dtype, hd: int) -> str:
+    """The forward body the C entry runs for ``dtype`` at head dim ``hd``."""
+    if dtype == torch.float32 and hd not in TF32_WGMMA_HEAD_DIMS:
+        return F32_WIDE_BODY
+    return BODIES[dtype]
+
+
+def backward_body(dtype, hd: int) -> str:
+    """The backward's dK/dV and dQ body (``BWD_LAUNCHED["body"]``): ``wgmma``
+    for bf16; for f32 ``tf32x3_wgmma`` at ``TF32_WGMMA_HEAD_DIMS``, the 8-warp
+    ``tf32x3_wide_mma`` above."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "tf32x3_wgmma" if hd in TF32_WGMMA_HEAD_DIMS else "tf32x3_wide_mma"
+
+
+def tf32_plan(B: int, S: int, Sk: int, H: int, Hk: int, hd: int) -> dict:
+    """The f32 bodies' grids before their key ranges, as their C entries
+    report them: the forward's and dQ's row tiles of folded rows
+    (``TF32_WGMMA_ROWS`` on wgmma, ``DQ_ROW_TILE`` on mma.sync) x B * Hk,
+    and dK/dV's 64-key tiles x B * Hk x G (one query head a block)."""
+    rows = TF32_WGMMA_ROWS if hd in TF32_WGMMA_HEAD_DIMS else DQ_ROW_TILE
+    tiles = -(-S * (H // Hk) // rows)
+    return {"fwd_grid": (tiles, B * Hk), "dq_grid": (tiles, B * Hk),
+            "dkdv_grid": (-(-Sk // DKDV_KEYS), B * Hk, H // Hk)}
+
+
+#: A block's shared memory on the card (227 KB), the budget of every plan.
+SMEM_BYTES = 232448
+
+
+def tf32_wgmma_tiles(hd: int) -> dict:
+    """The f32 wgmma bodies' tiles at ``hd`` (32 or 64), as the C structs
+    ``Tf32FwdTile``, ``Tf32DqTile`` and ``Tf32DkdvTile`` compute them: per
+    kernel the consumer warpgroups, the keys (or query rows) of a streamed
+    tile, the bytes of one split stage, the stages (as many as the budget
+    leaves, up to 4) and the block's shared bytes (1024 of alignment
+    slack, what the block holds whole, the stages, the raw ring, per-row
+    statistics and mbarriers)."""
+    if hd not in TF32_WGMMA_HEAD_DIMS:
+        raise ValueError(f"the f32 wgmma bodies serve hd {TF32_WGMMA_HEAD_DIMS}, not {hd}")
+    f32, most = 4, 4
+
+    def plan(consumers, keys, fixed, stage, extra):
+        stages = min(most, (SMEM_BYTES - 1024 - fixed - extra) // stage)
+        return {"consumers": consumers, "keys": keys, "stage_bytes": stage, "stages": stages,
+                "bytes": 1024 + fixed + stages * stage + extra}
+
+    rows = 64 * hd * f32  # 64 rows of hd floats
+    fwd = plan(2, 64, 2 * rows, 4 * rows, 8 * 3 * most + 64 * 2 * f32)  # + Q's small parts
+    dq = plan(2, 32, 2 * 2 * rows, 6 * 32 * hd * f32, 8 * 3 * most)  # + q's and dO's small parts
+    part = 32 * hd * f32
+    raw = 2 * 2 * part  # two raw stages of q and dO
+    dkdv = plan(1, 32, 4 * rows + raw, 8 * part, (most + 2) * 2 * 32 * f32 + 8 * (2 + 4 + 2 * most))
+    return {"fwd": fwd, "dq": dq, "dkdv": dkdv}
+
+
 _LIB = None
 _BWD_LIB = None
 
@@ -215,11 +294,18 @@ def backward_head_groups(dtype, B: int, S: int, Sk: int, H: int, Hk: int, hd: in
     return H // Hk
 
 
-def bwd_kernels(dtype, groups: int, splits: int) -> int:
+def dkdv_writes_grads(dtype, groups: int, hd: int) -> bool:
+    """Whether the dK/dV kernel writes dk and dv itself, no f32 share to
+    reduce: at one head group, in the bf16 body and the f32 wgmma body
+    (``TF32_WGMMA_HEAD_DIMS``; whisper's G = 1)."""
+    return groups == 1 and (dtype == torch.bfloat16 or hd in TF32_WGMMA_HEAD_DIMS)
+
+
+def bwd_kernels(dtype, groups: int, splits: int, hd: int) -> int:
     """Kernels a backward call launches: row dot, dK/dV, dQ, and the reduce
-    unless the bf16 dK/dV kernel wrote dk and dv itself (one head group) and
-    dQ's walk is whole."""
-    return 3 if dtype == torch.bfloat16 and groups == 1 and splits == 1 else 4
+    unless the dK/dV kernel wrote dk and dv itself (``dkdv_writes_grads``)
+    and dQ's walk is whole."""
+    return 3 if dkdv_writes_grads(dtype, groups, hd) and splits == 1 else 4
 
 
 def forward_key_splits(dtype, B: int, S: int, Sk: int, H: int, Hk: int, sms: int) -> int:
@@ -397,8 +483,9 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True):
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     splits = backward_dq_splits(q.dtype, B, S, Sk, H, Hk, hd, sms)
     groups = backward_head_groups(q.dtype, B, S, Sk, H, Hk, hd, causal, sms)
-    shares = (torch.empty((2, groups, B * Sk * Hk * hd), dtype=torch.float32, device=q.device)
-              if q.dtype == torch.float32 or groups > 1 else None)
+    shares = (None if dkdv_writes_grads(q.dtype, groups, hd)
+              else torch.empty((2, groups, B * Sk * Hk * hd), dtype=torch.float32,
+                               device=q.device))
     dq_part = (torch.empty((splits, B * S * H * hd), dtype=torch.float32, device=q.device)
                if splits > 1 else None)
     lib = _bwd_lib()
@@ -447,8 +534,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
     f32 or bf16, contiguous, 16-byte aligned, H % Hk == 0 (at most 64 query
     heads a KV head for bf16), hd in ``HEAD_DIMS``; f32 softmax and
-    accumulation (bf16 products on ``wgmma`` for bf16, 3xTF32 ones on
-    ``mma.sync`` for f32), the output in q's dtype.  Causal positions align
+    accumulation (bf16 products on ``wgmma`` for bf16, 3xTF32 ones for f32,
+    on ``wgmma`` at hd 32 and 64 and ``mma.sync`` above), the output in q's
+    dtype.  Causal positions align
     from 0 for any S and Sk.  Under autograd it is differentiable through
     the backward kernels."""
     _check_operands(q, k, v)

@@ -273,8 +273,7 @@ def test_cuda_flash_attention_tensor_core_body(cuda_device, case):
     n0 = dict(fa.BODY_LAUNCHES)
     got = ops.attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa.BODY_LAUNCHES == {"bf16_wgmma": n0["bf16_wgmma"] + 1,
-                                "tf32x3_mma": n0["tf32x3_mma"]}
+    assert fa.BODY_LAUNCHES == {**n0, "bf16_wgmma": n0["bf16_wgmma"] + 1}
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd, causal=causal, sms=sms)
     assert fa.FWD_LAUNCHED == {"body": "bf16_wgmma", "key_splits": 1,
@@ -287,8 +286,8 @@ def test_cuda_flash_attention_tensor_core_body(cuda_device, case):
 @pytest.mark.cuda
 def test_cuda_mixed_dtypes_promote_before_the_kernel(cuda_device):
     """whisper's cross-attention: a bf16 query against f32 keys and values
-    runs the f32 (3xTF32) body on the promoted operands, output in q's
-    dtype."""
+    runs the f32 (3xTF32 on wgmma at hd 64) body on the promoted operands,
+    output in q's dtype."""
     from repro_torch.models import attention as attn
 
     q, _, _ = _qkv(10, 2, 64, 300, 4, 4, 64, "bfloat16", cuda_device)
@@ -296,8 +295,7 @@ def test_cuda_mixed_dtypes_promote_before_the_kernel(cuda_device):
     n0 = dict(fa.BODY_LAUNCHES)
     got = attn.chunked_attention(q, k, v, causal=False)
     torch.cuda.synchronize()
-    assert fa.BODY_LAUNCHES == {"bf16_wgmma": n0["bf16_wgmma"],
-                                "tf32x3_mma": n0["tf32x3_mma"] + 1}
+    assert fa.BODY_LAUNCHES == {**n0, "tf32x3_wgmma": n0["tf32x3_wgmma"] + 1}
     assert got.dtype == torch.bfloat16
     want = ref.reference_attention(q.float(), k, v, causal=False).to(torch.bfloat16)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
@@ -305,14 +303,14 @@ def test_cuda_mixed_dtypes_promote_before_the_kernel(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_flash_f32_runs_the_tensor_core_body(cuda_device):
-    """f32 runs the 3xTF32 tensor-core body, its walk whole at this shape."""
+    """f32 runs the 3xTF32 wgmma body at hd 64, its walk whole at this shape:
+    one block of 128 folded rows (64 positions x 2 heads) a KV head."""
     q, k, v = _qkv(9, 1, 64, 64, 4, 2, 64, "float32", cuda_device)
     n0 = dict(fa.BODY_LAUNCHES)
     fa.flash_attention(q, k, v)
-    assert fa.BODY_LAUNCHES == {"bf16_wgmma": n0["bf16_wgmma"],
-                                "tf32x3_mma": n0["tf32x3_mma"] + 1}
-    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1, "grid": (2, 2),
-                               "blocks": 4}
+    assert fa.BODY_LAUNCHES == {**n0, "tf32x3_wgmma": n0["tf32x3_wgmma"] + 1}
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_wgmma", "key_splits": 1, "grid": (1, 2),
+                               "blocks": 2}
 
 
 #: f32 at every head dim, causal with G = 2 and ragged, and non-causal with
@@ -333,8 +331,8 @@ def test_cuda_flash_f32_every_head_dim(cuda_device, case):
     out = ops.attention(q, k, v, causal=causal)
     got = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
-    assert fa.FWD_LAUNCHED["body"] == "tf32x3_mma"
-    assert fa.BWD_LAUNCHED["body"] == ("tf32x3_mma" if hd <= 64 else "tf32x3_wide_mma")
+    assert fa.FWD_LAUNCHED["body"] == ("tf32x3_wgmma" if hd <= 64 else "tf32x3_mma")
+    assert fa.BWD_LAUNCHED["body"] == ("tf32x3_wgmma" if hd <= 64 else "tf32x3_wide_mma")
     torch.testing.assert_close(out, ref.reference_attention(q, k, v, causal=causal),
                                atol=2e-5, rtol=2e-5)
     for name, g, w in zip("qkv", got, ref.reference_attention_backward(q, k, v, dout,
@@ -362,12 +360,12 @@ def test_cuda_flash_f32_split_walk(cuda_device, case):
     splits = fa.forward_key_splits(torch.float32, B, S, Sk, H, Hk, sms)
     if splits == 1:
         pytest.skip(f"{sms} SMs: this shape's walk is whole")
-    grid = (-(-S * (H // Hk) // fa.DQ_ROW_TILE), B * Hk)
+    grid = fa.tf32_plan(B, S, Sk, H, Hk, hd)["fwd_grid"]
     out, lse = fa._forward(q, k, v, causal, with_lse=True)
-    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": splits, "grid": grid,
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_wgmma", "key_splits": splits, "grid": grid,
                                "blocks": grid[0] * grid[1] * splits}
     whole_out, whole_lse = fa._forward(q, k, v, causal, with_lse=True, key_splits=1)
-    assert fa.FWD_LAUNCHED == {"body": "tf32x3_mma", "key_splits": 1, "grid": grid,
+    assert fa.FWD_LAUNCHED == {"body": "tf32x3_wgmma", "key_splits": 1, "grid": grid,
                                "blocks": grid[0] * grid[1]}
     torch.cuda.synchronize()
     want = ref.reference_attention(q, k, v, causal=causal)
@@ -503,12 +501,13 @@ def test_cuda_flash_attention_backward_matches_plain(cuda_device, case, dtype):
         plan = fa.wgmma_plan(B, S, Sk, H, Hk, hd, causal=causal, sms=sms)
         want = {"body": "wgmma", "dkdv_grid": plan["dkdv_grid"], "dq_grid": plan["dq_grid"]}
     else:
-        want = {"body": "tf32x3_mma" if hd <= 64 else "tf32x3_wide_mma",
-                "dkdv_grid": (-(-Sk // 64), B * Hk, G),
-                "dq_grid": (-(-S * G // 64), B * Hk)}
+        plan = fa.tf32_plan(B, S, Sk, H, Hk, hd)
+        want = {"body": "tf32x3_wgmma" if hd <= 64 else "tf32x3_wide_mma",
+                "dkdv_grid": (-(-Sk // 64), B * Hk, G), "dq_grid": plan["dq_grid"]}
+        assert plan["dkdv_grid"] == want["dkdv_grid"]
     want["dq_splits"] = fa.backward_dq_splits(getattr(torch, dtype), B, S, Sk, H, Hk, hd, sms)
     want["kernels"] = fa.bwd_kernels(getattr(torch, dtype), want["dkdv_grid"][2],
-                                     want["dq_splits"])
+                                     want["dq_splits"], hd)
     assert fa.BWD_LAUNCHED == want
 
 

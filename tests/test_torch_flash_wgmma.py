@@ -474,8 +474,12 @@ def test_backward_dq_splits_on_the_plan(name):
     groups = plan["dkdv_grid"][2]
     assert fa.backward_head_groups(torch.bfloat16, B, S, Sk, H, Hk, hd, True, 132) == groups
     assert fa.backward_head_groups(torch.float32, B, S, Sk, H, Hk, hd, True, 132) == H // Hk
-    assert fa.bwd_kernels(torch.bfloat16, groups, 1) == (3 if groups == 1 else 4)
-    assert fa.bwd_kernels(torch.bfloat16, 1, 2) == fa.bwd_kernels(torch.float32, 1, 1) == 4
+    assert fa.bwd_kernels(torch.bfloat16, groups, 1, hd) == (3 if groups == 1 else 4)
+    assert fa.bwd_kernels(torch.bfloat16, 1, 2, hd) == 4
+    assert fa.bwd_kernels(torch.float32, 1, 1, 128) == 4
+    # The f32 wgmma body (hd 32, 64) writes dk and dv itself at one head group too.
+    assert fa.bwd_kernels(torch.float32, 1, 1, 64) == 3
+    assert fa.bwd_kernels(torch.float32, 2, 1, 64) == fa.bwd_kernels(torch.float32, 1, 3, 32) == 4
 
 
 def test_tiles_by_head_dim():
@@ -504,8 +508,9 @@ def _chip_smoke():
 
 def test_chip_smoke_asks_hgmma_of_the_wgmma_bodies():
     """The smoke run's SASS check: HMMA and HGMMA both count as tensor-core
-    instructions, and the bf16 bodies (``*_wgmma_kernel``) are held to HGMMA
-    alone, so an ``mma.sync`` body under that name would fail it."""
+    instructions, and the ``wgmma`` bodies (``*_wgmma_kernel``: bf16, and f32
+    at hd 32 and 64) are held to HGMMA alone, so an ``mma.sync`` body under
+    that name would fail it."""
     cs = _chip_smoke()
     sass = """
         Function : _ZN12_GLOBAL__N_127flash_fwd_bf16_wgmma_kernelILi64ELb1EEEv14CUtensorMap_st
@@ -513,12 +518,16 @@ def test_chip_smoke_asks_hgmma_of_the_wgmma_bodies():
         /*0110*/   UTMALDG.4D [UR8], [UR10] ;
         Function : _ZN12_GLOBAL__N_125flash_bwd_dq_wgmma_kernelILi64ELb0EEEv14CUtensorMap_st
         /*0100*/   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;
-        Function : _ZN12_GLOBAL__N_127flash_fwd_tf32x3_mma_kernelILi64ELb0EEEvPKfS2_S2_Pf
+        Function : _ZN12_GLOBAL__N_129flash_fwd_tf32x3_wgmma_kernelILi64ELb0EEEv14CUtensorMap_st
+        /*0100*/   HGMMA.64x64x8.F32.TF32 R24, R56, gdesc[UR4], R24 ;
+        Function : _ZN12_GLOBAL__N_127flash_fwd_tf32x3_mma_kernelILi128ELb0EEEvPKfS2_S2_Pf
         /*0100*/   HMMA.1688.F32.TF32 R4, R12, R20, R4 ;
     """
     both = cs.sass_tensor_core_counts(sass)
     hgmma = cs.sass_tensor_core_counts(sass, r"\bHGMMA\.")
-    assert list(both.values()) == [1, 1, 1] and list(hgmma.values()) == [1, 0, 0]
+    assert list(both.values()) == [1, 1, 1, 1] and list(hgmma.values()) == [1, 0, 1, 0]
     wgmma = {fn: n for fn, n in hgmma.items() if cs.WGMMA_MARK in fn}
-    assert len(wgmma) == 2 and not all(wgmma.values())
+    # The f32 wgmma body is held to HGMMA too; the hd 128 mma.sync one is not.
+    assert len(wgmma) == 3 and not all(wgmma.values())
+    assert [n for fn, n in wgmma.items() if "tf32x3" in fn] == [1]
     assert set(cs.WGMMA_LIBS) == {"flash_attention", "flash_attention_bwd"}

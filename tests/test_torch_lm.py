@@ -154,17 +154,22 @@ def test_reference_attention_matches_jax_flash_bf16(case):
 
 
 def test_flash_bodies_by_dtype_and_reset():
-    """bf16 runs the wgmma body, f32 the 3xTF32 one, and their launches are
-    counted under those names; reset_launches zeroes both counts."""
-    assert tfa.BODIES == {torch.bfloat16: "bf16_wgmma", torch.float32: "tf32x3_mma"}
-    assert set(tfa.BODY_LAUNCHES) == set(tfa.BODIES.values())
+    """bf16 runs the wgmma body, f32 the 3xTF32 one on wgmma at hd 32 and 64
+    and on mma.sync above, and their launches are counted under those
+    names; reset_launches zeroes every count."""
+    assert tfa.BODIES == {torch.bfloat16: "bf16_wgmma", torch.float32: "tf32x3_wgmma"}
+    assert set(tfa.BODY_LAUNCHES) == {*tfa.BODIES.values(), tfa.F32_WIDE_BODY}
+    assert [tfa.forward_body(torch.float32, hd) for hd in tfa.HEAD_DIMS] == [
+        "tf32x3_wgmma", "tf32x3_wgmma", "tf32x3_mma", "tf32x3_mma"]
+    assert {tfa.forward_body(torch.bfloat16, hd) for hd in tfa.HEAD_DIMS} == {"bf16_wgmma"}
     tfa.LAUNCHES["flash_attention"] += 2
     tfa.LAUNCHES["flash_attention_bwd"] += 1
     tfa.BODY_LAUNCHES["bf16_wgmma"] += 2
+    tfa.BODY_LAUNCHES["tf32x3_wgmma"] += 1
     tfa.BODY_LAUNCHES["tf32x3_mma"] += 1
     tfa.reset_launches()
     assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
-    assert tfa.BODY_LAUNCHES == {"bf16_wgmma": 0, "tf32x3_mma": 0}
+    assert tfa.BODY_LAUNCHES == {"bf16_wgmma": 0, "tf32x3_wgmma": 0, "tf32x3_mma": 0}
 
 
 # -------------------------------------------------------------------- modules

@@ -392,14 +392,16 @@ def test_chip_smoke_reads_the_backward_body_from_the_traced_names():
     assert cs.bwd_body("bfloat16", 160) == "wgmma"
     four = ["flash_bwd_dkdv_wgmma_kernel<64, true>", "flash_bwd_dq_wgmma_kernel<64, true>"]
     assert cs.traced_bwd_body(four) == cs.bwd_body("bfloat16", 64) == "wgmma"
-    tf32 = ["flash_bwd_dkdv_tf32x3_mma_kernel<64, false>",
-            "flash_bwd_dq_tf32x3_mma_kernel<64, false>"]
-    assert cs.traced_bwd_body(tf32) == cs.bwd_body("float32", 64) == "tf32x3_mma"
+    tf32 = ["flash_bwd_dkdv_tf32x3_wgmma_kernel<64, false>",
+            "flash_bwd_dq_tf32x3_wgmma_kernel<64, false>"]
+    assert cs.traced_bwd_body(tf32) == cs.bwd_body("float32", 64) == "tf32x3_wgmma"
+    assert cs.bwd_body("float32", 32) == "tf32x3_wgmma"
     tf32_wide = ["flash_bwd_dkdv_tf32x3_wide_mma_kernel<160, true>",
                  "flash_bwd_dq_tf32x3_wide_mma_kernel<160, true>"]
     assert cs.traced_bwd_body(tf32_wide) == cs.bwd_body("float32", 160) == "tf32x3_wide_mma"
+    assert cs.bwd_body("float32", 128) == "tf32x3_wide_mma"
     assert cs.traced_bwd_body([dot, red]) is None
-    assert cs.traced_bwd_body([tf32[0], four[1]]) == "tf32x3_mma+wgmma"
+    assert cs.traced_bwd_body([tf32[0], four[1]]) == "tf32x3_wgmma+wgmma"
 
 
 def test_wkv_reset_launches_zeroes_every_count():
