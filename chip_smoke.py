@@ -289,19 +289,22 @@ Phases, in order; any failure exits non-zero before the result line:
              cohort on the sharded path), B1 once a cohort on both; events/s
              of both.  At one rank every collective is a copy: no
              cross-card traffic is measured;
-36. dry-run — ``launch.dryrun.run_cell`` in a subprocess (a fake process
+36. dry-run — ``launch.dryrun.run_cell`` in subprocesses (a fake process
              group of 256 / 512 ranks, ``meta`` tensors, a CUDA-typed
              mesh): tinyllama-1.1b and rwkv6-7b at full width, every shape
-             each supports, on 16x16, and tinyllama's train_4k on
-             2x16x16; each cell ok (or an explicit unsupported-shape
-             skip) with its per-rank FLOPs, bytes, collective bytes by
-             kind, argument and temp GB, the roofline's dominant term and
-             its seconds; a second subprocess counts each 16x16 cell's
-             program unsharded (``dryrun.unsharded_flops``), and
-             tinyllama's 16x16 cells must do per-rank FLOPs x 256 within
+             each supports, phi3.5-moe's and jamba's train_4k, on 16x16,
+             and tinyllama's train_4k on 2x16x16; each cell ok (or an
+             explicit unsupported-shape skip) with its per-rank FLOPs,
+             bytes, collective bytes by kind, argument and temp GB, the
+             roofline's dominant term and its seconds; other subprocesses count each 16x16 cell's
+             program unsharded (``dryrun.unsharded_flops``), and every
+             16x16 cell that ``dryrun.PLAN_BOUNDS`` names (tinyllama's and
+             rwkv6-7b's train, prefill and decode, phi3.5-moe's and jamba's
+             train_4k) must do per-rank FLOPs x 256 within
              ``dryrun.PLAN_RATIO`` of it (1.0-1.3x), with a rank's
-             collective bytes and temp within ``dryrun.PLAN_BOUNDS``
-             (ROADMAP C16-C20); rwkv6-7b's ratios are printed;
+             collective bytes and temp within its bounds (ROADMAP C16-C22);
+             rwkv6-7b's long_500k, whose one row stays whole on 'data',
+             is printed with that reason;
 37. cost   — ``analysis.cost.CostCounter`` around two rounds of phase 13's
              cut under the profiler (the two rounds traced again, up to 4
              times, when CUPTI drops kernels from a trace): the kernel
@@ -4140,15 +4143,21 @@ def phase_sharded_main(torch, card):
 
 #: Phase 36: the dry-run's cells, (arch, shape, multi-pod): every shape
 #: tinyllama-1.1b and rwkv6-7b support on 16x16 (tinyllama's long_500k is
-#: an explicit skip), and one 2x16x16 cell.
-DRYRUN_CELLS = ([("tinyllama-1.1b", s, False) for s in
-                 ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
-                + [("rwkv6-7b", s, False) for s in
-                   ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
-                + [("tinyllama-1.1b", "train_4k", True)])
+#: an explicit skip), phi3.5-moe's and jamba's train_4k on 16x16 (one
+#: worker a pod: each micro-batch's rows shared out over 'data', ROADMAP
+#: C22), and one 2x16x16 cell.
+#: In groups of about equal time: each group's cells, and the unsharded
+#: counts of its 16x16 cells' programs (``dryrun.unsharded_flops``), run in
+#: two subprocesses of their own, all of them at once.
+DRYRUN_GROUPS = [[("tinyllama-1.1b", s, False) for s in
+                  ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+                 + [("rwkv6-7b", s, False) for s in
+                    ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+                 + [("tinyllama-1.1b", "train_4k", True)],
+                 [("phi3.5-moe-42b-a6.6b", "train_4k", False)],
+                 [("jamba-v0.1-52b", "train_4k", False)]]
+DRYRUN_CELLS = [cell for group in DRYRUN_GROUPS for cell in group]
 DRYRUN_TIMEOUT_S = 600
-#: Run in two subprocesses at once: the cells, and the unsharded counts of
-#: the 16x16 cells' programs (``dryrun.unsharded_flops``).
 _DRYRUN_SCRIPT = """
 import json, sys
 from repro_torch.configs.base import SHAPES, all_archs
@@ -4169,14 +4178,18 @@ else:
 
 def phase_dryrun(card):
     """Phase 36: ``launch.dryrun.run_cell`` on every cell of DRYRUN_CELLS
-    at full width, in a subprocess (its fake process group of 256 / 512
-    ranks cannot share a process with phase 34's NCCL group), beside a
-    second that counts each 16x16 cell's program unsharded: each cell
+    at full width, in subprocesses (a fake process group of 256 / 512 ranks
+    cannot share a process with phase 34's NCCL group), one a group of
+    DRYRUN_GROUPS, beside one a group that counts its 16x16 cells'
+    programs unsharded: each cell
     ``ok`` or an explicit unsupported-shape skip, its per-rank FLOPs, bytes
     and collective bytes by kind, argument and temp GB, per-rank FLOPs x
     ranks over the unsharded count, the roofline's dominant term (H100
-    rates, ``analysis.roofline``) and its seconds; tinyllama-1.1b's 16x16
-    cells within ``dryrun.PLAN_RATIO`` and ``dryrun.PLAN_BOUNDS``."""
+    rates, ``analysis.roofline``) and its seconds; each 16x16 cell that
+    ``dryrun.PLAN_BOUNDS`` names within it and ``dryrun.PLAN_RATIO``.  A
+    cell whose rows stay whole on a mesh dim (rwkv6-7b's long_500k, a
+    global batch of 1 on 'data') is printed with that reason and not held to
+    the ratio."""
     from repro_torch.analysis.roofline import from_record
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch.dryrun import PLAN_BOUNDS, PLAN_RATIO
@@ -4184,16 +4197,16 @@ def phase_dryrun(card):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(SRC), env.get("PYTHONPATH", "")])
     t0 = time.perf_counter()
-    procs = {kind: subprocess.Popen(
-        [sys.executable, "-c", _DRYRUN_SCRIPT, kind, json.dumps(DRYRUN_CELLS)],
+    procs = {(kind, i): subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_SCRIPT, kind, json.dumps(group)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for kind in ("cells", "unsharded")}
+        for i, group in enumerate(DRYRUN_GROUPS) for kind in ("cells", "unsharded")}
     outs = {}
     try:
-        for kind, proc in procs.items():
+        for key, proc in procs.items():
             left = max(DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1)
             out, err = proc.communicate(timeout=left)
-            outs[kind] = (proc.returncode, out, err)
+            outs[key] = (proc.returncode, out, err)
     except subprocess.TimeoutExpired:
         raise SmokeError(f"dry-run: not done in {DRYRUN_TIMEOUT_S} s") from None
     finally:
@@ -4202,16 +4215,15 @@ def phase_dryrun(card):
                 proc.kill()
                 proc.communicate()
     secs = time.perf_counter() - t0
-    recs = [json.loads(line[7:]) for line in outs["cells"][1].splitlines()
-            if line.startswith("RECORD ")]
-    unsharded = {(a, s): f for a, s, f in (json.loads(line[10:]) for line in
-                                           outs["unsharded"][1].splitlines()
+    lines = [line for (_, out, _) in outs.values() for line in out.splitlines()]
+    recs = [json.loads(line[7:]) for line in lines if line.startswith("RECORD ")]
+    unsharded = {(a, s): f for a, s, f in (json.loads(line[10:]) for line in lines
                                            if line.startswith("UNSHARDED "))}
-    for kind, (rc, _, err) in outs.items():
-        check(rc == 0, f"dry-run {kind}: exit {rc}; {err[-2000:]}")
+    for (kind, i), (rc, _, err) in outs.items():
+        check(rc == 0, f"dry-run {kind} {i}: exit {rc}; {err[-2000:]}")
     check(len(recs) == len(DRYRUN_CELLS),
           f"dry-run: {len(recs)} of {len(DRYRUN_CELLS)} records")
-    print(f"dry-run: {len(recs)} cells in {secs:.1f} s (two subprocesses; {card})")
+    print(f"dry-run: {len(recs)} cells in {secs:.1f} s ({len(procs)} subprocesses; {card})")
     for rec in recs:
         cell = f"{rec['mesh']}|{rec['arch']}|{rec['shape']}"
         if rec["skipped"]:
@@ -4233,13 +4245,17 @@ def phase_dryrun(card):
               f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB; roofline compute "
               f"{roof.compute_s * 1e3:.2f} ms, memory {roof.memory_s * 1e3:.2f} ms, collective "
               f"{roof.collective_s * 1e3:.2f} ms: {roof.dominant}; kernel calls "
-              f"{rec['kernel_calls']}")
-        if rec["arch"] == "tinyllama-1.1b" and rec["mesh"] == "16x16":
+              f"{rec['kernel_calls']}; rows split over {rec['rows_split_over']}")
+        if rec["rows_whole_over"]:
+            print(f"    {cell}: its {SHAPES[rec['shape']].global_batch} rows do not split "
+                  f"over {rec['rows_whole_over']}, so each rank there runs them all: not "
+                  f"held to PLAN_RATIO")
+        bounds = PLAN_BOUNDS.get((rec["arch"], rec["shape"]))
+        if bounds is not None and rec["mesh"] == "16x16":
             lo, hi = PLAN_RATIO
             check(ratio is not None and lo <= ratio <= hi,
                   f"dry-run {cell}: per-rank FLOPs x ranks / unsharded {ratio}, "
                   f"not in [{lo}, {hi}]")
-            bounds = PLAN_BOUNDS[rec["shape"]]
             check(coll <= bounds.get("collective", math.inf),
                   f"dry-run {cell}: collective bytes {coll:.4g} > {bounds.get('collective')}")
             check(mem["temp_size_in_bytes"] <= bounds.get("temp", math.inf),

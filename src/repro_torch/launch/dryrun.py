@@ -105,7 +105,9 @@ def build_traced(cfg, shape_name, mesh, gossip_mode="ppermute"):
     """Returns (args, run, meta) for one cell: ``args``, rank 0's meta
     shards of the program's inputs, made here (before any counter, as XLA
     counts arguments apart from temp), and ``run(*args)``, which executes
-    the program once and returns its outputs.  The counterpart of the JAX
+    the program once and returns its outputs; ``meta["row_layout"]()``
+    says, once it has run, which mesh dims the program's rows were split
+    over and on which they stayed whole.  The counterpart of the JAX
     ``build_lowered``."""
     shape = SHAPES[shape_name]
     optimizer = sgd(momentum=0.9, weight_decay=1e-4)
@@ -134,7 +136,8 @@ def build_traced(cfg, shape_name, mesh, gossip_mode="ppermute"):
         args = (shd.local_meta(inputs["params"], pspecs, mesh),
                 shd.local_meta(inputs["opt_state"], ospecs, mesh),
                 shd.local_meta(inputs["batch"], bspecs, mesh))
-        return args, run, dict(M=M, mode=mode, program="train_step")
+        return args, run, dict(M=M, mode=mode, program="train_step",
+                               row_layout=train_step.row_layout)
 
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -158,7 +161,8 @@ def build_traced(cfg, shape_name, mesh, gossip_mode="ppermute"):
                 return lm.prefill_logits(params, batch, cfg)
 
         args = (dtensors(inputs["params"], pspecs), dtensors(inputs["batch"], bspecs))
-        return args, run, dict(M=1, mode="serve", program="serve_prefill")
+        return args, run, dict(M=1, mode="serve", program="serve_prefill",
+                               row_layout=_serve_rows(plan, bspecs["tokens"][0]))
 
     cspecs = shd.cache_specs(cfg, inputs["cache"], plan, shape.global_batch)
     tspec = shd.serve_batch_spec(plan, shape.global_batch)
@@ -169,19 +173,40 @@ def build_traced(cfg, shape_name, mesh, gossip_mode="ppermute"):
 
     args = (dtensors(inputs["params"], pspecs), dtensors(inputs["cache"], cspecs),
             dtensors(inputs["token"], tspec))
-    return args, run, dict(M=1, mode="serve", program="serve_step")
+    return args, run, dict(M=1, mode="serve", program="serve_step",
+                           row_layout=_serve_rows(plan, tspec[0]))
 
 
-#: The bounds on tinyllama-1.1b's cells at full width on the 16x16 plan
-#: (ROADMAP C16-C20), held by ``chip_smoke.py``'s phase 36 and
-#: ``tests/test_torch_dryrun.py``: per-rank FLOPs x ranks within
-#: ``PLAN_RATIO`` of ``unsharded_flops``, and a rank's collective bytes
-#: (train_4k's 1.5x the JAX program's 1.15e11 a device) and temp at most
-#: ``PLAN_BOUNDS``'.
+def _serve_rows(plan, entry):
+    """``row_layout`` of a serving batch whose spec's first entry is
+    ``entry``: split over the mesh dims it names, whole on the other dims
+    of more than one rank that split no leaf."""
+    from repro_torch.train.trainer import row_axes
+
+    split = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+    free = row_axes(plan.mesh, (), (plan.model_axis,))
+    return lambda: (split, tuple(a for a in free if a not in split))
+
+
+#: The bounds on cells at full width on the 16x16 plan, by (arch, shape),
+#: held by ``chip_smoke.py``'s phase 36 and ``tests/test_torch_dryrun.py``:
+#: per-rank FLOPs x ranks within ``PLAN_RATIO`` of ``unsharded_flops``,
+#: and a rank's collective bytes and temp at most ``PLAN_BOUNDS``'.
+#: tinyllama-1.1b's (ROADMAP C16-C20): train_4k's collective bytes 1.5x the
+#: JAX program's 1.15e11 a device.  rwkv6-7b's (C21) and phi3.5-moe's and
+#: jamba's train_4k (C22): their measured values plus ~10%, the larger of
+#: torch 2.13's and 2.11's (jamba's mamba layers follow DTensor's own
+#: placements, whose collective bytes are 1.23e12 under 2.13 and 3.38e12
+#: under 2.11; the JAX program's 4.58e12).
 PLAN_RATIO = (1.0, 1.3)
-PLAN_BOUNDS = {"train_4k": {"collective": 1.73e11},
-               "prefill_32k": {"collective": 1.5e10, "temp": 1.5e9},
-               "decode_32k": {"collective": 1e6, "temp": 5e8}}
+PLAN_BOUNDS = {("tinyllama-1.1b", "train_4k"): {"collective": 1.73e11},
+               ("tinyllama-1.1b", "prefill_32k"): {"collective": 1.5e10, "temp": 1.5e9},
+               ("tinyllama-1.1b", "decode_32k"): {"collective": 1e6, "temp": 5e8},
+               ("rwkv6-7b", "train_4k"): {"collective": 1.28e11, "temp": 3.2e9},
+               ("rwkv6-7b", "prefill_32k"): {"collective": 4.0e10, "temp": 2.7e9},
+               ("rwkv6-7b", "decode_32k"): {"collective": 2.1e6, "temp": 3.8e7},
+               ("phi3.5-moe-42b-a6.6b", "train_4k"): {"collective": 4.8e11, "temp": 2.08e10},
+               ("jamba-v0.1-52b", "train_4k"): {"collective": 3.72e12, "temp": 3.03e10}}
 
 
 def unsharded_flops(cfg, shape_name) -> float:
@@ -291,6 +316,7 @@ def run_cell(arch, shape_name, multi_pod, gossip_mode="ppermute", save_ops=False
                 out = run(*args)
             arg_bytes, out_bytes = _nbytes(args), _nbytes(out)
             del out, args
+            split, whole = meta["row_layout"]()
         t_trace = time.time() - t0
         rep = cc.report
         mem = dict(argument_size_in_bytes=arg_bytes, output_size_in_bytes=out_bytes,
@@ -300,6 +326,7 @@ def run_cell(arch, shape_name, multi_pod, gossip_mode="ppermute", save_ops=False
             mem["peak_buffers"] = [list(row) for row in peak_groups(cc.peak_buffers())]
         rec.update(ok=True, torch=torch.__version__, chips=n_chips,
                    mesh_axes=mesh_shape(mesh), M=meta["M"],
+                   rows_split_over=list(split), rows_whole_over=list(whole),
                    program=meta["program"], t_trace_s=round(t_trace, 2),
                    memory_analysis=mem, **_cost_fields(rep),
                    params=lm.param_count(cfg), active_params=lm.active_param_count(cfg))

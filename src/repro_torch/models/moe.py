@@ -103,9 +103,14 @@ def moe_apply(p, x, cfg):
     if wrap is not None:
         y = wrap(y)
 
-    # Switch-style load-balance loss: E * sum_e f_e * P_e.
+    # Switch-style load-balance loss: E * sum_e f_e * P_e.  On DTensors the
+    # picks are this rank's batch shard: their counts become a DTensor again,
+    # so that the mean spans the whole batch.
     me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(expert_idx, E).sum(2).float().mean(dim=(0, 1)) / K
+    counts = F.one_hot(expert_idx, E).sum(2).float()
+    if wrap is not None:
+        counts = wrap(counts)
+    ce = counts.mean(dim=(0, 1)) / K
     aux = E * torch.sum(me * ce)
     return y, aux
 

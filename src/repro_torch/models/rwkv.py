@@ -18,7 +18,10 @@ autograd (training) the CUDA call is the same: ``ops.rwkv`` then goes
 through the kernel's autograd Function, whose backward is the WKV backward
 kernel; with remat (``transformer.forward``'s non-reentrant checkpoint) the
 forward kernel runs twice per layer and micro-batch, the backward once.  Decode
-carries (state, shift) per layer: O(1) per token.
+carries (state, shift) per layer: O(1) per token.  On DTensors (a multi-rank
+plan) the projections take Megatron's layout, as ``modules.mlp`` does: each
+sub-layer's rows gathered once, the out-projections through ``row_project``;
+plain tensors take the same ops as the JAX model's.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.modules import (_device, _normal, lecun_normal, rmsnorm, rmsnorm_init,
-                                       settle_partial, split_heads)
+from repro_torch.models.modules import (_device, _normal, gather_input, lecun_normal, rmsnorm,
+                                       rmsnorm_init, row_project, split_heads)
 from repro_torch.models.scan_utils import check_chunk, chunked_scan
 
 #: Time chunk of the scan (``repro/models/rwkv.py``'s ``chunked_scan(..., chunk=64)``).
@@ -74,6 +77,41 @@ def _token_shift(x, x_prev):
     return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
+def _whole_as(t, state):
+    """A decode step's operand (r, k, v, w or u) as a DTensor made whole on
+    each mesh dim where the DTensor state is, so that the step runs on the
+    state's placements and the new state, copied into its cache, is never
+    gathered (B*H*N*N f32 a layer).  Otherwise ``t`` as it is."""
+    if not (hasattr(t, "placements") and hasattr(state, "placements")):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    fixed = [Replicate() if s == Replicate() else p
+             for p, s in zip(t.placements, state.placements)]
+    return t.redistribute(t.device_mesh, fixed)
+
+
+def _projections(p, x, x_prev, H, N):
+    """The time-mix's r, k, v (B,S,H,N), gate g (f32) and decay LoRA from x
+    and its token shift, each lerp made and consumed in turn.  Megatron's
+    layout on DTensors: the rows gathered once and mixed whole, so r, k, v
+    and g come out split on heads as wr..wg are, and the LoRA's narrow
+    (B, S, decay_lora) hidden is gathered, so its product with wB is split
+    on D with no pending sum."""
+    x = gather_input(x, p["wr"])
+    dx = _token_shift(x, x_prev) - x
+
+    def mixed(name):
+        return x + dx * gather_input(p[name], None)
+
+    r = split_heads(mixed("mu_r") @ p["wr"], H, N)
+    k = split_heads(mixed("mu_k") @ p["wk"], H, N)
+    v = split_heads(mixed("mu_v") @ p["wv"], H, N)
+    g = F.silu((mixed("mu_g") @ p["wg"]).float())
+    lora = gather_input(mixed("mu_w") @ p["wA"], p["wB"]) @ p["wB"]
+    return r, k, v, g, lora
+
+
 def _wkv_step(u):
     def step(st, inp):
         rt, kt, vt, wt = inp  # (B,H,N) each
@@ -106,19 +144,8 @@ def timemix_apply(p, x, cfg, state=None, x_prev=None):
     if x_prev is None:
         x_prev = torch.zeros((B, D), dtype=x.dtype, device=x.device)
 
-    xs = _token_shift(x, x_prev)
-    xr = x + (xs - x) * p["mu_r"]
-    xk = x + (xs - x) * p["mu_k"]
-    xv = x + (xs - x) * p["mu_v"]
-    xg = x + (xs - x) * p["mu_g"]
-    xw = x + (xs - x) * p["mu_w"]
-
-    r = split_heads(xr @ p["wr"], H, N)
-    k = split_heads(xk @ p["wk"], H, N)
-    v = split_heads(xv @ p["wv"], H, N)
-    g = F.silu((xg @ p["wg"]).float())
+    r, k, v, g, lora = _projections(p, x, x_prev, H, N)
     # data-dependent decay in (0,1): w = exp(-exp(w0 + lora))
-    lora = settle_partial((xw @ p["wA"]) @ p["wB"])
     w = split_heads(torch.exp(-torch.exp(p["w0"] + lora.float())), H, N)
     u = p["u"]  # (H,N)
 
@@ -131,11 +158,12 @@ def timemix_apply(p, x, cfg, state=None, x_prev=None):
     elif S > 1:
         y, state = ops.rwkv(r, k, v, w, u, chunk=CHUNK, state=state, plain=_plain_wkv)
     else:
+        r, k, v, w, u = (_whole_as(t, state) for t in (r, k, v, w, u))
         y, state = _plain_wkv(r, k, v, w, u, state)
     y = y.reshape(B, S, D)
     y = rmsnorm(p["ln_x"], y.to(x.dtype))
     y = (y.float() * g).to(x.dtype)
-    return y @ p["wo"], (state, x[:, -1, :])
+    return row_project(y, p["wo"]), (state, x[:, -1, :])
 
 
 def channelmix_init(gen, cfg, dtype, device=None):
@@ -151,15 +179,26 @@ def channelmix_init(gen, cfg, dtype, device=None):
 
 
 def channelmix_apply(p, x, x_prev=None):
+    """Megatron's layout on DTensors: the rows gathered once, the squared
+    relu on the hidden split on F (no pending sum), its product with wv
+    reduce-scattered on D (``row_project``), where r is split alike."""
     B, S, D = x.shape
     if x_prev is None:
         x_prev = torch.zeros((B, D), dtype=x.dtype, device=x.device)
-    xs = _token_shift(x, x_prev)
-    xk = x + (xs - x) * p["mu_k"]
-    xr = x + (xs - x) * p["mu_r"]
-    k = torch.square(F.relu((xk @ p["wk"]).float())).to(x.dtype)
-    r = torch.sigmoid((xr @ p["wr"]).float()).to(x.dtype)
-    return r * (k @ p["wv"]), x[:, -1, :]
+    k, r = _channel_hidden(p, x, x_prev)
+    return r * row_project(k, p["wv"]), x[:, -1, :]
+
+
+def _channel_hidden(p, x, x_prev):
+    """channel-mix's relu(.)^2 hidden k and gate r, each lerp made and
+    consumed in turn."""
+    x = gather_input(x, p["wk"])
+    dx = _token_shift(x, x_prev) - x
+    k = torch.square(F.relu(((x + dx * gather_input(p["mu_k"], None)) @ p["wk"]).float()))
+    k = k.to(x.dtype)
+    r = torch.sigmoid(((x + dx * gather_input(p["mu_r"], None)) @ p["wr"]).float())
+    r = r.to(x.dtype)
+    return k, r
 
 
 def rwkv_block_init(gen, cfg, dtype, device=None):

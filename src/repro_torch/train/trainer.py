@@ -52,6 +52,7 @@ still select a strategy, with the JAX package's ``DeprecationWarning``s.
 
 from __future__ import annotations
 
+import math
 import warnings
 from contextlib import nullcontext
 from dataclasses import dataclass
@@ -62,8 +63,8 @@ from repro_torch.algos import Algorithm, get_algorithm
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.dist import gossip
-from repro_torch.dist.sharding import (P, distribute, local_part, spec_on, worker_rows,
-                                       worker_shard)
+from repro_torch.dist.sharding import (P, distribute, local_part, local_slices, placements,
+                                       spec_on, worker_rows, worker_shard)
 from repro_torch.launch.mesh import mesh_shape, worker_axis_names
 from repro_torch.kernels import ops as kops
 from repro_torch.models import lm
@@ -131,43 +132,77 @@ def _model_axes(mesh, worker_axes, param_specs) -> tuple:
     return tuple(n for n in mesh_shape(mesh) if n in used and n not in waxes)
 
 
-class TensorParallel:
-    """The tensor-parallel part of a plan: the sub-mesh of the mesh dims
-    that param specs name past the worker dim (``'model'``), and per leaf
-    its spec with the worker dim dropped and whether it is split there.  A
-    worker's rows run as DTensors on that sub-mesh (``wrap``); the rest of
-    the step acts on the local shards."""
+def row_axes(mesh, worker_axes, model_axes) -> tuple:
+    """The mesh dims of more than one rank (in mesh order) that hold neither
+    a worker nor a split of a leaf: 'data' where the workers enumerate
+    'pod' alone.  A worker's rows are shared out over them."""
+    waxes = set(worker_axis_names(mesh, worker_axes))
+    return tuple(n for n, size in mesh_shape(mesh).items()
+                 if size > 1 and n not in waxes and n not in model_axes)
 
-    def __init__(self, mesh, axes, param_specs):
-        self.mesh = mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten()
+
+class TensorParallel:
+    """The part of a plan past the worker dim: the sub-mesh of the mesh dim
+    that param specs name there (``'model'``, where it has more than one
+    rank) and of those that hold neither a worker nor a split
+    (``row_axes``: 'data' where the workers enumerate 'pod' alone), and per
+    leaf its spec with the worker dim dropped and whether it is split
+    there.  A worker's rows run as DTensors on that sub-mesh (``wrap``,
+    ``rows``), split over the row axes where they divide, with the params
+    replicated there (so each rank's loss and grads are its rows' share,
+    summed over those axes by the redistribution back to the params'
+    placements); the rest of the step acts on the local shards.
+    ``layout``: (split, whole) of the last micro-batch ``rows`` placed, the
+    row axes its rows were shared out over and those whose ranks each ran
+    them all."""
+
+    def __init__(self, mesh, model_axes, param_specs, row_axes):
+        self.mesh = mesh[tuple(n for n in mesh_shape(mesh)
+                               if n in model_axes or n in row_axes)]
+        self.model_axes, self.row_axes = tuple(model_axes), tuple(row_axes)
         self.specs = tree_map(lambda spec: spec_on(P(None, *tuple(spec)[1:]), self.mesh),
                               param_specs)
         self.split = [any(e is not None for e in spec) for spec in tree_leaves(self.specs)]
+        self.layout = None
 
     @staticmethod
     def of(mesh, worker_axes, param_specs):
         """A ``TensorParallel``, or None when no spec splits past the worker
-        dim."""
+        dim and every mesh dim of more than one rank holds workers."""
         if mesh is None or param_specs is None:
             return None
         axes = _model_axes(mesh, worker_axes, param_specs)
-        return TensorParallel(mesh, axes, param_specs) if axes else None
+        rows = row_axes(mesh, worker_axes, axes)
+        return TensorParallel(mesh, axes, param_specs, rows) if axes or rows else None
 
     def wrap(self, params):
         """The stacked local shards as DTensors on the sub-mesh."""
         return distribute(params, self.specs, self.mesh)
 
-    def replicated(self, x):
-        from torch.distributed.tensor import DTensor, Replicate
+    def rows(self, x):
+        """A worker's micro-batch leaf (rows, ...), whole on every rank, as
+        a DTensor: split over all row axes where their ranks divide the
+        rows (each rank keeps its slice; no data moves), else over none,
+        and replicated on the other dims."""
+        from torch.distributed.tensor import DTensor
 
-        return DTensor.from_local(x, self.mesh, [Replicate()] * self.mesh.ndim,
-                                  run_check=False)
+        ranks = math.prod(mesh_shape(self.mesh)[name] for name in self.row_axes)
+        split = self.row_axes if x.shape[0] % ranks == 0 else ()
+        self.layout = (split, tuple(a for a in self.row_axes if a not in split))
+        spec = P(split, *([None] * (x.ndim - 1)))
+        return DTensor.from_local(x[local_slices(x.shape, spec, self.mesh)], self.mesh,
+                                  placements(spec, self.mesh), run_check=False,
+                                  shape=x.shape, stride=x.stride())
 
     def sum(self, x):
-        """``x`` summed over the sub-mesh's ranks, in place."""
+        """``x`` summed, in place, over the ranks of the one 'model' dim (the
+        row axes hold the params whole; without a 'model' dim nothing is
+        split)."""
         import torch.distributed as dist
 
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.mesh.get_group())
+        if self.model_axes:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM,
+                            group=self.mesh.get_group(self.model_axes[0]))
         return x
 
 
@@ -201,7 +236,11 @@ def make_train_step(
     holds its slice of those leaves too, every worker's loss and grads run
     as DTensors over the 'model' sub-mesh (``TensorParallel``), and the
     clip's norm also sums over it; the optimizer, the pull and the mix act
-    on the local shards.
+    on the local shards.  A mesh dim of more than one rank that holds
+    neither workers nor a split ('data' where the workers enumerate 'pod'
+    alone) joins that sub-mesh, and each micro-batch's rows are shared out
+    over it where they divide; ``train_step.row_layout()`` says after a
+    step whether they were (``TensorParallel.layout``).
     ``gossip_mode="ppermute"`` needs a mesh; ``perm`` (one source a worker
     rank) defaults to the neighbours.
 
@@ -232,9 +271,9 @@ def make_train_step(
     def per_worker(params, batch):
         """(losses (n,) f32, grads (n, ...) in the param dtype) for the n
         rows held here: worker i's loss on its own row of the params,
-        differentiated into that row.  With tensor-parallel leaves each row
-        runs as DTensors on the 'model' sub-mesh, and its grads come back
-        as this rank's shards."""
+        differentiated into that row.  With a ``TensorParallel`` each row
+        runs as DTensors on its sub-mesh, and its grads come back as this
+        rank's shards."""
         n = tree_leaves(params)[0].shape[0]
         losses = torch.empty((n,), dtype=torch.float32, device=tree_leaves(batch)[0].device)
         grads = tree_map(torch.empty_like, params)
@@ -244,7 +283,7 @@ def make_train_step(
             b_i = tree_map(lambda a: a[i], batch)
             with torch.enable_grad(), _implicit_replication(tp):
                 if tp is not None:
-                    b_i = tree_map(tp.replicated, b_i)
+                    b_i = tree_map(tp.rows, b_i)
                 loss = lm.loss_fn(p_i, b_i, cfg)
                 gs = torch.autograd.grad(loss, tree_leaves(p_i), allow_unused=True,
                                          materialize_grads=True)
@@ -316,6 +355,14 @@ def make_train_step(
         metrics = {"loss": losses.mean(), "loss_per_worker": losses}
         return new_params, opt_state, metrics
 
+    def row_layout():
+        """(split, whole): the mesh dims that the last step shared each
+        micro-batch's rows out over, and those whose ranks each ran them all
+        (both empty where every dim of more than one rank holds workers or
+        splits leaves)."""
+        return ((), ()) if tp is None else tp.layout
+
+    train_step.row_layout = row_layout
     return train_step
 
 

@@ -15,6 +15,7 @@ other ranks' collectives then time out (``TIMEOUT``) and record theirs.
 from __future__ import annotations
 
 import datetime
+import math
 import traceback
 from dataclasses import replace
 
@@ -56,10 +57,10 @@ def train_cfg(get_arch, arch="qwen1.5-0.5b"):
     return replace(get_arch(arch).reduced(), vocab_size=128)
 
 
-def train_inputs(r: int, permutation: bool, M: int = TRAIN_M):
-    """Round r's batch (numpy int64, (M, 2, 32)) and gossip draw."""
+def train_inputs(r: int, permutation: bool, M: int = TRAIN_M, rows: int = 2):
+    """Round r's batch (numpy int64, (M, rows, 32)) and gossip draw."""
     rng = np.random.default_rng(100 + r)
-    batch = {k: rng.integers(0, 128, size=(M, 2, 32)) for k in ("tokens", "labels")}
+    batch = {k: rng.integers(0, 128, size=(M, rows, 32)) for k in ("tokens", "labels")}
     if permutation:
         neighbors = rng.permutation(M)
     else:
@@ -252,12 +253,23 @@ def case_train(mode, mesh_shape):
 
 
 #: Tensor-parallel training cases: name -> (TRAIN_MODES key, M, arch,
-#: (workers, 'model') mesh of 4 ranks).  On (1, 4), tinyllama's 4 query
-#: heads split 4 ways over 2 KV heads: each rank slices its KV head.
-TP_TRAIN = {"train-tp-netmax-gather": ("netmax-gather", 4, "qwen1.5-0.5b", (2, 2)),
-            "train-tp-netmax-ppermute": ("netmax-ppermute", 2, "qwen1.5-0.5b", (2, 2)),
-            "train-tp-rwkv-gather": ("netmax-gather", 2, "rwkv6-7b", (2, 2)),
-            "train-tp-gqa-slice": ("netmax-gather", 1, "tinyllama-1.1b", (1, 4))}
+#: (data, model) mesh of 4 ranks, worker axes, rows a worker).  On (1, 4),
+#: tinyllama's 4 query heads split 4 ways over 2 KV heads: each rank slices
+#: its KV head.  "train-tp-moe-rows" is phi3.5-moe's plan
+#: on one pod: the one worker enumerates 'pod' alone, so 'data' holds
+#: neither a worker nor a split, and each micro-batch's 2 rows are shared
+#: out over it (ROADMAP C22); 16 rows are the config's 8 micro-batches of 2.
+#: "train-tp-moe-rows-data" is the same plan on (4, 1): no leaf is split,
+#: and each micro-batch's 4 rows are shared out over 4 'data' ranks.
+TP_TRAIN = {"train-tp-netmax-gather": ("netmax-gather", 4, "qwen1.5-0.5b", (2, 2), ("data",), 2),
+            "train-tp-netmax-ppermute": ("netmax-ppermute", 2, "qwen1.5-0.5b", (2, 2), ("data",),
+                                         2),
+            "train-tp-rwkv-gather": ("netmax-gather", 2, "rwkv6-7b", (2, 2), ("data",), 2),
+            "train-tp-gqa-slice": ("netmax-gather", 1, "tinyllama-1.1b", (1, 4), ("data",), 2),
+            "train-tp-moe-rows": ("netmax-gather", 1, "phi3.5-moe-42b-a6.6b", (2, 2), ("pod",),
+                                  16),
+            "train-tp-moe-rows-data": ("netmax-gather", 1, "phi3.5-moe-42b-a6.6b", (4, 1),
+                                       ("pod",), 32)}
 #: Tensor-parallel prefill cases: name -> arch.
 TP_PREFILL = {"prefill-tp": "qwen1.5-0.5b", "prefill-tp-rwkv": "rwkv6-7b"}
 #: The tensor-parallel prefill's batch: (4, 32) token ids.
@@ -296,20 +308,20 @@ def case_train_tp(name):
     """TRAIN_ROUNDS of make_train_step with the plan's specs on a (data,
     model) mesh of 4 ranks: each leaf split on 'model' where its trailing dim
     divides.  This rank's shards of the params, their slices of the whole
-    stacked leaves, and the losses."""
+    stacked leaves, the losses, and the ranks a micro-batch's rows were
+    shared out over (1 where the worker axes leave no mesh dim free)."""
     from repro_torch.configs.base import get_arch
     from repro_torch.dist import sharding as shd
-    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.mesh import make_debug_mesh, mesh_shape
     from repro_torch.optim import sgd
     from repro_torch.train.trainer import (TrainStepConfig, abstract_stacked, init_stacked,
                                            make_train_step)
     from repro_torch.tree import tree_leaves, tree_map
 
-    mode, M, arch, mesh_shape = TP_TRAIN[name]
+    mode, M, arch, sizes, axes, n_rows = TP_TRAIN[name]
     algo, _, gossip_mode, permutation = TRAIN_MODES[mode]
     cfg, opt = train_cfg(get_arch, arch), sgd(momentum=0.9)
-    mesh = make_debug_mesh(*mesh_shape, device_type="cpu")
-    axes = ("data",)
+    mesh = make_debug_mesh(*sizes, device_type="cpu")
     specs = shd.param_specs(cfg, abstract_stacked(cfg, opt, M)[0], shd.plan_for(cfg, mesh))
     params, opt_state = init_stacked(cfg, opt, M, device="cpu", mesh=mesh, worker_axes=axes,
                                      param_specs=specs)
@@ -320,7 +332,7 @@ def case_train_tp(name):
                            mesh=mesh, worker_axes=axes, param_specs=specs)
     losses = []
     for r in range(TRAIN_ROUNDS):
-        batch, gossip_in = train_inputs(r, permutation, M)
+        batch, gossip_in = train_inputs(r, permutation, M, n_rows)
         local = {k: torch.from_numpy(v[rows.start:rows.stop]) for k, v in batch.items()}
         params, opt_state, m = step(params, opt_state, local, gossip_in)
         losses.append((m["loss_per_worker"].numpy().copy(), float(m["loss"])))
@@ -328,6 +340,7 @@ def case_train_tp(name):
     slices = [[(sl.start, sl.stop) for sl in shd.local_slices(a.shape, spec, mesh)]
               for a, spec in zip(tree_leaves(whole), tree_leaves(specs))]
     return {"losses": losses, "slices": slices, "split_leaves": split,
+            "row_ranks": math.prod(mesh_shape(mesh)[a] for a in step.row_layout()[0]),
             "params": tree_map(lambda t: t.clone(), params)}
 
 

@@ -422,8 +422,8 @@ def jax_train():
     groups, permutation draws)."""
     cache = {}
 
-    def get(algo, groups, permutation, M=dr.TRAIN_M, arch="qwen1.5-0.5b"):
-        key = (algo, groups, permutation, M, arch)
+    def get(algo, groups, permutation, M=dr.TRAIN_M, arch="qwen1.5-0.5b", rows=2):
+        key = (algo, groups, permutation, M, arch, rows)
         if key not in cache:
             tp, to = ttr.init_stacked(dr.train_cfg(tget, arch), topt.sgd(momentum=0.9), M,
                                       device="cpu")
@@ -435,7 +435,7 @@ def jax_train():
                 step_cfg=jtr.TrainStepConfig(gossip_mode="gather", grad_clip=dr.TRAIN_CLIP)))
             losses = []
             for r in range(dr.TRAIN_ROUNDS):
-                batch, gi = dr.train_inputs(r, permutation, M)
+                batch, gi = dr.train_inputs(r, permutation, M, rows)
                 params, opt_state, m = step(
                     params, opt_state, {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()},
                     {"neighbors": jnp.asarray(gi["neighbors"], jnp.int32),
@@ -515,17 +515,20 @@ def test_ppermute_needs_a_mesh():
 def test_tensor_parallel_trainer_matches_jax(cluster, jax_train, case):
     """make_train_step with the plan's 'model'-split specs on 4 ranks (2
     workers x 2 'model', or 1 x 4 where each rank's query heads share a
-    sliced KV head): each rank's shards of every leaf after TRAIN_ROUNDS
-    (clip on: its norm spans both axes) against the same slices of JAX's
-    unsharded step, losses likewise, to the worker-sharded step's
-    tolerance."""
-    mode, M, arch, _ = dr.TP_TRAIN[case]
+    sliced KV head, or phi3.5-moe's one worker on 'pod' with each
+    micro-batch's rows shared out over 2 'data' ranks, or over 4 where
+    'model' has one rank, ROADMAP C22): each
+    rank's shards of every leaf after TRAIN_ROUNDS (clip on: its norm spans
+    both axes) against the same slices of JAX's unsharded step, losses
+    likewise, to the worker-sharded step's tolerance."""
+    mode, M, arch, sizes, axes, rows = dr.TP_TRAIN[case]
     algo, groups, _, permutation = dr.TRAIN_MODES[mode]
-    jparams, jlosses = jax_train(algo, groups, permutation, M, arch)
+    jparams, jlosses = jax_train(algo, groups, permutation, M, arch, rows)
     want = [_np(x) for x in jax.tree_util.tree_leaves(jparams)]
     scale = max(float(np.abs(x).max()) for x in want)
     results = cluster.case(4, case)
-    assert results[0]["split_leaves"] > 0  # the plan splits leaves on 'model'
+    # The plan splits leaves where 'model' has more than one rank.
+    assert (results[0]["split_leaves"] > 0) == (sizes[1] > 1)
     pieces = set()
     for r, res in enumerate(results):
         for (got_w, got_mean), (want_w, want_mean) in zip(res["losses"], jlosses):
@@ -538,7 +541,11 @@ def test_tensor_parallel_trainer_matches_jax(cluster, jax_train, case):
             assert g.shape == part.shape, (r, g.shape, part.shape)
             assert float(np.abs(g - part).max()) <= TRAIN_TOL * scale, r
         pieces.add(tuple(tuple(map(tuple, sl)) for sl in res["slices"]))
-    assert len(pieces) == 4  # every rank holds its own shards
+    # Every rank holds its own shards, but where the rows are shared out
+    # over 'data' its ranks hold the same ones.
+    row_ranks = results[0]["row_ranks"]
+    assert row_ranks == (1 if "data" in axes else sizes[0])
+    assert len(pieces) == 4 // row_ranks
 
 
 @pytest.mark.parametrize("case", list(dr.TP_PREFILL))

@@ -19,9 +19,13 @@ shapes (the chunked scan, and its gradient for training).  The port's
   its dots -- the cache attention split over 'model' included -- being the
   same;
 * per-rank FLOPs x 8 within 1.0-1.3x of the port's unsharded count of the
-  same program (``dryrun.unsharded_flops``: meta tensors, no mesh); and at
-  full width on the 16x16 plan, port only, per-rank FLOPs x 256 likewise,
-  with the collective bytes and the temp below the plan's bounds;
+  same program (``dryrun.unsharded_flops``: meta tensors, no mesh), for
+  tinyllama's cells and the train cells of the configs with one worker a
+  pod; and at full width on the 16x16 plan (tinyllama's cells and rwkv6-7b's
+  prefill), port only, per-rank FLOPs x 256 likewise, with the collective
+  bytes and the temp below the plan's bounds;
+* rwkv6-7b's reduced train_4k moves no more collective bytes a rank than
+  the JAX program;
 * the train cell (M = 2) under ``--gossip ppermute`` has collective-permute
   bytes, as tests/test_system.py asks of the JAX records.
 """
@@ -99,6 +103,12 @@ _JAX_SCRIPT = textwrap.dedent("""
     out["prefill_32k"]["attention"] = cfg.n_layers * attention_term(16, 32768, False)
     out["train_4k"]["attention"] = (cfg.n_layers * micro
                                     * attention_term(128 // micro, 4096, True))
+
+    # rwkv6-7b's reduced train_4k: the collective bytes of the JAX program.
+    lowered, _ = dryrun.build_lowered(get_arch("rwkv6-7b").reduced(), "train_4k", mesh,
+                                      "ppermute")
+    out["rwkv_train_4k"] = {"collective_bytes": HloCostModel(
+        lowered.compile().as_text()).entry_cost().collective_bytes}
     with open(sys.argv[1], "w") as f:
         json.dump(out, f)
 """)
@@ -204,18 +214,24 @@ def test_per_rank_flops_times_ranks_against_unsharded(port_cells, shape):
     assert 1.0 <= ratio <= 1.3, ratio
 
 
-@pytest.mark.parametrize("shape", CELLS)
-def test_full_width_plan_against_unsharded(shape):
-    """tinyllama-1.1b at full width on the production 16x16 plan, the port
-    alone: per-rank FLOPs x 256 over the unsharded count (training's at
-    M = 2 over the same global batch) within ``dryrun.PLAN_RATIO``, and the
-    cell's collective bytes and temp within ``dryrun.PLAN_BOUNDS``."""
-    rec = dryrun.run_cell(ARCH, shape, False, "ppermute", quiet=True)
+#: Full-width 16x16 cells held in tier-1: tinyllama-1.1b's three (ids by
+#: shape alone, as before rwkv6-7b's prefill joined them, ROADMAP C21).
+FULL_WIDTH_CELLS = [pytest.param(ARCH, s, id=s) for s in CELLS] + [
+    pytest.param("rwkv6-7b", "prefill_32k", id="rwkv6-7b-prefill_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", FULL_WIDTH_CELLS)
+def test_full_width_plan_against_unsharded(arch, shape):
+    """A cell at full width on the production 16x16 plan, the port alone:
+    per-rank FLOPs x 256 over the unsharded count (training's at M = 2 over
+    the same global batch) within ``dryrun.PLAN_RATIO``, and the cell's
+    collective bytes and temp within ``dryrun.PLAN_BOUNDS``."""
+    rec = dryrun.run_cell(arch, shape, False, "ppermute", quiet=True)
     assert rec["ok"], rec.get("traceback")
-    ratio = rec["hlo_flops_per_device"] * 256 / dryrun.unsharded_flops(get_arch(ARCH), shape)
+    ratio = rec["hlo_flops_per_device"] * 256 / dryrun.unsharded_flops(get_arch(arch), shape)
     lo, hi = dryrun.PLAN_RATIO
     assert lo <= ratio <= hi, ratio
-    bounds = dryrun.PLAN_BOUNDS[shape]
+    bounds = dryrun.PLAN_BOUNDS[arch, shape]
     if "collective" in bounds:
         assert sum(rec["collective_bytes_per_device"].values()) <= bounds["collective"]
     if "temp" in bounds:
@@ -259,20 +275,49 @@ def test_records_and_op_logs_round_trip(tmp_path, monkeypatch):
 #: MoE's batch-local dispatch and expert products (phi3.5, train), the
 #: meta scan of the mamba layers under autograd (jamba, train), uneven
 #: head splits (whisper's 12 heads, internvl2's 14, on 4 'model' ranks),
-#: the WKV decode step on split heads (rwkv6).
-FAMILY_CELLS = [("phi3.5-moe-42b-a6.6b", "train_4k"), ("jamba-v0.1-52b", "train_4k"),
-                ("whisper-small", "decode_32k"), ("internvl2-1b", "prefill_32k"),
-                ("rwkv6-7b", "decode_32k")]
+#: the WKV decode step on split heads (rwkv6); and the configs with one
+#: worker a pod (phi3.5, jamba, llama4 every_2; ROADMAP C22), whose
+#: micro-batch rows are shared out over 'data', on an (8, 1) plan too,
+#: where no leaf is split and 'data' is the sub-mesh's one dim.
+FAMILY_CELLS = [pytest.param(arch, shape, MESH, id=f"{arch}-{shape}") for arch, shape in (
+    ("phi3.5-moe-42b-a6.6b", "train_4k"), ("jamba-v0.1-52b", "train_4k"),
+    ("whisper-small", "decode_32k"), ("internvl2-1b", "prefill_32k"),
+    ("rwkv6-7b", "decode_32k"), ("llama4-maverick-400b-a17b", "train_4k"))] + [
+    pytest.param("phi3.5-moe-42b-a6.6b", "train_4k", ((8, 1), ("data", "model")),
+                 id="phi3.5-moe-42b-a6.6b-train_4k-8x1")]
 
 
-@pytest.mark.parametrize("arch,shape", FAMILY_CELLS)
-def test_family_cells_trace(arch, shape):
+@pytest.mark.parametrize("arch,shape,mesh", FAMILY_CELLS)
+def test_family_cells_trace(arch, shape, mesh):
+    """Each cell traces on its plan of 8 ranks.  A plan with workers on
+    'data' pulls point to point; one whose worker enumerates 'pod' alone
+    (M = 1 here) shares each micro-batch's rows out over 'data', so its
+    per-rank FLOPs x 8 are within ``dryrun.PLAN_RATIO`` of the unsharded
+    count (the size of 'data' while every 'data' rank ran the whole
+    step)."""
     cfg = get_arch(arch).reduced()
-    rec = dryrun.run_cell(arch, shape, False, quiet=True, cfg=cfg, mesh_spec=MESH)
+    rec = dryrun.run_cell(arch, shape, False, quiet=True, cfg=cfg, mesh_spec=mesh)
     assert rec["ok"], rec.get("traceback")
     assert rec["hlo_flops_per_device"] > 0 and rec["memory_analysis"]["peak_live_bytes"] > 0
     if rec["M"] > 1:  # a plan with workers on 'data' pulls point to point
         assert rec["collective_bytes_per_device"].get("collective-permute", 0) > 0
+    if rec["program"] == "train_step" and cfg.worker_axes == ("pod",):
+        assert (rec["rows_split_over"], rec["rows_whole_over"]) == (["data"], [])
+        ratio = rec["hlo_flops_per_device"] * 8 / dryrun.unsharded_flops(cfg, shape)
+        lo, hi = dryrun.PLAN_RATIO
+        assert lo <= ratio <= hi, ratio
+
+
+def test_rwkv_train_collective_bytes_against_jax(jax_side):
+    """rwkv6-7b's reduced train_4k on the (2, 4) plan moves no more
+    collective bytes a rank than the JAX program of the same specs (ROADMAP
+    C21: its projections in Megatron's layout; 2x the JAX program's before)."""
+    cfg = get_arch("rwkv6-7b").reduced()
+    rec = dryrun.run_cell("rwkv6-7b", "train_4k", False, quiet=True, cfg=cfg, mesh_spec=MESH)
+    assert rec["ok"], rec.get("traceback")
+    port = sum(rec["collective_bytes_per_device"].values())
+    want = sum(jax_side()["rwkv_train_4k"]["collective_bytes"].values())
+    assert port <= want, (port, want)
 
 
 def test_opt_flags():
