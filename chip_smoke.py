@@ -4143,9 +4143,10 @@ def phase_sharded_main(torch, card):
 
 #: Phase 36: the dry-run's cells, (arch, shape, multi-pod): every shape
 #: tinyllama-1.1b and rwkv6-7b support on 16x16 (tinyllama's long_500k is
-#: an explicit skip), phi3.5-moe's and jamba's train_4k on 16x16 (one
-#: worker a pod: each micro-batch's rows shared out over 'data', ROADMAP
-#: C22), and one 2x16x16 cell.
+#: an explicit skip), phi3.5-moe's and jamba's train_4k, prefill_32k and
+#: decode_32k on 16x16 (one worker a pod: each micro-batch's rows shared
+#: out over 'data', ROADMAP C22; mamba layers and expert FFNs in
+#: Megatron's layout, C23), and one 2x16x16 cell.
 #: In groups of about equal time: each group's cells, and the unsharded
 #: counts of its 16x16 cells' programs (``dryrun.unsharded_flops``), run in
 #: two subprocesses of their own, all of them at once.
@@ -4155,7 +4156,9 @@ DRYRUN_GROUPS = [[("tinyllama-1.1b", s, False) for s in
                     ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
                  + [("tinyllama-1.1b", "train_4k", True)],
                  [("phi3.5-moe-42b-a6.6b", "train_4k", False)],
-                 [("jamba-v0.1-52b", "train_4k", False)]]
+                 [("jamba-v0.1-52b", "train_4k", False)],
+                 [(arch, s, False) for arch in ("phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b")
+                  for s in ("prefill_32k", "decode_32k")]]
 DRYRUN_CELLS = [cell for group in DRYRUN_GROUPS for cell in group]
 DRYRUN_TIMEOUT_S = 600
 _DRYRUN_SCRIPT = """

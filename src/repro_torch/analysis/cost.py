@@ -52,6 +52,7 @@ step there, counted as many times as the loop has steps (``repeat``), as
 
 from __future__ import annotations
 
+import os
 import sys
 import weakref
 from contextlib import contextmanager
@@ -289,6 +290,19 @@ def _shape_str(t) -> str:
 
 
 _SCOPE_CACHE: dict = {}
+#: DTensor's sharding propagator, as a path suffix of its frames' file.
+_PROPAGATOR = os.sep.join(("", "torch", "distributed", "tensor", "_sharding_prop.py"))
+
+
+def _in_sharding_propagation() -> bool:
+    """Whether DTensor's sharding propagator is on the Python stack: what
+    runs under it is no rank's work."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith(_PROPAGATOR):
+            return True
+        f = f.f_back
+    return False
 
 
 def _frame_name(code) -> str | None:
@@ -443,8 +457,12 @@ class CostCounter(TorchDispatchMode):
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         # DTensor's sharding propagation, not work: FakeTensor inputs, or
         # FakeTensor outputs of an op with none (its ``empty_strided`` of a
-        # global shape), which are no rank's live bytes either.
-        if any(isinstance(t, self._fake) for t in ins + outs):
+        # global shape), which are no rank's live bytes either; or an op run
+        # while the propagator is on the stack: a decomposed op is propagated
+        # by running its decomposition on plain ``meta`` tensors of the
+        # global shape (``softplus``'s backward; under torch 2.11 its forward
+        # too, which read jamba's prefill_32k temp as 112.1 GB, not 11.2).
+        if any(isinstance(t, self._fake) for t in ins + outs) or _in_sharding_propagation():
             return out
         self._count(func, args, kwargs, ins, out, outs)
         return out

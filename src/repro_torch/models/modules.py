@@ -54,7 +54,7 @@ def rmsnorm_init(d, dtype, device):
 
 def rmsnorm(p, x, eps=1e-6):
     xf = x.float()
-    var = row_stat((xf * xf).mean(dim=-1, keepdim=True))
+    var = settle_whole((xf * xf).mean(dim=-1, keepdim=True))
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
 
@@ -66,24 +66,27 @@ def layernorm_init(d, dtype, device):
 
 def layernorm(p, x, eps=1e-5):
     xf = x.float()
-    mu = row_stat(xf.mean(dim=-1, keepdim=True))
-    var = row_stat(((xf - mu) ** 2).mean(dim=-1, keepdim=True))
+    mu = settle_whole(xf.mean(dim=-1, keepdim=True))
+    var = settle_whole(((xf - mu) ** 2).mean(dim=-1, keepdim=True))
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
-def row_stat(v):
-    """A norm's ``[.., 1]`` statistic, taken over a dim that a DTensor may
-    split: summed over the ranks now (one all-reduce of ``[.., 1]``), and
-    its gradient likewise before it spreads back over that dim.  DTensor
-    alone would carry the gradient's pending sum into the ``[.., D]``
-    expansion and reduce-scatter that, in f32.  A plain tensor is returned
-    as it is."""
+def settle_whole(v):
+    """A narrow DTensor made whole now on each mesh dim where it holds
+    pending sums or is split over its last dim: a norm's ``[.., 1]``
+    statistic over a dim that a DTensor may split, mamba's (B, S, R+2N)
+    x-projection, MoE's (E,) load shares.  One all-reduce (or all-gather),
+    and the gradient summed likewise before it spreads back: DTensor alone
+    would carry the gradient's pending sum into a wider expansion (a norm's
+    ``[.., D]``) and reduce-scatter that, in f32.  A plain tensor is
+    returned as it is."""
     if not hasattr(v, "placements"):
         return v
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    v = v.redistribute(v.device_mesh, [Replicate() if p.is_partial() else p
+    last = Shard(v.ndim - 1)
+    v = v.redistribute(v.device_mesh, [Replicate() if p.is_partial() or p == last else p
                                        for p in v.placements])
     # from_local's backward brings the incoming gradient to these placements.
     return DTensor.from_local(v.to_local(), v.device_mesh, v.placements, run_check=False,
@@ -231,16 +234,32 @@ def gather_input(x, w):
     return x.redistribute(x.device_mesh, fixed)
 
 
-def row_project(h, w):
-    """``h @ w`` for an out-projection, on each mesh dim where the DTensor
-    ``h`` is split over its last dim.  Megatron's layout: ``w`` is
-    redistributed to split its first dim alike (its stored split stays on
-    the last dim; the gradient goes back through the redistribution), so
-    the product is a partial sum, reduce-scattered over its last dim by
-    ``settle_partial``.  Where gathering ``h`` moves no more than a rank's
-    shard of ``w`` (a decode step's few rows), ``h`` is gathered instead and
-    ``w`` stays as stored: the product is split as ``w`` is, with no sum.
-    Plain tensors: ``matmul(h, w)``."""
+def whole_as(t, ref):
+    """A DTensor ``t`` made whole on each mesh dim where the DTensor ``ref``
+    is whole (a decode step's operands beside its state, so that the step
+    runs on the state's placements and the new state, copied into its
+    cache, is never gathered).  Otherwise ``t`` as it is."""
+    if not (hasattr(t, "placements") and hasattr(ref, "placements")):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    fixed = [Replicate() if s == Replicate() else p
+             for p, s in zip(t.placements, ref.placements)]
+    if fixed == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, fixed)
+
+
+def row_operands(h, w):
+    """``h`` and ``w`` laid out for an out-projection ``h @ w`` (``w`` 2-D,
+    or batched (E, F, D)), on each mesh dim where the DTensor ``h`` is split
+    over its last dim.  Megatron's layout: ``w`` is redistributed to split
+    its contracted dim alike (its stored split stays on the last dim; the
+    gradient goes back through the redistribution), so the product is a
+    partial sum.  Where gathering ``h`` moves no more than a rank's shard of
+    ``w`` (a decode step's few rows), ``h`` is gathered instead and ``w``
+    stays as stored: the product is split as ``w`` is, with no sum.  Plain
+    tensors are returned as they are."""
     if hasattr(h, "placements") and hasattr(w, "placements"):
         from torch.distributed.tensor import Replicate, Shard
 
@@ -250,10 +269,17 @@ def row_project(h, w):
             h = h.redistribute(h.device_mesh, [Replicate() if s else p
                                                for s, p in zip(split, h.placements)])
         else:
-            fixed = [Shard(0) if s else q for s, q in zip(split, w.placements)]
+            fixed = [Shard(w.ndim - 2) if s else q for s, q in zip(split, w.placements)]
             if fixed != list(w.placements):
                 w = w.redistribute(w.device_mesh, fixed)
-    return settle_partial(matmul(h, w))
+    return h, w
+
+
+def row_project(h, w):
+    """``h @ w`` for an out-projection in Megatron's layout
+    (``row_operands``), the partial sum reduce-scattered over its last dim
+    by ``settle_partial``.  Plain tensors: ``matmul(h, w)``."""
+    return settle_partial(matmul(*row_operands(h, w)))
 
 
 def split_heads(x, heads: int, hd: int):

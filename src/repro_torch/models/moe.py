@@ -10,6 +10,15 @@ slot C, which is dropped, and its gate is zeroed.  Dispatch is a scatter into
 buffers stay O(E*C*D).  The expert products are plain einsums, as in the JAX
 package (no Pallas kernel there either).  The aux loss is Switch's load
 balance, E * sum_e f_e * P_e.
+
+On DTensors (a multi-rank plan) the routing, dispatch and combine run on
+each rank's batch shard, whole on 'model' (``_batch_local``), and the
+expert FFN takes Megatron's expert layout (``_experts_bmm``): w_gate and
+w_up column-parallel on F, w_down re-laid to split F alike, so the (E, B*C,
+F) hidden never moves and the down product's pending sum, like the input
+gradient's, is settled once over (B, E, C, D).  The aux loss's load shares
+are summed across ranks as (E,) vectors.  Plain tensors take the same ops
+as the JAX model's.
 """
 
 from __future__ import annotations
@@ -17,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.modules import _device, lecun_normal
+from repro_torch.models.modules import _device, lecun_normal, row_operands, settle_whole
 
 
 def moe_init(gen, cfg, dtype, device=None):
@@ -63,14 +72,16 @@ def moe_apply(p, x, cfg):
     """x: (B, S, D) -> (y (B,S,D) in x's dtype, aux loss () f32)."""
     B, S, D = x.shape
     E, K = cfg.moe.n_experts, cfg.moe.top_k
-    probs, expert_idx, gate_vals, pos, C = route(p, x, cfg)
-
-    if hasattr(x, "placements"):  # DTensors: dispatch and combine per batch shard
-        local, wrap = _batch_local(x)
-        x, expert_idx, gate_vals, pos = (local(t) for t in (x, expert_idx, gate_vals, pos))
+    if hasattr(x, "placements"):  # DTensors: route, dispatch and combine per batch shard
+        mesh, placements = x.device_mesh, x.placements
+        local, wrap, whole = _batch_local(x)
+        x = local(x)
+        p_route = {"w_router": whole(p["w_router"])}
         B = x.shape[0]
     else:
-        wrap = None
+        p_route, wrap = p, None
+    probs, expert_idx, gate_vals, pos, C = route(p_route, x, cfg)
+
     # Scatter tokens into (B, E, C+1, D); slot C collects the drops.
     e_flat = expert_idx.reshape(B, S * K)
     pos_flat = pos.reshape(B, S * K)
@@ -100,41 +111,50 @@ def moe_apply(p, x, cfg):
                                           device=out.device)], dim=2)
     picked = out_pad[b_idx, e_flat, pos_flat].reshape(B, S, K, D)
     y = (picked.float() * gate_vals[..., None]).sum(dim=2).to(x.dtype)
-    if wrap is not None:
-        y = wrap(y)
 
     # Switch-style load-balance loss: E * sum_e f_e * P_e.  On DTensors the
-    # picks are this rank's batch shard: their counts become a DTensor again,
-    # so that the mean spans the whole batch.
-    me = probs.mean(dim=(0, 1))
+    # probabilities and picks are this rank's batch shard: each becomes a
+    # DTensor again, so that its mean spans the whole batch, and that (E,)
+    # mean is summed across ranks now.
     counts = F.one_hot(expert_idx, E).sum(2).float()
     if wrap is not None:
-        counts = wrap(counts)
-    ce = counts.mean(dim=(0, 1)) / K
+        y = wrap(y).redistribute(mesh, placements)  # split as x was: no gather
+        probs, counts = wrap(probs), wrap(counts)
+    me = settle_whole(probs.mean(dim=(0, 1)))
+    ce = settle_whole(counts.mean(dim=(0, 1))) / K
     aux = E * torch.sum(me * ce)
     return y, aux
 
 
 def _experts_bmm(p, buf, dtype):
     """The expert FFN of DTensors as batched products over contiguous
-    (E, B*C, .) operands: DTensor's einsum decomposition views a permuted
-    local gradient in its backward, which torch refuses."""
+    (E, B*C, .) operands (DTensor's einsum decomposition views a permuted
+    local gradient in its backward, which torch refuses), in Megatron's
+    expert layout: w_gate and w_up column-parallel on F as the plan holds
+    them, the down product through ``row_operands`` (w_down re-laid once a
+    call to split F alike, so that forward and backward use the same copy
+    and the hidden never moves; a decode step's few rows gathered instead).
+    The down product is then a pending sum over F."""
     B, E, C, D = buf.shape
     be = buf.permute(1, 0, 2, 3).contiguous().reshape(E, B * C, D)
     h = torch.bmm(be, p["w_gate"])
     u = torch.bmm(be, p["w_up"])
     h = F.silu(h.float()).to(dtype) * u
-    out = torch.bmm(h, p["w_down"])  # (E, B*C, D)
+    out = torch.bmm(*row_operands(h, p["w_down"]))  # (E, B*C, D)
     return out.reshape(E, B, C, D).permute(1, 0, 2, 3)
 
 
 def _batch_local(x):
-    """(local, wrap) for a DTensor x (B, S, D): ``local(t)`` is this rank's
-    batch shard of t, whole on every other dim (t gathered where it is
-    split past the batch); ``wrap`` makes a batch shard a DTensor again.
-    The scatter and gather of the dispatch (``index_put_``, advanced
-    indexing) have no DTensor rule; per batch shard they are the plain ops."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    """(local, wrap, whole) for a DTensor x (B, S, D): ``local(t)`` is this
+    rank's batch shard of t, whole on every other dim (t gathered where it
+    is split past the batch); ``wrap`` makes a batch shard a DTensor again;
+    ``whole(w)`` is a parameter whole on this rank, as a plain tensor whose
+    gradient is this batch shard's share (a pending sum over the mesh dims
+    that split the batch).  The router's top-k and the scatter and gather
+    of the dispatch (``index_put_``, advanced indexing) run on these as the
+    plain ops: DTensor has no rule for the latter, and its rule for top-k's
+    backward leaves a pending (B, S, E) sum, reduce-scattered in f32."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = x.device_mesh
     batch = [Shard(0) if p == Shard(0) else Replicate() for p in x.placements]
@@ -145,7 +165,11 @@ def _batch_local(x):
     def wrap(t):
         return DTensor.from_local(t, mesh, batch, run_check=False)
 
-    return local, wrap
+    def whole(w):
+        return w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=[Partial() if p == Shard(0) else Replicate() for p in batch])
+
+    return local, wrap, whole
 
 
 def moe_param_count(cfg) -> tuple[int, int]:

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.modules import (_device, _normal, gather_input, lecun_normal, rmsnorm,
-                                       rmsnorm_init, row_project, split_heads)
+                                       rmsnorm_init, row_project, split_heads, whole_as)
 from repro_torch.models.scan_utils import check_chunk, chunked_scan
 
 #: Time chunk of the scan (``repro/models/rwkv.py``'s ``chunked_scan(..., chunk=64)``).
@@ -75,20 +75,6 @@ def timemix_init(gen, cfg, dtype, device=None):
 def _token_shift(x, x_prev):
     """shift: x_{t-1} for t>0; x_prev feeds position 0. x: (B,S,D)."""
     return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
-
-
-def _whole_as(t, state):
-    """A decode step's operand (r, k, v, w or u) as a DTensor made whole on
-    each mesh dim where the DTensor state is, so that the step runs on the
-    state's placements and the new state, copied into its cache, is never
-    gathered (B*H*N*N f32 a layer).  Otherwise ``t`` as it is."""
-    if not (hasattr(t, "placements") and hasattr(state, "placements")):
-        return t
-    from torch.distributed.tensor import Replicate
-
-    fixed = [Replicate() if s == Replicate() else p
-             for p, s in zip(t.placements, state.placements)]
-    return t.redistribute(t.device_mesh, fixed)
 
 
 def _projections(p, x, x_prev, H, N):
@@ -158,7 +144,7 @@ def timemix_apply(p, x, cfg, state=None, x_prev=None):
     elif S > 1:
         y, state = ops.rwkv(r, k, v, w, u, chunk=CHUNK, state=state, plain=_plain_wkv)
     else:
-        r, k, v, w, u = (_whole_as(t, state) for t in (r, k, v, w, u))
+        r, k, v, w, u = (whole_as(t, state) for t in (r, k, v, w, u))
         y, state = _plain_wkv(r, k, v, w, u, state)
     y = y.reshape(B, S, D)
     y = rmsnorm(p["ln_x"], y.to(x.dtype))

@@ -53,8 +53,11 @@ TRAIN_LR = 0.05
 TRAIN_CLIP = 0.5
 
 
-def train_cfg(get_arch, arch="qwen1.5-0.5b"):
-    return replace(get_arch(arch).reduced(), vocab_size=128)
+def train_cfg(get_arch, arch="qwen1.5-0.5b", microbatches=None):
+    """The arch's reduced config with vocab 128 (and ``microbatches`` where
+    given: a cut of the config's)."""
+    cfg = replace(get_arch(arch).reduced(), vocab_size=128)
+    return cfg if microbatches is None else replace(cfg, microbatches=microbatches)
 
 
 def train_inputs(r: int, permutation: bool, M: int = TRAIN_M, rows: int = 2):
@@ -253,25 +256,33 @@ def case_train(mode, mesh_shape):
 
 
 #: Tensor-parallel training cases: name -> (TRAIN_MODES key, M, arch,
-#: (data, model) mesh of 4 ranks, worker axes, rows a worker).  On (1, 4),
-#: tinyllama's 4 query heads split 4 ways over 2 KV heads: each rank slices
-#: its KV head.  "train-tp-moe-rows" is phi3.5-moe's plan
-#: on one pod: the one worker enumerates 'pod' alone, so 'data' holds
-#: neither a worker nor a split, and each micro-batch's 2 rows are shared
-#: out over it (ROADMAP C22); 16 rows are the config's 8 micro-batches of 2.
-#: "train-tp-moe-rows-data" is the same plan on (4, 1): no leaf is split,
-#: and each micro-batch's 4 rows are shared out over 4 'data' ranks.
-TP_TRAIN = {"train-tp-netmax-gather": ("netmax-gather", 4, "qwen1.5-0.5b", (2, 2), ("data",), 2),
+#: (data, model) mesh of 4 ranks, worker axes, rows a worker, micro-batches
+#: (None: the config's)).  On (1, 4), tinyllama's 4 query heads split 4
+#: ways over 2 KV heads: each rank slices its KV head.  "train-tp-moe-rows"
+#: is phi3.5-moe's plan on one pod: the one worker enumerates 'pod' alone,
+#: so 'data' holds neither a worker nor a split, and each micro-batch's 2
+#: rows are shared out over it (ROADMAP C22); 16 rows are the config's 8
+#: micro-batches of 2.  "train-tp-moe-rows-data" is the same plan on (4, 1):
+#: no leaf is split, and each micro-batch's 4 rows are shared out over 4
+#: 'data' ranks.  "train-tp-jamba-rows" is jamba's plan on (2, 2), its
+#: mamba layers and experts in Megatron's layout (ROADMAP C23), cut to 2
+#: micro-batches of 4 rows, 2 a 'data' rank so that ``w_in`` is regrouped
+#: (the config's 8 micro-batches cost ~105 s of mamba steps on DTensors).
+TP_TRAIN = {"train-tp-netmax-gather": ("netmax-gather", 4, "qwen1.5-0.5b", (2, 2), ("data",), 2,
+                                       None),
             "train-tp-netmax-ppermute": ("netmax-ppermute", 2, "qwen1.5-0.5b", (2, 2), ("data",),
-                                         2),
-            "train-tp-rwkv-gather": ("netmax-gather", 2, "rwkv6-7b", (2, 2), ("data",), 2),
-            "train-tp-gqa-slice": ("netmax-gather", 1, "tinyllama-1.1b", (1, 4), ("data",), 2),
+                                         2, None),
+            "train-tp-rwkv-gather": ("netmax-gather", 2, "rwkv6-7b", (2, 2), ("data",), 2, None),
+            "train-tp-gqa-slice": ("netmax-gather", 1, "tinyllama-1.1b", (1, 4), ("data",), 2,
+                                   None),
             "train-tp-moe-rows": ("netmax-gather", 1, "phi3.5-moe-42b-a6.6b", (2, 2), ("pod",),
-                                  16),
+                                  16, None),
             "train-tp-moe-rows-data": ("netmax-gather", 1, "phi3.5-moe-42b-a6.6b", (4, 1),
-                                       ("pod",), 32)}
+                                       ("pod",), 32, None),
+            "train-tp-jamba-rows": ("netmax-gather", 1, "jamba-v0.1-52b", (2, 2), ("pod",), 8, 2)}
 #: Tensor-parallel prefill cases: name -> arch.
-TP_PREFILL = {"prefill-tp": "qwen1.5-0.5b", "prefill-tp-rwkv": "rwkv6-7b"}
+TP_PREFILL = {"prefill-tp": "qwen1.5-0.5b", "prefill-tp-rwkv": "rwkv6-7b",
+              "prefill-tp-jamba": "jamba-v0.1-52b"}
 #: The tensor-parallel prefill's batch: (4, 32) token ids.
 TP_PREFILL_SEED = 7
 
@@ -283,7 +294,9 @@ def tp_prefill_tokens():
 #: Tensor-parallel decode cases: name -> arch.  On (1, 4), reduced
 #: tinyllama's 4 query heads split 4 ways over its 2 KV heads: each rank
 #: slices its head's KV head from the replicated cache (ROADMAP C17).
-TP_DECODE = {"decode-tp": "tinyllama-1.1b"}
+#: Reduced jamba's attention layers do the same, and its mamba layers step
+#: on their whole states (ROADMAP C23).
+TP_DECODE = {"decode-tp": "tinyllama-1.1b", "decode-tp-jamba": "jamba-v0.1-52b"}
 #: The decode step follows a prefill of TP_DECODE_PREFILL tokens into a
 #: cache of TP_DECODE_SEQ positions, a batch of 4.
 TP_DECODE_PREFILL, TP_DECODE_SEQ = 8, 16
@@ -318,9 +331,9 @@ def case_train_tp(name):
                                            make_train_step)
     from repro_torch.tree import tree_leaves, tree_map
 
-    mode, M, arch, sizes, axes, n_rows = TP_TRAIN[name]
+    mode, M, arch, sizes, axes, n_rows, micro = TP_TRAIN[name]
     algo, _, gossip_mode, permutation = TRAIN_MODES[mode]
-    cfg, opt = train_cfg(get_arch, arch), sgd(momentum=0.9)
+    cfg, opt = train_cfg(get_arch, arch, micro), sgd(momentum=0.9)
     mesh = make_debug_mesh(*sizes, device_type="cpu")
     specs = shd.param_specs(cfg, abstract_stacked(cfg, opt, M)[0], shd.plan_for(cfg, mesh))
     params, opt_state = init_stacked(cfg, opt, M, device="cpu", mesh=mesh, worker_axes=axes,

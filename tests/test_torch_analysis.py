@@ -22,6 +22,8 @@ JAX package's HLO cost model (``repro.analysis``), on the CPU.
   same records.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -224,6 +226,28 @@ def test_dtensor_propagation_is_no_rank_memory():
             assert peak == [(op, shape, nbytes)]
             assert y.to_local().numel() * 4 == nbytes
             del y
+
+
+def test_ops_under_the_sharding_propagator_are_no_rank_work():
+    """ROADMAP C23: torch 2.11 propagates ``softplus`` on DTensors by running
+    its decomposition on plain ``meta`` tensors of the global shape inside
+    DTensor's sharding propagator (jamba's prefill_32k temp read 112.1 GB a
+    rank for 11.2).  An op dispatched from a frame of
+    ``torch/distributed/tensor/_sharding_prop.py`` is neither counted nor
+    live; the same op elsewhere is."""
+    import torch.distributed.tensor as dtensor
+
+    frames = {}
+    exec(compile("def run(f, x):\n    return f(x)\n",
+                 str(Path(dtensor.__file__).parent / "_sharding_prop.py"), "exec"), frames)
+    x = torch.empty((64, 64), device="meta")
+    with cost.CostCounter() as inside:
+        frames["run"](torch.exp, x)
+    with cost.CostCounter() as outside:
+        y = torch.exp(x)
+    assert (inside.peak_bytes, inside.report.bytes_accessed, inside.report.ops) == (0, 0.0, [])
+    assert outside.peak_bytes == 64 * 64 * 4 and outside.report.bytes_accessed > 0
+    del y
 
 
 def test_reduced_decode_cell_temp_is_not_the_global_caches():

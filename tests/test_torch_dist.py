@@ -422,16 +422,16 @@ def jax_train():
     groups, permutation draws)."""
     cache = {}
 
-    def get(algo, groups, permutation, M=dr.TRAIN_M, arch="qwen1.5-0.5b", rows=2):
-        key = (algo, groups, permutation, M, arch, rows)
+    def get(algo, groups, permutation, M=dr.TRAIN_M, arch="qwen1.5-0.5b", rows=2, micro=None):
+        key = (algo, groups, permutation, M, arch, rows, micro)
         if key not in cache:
-            tp, to = ttr.init_stacked(dr.train_cfg(tget, arch), topt.sgd(momentum=0.9), M,
+            tp, to = ttr.init_stacked(dr.train_cfg(tget, arch, micro), topt.sgd(momentum=0.9), M,
                                       device="cpu")
             to_j = lambda t: jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()), t)  # noqa: E731
             params, opt_state = to_j(tp), to_j(to)
             strategy = jalgo("prague", trainer_groups=groups) if groups else algo
             step = jax.jit(jtr.make_train_step(
-                dr.train_cfg(jget, arch), jopt.sgd(momentum=0.9), M, strategy,
+                dr.train_cfg(jget, arch, micro), jopt.sgd(momentum=0.9), M, strategy,
                 step_cfg=jtr.TrainStepConfig(gossip_mode="gather", grad_clip=dr.TRAIN_CLIP)))
             losses = []
             for r in range(dr.TRAIN_ROUNDS):
@@ -517,13 +517,14 @@ def test_tensor_parallel_trainer_matches_jax(cluster, jax_train, case):
     workers x 2 'model', or 1 x 4 where each rank's query heads share a
     sliced KV head, or phi3.5-moe's one worker on 'pod' with each
     micro-batch's rows shared out over 2 'data' ranks, or over 4 where
-    'model' has one rank, ROADMAP C22): each
+    'model' has one rank, ROADMAP C22; jamba's on (2, 2) likewise, its
+    mamba layers and experts in Megatron's layout, C23): each
     rank's shards of every leaf after TRAIN_ROUNDS (clip on: its norm spans
     both axes) against the same slices of JAX's unsharded step, losses
     likewise, to the worker-sharded step's tolerance."""
-    mode, M, arch, sizes, axes, rows = dr.TP_TRAIN[case]
+    mode, M, arch, sizes, axes, rows, micro = dr.TP_TRAIN[case]
     algo, groups, _, permutation = dr.TRAIN_MODES[mode]
-    jparams, jlosses = jax_train(algo, groups, permutation, M, arch, rows)
+    jparams, jlosses = jax_train(algo, groups, permutation, M, arch, rows, micro)
     want = [_np(x) for x in jax.tree_util.tree_leaves(jparams)]
     scale = max(float(np.abs(x).max()) for x in want)
     results = cluster.case(4, case)
@@ -552,7 +553,9 @@ def test_tensor_parallel_trainer_matches_jax(cluster, jax_train, case):
 def test_tensor_parallel_prefill_matches_jax(cluster, case):
     """lm.prefill_logits on DTensors (params split on 'model', the batch on
     'data'; the dense family's attention and the ssm family's WKV scan over
-    heads) against the JAX package's, from the same params, to 1e-4."""
+    heads, the hybrid family's mamba scan over its inner width and its
+    experts' hidden over F) against the JAX package's, from the same
+    params, to 1e-4."""
     from repro.models import lm as jlm
     from repro_torch.models import lm as tlm
 
@@ -570,9 +573,10 @@ def test_tensor_parallel_prefill_matches_jax(cluster, case):
 def test_tensor_parallel_decode_matches_jax(cluster, case):
     """lm.decode_step on DTensors over 1 x 4 'model' ranks, each holding
     one query head and slicing its KV head from the replicated cache
-    (ROADMAP C17), from a short prefill's params and cache, against the JAX
+    (ROADMAP C17; a hybrid's mamba layers stepping on their whole states,
+    C23), from a short prefill's params and cache, against the JAX
     package's decode_step from the same: the logits and the cache it wrote,
-    to 1e-4, on every rank, every layer's attention split."""
+    to 1e-4, on every rank, every attention layer's attention split."""
     from repro.models import lm as jlm
     from repro_torch.models import lm as tlm
 
@@ -586,7 +590,8 @@ def test_tensor_parallel_decode_matches_jax(cluster, case):
                                      dr.TP_DECODE_PREFILL, dr.train_cfg(jget, arch))
     want = [np.asarray(x) for x in jax.tree_util.tree_leaves(jcache)]
     for res in cluster.case(4, case):
-        assert res["split_layers"] == cfg.n_layers
+        assert res["split_layers"] == (cfg.n_layers // cfg.attn_period if cfg.attn_period
+                                       else cfg.n_layers)
         np.testing.assert_allclose(res["logits"].numpy(), np.asarray(logits), atol=1e-4, rtol=0)
         got = [t.numpy() for t in tree_leaves(res["cache"])]
         assert len(got) == len(want)

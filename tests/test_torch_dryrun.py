@@ -26,6 +26,10 @@ shapes (the chunked scan, and its gradient for training).  The port's
   bytes and the temp below the plan's bounds;
 * rwkv6-7b's reduced train_4k moves no more collective bytes a rank than
   the JAX program;
+* reduced jamba's train_4k and prefill_32k move, in their mamba and MoE
+  scopes, the collective bytes of Megatron's layout, counted in closed
+  form, and nothing inside the conv, the scan's step or of the expert
+  hidden's shape;
 * the train cell (M = 2) under ``--gossip ppermute`` has collective-permute
   bytes, as tests/test_system.py asks of the JAX records.
 """
@@ -294,7 +298,10 @@ def test_family_cells_trace(arch, shape, mesh):
     (M = 1 here) shares each micro-batch's rows out over 'data', so its
     per-rank FLOPs x 8 are within ``dryrun.PLAN_RATIO`` of the unsharded
     count (the size of 'data' while every 'data' rank ran the whole
-    step)."""
+    step).  Where no leaf is split (an (n, 1) plan), the only collectives
+    are all-reduces: the grads' and the MoE load shares' sums over 'data'
+    (ROADMAP C23: top-k's backward on a DTensor reduce-scattered an f32
+    (B, S, E) gradient there)."""
     cfg = get_arch(arch).reduced()
     rec = dryrun.run_cell(arch, shape, False, quiet=True, cfg=cfg, mesh_spec=mesh)
     assert rec["ok"], rec.get("traceback")
@@ -306,6 +313,9 @@ def test_family_cells_trace(arch, shape, mesh):
         ratio = rec["hlo_flops_per_device"] * 8 / dryrun.unsharded_flops(cfg, shape)
         lo, hi = dryrun.PLAN_RATIO
         assert lo <= ratio <= hi, ratio
+    if mesh[0][1] == 1:
+        assert set(rec["collective_bytes_per_device"]) == {"all-reduce"}, (
+            rec["collective_bytes_per_device"])
 
 
 def test_rwkv_train_collective_bytes_against_jax(jax_side):
@@ -318,6 +328,81 @@ def test_rwkv_train_collective_bytes_against_jax(jax_side):
     port = sum(rec["collective_bytes_per_device"].values())
     want = sum(jax_side()["rwkv_train_4k"]["collective_bytes"].values())
     assert port <= want, (port, want)
+
+
+def _layout_bytes(cfg, shape, mesh):
+    """Closed-form collective bytes a rank by kind of the mamba and MoE
+    scopes (ops under ``mamba.*`` / ``moe.*``) of a reduced hybrid cell on
+    a (data, model) plan, in Megatron's layout (ROADMAP C23), as
+    ``CostCounter`` counts them (each collective's input bytes on this
+    rank).  A mamba call: the rows gathered (b, S, D/n), ``w_in``'s columns
+    regrouped (D x 2Di/n), ``w_x``, ``A_log`` and ``w_out`` re-laid on Di
+    (Di x (R+2N)/n, Di x N/n, Di x D/n), the x-projection's sum settled
+    (b, S, R+2N), the out-projection's reduce-scattered (b, S, D); in
+    training the regrouped ``w_in``'s gradient settled over 'data' and sent
+    back.  An MoE call: the rows gathered, the router gathered (D x E/n),
+    ``w_down`` re-laid on F (E x F x D/n), the down product's sum settled
+    (b, E, C, D), the two (E,) load shares."""
+    (dd, n), _ = mesh
+    sh = SHAPES[shape]
+    train = sh.kind == "train"
+    micro = cfg.microbatches if train else 1
+    b, S = sh.global_batch // micro // dd, sh.seq_len
+    D, F, E, K = cfg.d_model, cfg.d_ff, cfg.moe.n_experts, cfg.moe.top_k
+    Di, N = cfg.mamba.expand * D, cfg.mamba.d_state
+    R = cfg.mamba.dt_rank
+    C = int(S * K * cfg.moe.capacity_factor / E)
+    P = cfg.attn_period
+    itemsize = torch.tensor([], dtype=getattr(torch, cfg.dtype)).element_size()
+    mamba_calls = cfg.n_layers // P * (P - 1) * micro
+    moe_calls = cfg.n_layers // P * len(range(0, P, 2)) * micro
+    w_in = D * 2 * Di // n
+    mamba = {"all-gather": b * S * D // n,
+             "all-reduce": b * S * (R + 2 * N) + (w_in if train else 0),
+             "all-to-all": w_in * (2 if train else 1) + Di * (R + 2 * N + N + D) // n,
+             "reduce-scatter": b * S * D}
+    moe = {"all-gather": b * S * D // n + D * E // n, "all-reduce": b * E * C * D + 2 * E,
+           "all-to-all": E * F * D // n}
+    return ({k: v * mamba_calls * itemsize for k, v in mamba.items()},
+            {k: v * moe_calls * itemsize for k, v in moe.items()})
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_jamba_layout_collectives(shape, tmp_path, monkeypatch):
+    """Reduced jamba on the (2, 4) plan in Megatron's layout (ROADMAP C23):
+    no collective inside the depthwise conv or the scan's step, none of the
+    expert hidden's (E, B*C, F) shape, and the collective bytes of the
+    mamba and MoE scopes by kind within 5% of ``_layout_bytes``.  (Before,
+    DTensor's own placements moved the conv's input, ``A_log`` at every
+    scan step and the expert hidden's gradient, by bytes that varied with
+    the torch release.)"""
+    monkeypatch.setattr(dryrun, "ARTIFACTS", tmp_path)
+    arch = "jamba-v0.1-52b"
+    cfg = get_arch(arch).reduced()
+    rec = dryrun.run_cell(arch, shape, False, "ppermute", save_ops=True, quiet=True, cfg=cfg,
+                          mesh_spec=MESH)
+    assert rec["ok"], rec.get("traceback")
+    ops = [op for op in dryrun.report_from_ops(dryrun._ops_path(rec["mesh"], arch, shape,
+                                                                "")).ops if op.collective]
+    sh = SHAPES[shape]
+    micro = cfg.microbatches if sh.kind == "train" else 1
+    (dd, n), _ = MESH
+    E, F = cfg.moe.n_experts, cfg.d_ff
+    bc = sh.global_batch // micro // dd * int(
+        sh.seq_len * cfg.moe.top_k * cfg.moe.capacity_factor / E)
+    hidden = {f"[{E},{bc},{F // n}]", f"[{E},{bc},{F}]"}
+    assert not [op for op in ops if "mamba._causal_conv" in op.scope
+                or "mamba.step" in op.scope or op.shape[op.shape.index("["):] in hidden]
+    got = {"mamba": {}, "moe": {}}
+    for op in ops:
+        for fam in got:
+            if f"{fam}." in op.scope:
+                got[fam][op.collective] = got[fam].get(op.collective, 0) + op.collective_bytes
+    want_mamba, want_moe = _layout_bytes(cfg, shape, MESH)
+    for fam, want in (("mamba", want_mamba), ("moe", want_moe)):
+        assert got[fam].keys() == want.keys(), (fam, got[fam])
+        for kind, nbytes in want.items():
+            assert got[fam][kind] == pytest.approx(nbytes, rel=0.05), (fam, kind)
 
 
 def test_opt_flags():
